@@ -1,0 +1,60 @@
+"""Sign-flip + permutation mix tables (port of spectre_tpu/ops/permute.py:31-98).
+
+The [N, E] sequence is flattened to d = N*E values; each of H heads applies a
+fixed random permutation and a fixed random +-1 sign pattern. Tables are
+sampled from an explicit ``torch.Generator`` (the draws differ from JAX's
+PRNG for the same seed; parity tests copy JAX's tables instead of
+resampling). Storage matches the JAX buffers: perms int32 [H, d], signs
+float32 [1, H, d].
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _signs(gen: torch.Generator, num_heads: int, d: int) -> torch.Tensor:
+    bits = torch.randint(0, 2, (num_heads, d), generator=gen)
+    return (bits.to(torch.float32) * 2 - 1)[None]
+
+
+def make_mix_tables(gen: torch.Generator, num_heads: int,
+                    d: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Uniform per-head permutations [H, d] int32 and +-1 signs [1, H, d]."""
+    perms = torch.stack([torch.randperm(d, generator=gen) for _ in range(num_heads)])
+    return perms.to(torch.int32), _signs(gen, num_heads, d)
+
+
+def make_block_mix_tables(gen: torch.Generator, num_heads: int, d: int,
+                          blk: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Block-structured permutations (whole ``blk``-element blocks move:
+    ``perm[h, jb*blk + t] = bperm[h, jb]*blk + t``) and element-wise signs,
+    in the same storage format as ``make_mix_tables``."""
+    if d % blk:
+        raise ValueError(f"mix_block={blk} must divide d={d}")
+    if blk & (blk - 1):
+        raise ValueError(f"mix_block={blk} must be a power of two")
+    nb = d // blk
+    bperms = torch.stack([torch.randperm(nb, generator=gen) for _ in range(num_heads)])
+    perms = (bperms[:, :, None] * blk + torch.arange(blk)).reshape(num_heads, d)
+    return perms.to(torch.int32), _signs(gen, num_heads, d)
+
+
+def detect_block_size(perms, min_blk: int = 8) -> int:
+    """Largest power-of-two blk >= min_blk such that every head's perm is
+    block-structured (``perm[h, jb*blk+t] = base[h, jb] + t`` with
+    blk-aligned bases), else 0. Host-side numpy."""
+    perms = np.asarray(perms)
+    h, d = perms.shape
+    blk = 1
+    while d % (blk * 2) == 0:
+        blk *= 2
+    while blk >= min_blk:
+        if d % blk == 0:
+            p = perms.reshape(h, d // blk, blk)
+            if ((p[..., 0] % blk == 0).all()
+                    and (p == p[..., :1] + np.arange(blk)).all()):
+                return blk
+        blk //= 2
+    return 0
