@@ -4,8 +4,8 @@ A config is a plain Python file of top-level constants; ``parse_config(path)``
 returns a ``SimpleNamespace``. Base configs are declared with ``_base_`` (or
 ``__base__``), as a string or a list of strings relative to the child's
 directory, and the child always wins the merge. Configs are loaded by file
-path (exec'd), so the port reads the JAX package's config files as they are,
-without importing that package.
+path (exec'd). The port's own config files stand beside this module; the
+JAX package's files parse to the same namespaces (a test holds them equal).
 """
 
 from __future__ import annotations

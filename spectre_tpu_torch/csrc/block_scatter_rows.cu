@@ -19,7 +19,9 @@
 // larger than L2 and read once). On the H100 this order runs the write
 // stream faster than one block streaming each whole chunk (PERF.md has the
 // times); which memory-system effect causes it is not known. Each block
-// reads its own bsrc entry. When the chunk size or a base pointer is not
+// reads its own bsrc entry. Chunks shorter than a block (single rows, the
+// table of mix_block=0) share one block, so that every thread still moves a
+// vector. When the chunk size or a base pointer is not
 // 16-byte aligned, the copy goes element by element instead. None of the
 // TPU constraints (B % 128 lane gate, VMEM residency cap, 8-row alignment)
 // apply here: every B >= 1 goes through this kernel.
@@ -33,32 +35,49 @@ constexpr int kThreads = 256;
 constexpr long long kMaxParts = 65535;  // grid y limit; parts loop beyond it
 
 // V: the unit of the copy, uint4 (16 bytes) or the element type.
+// units: units per chunk. cpb: chunks per block (1 when units >= kThreads).
 template <typename V>
 __global__ void __launch_bounds__(kThreads)
 block_scatter_rows_kernel(const V* __restrict__ xt, const int* __restrict__ bsrc,
-                          V* __restrict__ out, long long nb, long long chunk_units) {
-  const long long chunk = blockIdx.x;  // flat (h, jb) == output chunk index
+                          V* __restrict__ out, long long chunks, long long nb,
+                          long long units, int cpb) {
+  long long chunk, first, step;  // chunk: flat (h, jb) == output chunk index
+  if (cpb == 1) {
+    chunk = blockIdx.x;
+    first = static_cast<long long>(blockIdx.y) * kThreads + threadIdx.x;
+    step = static_cast<long long>(gridDim.y) * kThreads;
+  } else {  // several short chunks in one block; one unit per thread
+    const int local = threadIdx.x / static_cast<int>(units);
+    chunk = static_cast<long long>(blockIdx.x) * cpb + local;
+    first = threadIdx.x - local * units;
+    step = units;
+    if (local >= cpb || chunk >= chunks) return;
+  }
   long long src = bsrc[chunk];
   // out-of-range indices clamp, as the TPU path's take(mode="clip") does;
   // the model validates its tables before they reach here
   src = src < 0 ? 0 : (src >= nb ? nb - 1 : src);
-  const V* s = xt + src * chunk_units;
-  V* d = out + chunk * chunk_units;
-  const long long step = static_cast<long long>(gridDim.y) * kThreads;
-  for (long long i = static_cast<long long>(blockIdx.y) * kThreads + threadIdx.x;
-       i < chunk_units; i += step)
-    __stcs(d + i, __ldg(s + i));
+  const V* s = xt + src * units;
+  V* d = out + chunk * units;
+  for (long long i = first; i < units; i += step) __stcs(d + i, __ldg(s + i));
 }
 
 template <typename V>
 void launch(const void* xt, const int* bsrc, void* out, long long chunks, long long nb,
             long long chunk_bytes, cudaStream_t st) {
   const long long units = chunk_bytes / static_cast<long long>(sizeof(V));
-  long long parts = (units + kThreads - 1) / kThreads;
-  parts = parts < kMaxParts ? parts : kMaxParts;
-  const dim3 grid(static_cast<unsigned>(chunks), static_cast<unsigned>(parts));
+  dim3 grid;
+  int cpb = 1;
+  if (units >= kThreads) {
+    long long parts = (units + kThreads - 1) / kThreads;
+    parts = parts < kMaxParts ? parts : kMaxParts;
+    grid = dim3(static_cast<unsigned>(chunks), static_cast<unsigned>(parts));
+  } else {
+    cpb = static_cast<int>(kThreads / units);
+    grid = dim3(static_cast<unsigned>((chunks + cpb - 1) / cpb));
+  }
   block_scatter_rows_kernel<V><<<grid, kThreads, 0, st>>>(
-      static_cast<const V*>(xt), bsrc, static_cast<V*>(out), nb, units);
+      static_cast<const V*>(xt), bsrc, static_cast<V*>(out), chunks, nb, units, cpb);
 }
 
 }  // namespace

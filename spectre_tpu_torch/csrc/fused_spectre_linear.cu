@@ -10,7 +10,10 @@
 // f32 accumulation; LayerNorm statistics over the full row of N and the exact
 // erf GELU (erff) run in f32 and the result is cast once on store. The TPU
 // kernel's A&S erf approximation existed only because Mosaic lacks erf.
-// Forward only: the pre-LN activation the backward needs is not written.
+// When the caller passes h_out (training), the pre-LN activation x @ W + b is
+// also written there in x's dtype, as the TPU kernel writes its saved
+// residual; the backward (ops/kernels/fused_linear.py) reads it and does not
+// run the product again. With h_out null (serving) nothing more is written.
 //
 // What bounds it on the H100: at the serving path's shapes (M = 65*B rows,
 // K x N = 512x768, 768x512; and B x 512x100 for the head) the product is
@@ -20,8 +23,8 @@
 //
 // Design: one block owns a tile of 32 rows and the whole N (N <= 1024), so
 // the LayerNorm reduction never leaves the block and the [M, N] pre-LN
-// activation never touches device memory. K is walked through shared memory
-// in 32-deep (bf16) or 16-deep (f32) stages, double-buffered: cp.async
+// activation touches device memory only when h_out asks for it. K is walked
+// through shared memory in 32-deep (bf16) or 16-deep (f32) stages, double-buffered: cp.async
 // fetches stage k+1 while the block multiplies stage k (synchronous loads
 // where a 16-byte chunk would straddle the ragged N=100 edge). bf16 runs the
 // product on the tensor cores through WMMA 16x16x16 fragments (f32
@@ -121,7 +124,7 @@ __global__ void __launch_bounds__(Cfg<T>::THREADS)
 fused_spectre_linear_kernel(const T* __restrict__ x, const T* __restrict__ w,
                             const T* __restrict__ bias, const T* __restrict__ gamma,
                             const T* __restrict__ beta, T* __restrict__ out,
-                            long long M, int K, int N, float eps, int identity,
+                            T* __restrict__ h_out, long long M, int K, int N, float eps, int identity,
                             int xvec, int wvec) {
   constexpr int TK = Cfg<T>::TK, NT = Cfg<T>::THREADS, NWARPS = NT / 32;
   // shared-memory row strides, padded by 16 bytes so that the 8 rows one
@@ -230,6 +233,7 @@ fused_spectre_linear_kernel(const T* __restrict__ x, const T* __restrict__ w,
     for (int n = lane; n < N; n += 32) {
       const float v = row[n] + to_f(bias[n]);
       row[n] = v;
+      if (h_out != nullptr) h_out[m * N + n] = from_f<T>(v);
       s += v;
     }
     const float mean = warp_sum(s) * inv_n;
@@ -250,7 +254,7 @@ fused_spectre_linear_kernel(const T* __restrict__ x, const T* __restrict__ w,
 
 template <typename T, int NPAD>
 int launch(const void* x, const void* w, const void* b, const void* g, const void* be, void* out,
-           long long M, long long K, long long N, float eps, cudaStream_t st) {
+           void* h_out, long long M, long long K, long long N, float eps, cudaStream_t st) {
   constexpr int TK = Cfg<T>::TK;
   constexpr int V = 16 / sizeof(T);
   // the kernel's padded strides: x and W rows + V elements, the f32 tile + 4
@@ -266,34 +270,37 @@ int launch(const void* x, const void* w, const void* b, const void* g, const voi
   const dim3 grid(static_cast<unsigned>((M + kTM - 1) / kTM));
   kern<<<grid, Cfg<T>::THREADS, smem, st>>>(
       static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
-      static_cast<const T*>(g), static_cast<const T*>(be), static_cast<T*>(out), M,
+      static_cast<const T*>(g), static_cast<const T*>(be), static_cast<T*>(out),
+      static_cast<T*>(h_out), M,
       static_cast<int>(K), static_cast<int>(N), eps, K == N, xvec, wvec);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int dispatch(const void* x, const void* w, const void* b, const void* g, const void* be,
-             void* out, long long M, long long K, long long N, float eps, cudaStream_t st) {
-  if (N <= 128) return launch<T, 128>(x, w, b, g, be, out, M, K, N, eps, st);
-  if (N <= 256) return launch<T, 256>(x, w, b, g, be, out, M, K, N, eps, st);
-  if (N <= 512) return launch<T, 512>(x, w, b, g, be, out, M, K, N, eps, st);
-  if (N <= 768) return launch<T, 768>(x, w, b, g, be, out, M, K, N, eps, st);
-  return launch<T, 1024>(x, w, b, g, be, out, M, K, N, eps, st);
+             void* out, void* h_out, long long M, long long K, long long N, float eps,
+             cudaStream_t st) {
+  if (N <= 128) return launch<T, 128>(x, w, b, g, be, out, h_out, M, K, N, eps, st);
+  if (N <= 256) return launch<T, 256>(x, w, b, g, be, out, h_out, M, K, N, eps, st);
+  if (N <= 512) return launch<T, 512>(x, w, b, g, be, out, h_out, M, K, N, eps, st);
+  if (N <= 768) return launch<T, 768>(x, w, b, g, be, out, h_out, M, K, N, eps, st);
+  return launch<T, 1024>(x, w, b, g, be, out, h_out, M, K, N, eps, st);
 }
 
 }  // namespace
 
 // dtype_code: 0 = float32, 1 = bfloat16 (every tensor in that dtype).
+// h_out: null, or [M, N] to receive the pre-LN activation.
 // Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int fused_spectre_linear_fwd(int dtype_code, const void* x, const void* w,
                                         const void* b, const void* gamma, const void* beta,
-                                        void* out, long long M, long long K, long long N,
-                                        float eps, void* stream) {
+                                        void* out, void* h_out, long long M, long long K,
+                                        long long N, float eps, void* stream) {
   if (M <= 0 || K <= 0 || N <= 0 || N > kMaxN || K > 0x7fffffffLL ||
       (M + kTM - 1) / kTM > 0x7fffffffLL)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype_code == 0) return dispatch<float>(x, w, b, gamma, beta, out, M, K, N, eps, st);
-  if (dtype_code == 1) return dispatch<bf16>(x, w, b, gamma, beta, out, M, K, N, eps, st);
+  if (dtype_code == 0) return dispatch<float>(x, w, b, gamma, beta, out, h_out, M, K, N, eps, st);
+  if (dtype_code == 1) return dispatch<bf16>(x, w, b, gamma, beta, out, h_out, M, K, N, eps, st);
   return cudaErrorInvalidValue;
 }

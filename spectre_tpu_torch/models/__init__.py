@@ -1,7 +1,13 @@
-"""Models of the port: the SpectreViT serving path and its weight bridge."""
+"""Models of the port: SpectreViT and its weight bridge."""
 
-from spectre_tpu_torch.models.jax_import import load_flax_variables, load_npz, save_npz
+from spectre_tpu_torch.models.jax_import import (
+    flax_state_dict,
+    load_flax_variables,
+    load_npz,
+    save_npz,
+)
 from spectre_tpu_torch.models.layers import (
+    Dropout,
     FoldedMixLinear,
     LayerNorm,
     MHPermutMix,
@@ -12,6 +18,7 @@ from spectre_tpu_torch.models.registry import build_model, refresh_mixes, resolv
 from spectre_tpu_torch.models.spectre import SpectreEncoder, SpectreEncoderLayer, SpectreViT
 
 __all__ = [
+    "Dropout",
     "FoldedMixLinear",
     "LayerNorm",
     "MHPermutMix",
@@ -21,6 +28,7 @@ __all__ = [
     "SpectreLinear",
     "SpectreViT",
     "build_model",
+    "flax_state_dict",
     "load_flax_variables",
     "load_npz",
     "refresh_mixes",

@@ -13,6 +13,10 @@ Kernels keep the JAX [in, out] layout in the port, so no array is
 transposed. Missing or extra keys and any shape mismatch raise. The mix
 tables are copied, never resampled.
 
+A JAX ``TrainState`` carries over as ``load_flax_variables(state.model,
+{"params": jax_state.params, "buffers": jax_state.buffers})``: the port's
+optimizer holds the same parameter tensors, and both optimizers start fresh.
+
 ``save_npz``/``load_npz`` store the same tree as one flat ``.npz`` (keys are
 '/'-joined paths; the two mix tables get ``/0`` and ``/1``), so weights
 trained by the JAX package can be served by the port without JAX.
@@ -38,8 +42,10 @@ def _walk(tree, path):
             yield path + (str(k),), v
 
 
-def _state_names(model: torch.nn.Module, variables) -> dict[str, np.ndarray]:
-    """Map a flax variable tree onto the port's ``state_dict`` names."""
+def flax_state_dict(model: torch.nn.Module, variables) -> dict[str, np.ndarray]:
+    """Map a flax tree onto the port's ``state_dict`` names: {port name:
+    leaf}. Any tree shaped like ``{'params': ...}`` maps, so a tree of JAX
+    gradients can be held against ``named_parameters()`` by name."""
     out: dict[str, np.ndarray] = {}
     for collection in ("params", "buffers"):
         tree = variables.get(collection, {})
@@ -64,7 +70,7 @@ def load_flax_variables(model: torch.nn.Module, variables) -> torch.nn.Module:
     leaves) into ``model`` in place and derive its mix tables. Raises on
     missing or extra keys and on shape mismatches."""
     try:
-        arrays = _state_names(model, variables)
+        arrays = flax_state_dict(model, variables)
     except AttributeError as e:  # get_submodule on a path the port lacks
         raise KeyError(f"flax tree does not match the model: {e}") from None
     state = model.state_dict()

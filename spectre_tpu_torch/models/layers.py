@@ -1,4 +1,5 @@
-"""Layers of the serving path (port of spectre_tpu/models/layers.py).
+"""Layers of SpectreViT (port of spectre_tpu/models/layers.py), for serving
+and training.
 
 - ``SpectreLinear``: GELU(LN(x @ W + b)) + pool residual
   (``ops/linear.py::spectre_linear_apply``). W keeps the JAX [in, out]
@@ -9,8 +10,11 @@
   token-major [d, B] stream followed by a per-token product whose weights
   carry the signs.
 
+- ``Dropout``: inverted dropout whose masks come from an explicit
+  ``torch.Generator`` (the train state's), the identity in eval mode.
+
 Parameters are held in ``param_dtype`` and cast to the compute ``dtype`` in
-the forward, as the flax modules do.
+the forward, as the flax modules do; autograd casts each gradient back.
 """
 
 from __future__ import annotations
@@ -18,23 +22,45 @@ from __future__ import annotations
 import warnings
 from typing import NamedTuple
 
-import numpy as np
 import torch
 from torch import nn
 
 from spectre_tpu_torch.models.init import uniform_fan_in_
 from spectre_tpu_torch.ops import (
+    MixTables,
     adaptive_pool_matrix,
-    detect_block_size,
+    derive_mix_tables,
     fold_weights,
+    folded_bmm,
     folded_proj,
     gelu_exact,
     layer_norm,
     make_block_mix_tables,
     make_mix_tables,
+    perm_rows_t,
     spectre_linear_apply,
 )
-from spectre_tpu_torch.ops.kernels import block_scatter_rows
+
+
+class Dropout(nn.Module):
+    """Inverted dropout: in train mode each element is kept with probability
+    1 - p and scaled by 1 / (1 - p); the identity in eval mode or at p = 0.
+    The mask is drawn from ``generator`` (on the input's device; the train
+    state sets one generator on every Dropout of its model), or from torch's
+    default generator while it is None."""
+
+    def __init__(self, p: float):
+        super().__init__()
+        if not 0.0 <= p < 1.0:
+            raise ValueError(f"dropout p must be in [0, 1), got {p}")
+        self.p = float(p)
+        self.generator: torch.Generator | None = None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.p == 0.0:
+            return x
+        keep = torch.empty_like(x).bernoulli_(1.0 - self.p, generator=self.generator)
+        return x * keep * (1.0 / (1.0 - self.p))
 
 
 class LayerNorm(nn.LayerNorm):
@@ -91,11 +117,11 @@ class SpectreLinear(_ProjectionLN):
 
 
 class FoldedMix(NamedTuple):
-    """Everything a folded mix forward derives from its buffers and kernel."""
+    """What a folded mix forward derives from its ``perms`` and ``signs``
+    buffers; nothing here depends on a trained parameter."""
     key: tuple
-    blk: int
-    bsrc: torch.Tensor   # int32 [H, d/blk]: source block of each output block
-    wp: torch.Tensor     # [N, in, O] sign-folded projection weights
+    tables: MixTables    # blk, bsrc, binv of the permutation
+    s4: torch.Tensor     # [N, in] signs in the compute dtype
     pool_w: torch.Tensor  # [N, O, grp] grouped sign-mean weights, or [N, in, O]
     grp: int             # in // O when it divides, else 0 (pool-matrix path)
 
@@ -105,32 +131,56 @@ class FoldedMixLinear(_ProjectionLN):
     per-token weights (JAX ``FoldedMixLinear``): given the permuted stream
     g4 [N, in, B],
 
-        y    = folded_proj(g4, diag(s_n) W) + b
+        y    = g4^T (diag(s_n) W) + b
         pool = grouped sign-mean of g4 (or sign-folded pool matrix)
         out  = GELU(LN(y)) + pool                  -> [B, N, O]
-    """
 
-    @torch.no_grad()
-    def fold(self, s4: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, int]:
-        """Sign-folded weights for signs s4 [N, in] (compute dtype)."""
-        dt, o = self.dtype, self.features
+    When a gradient is wanted, y goes through ``ops.folded_proj`` (its
+    backward never builds the [N, in, O] cotangent). Otherwise the folded
+    weights ``diag(s_n) W`` are built once per value of ``kernel`` and kept:
+    serving must not fold 8,192 x 512 weights for 65 tokens on every call."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        # (key of the kernel, folded weights [N, in, O]); MHPermutMix.refresh
+        # drops it when the signs change
+        self._wp: tuple | None = None
+
+    def pool_weights(self, s4: torch.Tensor) -> tuple[torch.Tensor, int]:
+        """The pool residual's sign-folded weights for signs s4 [N, in]."""
+        o = self.features
         n, e = s4.shape
-        wp = fold_weights(self.kernel.to(dt), s4)
         if e % o == 0:
             grp = e // o
-            return wp, (s4.reshape(n, o, grp) / grp).contiguous(), grp
-        pm = adaptive_pool_matrix(e, o, dt, s4.device)
-        return wp, fold_weights(pm, s4), 0
+            return (s4.reshape(n, o, grp) / grp).contiguous(), grp
+        return fold_weights(adaptive_pool_matrix(e, o, s4.dtype, s4.device), s4), 0
+
+    @torch.no_grad()
+    def folded_weights(self, mix: FoldedMix) -> torch.Tensor:
+        # a tensor made under torch.inference_mode() has no version counter,
+        # so its in-place edits are not seen here: whoever edits one calls
+        # MHPermutMix.refresh(force=True), as build_model and the weight
+        # bridge do
+        k = self.kernel
+        key = (k.device, k.data_ptr(), None if k.is_inference() else k._version)
+        if self._wp is None or self._wp[0] != key:
+            self._wp = (key, fold_weights(k.to(self.dtype), mix.s4))
+        return self._wp[1]
 
     def forward(self, g4: torch.Tensor, mix: FoldedMix) -> torch.Tensor:
         dt = self.dtype
         n, _, b = g4.shape
-        y = folded_proj(g4, mix.wp) + self.bias.to(dt)  # [N, B, O]
+        if torch.is_grad_enabled() and (self.kernel.requires_grad or g4.requires_grad):
+            self._wp = None  # training: do not hold a stale [N, in, O] copy
+            y = folded_proj(g4, self.kernel.to(dt), mix.s4)
+        else:
+            y = folded_bmm(g4, self.folded_weights(mix))
+        y = y + self.bias.to(dt)  # [N, B, O]
         if mix.grp:
             pool = torch.einsum("nuvb,nuv->nbu",
                                 g4.reshape(n, self.features, mix.grp, b), mix.pool_w)
         else:
-            pool = folded_proj(g4, mix.pool_w)
+            pool = folded_bmm(g4, mix.pool_w)
         h = gelu_exact(layer_norm(y, self.ln_scale.to(dt), self.ln_bias.to(dt))) + pool
         return h.transpose(0, 1)  # [B, N, O]
 
@@ -142,13 +192,17 @@ class MHPermutMix(nn.Module):
     project back to ``out_channels``.
 
     Buffers ``perms`` (int32 [H, d]) and ``signs`` (f32 [1, H, d]) are the
-    flax ``mix_tables``. The block table ``bsrc = perms[:, ::blk] // blk``
-    and the folded weights are derived from the live buffers and kernel:
-    init and the weight bridge derive them, and whenever a buffer or the
-    kernel changes later (``load_state_dict``, ``.to()``, an in-place edit)
-    the next forward derives them again, so a stale table cannot be used.
-    Any permutation is block-structured with blk >= 1, so every table goes
-    through the block-row kernel."""
+    flax ``mix_tables``. The block tables (``bsrc = perms[:, ::blk] // blk``
+    and its inverse ``binv``) and the sign weights are derived from the live
+    buffers: init and the weight bridge derive them, and whenever a buffer
+    changes later (``load_state_dict``, ``.to()``, an in-place edit) the
+    next forward derives them again, so a stale table cannot be used. The
+    derivation validates the table on the host; a change to a trained
+    parameter does not repeat it, so an optimizer step costs no host sync
+    here (``table_derivations`` counts them). Any permutation is
+    block-structured with blk >= 1, so every table goes through the
+    block-row kernel forward; backward, a uniform table (blk = 1) takes the
+    row kernel."""
 
     def __init__(self, embed_dim: int, token_dim: int, num_heads: int,
                  out_channels: int, *, impl: str = "folded", mix_block: int = 0,
@@ -168,6 +222,7 @@ class MHPermutMix(nn.Module):
         self.linear = FoldedMixLinear(embed_dim * num_heads, out_channels, dtype=dtype,
                                       param_dtype=param_dtype, device=device)
         self._mix: FoldedMix | None = None
+        self.table_derivations = 0
 
     def init_parameters(self, gen: torch.Generator) -> None:
         d, blk = self.perms.shape[1], self.mix_block
@@ -184,33 +239,28 @@ class MHPermutMix(nn.Module):
             self.signs.copy_(signs)
 
     def _key(self) -> tuple:
-        # a tensor made under torch.inference_mode() has no version counter,
-        # so its in-place edits are not seen here: whoever edits one calls
-        # refresh(force=True), as build_model and the weight bridge do
+        # see FoldedMixLinear.folded_weights on inference-mode tensors
         return tuple((t.device, t.data_ptr(), None if t.is_inference() else t._version)
-                     for t in (self.perms, self.signs, self.linear.kernel))
+                     for t in (self.perms, self.signs))
 
     @torch.no_grad()
     def refresh(self, force: bool = False) -> FoldedMix:
-        """Derive the block table and folded weights from the live buffers
-        and kernel (validating the tables), unless they are current."""
+        """Derive the block tables and sign weights from the live buffers
+        (validating the permutation), unless they are current."""
         key = self._key()
         if not force and self._mix is not None and self._mix.key == key:
             return self._mix
-        d = self.perms.shape[1]
-        p = self.perms.cpu().numpy()
-        if not (np.sort(p, axis=1) == np.arange(d)).all():
-            raise ValueError("mix perms must hold one permutation of range(d) per head")
-        blk = detect_block_size(p, min_blk=1)
-        bsrc = torch.from_numpy(np.ascontiguousarray(p[:, ::blk] // blk, dtype=np.int32))
+        tables = derive_mix_tables(self.perms)
         s4 = self.signs.to(self.dtype).reshape(self.token_dim, -1)
-        wp, pool_w, grp = self.linear.fold(s4)
-        self._mix = FoldedMix(key, blk, bsrc.to(self.perms.device), wp, pool_w, grp)
+        pool_w, grp = self.linear.pool_weights(s4)
+        self._mix = FoldedMix(key, tables, s4, pool_w, grp)
+        self.table_derivations += 1
+        self.linear._wp = None
         return self._mix
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mix = self.refresh()
         b = x.shape[0]
         xt = x.to(self.dtype).reshape(b, -1).t().contiguous()  # token-major [d, B]
-        g = block_scatter_rows(xt, mix.bsrc, mix.blk)  # [H*d, B] == [N*in, B]
+        g = perm_rows_t(xt, mix.tables)  # [H*d, B] == [N*in, B]
         return self.linear(g.view(self.token_dim, -1, b), mix)

@@ -3,7 +3,7 @@ SpectralPatchEmbed).
 
 Semantics: unfold P x P patches -> Re(rfft2(patch, ortho)) -> per-frequency
 weights freq_weight_h [P] and freq_weight_w [P//2+1] -> flatten (c, u, v) ->
-projection to E -> CLS token + position embeddings. The DFT, the frequency
+projection to E -> CLS token + position embeddings -> dropout. The DFT, the frequency
 weights and the projection fold into one [C*P*P, E] matrix per call, so the
 forward is a single product on raw pixel patches.
 """
@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from spectre_tpu_torch.models.init import normal_, uniform_fan_in_
+from spectre_tpu_torch.models.layers import Dropout
 from spectre_tpu_torch.ops import flatten_patches_cjk, rfft2_real_matrix, spectral_patch_matrix
 
 
@@ -23,8 +24,8 @@ class SpectralPatchEmbed(nn.Module):
     position_embeddings [1, N+1, E]."""
 
     def __init__(self, embed_dim: int, patch_size: int, num_patches: int,
-                 in_channels: int, *, dtype=torch.float32, param_dtype=torch.float32,
-                 device=None):
+                 in_channels: int, *, dropout: float = 0.0, dtype=torch.float32,
+                 param_dtype=torch.float32, device=None):
         super().__init__()
         P, F, C = patch_size, patch_size // 2 + 1, in_channels
         self.patch_size, self.in_channels, self.dtype = P, C, dtype
@@ -37,6 +38,7 @@ class SpectralPatchEmbed(nn.Module):
         self.position_embeddings = nn.Parameter(
             torch.empty(1, num_patches + 1, embed_dim, **kw))
         # the real-part DFT matrix, built once (no host copy per call)
+        self.dropout = Dropout(dropout)
         self.register_buffer("dft", rfft2_real_matrix(P, dtype, device), persistent=False)
 
     def init_parameters(self, gen: torch.Generator) -> None:
@@ -57,4 +59,4 @@ class SpectralPatchEmbed(nn.Module):
         patches = flatten_patches_cjk(x.to(dt), self.patch_size)  # [B, N, C*P*P]
         x = torch.matmul(patches, w_eff) + self.proj_bias.to(dt)
         cls = self.cls_token.to(dt).expand(x.shape[0], -1, -1)
-        return torch.cat([cls, x], dim=1) + self.position_embeddings.to(dt)
+        return self.dropout(torch.cat([cls, x], dim=1) + self.position_embeddings.to(dt))

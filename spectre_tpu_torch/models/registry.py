@@ -27,7 +27,7 @@ def resolve_dtype(name: str) -> torch.dtype:
 
 
 def refresh_mixes(model: torch.nn.Module) -> None:
-    """Derive every mix layer's block table and folded weights from its
+    """Derive every mix layer's block tables and sign weights from its
     current buffers now (validating the tables, and sparing the first
     forward the work)."""
     for m in model.modules():
@@ -35,10 +35,11 @@ def refresh_mixes(model: torch.nn.Module) -> None:
             m.refresh(force=True)
 
 
-def build_model(config: SimpleNamespace, device: torch.device | str) -> torch.nn.Module:
-    """Instantiate the configured model on ``device`` in eval mode, with the
-    port's own init drawn from ``torch.Generator`` seeded with
-    ``config.random_seed``."""
+def build_model(config: SimpleNamespace, device: torch.device | str,
+                train: bool = False) -> torch.nn.Module:
+    """Instantiate the configured model on ``device``, with the port's own
+    init drawn from ``torch.Generator`` seeded with ``config.random_seed``.
+    Eval mode unless ``train``: the serving callers never see dropout."""
     name = getattr(config, "model", "spectre_vit")
     if name != "spectre_vit":
         raise NotImplementedError(
@@ -49,6 +50,7 @@ def build_model(config: SimpleNamespace, device: torch.device | str) -> torch.nn
         in_channels=config.in_channels, num_classes=config.num_classes,
         embed_dim=config.embed_dim, num_encoders=config.num_encoders,
         num_heads=config.num_heads, hidden_dim=config.hidden_dim,
+        dropout=float(getattr(config, "dropout", 0.0)),
         method=getattr(config, "method", "permut_mix"),
         mix_impl=getattr(config, "mix_impl", "gather"),
         mix_block=int(getattr(config, "mix_block", 0)),
@@ -57,6 +59,6 @@ def build_model(config: SimpleNamespace, device: torch.device | str) -> torch.nn
         device=device)
     gen = torch.Generator().manual_seed(int(getattr(config, "random_seed", 42)))
     init_weights(model, gen)
-    model.eval()
+    model.train(train)
     refresh_mixes(model)
     return model

@@ -1,5 +1,5 @@
 """SpectreViT, the attention-free spectral ViT (port of
-spectre_tpu/models/spectre.py), inference forward.
+spectre_tpu/models/spectre.py).
 
 Topology (kept from the reference, residuals included):
 
@@ -7,8 +7,9 @@ Topology (kept from the reference, residuals included):
 - SpectreEncoder:       layer_0 .. layer_{n-1}, then the global residual + src
 - SpectreViT:           SpectralPatchEmbed -> encoder -> CLS -> SpectreLinear head
 
-Dropout is the identity at inference and is not instantiated: this slice of
-the port serves; training comes with the backward kernels.
+Dropout sits where the flax model has it: after the embedding, after
+``linear1`` and after ``linear3``. It is the identity in eval mode, which
+is the mode ``build_model`` returns unless asked to train.
 """
 
 from __future__ import annotations
@@ -16,15 +17,15 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from spectre_tpu_torch.models.layers import LayerNorm, MHPermutMix, SpectreLinear
+from spectre_tpu_torch.models.layers import Dropout, LayerNorm, MHPermutMix, SpectreLinear
 from spectre_tpu_torch.models.patch_embed import SpectralPatchEmbed
 
 
 class SpectreEncoderLayer(nn.Module):
     def __init__(self, seq_length: int, d_model: int, nhead: int, dim_feedforward: int,
-                 *, method: str = "permut_mix", mix_impl: str = "folded",
-                 mix_block: int = 0, dtype=torch.float32, param_dtype=torch.float32,
-                 device=None):
+                 *, dropout: float = 0.0, method: str = "permut_mix",
+                 mix_impl: str = "folded", mix_block: int = 0, dtype=torch.float32,
+                 param_dtype=torch.float32, device=None):
         super().__init__()
         if method != "permut_mix":
             raise NotImplementedError(
@@ -38,10 +39,12 @@ class SpectreEncoderLayer(nn.Module):
         self.norm2 = LayerNorm(d_model, **ln)
         self.linear1 = SpectreLinear(d_model, dim_feedforward, **kw)
         self.linear3 = SpectreLinear(dim_feedforward, d_model, **kw)
+        self.dropout = Dropout(dropout)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.norm1(self.mix_layer(x)) + x
-        return self.norm2(x + self.linear3(self.linear1(x)))
+        ff = self.dropout(self.linear3(self.dropout(self.linear1(x))))
+        return self.norm2(x + ff)
 
 
 class SpectreEncoder(nn.Module):
@@ -63,7 +66,7 @@ class SpectreEncoder(nn.Module):
 class SpectreViT(nn.Module):
     def __init__(self, img_size: int = 32, patch_size: int = 4, in_channels: int = 3,
                  num_classes: int = 10, embed_dim: int = 768, num_encoders: int = 12,
-                 num_heads: int = 12, hidden_dim: int = 3072, *,
+                 num_heads: int = 12, hidden_dim: int = 3072, *, dropout: float = 0.1,
                  method: str = "permut_mix", mix_impl: str = "folded", mix_block: int = 0,
                  dtype=torch.float32, param_dtype=torch.float32, device=None):
         super().__init__()
@@ -71,10 +74,10 @@ class SpectreViT(nn.Module):
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
         self.dtype = dtype
         self.embeddings_block = SpectralPatchEmbed(embed_dim, patch_size, num_patches,
-                                                   in_channels, **kw)
+                                                   in_channels, dropout=dropout, **kw)
         self.encoder_blocks = SpectreEncoder(
             num_encoders, seq_length=num_patches + 1, d_model=embed_dim, nhead=num_heads,
-            dim_feedforward=hidden_dim, method=method, mix_impl=mix_impl,
+            dim_feedforward=hidden_dim, dropout=dropout, method=method, mix_impl=mix_impl,
             mix_block=mix_block, **kw)
         self.mlp_head = SpectreLinear(embed_dim, num_classes, **kw)
 

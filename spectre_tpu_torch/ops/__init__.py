@@ -7,7 +7,13 @@ from spectre_tpu_torch.ops.fft import (
     rfft2_real_matrix,
     spectral_patch_matrix,
 )
-from spectre_tpu_torch.ops.fused_mix import fold_weights, folded_proj, perm_rows_t
+from spectre_tpu_torch.ops.fused_mix import (
+    fold_weights,
+    folded_bmm,
+    folded_proj,
+    perm_rows_t,
+    perm_rows_t_plain,
+)
 from spectre_tpu_torch.ops.linear import (
     adaptive_avg_pool1d,
     adaptive_pool_matrix,
@@ -16,24 +22,30 @@ from spectre_tpu_torch.ops.linear import (
     spectre_linear_apply,
 )
 from spectre_tpu_torch.ops.permute import (
+    MixTables,
+    derive_mix_tables,
     detect_block_size,
     make_block_mix_tables,
     make_mix_tables,
 )
 
 __all__ = [
+    "MixTables",
     "adaptive_avg_pool1d",
     "adaptive_pool_matrix",
+    "derive_mix_tables",
     "detect_block_size",
     "extract_patches",
     "flatten_patches_cjk",
     "fold_weights",
+    "folded_bmm",
     "folded_proj",
     "gelu_exact",
     "layer_norm",
     "make_block_mix_tables",
     "make_mix_tables",
     "perm_rows_t",
+    "perm_rows_t_plain",
     "rfft2_real_matrix",
     "spectral_patch_matrix",
     "spectre_linear_apply",

@@ -1,25 +1,67 @@
-"""The folded permutation mix (forward of spectre_tpu/ops/fused_mix.py).
+"""The folded permutation mix (port of spectre_tpu/ops/fused_mix.py, the
+folded route only), with its gradients.
 
-The reference mix ``(x.flat[perms] * signs).view(B, N, E*H) @ W`` splits into
-a sign-free row permutation of the token-major [d, B] stream and a per-token
-product whose weights carry the +-1 signs: ``Wp[n] = diag(s4[n]) @ W``.
-Multiplying by +-1 is exact in any float format, so folding once when the
-weights are set gives the same values as folding inside every call.
+The mix is ``m[b, h, i] = x[b, perms[h, i]] * signs[h, i]`` followed by a
+projection. In the folded form the gather runs sign-free on the token-major
+[d, B] stream (``perm_rows_t``) and the signs ride in the projection:
+``y[n] = g4[n]^T (diag(s4[n]) W)`` (``folded_proj``). Multiplying by +-1 is
+exact in any float format.
+
+Both are ``torch.autograd.Function``s:
+
+- ``perm_rows_t``: forward is the block-row copy (kernels.block_scatter_rows);
+  backward is the head-summed inverse gather, kernels.block_gather_sum for a
+  block table (blk >= 2) and kernels.inverse_gather_sum for a uniform one.
+- ``folded_proj(g4, w, s4)``: the backward is reassociated so that the
+  [N, in, O] cotangent of the folded weights never exists:
+  ``dg4 = s4 * (w @ dy^T)`` with w shared over tokens, and
+  ``dW = sum_{n,b} (s4 * g4)[n, :, b] dy[n, b, :]`` as one product with
+  K = N*B. ``s4`` holds fixed signs and gets no gradient.
 
 The JAX route registry and its stale-route guards do not come over: the
-model derives its block table from its own buffers (models/layers.py).
+model derives its tables from its own buffers (models/layers.py).
 """
 
 from __future__ import annotations
 
 import torch
 
+from spectre_tpu_torch.ops.kernels import (
+    block_gather_sum,
+    block_scatter_rows,
+    inverse_gather_sum,
+)
+from spectre_tpu_torch.ops.permute import MixTables
 
-def perm_rows_t(xt: torch.Tensor, perms: torch.Tensor) -> torch.Tensor:
+
+def perm_rows_t_plain(xt: torch.Tensor, perms: torch.Tensor) -> torch.Tensor:
     """Sign-free multi-head row permutation, token-major: [d, B] -> [H*d, B];
-    row ``h*d + i`` is ``xt[perms[h, i]]``. Plain gather for any table; the
-    model runs the block form (ops/kernels/block_scatter.py)."""
+    row ``h*d + i`` is ``xt[perms[h, i]]``. The plain gather for any table,
+    differentiable by autograd; tests hold ``perm_rows_t`` to it."""
     return xt.index_select(0, perms.reshape(-1))
+
+
+class _PermRowsT(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xt, blk, bsrc, binv):
+        ctx.blk = blk
+        ctx.save_for_backward(binv)
+        return block_scatter_rows(xt, bsrc, blk)
+
+    @staticmethod
+    def backward(ctx, g):
+        (binv,) = ctx.saved_tensors
+        g = g.contiguous()
+        if ctx.blk == 1:  # uniform table: binv is the row-level inverse
+            return inverse_gather_sum(g, binv), None, None, None
+        return block_gather_sum(g, binv, ctx.blk), None, None, None
+
+
+def perm_rows_t(xt: torch.Tensor, tables: MixTables) -> torch.Tensor:
+    """``perm_rows_t_plain`` for the permutation ``tables`` was derived from
+    (``derive_mix_tables``), through the kernels in both directions.
+    xt must be contiguous [d, B]."""
+    return _PermRowsT.apply(xt, tables.blk, tables.bsrc, tables.binv)
 
 
 def fold_weights(w: torch.Tensor, s4: torch.Tensor) -> torch.Tensor:
@@ -27,8 +69,40 @@ def fold_weights(w: torch.Tensor, s4: torch.Tensor) -> torch.Tensor:
     return s4[:, :, None] * w[None]
 
 
-def folded_proj(g4: torch.Tensor, wp: torch.Tensor) -> torch.Tensor:
+def folded_bmm(g4: torch.Tensor, wp: torch.Tensor) -> torch.Tensor:
     """y[n, b, o] = sum_e g4[n, e, b] * wp[n, e, o]: one batched product over
-    tokens, g4 [N, in, B] -> [N, B, O]. With ``wp = fold_weights(w, s4)``
-    this is JAX's ``folded_proj(g4, w, s4)``."""
+    tokens, g4 [N, in, B] -> [N, B, O]."""
     return torch.bmm(g4.transpose(1, 2), wp)
+
+
+class _FoldedProj(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g4, w, s4):
+        ctx.save_for_backward(g4, w, s4)
+        return folded_bmm(g4, fold_weights(w, s4))
+
+    @staticmethod
+    def backward(ctx, dy):
+        g4, w, s4 = ctx.saved_tensors
+        n, e, b = g4.shape
+        dy = dy.contiguous()
+        dg4 = dw = None
+        if ctx.needs_input_grad[0]:
+            # [in, O] @ [N, O, B] -> contiguous [N, in, B], w shared over
+            # tokens (a stride-0 batch, not a copy); the signs go on in place
+            dg4 = torch.bmm(w.expand(n, -1, -1), dy.transpose(1, 2))
+            dg4.mul_(s4[:, :, None])
+        if ctx.needs_input_grad[1]:
+            # s4 * g4 written straight into [in, N, B], so that {n, b} is one
+            # contiguous K axis and dW is a single product
+            sg = torch.empty((e, n, b), dtype=g4.dtype, device=g4.device)
+            torch.mul(g4.transpose(0, 1), s4.t()[:, :, None], out=sg)
+            dw = torch.matmul(sg.view(e, n * b), dy.view(n * b, -1))
+        return dg4, dw, None
+
+
+def folded_proj(g4: torch.Tensor, w: torch.Tensor, s4: torch.Tensor) -> torch.Tensor:
+    """y[n, b, o] = sum_e g4[n, e, b] * s4[n, e] * w[e, o]: the projection of
+    the permuted stream g4 [N, in, B] with the signs s4 [N, in] folded into
+    the weights w [in, O] -> [N, B, O]. Gradients for g4 and w."""
+    return _FoldedProj.apply(g4, w, s4)

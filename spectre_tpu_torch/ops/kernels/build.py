@@ -1,10 +1,12 @@
 """Build the hand-written CUDA kernels and load them through ctypes.
 
-Every ``*.cu`` file in ``spectre_tpu_torch/csrc/`` is compiled in one
-``nvcc`` call into a shared library with a plain C interface:
+One ``nvcc`` command compiles every ``*.cu`` file in ``spectre_tpu_torch/csrc/``
+into one shared library with a plain C interface, the sources side by side
+(``--threads 0``: one compilation thread per core; without it they compile one
+after another):
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -o build/kernels/libspectre_kernels_<hash>.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared -Xcompiler -fPIC \
+         --threads 0 -o build/kernels/libspectre_kernels_<hash>.so csrc/*.cu
 
 The build runs at first use, into ``build/kernels/`` at the repository root
 (ignored by git), and the file name carries a hash of the sources and flags,
@@ -26,14 +28,16 @@ _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "--threads", "0")
 
 _P = ctypes.c_void_p
 _LL = ctypes.c_longlong
 # C entry points and their argument types (pointers and the stream as void*)
 _SIGNATURES = {
     "block_scatter_rows": (_P, _P, _P, _LL, _LL, _LL, _LL, ctypes.c_int, _P),
-    "fused_spectre_linear_fwd": (ctypes.c_int, _P, _P, _P, _P, _P, _P,
+    "block_gather_sum": (_P, _P, _P, _LL, _LL, _LL, _LL, ctypes.c_int, _P),
+    "inverse_gather_sum": (_P, _P, _P, _LL, _LL, _LL, ctypes.c_int, _P),
+    "fused_spectre_linear_fwd": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
                                  _LL, _LL, _LL, ctypes.c_float, _P),
 }
 

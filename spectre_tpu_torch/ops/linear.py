@@ -6,8 +6,10 @@
 - ``gelu_exact``: the erf form of GELU (torch's default).
 - ``spectre_linear_apply``: GELU(LN(x @ w + b)) + pool(x), w in the JAX
   [in, out] layout. On CUDA tensors the product, LayerNorm and GELU run in
-  the hand-written kernel (ops/kernels/fused_linear.py); the pool residual
-  for K != N is added here, as the JAX package adds it outside its kernel.
+  the hand-written kernel (ops/kernels/fused_linear.py), through its
+  autograd Function when a gradient is wanted; the pool residual for K != N
+  is added here in plain torch, as the JAX package adds it outside its
+  kernel, and autograd differentiates it.
 """
 
 from __future__ import annotations
@@ -18,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from spectre_tpu_torch.ops.kernels import fused_spectre_linear
+from spectre_tpu_torch.ops.kernels import fused_spectre_linear, fused_spectre_linear_grad
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -78,7 +80,11 @@ def spectre_linear_apply(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     through ``pool_matrix`` ([K, N], ``adaptive_pool_matrix``) when the
     caller holds one.
     """
-    out = fused_spectre_linear(x, w, b, gamma, beta, eps)
+    operands = (x, w, b, gamma, beta)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+        out = fused_spectre_linear_grad(*operands, eps)
+    else:  # nothing to differentiate: the kernel does not write its saved h
+        out = fused_spectre_linear(*operands, eps)
     if pool_matrix is not None:
         return out + torch.matmul(x, pool_matrix)
     if w.shape[0] != w.shape[1]:

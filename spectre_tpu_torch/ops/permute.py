@@ -10,6 +10,8 @@ float32 [1, H, d].
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -58,3 +60,30 @@ def detect_block_size(perms, min_blk: int = 8) -> int:
                 return blk
         blk //= 2
     return 0
+
+
+class MixTables(NamedTuple):
+    """The block form of a permutation table [H, d], derived on the host
+    (``derive_mix_tables``): whole ``blk``-row blocks move, ``blk = 1`` for a
+    uniform table. ``bsrc[h, jb]`` is the source block of output block jb in
+    the forward gather; ``binv = argsort(bsrc)`` is the block each input
+    block goes to, which the backward's head-sum reads."""
+    blk: int
+    bsrc: torch.Tensor  # int32 [H, d/blk]
+    binv: torch.Tensor  # int32 [H, d/blk]
+
+
+def derive_mix_tables(perms: torch.Tensor) -> MixTables:
+    """Validate ``perms`` (one permutation of range(d) per head) and derive
+    its block tables on ``perms``' device. Copies the table to the host and
+    sorts it there, so callers derive once per table, not per step."""
+    p = perms.cpu().numpy()
+    d = p.shape[1]
+    inv = np.argsort(p, axis=1)
+    if not (np.take_along_axis(p, inv, axis=1) == np.arange(d)).all():
+        raise ValueError("mix perms must hold one permutation of range(d) per head")
+    blk = detect_block_size(p, min_blk=1)
+    bsrc = np.ascontiguousarray(p[:, ::blk] // blk, dtype=np.int32)
+    binv = np.argsort(bsrc, axis=1).astype(np.int32)
+    return MixTables(blk, torch.from_numpy(bsrc).to(perms.device),
+                     torch.from_numpy(binv).to(perms.device))

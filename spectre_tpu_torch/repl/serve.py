@@ -1,11 +1,11 @@
 """Serve SpectreViT with the port: the model on a torch device behind the
 SPQ2/SPQ3 protocol (serving/torch_server.py).
 
-    python -m spectre_tpu_torch.repl.serve \\
-        --config spectre_tpu/configs/spectre_vit_cifar100.py --device cuda \\
+    python -m spectre_tpu_torch.repl.serve [--config <config.py>] --device cuda \\
         [--ckpt weights.npz] [--port 7788 | --uds /tmp/spectre.sock] [--max-batch 256]
 
-The config files are the JAX package's own, read by path. Without
+``--config`` defaults to the port's flagship, ``spectre_tpu_torch/configs/
+spectre_vit_cifar100.py``. Without
 ``--ckpt`` the weights are the port's init seeded from ``random_seed``;
 ``--ckpt`` takes a flax variable tree saved as ``.npz`` by
 ``spectre_tpu_torch.models.save_npz``. ``--device cuda`` refuses to start
@@ -21,13 +21,15 @@ import time
 
 import torch
 
+from spectre_tpu_torch.configs import FLAGSHIP
+
 
 def start(argv=None):
     """Parse the CLI flags, build the model and start listening. Returns
     ``(server, address)``: the bound TCP port, or the unix-socket path."""
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("--config", default="spectre_tpu/configs/spectre_vit_cifar100.py")
+    p.add_argument("--config", default=FLAGSHIP, help="path to a python config file")
     p.add_argument("--ckpt", default=None,
                    help="flax variable tree as .npz (models.save_npz); default: "
                         "the port's seeded init")

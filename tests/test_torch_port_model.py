@@ -22,7 +22,7 @@ from spectre_tpu.ops import detect_block_size as jax_detect_block_size
 from spectre_tpu.ops import flatten_patches_cjk as jax_flatten
 from spectre_tpu.ops import make_block_mix_tables as jax_block_tables
 from spectre_tpu.ops import spectral_patch_matrix as jax_spm
-from spectre_tpu_torch.configs import parse_config
+from spectre_tpu_torch.configs import CONFIG_DIR, FLAGSHIP, parse_config
 from spectre_tpu_torch.models import (
     MHPermutMix,
     SpectreLinear,
@@ -36,11 +36,11 @@ from spectre_tpu_torch.ops import (
     detect_block_size,
     flatten_patches_cjk,
     make_block_mix_tables,
-    perm_rows_t,
+    perm_rows_t_plain,
     spectral_patch_matrix,
 )
 
-FLAGSHIP = os.path.join(REPO_ROOT, "spectre_tpu", "configs", "spectre_vit_cifar100.py")
+JAX_CONFIGS = os.path.join(REPO_ROOT, "spectre_tpu", "configs")
 
 
 def _np(tree):
@@ -92,8 +92,14 @@ def test_detect_block_size_matches_jax_and_tables_are_block_permutations():
 
 
 def test_port_parses_the_jax_config_files_identically():
-    got, want = vars(parse_config(FLAGSHIP)), vars(jax_parse_config(FLAGSHIP))
-    assert got == want
+    """The port's parser on the JAX package's files, and the port's own
+    copies of them (which it reads at run time), give the JAX namespaces."""
+    for name in ("default.py", "spectre_vit_cifar100.py", "spectre_vit_mnist.py"):
+        want = vars(jax_parse_config(os.path.join(JAX_CONFIGS, name)))
+        assert vars(parse_config(os.path.join(JAX_CONFIGS, name))) == want
+        assert vars(parse_config(os.path.join(CONFIG_DIR, name))) == want
+    got = vars(parse_config(FLAGSHIP))
+    assert os.path.dirname(FLAGSHIP) == CONFIG_DIR != JAX_CONFIGS
     assert (got["embed_dim"], got["num_heads"], got["mix_block"]) == (512, 16, 64)
 
 
@@ -170,7 +176,7 @@ def test_flagship_topology_logits_match_jax(mix_block):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4, rtol=0)
     np.testing.assert_allclose(feat.numpy(), np.asarray(want_feat), atol=1e-4, rtol=0)
     mix = model.encoder_blocks.layer_0.mix_layer.refresh()
-    assert mix.blk == detect_block_size(v["buffers"]["encoder_blocks"]["layer_0"]
+    assert mix.tables.blk == detect_block_size(v["buffers"]["encoder_blocks"]["layer_0"]
                                         ["mix_layer"]["mix_tables"][0], min_blk=1)
 
 
@@ -197,7 +203,7 @@ def test_mix_derives_its_tables_from_live_buffers():
 
     def reference():
         xt = x.reshape(3, -1).t().contiguous()
-        g4 = perm_rows_t(xt, mix.perms).view(6, -1, 3)  # [N, in, B]
+        g4 = perm_rows_t_plain(xt, mix.perms).view(6, -1, 3)  # [N, in, B]
         s4 = mix.signs.reshape(6, -1)
         y = torch.einsum("neb,ne,eo->nbo", g4, s4, mix.linear.kernel) + mix.linear.bias
         pool = (g4 * s4[:, :, None]).reshape(6, 4, 2, 3).mean(2).permute(0, 2, 1)
@@ -205,7 +211,7 @@ def test_mix_derives_its_tables_from_live_buffers():
         return (torch.nn.functional.gelu(h) + pool).transpose(0, 1)
 
     with torch.no_grad():
-        assert mix.refresh().blk >= 8
+        assert mix.refresh().tables.blk >= 8
         torch.testing.assert_close(mix(x), reference())
         mix.perms.copy_(torch.stack([torch.randperm(24, generator=gen) for _ in range(2)]))
         torch.testing.assert_close(mix(x), reference())
@@ -248,7 +254,7 @@ def test_seeded_init_distributions_and_determinism():
     assert torch.equal(lin.ln_scale, torch.ones(32)) and torch.equal(lin.ln_bias, torch.zeros(32))
     assert torch.equal(a.embeddings_block.freq_weight_h, torch.ones(4))
     assert 0.5 < a.embeddings_block.position_embeddings.std() < 1.5
-    assert a.encoder_blocks.layer_0.mix_layer.refresh().blk >= 8
+    assert a.encoder_blocks.layer_0.mix_layer.refresh().tables.blk >= 8
     jax_tree = JaxSpectreViT(img_size=8, patch_size=4, in_channels=3, num_classes=10,
                              embed_dim=16, num_encoders=1, num_heads=2, hidden_dim=32,
                              mix_impl="folded", mix_block=8).init(
@@ -263,8 +269,11 @@ def test_port_imports_no_jax():
         "    importlib.import_module(m.name)\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'spectre_tpu.')))\n"
         "assert not bad, bad\n"
-        "print(len([k for k in sys.modules if k.startswith('spectre_tpu_torch')]))\n")
+        "print(*[k for k in sys.modules if k.startswith('spectre_tpu_torch')])\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True,
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.strip()) >= 20
+    names = r.stdout.split()
+    for sub in ("train.loop", "train.step", "data.pipeline", "repl.train"):
+        assert f"spectre_tpu_torch.{sub}" in names
+    assert len(names) >= 30
