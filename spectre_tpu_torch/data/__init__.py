@@ -1,7 +1,25 @@
-"""Data of the port: the synthetic datasets and the batch iterator."""
+"""Data of the port: dataset files and the synthetic datasets, the batch
+iterator with its prefetch queue, and the device-side augmentation."""
 
-from spectre_tpu_torch.data.datasets import synthetic_dataset
-from spectre_tpu_torch.data.pipeline import BatchIterator
+from spectre_tpu_torch.data.augment import (
+    color_jitter_apply,
+    erasing_apply,
+    gaussian_blur_apply,
+    grayscale_apply,
+    hflip_apply,
+    make_eval_transform,
+    make_train_augment,
+    normalize,
+    random_color_jitter,
+    random_erasing,
+    random_gaussian_blur,
+    random_grayscale,
+    random_hflip,
+    random_rotate,
+    rotate_apply,
+)
+from spectre_tpu_torch.data.datasets import load_dataset, synthetic_batch, synthetic_dataset
+from spectre_tpu_torch.data.pipeline import BatchIterator, prefetch_to_device
 
 # per-channel statistics the inputs are normalised with
 DATASET_STATS = {
@@ -9,4 +27,26 @@ DATASET_STATS = {
     "mnist": ((0.1307,), (0.3081,)),
 }
 
-__all__ = ["BatchIterator", "DATASET_STATS", "synthetic_dataset"]
+__all__ = [
+    "BatchIterator",
+    "DATASET_STATS",
+    "color_jitter_apply",
+    "erasing_apply",
+    "gaussian_blur_apply",
+    "grayscale_apply",
+    "hflip_apply",
+    "load_dataset",
+    "make_eval_transform",
+    "make_train_augment",
+    "normalize",
+    "prefetch_to_device",
+    "random_color_jitter",
+    "random_erasing",
+    "random_gaussian_blur",
+    "random_grayscale",
+    "random_hflip",
+    "random_rotate",
+    "rotate_apply",
+    "synthetic_batch",
+    "synthetic_dataset",
+]

@@ -1,12 +1,21 @@
-"""Input pipeline (port of spectre_tpu/data/pipeline.py::BatchIterator):
-shuffled batching over in-memory numpy arrays. Batch shapes are static: the
-last partial batch is dropped in training and padded in eval."""
+"""Input pipeline (port of spectre_tpu/data/pipeline.py): shuffled batching
+over in-memory numpy arrays and a prefetch queue onto the device. Batch shapes
+are static: the last partial batch is dropped in training and padded in eval.
+
+The host's only job is to hand raw pixel batches to the card ahead of time;
+augmentation runs on the device inside the step. ``prefetch_to_device`` keeps
+``prefetch`` batches in flight: each is copied into a pinned host buffer and
+from there to the device with a non-blocking copy on a side stream, so the
+copy of batch k+1 overlaps step k.
+"""
 
 from __future__ import annotations
 
-from collections.abc import Iterator
+import collections
+from collections.abc import Iterable, Iterator
 
 import numpy as np
+import torch
 
 
 class BatchIterator:
@@ -30,6 +39,13 @@ class BatchIterator:
         n, b = self.num_examples, self.batch_size
         return n // b if self.drop_last else -(-n // b)
 
+    def skip_epoch(self) -> None:
+        """Advance the shuffle stream by exactly one epoch without making
+        batches (it consumes what ``__iter__`` would): a resumed run
+        fast-forwards the data order this way."""
+        if self.shuffle:
+            self._rng.shuffle(np.arange(self.num_examples))
+
     def __iter__(self) -> Iterator[dict]:
         idx = np.arange(self.num_examples)
         if self.shuffle:
@@ -44,4 +60,84 @@ class BatchIterator:
                 sel = np.concatenate([sel, np.zeros(b - valid, dtype=sel.dtype)])
             mask = np.zeros(b, np.bool_)
             mask[:valid] = True
-            yield {"image": self.images[sel], "label": self.labels[sel], "mask": mask}
+            # index: the dataset rows of the batch, to join per-sample side
+            # tables against a shuffled batch; valid: the count of real examples
+            yield {"image": self.images[sel], "label": self.labels[sel], "mask": mask,
+                   "index": sel, "valid": np.int32(valid)}
+
+
+class _Slot:
+    """One pinned staging buffer per array of a batch, and the event that
+    marks the end of the last copy out of them."""
+
+    def __init__(self):
+        self.pinned: dict[str, torch.Tensor] = {}
+        self.event: torch.cuda.Event | None = None
+
+    def buffer(self, key: str, like: torch.Tensor) -> torch.Tensor:
+        buf = self.pinned.get(key)
+        if buf is None or buf.shape != like.shape or buf.dtype != like.dtype:
+            buf = self.pinned[key] = torch.empty(like.shape, dtype=like.dtype, pin_memory=True)
+        return buf
+
+
+def prefetch_to_device(iterator: Iterable[dict], device: torch.device | str,
+                       prefetch: int = 2) -> Iterator[dict]:
+    """Stage host batches onto ``device`` ahead of their use.
+
+    Every ndarray value of a batch becomes a tensor on the device; host
+    scalars (``valid``) pass through. On a CUDA device a queue of ``prefetch``
+    batches is kept in flight: each goes through a pinned buffer and a
+    non-blocking copy on a side stream, and the consumer's stream waits for
+    that copy's event before it reads the batch. A pinned buffer is written
+    again only after the event of its previous copy has completed (a buffer
+    reused earlier would corrupt a batch silently). On the CPU batches pass
+    through one by one, in the same order.
+    """
+    device = torch.device(device)
+    if device.type != "cuda":
+        for batch in iterator:
+            yield {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+                   for k, v in batch.items()}
+        return
+
+    prefetch = max(1, int(prefetch))
+    copy_stream = torch.cuda.Stream(device)
+    slots = [_Slot() for _ in range(prefetch)]
+    queue: collections.deque = collections.deque()
+    staged = 0
+
+    def stage(batch: dict) -> tuple[dict, torch.cuda.Event]:
+        nonlocal staged
+        slot = slots[staged % prefetch]
+        staged += 1
+        if slot.event is not None:
+            slot.event.synchronize()  # the copy that last read these buffers
+        out = {}
+        with torch.cuda.stream(copy_stream):
+            for k, v in batch.items():
+                if isinstance(v, np.ndarray):
+                    src = torch.from_numpy(v)
+                    out[k] = slot.buffer(k, src).copy_(src).to(device, non_blocking=True)
+                else:
+                    out[k] = v
+            slot.event = torch.cuda.Event()
+            slot.event.record(copy_stream)
+        return out, slot.event
+
+    it = iter(iterator)
+    for batch in it:
+        queue.append(stage(batch))
+        if len(queue) >= prefetch:
+            break
+    while queue:
+        out, event = queue.popleft()
+        for batch in it:
+            queue.append(stage(batch))
+            break
+        current = torch.cuda.current_stream(device)
+        current.wait_event(event)
+        for v in out.values():
+            if isinstance(v, torch.Tensor):
+                v.record_stream(current)  # allocated on the side stream, read on this one
+        yield out

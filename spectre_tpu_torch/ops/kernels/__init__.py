@@ -12,6 +12,10 @@ from spectre_tpu_torch.ops.kernels.block_scatter import (
     block_scatter_rows,
     block_scatter_rows_plain,
 )
+from spectre_tpu_torch.ops.kernels.fused_block_bwd import (
+    fused_block_bwd,
+    fused_block_bwd_plain,
+)
 from spectre_tpu_torch.ops.kernels.fused_linear import (
     fused_spectre_linear,
     fused_spectre_linear_grad,
@@ -22,7 +26,8 @@ from spectre_tpu_torch.ops.kernels.inverse_gather import (
     inverse_gather_sum_plain,
 )
 
-KERNELS = (block_scatter_rows, block_gather_sum, inverse_gather_sum, fused_spectre_linear)
+KERNELS = (block_scatter_rows, block_gather_sum, inverse_gather_sum, fused_spectre_linear,
+           fused_block_bwd)
 
 
 def reset_launch_counts() -> None:
@@ -40,6 +45,8 @@ __all__ = [
     "block_gather_sum_plain",
     "block_scatter_rows",
     "block_scatter_rows_plain",
+    "fused_block_bwd",
+    "fused_block_bwd_plain",
     "fused_spectre_linear",
     "fused_spectre_linear_grad",
     "fused_spectre_linear_plain",

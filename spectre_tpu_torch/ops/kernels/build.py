@@ -39,6 +39,7 @@ _SIGNATURES = {
     "inverse_gather_sum": (_P, _P, _P, _LL, _LL, _LL, ctypes.c_int, _P),
     "fused_spectre_linear_fwd": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
                                  _LL, _LL, _LL, ctypes.c_float, _P),
+    "fused_block_bwd": (ctypes.c_int, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P),
 }
 
 

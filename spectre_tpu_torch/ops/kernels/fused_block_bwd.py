@@ -1,0 +1,119 @@
+"""Kernel 5: the folded mix's backward, fused.
+
+``dxt[j*blk + t, b] = sum_h s4f[r] * sum_o dy[n_r, b, o] * w[e_r, o]`` with
+``r = h*d + binv[h, j]*blk + t``, ``n_r = r // EH``, ``e_r = r % EH`` and
+``s4f`` the flat view of ``s4``: dy [N, B, O], w [EH, O], s4 [N, EH] of +-1,
+binv [H, d/blk] -> dxt [d, B]. It is ``block_gather_sum`` of the ``dg4`` that
+``ops.fused_mix._FoldedProj.backward`` makes, without the [H*d, B] cotangent
+in device memory. The CUDA kernel is ``csrc/fused_block_bwd.cu`` (it replaces
+the TPU kernel ``spectre_tpu/ops/pallas/bwd_gather.py::fused_block_bwd_pallas``).
+As in the JAX package, the train step does not call it: it is reached from
+``python -m spectre_tpu_torch.repl.perf fused-bwd``, which times it against
+the chain.
+
+The kernel takes ``blk`` a multiple of 16 that divides EH (a source block
+never straddles a token), O a multiple of 8, at most 128 heads, any B >= 1,
+float32 or bfloat16. A uniform table (blk = 1) is outside its contract, as it
+is outside the TPU kernel's. The wrapper raises on anything else.
+
+Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
+kernel or raises. There is no fallback from a CUDA tensor to the plain path.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from spectre_tpu_torch.ops.kernels.build import check, load_library
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEADS = 128  # the per-block table of head coordinates (csrc/fused_block_bwd.cu)
+
+
+def fused_block_bwd_plain(dy: torch.Tensor, w: torch.Tensor, s4: torch.Tensor,
+                          binv: torch.Tensor, blk: int) -> torch.Tensor:
+    """Plain PyTorch version, in the kernel's arithmetic: per head a float32
+    product of the block's rows of ``w`` with its token's ``dy``, signed and
+    added in head order in float32; one cast at the end. (The chain rounds
+    ``dg4`` to the data type per head before it adds.) Any blk >= 1 that
+    divides EH."""
+    h, nb = binv.shape
+    n_tok, b, o = dy.shape
+    eh = w.shape[0]
+    d = nb * blk
+    dev = dy.device
+    start = torch.arange(h, device=dev)[:, None] * d + binv.long() * blk  # [H, nb]
+    rows = torch.arange(blk, device=dev)
+    wf, dyf, sf = w.float(), dy.float(), s4.reshape(-1).float()
+    acc = torch.zeros(nb, blk, b, dtype=torch.float32, device=dev)
+    for i in range(h):
+        n, e0 = start[i] // eh, start[i] % eh
+        part = torch.bmm(wf[e0[:, None] + rows], dyf[n].transpose(1, 2))  # [nb, blk, B]
+        acc += sf[start[i][:, None] + rows][:, :, None] * part
+    return acc.to(dy.dtype).reshape(d, b)
+
+
+def _validate(dy, w, s4, binv, blk: int) -> None:
+    if dy.dim() != 3 or w.dim() != 2 or s4.dim() != 2 or binv.dim() != 2:
+        raise ValueError(f"want dy [N, B, O], w [EH, O], s4 [N, EH], binv [H, d/blk]; got "
+                         f"{tuple(dy.shape)}, {tuple(w.shape)}, {tuple(s4.shape)}, "
+                         f"{tuple(binv.shape)}")
+    if dy.dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused_block_bwd takes float32 or bfloat16, not {dy.dtype}")
+    if w.dtype != dy.dtype or s4.dtype != dy.dtype:
+        raise TypeError(f"w and s4 must share dy's dtype {dy.dtype}; got {w.dtype}, {s4.dtype}")
+    if binv.dtype != torch.int32:
+        raise TypeError(f"binv must be int32, not {binv.dtype}")
+    n_tok, b, o = dy.shape
+    eh = w.shape[0]
+    h, nb = binv.shape
+    if blk == 1:
+        raise ValueError("fused_block_bwd takes a block table (blk a multiple of 16), not a "
+                         "uniform one (blk = 1): use folded_proj's backward and "
+                         "inverse_gather_sum")
+    if blk < 16 or blk % 16:
+        raise ValueError(f"fused_block_bwd needs blk a multiple of 16, got {blk}")
+    if eh % blk:
+        raise ValueError(f"blk={blk} must divide EH={eh}: a source block may not straddle "
+                         "a token")
+    if w.shape[1] != o or tuple(s4.shape) != (n_tok, eh) or n_tok * eh != h * nb * blk:
+        raise ValueError(f"shapes disagree: dy {tuple(dy.shape)}, w {tuple(w.shape)}, s4 "
+                         f"{tuple(s4.shape)}, binv {tuple(binv.shape)}, blk {blk} "
+                         "(want N*EH == H*d)")
+    if o % 8:
+        raise ValueError(f"fused_block_bwd needs O a multiple of 8 (16-byte copies), got {o}")
+    if not 1 <= h <= MAX_HEADS or b < 1:
+        raise ValueError(f"fused_block_bwd takes 1..{MAX_HEADS} heads and B >= 1; got H={h}, "
+                         f"B={b}")
+    for t in (dy, w, s4, binv):
+        if t.device != dy.device:
+            raise ValueError(f"all operands must be on {dy.device}; got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("fused_block_bwd needs contiguous operands")
+    if dy.data_ptr() % 16 or w.data_ptr() % 16:
+        raise ValueError("fused_block_bwd needs dy and w aligned to 16 bytes")
+
+
+def fused_block_bwd(dy: torch.Tensor, w: torch.Tensor, s4: torch.Tensor,
+                    binv: torch.Tensor, blk: int) -> torch.Tensor:
+    """dy [N, B, O], w [EH, O], s4 [N, EH], binv [H, d/blk] -> dxt [d, B]."""
+    _validate(dy, w, s4, binv, blk)
+    if dy.device.type == "cpu":
+        return fused_block_bwd_plain(dy, w, s4, binv, blk)
+    if dy.device.type != "cuda":
+        raise RuntimeError(f"fused_block_bwd: no kernel for device {dy.device}")
+    lib = load_library()
+    n_tok, b, o = dy.shape
+    h, nb = binv.shape
+    out = torch.empty((nb * blk, b), dtype=dy.dtype, device=dy.device)
+    with torch.cuda.device(dy.device):
+        err = lib.fused_block_bwd(
+            _DTYPE_CODES[dy.dtype], dy.data_ptr(), w.data_ptr(), s4.data_ptr(),
+            binv.data_ptr(), out.data_ptr(), h, nb, blk, n_tok, w.shape[0], o, b,
+            torch.cuda.current_stream().cuda_stream)
+    check(err, "fused_block_bwd launch")
+    fused_block_bwd.launches += 1
+    return out
+
+
+fused_block_bwd.launches = 0

@@ -1,10 +1,21 @@
-"""Where a flagship train step spends its time on the card.
+"""Where a flagship train step spends its time on the card, and the fused
+mix backward beside the chain it fuses.
 
     python -m spectre_tpu_torch.repl.perf [--batch 256 1024] [--mix-block 64]
         [--out build/perf.json]
+    python -m spectre_tpu_torch.repl.perf fused-bwd [--batch 256 1024] [--heads 16]
+        [--tokens 65] [--embed 512] [--out-dim 512] [--blk 64] [--iters 30]
 
-Needs a CUDA card. For each batch size it builds the flagship trainer
-(synthetic data, the port's seeded init) and prints:
+Needs a CUDA card. ``fused-bwd`` (the counterpart of the JAX package's
+``benchmarks/fused_bwd_bench.py``) runs the mix backward at one layer's
+shapes in bf16 both ways, the chain of the train step (``_FoldedProj``'s
+``dg4`` product and signs, then ``block_gather_sum``) and the one-launch
+kernel ``fused_block_bwd``, and prints their largest difference, both times,
+GFLOP/s and the ratio.
+
+The default mode builds, for each batch size, the flagship trainer (synthetic
+data, the trainer's augmentation for the config's dataset inside the step,
+the port's seeded init) and prints:
 
 1. ms per step over 10 steps after 3 warm-up steps, by CUDA events (median)
    and on the host clock (synchronised), img/s, peak device memory;
@@ -29,17 +40,18 @@ import argparse
 import json
 import os
 import statistics
-import subprocess
 import time
 from unittest import mock
 
 import torch
 
 from spectre_tpu_torch.configs import FLAGSHIP, parse_config
-from spectre_tpu_torch.data import synthetic_dataset
+from spectre_tpu_torch.data import synthetic_batch
 from spectre_tpu_torch.ops import fused_mix
+from spectre_tpu_torch.ops.kernels import block_gather_sum, fused_block_bwd
 from spectre_tpu_torch.train import make_train_step
-from spectre_tpu_torch.train.loop import create_trainer, make_normalize
+from spectre_tpu_torch.train.loop import create_trainer, default_augment
+from spectre_tpu_torch.utils import card_and_power_limit
 
 
 def _events_ms(fn, reps: int) -> list[float]:
@@ -88,12 +100,9 @@ def _group(kernel_name: str) -> str:
 
 def profile_steps(cfg, batch: int) -> dict:
     state = create_trainer(cfg, "cuda", steps_per_epoch=16)
-    step = make_train_step(grad_clip_norm=cfg.grad_clip_norm)
-    x, y = synthetic_dataset(cfg.dataset, "train")
-    reps = -(-batch // len(x))
-    x = torch.from_numpy(x).repeat(reps, 1, 1, 1)[:batch].cuda()
-    y = torch.from_numpy(y).repeat(reps)[:batch].cuda()
-    x = make_normalize(cfg.dataset, x.device)(x)
+    step = make_train_step(default_augment(cfg.dataset, cfg.in_channels),
+                           grad_clip_norm=cfg.grad_clip_norm)
+    x, y = (torch.from_numpy(a).cuda() for a in synthetic_batch(cfg.dataset, batch))
     for _ in range(3):
         step(state, x, y)
     torch.cuda.synchronize()
@@ -172,23 +181,73 @@ def fold_variants(cfg, batch: int) -> dict:
     return out
 
 
+def fused_bwd(args) -> dict:
+    """The mix backward at one layer's shapes, bf16: chain against kernel."""
+    h, n, e, o, blk = args.heads, args.tokens, args.embed, args.out_dim, args.blk
+    d, eh = n * e, e * h
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kw = dict(device="cuda", dtype=torch.bfloat16)
+    binv = torch.stack([torch.randperm(d // blk, generator=gen, device="cuda")
+                        for _ in range(h)]).to(torch.int32)
+    w = torch.randn(eh, o, generator=gen, **kw)
+    s4 = (torch.randint(0, 2, (n, eh), generator=gen, device="cuda") * 2 - 1).to(torch.bfloat16)
+    out = {}
+    for b in args.batch:
+        dy = torch.randn(n, b, o, generator=gen, **kw)
+
+        def chain():
+            dg4 = torch.bmm(w.expand(n, -1, -1), dy.transpose(1, 2))
+            dg4.mul_(s4[:, :, None])
+            return block_gather_sum(dg4.view(h * d, b), binv, blk)
+
+        def fused():
+            return fused_block_bwd(dy, w, s4, binv, blk)
+
+        diff = (chain().float() - fused().float()).abs().max().item()
+        peak = chain().float().abs().max().item()
+        t = {}
+        for name, fn in (("chain", chain), ("fused", fused), ("fused_again", fused),
+                         ("chain_again", chain)):
+            fn()
+            t[name] = statistics.median(
+                _events_ms(lambda: [fn() for _ in range(args.iters)], 5)) / args.iters
+        gflop = 2 * d * h * o * b / 1e9
+        t1, t2 = min(t["chain"], t["chain_again"]), min(t["fused"], t["fused_again"])
+        out[str(b)] = dict(t, max_abs_diff=diff, largest_entry=peak, gflop=gflop)
+        print(f"shape: d={d} H={h} B={b} O={o} blk={blk}; max|chain-fused|={diff:.4f} of a "
+              f"largest entry {peak:.1f} (bf16 outputs)\n"
+              f"  chain (bmm + signs + block_gather_sum): {t1:8.3f} ms  ({gflop / t1:6.1f} "
+              f"TFLOP/s)\n"
+              f"  fused kernel:                           {t2:8.3f} ms  ({gflop / t2:6.1f} "
+              f"TFLOP/s)\n"
+              f"  chain / fused: {t1 / t2:.2f}x", flush=True)
+        del dy
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("mode", nargs="?", default="train", choices=("train", "fused-bwd"))
     p.add_argument("--config", default=FLAGSHIP)
     p.add_argument("--batch", type=int, nargs="*", default=[256, 1024])
     p.add_argument("--mix-block", type=int, default=None, help="override the config's mix_block")
     p.add_argument("--out", default=os.path.join("build", "perf.json"))
+    for flag, default in (("--heads", 16), ("--tokens", 65), ("--embed", 512),
+                          ("--out-dim", 512), ("--blk", 64), ("--iters", 30)):
+        p.add_argument(flag, type=int, default=default, help="fused-bwd only")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: this measures on a CUDA card")
     cfg = parse_config(args.config)
     if args.mix_block is not None:
         cfg.mix_block = args.mix_block
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                          capture_output=True, text=True, check=True).stdout.strip()
+    card = card_and_power_limit()
     print(f"card: {card}; torch {torch.__version__}; mix_block={cfg.mix_block}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
+    if args.mode == "fused-bwd":
+        return {"card": card, "fused_bwd": fused_bwd(args)}
     results = {"card": card, "mix_block": cfg.mix_block, "steps": [], "fold": {}}
     for batch in args.batch:
         r = profile_steps(cfg, batch)

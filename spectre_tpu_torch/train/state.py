@@ -3,8 +3,9 @@ carries from step to step.
 
 The model holds the parameters and the mix buffers, the optimizer the AdamW
 moments, the scheduler the learning rate; ``step`` counts optimizer updates
-on the host, and ``dropout_generator`` is the one generator every Dropout of
-the model draws its masks from.
+on the host, and ``dropout_generator`` is the one generator that every Dropout
+of the model draws its masks from and that the train step hands to the
+augmentation; its state is part of a checkpoint (``train/checkpoint.py``).
 """
 
 from __future__ import annotations

@@ -46,8 +46,10 @@ def make_train_step(augment_fn: Callable | None = None, grad_accum_steps: int = 
     ``state`` in place and returns ``loss``, ``accuracy`` and ``loss_aux`` as
     device tensors.
 
-    ``augment_fn(generator, images) -> images`` runs on the device before the
-    forward when given. ``grad_accum_steps`` > 1 splits the batch into that
+    ``augment_fn(generator, images) -> images`` runs on the device inside
+    the step, per microbatch, before the forward when given: raw pixels come
+    in, and its draws come from the state's generator, so they are part of
+    what a checkpoint resumes. ``grad_accum_steps`` > 1 splits the batch into that
     many equal microbatches and accumulates their gradients before the one
     optimizer update (mean of means over equal microbatches is the full
     batch's mean; each microbatch draws its own dropout masks).

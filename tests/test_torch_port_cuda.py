@@ -18,12 +18,15 @@ import numpy as np
 import pytest
 import torch
 
+from spectre_tpu_torch.data import BatchIterator, prefetch_to_device, synthetic_dataset
 from spectre_tpu_torch.models import build_model
 from spectre_tpu_torch.ops.kernels import (
     block_gather_sum,
     block_gather_sum_plain,
     block_scatter_rows,
     block_scatter_rows_plain,
+    fused_block_bwd,
+    fused_block_bwd_plain,
     fused_spectre_linear,
     fused_spectre_linear_grad,
     fused_spectre_linear_plain,
@@ -100,6 +103,39 @@ def test_gather_sum_kernels_are_bitwise_the_plain_head_sum(cuda_device, dtype):
         n1 = launch_counts()
         assert n1["block_gather_sum"] == n0["block_gather_sum"] + 1
         assert n1["inverse_gather_sum"] == n0["inverse_gather_sum"] + (blk == 1)
+
+
+# relative to the largest entry of the result. f32: FMAs in another order than
+# the plain version's product. bf16: both add exact products in float32 and
+# round once, so single entries differ by one bf16 ulp (2^-8 of the entry)
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("blk", [16, 32, 64])
+@pytest.mark.parametrize("b", [5, 250, 256])
+def test_fused_block_bwd_kernel_matches_plain_and_the_chain(cuda_device, dtype, rel, blk, b):
+    """Kernel 5 against its plain version and against the chain it fuses
+    (dg4 product, signs, block_gather_sum), with a ragged batch tail, an O
+    that is no multiple of the kernel's K stage, and every row-tile size."""
+    rng = np.random.default_rng(blk + b)
+    h, e, n, o = 4, 64, 5, 40
+    d, eh = n * e, e * h
+    binv = torch.from_numpy(np.stack([rng.permutation(d // blk) for _ in range(h)])
+                            .astype(np.int32)).to(cuda_device)
+    dy = torch.from_numpy(rng.standard_normal((n, b, o)).astype(np.float32)).to(cuda_device, dtype)
+    w = torch.from_numpy(rng.standard_normal((eh, o)).astype(np.float32)).to(cuda_device, dtype)
+    s4 = torch.from_numpy(rng.choice([-1.0, 1.0], (n, eh)).astype(np.float32)).to(cuda_device,
+                                                                                 dtype)
+    n0 = fused_block_bwd.launches
+    got = fused_block_bwd(dy, w, s4, binv, blk)
+    torch.cuda.synchronize()
+    assert fused_block_bwd.launches == n0 + 1
+    want = fused_block_bwd_plain(dy, w, s4, binv, blk)
+    assert got.shape == want.shape == (d, b) and got.dtype == dtype
+    scale = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= rel * scale
+    dg4 = torch.bmm(w.expand(n, -1, -1), dy.transpose(1, 2)) * s4[:, :, None]
+    chain = block_gather_sum(dg4.reshape(h * d, b), binv, blk)
+    # the chain rounds dg4 to the data type per head before it adds
+    assert (got.float() - chain.float()).abs().max().item() <= 4 * rel * scale
 
 
 # gradients relative to each tensor's largest entry. f32: the kernel's
@@ -190,7 +226,28 @@ def test_small_model_gradients_on_the_card_match_the_cpu(cuda_device, mix_block)
     after = launch_counts()
     delta = {k: after[k] - before[k] for k in after}
     assert delta == {"block_scatter_rows": 2, "block_gather_sum": 2 * bool(mix_block),
-                     "inverse_gather_sum": 2 * (not mix_block), "fused_spectre_linear": 5}
+                     "inverse_gather_sum": 2 * (not mix_block), "fused_spectre_linear": 5,
+                     "fused_block_bwd": 0}
     for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
         scale = pc.grad.abs().max().item()
         assert (pg.grad.cpu() - pc.grad).abs().max().item() <= 1e-4 * scale, name
+
+
+@pytest.mark.parametrize("prefetch", [1, 2, 3])
+def test_prefetch_queue_on_the_card_yields_the_batches_of_plain_iteration(cuda_device, prefetch):
+    """Pinned slots are reused many times over (40 batches through 1 to 3
+    slots): a buffer written again before its copy had finished would show as
+    a batch that differs from plain iteration."""
+    x, y = synthetic_dataset("cifar100", "train")
+    make = lambda: BatchIterator(x, y, 100, shuffle=True, seed=2)  # noqa: E731
+    plain = list(make())
+    assert len(plain) == 40
+    seen = 0
+    for got, want in zip(prefetch_to_device(make(), cuda_device, prefetch=prefetch), plain,
+                         strict=True):
+        assert got["image"].device.type == "cuda" and got["valid"] == want["valid"]
+        torch.matmul(got["image"], got["image"].transpose(-1, -2))  # work the copies overlap
+        for k in ("image", "label", "mask", "index"):
+            assert np.array_equal(got[k].cpu().numpy(), want[k]), (seen, k)
+        seen += 1
+    assert seen == 40

@@ -1,4 +1,4 @@
-"""The port's four kernels (spectre_tpu_torch/ops/kernels) against the JAX
+"""The port's five kernels (spectre_tpu_torch/ops/kernels) against the JAX
 package's Pallas kernels they replace, on the CPU.
 
 On a CPU tensor each wrapper runs its plain PyTorch version; the Pallas
@@ -17,15 +17,20 @@ from spectre_tpu.ops.pallas.bwd_gather import (
     block_gather_sum_pallas,
     block_gather_sum_reference,
     block_scatter_rows_pallas,
+    fused_block_bwd_pallas,
+    fused_block_bwd_reference,
     inverse_gather_sum_pallas,
     inverse_gather_sum_reference,
 )
 from spectre_tpu_torch.ops import perm_rows_t_plain, spectre_linear_apply
+from spectre_tpu_torch.ops.fused_mix import folded_proj
 from spectre_tpu_torch.ops.kernels import (
     block_gather_sum,
     block_gather_sum_plain,
     block_scatter_rows,
     block_scatter_rows_plain,
+    fused_block_bwd,
+    fused_block_bwd_plain,
     fused_spectre_linear,
     fused_spectre_linear_plain,
     inverse_gather_sum,
@@ -112,6 +117,70 @@ def test_inverse_gather_sum_matches_pallas_reference_and_the_block_form(h, d, b)
     assert torch.equal(got, block_gather_sum(tg, tinv, 1))
 
 
+def _fused_bwd_case(h, blk, e, n, b, o, seed=3):
+    """dy [N, B, O], w [E*H, O], s4 [N, E*H] of +-1, binv [H, N*E/blk]."""
+    rng = np.random.default_rng(seed)
+    binv = np.stack([rng.permutation(n * e // blk) for _ in range(h)]).astype(np.int32)
+    dy = rng.standard_normal((n, b, o)).astype(np.float32)
+    w = rng.standard_normal((e * h, o)).astype(np.float32)
+    s4 = rng.choice([-1.0, 1.0], (n, e * h)).astype(np.float32)
+    return dy, w, s4, binv
+
+
+# the shapes of tests/test_block_mix.py::test_fused_block_bwd_kernel_matches_chain_oracle
+# and its tolerance: the three add the same float32 products in other orders.
+# b=5 goes to the oracle alone, as does a blk the kernel would take (16)
+@pytest.mark.parametrize("blk,b,pallas", [(8, 24, True), (8, 5, False), (16, 24, True)])
+def test_fused_block_bwd_plain_matches_pallas_and_reference(blk, b, pallas):
+    arrays = _fused_bwd_case(4, blk, 32, 5, b, 16)
+    got = fused_block_bwd_plain(*map(torch.from_numpy, arrays), blk).numpy()
+    assert got.shape == (5 * 32, b)
+    want = fused_block_bwd_reference(*map(jnp.asarray, arrays), blk)
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-4)
+    if pallas:
+        kern = fused_block_bwd_pallas(*map(jnp.asarray, arrays), blk, interpret=True)
+        np.testing.assert_allclose(got, np.asarray(kern), rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("b", [5, 24, 250])
+def test_fused_block_bwd_is_the_ports_own_backward_chain(b):
+    """block_gather_sum of the dg4 that folded_proj's backward makes (by
+    autograd, through _FoldedProj and the wrapper on CPU tensors), at batches
+    that a halving chunk search would not divide."""
+    h, blk, e, n, o = 4, 16, 32, 5, 16
+    dy, w, s4, binv = map(torch.from_numpy, _fused_bwd_case(h, blk, e, n, b, o, seed=b))
+    g4 = torch.zeros(n, e * h, b, requires_grad=True)
+    folded_proj(g4, w, s4).backward(dy)
+    chain = block_gather_sum_plain(g4.grad.reshape(h * n * e, b), binv, blk)
+    got = fused_block_bwd(dy, w, s4, binv, blk)
+    assert torch.equal(got, fused_block_bwd_plain(dy, w, s4, binv, blk))
+    np.testing.assert_allclose(got.numpy(), chain.numpy(), rtol=1e-5, atol=1e-4)
+
+
+def test_fused_block_bwd_wrapper_raises_on_what_the_kernel_does_not_take():
+    dy, w, s4, binv = map(torch.from_numpy, _fused_bwd_case(4, 16, 32, 5, 6, 16))
+    with pytest.raises(ValueError, match="uniform"):
+        fused_block_bwd(dy, w, s4, torch.zeros(4, 160, dtype=torch.int32), 1)
+    with pytest.raises(ValueError, match="multiple of 16"):
+        fused_block_bwd(dy, w, s4, torch.zeros(4, 20, dtype=torch.int32), 8)
+    with pytest.raises(ValueError, match="straddle"):
+        fused_block_bwd(dy, w[:120], s4[:, :120], binv, 16)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        fused_block_bwd(dy[:, :, :12].contiguous(), w[:, :12].contiguous(), s4, binv, 16)
+    with pytest.raises(ValueError, match="shapes disagree"):
+        fused_block_bwd(dy, w, s4, binv[:, :-1].contiguous(), 16)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_block_bwd(dy.transpose(0, 1).contiguous().transpose(0, 1), w, s4, binv, 16)
+    with pytest.raises(TypeError):
+        fused_block_bwd(dy.half(), w.half(), s4.half(), binv, 16)
+    with pytest.raises(TypeError):
+        fused_block_bwd(dy, w, s4.double(), binv, 16)
+    with pytest.raises(TypeError):
+        fused_block_bwd(dy, w, s4, binv.long(), 16)
+    with pytest.raises(RuntimeError, match="no kernel"):
+        fused_block_bwd(*(t.to("meta") for t in (dy, w, s4, binv)), 16)
+
+
 def _linear_case(m, k, n, lead=(), seed=0):
     rng = np.random.default_rng(seed)
     x = rng.standard_normal((*lead, m, k)).astype(np.float32)
@@ -149,9 +218,11 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
     assert torch.equal(block_gather_sum(gs, binv, 8), block_gather_sum_plain(gs, binv, 8))
     gs, inv = map(torch.from_numpy, _gather_case(2, 12, 1, 3))
     assert torch.equal(inverse_gather_sum(gs, inv), inverse_gather_sum_plain(gs, inv))
+    args = [torch.from_numpy(a) for a in _fused_bwd_case(2, 16, 16, 3, 4, 8)]
+    assert torch.equal(fused_block_bwd(*args, 16), fused_block_bwd_plain(*args, 16))
     assert launch_counts() == before
     assert list(before) == ["block_scatter_rows", "block_gather_sum", "inverse_gather_sum",
-                            "fused_spectre_linear"]
+                            "fused_spectre_linear", "fused_block_bwd"]
 
 
 def test_wrappers_raise_instead_of_falling_back():

@@ -274,6 +274,8 @@ def test_port_imports_no_jax():
                        text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     names = r.stdout.split()
-    for sub in ("train.loop", "train.step", "data.pipeline", "repl.train"):
+    for sub in ("train.loop", "train.step", "data.pipeline", "repl.train", "data.augment",
+                "data.datasets", "train.checkpoint", "utils.metrics", "repl.eval", "repl.bench",
+                "repl.perf", "ops.kernels.fused_block_bwd"):
         assert f"spectre_tpu_torch.{sub}" in names
-    assert len(names) >= 30
+    assert len(names) >= 38

@@ -24,6 +24,8 @@ from spectre_tpu.train.state import param_count as jax_param_count
 from spectre_tpu.train.step import make_eval_step as jax_make_eval_step
 from spectre_tpu.train.step import make_train_step as jax_make_train_step
 from spectre_tpu_torch.data import BatchIterator, synthetic_dataset
+from spectre_tpu_torch.configs import FLAGSHIP, parse_config
+from spectre_tpu_torch.repl import bench
 from spectre_tpu_torch.repl import train as train_cli
 from spectre_tpu_torch.models import Dropout, MHPermutMix, build_model, load_flax_variables
 from spectre_tpu_torch.train import (
@@ -226,19 +228,56 @@ def test_data_copies_match_the_jax_package():
                 assert all(np.array_equal(a[k], b[k]) for k in ("image", "label", "mask"))
 
 
-def test_train_from_config_runs_epochs_and_validates(capsys):
+def test_train_from_config_runs_epochs_and_validates(capsys, tmp_path, monkeypatch):
     cfg = _cfg(dataset="mnist", in_channels=1, batch_size=512, val_batch_size=600,
-               epochs=2, learning_rate=3e-3)
+               epochs=2, learning_rate=3e-3, checkpoint_dir=str(tmp_path))
     result = train_from_config(cfg, device="cpu", synthetic=True)
     assert result.state.step == 16  # 4096 // 512 steps in each of 2 epochs
     assert len(result.train_losses) == 2 and result.train_losses[1] < result.train_losses[0]
     assert 0.0 <= result.last_val_accuracy <= result.best_val_accuracy <= 1.0
     assert result.images_per_sec > 0 and result.state.model.training
     assert capsys.readouterr().out.count("val loss") == 2
-    capped = train_from_config(cfg, device="cpu", synthetic=True, max_steps=3)
+    capped = train_from_config(cfg, device="cpu", synthetic=True, max_steps=3,
+                               checkpoint=False, write_metrics=False)
     assert capped.state.step == 3 and len(capped.train_losses) == 1
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_from_config(cfg, device="cpu", synthetic=False)
+    # without the synthetic flag the dataset is searched for on the disk, and
+    # the synthetic set stands in only when no file is found
+    monkeypatch.delenv("SPECTRE_DATA_DIR", raising=False)
+    monkeypatch.chdir(tmp_path)
+    cfg.data_dir = str(tmp_path / "no_such_dir")
+    searched = train_from_config(cfg, device="cpu", synthetic=False, max_steps=1,
+                                 checkpoint=False, write_metrics=False)
+    assert searched.state.step == 1
+
+
+def test_bench_counts_flops_from_the_config_and_refuses_a_bad_clock():
+    """The flagship's products per image, written out: the embedding, four
+    layers of mix projection (with its grouped pool residual) and two linears
+    (each with its pool-matrix product, as 512 and 768 do not divide), the
+    head; a step is three forwards. The peak is looked up by the card's name
+    and an unknown name raises; two timings that do not lie on a rising line
+    raise."""
+    cfg = parse_config(FLAGSHIP)
+    n, e, eh, hd = 65, 512, 8192, 768
+    layer = 2 * n * eh * e + n * eh + 2 * (2 * n * e * hd) + 2 * (2 * n * hd * e)
+    want = 2 * 64 * 48 * e + 4 * layer + 2 * (2 * e * 100)
+    assert bench.forward_flops_per_image(cfg) == want
+    assert bench.train_flops_per_step(cfg, 1024) == 3 * 1024 * want == 9_229_540_786_176
+    cfg.hidden_dim = 512  # square linears carry the identity residual: no pool product
+    assert bench.forward_flops_per_image(cfg) == want - 4 * (8 * n * e * hd) + 4 * (4 * n * e * e)
+    assert bench.peak_flops("NVIDIA H100 80GB HBM3") == 989e12
+    assert bench.peak_flops("NVIDIA H100 PCIe") == 756e12
+    with pytest.raises(RuntimeError, match="no published bf16 peak"):
+        bench.peak_flops("NVIDIA H100")
+    slope, const = bench.slope_seconds(0.52, 1.52, 5, 15)
+    assert slope == pytest.approx(0.1) and const == pytest.approx(0.02)
+    with pytest.raises(RuntimeError, match="non-linear"):
+        bench.slope_seconds(1.0, 0.9, 5, 15)  # more steps in less time
+    with pytest.raises(RuntimeError, match="non-linear"):
+        bench.slope_seconds(0.1, 1.5, 5, 15)  # a constant well below zero
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA card"):
+            bench.main([])
 
 
 def _cli(*args):
@@ -246,10 +285,10 @@ def _cli(*args):
                           cwd=REPO_ROOT, capture_output=True, text=True, timeout=300)
 
 
-def test_train_cli_takes_steps_on_the_cpu_and_refuses_cuda_without_a_card():
+def test_train_cli_takes_steps_on_the_cpu_and_refuses_cuda_without_a_card(tmp_path):
     tiny = ["--config", "spectre_tpu_torch/configs/spectre_vit_mnist.py", "--synthetic",
             "--steps", "3", "--no-checkpoint", "--set", "num_encoders=1", "batch_size=16",
-            "val_batch_size=512"]
+            "val_batch_size=512", f"checkpoint_dir={tmp_path}"]
     r = _cli("--device", "cpu", *tiny)
     assert r.returncode == 0, r.stderr
     assert "epoch 1/5 step 3 train loss" in r.stdout
@@ -258,8 +297,7 @@ def test_train_cli_takes_steps_on_the_cpu_and_refuses_cuda_without_a_card():
     if not torch.cuda.is_available():
         r = _cli("--device", "cuda", *tiny)
         assert r.returncode != 0 and "torch.cuda.is_available() is False" in r.stderr
-    for flag in ("--resume", "--multihost"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            train_cli.main(["--device", "cpu", flag, *tiny])
-    with pytest.raises(NotImplementedError, match="--no-checkpoint"):
-        train_cli.main(["--device", "cpu", *[a for a in tiny if a != "--no-checkpoint"]])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        train_cli.main(["--device", "cpu", "--multihost", *tiny])
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        train_cli.main(["--device", "cpu", *tiny, "use_distillation=True"])
