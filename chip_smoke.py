@@ -11,8 +11,10 @@ Phases, each raising on failure (nothing is caught):
    (blk=1, as mix_block=0 trains), B in {1, 3, 64, 256, 1024}, bf16 and f32:
    bitwise equal. Median times at B=256 for both tables.
 4. kernel 2 (fused_spectre_linear_fwd) vs its plain version at the path's
-   three shapes for B=256 and B=1024, f32 (<= 1e-4: only the summation order differs)
-   and bf16 (<= 2e-2: one bf16 ulp is 7.8e-3 near 1 and 1.6e-2 in [2, 4)),
+   three shapes for B=256 and B=1024, and at the structured and gather mixes'
+   projection (16,640 x 8,192)·(8,192 x 512), f32 (<= 1e-4: only the summation
+   order differs) and bf16 (<= 2e-2: one bf16 ulp is 7.8e-3 near 1 and 1.6e-2
+   in [2, 4); <= 4e-2 at K=8,192, whose pre-LN values reach [4, 8)),
    for the output and for the saved pre-LN ``h``; the autograd Function's
    five gradients vs autograd of the plain version (limits at GRAD_REL);
    times with and without ``h``, and of the backward.
@@ -65,6 +67,41 @@ Phases, each raising on failure (nothing is caught):
 13. ``repl/perf.py fused-bwd`` (kernel 5's entry point: chain against kernel at
    B=256 and B=1024; its launch count is kernel 5's ``launches``) and the
    ``repl/bench.py`` line (flagship step with augmentation at B=1024).
+14. the attention kernels (flash_attention_fwd, flash_attention_bwd) vs their
+   plain versions at [256,16,65,32], [1024,16,65,32] and [64,4,50,16], bf16
+   and f32, with and without the probability multiplier ``pm``, on strided
+   [B, N, H, D] views as the model passes them: f32 within 1e-5 of the
+   largest entry (sums in another order), bf16 within one bf16 ulp of the
+   largest entry (2^-7 of it at most). Times beside the plain version and
+   ``scaled_dot_product_attention`` (forward; backward by autograd).
+15. the Walsh-Hadamard kernel (fwht) vs its plain version at [16,640, 512],
+   [16,640, 1024], [4,160, 4,096] and [520, 32,768], bf16 and f32,
+   normalised and not: bitwise equal (the same float32 pairs added in the
+   same order). Times at the first three.
+16. the structured-mix kernels (structured_mix, structured_mix_bwd) vs their
+   plain versions at the flagship shape (d=33,280, H=16, tile 128) for B=256
+   and B=250 and at small ragged shapes, bf16 and f32: bitwise equal. Times
+   at B=256, beside the matrix form (ops/permute.py::structured_mix).
+17. the baseline ViT (spectre_tpu_torch/configs/vit_cifar100.py) at full
+   width: a bucket-256 forward must launch exactly 4 attention kernels, give
+   finite logits and agree with the plain path (MODEL_ATOL); the serving CLI
+   answers requests of batch 1, 7 and 64 (replies within 1e-3 of direct
+   forwards); the training CLI runs to step 14 in one run, and to step 10
+   and then ``--resume`` to step 14 in two, with the augmentation, the
+   validation pass and checkpoints: exact launch counts (4 forward and 4
+   backward attention launches a step at the config's dropout 0.001, 4
+   forward per validation batch; these are the ``launches`` of kernels 8 and
+   9), and the resumed run must equal the uninterrupted one bit for bit;
+   one step under ``set_sync_debug_mode("error")``; ms per step and peak
+   memory at B=256 and B=1024.
+18. SpectreViT with ``mix_impl="structured"`` at full width: a bucket-256
+   forward against the plain path, 3 train steps at B=256 through the
+   training CLI with exact launch counts (4 structured_mix and 4
+   structured_mix_bwd a step, 13 fused-linear of which 4 at K=8,192; kernel
+   7's ``launches``), one step under ``set_sync_debug_mode("error")``, ms per
+   step; ``repl/perf.py attention`` and ``repl/perf.py structured`` through
+   their ``main``; ``ops/hadamard.py::fwht`` and ``hadamard_transform`` on
+   card tensors (kernel 6's ``launches``).
 
 Prints the card line, one JSON line of per-kernel results, then
 ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero, with no
@@ -90,6 +127,7 @@ import torch
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "spectre_tpu_torch", "configs", "spectre_vit_cifar100.py")
+VIT_CONFIG = os.path.join(ROOT, "spectre_tpu_torch", "configs", "vit_cifar100.py")
 # bf16 logits of the kernel path vs the plain path: both round each op's
 # output to bf16 once, but a 1-ulp flip inside an early layer is carried
 # through 4 layers and the head. Logits are O(1) (GELU(LN(.)) + pool), so
@@ -123,9 +161,20 @@ PLAIN_PATCHES = (
 @contextlib.contextmanager
 def plain_versions(kernels):
     """Swap every wrapper the model calls for its plain version."""
+    attention = "spectre_tpu_torch.ops.kernels.attention."
+    structured = "spectre_tpu_torch.ops.kernels.structured_mix."
     with contextlib.ExitStack() as stack:
         for target, name in PLAIN_PATCHES:
             stack.enter_context(mock.patch(target, getattr(kernels, name)))
+        # the autograd Functions look these up when they run
+        for target, plain in (
+                (attention + "flash_attention_fwd", kernels.flash_attention_fwd_plain),
+                (attention + "flash_attention_bwd", kernels.flash_attention_bwd_plain),
+                (structured + "structured_mix",
+                 lambda x, tp, sg, n, inv=None: kernels.structured_mix_plain(x, tp, sg, n)),
+                (structured + "structured_mix_bwd",
+                 lambda g, tp, sg, inv=None: kernels.structured_mix_bwd_plain(g, tp, sg))):
+            stack.enter_context(mock.patch(target, plain))
         yield
 
 
@@ -154,6 +203,11 @@ def cuda_time_ms(fn, iters: int = 20, reps: int = 5) -> float:
 
 def max_abs_diff(got: torch.Tensor, ref: torch.Tensor) -> float:
     return (got.float() - ref.float()).abs().max().item()
+
+
+def rel_to_largest(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """Largest difference as a share of the reference's largest entry."""
+    return max_abs_diff(got, ref) / ref.float().abs().max().item()
 
 
 BATCHES = (1, 3, 64, 256, 1024)
@@ -224,9 +278,12 @@ def phase_kernel2(kernels, gen):
     # whose train steps are timed below
     shapes = [(rows, k, n) for b in (256, 1024)
               for rows, k, n in ((65 * b, 512, 768), (65 * b, 768, 512), (b, 512, 100))]
+    # the mix projection under mix_impl "gather" and "structured", at B=256
+    wide = (65 * 256, 8192, 512)
+    shapes.append(wide)
     limits = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     worst, worst_h, worst_grad = {}, {}, {}
-    times = []
+    times, wide_res = [], {}
     for m, k, n in shapes:
         x = torch.randn(m, k, generator=gen)
         w = torch.empty(k, n).uniform_(-k ** -0.5, k ** -0.5, generator=gen)
@@ -235,6 +292,8 @@ def phase_kernel2(kernels, gen):
         beta = 0.1 * torch.randn(n, generator=gen)
         ct = torch.randn(m, n, generator=gen)
         for dtype, limit in limits.items():
+            if k > 1024 and dtype == torch.bfloat16:
+                limit = 4e-2  # pre-LN values reach [4, 8): one bf16 ulp there is 3.1e-2
             args = [t.to("cuda", dtype) for t in (x, w, bias, gamma, beta)]
             got = kernels.fused_spectre_linear(*args)
             got2, h = kernels.fused_spectre_linear(*args, save_h=True)
@@ -254,9 +313,11 @@ def phase_kernel2(kernels, gen):
             if not gerr <= GRAD_REL[dtype]:
                 raise AssertionError(f"fused_spectre_linear_grad ({m}x{k})x({k}x{n}) {dtype}: "
                                      f"gradient rel err {gerr} > {GRAD_REL[dtype]}")
-            ms_k = cuda_time_ms(lambda: kernels.fused_spectre_linear(*args))
-            ms_h = cuda_time_ms(lambda: kernels.fused_spectre_linear(*args, save_h=True))
-            ms_p = cuda_time_ms(lambda: kernels.fused_spectre_linear_plain(*args))
+            it = 5 if k > 1024 else 20
+            ms_k = cuda_time_ms(lambda: kernels.fused_spectre_linear(*args), iters=it)
+            ms_h = cuda_time_ms(lambda: kernels.fused_spectre_linear(*args, save_h=True),
+                                iters=it)
+            ms_p = cuda_time_ms(lambda: kernels.fused_spectre_linear_plain(*args), iters=it)
             gflops = 2 * m * k * n / 1e9
             line = (f"kernel 2 ({m}x{k})x({k}x{n}) {str(dtype)[6:]}: max abs err {err:.3g} "
                     f"(h {err_h:.3g}), grads rel {gerr:.3g}, kernel {ms_k:.4f} ms "
@@ -273,9 +334,18 @@ def phase_kernel2(kernels, gen):
                 line += f"; backward {ms_bk:.4f} ms, plain autograd backward {ms_bp:.4f} ms"
                 el = 2
                 io = (m * k + k * n + 3 * n + 2 * m * n) * el  # x, W, b/gamma/beta, out, h
-                if m <= 65 * 256:  # the result line reports the config's batch
+                if (m, k, n) == wide:
+                    bound_w, by_w = bound(io, gflops * 1e9)
+                    wide_res = {"ms_k8192": ms_h, "ms_without_h_k8192": ms_k,
+                                "plain_ms_k8192": ms_p, "bound_ms_k8192": bound_w,
+                                "bound_by_k8192": by_w, "backward_ms_k8192": ms_bk,
+                                "plain_backward_ms_k8192": ms_bp,
+                                "max_abs_err_k8192": max(err, err_h)}
+                elif m <= 65 * 256:  # the result line reports the config's batch
                     times.append((m, k, n, ms_h, ms_k, ms_p, ms_bk, ms_bp, io, gflops * 1e9))
             print(line, flush=True)
+        del x, w, ct
+        torch.cuda.empty_cache()
     m, k, n, ms_h, ms_k, ms_p, ms_bk, ms_bp, io, flops = max(times, key=lambda t: t[3])
     bound_ms, bound_by = bound(io, flops)
     bound_nh, _ = bound(io - m * n * 2, flops)
@@ -290,7 +360,7 @@ def phase_kernel2(kernels, gen):
             "backward_ms": ms_bk, "plain_backward_ms": ms_bp,
             "max_abs_err_f32": max(worst[torch.float32], worst_h[torch.float32]),
             "grad_rel_err": worst_grad[torch.bfloat16],
-            "grad_rel_err_f32": worst_grad[torch.float32],
+            "grad_rel_err_f32": worst_grad[torch.float32], **wide_res,
             "shape": f"({m}x{k})x({k}x{n}) bf16, writing h"}
 
 
@@ -444,15 +514,32 @@ def phase_gather_kernels(kernels, gen):
     return out
 
 
+KERNEL_NAMES = ("block_scatter_rows", "block_gather_sum", "inverse_gather_sum",
+                "fused_spectre_linear", "fused_block_bwd", "flash_attention_fwd",
+                "flash_attention_bwd", "fwht", "structured_mix", "structured_mix_bwd")
+
+
 def expected_launches(cfg, forwards: int = 0, steps: int = 0) -> dict[str, int]:
     """Launches of ``forwards`` inference forwards plus ``steps`` train steps
     (forward and backward) of the configured model."""
-    layers, block = cfg.num_encoders, bool(getattr(cfg, "mix_block", 0))
-    return {"block_scatter_rows": layers * (forwards + steps),
-            "block_gather_sum": layers * steps * block,
-            "inverse_gather_sum": layers * steps * (not block),
-            "fused_spectre_linear": (2 * layers + 1) * (forwards + steps),
-            "fused_block_bwd": 0}
+    layers, both = cfg.num_encoders, forwards + steps
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    if cfg.model == "vit":  # Dense layers, no SpectreLinear
+        counts.update(flash_attention_fwd=layers * both, flash_attention_bwd=layers * steps)
+        return counts
+    linears = 2 * layers + 1  # linear1 and linear3 of each layer, the head
+    if cfg.method == "attention":
+        counts.update(flash_attention_fwd=layers * both, flash_attention_bwd=layers * steps)
+    elif cfg.method == "permut_mix" and cfg.mix_impl == "folded":
+        block = bool(getattr(cfg, "mix_block", 0))
+        counts.update(block_scatter_rows=layers * both, block_gather_sum=layers * steps * block,
+                      inverse_gather_sum=layers * steps * (not block))
+    elif cfg.method == "permut_mix":
+        linears += layers  # the mix projection is a SpectreLinear at K = E*H
+        if cfg.mix_impl == "structured":
+            counts.update(structured_mix=layers * both, structured_mix_bwd=layers * steps)
+    counts["fused_spectre_linear"] = linears * both
+    return counts
 
 
 def phase_model(kernels, build_model, parse_config):
@@ -515,11 +602,11 @@ def phase_serve(kernels, serve, client_cls, model, cfg):
                     replies.append((wire, x, got))
     finally:
         srv.close()
-    counts = kernels.launch_counts()
-    if min(counts["block_scatter_rows"], counts["fused_spectre_linear"]) < 1:
-        raise AssertionError(f"serving run launched no kernel of the path: {counts}")
-    if counts["block_gather_sum"] or counts["inverse_gather_sum"] or counts["fused_block_bwd"]:
-        raise AssertionError(f"serving launched a backward kernel: {counts}")
+    # one closed-loop client: every request is one bucket, one forward
+    counts, want = kernels.launch_counts(), expected_launches(cfg, forwards=srv.forwards)
+    if srv.forwards != len(replies) or counts != want:
+        raise AssertionError(f"serving ran {srv.forwards} forwards for {len(replies)} requests "
+                             f"and launched {counts}, want {want}")
     for wire, x, got in replies:
         b = x.shape[0]
         bucket = 1 << (b - 1).bit_length()
@@ -829,6 +916,444 @@ def phase_fused_bwd_cli(kernels, perf_cli):
     return counts, res["fused_bwd"]
 
 
+# the attention kernels against their plain versions, as a share of the
+# reference's largest entry. f32: the same float32 products summed in another
+# order. bf16: both compute in float32 and round once, so single entries
+# differ by one bf16 ulp, which is 2^-8 to 2^-7 of the entry.
+ATTENTION_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+
+
+def phase_attention(kernels):
+    """Kernels 8 and 9 at vit_cifar100's shape for B=256 and B=1024 and at
+    vit_mnist's, on [B, H, N, D] views of [B, N, H, D] memory."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    worst = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, h, n, d in ((256, 16, 65, 32), (1024, 16, 65, 32), (64, 4, 50, 16)):
+            q, k, v, g = (torch.randn(b, n, h, d, generator=gen, device="cuda").to(dtype)
+                          .permute(0, 2, 1, 3) for _ in range(4))
+            for use_pm in (False, True):
+                pm = None
+                if use_pm:
+                    pm = torch.empty(n, n, device="cuda").bernoulli_(0.9, generator=gen) / 0.9
+                o, lse = kernels.flash_attention_fwd(q, k, v, pm)
+                dq, dk, dv = kernels.flash_attention_bwd(q, k, v, o, lse, g, pm)
+                torch.cuda.synchronize()
+                o_p, lse_p = kernels.flash_attention_fwd_plain(q, k, v, pm)
+                grads_p = kernels.flash_attention_bwd_plain(q, k, v, o, lse, g, pm)
+                err_f = rel_to_largest(o, o_p)
+                err_l = max_abs_diff(lse, lse_p)
+                err_b = max(rel_to_largest(a, r) for a, r in zip((dq, dk, dv), grads_p))
+                limit = ATTENTION_REL[dtype]
+                if not (err_f <= limit and err_b <= limit and err_l <= 1e-5):
+                    raise AssertionError(
+                        f"flash_attention [{b},{h},{n},{d}] {dtype} pm={use_pm}: forward "
+                        f"{err_f}, lse {err_l}, backward {err_b} of the largest entry > {limit}")
+                for key, val in (("fwd", err_f), ("bwd", err_b)):
+                    worst[key, dtype] = max(worst.get((key, dtype), 0.0), val)
+                    worst[key + "_abs", dtype] = max(
+                        worst.get((key + "_abs", dtype), 0.0),
+                        max_abs_diff(o, o_p) if key == "fwd" else
+                        max(max_abs_diff(a, r) for a, r in zip((dq, dk, dv), grads_p)))
+            del q, k, v, g, o, lse, dq, dk, dv
+    print(f"kernels 8/9 flash_attention: within {ATTENTION_REL[torch.float32]} (f32) and one "
+          f"bf16 ulp (bf16, <= 2^-7) of the largest entry at three shapes, with and without "
+          f"pm: forward {worst['fwd', torch.float32]:.3g} / {worst['fwd', torch.bfloat16]:.3g}, "
+          f"backward {worst['bwd', torch.float32]:.3g} / {worst['bwd', torch.bfloat16]:.3g}",
+          flush=True)
+
+    res = {}
+    for b in (256, 1024):
+        h, n, d = 16, 65, 32
+        q, k, v, g = (torch.randn(b, n, h, d, generator=gen, device="cuda").to(torch.bfloat16)
+                      .permute(0, 2, 1, 3) for _ in range(4))
+        pm = torch.empty(n, n, device="cuda").bernoulli_(0.999, generator=gen) / 0.999
+        o, lse = kernels.flash_attention_fwd(q, k, v)
+        ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        out_lib = F.scaled_dot_product_attention(ql, kl, vl)
+        out_plain = kernels.flash_attention_plain(ql, kl, vl)
+        r = {
+            "fwd": cuda_time_ms(lambda: kernels.flash_attention_fwd(q, k, v)),
+            "fwd_pm": cuda_time_ms(lambda: kernels.flash_attention_fwd(q, k, v, pm)),
+            "fwd_plain": cuda_time_ms(lambda: kernels.flash_attention_fwd_plain(q, k, v),
+                                      iters=5),
+            "fwd_lib": cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+            "bwd": cuda_time_ms(lambda: kernels.flash_attention_bwd(q, k, v, o, lse, g)),
+            "bwd_pm": cuda_time_ms(lambda: kernels.flash_attention_bwd(q, k, v, o, lse, g, pm)),
+            "bwd_plain": cuda_time_ms(
+                lambda: kernels.flash_attention_bwd_plain(q, k, v, o, lse, g), iters=5),
+            "bwd_plain_autograd": cuda_time_ms(lambda: torch.autograd.grad(
+                out_plain, (ql, kl, vl), g, retain_graph=True), iters=5),
+            "bwd_lib": cuda_time_ms(lambda: torch.autograd.grad(
+                out_lib, (ql, kl, vl), g, retain_graph=True)),
+        }
+        el, rows = 2, b * h * n
+        flops_f = 4 * rows * n * d
+        r["bound_fwd"], r["by_fwd"] = bound(4 * rows * d * el + rows * 4, flops_f)
+        r["bound_bwd"], r["by_bwd"] = bound(8 * rows * d * el + rows * 4, 2.5 * flops_f)
+        res[b] = r
+        print(f"kernels 8/9 at [{b},{h},{n},{d}] bf16: forward {r['fwd']:.4f} ms (with pm "
+              f"{r['fwd_pm']:.4f}), plain {r['fwd_plain']:.4f}, scaled_dot_product_attention "
+              f"{r['fwd_lib']:.4f}, bound {r['bound_fwd']:.4f} by {r['by_fwd']}; backward "
+              f"{r['bwd']:.4f} ms (with pm {r['bwd_pm']:.4f}), plain {r['bwd_plain']:.4f} "
+              f"(autograd of plain {r['bwd_plain_autograd']:.4f}), autograd of "
+              f"scaled_dot_product_attention {r['bwd_lib']:.4f}, bound {r['bound_bwd']:.4f} by "
+              f"{r['by_bwd']}", flush=True)
+        del q, k, v, g, o, lse, ql, kl, vl, out_lib, out_plain
+        torch.cuda.empty_cache()
+    out = []
+    for key, name, line in (("fwd", "flash_attention_fwd", 96),
+                            ("bwd", "flash_attention_bwd", 116)):
+        r = res[256]
+        out.append({"name": name, "route": "cuda",
+                    "source": "spectre_tpu_torch/csrc/attention.cu",
+                    "replaces": f"spectre_tpu/ops/pallas/attention.py:{line}",
+                    "max_abs_err": worst[key + "_abs", torch.bfloat16], "ms": r[key],
+                    "plain_ms": r[key + "_plain"], "bound_ms": r["bound_" + key],
+                    "bound_by": r["by_" + key], "library_ms": r[key + "_lib"],
+                    "ms_with_pm": r[key + "_pm"], "ms_b1024": res[1024][key],
+                    "bound_ms_b1024": res[1024]["bound_" + key],
+                    "library_ms_b1024": res[1024][key + "_lib"],
+                    "plain_ms_b1024": res[1024][key + "_plain"],
+                    "max_rel_err": worst[key, torch.bfloat16],
+                    "max_rel_err_f32": worst[key, torch.float32],
+                    "shape": "q, k, v [256,16,65,32] bf16, views of [B,N,H,D]"})
+    return out
+
+
+def phase_fwht(kernels, hadamard_matrix):
+    """Kernel 6 against its plain version: bitwise equal, the same float32
+    pairs added in the same order."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    shapes = ((16_640, 512), (16_640, 1024), (4160, 4096), (520, 32_768), (7, 8), (5, 4), (3, 1))
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for m, n in shapes:
+            x = torch.randn(m, n, generator=gen, device="cuda").to(dtype)
+            for normalize in (True, False):
+                got, ref = kernels.fwht(x, normalize), kernels.fwht_plain(x, normalize)
+                torch.cuda.synchronize()
+                worst = max(worst, max_abs_diff(got, ref))
+                if not torch.equal(got, ref):
+                    raise AssertionError(f"fwht != plain at [{m}, {n}] {dtype} normalize="
+                                         f"{normalize}: max abs err {max_abs_diff(got, ref)}")
+            del x, got, ref
+    print(f"kernel 6 fwht: bitwise equal to plain at {shapes}, bf16 and f32, normalised and "
+          f"not (max abs err {worst})", flush=True)
+    res = {}
+    for m, n in shapes[:3]:
+        x = torch.randn(m, n, generator=gen, device="cuda").to(torch.bfloat16)
+        # the one library call that computes the same function, as the TPU
+        # kernel does it: a product with H_n (entries +-1, exact in bf16; the
+        # bound counts the bytes of x and the result, as for the kernel)
+        h_n = hadamard_matrix(n, normalize=False).to("cuda", torch.bfloat16)
+        err_lib = rel_to_largest(torch.matmul(x, h_n).float() * n ** -0.5, kernels.fwht(x))
+        if not err_lib <= 2.0 ** -6:  # the product rounds before the scale, the kernel after
+            raise AssertionError(f"x @ H_{n} differs from fwht by {err_lib} of the largest entry")
+        ms_k = cuda_time_ms(lambda: kernels.fwht(x))
+        ms_p = cuda_time_ms(lambda: kernels.fwht_plain(x), iters=3, reps=3)
+        ms_lib = cuda_time_ms(lambda: torch.matmul(x, h_n))
+        bound_ms, bound_by = bound(2 * m * n * 2)
+        res[n] = (ms_k, ms_p, bound_ms, ms_lib, bound_by)
+        print(f"kernel 6 fwht at [{m}, {n}] bf16: kernel {ms_k:.4f} ms "
+              f"({2 * m * n * 2 / ms_k / 1e6:.1f} GB/s of read+write), plain {ms_p:.4f} ms, "
+              f"matmul with H_{n} {ms_lib:.4f} ms ({2 * m * n * n / ms_lib / 1e9:.1f} TFLOP/s, "
+              f"within {err_lib:.3g} of the kernel), bound {bound_ms:.4f} ms by {bound_by}",
+              flush=True)
+        del x, h_n
+    ms_k, ms_p, bound_ms, ms_lib, bound_by = res[512]
+    return {"name": "fwht", "route": "cuda", "source": "spectre_tpu_torch/csrc/fwht.cu",
+            "replaces": "spectre_tpu/ops/pallas/fwht.py:71", "max_abs_err": worst, "ms": ms_k,
+            "plain_ms": ms_p, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": ms_lib,
+            **{f"{key}_n{n}": res[n][i] for n in (1024, 4096)
+               for i, key in enumerate(("ms", "plain_ms", "bound_ms", "library_ms"))},
+            "shape": "x [16640, 512] bf16"}
+
+
+def phase_structured_kernels(kernels, structured_matrix):
+    """Kernel 7 (forward and backward) against its plain versions at the
+    flagship mix shape: bitwise equal."""
+    d, heads, tile = 33_280, 16, 128
+    n_tiles = d // tile
+    gen = torch.Generator(device="cuda").manual_seed(7)
+
+    def tables(h, t_count, width):
+        tp = torch.stack([torch.randperm(t_count, generator=gen, device="cuda")
+                          for _ in range(h)]).to(torch.int32)
+        sg = (torch.randint(0, 2, (1, h, t_count * width), generator=gen, device="cuda") * 2
+              - 1).float()
+        return tp, sg
+
+    cases = [(256, heads, n_tiles, tile), (250, heads, n_tiles, tile), (3, 2, 5, 16),
+             (5, 3, 6, 4), (2, 2, 3, 1), (4, 2, 2, 256), (9, 2, 3, 8)]
+    worst_f = worst_b = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for b, h, t_count, width in cases:
+            tp, sg = tables(h, t_count, width)
+            x = torch.randn(b, t_count * width, generator=gen, device="cuda").to(dtype)
+            g = torch.randn(b, h * t_count * width, generator=gen, device="cuda").to(dtype)
+            got, ref = kernels.structured_mix(x, tp, sg, 1), \
+                kernels.structured_mix_plain(x, tp, sg, 1)
+            got_b, ref_b = kernels.structured_mix_bwd(g, tp, sg), \
+                kernels.structured_mix_bwd_plain(g, tp, sg)
+            torch.cuda.synchronize()
+            worst_f = max(worst_f, max_abs_diff(got, ref))
+            worst_b = max(worst_b, max_abs_diff(got_b, ref_b))
+            if not (torch.equal(got, ref) and torch.equal(got_b, ref_b)):
+                raise AssertionError(
+                    f"structured_mix != plain at B={b} H={h} T={t_count} t={width} {dtype}: "
+                    f"forward {max_abs_diff(got, ref)}, backward {max_abs_diff(got_b, ref_b)}")
+            del x, g, got, ref, got_b, ref_b
+    print(f"kernel 7 structured_mix: forward and backward bitwise equal to plain at "
+          f"(B, H, T, t) in {cases}, bf16 and f32 (max abs err forward {worst_f}, backward "
+          f"{worst_b})", flush=True)
+    tp, sg = tables(heads, n_tiles, tile)
+    sgb, inv = sg.to(torch.bfloat16), kernels.invert_tile_perms(tp)
+    x = torch.randn(256, d, generator=gen, device="cuda").to(torch.bfloat16)
+    g = torch.randn(256, heads * d, generator=gen, device="cuda").to(torch.bfloat16)
+    matrix = structured_matrix(x, tp, sgb, 1)
+    err_matrix = rel_to_largest(kernels.structured_mix(x, tp, sgb, 1, inv), matrix)
+    if not err_matrix <= 2.0 ** -6:  # the matrix form rounds the product, then the sign pass
+        raise AssertionError(f"structured_mix differs from the matrix form by {err_matrix}")
+    ms_f = cuda_time_ms(lambda: kernels.structured_mix(x, tp, sgb, 1, inv))
+    ms_fp = cuda_time_ms(lambda: kernels.structured_mix_plain(x, tp, sgb, 1), iters=2, reps=3)
+    ms_fm = cuda_time_ms(lambda: structured_matrix(x, tp, sgb, 1), iters=5)
+    ms_b = cuda_time_ms(lambda: kernels.structured_mix_bwd(g, tp, sgb, inv))
+    ms_bp = cuda_time_ms(lambda: kernels.structured_mix_bwd_plain(g, tp, sgb), iters=2, reps=3)
+    moved = (heads * d * 256 + d * 256 + heads * d) * 2 + heads * n_tiles * 4
+    bound_ms, bound_by = bound(moved)
+    print(f"kernel 7 at d={d} H={heads} tile={tile} B=256 bf16: forward {ms_f:.4f} ms "
+          f"({moved / ms_f / 1e6:.1f} GB/s), plain {ms_fp:.4f} ms, matrix form {ms_fm:.4f} ms "
+          f"(kernel within {err_matrix:.3g} of its largest entry); backward {ms_b:.4f} ms, "
+          f"plain {ms_bp:.4f} ms; bound {bound_ms:.4f} ms by {bound_by}", flush=True)
+    return {"name": "structured_mix", "route": "cuda",
+            "source": "spectre_tpu_torch/csrc/structured_mix.cu",
+            "replaces": "spectre_tpu/ops/pallas/structured_mix.py:73",
+            "max_abs_err": max(worst_f, worst_b), "backward_max_abs_err": worst_b, "ms": ms_f,
+            "plain_ms": ms_fp, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": None, "matrix_form_ms": ms_fm, "backward_ms": ms_b,
+            "backward_plain_ms": ms_bp, "backward_bound_ms": bound_ms,
+            "shape": f"x [256, {d}] bf16 -> [256, {heads * d}]"}
+
+
+def _step_times(tag, cfg, kernels, batches=(256, 1024)):
+    """ms per train step (the trainer's augmentation inside) and peak memory
+    at each batch; at the first batch one step must launch exactly what the
+    config implies and one step runs with every host sync an error."""
+    from spectre_tpu_torch.train import make_train_step
+    from spectre_tpu_torch.train.loop import create_trainer, default_augment
+
+    state = create_trainer(cfg, "cuda", steps_per_epoch=16)
+    step = make_train_step(default_augment(cfg.dataset, cfg.in_channels),
+                           grad_clip_norm=getattr(cfg, "grad_clip_norm", None))
+    out = {}
+    for i, batch in enumerate(batches):
+        raw, y = _train_batch(cfg, batch)
+        for _ in range(2):
+            step(state, raw, y)
+        torch.cuda.synchronize()
+        if i == 0:
+            kernels.reset_launch_counts()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                metrics = step(state, raw, y)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            counts, want = kernels.launch_counts(), expected_launches(cfg, steps=1)
+            if counts != want or not torch.isfinite(metrics["loss"]):
+                raise AssertionError(f"{tag}: one step launched {counts}, want {want}; loss "
+                                     f"{metrics['loss'].item()}")
+            print(f"{tag}: one train step ran under set_sync_debug_mode('error') with no host "
+                  f"sync and launched {counts}", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_time_ms(lambda: step(state, raw, y), iters=1, reps=5)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        out[batch] = {"ms": ms, "img_per_s": batch / ms * 1e3, "peak_gb": peak}
+        print(f"{tag}: B={batch} {ms:.2f} ms/step with the augmentation, "
+              f"{batch / ms * 1e3:.0f} img/s, peak memory {peak:.2f} GB (CUDA events, median of "
+              f"5 steps after warm-up)", flush=True)
+        del raw, y
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def _forward_against_plain(tag, kernels, model, cfg):
+    """A bucket-256 forward: exact launches, finite logits, the kernel path
+    within MODEL_ATOL of the same module on the plain versions."""
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 1, (256, cfg.in_channels, cfg.img_size, cfg.img_size)).astype(np.float32)).cuda()
+    with torch.inference_mode():
+        model(x)  # warm-up
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        logits = model(x)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+        counts, want = kernels.launch_counts(), expected_launches(cfg, forwards=1)
+        if counts != want:
+            raise AssertionError(f"{tag}: one forward launched {counts}, want {want}")
+        with plain_versions(kernels):
+            ref = model(x)
+            if any(kernels.launch_counts()[k] != want[k] for k in want):
+                raise AssertionError(f"{tag}: the plain path launched a kernel")
+        torch.cuda.synchronize()
+    diff = (logits - ref).abs().max().item()
+    ok = tuple(logits.shape) == (256, cfg.num_classes) and bool(torch.isfinite(logits).all())
+    if not ok or not diff <= MODEL_ATOL:
+        raise AssertionError(f"{tag}: logits shape {tuple(logits.shape)}, finite {ok}, kernel "
+                             f"path vs plain path {diff} > {MODEL_ATOL}")
+    print(f"{tag}: bucket-256 forward {fwd_ms:.2f} ms (host clock, synchronised), launches "
+          f"{ {k: v for k, v in counts.items() if v} }, logits finite [256, {cfg.num_classes}], "
+          f"max |kernel - plain| {diff:.4g} (limit {MODEL_ATOL})", flush=True)
+    return fwd_ms
+
+
+def phase_vit(kernels, build_model, parse_config, serve, client_cls, train_cli, tmp: str):
+    """The baseline attention ViT at full width through the server and the
+    trainer; returns (launches of the uninterrupted trainer run, numbers)."""
+    cfg = parse_config(VIT_CONFIG)
+    model = build_model(cfg, "cuda")
+    print(f"vit: vit_cifar100 built on cuda (E={cfg.embed_dim}, {cfg.num_heads} heads of "
+          f"{cfg.embed_dim // cfg.num_heads}, FF {cfg.hidden_dim}, {cfg.num_encoders} layers, "
+          f"{cfg.compute_dtype} compute, dropout {cfg.dropout})", flush=True)
+    fwd_ms = _forward_against_plain("vit", kernels, model, cfg)
+
+    rng = np.random.default_rng(2)
+    shape = (cfg.in_channels, cfg.img_size, cfg.img_size)
+    requests = [rng.uniform(0, 1, (b, *shape)).astype(np.float32) for b in (1, 7, 64)]
+    kernels.reset_launch_counts()
+    srv, port = serve.start(["--config", VIT_CONFIG, "--device", "cuda", "--port", "0"])
+    try:
+        with client_cls(port=port) as c:
+            replies = []
+            for x in requests * 2:
+                t0 = time.perf_counter()
+                replies.append((x, c.infer(x)))
+                print(f"vit serve: batch {x.shape[0]}: "
+                      f"{(time.perf_counter() - t0) * 1e3:.2f} ms", flush=True)
+    finally:
+        srv.close()
+    # one closed-loop client: every request is one bucket, one forward, and
+    # the server runs no forward of its own
+    serving, want = kernels.launch_counts(), expected_launches(cfg, forwards=srv.forwards)
+    if srv.forwards != len(replies) or serving != want:
+        raise AssertionError(f"vit serve ran {srv.forwards} forwards for {len(replies)} "
+                             f"requests and launched {serving}, want {want}")
+    for x, got in replies:
+        b = x.shape[0]
+        bucket = 1 << (b - 1).bit_length()
+        xp = np.concatenate([x, np.zeros((bucket - b, *shape), x.dtype)])
+        with torch.inference_mode():
+            want = model(torch.from_numpy(xp).cuda())[:b].float().cpu().numpy()
+        diff = float(np.abs(got - want).max())
+        if got.shape != (b, cfg.num_classes) or not diff <= 1e-3:
+            raise AssertionError(f"vit serve batch {b}: reply {got.shape} differs from a direct "
+                                 f"forward by {diff}")
+    print(f"vit serve: {len(replies)} replies match direct forwards (<= 1e-3); launches "
+          f"{ {k: v for k, v in serving.items() if v} }", flush=True)
+    del model
+    torch.cuda.empty_cache()
+
+    val_batches = -(-1024 // cfg.val_batch_size)
+    runs = {}
+    for name, steps, resume, took in (("whole", 14, False, 14), ("first", 10, False, 10),
+                                      ("resumed", 14, True, 4)):
+        kernels.reset_launch_counts()
+        result = train_cli.main([
+            "--config", VIT_CONFIG, "--synthetic", "--steps", str(steps),
+            *(["--resume"] if resume else []), "--set",
+            f"checkpoint_dir={os.path.join(tmp, 'vit_whole' if name == 'whole' else 'vit_parts')}"])
+        counts = kernels.launch_counts()
+        want = expected_launches(cfg, forwards=val_batches, steps=took)
+        if counts != want or result.state.step != steps:
+            raise AssertionError(f"vit trainer run {name!r}: step {result.state.step}, "
+                                 f"launched {counts}, want {want}")
+        runs[name] = (result, counts)
+        print(f"vit trainer {name}: to step {steps} ({took} steps with the augmentation, "
+              f"{val_batches} validation batches, a checkpoint) launched "
+              f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    whole, resumed = runs["whole"][0], runs["resumed"][0]
+    # the interrupted epoch's mean train loss covers only the steps each call
+    # ran, so it is the state and the validation pass that must agree
+    bad = _same_state(whole.state, resumed.state)
+    if bad or whole.last_val_accuracy != resumed.last_val_accuracy \
+            or not np.isfinite(whole.train_losses[-1]):
+        raise AssertionError(
+            f"vit: resumed run differs from the uninterrupted one: {bad[:8]} ({len(bad)} in "
+            f"all); val acc {whole.last_val_accuracy!r} vs {resumed.last_val_accuracy!r}")
+    print(f"vit trainer: stopped at step 10 and resumed to step 14 == uninterrupted, bit for "
+          f"bit ({len(whole.state.model.state_dict())} tensors, AdamW moments, generator); "
+          f"train loss {whole.train_losses[-1]:.6f}, val acc {whole.last_val_accuracy:.4f}",
+          flush=True)
+    del runs["first"], resumed
+    torch.cuda.empty_cache()
+    times = _step_times("vit", cfg, kernels)
+    return runs["whole"][1], serving, {"forward_ms_b256": fwd_ms,
+                                       "train_step": {f"B={b}": v for b, v in times.items()}}
+
+
+def phase_structured_model(kernels, build_model, parse_config, train_cli, perf_cli, tmp: str):
+    """SpectreViT with mix_impl="structured" at full width: forward against
+    the plain path, three train steps through the CLI, the perf entry points
+    of the new kernels, and fwht through ops/hadamard.py."""
+    from spectre_tpu_torch.ops import fwht, hadamard_transform
+
+    cfg = parse_config(CONFIG)
+    cfg.mix_impl = "structured"
+    model = build_model(cfg, "cuda")
+    fwd_ms = _forward_against_plain("structured", kernels, model, cfg)
+    del model
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    result = train_cli.main(["--config", CONFIG, "--synthetic", "--steps", "3",
+                             "--no-checkpoint", "--set", "mix_impl=structured", "epochs=1",
+                             f"checkpoint_dir={os.path.join(tmp, 'structured')}"])
+    counts = kernels.launch_counts()
+    val_batches = -(-1024 // cfg.val_batch_size)
+    want = expected_launches(cfg, forwards=val_batches, steps=3)
+    if counts != want or result.state.step != 3 or not np.isfinite(result.train_losses[-1]):
+        raise AssertionError(f"structured train CLI launched {counts}, want {want}; step "
+                             f"{result.state.step}, loss {result.train_losses}")
+    print(f"structured train CLI: 3 steps + {val_batches} validation batches launched "
+          f"{ {k: v for k, v in counts.items() if v} } (of the fused-linear launches "
+          f"{cfg.num_encoders * (3 + val_batches)} are the mix projection at K="
+          f"{cfg.embed_dim * cfg.num_heads}); train loss {result.train_losses[-1]:.4f}",
+          flush=True)
+    del result
+    torch.cuda.empty_cache()
+    times = _step_times("structured", cfg, kernels, batches=(256,))
+
+    kernels.reset_launch_counts()
+    att = perf_cli.main(["attention", "--batch", "256", "--iters", "10"])["attention"]
+    smix = perf_cli.main(["structured", "--batch", "256", "--iters", "10"])["structured"]
+    x = torch.randn(65, 256, 512, device="cuda")
+    got = fwht(x, axis=-1)
+    moved = fwht(x.transpose(0, 2), axis=0)  # the same transform along a moved axis
+    flat = hadamard_transform(x[0])
+    torch.cuda.synchronize()
+    if not (torch.equal(moved.transpose(0, 2), got) and torch.equal(flat, got[0])
+            and torch.allclose(fwht(got), x, atol=1e-4)):
+        raise AssertionError("ops.hadamard.fwht: axis handling or the inverse is wrong")
+    entry = kernels.launch_counts()
+    if min(entry["flash_attention_fwd"], entry["flash_attention_bwd"], entry["structured_mix"],
+           entry["structured_mix_bwd"]) < 1 or entry["fwht"] != 4:
+        raise AssertionError(f"perf attention / structured and ops.fwht launched {entry}")
+    if not att["256"]["max_abs_diff"] <= 0.1 or smix["256"]["max_abs_diff"] != 0.0:
+        raise AssertionError(f"perf entry points: attention differs from plain by "
+                             f"{att['256']['max_abs_diff']}, structured by "
+                             f"{smix['256']['max_abs_diff']}")
+    print(f"perf attention, perf structured and ops.hadamard.fwht launched "
+          f"{ {k: v for k, v in entry.items() if v} }", flush=True)
+    return counts, entry, {"forward_ms_b256": fwd_ms,
+                           "train_step": {f"B={b}": v for b, v in times.items()},
+                           "perf_attention": att, "perf_structured": smix}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -838,6 +1363,8 @@ def main() -> int:
     from spectre_tpu_torch.configs import parse_config
     from spectre_tpu_torch.models import build_model
     from spectre_tpu_torch.ops import kernels
+    from spectre_tpu_torch.ops import hadamard_matrix
+    from spectre_tpu_torch.ops import structured_mix as structured_matrix
     from spectre_tpu_torch.ops.kernels import build
     from spectre_tpu_torch.repl import bench as bench_cli
     from spectre_tpu_torch.repl import eval as eval_cli
@@ -847,8 +1374,9 @@ def main() -> int:
     from spectre_tpu_torch.serving import SpectreClient
     from spectre_tpu_torch.utils import card_and_power_limit
 
-    if not os.path.exists(CONFIG):
-        raise FileNotFoundError(CONFIG)
+    for path in (CONFIG, VIT_CONFIG):
+        if not os.path.exists(path):
+            raise FileNotFoundError(path)
     name = torch.cuda.get_device_name(0)
     smi = card_and_power_limit()
     print(f"device: {name} ({smi}); torch {torch.__version__} cuda {torch.version.cuda}",
@@ -866,6 +1394,9 @@ def main() -> int:
     k2 = phase_kernel2(kernels, gen)
     k5 = phase_kernel5(kernels)
     k3, k4 = phase_gather_kernels(kernels, gen)
+    k8, k9 = phase_attention(kernels)
+    k6 = phase_fwht(kernels, hadamard_matrix)
+    k7 = phase_structured_kernels(kernels, structured_matrix)
     model, cfg = phase_model(kernels, build_model, parse_config)
     serving = phase_serve(kernels, serve, SpectreClient, model, cfg)
     del model
@@ -876,6 +1407,11 @@ def main() -> int:
         uniform_run = phase_train_cli(kernels, train_cli, parse_config, 0, tmp)
         trainer_run, trainer = phase_trainer(kernels, train_cli, parse_config, tmp)
         trainer["sigterm_saved_at_step"] = phase_sigterm(eval_cli, parse_config, tmp)
+        torch.cuda.empty_cache()
+        vit_run, vit_serving, vit = phase_vit(kernels, build_model, parse_config, serve,
+                                              SpectreClient, train_cli, tmp)
+        structured_run, entry_run, structured = phase_structured_model(
+            kernels, build_model, parse_config, train_cli, perf_cli, tmp)
     torch.cuda.empty_cache()
     fused_run, fused_bwd = phase_fused_bwd_cli(kernels, perf_cli)
     bench = bench_cli.main(["--batch", "1024"])
@@ -890,10 +1426,22 @@ def main() -> int:
     k5["launches"] = fused_run["fused_block_bwd"]
     k1["launches_serving"] = serving["block_scatter_rows"]
     k2["launches_serving"] = serving["fused_spectre_linear"]
-    result = {"kernels": [k1, k2, k3, k4, k5],
+    # this slice's paths: kernels 8 and 9 from the ViT trainer's uninterrupted
+    # run (14 steps, 2 validation batches), kernel 7 from the structured
+    # trainer run (3 steps, 2 validation batches), kernel 6 from
+    # ops/hadamard.py's entry points (no model calls it, as in the JAX package)
+    k8["launches"] = vit_run["flash_attention_fwd"]
+    k9["launches"] = vit_run["flash_attention_bwd"]
+    k8["launches_serving"] = vit_serving["flash_attention_fwd"]
+    k7["launches"] = structured_run["structured_mix"]
+    k7["backward_launches"] = structured_run["structured_mix_bwd"]
+    k2["launches_structured"] = structured_run["fused_spectre_linear"]
+    k6["launches"] = entry_run["fwht"]
+    result = {"kernels": [k1, k2, k3, k4, k5, k8, k9, k6, k7],
               "train_step": {f"mix_block={blk}": {f"B={b}": v for b, v in t.items()}
                              for blk, t in step_times.items()},
-              "trainer": trainer, "fused_bwd": fused_bwd, "bench": bench}
+              "trainer": trainer, "fused_bwd": fused_bwd, "bench": bench, "vit": vit,
+              "structured": structured}
     print(smi, flush=True)
     print(json.dumps(result), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

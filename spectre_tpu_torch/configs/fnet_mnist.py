@@ -1,0 +1,24 @@
+# FNet-style (fft_bare mixer) spectral ViT on MNIST (the same values as the JAX
+# package's spectre_tpu/configs/fnet_mnist.py).
+_base_ = "default.py"
+
+model = "spectre_vit"
+method = "fft_bare"
+dataset = "mnist"
+
+batch_size = 64
+val_batch_size = 512
+epochs = 5
+num_classes = 10
+patch_size = 4
+img_size = 28
+in_channels = 1
+num_heads = 8
+dropout = 0.001
+hidden_dim = 256
+activation = "gelu"
+num_encoders = 4
+embed_dim = 64
+num_patches = (img_size // patch_size) ** 2
+use_spectre = True
+spectre_threshold = 1.0

@@ -1,0 +1,24 @@
+# Baseline attention ViT on CIFAR-100 (the same values as the JAX package's
+# spectre_tpu/configs/vit_cifar100.py).
+_base_ = "default.py"
+
+model = "vit"
+method = "attention"
+dataset = "cifar100"
+
+batch_size = 256
+val_batch_size = 512
+epochs = 100
+num_classes = 100
+patch_size = 4
+img_size = 32
+in_channels = 3
+num_heads = 16
+dropout = 0.001
+hidden_dim = 768
+activation = "gelu"
+num_encoders = 4
+embed_dim = 512
+num_patches = (img_size // patch_size) ** 2
+use_spectre = False
+spectre_threshold = 1.0

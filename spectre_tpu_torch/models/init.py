@@ -2,6 +2,8 @@
 distributions, drawn from an explicit ``torch.Generator``):
 
     kernels and biases   U(-1/sqrt(fan_in), +1/sqrt(fan_in))
+    attention            q/k/v kernels U(+-sqrt(1.5/E)) (xavier over the packed
+                         [3E, E] matrix), out kernel U(+-1/sqrt(E)), biases zero
     cls / position       normal(0, 1)
     freq weights, LN     ones (scales), zeros (biases)
 
@@ -16,7 +18,11 @@ import torch
 
 @torch.no_grad()
 def uniform_fan_in_(param: torch.Tensor, fan_in: int, gen: torch.Generator) -> None:
-    bound = float(fan_in) ** -0.5
+    uniform_(param, float(fan_in) ** -0.5, gen)
+
+
+@torch.no_grad()
+def uniform_(param: torch.Tensor, bound: float, gen: torch.Generator) -> None:
     draw = torch.empty(param.shape, dtype=torch.float32).uniform_(-bound, bound, generator=gen)
     param.copy_(draw)
 

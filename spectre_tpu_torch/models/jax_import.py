@@ -6,11 +6,15 @@ The port's module and parameter names mirror the flax tree, so a flax path
 ``encoder_blocks.layer_0.mix_layer.linear.kernel``. Two renames apply:
 
 - flax ``LayerNorm`` ``scale``/``bias`` -> ``nn.LayerNorm`` ``weight``/``bias``;
-- ``buffers/.../mix_tables`` = (perms int32 [H, d], signs f32 [1, H, d]) ->
-  the mix layer's ``perms`` and ``signs`` buffers.
+- ``buffers/.../mix_tables`` is a pair whose meaning depends on its owner:
+  (perms int32 [H, d], signs f32 [1, H, d]) -> the ``perms`` and ``signs``
+  buffers of a permutation mix, (tile_perms int32 [H, T], signs) -> the
+  ``tile_perms`` and ``signs`` buffers of a structured mix
+  (``impl="structured"``). Any other leaf of ``buffers`` keeps its name.
 
-Kernels keep the JAX [in, out] layout in the port, so no array is
-transposed. Missing or extra keys and any shape mismatch raise. The mix
+Kernels keep the flax layouts in the port ([in, out] for ``Dense``;
+[E, H, D] for the attention's query/key/value and [H, D, E] for its out
+projection), so no array is transposed. Missing or extra keys and any shape mismatch raise. The mix
 tables are copied, never resampled.
 
 A JAX ``TrainState`` carries over as ``load_flax_variables(state.model,
@@ -52,12 +56,14 @@ def flax_state_dict(model: torch.nn.Module, variables) -> dict[str, np.ndarray]:
         for path, leaf in _walk(tree, ()):
             *mods, name = path
             prefix = ".".join(mods) + ("." if mods else "")
-            if collection == "buffers":
-                if name != _TABLES or len(leaf) != 2:
-                    raise KeyError(f"unexpected buffer {'/'.join(path)}")
-                out[prefix + "perms"], out[prefix + "signs"] = leaf
-                continue
             owner = model.get_submodule(".".join(mods)) if mods else model
+            if collection == "buffers" and name == _TABLES:
+                if len(leaf) != 2:
+                    raise KeyError(f"unexpected buffer {'/'.join(path)}")
+                table = "tile_perms" if getattr(owner, "impl", None) == "structured" \
+                    else "perms"
+                out[prefix + table], out[prefix + "signs"] = leaf
+                continue
             if isinstance(owner, torch.nn.LayerNorm) and name == "scale":
                 name = "weight"
             out[prefix + name] = leaf

@@ -5,10 +5,16 @@ and training.
   (``ops/linear.py::spectre_linear_apply``). W keeps the JAX [in, out]
   layout (not ``nn.Linear``'s [out, in]); on CUDA tensors the product, LN
   and GELU run in the hand-written kernel.
-- ``MHPermutMix`` (``impl="folded"``) with ``FoldedMixLinear``: the multi-head
-  sign + permutation mix, run as a block-row permutation kernel on the
+- ``Dense``: x @ kernel + bias with the flax [in, out] kernel.
+- ``MHPermutMix``: the multi-head sign + permutation mix. ``impl="folded"``
+  (with ``FoldedMixLinear``) runs a block-row permutation kernel on the
   token-major [d, B] stream followed by a per-token product whose weights
-  carry the signs.
+  carry the signs; ``"gather"`` and ``"gather_unfused"`` gather batch-major
+  and project through ``SpectreLinear``; ``"structured"`` runs the
+  tile-structured mix kernel and the same projection.
+- The experimental layers of the JAX package: ``SignPermuteMix``,
+  ``BinaryLinear``, ``FFTApproximator``, ``LearnedSigmoid``, ``NormalMask``,
+  ``FFTLayer``, ``LearnableHadamard``.
 
 - ``Dropout``: inverted dropout whose masks come from an explicit
   ``torch.Generator`` (the train state's), the identity in eval mode.
@@ -25,7 +31,9 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
-from spectre_tpu_torch.models.init import uniform_fan_in_
+import numpy as np
+
+from spectre_tpu_torch.models.init import normal_, uniform_fan_in_
 from spectre_tpu_torch.ops import (
     MixTables,
     adaptive_pool_matrix,
@@ -35,11 +43,21 @@ from spectre_tpu_torch.ops import (
     folded_proj,
     gelu_exact,
     layer_norm,
+    learnable_hadamard,
     make_block_mix_tables,
     make_mix_tables,
+    make_structured_tables,
+    next_pow2,
     perm_rows_t,
+    permut_mix,
+    permut_mix_fused,
+    pick_tile,
+    rfft_real,
     spectre_linear_apply,
 )
+from spectre_tpu_torch.ops.kernels import invert_tile_perms, structured_mix_grad
+
+MIX_IMPLS = ("folded", "gather", "gather_unfused", "structured")
 
 
 class Dropout(nn.Module):
@@ -70,6 +88,27 @@ class LayerNorm(nn.LayerNorm):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layer_norm(x, self.weight.to(x.dtype), self.bias.to(x.dtype), self.eps)
+
+
+class Dense(nn.Module):
+    """x @ kernel + bias in the compute dtype; ``kernel`` [in, out] and
+    ``bias`` [out] are flax ``nn.Dense``'s, not ``nn.Linear``'s [out, in]."""
+
+    def __init__(self, in_features: int, features: int, *, dtype=torch.float32,
+                 param_dtype=torch.float32, device=None):
+        super().__init__()
+        self.in_features, self.features, self.dtype = in_features, features, dtype
+        kw = dict(dtype=param_dtype, device=device)
+        self.kernel = nn.Parameter(torch.empty(in_features, features, **kw))
+        self.bias = nn.Parameter(torch.empty(features, **kw))
+
+    def init_parameters(self, gen: torch.Generator) -> None:
+        uniform_fan_in_(self.kernel, self.in_features, gen)
+        uniform_fan_in_(self.bias, self.in_features, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        return torch.matmul(x.to(dt), self.kernel.to(dt)) + self.bias.to(dt)
 
 
 class _ProjectionLN(nn.Module):
@@ -185,11 +224,34 @@ class FoldedMixLinear(_ProjectionLN):
         return h.transpose(0, 1)  # [B, N, O]
 
 
+class StructuredMix(NamedTuple):
+    """What a structured mix forward derives from its ``tile_perms`` and
+    ``signs`` buffers."""
+    key: tuple
+    inv: torch.Tensor    # int32 [H, T], inv[h, tile_perms[h, j]] = j
+    signs: torch.Tensor  # [H, d] in the compute dtype
+
+
 class MHPermutMix(nn.Module):
-    """Multi-head sign-flip + permutation mixing (JAX ``MHPermutMix``,
-    ``impl="folded"``): flatten [B, N, E] to d = N*E, apply H fixed
-    permutations and sign patterns, read the H copies as [B, N, E*H] and
-    project back to ``out_channels``.
+    """Multi-head sign-flip + permutation mixing (JAX ``MHPermutMix``):
+    flatten [B, N, E] to d = N*E, apply H fixed permutations and sign
+    patterns, read the H copies as [B, N, E*H] and project back to
+    ``out_channels``.
+
+    ``impl`` (the config's ``mix_impl``; the gather variants share one
+    parameter and buffer tree and the same numerics, so checkpoints
+    interchange):
+
+    - ``"folded"``: the token-major block-row kernel and ``FoldedMixLinear``.
+    - ``"gather"``: the batch-major gather with the inverse-gather backward
+      (``ops.permut_mix_fused``), then ``SpectreLinear``.
+    - ``"gather_unfused"``: the same gather left to autograd
+      (``ops.permut_mix``).
+    - ``"structured"``: random tile permutation, intra-tile Hadamard and
+      signs (ops/kernels/structured_mix.py: on a CUDA tensor the hand-written
+      kernels, forward and backward), then ``SpectreLinear``. Its buffers are
+      ``tile_perms`` (int32 [H, T]) and ``signs``.
+    - ``"gather_tm"`` (the token-major gather) is not ported and raises.
 
     Buffers ``perms`` (int32 [H, d]) and ``signs`` (f32 [1, H, d]) are the
     flax ``mix_tables``. The block tables (``bsrc = perms[:, ::blk] // blk``
@@ -202,31 +264,42 @@ class MHPermutMix(nn.Module):
     here (``table_derivations`` counts them). Any permutation is
     block-structured with blk >= 1, so every table goes through the
     block-row kernel forward; backward, a uniform table (blk = 1) takes the
-    row kernel."""
+    row kernel. The structured mix derives its inverse tile table and its
+    signs in the compute dtype the same way; the gather impls derive
+    nothing."""
 
     def __init__(self, embed_dim: int, token_dim: int, num_heads: int,
                  out_channels: int, *, impl: str = "folded", mix_block: int = 0,
                  dtype=torch.float32, param_dtype=torch.float32, device=None):
         super().__init__()
-        if impl != "folded":
+        if impl == "gather_tm":
             raise NotImplementedError(
-                f"mix_impl={impl!r} is not ported yet; the port runs 'folded' "
-                "only (ROADMAP.md, queue A9)")
+                "mix_impl='gather_tm' (the token-major gather) is not ported yet "
+                "(ROADMAP.md, slice 5)")
+        if impl not in MIX_IMPLS:
+            raise ValueError(f"unknown MHPermutMix impl {impl!r}; expected one of {MIX_IMPLS}")
         self.embed_dim, self.token_dim, self.num_heads = embed_dim, token_dim, num_heads
-        self.mix_block, self.dtype = mix_block, dtype
+        self.impl, self.mix_block, self.dtype = impl, mix_block, dtype
         d = embed_dim * token_dim
-        self.register_buffer("perms", torch.zeros(num_heads, d, dtype=torch.int32,
-                                                  device=device))
+        if impl == "structured":
+            self.register_buffer("tile_perms", torch.zeros(
+                num_heads, d // pick_tile(d), dtype=torch.int32, device=device))
+        else:
+            self.register_buffer("perms", torch.zeros(num_heads, d, dtype=torch.int32,
+                                                      device=device))
         self.register_buffer("signs", torch.ones(1, num_heads, d, dtype=torch.float32,
                                                  device=device))
-        self.linear = FoldedMixLinear(embed_dim * num_heads, out_channels, dtype=dtype,
-                                      param_dtype=param_dtype, device=device)
-        self._mix: FoldedMix | None = None
+        linear = FoldedMixLinear if impl == "folded" else SpectreLinear
+        self.linear = linear(embed_dim * num_heads, out_channels, dtype=dtype,
+                             param_dtype=param_dtype, device=device)
+        self._mix: FoldedMix | StructuredMix | None = None
         self.table_derivations = 0
 
     def init_parameters(self, gen: torch.Generator) -> None:
-        d, blk = self.perms.shape[1], self.mix_block
-        if blk and d % blk == 0 and blk & (blk - 1) == 0:
+        d, blk = self.signs.shape[2], self.mix_block
+        if self.impl == "structured":
+            perms, signs = make_structured_tables(gen, self.num_heads, d)
+        elif blk and d % blk == 0 and blk & (blk - 1) == 0:
             perms, signs = make_block_mix_tables(gen, self.num_heads, d, blk)
         else:
             if blk:
@@ -235,32 +308,183 @@ class MHPermutMix(nn.Module):
                     "two); sampling uniform permutation tables instead", stacklevel=2)
             perms, signs = make_mix_tables(gen, self.num_heads, d)
         with torch.no_grad():
-            self.perms.copy_(perms)
+            self._table().copy_(perms)
             self.signs.copy_(signs)
+
+    def _table(self) -> torch.Tensor:
+        return self.tile_perms if self.impl == "structured" else self.perms
 
     def _key(self) -> tuple:
         # see FoldedMixLinear.folded_weights on inference-mode tensors
         return tuple((t.device, t.data_ptr(), None if t.is_inference() else t._version)
-                     for t in (self.perms, self.signs))
+                     for t in (self._table(), self.signs))
 
     @torch.no_grad()
-    def refresh(self, force: bool = False) -> FoldedMix:
-        """Derive the block tables and sign weights from the live buffers
-        (validating the permutation), unless they are current."""
+    def refresh(self, force: bool = False) -> FoldedMix | StructuredMix | None:
+        """Derive what the forward needs from the live buffers (validating
+        the table on the host), unless it is current: the block tables and
+        sign weights of the folded mix, the inverse tile table and the signs
+        in the compute dtype of the structured mix, nothing for the gather
+        impls."""
+        if self.impl not in ("folded", "structured"):
+            return None
         key = self._key()
         if not force and self._mix is not None and self._mix.key == key:
             return self._mix
-        tables = derive_mix_tables(self.perms)
-        s4 = self.signs.to(self.dtype).reshape(self.token_dim, -1)
-        pool_w, grp = self.linear.pool_weights(s4)
-        self._mix = FoldedMix(key, tables, s4, pool_w, grp)
+        if self.impl == "structured":
+            p = self.tile_perms.cpu().numpy()
+            if not (np.sort(p, axis=1) == np.arange(p.shape[1])).all():
+                raise ValueError("tile_perms must hold one permutation of range(T) per head")
+            self._mix = StructuredMix(
+                key, invert_tile_perms(self.tile_perms),
+                self.signs.to(self.dtype).reshape(self.num_heads, -1).contiguous())
+        else:
+            tables = derive_mix_tables(self.perms)
+            s4 = self.signs.to(self.dtype).reshape(self.token_dim, -1)
+            pool_w, grp = self.linear.pool_weights(s4)
+            self._mix = FoldedMix(key, tables, s4, pool_w, grp)
+            self.linear._wp = None
         self.table_derivations += 1
-        self.linear._wp = None
         return self._mix
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mix = self.refresh()
         b = x.shape[0]
-        xt = x.to(self.dtype).reshape(b, -1).t().contiguous()  # token-major [d, B]
-        g = perm_rows_t(xt, mix.tables)  # [H*d, B] == [N*in, B]
-        return self.linear(g.view(self.token_dim, -1, b), mix)
+        x = x.to(self.dtype)
+        if self.impl == "folded":
+            xt = x.reshape(b, -1).t().contiguous()  # token-major [d, B]
+            g = perm_rows_t(xt, mix.tables)  # [H*d, B] == [N*in, B]
+            return self.linear(g.view(self.token_dim, -1, b), mix)
+        if self.impl == "structured":
+            mixed = structured_mix_grad(x.reshape(b, -1).contiguous(), self.tile_perms,
+                                        mix.signs, self.token_dim, mix.inv)
+        elif self.impl == "gather":
+            mixed = permut_mix_fused(x.reshape(b, -1), self.perms,
+                                     self.signs[0].to(self.dtype))
+        else:
+            mixed = permut_mix(x, self.perms, self.signs.to(self.dtype), self.token_dim)
+        return self.linear(mixed.reshape(b, self.token_dim, -1))
+
+
+class SignPermuteMix(nn.Module):
+    """One fixed random permutation and sign pattern over the flattened
+    sequence, no multi-head expansion, identity-shaped. Buffers ``perms``
+    (int32 [1, d]) and ``signs`` ([1, 1, d]) are the flax ``mix_tables``."""
+
+    def __init__(self, embed_dim: int, token_dim: int, *, dtype=torch.float32, device=None):
+        super().__init__()
+        d = embed_dim * token_dim
+        self.dtype = dtype
+        self.register_buffer("perms", torch.zeros(1, d, dtype=torch.int32, device=device))
+        self.register_buffer("signs", torch.ones(1, 1, d, dtype=torch.float32, device=device))
+
+    def init_parameters(self, gen: torch.Generator) -> None:
+        perms, signs = make_mix_tables(gen, 1, self.perms.shape[1])
+        with torch.no_grad():
+            self.perms.copy_(perms)
+            self.signs.copy_(signs)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        flat = x.to(self.dtype).reshape(x.shape[0], -1)
+        mixed = flat.index_select(1, self.perms[0].long()) * self.signs[0, 0].to(self.dtype)
+        return mixed.reshape(x.shape)
+
+
+class BinaryLinear(nn.Module):
+    """Sign-binarised linear with a learnable scale: ``scale * (x @
+    sign(weight).T)``, ``weight`` [out, in]; a buffer of ones when not
+    trainable."""
+
+    def __init__(self, in_features: int, features: int, *, trainable: bool = True,
+                 dtype=torch.float32, param_dtype=torch.float32, device=None):
+        super().__init__()
+        self.dtype, self.trainable = dtype, trainable
+        kw = dict(dtype=param_dtype, device=device)
+        if trainable:
+            self.weight = nn.Parameter(torch.empty(features, in_features, **kw))
+        else:
+            self.register_buffer("weight", torch.ones(features, in_features, **kw))
+        self.scale = nn.Parameter(torch.ones(1, **kw))
+
+    def init_parameters(self, gen: torch.Generator) -> None:
+        if self.trainable:
+            normal_(self.weight, gen)
+        with torch.no_grad():
+            self.scale.fill_(1.0)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        w_bin = torch.sign(self.weight.to(dt))
+        return self.scale.to(dt) * torch.matmul(x.to(dt), w_bin.t())
+
+
+class FFTApproximator(nn.Module):
+    """Learned dense approximation of rfft: one unconstrained
+    [dim // 2 + 1, dim] projection."""
+
+    def __init__(self, dim: int, *, dtype=torch.float32, param_dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.empty(dim // 2 + 1, dim, dtype=param_dtype,
+                                               device=device))
+
+    def init_parameters(self, gen: torch.Generator) -> None:
+        normal_(self.weight, gen)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.matmul(x.to(self.dtype), self.weight.to(self.dtype).t())
+
+
+class LearnedSigmoid(nn.Module):
+    """Sharp learned threshold gate: 1 / (1 + exp((x + t) / sqrt(t^2 /
+    sharpness)))."""
+
+    def __init__(self, threshold: float, sharpness: float = 5000.0, device=None):
+        super().__init__()
+        self.sharpness = sharpness
+        self.threshold = nn.Parameter(torch.tensor(float(threshold), device=device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        t = self.threshold
+        return 1.0 / (1.0 + torch.exp((x + t) / torch.sqrt(t ** 2 / self.sharpness)))
+
+
+class NormalMask(nn.Module):
+    """Learnable-Gaussian frequency mask over the last axis of ``n_bins``."""
+
+    def __init__(self, n_bins: int, device=None):
+        super().__init__()
+        self.n_bins = n_bins
+        self.mean = nn.Parameter(torch.tensor(n_bins / 2.0, device=device))
+        self.std = nn.Parameter(torch.tensor(n_bins / 8.0, device=device))
+        self.register_buffer("freqs", torch.linspace(0.0, n_bins - 1, n_bins, device=device),
+                             persistent=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gauss = torch.exp(-0.5 * ((self.freqs - self.mean) / (self.std + 1e-8)) ** 2)
+        return x * gauss
+
+
+class FFTLayer(nn.Module):
+    """Re(rfft(x)) over the last axis; the output has n // 2 + 1 values."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return rfft_real(x, axis=-1)
+
+
+class LearnableHadamard(nn.Module):
+    """Residual Hadamard block with one learnable per-lane scale per pass
+    (``scale_<i>`` [next_pow2(dim)])."""
+
+    def __init__(self, dim: int, num_blocks: int = 2, *, param_dtype=torch.float32,
+                 device=None):
+        super().__init__()
+        self.num_blocks = num_blocks
+        for i in range(num_blocks):
+            self.register_parameter(f"scale_{i}", nn.Parameter(
+                torch.ones(next_pow2(dim), dtype=param_dtype, device=device)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return learnable_hadamard(x, [getattr(self, f"scale_{i}")
+                                      for i in range(self.num_blocks)])

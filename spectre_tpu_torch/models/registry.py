@@ -9,6 +9,7 @@ import torch
 from spectre_tpu_torch.models.init import init_weights
 from spectre_tpu_torch.models.layers import MHPermutMix
 from spectre_tpu_torch.models.spectre import SpectreViT
+from spectre_tpu_torch.models.vit import ViT
 
 _DTYPES = {
     "float32": torch.float32,
@@ -27,9 +28,10 @@ def resolve_dtype(name: str) -> torch.dtype:
 
 
 def refresh_mixes(model: torch.nn.Module) -> None:
-    """Derive every mix layer's block tables and sign weights from its
-    current buffers now (validating the tables, and sparing the first
-    forward the work)."""
+    """Derive what every mix layer's forward needs from its current buffers
+    now (the folded mix's block tables and sign weights, the structured
+    mix's inverse tile table), validating the tables and sparing the first
+    forward the work."""
     for m in model.modules():
         if isinstance(m, MHPermutMix):
             m.refresh(force=True)
@@ -41,22 +43,26 @@ def build_model(config: SimpleNamespace, device: torch.device | str,
     init drawn from ``torch.Generator`` seeded with ``config.random_seed``.
     Eval mode unless ``train``: the serving callers never see dropout."""
     name = getattr(config, "model", "spectre_vit")
-    if name != "spectre_vit":
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet; the port builds 'spectre_vit' only "
-            "(ROADMAP.md, queue A9)")
-    model = SpectreViT(
+    common = dict(
         img_size=config.img_size, patch_size=config.patch_size,
         in_channels=config.in_channels, num_classes=config.num_classes,
         embed_dim=config.embed_dim, num_encoders=config.num_encoders,
         num_heads=config.num_heads, hidden_dim=config.hidden_dim,
         dropout=float(getattr(config, "dropout", 0.0)),
-        method=getattr(config, "method", "permut_mix"),
-        mix_impl=getattr(config, "mix_impl", "gather"),
-        mix_block=int(getattr(config, "mix_block", 0)),
         dtype=resolve_dtype(getattr(config, "compute_dtype", "float32")),
         param_dtype=resolve_dtype(getattr(config, "param_dtype", "float32")),
         device=device)
+    if name == "vit":
+        model = ViT(**common)
+    elif name == "spectre_vit":
+        model = SpectreViT(method=getattr(config, "method", "permut_mix"),
+                           mix_impl=getattr(config, "mix_impl", "gather"),
+                           mix_block=int(getattr(config, "mix_block", 0)), **common)
+    elif name == "spectre_branch":
+        raise NotImplementedError(
+            "model 'spectre_branch' is not ported yet (ROADMAP.md, slice 5)")
+    else:
+        raise ValueError(f"unknown model {name!r}; expected vit|spectre_vit|spectre_branch")
     gen = torch.Generator().manual_seed(int(getattr(config, "random_seed", 42)))
     init_weights(model, gen)
     model.train(train)

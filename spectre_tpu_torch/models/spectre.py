@@ -7,6 +7,9 @@ Topology (kept from the reference, residuals included):
 - SpectreEncoder:       layer_0 .. layer_{n-1}, then the global residual + src
 - SpectreViT:           SpectralPatchEmbed -> encoder -> CLS -> SpectreLinear head
 
+``mix`` is the configured mixer (``models/mixers.py::make_mixer``: the
+permutation mix in any of its impls, the FFT and DWT mixers, attention).
+
 Dropout sits where the flax model has it: after the embedding, after
 ``linear1`` and after ``linear3``. It is the identity in eval mode, which
 is the mode ``build_model`` returns unless asked to train.
@@ -17,7 +20,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from spectre_tpu_torch.models.layers import Dropout, LayerNorm, MHPermutMix, SpectreLinear
+from spectre_tpu_torch.models.layers import Dropout, LayerNorm, SpectreLinear
+from spectre_tpu_torch.models.mixers import make_mixer
 from spectre_tpu_torch.models.patch_embed import SpectralPatchEmbed
 
 
@@ -27,13 +31,10 @@ class SpectreEncoderLayer(nn.Module):
                  mix_impl: str = "folded", mix_block: int = 0, dtype=torch.float32,
                  param_dtype=torch.float32, device=None):
         super().__init__()
-        if method != "permut_mix":
-            raise NotImplementedError(
-                f"method={method!r} is not ported yet; the port runs 'permut_mix' "
-                "only (ROADMAP.md, queue A9)")
         kw = dict(dtype=dtype, param_dtype=param_dtype, device=device)
-        self.mix_layer = MHPermutMix(d_model, seq_length, nhead, d_model,
-                                     impl=mix_impl, mix_block=mix_block, **kw)
+        self.mix_layer = make_mixer(method, embed_dim=d_model, seq_length=seq_length,
+                                    num_heads=nhead, dropout=dropout, mix_impl=mix_impl,
+                                    mix_block=mix_block, **kw)
         ln = dict(eps=1e-5, dtype=param_dtype, device=device)
         self.norm1 = LayerNorm(d_model, **ln)
         self.norm2 = LayerNorm(d_model, **ln)

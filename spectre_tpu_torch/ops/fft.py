@@ -1,8 +1,11 @@
-"""Per-patch spectral embedding math (port of spectre_tpu/ops/fft.py:72-154).
+"""FFT-domain ops (port of spectre_tpu/ops/fft.py): the FNet-style mixers and
+the per-patch spectral embedding math.
 
 At patch size P <= 8 the per-patch 2D rFFT is a small fixed linear map: its
 real-part DFT matrix is folded into the patch projection, so the whole
-SpectralPatchEmbed is one product over raw pixel patches.
+SpectralPatchEmbed is one product over raw pixel patches. The FNet mixer
+``fft2_real_matmul`` is likewise two dense DFT products per axis, the form
+the JAX package runs; ``fft2_real`` is the same function through torch.fft.
 """
 
 from __future__ import annotations
@@ -11,6 +14,55 @@ from functools import lru_cache
 
 import numpy as np
 import torch
+
+
+def rfft_real(x: torch.Tensor, axis: int = -1) -> torch.Tensor:
+    """Real part of the 1-D rFFT; the output has n // 2 + 1 values along
+    ``axis``."""
+    return torch.fft.rfft(x, dim=axis).real
+
+
+def fft2_real(x: torch.Tensor) -> torch.Tensor:
+    """FNet token mixer: Re(FFT over the embed axis, then the token axis),
+    shape-preserving."""
+    return torch.fft.fft2(x, dim=(-2, -1)).real
+
+
+@lru_cache(maxsize=None)
+def _dft_cos_sin_np(n: int) -> tuple[np.ndarray, np.ndarray]:
+    """Cosine and sine DFT matrices: C[u, j] = cos(2 pi u j / n), S likewise."""
+    u = np.arange(n)
+    ang = 2 * np.pi * np.outer(u, u) / n
+    return np.cos(ang).astype(np.float32), np.sin(ang).astype(np.float32)
+
+
+@lru_cache(maxsize=None)
+def _dft_matrices(n: int, dtype: torch.dtype, device: torch.device):
+    c, s = _dft_cos_sin_np(n)
+    return (torch.tensor(c, dtype=dtype, device=device),
+            torch.tensor(s, dtype=dtype, device=device))
+
+
+def dft_matrices(n: int, dtype=torch.float32, device=None) -> tuple[torch.Tensor, torch.Tensor]:
+    """(C, S) of size [n, n], made once per size, dtype and device (a copy
+    from the host on every call would stall the stream)."""
+    return _dft_matrices(n, dtype, torch.device("cpu" if device is None else device))
+
+
+def fft2_real_matmul(x: torch.Tensor) -> torch.Tensor:
+    """Re(fft2(x)) over the last two axes by dense DFT products. For real x:
+    Re(F_a x F_b^T) = C_a x C_b^T - S_a x S_b^T."""
+    n_tok, n_emb = x.shape[-2], x.shape[-1]
+    c_t, s_t = dft_matrices(n_tok, x.dtype, x.device)
+    c_e, s_e = dft_matrices(n_emb, x.dtype, x.device)
+    cx = torch.matmul(torch.matmul(c_t, x), c_e.t())
+    sx = torch.matmul(torch.matmul(s_t, x), s_e.t())
+    return cx - sx
+
+
+def log_magnitude_rfft2(x: torch.Tensor) -> torch.Tensor:
+    """log1p(|rfft2(x)|) over the last two axes."""
+    return torch.log1p(torch.abs(torch.fft.rfft2(x, dim=(-2, -1))))
 
 
 def extract_patches(x: torch.Tensor, patch_size: int) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""The folded permutation mix (port of spectre_tpu/ops/fused_mix.py, the
-folded route only), with its gradients.
+"""The permutation mix as autograd Functions (port of
+spectre_tpu/ops/fused_mix.py): the folded route, and ``permut_mix_fused``,
+the batch-major gather with an inverse-gather backward.
 
 The mix is ``m[b, h, i] = x[b, perms[h, i]] * signs[h, i]`` followed by a
 projection. In the folded form the gather runs sign-free on the token-major
@@ -17,6 +18,12 @@ Both are ``torch.autograd.Function``s:
   ``dg4 = s4 * (w @ dy^T)`` with w shared over tokens, and
   ``dW = sum_{n,b} (s4 * g4)[n, :, b] dy[n, b, :]`` as one product with
   K = N*B. ``s4`` holds fixed signs and gets no gradient.
+
+- ``permut_mix_fused(x2d, perms, signs2)``: [B, d] -> [B, H, d], the exact
+  gather mix. Nothing activation-sized is saved; the backward applies the
+  signs first, then one flat gather by the inverse permutations and the sum
+  over heads (a gather instead of autograd's scatter-add). Plain torch ops
+  in both directions, as the JAX function is jnp.
 
 The JAX route registry and its stale-route guards do not come over: the
 model derives its tables from its own buffers (models/layers.py).
@@ -106,3 +113,31 @@ def folded_proj(g4: torch.Tensor, w: torch.Tensor, s4: torch.Tensor) -> torch.Te
     the permuted stream g4 [N, in, B] with the signs s4 [N, in] folded into
     the weights w [in, O] -> [N, B, O]. Gradients for g4 and w."""
     return _FoldedProj.apply(g4, w, s4)
+
+
+class _PermutMixFused(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x2d, perms, signs2):
+        ctx.save_for_backward(perms, signs2)
+        h, d = perms.shape
+        return x2d.index_select(1, perms.reshape(-1).long()).view(-1, h, d) * signs2
+
+    @staticmethod
+    def backward(ctx, g):
+        perms, signs2 = ctx.saved_tensors
+        h, d = perms.shape
+        gs = (g * signs2).reshape(g.shape[0], h * d)
+        # dx[b, j] = sum_h gs[b, h*d + inv[h, j]]: entry j*H + h of the flat
+        # table is h*d + inv[h, j]
+        inv = torch.argsort(perms.long(), dim=-1)
+        offs = torch.arange(h, device=inv.device)[:, None] * d
+        idx = (inv + offs).t().reshape(-1)
+        return gs.index_select(1, idx).view(-1, d, h).sum(dim=2), None, None
+
+
+def permut_mix_fused(x2d: torch.Tensor, perms: torch.Tensor,
+                     signs2: torch.Tensor) -> torch.Tensor:
+    """``m[b, h, i] = x2d[b, perms[h, i]] * signs2[h, i]``: x2d [B, d], perms
+    int32 [H, d] (each row a permutation of range(d)), signs2 [H, d] +-1 ->
+    [B, H, d]. Gradient for x2d only."""
+    return _PermutMixFused.apply(x2d, perms, signs2)

@@ -40,6 +40,14 @@ _SIGNATURES = {
     "fused_spectre_linear_fwd": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
                                  _LL, _LL, _LL, ctypes.c_float, _P),
     "fused_block_bwd": (ctypes.c_int, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P),
+    "fwht": (_P, _P, _LL, _LL, ctypes.c_float, ctypes.c_int, _P),
+    "structured_mix_fwd": (ctypes.c_int, _P, _P, _P, _P, _LL, _LL, _LL, _LL, ctypes.c_float, _P),
+    "structured_mix_bwd": (ctypes.c_int, _P, _P, _P, _P, _LL, _LL, _LL, _LL, ctypes.c_float, _P),
+    # the strides argument is a host array of long long
+    "flash_attention_fwd": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _P,
+                            ctypes.c_float, _P),
+    "flash_attention_bwd": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL,
+                            _LL, _P, ctypes.c_float, _P),
 }
 
 

@@ -1,5 +1,5 @@
-"""The headline number of the port: images per second of the flagship train
-step on one NVIDIA GPU.
+"""The headline number of the port: images per second of a train step (the
+flagship's by default) on one NVIDIA GPU.
 
     python -m spectre_tpu_torch.repl.bench [--batch 1024] [--config <config.py>]
 
@@ -22,8 +22,13 @@ pool residual (N*E*H additions as a grouped mean, a product when E does not
 divide E*H), ``linear1`` (N x E x hidden) and ``linear3`` (N x hidden x E), each with
 its pool-residual product when the widths neither match nor divide, and the
 head (E x classes, likewise); with N = Np + 1 tokens. The backward counts
-twice the forward, so a step is 3 * forward * batch. Elementwise work,
-LayerNorm and the optimizer are not counted. The utilisation is against the
+twice the forward, so a step is 3 * forward * batch. For ``model = "vit"`` a
+layer is instead the four attention projections (N x E x E each), the
+attention itself (per head N x N x D for q k^T and again for P v: 4*N*N*E in
+all) and the two Dense layers (N x E x hidden, N x hidden x E), and the head a
+plain product. Any other model or mixer is refused by name: no utilisation is
+printed from a count that does not describe the model. Elementwise work,
+LayerNorm, the Hadamard butterflies and the optimizer are not counted. The utilisation is against the
 published dense bf16 tensor-core peak of the card, looked up by its name; an
 unknown card raises, and a utilisation above 100% fails hard.
 """
@@ -61,8 +66,19 @@ def forward_flops_per_image(config: SimpleNamespace) -> int:
     n_patches = (int(config.img_size) // p) ** 2
     n = n_patches + 1
     embed = 2 * n_patches * (c * p * p) * e
-    layer = _linear_flops(n, e * heads, e) + _linear_flops(n, e, hd) + _linear_flops(n, hd, e)
-    head = _linear_flops(1, e, int(config.num_classes))
+    model = getattr(config, "model", "spectre_vit")
+    method = getattr(config, "method", "permut_mix")
+    if model == "vit":
+        layer = 4 * (2 * n * e * e) + 4 * n * n * e + 2 * n * e * hd + 2 * n * hd * e
+        head = 2 * e * int(config.num_classes)
+    elif model == "spectre_vit" and method == "permut_mix":
+        layer = _linear_flops(n, e * heads, e) + _linear_flops(n, e, hd) \
+            + _linear_flops(n, hd, e)
+        head = _linear_flops(1, e, int(config.num_classes))
+    else:
+        raise NotImplementedError(
+            f"no FLOP count for model={model!r} with method={method!r}: the bench counts "
+            "'vit' and 'spectre_vit' with method 'permut_mix' only")
     return embed + int(config.num_encoders) * layer + head
 
 
@@ -109,6 +125,7 @@ def main(argv=None) -> dict:
     from spectre_tpu_torch.utils import card_and_power_limit
 
     cfg = apply_overrides(parse_config(args.config), args.set)
+    train_flops_per_step(cfg, 1)  # refuse a model the count does not describe, up front
     batch = args.batch
     kind = torch.cuda.get_device_name(0)
     peak = peak_flops(kind)

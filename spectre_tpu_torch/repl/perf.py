@@ -1,19 +1,28 @@
-"""Where a flagship train step spends its time on the card, and the fused
-mix backward beside the chain it fuses.
+"""Where a train step spends its time on the card (the flagship's by default,
+any config with ``--config``), and single kernels beside what they replace.
 
-    python -m spectre_tpu_torch.repl.perf [--batch 256 1024] [--mix-block 64]
-        [--out build/perf.json]
+    python -m spectre_tpu_torch.repl.perf [--config <config.py>] [--batch 256 1024]
+        [--mix-block 64] [--out build/perf.json]
     python -m spectre_tpu_torch.repl.perf fused-bwd [--batch 256 1024] [--heads 16]
         [--tokens 65] [--embed 512] [--out-dim 512] [--blk 64] [--iters 30]
+    python -m spectre_tpu_torch.repl.perf attention [--batch 256 1024] [--heads 16]
+        [--tokens 65] [--head-dim 32] [--iters 30]
+    python -m spectre_tpu_torch.repl.perf structured [--batch 256 1024] [--heads 16]
+        [--tokens 65] [--embed 512] [--iters 30]
 
-Needs a CUDA card. ``fused-bwd`` (the counterpart of the JAX package's
+Needs a CUDA card. ``attention`` and ``structured`` (the counterparts of the
+JAX package's ``repl/perf.py attention`` and ``mixer``) time the attention
+kernels and the structured-mix kernels in bf16 against their plain versions,
+forward and forward + backward, and print their largest difference; beside
+the attention stands ``scaled_dot_product_attention`` and beside the
+structured mix its matrix form, as yardsticks that the port does not call. ``fused-bwd`` (the counterpart of the JAX package's
 ``benchmarks/fused_bwd_bench.py``) runs the mix backward at one layer's
 shapes in bf16 both ways, the chain of the train step (``_FoldedProj``'s
 ``dg4`` product and signs, then ``block_gather_sum``) and the one-launch
 kernel ``fused_block_bwd``, and prints their largest difference, both times,
 GFLOP/s and the ratio.
 
-The default mode builds, for each batch size, the flagship trainer (synthetic
+The default mode builds, for each batch size, the config's trainer (synthetic
 data, the trainer's augmentation for the config's dataset inside the step,
 the port's seeded init) and prints:
 
@@ -25,7 +34,8 @@ the port's seeded init) and prints:
    against the unprofiled one of item 1;
 3. which cotangents reach the two mix Functions' backwards non-contiguous
    (those are copied once, by ``.contiguous()``), and how many bytes;
-4. the folded projection's forward + backward by itself at the layer's
+4. for the folded permutation mix only: the folded projection's forward +
+   backward by itself at the layer's
    shapes, in two forms: the port's (fold ``s4 * w`` into [N, in, O] weights
    every step, reassociated backward) and signs applied to the activations
    with ``w`` shared over tokens (plain autograd).
@@ -48,7 +58,16 @@ import torch
 from spectre_tpu_torch.configs import FLAGSHIP, parse_config
 from spectre_tpu_torch.data import synthetic_batch
 from spectre_tpu_torch.ops import fused_mix
-from spectre_tpu_torch.ops.kernels import block_gather_sum, fused_block_bwd
+from spectre_tpu_torch.ops import structured_mix as structured_mix_matrix
+from spectre_tpu_torch.ops.kernels import (
+    block_gather_sum,
+    flash_attention,
+    flash_attention_plain,
+    fused_block_bwd,
+    invert_tile_perms,
+    structured_mix_grad,
+    structured_mix_plain,
+)
 from spectre_tpu_torch.train import make_train_step
 from spectre_tpu_torch.train.loop import create_trainer, default_augment
 from spectre_tpu_torch.utils import card_and_power_limit
@@ -81,6 +100,10 @@ _GROUPS = (
     ("block_scatter_rows_kernel", "kernel 1 block_scatter_rows"),
     ("gather_sum_kernel", "kernels 3/4 gather_sum"),
     ("fused_spectre_linear_kernel", "kernel 2 fused_spectre_linear_fwd"),
+    ("flash_attention_fwd_kernel", "kernel 8 flash_attention_fwd"),
+    ("flash_attention_bwd_kernel", "kernel 9 flash_attention_bwd"),
+    ("structured_mix_kernel", "kernel 7 structured_mix (forward and backward)"),
+    ("fwht_kernel", "kernel 6 fwht"),
     ("f32f32", "matrix products, f32"), ("simt_sgemm", "matrix products, f32"),
     ("gemm", "matrix products, bf16"), ("nvjet", "matrix products, bf16"),
     ("cutlass", "matrix products, bf16"), ("gemv", "matrix products, bf16"),
@@ -101,7 +124,7 @@ def _group(kernel_name: str) -> str:
 def profile_steps(cfg, batch: int) -> dict:
     state = create_trainer(cfg, "cuda", steps_per_epoch=16)
     step = make_train_step(default_augment(cfg.dataset, cfg.in_channels),
-                           grad_clip_norm=cfg.grad_clip_norm)
+                           grad_clip_norm=getattr(cfg, "grad_clip_norm", None))
     x, y = (torch.from_numpy(a).cuda() for a in synthetic_batch(cfg.dataset, batch))
     for _ in range(3):
         step(state, x, y)
@@ -131,9 +154,12 @@ def profile_steps(cfg, batch: int) -> dict:
     n = 3
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         span = _events_ms(lambda: [step(state, x, y) for _ in range(n)], 1)[0]
-    # kernel events only: an operator's row repeats the time of its kernels
+    # kernel events only: an operator's row repeats the time of its kernels,
+    # and so does the range torch.optim records around a step on the device's
+    # timeline ("Optimizer.step#AdamW.step"), which is no kernel
     rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.key.startswith("Optimizer.")]
     rows.sort(key=lambda r: -r[2])
     device_ms = sum(r[2] for r in rows)
     groups: dict[str, list] = {}
@@ -226,17 +252,111 @@ def fused_bwd(args) -> dict:
     return out
 
 
+def _fwd_and_bwd(name: str, fns: dict, make_inputs, cot, iters: int) -> dict:
+    """Median ms of each function's forward and forward + backward, in the
+    order given and again in reverse; ``make_inputs()`` gives fresh leaves."""
+    t = {}
+    order = list(fns) + [k + "_again" for k in reversed(list(fns))]
+    for key in order:
+        fn = fns[key.removesuffix("_again")]
+        leaves = make_inputs()
+
+        def fwd():
+            with torch.no_grad():
+                return fn(*leaves)
+
+        def fwd_bwd():
+            torch.autograd.grad(fn(*leaves), leaves, cot)
+
+        fwd(), fwd_bwd()
+        t[key + "_fwd"] = statistics.median(
+            _events_ms(lambda: [fwd() for _ in range(iters)], 5)) / iters
+        t[key + "_fwd_bwd"] = statistics.median(
+            _events_ms(lambda: [fwd_bwd() for _ in range(iters)], 5)) / iters
+    for key in fns:
+        for what in ("fwd", "fwd_bwd"):
+            t[f"{key}_{what}"] = min(t[f"{key}_{what}"], t.pop(f"{key}_again_{what}"))
+    print(f"  {name}: " + "; ".join(
+        f"{key} fwd {t[key + '_fwd']:.4f} ms, fwd+bwd {t[key + '_fwd_bwd']:.4f} ms"
+        for key in fns), flush=True)
+    return t
+
+
+def attention(args) -> dict:
+    """The attention kernels at one layer's shapes, bf16: kernel against
+    plain version, forward and forward + backward."""
+    h, n, d = args.heads, args.tokens, args.head_dim
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for b in args.batch:
+        # [B, H, N, D] views of [B, N, H, D] memory, as the mixer passes them
+        q, k, v, cot = (torch.randn(b, n, h, d, generator=gen, device="cuda")
+                        .to(torch.bfloat16).permute(0, 2, 1, 3) for _ in range(4))
+
+        def leaves():
+            return [t.detach().clone().requires_grad_() for t in (q, k, v)]
+
+        got, want = flash_attention(q, k, v), flash_attention_plain(q, k, v)
+        diff = (got.float() - want.float()).abs().max().item()
+        print(f"attention B={b} H={h} N={n} D={d} bf16: max|kernel - plain| = {diff:.4g} of a "
+              f"largest entry {want.float().abs().max().item():.3f}", flush=True)
+        t = _fwd_and_bwd("times", {
+            "kernel": flash_attention, "plain": flash_attention_plain,
+            "sdpa": torch.nn.functional.scaled_dot_product_attention}, leaves, cot, args.iters)
+        out[str(b)] = dict(t, max_abs_diff=diff)
+        torch.cuda.empty_cache()
+    return out
+
+
+def structured(args) -> dict:
+    """The structured-mix kernels at one layer's shapes, bf16: kernel against
+    plain version (and the matrix form), forward and forward + backward."""
+    heads, n, e = args.heads, args.tokens, args.embed
+    d = n * e
+    gen = torch.Generator().manual_seed(0)
+    from spectre_tpu_torch.ops import make_structured_tables
+
+    tile_perms, signs = make_structured_tables(gen, heads, d)
+    tile_perms, signs = tile_perms.cuda(), signs.cuda().to(torch.bfloat16)
+    inv = invert_tile_perms(tile_perms)
+    dev_gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for b in args.batch:
+        x = torch.randn(b, n, e, generator=dev_gen, device="cuda").to(torch.bfloat16)
+        cot = torch.randn(b, n, e * heads, generator=dev_gen, device="cuda").to(torch.bfloat16)
+
+        def leaves():
+            return [x.detach().clone().requires_grad_()]
+
+        got = structured_mix_grad(x, tile_perms, signs, n, inv)
+        want = structured_mix_plain(x, tile_perms, signs, n)
+        diff = (got.float() - want.float()).abs().max().item()
+        print(f"structured mix B={b} H={heads} d={d} tile={d // tile_perms.shape[1]} bf16: "
+              f"max|kernel - plain| = {diff:.4g}", flush=True)
+        t = _fwd_and_bwd("times", {
+            "kernel": lambda a: structured_mix_grad(a, tile_perms, signs, n, inv),
+            "plain": lambda a: structured_mix_plain(a, tile_perms, signs, n),
+            "matrix": lambda a: structured_mix_matrix(a, tile_perms, signs, n)},
+            leaves, cot, max(1, args.iters // 10))
+        out[str(b)] = dict(t, max_abs_diff=diff)
+        del x, cot, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    p.add_argument("mode", nargs="?", default="train", choices=("train", "fused-bwd"))
+    p.add_argument("mode", nargs="?", default="train",
+                   choices=("train", "fused-bwd", "attention", "structured"))
     p.add_argument("--config", default=FLAGSHIP)
     p.add_argument("--batch", type=int, nargs="*", default=[256, 1024])
     p.add_argument("--mix-block", type=int, default=None, help="override the config's mix_block")
     p.add_argument("--out", default=os.path.join("build", "perf.json"))
     for flag, default in (("--heads", 16), ("--tokens", 65), ("--embed", 512),
-                          ("--out-dim", 512), ("--blk", 64), ("--iters", 30)):
-        p.add_argument(flag, type=int, default=default, help="fused-bwd only")
+                          ("--out-dim", 512), ("--blk", 64), ("--iters", 30),
+                          ("--head-dim", 32)):
+        p.add_argument(flag, type=int, default=default, help="kernel modes only")
     args = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: this measures on a CUDA card")
@@ -244,11 +364,20 @@ def main(argv=None) -> dict:
     if args.mix_block is not None:
         cfg.mix_block = args.mix_block
     card = card_and_power_limit()
-    print(f"card: {card}; torch {torch.__version__}; mix_block={cfg.mix_block}", flush=True)
+    print(f"card: {card}; torch {torch.__version__}; model={cfg.model} method={cfg.method} "
+          f"mix_block={getattr(cfg, 'mix_block', 0)}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.mode == "fused-bwd":
         return {"card": card, "fused_bwd": fused_bwd(args)}
-    results = {"card": card, "mix_block": cfg.mix_block, "steps": [], "fold": {}}
+    if args.mode == "attention":
+        return {"card": card, "attention": attention(args)}
+    if args.mode == "structured":
+        return {"card": card, "structured": structured(args)}
+    folded = (getattr(cfg, "model", "spectre_vit") == "spectre_vit"
+              and getattr(cfg, "method", "permut_mix") == "permut_mix"
+              and getattr(cfg, "mix_impl", "gather") == "folded")
+    results = {"card": card, "model": cfg.model, "method": cfg.method,
+               "mix_block": getattr(cfg, "mix_block", 0), "steps": [], "fold": {}}
     for batch in args.batch:
         r = profile_steps(cfg, batch)
         results["steps"].append(r)
@@ -268,6 +397,8 @@ def main(argv=None) -> dict:
             print(f"    {row['ms_per_step']:8.3f} ms  x{row['launches_per_step']:6.1f}  "
                   f"{row['name']}", flush=True)
         torch.cuda.empty_cache()
+        if not folded:
+            continue
         f = fold_variants(cfg, batch)
         results["fold"][str(batch)] = f
         print(f"B={batch} folded projection fwd+bwd, one layer: fold weights "

@@ -71,6 +71,7 @@ class TorchServer:
         self.max_batch = int(max_batch)
         self.batch_timeout_s = float(batch_timeout_s)
         self._token = token or ""
+        self.forwards = 0  # buckets the batcher has run through the model
         self._jobs: queue.Queue = queue.Queue()
         self._stop = threading.Event()
         self._listener: socket.socket | None = None
@@ -288,7 +289,9 @@ class TorchServer:
             xt = torch.from_numpy(x).to(self.device)
             if xt.dtype == torch.uint8:
                 xt = xt.to(torch.float32) / 255.0
-            return self._forward(xt).float().cpu().numpy()
+            logits = self._forward(xt).float().cpu().numpy()
+        self.forwards += 1
+        return logits
 
     def _batcher_loop(self):
         c, h, w = self.input_shape

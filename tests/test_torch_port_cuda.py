@@ -20,6 +20,7 @@ import torch
 
 from spectre_tpu_torch.data import BatchIterator, prefetch_to_device, synthetic_dataset
 from spectre_tpu_torch.models import build_model
+from spectre_tpu_torch.ops import fwht as fwht_any_axis
 from spectre_tpu_torch.ops.kernels import (
     block_gather_sum,
     block_gather_sum_plain,
@@ -30,9 +31,22 @@ from spectre_tpu_torch.ops.kernels import (
     fused_spectre_linear,
     fused_spectre_linear_grad,
     fused_spectre_linear_plain,
+    flash_attention,
+    flash_attention_bwd,
+    flash_attention_bwd_plain,
+    flash_attention_fwd,
+    flash_attention_fwd_plain,
+    flash_attention_plain,
+    fwht,
+    fwht_plain,
     inverse_gather_sum,
     inverse_gather_sum_plain,
     launch_counts,
+    structured_mix,
+    structured_mix_bwd,
+    structured_mix_bwd_plain,
+    structured_mix_grad,
+    structured_mix_plain,
 )
 
 pytestmark = pytest.mark.cuda
@@ -224,12 +238,157 @@ def test_small_model_gradients_on_the_card_match_the_cpu(cuda_device, mix_block)
     before = launch_counts()
     torch.nn.functional.cross_entropy(gpu(x.to(cuda_device)), y.to(cuda_device)).backward()
     after = launch_counts()
-    delta = {k: after[k] - before[k] for k in after}
-    assert delta == {"block_scatter_rows": 2, "block_gather_sum": 2 * bool(mix_block),
-                     "inverse_gather_sum": 2 * (not mix_block), "fused_spectre_linear": 5,
-                     "fused_block_bwd": 0}
+    delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert delta == {"block_scatter_rows": 2, "fused_spectre_linear": 5,
+                     "block_gather_sum" if mix_block else "inverse_gather_sum": 2}
     for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
         scale = pc.grad.abs().max().item()
+        assert (pg.grad.cpu() - pc.grad).abs().max().item() <= 1e-4 * scale, name
+
+
+# as a share of the reference's largest entry. f32: the same float32 products
+# summed in another order; bf16: one bf16 ulp of an entry (2^-8 to 2^-7 of it)
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)])
+@pytest.mark.parametrize("use_pm", [False, True])
+@pytest.mark.parametrize("shape", [(3, 4, 65, 32), (5, 2, 50, 16), (1, 1, 7, 8),
+                                   (2, 2, 128, 32), (2, 3, 96, 64), (3, 2, 33, 24)])
+def test_attention_kernels_match_plain(cuda_device, dtype, rel, use_pm, shape):
+    """Forward (O and LSE) and backward against the plain versions, on
+    strided [B, H, N, D] views of [B, N, H, D] memory: ragged rows and key
+    columns, all three kernel instances (N <= 64 and N <= 96 at D <= 32, and
+    the widest for the rest), 8 to 64 features."""
+    b, h, n, d = shape
+    rng = np.random.default_rng(n + d)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((b, n, h, d)).astype(np.float32))
+                  .to(cuda_device, dtype).permute(0, 2, 1, 3) for _ in range(4))
+    pm = None
+    if use_pm:
+        pm = torch.from_numpy(((rng.uniform(size=(n, n)) < 0.8) / 0.8).astype(np.float32)) \
+            .to(cuda_device)
+    n0 = launch_counts()
+    o, lse = flash_attention_fwd(q, k, v, pm)
+    dq, dk, dv = flash_attention_bwd(q, k, v, o, lse, g, pm)
+    torch.cuda.synchronize()
+    n1 = launch_counts()
+    assert n1["flash_attention_fwd"] == n0["flash_attention_fwd"] + 1
+    assert n1["flash_attention_bwd"] == n0["flash_attention_bwd"] + 1
+    o_p, lse_p = flash_attention_fwd_plain(q, k, v, pm)
+    assert o.shape == q.shape and o.dtype == dtype and lse.shape == (b, h, n, 1)
+    assert (lse - lse_p).abs().max().item() <= 1e-5
+    pairs = [(o, o_p)] + list(zip((dq, dk, dv), flash_attention_bwd_plain(q, k, v, o, lse, g, pm)))
+    for name, (got, want) in zip(("o", "dq", "dk", "dv"), pairs):
+        scale = want.float().abs().max().item()
+        assert (got.float() - want.float()).abs().max().item() <= rel * scale, name
+
+
+def test_attention_function_on_the_card_matches_autograd_of_plain(cuda_device):
+    b, h, n, d = 4, 4, 65, 32
+    rng = np.random.default_rng(0)
+    arrays = [rng.standard_normal((b, h, n, d)).astype(np.float32) for _ in range(4)]
+    a = [torch.from_numpy(t).to(cuda_device).requires_grad_() for t in arrays[:3]]
+    p = [torch.from_numpy(t).to(cuda_device).requires_grad_() for t in arrays[:3]]
+    w = torch.from_numpy(arrays[3]).to(cuda_device)
+    (flash_attention(*a) * w).sum().backward()
+    (flash_attention_plain(*p) * w).sum().backward()
+    for ta, tp in zip(a, p):
+        scale = tp.grad.abs().max().item()
+        assert (ta.grad - tp.grad).abs().max().item() <= 1e-5 * scale
+    with pytest.raises(ValueError, match="shared memory"):
+        big = torch.zeros(1, 1, 128, 64, device=cuda_device)
+        flash_attention_fwd(big, big, big)
+    # no fallback for rows the loader's 16-byte vectors cannot take
+    odd = torch.zeros(1, 1, 7, 12, device=cuda_device, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="16-byte"):
+        flash_attention_fwd(odd, odd, odd)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fwht_kernel_is_bitwise_the_plain_butterfly(cuda_device, dtype):
+    """Every power of two from 1 to 32,768, row counts that leave a ragged
+    last chunk, normalised and not, a base that is not 16-byte aligned, and
+    another axis through ops.hadamard.fwht."""
+    rng = np.random.default_rng(0)
+    for n in (1, 2, 4, 8, 16, 64, 128, 512, 1024, 2048, 4096, 32768):
+        for m in (1, 3, 130):
+            x = torch.from_numpy(rng.standard_normal((m, n)).astype(np.float32)) \
+                .to(cuda_device, dtype)
+            for normalize in (True, False):
+                n0 = fwht.launches
+                got = fwht(x, normalize)
+                assert fwht.launches == n0 + 1
+                assert torch.equal(got, fwht_plain(x, normalize)), (n, m, normalize)
+    flat = torch.from_numpy(rng.standard_normal(1 + 5 * 64).astype(np.float32)) \
+        .to(cuda_device, dtype)
+    odd = flat[1:].view(5, 64)
+    assert torch.equal(fwht(odd), fwht_plain(odd))
+    x3 = torch.from_numpy(rng.standard_normal((16, 3, 5)).astype(np.float32)) \
+        .to(cuda_device, dtype).requires_grad_()
+    y = fwht_any_axis(x3, axis=0)
+    assert torch.equal(y.detach(), fwht_plain(x3.detach().movedim(0, -1)).movedim(-1, 0))
+    (y.float() ** 2).sum().backward()
+    assert x3.grad.shape == x3.shape and torch.isfinite(x3.grad).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_structured_mix_kernels_are_bitwise_the_plain_versions(cuda_device, dtype):
+    """Forward and backward at every tile size from 1 to 256, batches that
+    are no multiple of anything, and through the autograd Function."""
+    rng = np.random.default_rng(0)
+    for b, h, n_tiles, t in ((3, 2, 5, 16), (5, 3, 6, 4), (2, 2, 3, 1), (4, 2, 2, 256),
+                             (7, 3, 4, 2), (9, 2, 3, 8), (33, 4, 7, 128), (250, 2, 9, 64)):
+        d = n_tiles * t
+        tp = torch.from_numpy(np.stack([rng.permutation(n_tiles) for _ in range(h)])
+                              .astype(np.int32)).to(cuda_device)
+        sg = torch.from_numpy(rng.choice([-1.0, 1.0], (1, h, d)).astype(np.float32)) \
+            .to(cuda_device)
+        x = torch.from_numpy(rng.standard_normal((b, d)).astype(np.float32)) \
+            .to(cuda_device, dtype)
+        g = torch.from_numpy(rng.standard_normal((b, h * d)).astype(np.float32)) \
+            .to(cuda_device, dtype)
+        n0 = launch_counts()
+        got = structured_mix(x, tp, sg, 1)
+        got_b = structured_mix_bwd(g, tp, sg)
+        n1 = launch_counts()
+        assert n1["structured_mix"] == n0["structured_mix"] + 1
+        assert n1["structured_mix_bwd"] == n0["structured_mix_bwd"] + 1
+        assert torch.equal(got, structured_mix_plain(x, tp, sg, 1)), (b, h, n_tiles, t)
+        assert torch.equal(got_b, structured_mix_bwd_plain(g, tp, sg)), (b, h, n_tiles, t)
+        xr = x.detach().clone().requires_grad_()
+        structured_mix_grad(xr, tp, sg, 1).backward(g.view(b, 1, -1))
+        assert torch.equal(xr.grad, got_b)
+
+
+@pytest.mark.parametrize("over", [dict(model="vit", method="attention", embed_dim=32,
+                                       num_heads=4, hidden_dim=48),
+                                  dict(mix_impl="structured"), dict(mix_impl="gather"),
+                                  dict(method="attention")],
+                         ids=lambda o: "-".join(map(str, o.values())))
+def test_other_families_on_the_card_match_the_cpu(cuda_device, over):
+    """Logits and every gradient in f32 through the kernels against the CPU
+    path (which the CPU tests hold to JAX), same seed: within 1e-4 (of each
+    gradient's largest entry, floored at 1e-3 of the largest of all: the
+    attention's key bias has a zero gradient)."""
+    cfg = SimpleNamespace(**(dict(
+        model="spectre_vit", method="permut_mix", mix_impl="folded", mix_block=8, img_size=8,
+        patch_size=4, in_channels=3, num_classes=10, embed_dim=16, num_encoders=2, num_heads=2,
+        hidden_dim=32, random_seed=0, compute_dtype="float32", param_dtype="float32",
+        dropout=0.0) | over))
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.uniform(0, 1, (8, 3, 8, 8)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, 8))
+    cpu, gpu = build_model(cfg, "cpu", train=True), build_model(cfg, cuda_device, train=True)
+    out_c = cpu(x)
+    torch.nn.functional.cross_entropy(out_c, y).backward()
+    before = launch_counts()
+    out_g = gpu(x.to(cuda_device))
+    torch.nn.functional.cross_entropy(out_g, y.to(cuda_device)).backward()
+    after = launch_counts()
+    assert sum(after.values()) > sum(before.values())
+    np.testing.assert_allclose(out_g.detach().cpu().numpy(), out_c.detach().numpy(), atol=1e-4,
+                               rtol=0)
+    floor = 1e-3 * max(p.grad.abs().max().item() for p in cpu.parameters())
+    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        scale = max(pc.grad.abs().max().item(), floor)
         assert (pg.grad.cpu() - pc.grad).abs().max().item() <= 1e-4 * scale, name
 
 

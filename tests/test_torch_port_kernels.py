@@ -220,9 +220,26 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
     assert torch.equal(inverse_gather_sum(gs, inv), inverse_gather_sum_plain(gs, inv))
     args = [torch.from_numpy(a) for a in _fused_bwd_case(2, 16, 16, 3, 4, 8)]
     assert torch.equal(fused_block_bwd(*args, 16), fused_block_bwd_plain(*args, 16))
+    from spectre_tpu_torch.ops import kernels as K
+    q = torch.randn(2, 2, 5, 4)
+    o, lse = K.flash_attention_fwd(q, q, q)
+    assert torch.equal(o, K.flash_attention_fwd_plain(q, q, q)[0])
+    for got, want in zip(K.flash_attention_bwd(q, q, q, o, lse, q),
+                         K.flash_attention_bwd_plain(q, q, q, o, lse, q)):
+        assert torch.equal(got, want)
+    assert torch.equal(K.fwht(x), K.fwht_plain(x))
+    tile_perms = torch.tensor([[1, 0, 2], [2, 1, 0]], dtype=torch.int32)
+    signs = torch.ones(1, 2, 24)
+    xs, gm = torch.randn(3, 24), torch.randn(3, 48)
+    assert torch.equal(K.structured_mix(xs, tile_perms, signs, 1),
+                       K.structured_mix_plain(xs, tile_perms, signs, 1))
+    assert torch.equal(K.structured_mix_bwd(gm, tile_perms, signs),
+                       K.structured_mix_bwd_plain(gm, tile_perms, signs))
     assert launch_counts() == before
     assert list(before) == ["block_scatter_rows", "block_gather_sum", "inverse_gather_sum",
-                            "fused_spectre_linear", "fused_block_bwd"]
+                            "fused_spectre_linear", "fused_block_bwd", "flash_attention_fwd",
+                            "flash_attention_bwd", "fwht", "structured_mix",
+                            "structured_mix_bwd"]
 
 
 def test_wrappers_raise_instead_of_falling_back():
@@ -258,6 +275,18 @@ def test_wrappers_raise_instead_of_falling_back():
             fn(g[:-1], table, *extra)
         with pytest.raises(ValueError):
             fn(torch.zeros(4, 32).t(), table, *extra)
+    from spectre_tpu_torch.ops import kernels as K
+    qm = torch.zeros(2, 2, 5, 4, device="meta")
+    tables = (torch.zeros(2, 3, dtype=torch.int32, device="meta"),
+              torch.ones(1, 2, 24, device="meta"))
+    for call in (lambda: K.flash_attention_fwd(qm, qm, qm),
+                 lambda: K.flash_attention_bwd(qm, qm, qm, qm,
+                                               torch.zeros(2, 2, 5, 1, device="meta"), qm),
+                 lambda: K.fwht(torch.zeros(4, 8, device="meta")),
+                 lambda: K.structured_mix(torch.zeros(3, 24, device="meta"), *tables, 1),
+                 lambda: K.structured_mix_bwd(torch.zeros(3, 48, device="meta"), *tables)):
+        with pytest.raises(RuntimeError, match="no kernel"):
+            call()
     xs, ws, bs, gs, bes = (torch.zeros(s) for s in ((4, 8), (8, 6), 6, 6, 6))
     with pytest.raises(TypeError):
         fused_spectre_linear(xs, ws.double(), bs, gs, bes)

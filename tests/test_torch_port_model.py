@@ -24,6 +24,7 @@ from spectre_tpu.ops import make_block_mix_tables as jax_block_tables
 from spectre_tpu.ops import spectral_patch_matrix as jax_spm
 from spectre_tpu_torch.configs import CONFIG_DIR, FLAGSHIP, parse_config
 from spectre_tpu_torch.models import (
+    MIXERS,
     MHPermutMix,
     SpectreLinear,
     build_model,
@@ -94,7 +95,9 @@ def test_detect_block_size_matches_jax_and_tables_are_block_permutations():
 def test_port_parses_the_jax_config_files_identically():
     """The port's parser on the JAX package's files, and the port's own
     copies of them (which it reads at run time), give the JAX namespaces."""
-    for name in ("default.py", "spectre_vit_cifar100.py", "spectre_vit_mnist.py"):
+    for name in ("default.py", "spectre_vit_cifar100.py", "spectre_vit_mnist.py",
+                 "vit_cifar100.py", "vit_mnist.py", "fnet_cifar100.py", "fnet_mnist.py",
+                 "dwt_cifar100.py"):
         want = vars(jax_parse_config(os.path.join(JAX_CONFIGS, name)))
         assert vars(parse_config(os.path.join(JAX_CONFIGS, name))) == want
         assert vars(parse_config(os.path.join(CONFIG_DIR, name))) == want
@@ -235,12 +238,24 @@ def test_model_built_and_bridged_under_inference_mode(tiny_flax):
 
 
 def test_unported_variants_raise_with_a_pointer():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MHPermutMix(4, 6, 2, 4, impl="gather")
-    for over in (dict(model="vit"), dict(model="spectre_branch"),
-                 dict(method="fft_bare", mix_impl="folded")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """What is still to port raises by name with a pointer to ROADMAP.md:
+    the token-major gather and SpectreBranch. Everything else builds: both
+    models, every mixer, every other mix impl."""
+    with pytest.raises(NotImplementedError, match="gather_tm.*ROADMAP"):
+        MHPermutMix(4, 6, 2, 4, impl="gather_tm")
+    for over, what in ((dict(model="spectre_branch"), "spectre_branch"),
+                       (dict(mix_impl="gather_tm"), "gather_tm")):
+        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
             build_model(tiny_export_cfg(**over), "cpu")
+    with pytest.raises(ValueError, match="unknown model"):
+        build_model(tiny_export_cfg(model="resnet"), "cpu")
+    x = torch.zeros(2, 3, 8, 8)
+    built = [dict(model="vit", method="attention")]
+    built += [dict(method=m, mix_impl="folded") for m in MIXERS]
+    built += [dict(mix_impl=i) for i in ("folded", "gather", "gather_unfused", "structured")]
+    for over in built:
+        with torch.no_grad():
+            assert build_model(tiny_export_cfg(**over), "cpu")(x).shape == (2, 10), over
 
 
 def test_seeded_init_distributions_and_determinism():
@@ -276,6 +291,8 @@ def test_port_imports_no_jax():
     names = r.stdout.split()
     for sub in ("train.loop", "train.step", "data.pipeline", "repl.train", "data.augment",
                 "data.datasets", "train.checkpoint", "utils.metrics", "repl.eval", "repl.bench",
-                "repl.perf", "ops.kernels.fused_block_bwd"):
+                "repl.perf", "ops.kernels.fused_block_bwd", "ops.kernels.attention",
+                "ops.kernels.fwht", "ops.kernels.structured_mix", "ops.hadamard", "ops.dwt",
+                "models.mixers", "models.vit"):
         assert f"spectre_tpu_torch.{sub}" in names
-    assert len(names) >= 38
+    assert len(names) >= 45
