@@ -128,6 +128,7 @@ import torch
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "spectre_tpu_torch", "configs", "spectre_vit_cifar100.py")
 VIT_CONFIG = os.path.join(ROOT, "spectre_tpu_torch", "configs", "vit_cifar100.py")
+BRANCH_CONFIG = os.path.join(ROOT, "spectre_tpu_torch", "configs", "spectre_branch.py")
 # bf16 logits of the kernel path vs the plain path: both round each op's
 # output to bf16 once, but a 1-ulp flip inside an early layer is carried
 # through 4 layers and the head. Logits are O(1) (GELU(LN(.)) + pool), so
@@ -152,6 +153,7 @@ PLAIN_PATCHES = (
     ("spectre_tpu_torch.ops.fused_mix.block_scatter_rows", "block_scatter_rows_plain"),
     ("spectre_tpu_torch.ops.fused_mix.block_gather_sum", "block_gather_sum_plain"),
     ("spectre_tpu_torch.ops.fused_mix.inverse_gather_sum", "inverse_gather_sum_plain"),
+    ("spectre_tpu_torch.ops.fused_mix.routed_gather_sum", "routed_gather_sum_plain"),
     ("spectre_tpu_torch.ops.linear.fused_spectre_linear", "fused_spectre_linear_plain"),
     ("spectre_tpu_torch.ops.kernels.fused_linear.fused_spectre_linear",
      "fused_spectre_linear_plain"),
@@ -516,7 +518,8 @@ def phase_gather_kernels(kernels, gen):
 
 KERNEL_NAMES = ("block_scatter_rows", "block_gather_sum", "inverse_gather_sum",
                 "fused_spectre_linear", "fused_block_bwd", "flash_attention_fwd",
-                "flash_attention_bwd", "fwht", "structured_mix", "structured_mix_bwd")
+                "flash_attention_bwd", "fwht", "structured_mix", "structured_mix_bwd",
+                "routed_gather_sum")
 
 
 def expected_launches(cfg, forwards: int = 0, steps: int = 0) -> dict[str, int]:
@@ -527,14 +530,18 @@ def expected_launches(cfg, forwards: int = 0, steps: int = 0) -> dict[str, int]:
     if cfg.model == "vit":  # Dense layers, no SpectreLinear
         counts.update(flash_attention_fwd=layers * both, flash_attention_bwd=layers * steps)
         return counts
-    linears = 2 * layers + 1  # linear1 and linear3 of each layer, the head
+    # linear1 and linear3 of each layer and the head; the branch's are Denses
+    linears = 0 if cfg.model == "spectre_branch" else 2 * layers + 1
     if cfg.method == "attention":
         counts.update(flash_attention_fwd=layers * both, flash_attention_bwd=layers * steps)
     elif cfg.method == "permut_mix" and cfg.mix_impl == "folded":
-        block = bool(getattr(cfg, "mix_block", 0))
+        # the routed backward takes precedence over the block tables
+        routed = bool(getattr(cfg, "mix_routed", False))
+        block = bool(getattr(cfg, "mix_block", 0)) and not routed
         counts.update(block_scatter_rows=layers * both, block_gather_sum=layers * steps * block,
-                      inverse_gather_sum=layers * steps * (not block))
-    elif cfg.method == "permut_mix":
+                      inverse_gather_sum=layers * steps * (not block and not routed),
+                      routed_gather_sum=layers * steps * routed)
+    elif cfg.method == "permut_mix" and cfg.mix_impl != "gather_tm":
         linears += layers  # the mix projection is a SpectreLinear at K = E*H
         if cfg.mix_impl == "structured":
             counts.update(structured_mix=layers * both, structured_mix_bwd=layers * steps)
@@ -1142,10 +1149,13 @@ def _step_times(tag, cfg, kernels, batches=(256, 1024)):
     """ms per train step (the trainer's augmentation inside) and peak memory
     at each batch; at the first batch one step must launch exactly what the
     config implies and one step runs with every host sync an error."""
+    from spectre_tpu_torch.ops import register_mix_routes
     from spectre_tpu_torch.train import make_train_step
     from spectre_tpu_torch.train.loop import create_trainer, default_augment
 
     state = create_trainer(cfg, "cuda", steps_per_epoch=16)
+    if getattr(cfg, "mix_routed", False):
+        register_mix_routes(state.model, cfg.mix_routed_impl)
     step = make_train_step(default_augment(cfg.dataset, cfg.in_channels),
                            grad_clip_norm=getattr(cfg, "grad_clip_norm", None))
     out = {}
@@ -1213,6 +1223,47 @@ def _forward_against_plain(tag, kernels, model, cfg):
     return fwd_ms
 
 
+def _serve_check(tag, config, kernels, model, cfg, serve, client_cls, seed: int):
+    """The serving CLI on ``config``: requests of batch 1, 7 and 64, each
+    sent twice, replies within 1e-3 of direct forwards of the padded bucket;
+    the launches during the serving run are exactly those of the batcher's
+    forwards."""
+    rng = np.random.default_rng(seed)
+    shape = (cfg.in_channels, cfg.img_size, cfg.img_size)
+    requests = [rng.uniform(0, 1, (b, *shape)).astype(np.float32) for b in (1, 7, 64)]
+    kernels.reset_launch_counts()
+    srv, port = serve.start(["--config", config, "--device", "cuda", "--port", "0"])
+    try:
+        with client_cls(port=port) as c:
+            replies = []
+            for x in requests * 2:
+                t0 = time.perf_counter()
+                replies.append((x, c.infer(x)))
+                print(f"{tag} serve: batch {x.shape[0]}: "
+                      f"{(time.perf_counter() - t0) * 1e3:.2f} ms", flush=True)
+    finally:
+        srv.close()
+    # one closed-loop client: every request is one bucket, one forward, and
+    # the server runs no forward of its own
+    serving, want = kernels.launch_counts(), expected_launches(cfg, forwards=srv.forwards)
+    if srv.forwards != len(replies) or serving != want:
+        raise AssertionError(f"{tag} serve ran {srv.forwards} forwards for {len(replies)} "
+                             f"requests and launched {serving}, want {want}")
+    for x, got in replies:
+        b = x.shape[0]
+        bucket = 1 << (b - 1).bit_length()
+        xp = np.concatenate([x, np.zeros((bucket - b, *shape), x.dtype)])
+        with torch.inference_mode():
+            want = model(torch.from_numpy(xp).cuda())[:b].float().cpu().numpy()
+        diff = float(np.abs(got - want).max())
+        if got.shape != (b, cfg.num_classes) or not diff <= 1e-3:
+            raise AssertionError(f"{tag} serve batch {b}: reply {got.shape} differs from a "
+                                 f"direct forward by {diff}")
+    print(f"{tag} serve: {len(replies)} replies match direct forwards (<= 1e-3); launches "
+          f"{ {k: v for k, v in serving.items() if v} }", flush=True)
+    return serving
+
+
 def phase_vit(kernels, build_model, parse_config, serve, client_cls, train_cli, tmp: str):
     """The baseline attention ViT at full width through the server and the
     trainer; returns (launches of the uninterrupted trainer run, numbers)."""
@@ -1223,39 +1274,7 @@ def phase_vit(kernels, build_model, parse_config, serve, client_cls, train_cli, 
           f"{cfg.compute_dtype} compute, dropout {cfg.dropout})", flush=True)
     fwd_ms = _forward_against_plain("vit", kernels, model, cfg)
 
-    rng = np.random.default_rng(2)
-    shape = (cfg.in_channels, cfg.img_size, cfg.img_size)
-    requests = [rng.uniform(0, 1, (b, *shape)).astype(np.float32) for b in (1, 7, 64)]
-    kernels.reset_launch_counts()
-    srv, port = serve.start(["--config", VIT_CONFIG, "--device", "cuda", "--port", "0"])
-    try:
-        with client_cls(port=port) as c:
-            replies = []
-            for x in requests * 2:
-                t0 = time.perf_counter()
-                replies.append((x, c.infer(x)))
-                print(f"vit serve: batch {x.shape[0]}: "
-                      f"{(time.perf_counter() - t0) * 1e3:.2f} ms", flush=True)
-    finally:
-        srv.close()
-    # one closed-loop client: every request is one bucket, one forward, and
-    # the server runs no forward of its own
-    serving, want = kernels.launch_counts(), expected_launches(cfg, forwards=srv.forwards)
-    if srv.forwards != len(replies) or serving != want:
-        raise AssertionError(f"vit serve ran {srv.forwards} forwards for {len(replies)} "
-                             f"requests and launched {serving}, want {want}")
-    for x, got in replies:
-        b = x.shape[0]
-        bucket = 1 << (b - 1).bit_length()
-        xp = np.concatenate([x, np.zeros((bucket - b, *shape), x.dtype)])
-        with torch.inference_mode():
-            want = model(torch.from_numpy(xp).cuda())[:b].float().cpu().numpy()
-        diff = float(np.abs(got - want).max())
-        if got.shape != (b, cfg.num_classes) or not diff <= 1e-3:
-            raise AssertionError(f"vit serve batch {b}: reply {got.shape} differs from a direct "
-                                 f"forward by {diff}")
-    print(f"vit serve: {len(replies)} replies match direct forwards (<= 1e-3); launches "
-          f"{ {k: v for k, v in serving.items() if v} }", flush=True)
+    serving = _serve_check("vit", VIT_CONFIG, kernels, model, cfg, serve, client_cls, seed=2)
     del model
     torch.cuda.empty_cache()
 
@@ -1354,6 +1373,224 @@ def phase_structured_model(kernels, build_model, parse_config, train_cli, perf_c
                            "perf_attention": att, "perf_structured": smix}
 
 
+def phase_routed_kernel(kernels, routing, perf_cli):
+    """Kernel B9 against its plain version (bitwise) and kernel 4, at the
+    flagship mix shape with c=128 and c=8 and at SpectreBranch's; times at
+    the flagship shape; ``repl/perf.py routed``."""
+    gen = torch.Generator().manual_seed(9)
+    dev_gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def case(h, d, c=None):
+        perms = torch.stack([torch.randperm(d, generator=gen) for _ in range(h)])
+        inv = torch.argsort(perms, dim=1).to(torch.int32)
+        rt = routing.build_route_tables_cached(inv.numpy(), c)
+        tables = [torch.from_numpy(t).cuda() for t in (rt.a_idx, rt.b_idx, rt.c_idx)]
+        return perms, inv.cuda(), tables
+
+    t0 = time.perf_counter()
+    flagship = case(16, 33_280)
+    build_s = time.perf_counter() - t0
+    cases = [(flagship, b) for b in (256, 1024, 250)]
+    cases += [(case(16, 33_280, 8), 64), (case(8, 49_920), 256)]
+    worst, to_k4 = 0.0, 0.0
+    for (_, inv, tables), b in cases:
+        h, r, c = tables[0].shape
+        for dtype in (torch.bfloat16, torch.float32):
+            g = torch.randn(h * r * c, b, generator=dev_gen, device="cuda").to(dtype)
+            got = kernels.routed_gather_sum(g, *tables)
+            ref = kernels.routed_gather_sum_plain(g, *tables)
+            k4 = kernels.inverse_gather_sum(g, inv)
+            torch.cuda.synchronize()
+            worst = max(worst, max_abs_diff(got, ref))
+            if not torch.equal(got, ref):
+                raise AssertionError(f"routed_gather_sum != plain at H={h} r={r} c={c} B={b} "
+                                     f"{dtype}: max abs err {max_abs_diff(got, ref)}")
+            if dtype == torch.float32 and not torch.equal(got, k4):
+                raise AssertionError(f"routed_gather_sum != inverse_gather_sum in f32 at H={h} "
+                                     f"r={r} c={c} B={b}")
+            if dtype == torch.bfloat16:
+                to_k4 = max(to_k4, rel_to_largest(got, k4))
+            del g, got, ref, k4
+    shapes = [(t[0].shape[0], t[0].shape[1], t[0].shape[2], b) for (_, _, t), b in cases]
+    print(f"kernel B9 routed_gather_sum: bitwise equal to plain at (H, r, c, B) in {shapes}, "
+          f"bf16 and f32 (max abs err {worst}); f32 bitwise equal to kernel 4; bf16 head chain "
+          f"vs kernel 4's one rounding: {to_k4:.4g} of the largest entry; flagship route "
+          f"tables (16 heads) {build_s:.2f} s", flush=True)
+    perms, inv, tables = flagship
+    d, heads = 33_280, 16
+    flat = perms.reshape(-1).cuda()
+    res = {}
+    for b in (256, 1024):
+        g = torch.randn(heads * d, b, generator=dev_gen, device="cuda").to(torch.bfloat16)
+        out = torch.zeros(d, b, dtype=torch.bfloat16, device="cuda")
+        ms_k = cuda_time_ms(lambda: kernels.routed_gather_sum(g, *tables))
+        ms_p = cuda_time_ms(lambda: kernels.routed_gather_sum_plain(g, *tables), iters=2, reps=3)
+        ms_4 = cuda_time_ms(lambda: kernels.inverse_gather_sum(g, inv))
+        ms_lib = cuda_time_ms(lambda: out.index_add_(0, flat, g), iters=5)
+        moved = (heads * d * b + d * b) * 2 + 3 * heads * d * 4
+        bound_ms, bound_by = bound(moved)
+        res[b] = (ms_k, ms_p, ms_4, ms_lib, bound_ms, bound_by)
+        print(f"kernel B9 at d={d} H={heads} c=128 B={b} bf16: kernel {ms_k:.4f} ms "
+              f"({moved / ms_k / 1e6:.1f} GB/s, bound {bound_ms:.4f} ms by {bound_by}), plain "
+              f"{ms_p:.4f} ms, kernel 4 {ms_4:.4f} ms, index_add_ {ms_lib:.4f} ms", flush=True)
+        del g, out
+    torch.cuda.empty_cache()
+    perf = perf_cli.main(["routed", "--batch", "256", "--iters", "10"])["routed"]
+    if perf["256"]["max_abs_diff"] != 0.0:
+        raise AssertionError(f"perf routed: kernel and plain differ by "
+                             f"{perf['256']['max_abs_diff']}")
+    ms_k, ms_p, ms_4, ms_lib, bound_ms, bound_by = res[256]
+    return {"name": "routed_gather_sum", "route": "cuda",
+            "source": "spectre_tpu_torch/csrc/routed_gather_sum.cu",
+            "replaces": "spectre_tpu/ops/pallas/routed_gather.py:127",
+            "max_abs_err": worst, "ms": ms_k, "plain_ms": ms_p, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": ms_lib, "inverse_gather_sum_ms": ms_4,
+            "ms_b1024": res[1024][0], "plain_ms_b1024": res[1024][1],
+            "inverse_gather_sum_ms_b1024": res[1024][2], "library_ms_b1024": res[1024][3],
+            "bound_ms_b1024": res[1024][4], "bf16_rel_to_inverse_gather_sum": to_k4,
+            "route_tables_s": build_s, "perf_routed": perf,
+            "shape": f"g[{heads * d},256] bf16, tables [16,260,128] -> [{d},256]"}
+
+
+def phase_routed_trainer(kernels, parse_config, train_cli, tmp: str):
+    """The flagship trainer with the Clos-routed backward through B9: route
+    build seconds, the routed backward against kernel 3's, step times and the
+    training CLI with exact launches."""
+    import copy
+
+    from spectre_tpu_torch.data import make_eval_transform
+    from spectre_tpu_torch.ops import clear_mix_routes, register_mix_routes
+    from spectre_tpu_torch.train.loop import create_trainer, dataset_stats
+
+    cfg = parse_config(CONFIG)
+    cfg.mix_routed, cfg.mix_routed_impl = True, "pallas"
+    state = create_trainer(cfg, "cuda", steps_per_epoch=16)
+    build_s = []
+    for _ in range(2):  # cold, then from the cache
+        clear_mix_routes(state.model)
+        t0 = time.perf_counter()
+        routed = register_mix_routes(state.model, "pallas")
+        torch.cuda.synchronize()
+        build_s.append(time.perf_counter() - t0)
+        if routed != cfg.num_encoders:
+            raise AssertionError(f"routed trainer: {routed} mixes routed, want {cfg.num_encoders}")
+    print(f"routed trainer: route tables of {cfg.num_encoders} layers (16 heads, r=260, c=128) "
+          f"derived in {build_s[0]:.2f} s cold, {build_s[1]:.3f} s from the cache", flush=True)
+
+    normalize = make_eval_transform(*dataset_stats(cfg.dataset))
+    raw, y = _train_batch(cfg, cfg.batch_size)
+    x = normalize(raw)
+    kernels.reset_launch_counts()
+    loss_r, grads_r = _backward_once(state, x, y, seed=1)
+    if kernels.launch_counts()["routed_gather_sum"] != cfg.num_encoders:
+        raise AssertionError(f"routed trainer: one backward launched {kernels.launch_counts()}")
+    clear_mix_routes(state.model)
+    loss_b, grads_b = _backward_once(state, x, y, seed=1)
+    # the config's default route impl, "mxu": one-hot products in cuBLAS
+    register_mix_routes(state.model, "mxu")
+    loss_m, grads_m = _backward_once(state, x, y, seed=1)
+    clear_mix_routes(state.model)
+    errs = {}
+    for tag, grads in (("pallas", grads_r), ("mxu", grads_m)):
+        errs[tag] = (0.0, "")
+        for name, gb in grads_b.items():
+            rel = ((grads[name] - gb).abs().max() / gb.abs().max()).item()
+            if rel > errs[tag][0]:
+                errs[tag] = (rel, name)
+    if not (loss_r == loss_b == loss_m and max(e for e, _ in errs.values()) <= TRAIN_GRAD_REL):
+        raise AssertionError(f"routed trainer: loss {loss_r}, {loss_m} vs {loss_b}, gradient "
+                             f"rel err against kernel 3 {errs} > {TRAIN_GRAD_REL}")
+    (worst, where), (worst_mxu, where_mxu) = errs["pallas"], errs["mxu"]
+    del state, grads_r, grads_b, grads_m
+    torch.cuda.empty_cache()
+    cfg32 = copy.copy(cfg)
+    cfg32.compute_dtype = "float32"
+    state = create_trainer(cfg32, "cuda", steps_per_epoch=16)
+    register_mix_routes(state.model, "pallas")
+    _, grads_r = _backward_once(state, x, y, seed=1)
+    clear_mix_routes(state.model)
+    _, grads_b = _backward_once(state, x, y, seed=1)
+    bad = [n for n in grads_b if not torch.equal(grads_r[n], grads_b[n])]
+    if bad:
+        raise AssertionError(f"routed trainer f32: gradients differ from kernel 3's at {bad}")
+    print(f"routed trainer: one backward through B9 against kernel 3's: bf16 loss equal, worst "
+          f"gradient rel err {worst:.4g} at {where} (limit {TRAIN_GRAD_REL}; the bf16 head "
+          f"chain against one rounding); f32: all {len(grads_b)} gradients bit for bit; "
+          f"through the 'mxu' route (one-hot products): {worst_mxu:.4g} at {where_mxu}",
+          flush=True)
+    del state, grads_r, grads_b
+    torch.cuda.empty_cache()
+    times = _step_times("routed", cfg, kernels)
+
+    kernels.reset_launch_counts()
+    result = train_cli.main(["--config", CONFIG, "--synthetic", "--steps", "4",
+                             "--no-checkpoint", "--set", "epochs=1", "mix_routed=True",
+                             "mix_routed_impl=pallas",
+                             f"checkpoint_dir={os.path.join(tmp, 'routed')}"])
+    counts = kernels.launch_counts()
+    val_batches = -(-1024 // cfg.val_batch_size)
+    want = expected_launches(cfg, forwards=val_batches, steps=4)
+    if counts != want or result.state.step != 4 or not np.isfinite(result.train_losses[-1]):
+        raise AssertionError(f"routed train CLI launched {counts}, want {want}; step "
+                             f"{result.state.step}, loss {result.train_losses}")
+    print(f"routed train CLI: 4 steps + {val_batches} validation batches launched "
+          f"{ {k: v for k, v in counts.items() if v} }; train loss "
+          f"{result.train_losses[-1]:.4f}", flush=True)
+    del result
+    torch.cuda.empty_cache()
+    return counts, {"route_build_cold_s": build_s[0], "route_build_cached_s": build_s[1],
+                    "grad_rel_err_bf16_vs_block_gather": worst,
+                    "grad_rel_err_bf16_mxu_vs_block_gather": worst_mxu,
+                    "train_step": {f"B={b}": v for b, v in times.items()}}
+
+
+def phase_branch(kernels, build_model, parse_config, serve, client_cls, train_cli, bench_cli,
+                 tmp: str):
+    """SpectreBranch at full width: forward against the plain path, the
+    server, the training CLI with exact launches, step times, the bench."""
+    cfg = parse_config(BRANCH_CONFIG)
+    t0 = time.perf_counter()
+    model = build_model(cfg, "cuda")
+    torch.cuda.synchronize()
+    print(f"branch: spectre_branch built on cuda in {time.perf_counter() - t0:.2f} s "
+          f"(E={cfg.embed_dim} H={cfg.num_heads} hidden {cfg.hidden_dim} {cfg.num_encoders} "
+          f"layers, d={65 * cfg.embed_dim}, {cfg.mix_impl}, {cfg.compute_dtype} compute, "
+          f"{sum(p.numel() for p in model.parameters()):,} parameters)", flush=True)
+    fwd_ms = _forward_against_plain("branch", kernels, model, cfg)
+    serving = _serve_check("branch", BRANCH_CONFIG, kernels, model, cfg, serve, client_cls,
+                           seed=3)
+    del model
+    torch.cuda.empty_cache()
+    kernels.reset_launch_counts()
+    result = train_cli.main(["--config", BRANCH_CONFIG, "--synthetic", "--steps", "4",
+                             "--no-checkpoint", "--set", "epochs=1",
+                             f"checkpoint_dir={os.path.join(tmp, 'branch')}"])
+    counts = kernels.launch_counts()
+    val_batches = -(-1024 // cfg.val_batch_size)
+    want = expected_launches(cfg, forwards=val_batches, steps=4)
+    if counts != want or result.state.step != 4 or not np.isfinite(result.train_losses[-1]):
+        raise AssertionError(f"branch train CLI launched {counts}, want {want}; step "
+                             f"{result.state.step}, loss {result.train_losses}")
+    print(f"branch train CLI: 4 steps + {val_batches} validation batches launched "
+          f"{ {k: v for k, v in counts.items() if v} }; train loss "
+          f"{result.train_losses[-1]:.4f}", flush=True)
+    del result
+    torch.cuda.empty_cache()
+    times = _step_times("branch", cfg, kernels)
+    bench = bench_cli.main(["--config", BRANCH_CONFIG, "--batch", "1024"])
+    return counts, serving, {"forward_ms_b256": fwd_ms,
+                             "train_step": {f"B={b}": v for b, v in times.items()},
+                             "bench": bench}
+
+
+def phase_gather_tm(kernels, parse_config):
+    """The flagship with ``mix_impl="gather_tm"``: steps with a finite loss
+    and exact launches (kernel 2 only), ms per step."""
+    cfg = parse_config(CONFIG)
+    cfg.mix_impl = "gather_tm"
+    return {f"B={b}": v for b, v in _step_times("gather_tm", cfg, kernels, (256,)).items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -1364,6 +1601,7 @@ def main() -> int:
     from spectre_tpu_torch.models import build_model
     from spectre_tpu_torch.ops import kernels
     from spectre_tpu_torch.ops import hadamard_matrix
+    from spectre_tpu_torch.ops import routing
     from spectre_tpu_torch.ops import structured_mix as structured_matrix
     from spectre_tpu_torch.ops.kernels import build
     from spectre_tpu_torch.repl import bench as bench_cli
@@ -1374,7 +1612,7 @@ def main() -> int:
     from spectre_tpu_torch.serving import SpectreClient
     from spectre_tpu_torch.utils import card_and_power_limit
 
-    for path in (CONFIG, VIT_CONFIG):
+    for path in (CONFIG, VIT_CONFIG, BRANCH_CONFIG):
         if not os.path.exists(path):
             raise FileNotFoundError(path)
     name = torch.cuda.get_device_name(0)
@@ -1415,6 +1653,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     fused_run, fused_bwd = phase_fused_bwd_cli(kernels, perf_cli)
     bench = bench_cli.main(["--batch", "1024"])
+    # the routed trainer, SpectreBranch and gather_tm; route tables go to a
+    # directory of this run, so that the first build is cold
+    with tempfile.TemporaryDirectory(prefix="spectre_smoke_") as tmp:
+        routing.ROUTE_CACHE_DIR = os.path.join(tmp, "routes")
+        k10 = phase_routed_kernel(kernels, routing, perf_cli)
+        routed_run, routed = phase_routed_trainer(kernels, parse_config, train_cli, tmp)
+        branch_run, branch_serving, branch = phase_branch(
+            kernels, build_model, parse_config, serve, SpectreClient, train_cli, bench_cli, tmp)
+        gather_tm = phase_gather_tm(kernels, parse_config)
 
     # launches: the whole trainer's uninterrupted run (20 steps, 4 validation
     # batches); kernel 4 from the mix_block=0 CLI run, kernel 5 from its own
@@ -1437,11 +1684,18 @@ def main() -> int:
     k7["backward_launches"] = structured_run["structured_mix_bwd"]
     k2["launches_structured"] = structured_run["fused_spectre_linear"]
     k6["launches"] = entry_run["fwht"]
-    result = {"kernels": [k1, k2, k3, k4, k5, k8, k9, k6, k7],
+    # B9 from the routed trainer's CLI run (4 steps, 2 validation batches);
+    # the branch's CLI run (the same) and serving run for kernels 1 and 4
+    k10["launches"] = routed_run["routed_gather_sum"]
+    k1["launches_branch"] = branch_run["block_scatter_rows"]
+    k1["launches_branch_serving"] = branch_serving["block_scatter_rows"]
+    k4["launches_branch"] = branch_run["inverse_gather_sum"]
+    result = {"kernels": [k1, k2, k3, k4, k5, k8, k9, k6, k7, k10],
               "train_step": {f"mix_block={blk}": {f"B={b}": v for b, v in t.items()}
                              for blk, t in step_times.items()},
               "trainer": trainer, "fused_bwd": fused_bwd, "bench": bench, "vit": vit,
-              "structured": structured}
+              "structured": structured, "routed": routed, "branch": branch,
+              "gather_tm": {"train_step": gather_tm}}
     print(smi, flush=True)
     print(json.dumps(result), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,5 +1,5 @@
-"""Models of the port: SpectreViT with its pluggable mixers, the baseline
-ViT, the layer library and the weight bridge."""
+"""Models of the port: SpectreViT with its pluggable mixers, SpectreBranch,
+the baseline ViT, the layer library and the weight bridge."""
 
 from spectre_tpu_torch.models.jax_import import (
     flax_state_dict,
@@ -21,6 +21,7 @@ from spectre_tpu_torch.models.layers import (
     NormalMask,
     SignPermuteMix,
     SpectreLinear,
+    TokenMajorMixLinear,
 )
 from spectre_tpu_torch.models.mixers import (
     MIXERS,
@@ -33,12 +34,21 @@ from spectre_tpu_torch.models.mixers import (
 from spectre_tpu_torch.models.patch_embed import PatchEmbedding, SpectralPatchEmbed
 from spectre_tpu_torch.models.registry import build_model, refresh_mixes, resolve_dtype
 from spectre_tpu_torch.models.spectre import SpectreEncoder, SpectreEncoderLayer, SpectreViT
+from spectre_tpu_torch.models.spectre_branch import (
+    Conv,
+    SpectreBranch,
+    SpectreBranchEncoder,
+    SpectreBranchEncoderLayer,
+    SpectreFeatExtractor,
+    rfft2_log_magnitude_matmul,
+)
 from spectre_tpu_torch.models.vit import TransformerEncoderLayer, ViT
 
 __all__ = [
     "MIXERS",
     "AttentionMixer",
     "BinaryLinear",
+    "Conv",
     "DWTMixer",
     "Dense",
     "Dropout",
@@ -54,11 +64,16 @@ __all__ = [
     "NormalMask",
     "PatchEmbedding",
     "SignPermuteMix",
+    "SpectreBranch",
+    "SpectreBranchEncoder",
+    "SpectreBranchEncoderLayer",
+    "SpectreFeatExtractor",
     "SpectralPatchEmbed",
     "SpectreEncoder",
     "SpectreEncoderLayer",
     "SpectreLinear",
     "SpectreViT",
+    "TokenMajorMixLinear",
     "TransformerEncoderLayer",
     "ViT",
     "build_model",
@@ -68,5 +83,6 @@ __all__ = [
     "make_mixer",
     "refresh_mixes",
     "resolve_dtype",
+    "rfft2_log_magnitude_matmul",
     "save_npz",
 ]

@@ -1,7 +1,9 @@
 """Parameter initialisers of the port (spectre_tpu/models/init.py's
 distributions, drawn from an explicit ``torch.Generator``):
 
-    kernels and biases   U(-1/sqrt(fan_in), +1/sqrt(fan_in))
+    kernels and biases   U(-1/sqrt(fan_in), +1/sqrt(fan_in)); a convolution
+                         kernel [kH, kW, I, O] has fan_in kH*kW*I, its bias
+                         the fan_in its layer passes (models/spectre_branch.py)
     attention            q/k/v kernels U(+-sqrt(1.5/E)) (xavier over the packed
                          [3E, E] matrix), out kernel U(+-1/sqrt(E)), biases zero
     cls / position       normal(0, 1)

@@ -14,7 +14,8 @@ The port's module and parameter names mirror the flax tree, so a flax path
 
 Kernels keep the flax layouts in the port ([in, out] for ``Dense``;
 [E, H, D] for the attention's query/key/value and [H, D, E] for its out
-projection), so no array is transposed. Missing or extra keys and any shape mismatch raise. The mix
+projection; [kH, kW, I, O] for the convolutions of SpectreBranch's
+feature extractor), so no array is transposed. Missing or extra keys and any shape mismatch raise. The mix
 tables are copied, never resampled.
 
 A JAX ``TrainState`` carries over as ``load_flax_variables(state.model,

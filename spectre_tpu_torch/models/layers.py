@@ -9,9 +9,11 @@ and training.
 - ``MHPermutMix``: the multi-head sign + permutation mix. ``impl="folded"``
   (with ``FoldedMixLinear``) runs a block-row permutation kernel on the
   token-major [d, B] stream followed by a per-token product whose weights
-  carry the signs; ``"gather"`` and ``"gather_unfused"`` gather batch-major
-  and project through ``SpectreLinear``; ``"structured"`` runs the
-  tile-structured mix kernel and the same projection.
+  carry the signs, its backward optionally through the Clos route (kernel
+  B9); ``"gather"`` and ``"gather_unfused"`` gather batch-major and project
+  through ``SpectreLinear``; ``"gather_tm"`` gathers token-major into
+  ``TokenMajorMixLinear``; ``"structured"`` runs the tile-structured mix
+  kernel and ``SpectreLinear``.
 - The experimental layers of the JAX package: ``SignPermuteMix``,
   ``BinaryLinear``, ``FFTApproximator``, ``LearnedSigmoid``, ``NormalMask``,
   ``FFTLayer``, ``LearnableHadamard``.
@@ -35,8 +37,11 @@ import numpy as np
 
 from spectre_tpu_torch.models.init import normal_, uniform_fan_in_
 from spectre_tpu_torch.ops import (
+    ROUTE_IMPLS,
+    MixRoute,
     MixTables,
     adaptive_pool_matrix,
+    derive_mix_route,
     derive_mix_tables,
     fold_weights,
     folded_bmm,
@@ -51,13 +56,15 @@ from spectre_tpu_torch.ops import (
     perm_rows_t,
     permut_mix,
     permut_mix_fused,
+    permut_mix_fused_t,
     pick_tile,
     rfft_real,
     spectre_linear_apply,
 )
 from spectre_tpu_torch.ops.kernels import invert_tile_perms, structured_mix_grad
+from spectre_tpu_torch.ops.routing import pick_factor
 
-MIX_IMPLS = ("folded", "gather", "gather_unfused", "structured")
+MIX_IMPLS = ("folded", "gather", "gather_unfused", "gather_tm", "structured")
 
 
 class Dropout(nn.Module):
@@ -163,6 +170,7 @@ class FoldedMix(NamedTuple):
     s4: torch.Tensor     # [N, in] signs in the compute dtype
     pool_w: torch.Tensor  # [N, O, grp] grouped sign-mean weights, or [N, in, O]
     grp: int             # in // O when it divides, else 0 (pool-matrix path)
+    route: MixRoute | None  # the backward's Clos route, when one is set
 
 
 class FoldedMixLinear(_ProjectionLN):
@@ -224,6 +232,42 @@ class FoldedMixLinear(_ProjectionLN):
         return h.transpose(0, 1)  # [B, N, O]
 
 
+class TokenMajorMixLinear(_ProjectionLN):
+    """The mix and its projection in the token-major [.., B] layout (JAX
+    ``TokenMajorMixLinear``, ``mix_impl="gather_tm"``): the gather
+    ``ops.permut_mix_fused_t`` gives the [N, in, B] stream, which a product
+    batched over tokens projects directly, then LN, GELU and the pool
+    residual of the same stream. The same parameters as the other gather
+    impls (kernel, bias, ln_scale, ln_bias), so checkpoints interchange."""
+
+    def __init__(self, in_features: int, features: int, *, dtype=torch.float32,
+                 param_dtype=torch.float32, device=None):
+        super().__init__(in_features, features, dtype=dtype, param_dtype=param_dtype,
+                         device=device)
+        self.register_buffer("pool_matrix", adaptive_pool_matrix(
+            in_features, features, dtype, device) if in_features % features else None,
+            persistent=False)
+
+    def forward(self, x: torch.Tensor, perms: torch.Tensor,
+                signs2: torch.Tensor) -> torch.Tensor:
+        dt = self.dtype
+        b, n, e = x.shape
+        xt = x.to(dt).permute(1, 2, 0).reshape(n * e, b)  # [d, B]
+        m3 = permut_mix_fused_t(xt, perms, signs2).view(n, self.in_features, b)
+        rows = m3.transpose(1, 2)  # [N, B, in]
+        y = torch.matmul(rows, self.kernel.to(dt))  # [N, B, O]
+        o = self.features
+        if self.in_features == o:
+            pool = rows
+        elif self.pool_matrix is None:
+            pool = m3.reshape(n, o, self.in_features // o, b).mean(dim=2).transpose(1, 2)
+        else:
+            pool = torch.matmul(rows, self.pool_matrix)
+        h = gelu_exact(layer_norm(y + self.bias.to(dt), self.ln_scale.to(dt),
+                                  self.ln_bias.to(dt))) + pool
+        return h.transpose(0, 1)  # [B, N, O]
+
+
 class StructuredMix(NamedTuple):
     """What a structured mix forward derives from its ``tile_perms`` and
     ``signs`` buffers."""
@@ -247,11 +291,12 @@ class MHPermutMix(nn.Module):
       (``ops.permut_mix_fused``), then ``SpectreLinear``.
     - ``"gather_unfused"``: the same gather left to autograd
       (``ops.permut_mix``).
+    - ``"gather_tm"``: the token-major gather (``ops.permut_mix_fused_t``)
+      and ``TokenMajorMixLinear``.
     - ``"structured"``: random tile permutation, intra-tile Hadamard and
       signs (ops/kernels/structured_mix.py: on a CUDA tensor the hand-written
       kernels, forward and backward), then ``SpectreLinear``. Its buffers are
       ``tile_perms`` (int32 [H, T]) and ``signs``.
-    - ``"gather_tm"`` (the token-major gather) is not ported and raises.
 
     Buffers ``perms`` (int32 [H, d]) and ``signs`` (f32 [1, H, d]) are the
     flax ``mix_tables``. The block tables (``bsrc = perms[:, ::blk] // blk``
@@ -266,16 +311,20 @@ class MHPermutMix(nn.Module):
     block-row kernel forward; backward, a uniform table (blk = 1) takes the
     row kernel. The structured mix derives its inverse tile table and its
     signs in the compute dtype the same way; the gather impls derive
-    nothing."""
+    nothing.
+
+    ``set_mix_route(impl)`` (``ops.register_mix_routes``, the config's
+    ``mix_routed``) routes a folded mix's backward through its 3-stage Clos
+    route: ``"pallas"`` (kernel B9), ``"mxu"`` or ``"takes"``
+    (ops/fused_mix.py). The route is derived with the block tables, from the
+    live ``perms``, and moved to the device once; a buffer change derives it
+    again, an optimizer step does not. The forward stays the block-row
+    kernel."""
 
     def __init__(self, embed_dim: int, token_dim: int, num_heads: int,
                  out_channels: int, *, impl: str = "folded", mix_block: int = 0,
                  dtype=torch.float32, param_dtype=torch.float32, device=None):
         super().__init__()
-        if impl == "gather_tm":
-            raise NotImplementedError(
-                "mix_impl='gather_tm' (the token-major gather) is not ported yet "
-                "(ROADMAP.md, slice 5)")
         if impl not in MIX_IMPLS:
             raise ValueError(f"unknown MHPermutMix impl {impl!r}; expected one of {MIX_IMPLS}")
         self.embed_dim, self.token_dim, self.num_heads = embed_dim, token_dim, num_heads
@@ -289,10 +338,12 @@ class MHPermutMix(nn.Module):
                                                       device=device))
         self.register_buffer("signs", torch.ones(1, num_heads, d, dtype=torch.float32,
                                                  device=device))
-        linear = FoldedMixLinear if impl == "folded" else SpectreLinear
+        linear = {"folded": FoldedMixLinear, "gather_tm": TokenMajorMixLinear}.get(
+            impl, SpectreLinear)
         self.linear = linear(embed_dim * num_heads, out_channels, dtype=dtype,
                              param_dtype=param_dtype, device=device)
         self._mix: FoldedMix | StructuredMix | None = None
+        self.route_impl: str | None = None
         self.table_derivations = 0
 
     def init_parameters(self, gen: torch.Generator) -> None:
@@ -316,16 +367,30 @@ class MHPermutMix(nn.Module):
 
     def _key(self) -> tuple:
         # see FoldedMixLinear.folded_weights on inference-mode tensors
-        return tuple((t.device, t.data_ptr(), None if t.is_inference() else t._version)
-                     for t in (self._table(), self.signs))
+        return (self.route_impl,) + tuple(
+            (t.device, t.data_ptr(), None if t.is_inference() else t._version)
+            for t in (self._table(), self.signs))
+
+    def set_mix_route(self, impl: str | None) -> bool:
+        """Route the backward through the Clos route of ``impl`` (one of
+        ``ops.ROUTE_IMPLS``), or not (None), and derive what the forward
+        needs now. Only a folded mix whose width d has a power-of-two factor
+        >= 8 takes a route (the tables JAX routes); returns whether this
+        one does."""
+        if impl is not None and impl not in ROUTE_IMPLS:
+            raise ValueError(f"unknown mix route impl {impl!r}; expected one of {ROUTE_IMPLS}")
+        take = impl is not None and self.impl == "folded" and pick_factor(self.signs.shape[2]) > 0
+        self.route_impl = impl if take else None
+        self.refresh()
+        return take
 
     @torch.no_grad()
     def refresh(self, force: bool = False) -> FoldedMix | StructuredMix | None:
         """Derive what the forward needs from the live buffers (validating
-        the table on the host), unless it is current: the block tables and
-        sign weights of the folded mix, the inverse tile table and the signs
-        in the compute dtype of the structured mix, nothing for the gather
-        impls."""
+        the table on the host), unless it is current: the block tables, sign
+        weights and route (when set) of the folded mix, the inverse tile
+        table and the signs in the compute dtype of the structured mix,
+        nothing for the gather impls."""
         if self.impl not in ("folded", "structured"):
             return None
         key = self._key()
@@ -342,7 +407,9 @@ class MHPermutMix(nn.Module):
             tables = derive_mix_tables(self.perms)
             s4 = self.signs.to(self.dtype).reshape(self.token_dim, -1)
             pool_w, grp = self.linear.pool_weights(s4)
-            self._mix = FoldedMix(key, tables, s4, pool_w, grp)
+            route = None if self.route_impl is None else derive_mix_route(
+                self.perms, self.route_impl, self.dtype)
+            self._mix = FoldedMix(key, tables, s4, pool_w, grp, route)
             self.linear._wp = None
         self.table_derivations += 1
         return self._mix
@@ -353,8 +420,11 @@ class MHPermutMix(nn.Module):
         x = x.to(self.dtype)
         if self.impl == "folded":
             xt = x.reshape(b, -1).t().contiguous()  # token-major [d, B]
-            g = perm_rows_t(xt, mix.tables)  # [H*d, B] == [N*in, B]
+            g = perm_rows_t(xt, mix.tables, mix.route)  # [H*d, B] == [N*in, B]
             return self.linear(g.view(self.token_dim, -1, b), mix)
+        if self.impl == "gather_tm":
+            return self.linear(x.reshape(b, self.token_dim, self.embed_dim), self.perms,
+                               self.signs[0].to(self.dtype))
         if self.impl == "structured":
             mixed = structured_mix_grad(x.reshape(b, -1).contiguous(), self.tile_perms,
                                         mix.signs, self.token_dim, mix.inv)

@@ -9,6 +9,7 @@ import torch
 from spectre_tpu_torch.models.init import init_weights
 from spectre_tpu_torch.models.layers import MHPermutMix
 from spectre_tpu_torch.models.spectre import SpectreViT
+from spectre_tpu_torch.models.spectre_branch import SpectreBranch
 from spectre_tpu_torch.models.vit import ViT
 
 _DTYPES = {
@@ -52,15 +53,15 @@ def build_model(config: SimpleNamespace, device: torch.device | str,
         dtype=resolve_dtype(getattr(config, "compute_dtype", "float32")),
         param_dtype=resolve_dtype(getattr(config, "param_dtype", "float32")),
         device=device)
+    mix = dict(method=getattr(config, "method", "permut_mix"),
+               mix_impl=getattr(config, "mix_impl", "gather"),
+               mix_block=int(getattr(config, "mix_block", 0)))
     if name == "vit":
         model = ViT(**common)
     elif name == "spectre_vit":
-        model = SpectreViT(method=getattr(config, "method", "permut_mix"),
-                           mix_impl=getattr(config, "mix_impl", "gather"),
-                           mix_block=int(getattr(config, "mix_block", 0)), **common)
+        model = SpectreViT(**mix, **common)
     elif name == "spectre_branch":
-        raise NotImplementedError(
-            "model 'spectre_branch' is not ported yet (ROADMAP.md, slice 5)")
+        model = SpectreBranch(**mix, **common)
     else:
         raise ValueError(f"unknown model {name!r}; expected vit|spectre_vit|spectre_branch")
     gen = torch.Generator().manual_seed(int(getattr(config, "random_seed", 42)))

@@ -1,6 +1,7 @@
 """The permutation mix as autograd Functions (port of
-spectre_tpu/ops/fused_mix.py): the folded route, and ``permut_mix_fused``,
-the batch-major gather with an inverse-gather backward.
+spectre_tpu/ops/fused_mix.py): the folded route with its Clos-routed
+backward, and the two gather mixes with an inverse-gather backward,
+``permut_mix_fused`` (batch-major) and ``permut_mix_fused_t`` (token-major).
 
 The mix is ``m[b, h, i] = x[b, perms[h, i]] * signs[h, i]`` followed by a
 projection. In the folded form the gather runs sign-free on the token-major
@@ -8,37 +9,117 @@ projection. In the folded form the gather runs sign-free on the token-major
 ``y[n] = g4[n]^T (diag(s4[n]) W)`` (``folded_proj``). Multiplying by +-1 is
 exact in any float format.
 
-Both are ``torch.autograd.Function``s:
+All are ``torch.autograd.Function``s:
 
 - ``perm_rows_t``: forward is the block-row copy (kernels.block_scatter_rows);
   backward is the head-summed inverse gather, kernels.block_gather_sum for a
-  block table (blk >= 2) and kernels.inverse_gather_sum for a uniform one.
+  block table (blk >= 2) and kernels.inverse_gather_sum for a uniform one,
+  or, when the mix's tables carry a route (``register_mix_routes``, the
+  config's ``mix_routed``), the route's application: kernels.
+  routed_gather_sum (impl ``"pallas"``), the one-hot products (``"mxu"``) or
+  the three gathers (``"takes"``) of ops/routing.py. The route takes
+  precedence over the block tables, as in JAX.
 - ``folded_proj(g4, w, s4)``: the backward is reassociated so that the
   [N, in, O] cotangent of the folded weights never exists:
   ``dg4 = s4 * (w @ dy^T)`` with w shared over tokens, and
   ``dW = sum_{n,b} (s4 * g4)[n, :, b] dy[n, b, :]`` as one product with
   K = N*B. ``s4`` holds fixed signs and gets no gradient.
-
 - ``permut_mix_fused(x2d, perms, signs2)``: [B, d] -> [B, H, d], the exact
   gather mix. Nothing activation-sized is saved; the backward applies the
   signs first, then one flat gather by the inverse permutations and the sum
   over heads (a gather instead of autograd's scatter-add). Plain torch ops
   in both directions, as the JAX function is jnp.
+- ``permut_mix_fused_t(xt, perms, signs2)``: the same mix token-major,
+  [d, B] -> [H*d, B] (``mix_impl="gather_tm"``); plain torch ops, as the JAX
+  function is jnp.
 
-The JAX route registry and its stale-route guards do not come over: the
-model derives its tables from its own buffers (models/layers.py).
+The JAX route registry, keyed by scope path, and its stale-route guards do
+not come over: each mix derives its tables and its route from its own
+buffers (models/layers.py), again whenever a buffer changes.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
+import numpy as np
 import torch
 
 from spectre_tpu_torch.ops.kernels import (
     block_gather_sum,
     block_scatter_rows,
     inverse_gather_sum,
+    routed_gather_sum,
 )
 from spectre_tpu_torch.ops.permute import MixTables
+from spectre_tpu_torch.ops.routing import (
+    build_route_tables_cached,
+    route_gather_sum,
+    route_gather_sum_mxu,
+    route_onehots,
+)
+
+# the route impls of the config's ``mix_routed_impl`` (default "mxu", as in
+# JAX): "pallas" is kernel B9, the hand-written CUDA kernel on this card
+ROUTE_IMPLS = ("pallas", "mxu", "takes")
+
+
+class MixRoute(NamedTuple):
+    """A mix table's 3-stage route on the table's device (ops/routing.py)."""
+    impl: str
+    a_idx: torch.Tensor  # int32 [H, r, c]
+    b_idx: torch.Tensor
+    c_idx: torch.Tensor
+    onehots: tuple | None  # impl "mxu": the three one-hot operators
+
+
+def derive_mix_route(perms: torch.Tensor, impl: str, dtype: torch.dtype) -> MixRoute:
+    """Factor each head's inverse of ``perms`` (int32 [H, d], full
+    permutations, d with a power-of-two factor >= 8) into its route, through
+    the disk cache, and move the tables to ``perms``' device once; for impl
+    "mxu" (one of ``ROUTE_IMPLS``) also build the one-hot operators there, in
+    ``dtype``, the compute dtype of the cotangents they meet."""
+    inv = np.argsort(perms.cpu().numpy(), axis=1).astype(np.int32)
+    rt = build_route_tables_cached(inv)
+    a, b, c = (torch.from_numpy(np.ascontiguousarray(t)).to(perms.device)
+               for t in (rt.a_idx, rt.b_idx, rt.c_idx))
+    return MixRoute(impl, a, b, c, route_onehots(a, b, c, dtype) if impl == "mxu" else None)
+
+
+def apply_mix_route(route: MixRoute, g: torch.Tensor) -> torch.Tensor:
+    """``dxt[j] = sum_h g[h*d + inv[h, j]]`` through the route: [H*d, B] ->
+    [d, B]."""
+    if route.impl == "pallas":
+        return routed_gather_sum(g, route.a_idx, route.b_idx, route.c_idx)
+    if route.impl == "mxu":
+        return route_gather_sum_mxu(g, *route.onehots)
+    return route_gather_sum(g, route.a_idx, route.b_idx, route.c_idx)
+
+
+def register_mix_routes(model: torch.nn.Module, impl: str = "mxu") -> int:
+    """Route the backward of every folded permutation mix of ``model`` whose
+    table JAX would route, through ``impl``, and derive the routes now.
+    Returns how many mixes were routed. The counterpart of JAX's
+    ``register_mix_routes``: there the routes live in a registry keyed by
+    scope path and must be registered again after every restore; here each
+    mix holds its route impl and derives the route from its live buffers,
+    again after any buffer change (``MHPermutMix.refresh``)."""
+    if impl not in ROUTE_IMPLS:
+        raise ValueError(f"unknown mix route impl {impl!r}; expected one of {ROUTE_IMPLS}")
+    n = 0
+    for m in model.modules():
+        set_route = getattr(m, "set_mix_route", None)
+        if set_route is not None and set_route(impl):
+            n += 1
+    return n
+
+
+def clear_mix_routes(model: torch.nn.Module) -> None:
+    """Back to the unrouted backward (kernel B2 or B7) in every mix."""
+    for m in model.modules():
+        set_route = getattr(m, "set_mix_route", None)
+        if set_route is not None:
+            set_route(None)
 
 
 def perm_rows_t_plain(xt: torch.Tensor, perms: torch.Tensor) -> torch.Tensor:
@@ -50,8 +131,8 @@ def perm_rows_t_plain(xt: torch.Tensor, perms: torch.Tensor) -> torch.Tensor:
 
 class _PermRowsT(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, xt, blk, bsrc, binv):
-        ctx.blk = blk
+    def forward(ctx, xt, blk, bsrc, binv, route):
+        ctx.blk, ctx.route = blk, route
         ctx.save_for_backward(binv)
         return block_scatter_rows(xt, bsrc, blk)
 
@@ -59,16 +140,20 @@ class _PermRowsT(torch.autograd.Function):
     def backward(ctx, g):
         (binv,) = ctx.saved_tensors
         g = g.contiguous()
+        if ctx.route is not None:
+            return apply_mix_route(ctx.route, g), None, None, None, None
         if ctx.blk == 1:  # uniform table: binv is the row-level inverse
-            return inverse_gather_sum(g, binv), None, None, None
-        return block_gather_sum(g, binv, ctx.blk), None, None, None
+            return inverse_gather_sum(g, binv), None, None, None, None
+        return block_gather_sum(g, binv, ctx.blk), None, None, None, None
 
 
-def perm_rows_t(xt: torch.Tensor, tables: MixTables) -> torch.Tensor:
+def perm_rows_t(xt: torch.Tensor, tables: MixTables,
+                route: MixRoute | None = None) -> torch.Tensor:
     """``perm_rows_t_plain`` for the permutation ``tables`` was derived from
-    (``derive_mix_tables``), through the kernels in both directions.
-    xt must be contiguous [d, B]."""
-    return _PermRowsT.apply(xt, tables.blk, tables.bsrc, tables.binv)
+    (``derive_mix_tables``), through the kernels in both directions; with
+    ``route`` (``derive_mix_route`` of the same table) the backward goes
+    through the route. xt must be contiguous [d, B]."""
+    return _PermRowsT.apply(xt, tables.blk, tables.bsrc, tables.binv, route)
 
 
 def fold_weights(w: torch.Tensor, s4: torch.Tensor) -> torch.Tensor:
@@ -141,3 +226,38 @@ def permut_mix_fused(x2d: torch.Tensor, perms: torch.Tensor,
     int32 [H, d] (each row a permutation of range(d)), signs2 [H, d] +-1 ->
     [B, H, d]. Gradient for x2d only."""
     return _PermutMixFused.apply(x2d, perms, signs2)
+
+
+class _PermutMixFusedT(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xt, perms, signs2):
+        ctx.save_for_backward(perms, signs2)
+        return xt.index_select(0, perms.reshape(-1).long()) * signs2.reshape(-1, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        perms, signs2 = ctx.saved_tensors
+        h, d = perms.shape
+        gs = (g.reshape(h, d, -1) * signs2[:, :, None]).reshape(h * d, -1)
+        dxt = gs.index_select(0, _inverse_row_table(perms))
+        return dxt.view(d, h, -1).sum(dim=1), None, None
+
+
+def _inverse_row_table(perms: torch.Tensor) -> torch.Tensor:
+    """[d*H] flat row table of the inverse of the multi-head row gather:
+    entry j*H + h is ``h*d + inv[h, j]`` (perms[h, inv[h, j]] = j)."""
+    h, d = perms.shape
+    inv = torch.argsort(perms.long(), dim=-1)
+    offs = torch.arange(h, device=inv.device)[:, None] * d
+    return (inv + offs).t().reshape(-1)
+
+
+def permut_mix_fused_t(xt: torch.Tensor, perms: torch.Tensor,
+                       signs2: torch.Tensor) -> torch.Tensor:
+    """Token-major mix: [d, B] -> [H*d, B]; row ``h*d + i`` of the output is
+    ``xt[perms[h, i]] * signs2[h, i]`` (``permut_mix_fused`` on xt.T). The
+    output is the [N, E*H, B] stream a per-token projection reads, with no
+    relayout. perms int32 [H, d], signs2 [H, d] +-1. Gradient for xt only:
+    the signed cotangent, one flat gather by the inverse rows, a [d, H, B]
+    sum over heads."""
+    return _PermutMixFusedT.apply(xt, perms, signs2)

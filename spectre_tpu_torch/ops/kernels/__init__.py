@@ -34,6 +34,10 @@ from spectre_tpu_torch.ops.kernels.inverse_gather import (
     inverse_gather_sum,
     inverse_gather_sum_plain,
 )
+from spectre_tpu_torch.ops.kernels.routed_gather import (
+    routed_gather_sum,
+    routed_gather_sum_plain,
+)
 from spectre_tpu_torch.ops.kernels.structured_mix import (
     invert_tile_perms,
     structured_mix,
@@ -45,7 +49,7 @@ from spectre_tpu_torch.ops.kernels.structured_mix import (
 
 KERNELS = (block_scatter_rows, block_gather_sum, inverse_gather_sum, fused_spectre_linear,
            fused_block_bwd, flash_attention_fwd, flash_attention_bwd, fwht, structured_mix,
-           structured_mix_bwd)
+           structured_mix_bwd, routed_gather_sum)
 
 
 def reset_launch_counts() -> None:
@@ -82,6 +86,8 @@ __all__ = [
     "invert_tile_perms",
     "launch_counts",
     "reset_launch_counts",
+    "routed_gather_sum",
+    "routed_gather_sum_plain",
     "structured_mix",
     "structured_mix_bwd",
     "structured_mix_bwd_plain",

@@ -37,6 +37,7 @@ _SIGNATURES = {
     "block_scatter_rows": (_P, _P, _P, _LL, _LL, _LL, _LL, ctypes.c_int, _P),
     "block_gather_sum": (_P, _P, _P, _LL, _LL, _LL, _LL, ctypes.c_int, _P),
     "inverse_gather_sum": (_P, _P, _P, _LL, _LL, _LL, ctypes.c_int, _P),
+    "routed_gather_sum": (_P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, ctypes.c_int, _P),
     "fused_spectre_linear_fwd": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
                                  _LL, _LL, _LL, ctypes.c_float, _P),
     "fused_block_bwd": (ctypes.c_int, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P),

@@ -26,8 +26,16 @@ twice the forward, so a step is 3 * forward * batch. For ``model = "vit"`` a
 layer is instead the four attention projections (N x E x E each), the
 attention itself (per head N x N x D for q k^T and again for P v: 4*N*N*E in
 all) and the two Dense layers (N x E x hidden, N x hidden x E), and the head a
-plain product. Any other model or mixer is refused by name: no utilisation is
-printed from a count that does not describe the model. Elementwise work,
+plain product. For ``model = "spectre_branch"`` (with ``permut_mix``) a layer
+is the mix projection (N x E*H x E) and its grouped-mean pool (N*E*H),
+``linear1``, ``linear2``, ``linear3`` (N x E x hidden, N x hidden x hidden,
+N x hidden x E) and the fusion (N x 2E x E); each stage of the frequency
+branch its 3x3 convolution (H'W' x 9I x 3I), its 1x1 projection
+(H'W' x 3I x E) and its pool to N tokens (a product E x H'W' x N, a grouped
+mean, or nothing); once per image the DFT products of the log-magnitude
+spectrum; the head a plain product. Any other model or mixer is refused by
+name: no utilisation is printed from a count that does not describe the
+model. Elementwise work,
 LayerNorm, the Hadamard butterflies and the optimizer are not counted. The utilisation is against the
 published dense bf16 tensor-core peak of the card, looked up by its name; an
 unknown card raises, and a utilisation above 100% fails hard.
@@ -60,6 +68,30 @@ def _linear_flops(rows: int, k: int, n: int) -> int:
     return 2 * rows * k * n + pool
 
 
+def _pool_flops(rows: int, length: int, out_len: int) -> int:
+    """adaptive_avg_pool1d of ``rows`` rows from ``length`` to ``out_len``."""
+    if length == out_len:
+        return 0
+    return rows * length if length % out_len == 0 else 2 * rows * length * out_len
+
+
+def _branch_flops_per_image(config: SimpleNamespace) -> int:
+    """The frequency branch of SpectreBranch: the DFT products of
+    log1p(|rfft2|) once, then per stage both convolutions and the pool."""
+    c, size, e = int(config.in_channels), int(config.img_size), int(config.embed_dim)
+    n = (size // int(config.patch_size)) ** 2 + 1
+    f = size // 2 + 1
+    flops = 2 * (2 * c * size * size * size) + 4 * (2 * c * size * size * f)
+    height, width = size, f
+    for _ in range(int(config.num_encoders)):
+        height, width = height - 2, width - 2
+        spatial = height * width
+        flops += 2 * spatial * (9 * c) * (3 * c)  # the 3x3 convolution, c -> 3c
+        c *= 3
+        flops += 2 * spatial * c * e + _pool_flops(e, spatial, n)
+    return flops
+
+
 def forward_flops_per_image(config: SimpleNamespace) -> int:
     e, hd, heads = int(config.embed_dim), int(config.hidden_dim), int(config.num_heads)
     p, c = int(config.patch_size), int(config.in_channels)
@@ -75,10 +107,16 @@ def forward_flops_per_image(config: SimpleNamespace) -> int:
         layer = _linear_flops(n, e * heads, e) + _linear_flops(n, e, hd) \
             + _linear_flops(n, hd, e)
         head = _linear_flops(1, e, int(config.num_classes))
+    elif model == "spectre_branch" and method == "permut_mix":
+        layer = 2 * n * (e * heads) * e + _pool_flops(n, e * heads, e) \
+            + 2 * n * e * hd + 2 * n * hd * hd + 2 * n * hd * e + 2 * n * (2 * e) * e
+        head = 2 * e * int(config.num_classes)
+        embed += _branch_flops_per_image(config)
     else:
         raise NotImplementedError(
             f"no FLOP count for model={model!r} with method={method!r}: the bench counts "
-            "'vit' and 'spectre_vit' with method 'permut_mix' only")
+            "'vit', and 'spectre_vit' and 'spectre_branch' with method "
+            "'permut_mix' only")
     return embed + int(config.num_encoders) * layer + head
 
 

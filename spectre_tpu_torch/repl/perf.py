@@ -9,13 +9,23 @@ any config with ``--config``), and single kernels beside what they replace.
         [--tokens 65] [--head-dim 32] [--iters 30]
     python -m spectre_tpu_torch.repl.perf structured [--batch 256 1024] [--heads 16]
         [--tokens 65] [--embed 512] [--iters 30]
+    python -m spectre_tpu_torch.repl.perf routed [--batch 256 1024] [--heads 16]
+        [--tokens 65] [--embed 512] [--iters 30]
 
 Needs a CUDA card. ``attention`` and ``structured`` (the counterparts of the
 JAX package's ``repl/perf.py attention`` and ``mixer``) time the attention
 kernels and the structured-mix kernels in bf16 against their plain versions,
 forward and forward + backward, and print their largest difference; beside
 the attention stands ``scaled_dot_product_attention`` and beside the
-structured mix its matrix form, as yardsticks that the port does not call. ``fused-bwd`` (the counterpart of the JAX package's
+structured mix its matrix form, as yardsticks that the port does not call.
+``routed`` (the counterpart of the JAX package's
+``benchmarks/bwd_gather_variants.py --routed``) times the mix backward
+through the Clos route tables, kernel B9 ``routed_gather_sum``, beside
+kernel 4 ``inverse_gather_sum`` on the same inverse permutations, B9's
+plain version and ``index_add_`` (the scatter form, as a yardstick), in
+bf16, with the bytes bound, and prints B9's largest difference from its
+plain version (none: they are bitwise equal) and from kernel 4 (the bf16
+chain against one rounding). ``fused-bwd`` (the counterpart of the JAX package's
 ``benchmarks/fused_bwd_bench.py``) runs the mix backward at one layer's
 shapes in bf16 both ways, the chain of the train step (``_FoldedProj``'s
 ``dg4`` product and signs, then ``block_gather_sum``) and the one-launch
@@ -64,10 +74,14 @@ from spectre_tpu_torch.ops.kernels import (
     flash_attention,
     flash_attention_plain,
     fused_block_bwd,
+    inverse_gather_sum,
     invert_tile_perms,
+    routed_gather_sum,
+    routed_gather_sum_plain,
     structured_mix_grad,
     structured_mix_plain,
 )
+from spectre_tpu_torch.ops.routing import build_route_tables_cached
 from spectre_tpu_torch.train import make_train_step
 from spectre_tpu_torch.train.loop import create_trainer, default_augment
 from spectre_tpu_torch.utils import card_and_power_limit
@@ -344,11 +358,63 @@ def structured(args) -> dict:
     return out
 
 
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+
+
+def routed(args) -> dict:
+    """The mix backward through the route at one layer's shape, bf16:
+    kernel B9 beside kernel 4, B9's plain version and ``index_add_``."""
+    h, n, e = args.heads, args.tokens, args.embed
+    d = n * e
+    gen = torch.Generator().manual_seed(0)
+    perms = torch.stack([torch.randperm(d, generator=gen) for _ in range(h)])
+    inv = torch.argsort(perms, dim=1).to(torch.int32)
+    t0 = time.perf_counter()
+    rt = build_route_tables_cached(inv.numpy())
+    print(f"route tables for H={h} d={d} (r={rt.r}, c={rt.c}): "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    tables = [torch.from_numpy(t).cuda() for t in (rt.a_idx, rt.b_idx, rt.c_idx)]
+    inv, flat = inv.cuda(), perms.reshape(-1).cuda()
+    dev_gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for b in args.batch:
+        g = torch.randn(h * d, b, generator=dev_gen, device="cuda").to(torch.bfloat16)
+        got = routed_gather_sum(g, *tables)
+        diff_plain = (got.float() - routed_gather_sum_plain(g, *tables).float()).abs().max().item()
+        diff_k4 = (got.float() - inverse_gather_sum(g, inv).float()).abs().max().item()
+        acc = torch.zeros(d, b, dtype=torch.bfloat16, device="cuda")
+        fns = {"kernel": lambda: routed_gather_sum(g, *tables),
+               "inverse_gather_sum": lambda: inverse_gather_sum(g, inv),
+               "plain": lambda: routed_gather_sum_plain(g, *tables),
+               "index_add": lambda: acc.index_add_(0, flat, g)}
+        t = {}
+        for key in list(fns) + [k + "_again" for k in reversed(list(fns))]:
+            fn = fns[key.removesuffix("_again")]
+            iters = max(1, args.iters // 10) if key.startswith("plain") else args.iters
+            fn()
+            t[key] = statistics.median(
+                _events_ms(lambda: [fn() for _ in range(iters)], 5)) / iters
+        for key in fns:
+            t[key] = min(t[key], t.pop(key + "_again"))
+        moved = (h * d * b + d * b) * 2 + 3 * h * d * 4
+        bound = moved / HBM_BYTES_PER_S * 1e3
+        out[str(b)] = dict(t, max_abs_diff=diff_plain, max_abs_diff_to_inverse_gather=diff_k4,
+                           bound_ms=bound, bytes=moved)
+        print(f"routed B={b} H={h} d={d} bf16: max|kernel - plain| = {diff_plain}, "
+              f"max|kernel - inverse_gather_sum| = {diff_k4:.4g}; kernel {t['kernel']:.4f} ms "
+              f"({moved / t['kernel'] / 1e6:.1f} GB/s), inverse_gather_sum "
+              f"{t['inverse_gather_sum']:.4f} ms, plain {t['plain']:.4f} ms, index_add_ "
+              f"{t['index_add']:.4f} ms, bound {bound:.4f} ms by bytes", flush=True)
+        del g, acc
+        torch.cuda.empty_cache()
+    return out
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("mode", nargs="?", default="train",
-                   choices=("train", "fused-bwd", "attention", "structured"))
+                   choices=("train", "fused-bwd", "attention", "structured", "routed"))
     p.add_argument("--config", default=FLAGSHIP)
     p.add_argument("--batch", type=int, nargs="*", default=[256, 1024])
     p.add_argument("--mix-block", type=int, default=None, help="override the config's mix_block")
@@ -373,6 +439,8 @@ def main(argv=None) -> dict:
         return {"card": card, "attention": attention(args)}
     if args.mode == "structured":
         return {"card": card, "structured": structured(args)}
+    if args.mode == "routed":
+        return {"card": card, "routed": routed(args)}
     folded = (getattr(cfg, "model", "spectre_vit") == "spectre_vit"
               and getattr(cfg, "method", "permut_mix") == "permut_mix"
               and getattr(cfg, "mix_impl", "gather") == "folded")

@@ -4,8 +4,11 @@ device, a validation pass per epoch, named metric files, best and latest
 checkpoints, exact resume, and a save on SIGTERM/SIGINT.
 
 The multi-host, mesh, FSDP and tensor-parallel parts of the JAX loop are not
-ported (ROADMAP.md, queue A12); its route registration has no counterpart, as
-the model derives its tables from its own buffers.
+ported (ROADMAP.md, queue A12). The block-route registration has no
+counterpart, as each mix derives its block tables from its own buffers; the
+config's ``mix_routed`` (with ``mix_routed_impl``, default ``"mxu"``) routes
+the mix backward through its Clos route, as the JAX loop does, read after
+the restore (``ops.register_mix_routes``).
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from spectre_tpu_torch.data import (
     synthetic_dataset,
 )
 from spectre_tpu_torch.models import build_model
+from spectre_tpu_torch.ops import clear_mix_routes, register_mix_routes
 from spectre_tpu_torch.train.checkpoint import CheckpointManager
 from spectre_tpu_torch.train.optim import make_optimizer
 from spectre_tpu_torch.train.state import TrainState, create_train_state, param_count
@@ -149,6 +153,14 @@ def train_from_config(config: SimpleNamespace, *, device: torch.device | str = "
     if resume and ckpt and ckpt.latest_step is not None:
         ckpt.restore(state)
         print(f"resumed from step {state.step}", flush=True)
+    if getattr(config, "mix_routed", False):
+        # the Clos-routed mix backward, from the live (restored) permutation
+        # buffers; it takes precedence over the block tables of mix_block
+        routed = register_mix_routes(model, impl=getattr(config, "mix_routed_impl", "mxu"))
+        if routed:
+            print(f"mix routes registered: {routed}", flush=True)
+    else:
+        clear_mix_routes(model)
     print(f"model={getattr(config, 'model', '?')} params={param_count(model):,} "
           f"device={device} batch={batch_size} steps/epoch={steps_per_epoch}", flush=True)
 

@@ -21,6 +21,8 @@ import torch
 from spectre_tpu_torch.data import BatchIterator, prefetch_to_device, synthetic_dataset
 from spectre_tpu_torch.models import build_model
 from spectre_tpu_torch.ops import fwht as fwht_any_axis
+from spectre_tpu_torch.ops import register_mix_routes
+from spectre_tpu_torch.ops.routing import build_route_tables_cached
 from spectre_tpu_torch.ops.kernels import (
     block_gather_sum,
     block_gather_sum_plain,
@@ -42,6 +44,8 @@ from spectre_tpu_torch.ops.kernels import (
     inverse_gather_sum,
     inverse_gather_sum_plain,
     launch_counts,
+    routed_gather_sum,
+    routed_gather_sum_plain,
     structured_mix,
     structured_mix_bwd,
     structured_mix_bwd_plain,
@@ -410,3 +414,99 @@ def test_prefetch_queue_on_the_card_yields_the_batches_of_plain_iteration(cuda_d
             assert np.array_equal(got[k].cpu().numpy(), want[k]), (seen, k)
         seen += 1
     assert seen == 40
+
+
+def _route_case(h, d, c, seed, cache_dir):
+    """Uniform permutations [H, d], their inverses and route tables with c
+    columns; the tables int32 on the card."""
+    rng = np.random.default_rng(seed)
+    inv = np.argsort(np.stack([rng.permutation(d) for _ in range(h)]), axis=1).astype(np.int32)
+    rt = build_route_tables_cached(inv, c, cache_dir=str(cache_dir))
+    tables = [torch.from_numpy(t).cuda() for t in (rt.a_idx, rt.b_idx, rt.c_idx)]
+    return torch.from_numpy(inv).cuda(), tables
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_routed_gather_kernel_is_bitwise_the_plain_chain(cuda_device, dtype, tmp_path):
+    """Kernel B9 and its plain version add the same values in head order,
+    rounding to the data type after every head, so they agree bit for bit:
+    the flagship mix shape (H=16, d=33,280, c=128) at B=256 and B=250, c=8,
+    rows that are no whole 16-byte vector (element units), a source whose
+    base is not 16-byte aligned, more heads than one batch of loads in
+    flight. In f32 the chain is kernel 4's float32 sum: bitwise equal too."""
+    rng = np.random.default_rng(0)
+    for h, d, c, b, offset in ((16, 33_280, 128, 256, 0), (16, 33_280, 128, 250, 0),
+                               (4, 256, 8, 16, 0), (3, 544, 32, 3, 0), (11, 1040, 16, 8, 0),
+                               (4, 256, 128, 130, 0), (2, 520, 8, 64, 1), (9, 64, 8, 1, 0)):
+        inv, tables = _route_case(h, d, c, h + d + c, tmp_path)
+        flat = torch.from_numpy(rng.standard_normal(offset + h * d * b).astype(np.float32))
+        g = flat.to(cuda_device, dtype)[offset:].view(h * d, b)
+        n0 = launch_counts()
+        got = routed_gather_sum(g, *tables)
+        n1 = launch_counts()
+        assert n1["routed_gather_sum"] == n0["routed_gather_sum"] + 1
+        assert sum(n1.values()) == sum(n0.values()) + 1
+        assert torch.equal(got, routed_gather_sum_plain(g, *tables)), (h, d, c, b, offset)
+        if dtype == torch.float32:
+            assert torch.equal(got, inverse_gather_sum_plain(g, inv)), (h, d, c, b, offset)
+
+
+def test_routed_gather_wrapper_raises_on_what_the_kernel_does_not_take(cuda_device, tmp_path):
+    _, tables = _route_case(2, 64, 8, 0, tmp_path)
+    g = torch.zeros(2 * 64, 4, device=cuda_device)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        routed_gather_sum(g.half(), *tables)
+    with pytest.raises(TypeError, match="int32"):
+        routed_gather_sum(g, tables[0].long(), *tables[1:])
+    with pytest.raises(ValueError, match="on cpu"):
+        routed_gather_sum(g, tables[0], tables[1].cpu(), tables[2])
+    with pytest.raises(ValueError, match="contiguous"):
+        routed_gather_sum(torch.zeros(4, 2 * 64, device=cuda_device).t(), *tables)
+    with pytest.raises(ValueError, match="rows"):
+        routed_gather_sum(g[:-1], *tables)
+
+
+def test_small_routed_model_gradients_on_the_card_match_the_cpu(cuda_device):
+    """One backward in f32 with the Clos-routed mix backward (impl "pallas":
+    kernel B9 on the card) against the same on the CPU: every gradient
+    within 1e-4 of its largest entry; B9 replaces the block backward."""
+    cfg = SimpleNamespace(model="spectre_vit", method="permut_mix", mix_impl="folded",
+                          mix_block=8, img_size=8, patch_size=4, in_channels=3,
+                          num_classes=10, embed_dim=16, num_encoders=2, num_heads=2,
+                          hidden_dim=32, random_seed=0, compute_dtype="float32",
+                          param_dtype="float32", dropout=0.0)
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.uniform(0, 1, (8, 3, 8, 8)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, 8))
+    cpu, gpu = build_model(cfg, "cpu", train=True), build_model(cfg, cuda_device, train=True)
+    assert register_mix_routes(cpu, "pallas") == register_mix_routes(gpu, "pallas") == 2
+    torch.nn.functional.cross_entropy(cpu(x), y).backward()
+    before = launch_counts()
+    torch.nn.functional.cross_entropy(gpu(x.to(cuda_device)), y.to(cuda_device)).backward()
+    after = launch_counts()
+    delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert delta == {"block_scatter_rows": 2, "fused_spectre_linear": 5, "routed_gather_sum": 2}
+    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        scale = pc.grad.abs().max().item()
+        assert (pg.grad.cpu() - pc.grad).abs().max().item() <= 1e-4 * scale, name
+
+
+def test_small_branch_on_the_card_matches_the_cpu(cuda_device):
+    """SpectreBranch in f32 (convolutions with TF32 off) against the CPU
+    path: logits within 1e-4; the folded mix runs kernel 1 forward, and no
+    SpectreLinear kernel (the branch's layers are plain Denses)."""
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = SimpleNamespace(model="spectre_branch", method="permut_mix", mix_impl="folded",
+                          img_size=16, patch_size=4, in_channels=3, num_classes=10,
+                          embed_dim=24, num_encoders=2, num_heads=2, hidden_dim=16,
+                          random_seed=0, compute_dtype="float32", param_dtype="float32")
+    x = torch.from_numpy(np.random.default_rng(1).uniform(0, 1, (8, 3, 16, 16))
+                         .astype(np.float32))
+    with torch.inference_mode():
+        want = build_model(cfg, "cpu")(x)
+        before = launch_counts()
+        got = build_model(cfg, cuda_device)(x.to(cuda_device)).cpu()
+        after = launch_counts()
+    delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    assert delta == {"block_scatter_rows": 2}
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=0)

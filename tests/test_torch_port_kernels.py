@@ -235,11 +235,17 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
                        K.structured_mix_plain(xs, tile_perms, signs, 1))
     assert torch.equal(K.structured_mix_bwd(gm, tile_perms, signs),
                        K.structured_mix_bwd_plain(gm, tile_perms, signs))
+    route = [torch.from_numpy(np.stack([np.random.default_rng(i).permutation(8)
+                                        for _ in range(2)]).reshape(2, 1, 8).astype(np.int32))
+             for i in range(3)]
+    route[1].zero_()  # one row: stage B has one source row
+    gr = torch.randn(16, 3)
+    assert torch.equal(K.routed_gather_sum(gr, *route), K.routed_gather_sum_plain(gr, *route))
     assert launch_counts() == before
     assert list(before) == ["block_scatter_rows", "block_gather_sum", "inverse_gather_sum",
                             "fused_spectre_linear", "fused_block_bwd", "flash_attention_fwd",
                             "flash_attention_bwd", "fwht", "structured_mix",
-                            "structured_mix_bwd"]
+                            "structured_mix_bwd", "routed_gather_sum"]
 
 
 def test_wrappers_raise_instead_of_falling_back():

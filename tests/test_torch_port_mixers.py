@@ -209,7 +209,7 @@ def test_make_mixer_builds_every_method_and_refuses_unknown_ones():
 # ---- the permutation mix in its other impls -------------------------------------------
 
 
-@pytest.mark.parametrize("impl", ["gather", "gather_unfused", "structured"])
+@pytest.mark.parametrize("impl", ["gather", "gather_unfused", "gather_tm", "structured"])
 def test_mh_permut_mix_impls_match_flax_value_and_gradient(impl):
     b, n, e, h = 3, 5, 16, 2
     x = _x(b, n, e)
@@ -276,10 +276,56 @@ def test_structured_mix_derives_its_inverse_table_once_per_buffer_change():
         mix.tile_perms[0, 0] = mix.tile_perms[0, 1]
         with pytest.raises(ValueError, match="permutation"):
             mix(x)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MHPermutMix(8, 4, 2, 8, impl="gather_tm")
+    tm = MHPermutMix(8, 4, 2, 8, impl="gather_tm")  # builds; derives nothing
+    assert tm.refresh() is None and tm.table_derivations == 0
     with pytest.raises(ValueError, match="unknown MHPermutMix impl"):
         MHPermutMix(8, 4, 2, 8, impl="scatter")
+
+
+@pytest.mark.parametrize("h,o", [(1, 16), (3, 16), (2, 10)], ids=["same", "grouped", "matrix"])
+def test_token_major_mix_matches_flax_outputs_and_every_gradient(h, o):
+    """``mix_impl="gather_tm"``: the token-major gather and
+    ``TokenMajorMixLinear`` against JAX's, with each pool-residual kind
+    (identity at E*H == O, grouped mean, pool matrix): output, the input's
+    gradient and each parameter's gradient. The gather and its backward move
+    values exactly; the products add in another order (1e-4)."""
+    b, n, e = 3, 5, 16
+    x = _x(b, n, e, seed=h + o)
+    flax_mod = jl.MHPermutMix(embed_dim=e, token_dim=n, num_heads=h, out_channels=o,
+                              impl="gather_tm")
+    v = _init(flax_mod, x)
+    port = MHPermutMix(e, n, h, o, impl="gather_tm")
+    _check(port, flax_mod, v, x)
+    ct = _x(b, n, o, seed=7)
+
+    def loss(params, a):
+        return jnp.sum(flax_mod.apply({"params": params, "buffers": v["buffers"]}, a) * ct)
+
+    want_p, want_x = jax.grad(loss, argnums=(0, 1))(v["params"], jnp.asarray(x))
+    tx = torch.from_numpy(x).requires_grad_()
+    (port(tx) * torch.from_numpy(ct)).sum().backward()
+    np.testing.assert_allclose(tx.grad.numpy(), np.asarray(want_x), atol=1e-4, rtol=0)
+    for name, p in port.linear.named_parameters():
+        np.testing.assert_allclose(p.grad.numpy(), np.asarray(want_p["linear"][name]),
+                                   atol=1e-4, rtol=0, err_msg=name)
+    assert (port.linear.pool_matrix is None) == ((e * h) % o == 0)
+
+
+def test_a_gather_tm_checkpoint_loads_into_the_folded_mix():
+    """One parameter and buffer tree: a gather_tm state dict loads into a
+    folded mix (and back), which then computes the same outputs."""
+    b, n, e, h = 8, 5, 16, 2
+    x = torch.from_numpy(_x(b, n, e, seed=11))
+    tm = MHPermutMix(e, n, h, e, impl="gather_tm")
+    from spectre_tpu_torch.models.init import init_weights
+    init_weights(tm, torch.Generator().manual_seed(4))
+    folded = MHPermutMix(e, n, h, e, impl="folded")
+    folded.load_state_dict(tm.state_dict())
+    with torch.no_grad():
+        torch.testing.assert_close(folded(x), tm(x), rtol=1e-5, atol=1e-5)
+        back = MHPermutMix(e, n, h, e, impl="gather_tm")
+        back.load_state_dict(folded.state_dict())
+        assert torch.equal(back(x), tm(x))
 
 
 # ---- embeddings, the encoder layer, the experimental layers -----------------------------

@@ -97,7 +97,7 @@ def test_port_parses_the_jax_config_files_identically():
     copies of them (which it reads at run time), give the JAX namespaces."""
     for name in ("default.py", "spectre_vit_cifar100.py", "spectre_vit_mnist.py",
                  "vit_cifar100.py", "vit_mnist.py", "fnet_cifar100.py", "fnet_mnist.py",
-                 "dwt_cifar100.py"):
+                 "dwt_cifar100.py", "spectre_branch.py"):
         want = vars(jax_parse_config(os.path.join(JAX_CONFIGS, name)))
         assert vars(parse_config(os.path.join(JAX_CONFIGS, name))) == want
         assert vars(parse_config(os.path.join(CONFIG_DIR, name))) == want
@@ -238,24 +238,31 @@ def test_model_built_and_bridged_under_inference_mode(tiny_flax):
 
 
 def test_unported_variants_raise_with_a_pointer():
-    """What is still to port raises by name with a pointer to ROADMAP.md:
-    the token-major gather and SpectreBranch. Everything else builds: both
-    models, every mixer, every other mix impl."""
-    with pytest.raises(NotImplementedError, match="gather_tm.*ROADMAP"):
-        MHPermutMix(4, 6, 2, 4, impl="gather_tm")
-    for over, what in ((dict(model="spectre_branch"), "spectre_branch"),
-                       (dict(mix_impl="gather_tm"), "gather_tm")):
-        with pytest.raises(NotImplementedError, match=f"{what}.*ROADMAP"):
-            build_model(tiny_export_cfg(**over), "cpu")
+    """Nothing of the models is left to port: the token-major gather and
+    SpectreBranch build like the rest, and every trainable config in the
+    port's configs/ builds (8 of 8). What the port does not know raises by
+    name: an unknown model, mix impl or mixer method."""
+    assert MHPermutMix(4, 6, 2, 4, impl="gather_tm").impl == "gather_tm"
     with pytest.raises(ValueError, match="unknown model"):
         build_model(tiny_export_cfg(model="resnet"), "cpu")
+    with pytest.raises(ValueError, match="unknown MHPermutMix impl"):
+        build_model(tiny_export_cfg(mix_impl="scatter"), "cpu")
     x = torch.zeros(2, 3, 8, 8)
-    built = [dict(model="vit", method="attention")]
+    built = [dict(model="vit", method="attention"), dict(model="spectre_branch")]
     built += [dict(method=m, mix_impl="folded") for m in MIXERS]
-    built += [dict(mix_impl=i) for i in ("folded", "gather", "gather_unfused", "structured")]
+    built += [dict(mix_impl=i) for i in ("folded", "gather", "gather_unfused", "gather_tm",
+                                         "structured")]
     for over in built:
         with torch.no_grad():
             assert build_model(tiny_export_cfg(**over), "cpu")(x).shape == (2, 10), over
+    trainable = sorted(n for n in os.listdir(CONFIG_DIR) if n.endswith(".py")
+                       and n not in ("__init__.py", "parser.py", "default.py"))
+    assert len(trainable) == 8, trainable
+    for name in trainable:
+        cfg = parse_config(os.path.join(CONFIG_DIR, name))
+        cfg.num_encoders, cfg.compute_dtype = 1, "float32"
+        model = build_model(cfg, "cpu")
+        assert sum(p.numel() for p in model.parameters()) > 0, name
 
 
 def test_seeded_init_distributions_and_determinism():
@@ -293,6 +300,7 @@ def test_port_imports_no_jax():
                 "data.datasets", "train.checkpoint", "utils.metrics", "repl.eval", "repl.bench",
                 "repl.perf", "ops.kernels.fused_block_bwd", "ops.kernels.attention",
                 "ops.kernels.fwht", "ops.kernels.structured_mix", "ops.hadamard", "ops.dwt",
-                "models.mixers", "models.vit"):
+                "models.mixers", "models.vit", "ops.routing", "ops.kernels.routed_gather",
+                "models.spectre_branch"):
         assert f"spectre_tpu_torch.{sub}" in names
-    assert len(names) >= 45
+    assert len(names) >= 48
