@@ -71,9 +71,13 @@ Phases, each raising on failure (nothing is caught):
    plain versions at [256,16,65,32], [1024,16,65,32] and [64,4,50,16], bf16
    and f32, with and without the probability multiplier ``pm``, on strided
    [B, N, H, D] views as the model passes them: f32 within 1e-5 of the
-   largest entry (sums in another order), bf16 within one bf16 ulp of the
-   largest entry (2^-7 of it at most). Times beside the plain version and
-   ``scaled_dot_product_attention`` (forward; backward by autograd).
+   largest entry (sums in another order), bf16 (the tensor-core kernels,
+   with P * pm and dS rounded to bf16 as the plain version states) within
+   one bf16 ulp of the largest entry (2^-7 of it at most), and within 2^-6
+   of the float32 arithmetic on the same inputs. Times at B=256 and B=1024,
+   back to back and on the device alone (calls queued ahead of the card),
+   beside the plain version and ``scaled_dot_product_attention`` (forward;
+   backward by autograd).
 15. the Walsh-Hadamard kernel (fwht) vs its plain version at [16,640, 512],
    [16,640, 1024], [4,160, 4,096] and [520, 32,768], bf16 and f32,
    normalised and not: bitwise equal (the same float32 pairs added in the
@@ -93,7 +97,9 @@ Phases, each raising on failure (nothing is caught):
    forward per validation batch; these are the ``launches`` of kernels 8 and
    9), and the resumed run must equal the uninterrupted one bit for bit;
    one step under ``set_sync_debug_mode("error")``; ms per step and peak
-   memory at B=256 and B=1024.
+   memory at B=256 and B=1024. Then the serving CLI serves that trainer's
+   checkpoint directory (``--ckpt``; its best step, 14): replies within 1e-3
+   of the trained model's direct forwards.
 18. SpectreViT with ``mix_impl="structured"`` at full width: a bucket-256
    forward against the plain path, 3 train steps at B=256 through the
    training CLI with exact launch counts (4 structured_mix and 4
@@ -102,6 +108,14 @@ Phases, each raising on failure (nothing is caught):
    step; ``repl/perf.py attention`` and ``repl/perf.py structured`` through
    their ``main``; ``ops/hadamard.py::fwht`` and ``hadamard_transform`` on
    card tensors (kernel 6's ``launches``).
+
+19. kernel B9 (routed_gather_sum) against its plain version and kernel 4,
+   the routed flagship trainer (route tables cold and cached, one backward
+   against kernel 3's, the training CLI with ``mix_routed``) and
+   ``repl/bench.py --set mix_routed=True mix_routed_impl=pallas`` at B=256:
+   B9 on every layer of every step, none of kernel 3, and ``"mix_routed":
+   true`` on its line; SpectreBranch through the server, the training CLI
+   and the bench; ``gather_tm`` steps.
 
 Prints the card line, one JSON line of per-kernel results, then
 ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero, with no
@@ -200,6 +214,35 @@ def cuda_time_ms(fn, iters: int = 20, reps: int = 5) -> float:
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end) / iters)
+    return statistics.median(times)
+
+
+def device_time_ms(fn, iters: int = 20, reps: int = 5) -> float:
+    """As ``cuda_time_ms``, with the calls queued behind a device sleep so
+    that the card runs them back to back: the device's own time, without the
+    host's per-call overhead (Python, ctypes), which a small kernel can fall
+    below. A repetition whose calls took the host longer to queue than the
+    sleep lasted is taken again behind a sleep twice as long."""
+    fn()
+    times, cycles = [], 10_000_000
+    while len(times) < reps:
+        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        marks[0].record()
+        t0 = time.perf_counter()
+        torch.cuda._sleep(cycles)
+        marks[1].record()
+        for _ in range(iters):
+            fn()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        marks[2].record()
+        torch.cuda.synchronize()
+        if queued_ms >= marks[0].elapsed_time(marks[1]):
+            if cycles >= 640_000_000:
+                raise AssertionError(f"device_time_ms: queueing {iters} calls took "
+                                     f"{queued_ms:.2f} ms, longer than any sleep tried")
+            cycles *= 2
+            continue
+        times.append(marks[1].elapsed_time(marks[2]) / iters)
     return statistics.median(times)
 
 
@@ -925,9 +968,14 @@ def phase_fused_bwd_cli(kernels, perf_cli):
 
 # the attention kernels against their plain versions, as a share of the
 # reference's largest entry. f32: the same float32 products summed in another
-# order. bf16: both compute in float32 and round once, so single entries
-# differ by one bf16 ulp, which is 2^-8 to 2^-7 of the entry.
+# order. bf16: the plain version rounds P * pm and dS to bf16 where the
+# tensor-core kernels do, so single entries differ by one bf16 ulp, which is
+# 2^-8 to 2^-7 of the entry.
 ATTENTION_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+# the bf16 kernels against the all-float32 arithmetic (the f32 plain version
+# on the same bf16 inputs): P * pm, dS and the outputs each rounded once to
+# bf16 (2^-9 of a value each)
+ATTENTION_F32_REL = 2.0 ** -6
 
 
 def phase_attention(kernels):
@@ -964,12 +1012,27 @@ def phase_attention(kernels):
                         worst.get((key + "_abs", dtype), 0.0),
                         max_abs_diff(o, o_p) if key == "fwd" else
                         max(max_abs_diff(a, r) for a, r in zip((dq, dk, dv), grads_p)))
+                if dtype == torch.bfloat16:  # how far the tensor cores move the results
+                    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+                    o32, _ = kernels.flash_attention_fwd_plain(qf, kf, vf, pm)
+                    grads32 = kernels.flash_attention_bwd_plain(qf, kf, vf, o.float(), lse, gf,
+                                                                pm)
+                    for key, val in (("fwd_f32", rel_to_largest(o, o32)),
+                                     ("bwd_f32", max(rel_to_largest(a, r) for a, r in
+                                                     zip((dq, dk, dv), grads32)))):
+                        if not val <= ATTENTION_F32_REL:
+                            raise AssertionError(
+                                f"flash_attention [{b},{h},{n},{d}] bf16 pm={use_pm}: {key} "
+                                f"{val} of the largest entry > {ATTENTION_F32_REL}")
+                        worst[key] = max(worst.get(key, 0.0), val)
+                    del qf, kf, vf, gf, o32, grads32
             del q, k, v, g, o, lse, dq, dk, dv
     print(f"kernels 8/9 flash_attention: within {ATTENTION_REL[torch.float32]} (f32) and one "
           f"bf16 ulp (bf16, <= 2^-7) of the largest entry at three shapes, with and without "
           f"pm: forward {worst['fwd', torch.float32]:.3g} / {worst['fwd', torch.bfloat16]:.3g}, "
-          f"backward {worst['bwd', torch.float32]:.3g} / {worst['bwd', torch.bfloat16]:.3g}",
-          flush=True)
+          f"backward {worst['bwd', torch.float32]:.3g} / {worst['bwd', torch.bfloat16]:.3g}; "
+          f"bf16 against the float32 arithmetic: forward {worst['fwd_f32']:.3g}, backward "
+          f"{worst['bwd_f32']:.3g} of the largest entry (<= {ATTENTION_F32_REL})", flush=True)
 
     res = {}
     for b in (256, 1024):
@@ -981,13 +1044,18 @@ def phase_attention(kernels):
         ql, kl, vl = (t.detach().clone().requires_grad_() for t in (q, k, v))
         out_lib = F.scaled_dot_product_attention(ql, kl, vl)
         out_plain = kernels.flash_attention_plain(ql, kl, vl)
+        # back to back from the host (cuda_time_ms), as every kernel's "ms";
+        # "_dev": the calls queued ahead of the card, its own time (device_time_ms)
         r = {
             "fwd": cuda_time_ms(lambda: kernels.flash_attention_fwd(q, k, v)),
+            "fwd_dev": device_time_ms(lambda: kernels.flash_attention_fwd(q, k, v)),
             "fwd_pm": cuda_time_ms(lambda: kernels.flash_attention_fwd(q, k, v, pm)),
             "fwd_plain": cuda_time_ms(lambda: kernels.flash_attention_fwd_plain(q, k, v),
                                       iters=5),
             "fwd_lib": cuda_time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
+            "fwd_lib_dev": device_time_ms(lambda: F.scaled_dot_product_attention(q, k, v)),
             "bwd": cuda_time_ms(lambda: kernels.flash_attention_bwd(q, k, v, o, lse, g)),
+            "bwd_dev": device_time_ms(lambda: kernels.flash_attention_bwd(q, k, v, o, lse, g)),
             "bwd_pm": cuda_time_ms(lambda: kernels.flash_attention_bwd(q, k, v, o, lse, g, pm)),
             "bwd_plain": cuda_time_ms(
                 lambda: kernels.flash_attention_bwd_plain(q, k, v, o, lse, g), iters=5),
@@ -995,19 +1063,22 @@ def phase_attention(kernels):
                 out_plain, (ql, kl, vl), g, retain_graph=True), iters=5),
             "bwd_lib": cuda_time_ms(lambda: torch.autograd.grad(
                 out_lib, (ql, kl, vl), g, retain_graph=True)),
+            "bwd_lib_dev": device_time_ms(lambda: torch.autograd.grad(
+                out_lib, (ql, kl, vl), g, retain_graph=True)),
         }
         el, rows = 2, b * h * n
         flops_f = 4 * rows * n * d
         r["bound_fwd"], r["by_fwd"] = bound(4 * rows * d * el + rows * 4, flops_f)
         r["bound_bwd"], r["by_bwd"] = bound(8 * rows * d * el + rows * 4, 2.5 * flops_f)
         res[b] = r
-        print(f"kernels 8/9 at [{b},{h},{n},{d}] bf16: forward {r['fwd']:.4f} ms (with pm "
-              f"{r['fwd_pm']:.4f}), plain {r['fwd_plain']:.4f}, scaled_dot_product_attention "
-              f"{r['fwd_lib']:.4f}, bound {r['bound_fwd']:.4f} by {r['by_fwd']}; backward "
-              f"{r['bwd']:.4f} ms (with pm {r['bwd_pm']:.4f}), plain {r['bwd_plain']:.4f} "
-              f"(autograd of plain {r['bwd_plain_autograd']:.4f}), autograd of "
-              f"scaled_dot_product_attention {r['bwd_lib']:.4f}, bound {r['bound_bwd']:.4f} by "
-              f"{r['by_bwd']}", flush=True)
+        print(f"kernels 8/9 at [{b},{h},{n},{d}] bf16, back to back (device time): forward "
+              f"{r['fwd']:.4f} ({r['fwd_dev']:.4f}) ms, with pm {r['fwd_pm']:.4f}, plain "
+              f"{r['fwd_plain']:.4f}, scaled_dot_product_attention {r['fwd_lib']:.4f} "
+              f"({r['fwd_lib_dev']:.4f}), bound {r['bound_fwd']:.4f} by {r['by_fwd']}; backward "
+              f"{r['bwd']:.4f} ({r['bwd_dev']:.4f}) ms, with pm {r['bwd_pm']:.4f}, plain "
+              f"{r['bwd_plain']:.4f} (autograd of plain {r['bwd_plain_autograd']:.4f}), autograd "
+              f"of scaled_dot_product_attention {r['bwd_lib']:.4f} ({r['bwd_lib_dev']:.4f}), "
+              f"bound {r['bound_bwd']:.4f} by {r['by_bwd']}", flush=True)
         del q, k, v, g, o, lse, ql, kl, vl, out_lib, out_plain
         torch.cuda.empty_cache()
     out = []
@@ -1020,13 +1091,17 @@ def phase_attention(kernels):
                     "max_abs_err": worst[key + "_abs", torch.bfloat16], "ms": r[key],
                     "plain_ms": r[key + "_plain"], "bound_ms": r["bound_" + key],
                     "bound_by": r["by_" + key], "library_ms": r[key + "_lib"],
+                    "device_ms": r[key + "_dev"], "library_device_ms": r[key + "_lib_dev"],
                     "ms_with_pm": r[key + "_pm"], "ms_b1024": res[1024][key],
+                    "device_ms_b1024": res[1024][key + "_dev"],
                     "bound_ms_b1024": res[1024]["bound_" + key],
                     "library_ms_b1024": res[1024][key + "_lib"],
                     "plain_ms_b1024": res[1024][key + "_plain"],
                     "max_rel_err": worst[key, torch.bfloat16],
                     "max_rel_err_f32": worst[key, torch.float32],
-                    "shape": "q, k, v [256,16,65,32] bf16, views of [B,N,H,D]"})
+                    "rel_distance_to_f32_arithmetic": worst[key + "_f32"],
+                    "shape": "q, k, v [256,16,65,32] bf16, views of [B,N,H,D]; device_ms: "
+                             "the calls queued behind a device sleep"})
     return out
 
 
@@ -1223,16 +1298,18 @@ def _forward_against_plain(tag, kernels, model, cfg):
     return fwd_ms
 
 
-def _serve_check(tag, config, kernels, model, cfg, serve, client_cls, seed: int):
-    """The serving CLI on ``config``: requests of batch 1, 7 and 64, each
-    sent twice, replies within 1e-3 of direct forwards of the padded bucket;
-    the launches during the serving run are exactly those of the batcher's
-    forwards."""
+def _serve_check(tag, config, kernels, model, cfg, serve, client_cls, seed: int, ckpt=None):
+    """The serving CLI on ``config`` (with ``--ckpt ckpt`` when given, and
+    ``model`` then the model that checkpoint holds): requests of batch 1, 7
+    and 64, each sent twice, replies within 1e-3 of direct forwards of the
+    padded bucket; the launches during the serving run are exactly those of
+    the batcher's forwards."""
     rng = np.random.default_rng(seed)
     shape = (cfg.in_channels, cfg.img_size, cfg.img_size)
     requests = [rng.uniform(0, 1, (b, *shape)).astype(np.float32) for b in (1, 7, 64)]
     kernels.reset_launch_counts()
-    srv, port = serve.start(["--config", config, "--device", "cuda", "--port", "0"])
+    srv, port = serve.start(["--config", config, "--device", "cuda", "--port", "0",
+                             *(["--ckpt", ckpt] if ckpt else [])])
     try:
         with client_cls(port=port) as c:
             replies = []
@@ -1311,9 +1388,14 @@ def phase_vit(kernels, build_model, parse_config, serve, client_cls, train_cli, 
           flush=True)
     del runs["first"], resumed
     torch.cuda.empty_cache()
+    # serve what the trainer saved: its one checkpoint, step 14, is the best
+    restored = _serve_check("vit checkpoint", VIT_CONFIG, kernels, whole.state.model.eval(),
+                            cfg, serve, client_cls, seed=3,
+                            ckpt=os.path.join(whole.logdir, "ckpt"))
     times = _step_times("vit", cfg, kernels)
-    return runs["whole"][1], serving, {"forward_ms_b256": fwd_ms,
-                                       "train_step": {f"B={b}": v for b, v in times.items()}}
+    return runs["whole"][1], serving, {
+        "forward_ms_b256": fwd_ms, "train_step": {f"B={b}": v for b, v in times.items()},
+        "checkpoint_serving_launches": {k: v for k, v in restored.items() if v}}
 
 
 def phase_structured_model(kernels, build_model, parse_config, train_cli, perf_cli, tmp: str):
@@ -1452,7 +1534,7 @@ def phase_routed_kernel(kernels, routing, perf_cli):
             "shape": f"g[{heads * d},256] bf16, tables [16,260,128] -> [{d},256]"}
 
 
-def phase_routed_trainer(kernels, parse_config, train_cli, tmp: str):
+def phase_routed_trainer(kernels, parse_config, train_cli, bench_cli, tmp: str):
     """The flagship trainer with the Clos-routed backward through B9: route
     build seconds, the routed backward against kernel 3's, step times and the
     training CLI with exact launches."""
@@ -1538,7 +1620,23 @@ def phase_routed_trainer(kernels, parse_config, train_cli, tmp: str):
           f"{result.train_losses[-1]:.4f}", flush=True)
     del result
     torch.cuda.empty_cache()
+
+    # the bench routes its step as the trainer does: B9 in every step
+    kernels.reset_launch_counts()
+    bench = bench_cli.main(["--batch", "256", "--set", "mix_routed=True",
+                            "mix_routed_impl=pallas"])
+    bench_counts = kernels.launch_counts()
+    steps = bench_cli.WARMUP + bench_cli.REPS * (bench_cli.ITERS_SHORT + bench_cli.ITERS_LONG)
+    if not (bench["mix_routed"] and bench["mix_routed_impl"] == "pallas"
+            and bench_counts["routed_gather_sum"] == cfg.num_encoders * steps
+            and bench_counts["block_gather_sum"] == 0):
+        raise AssertionError(f"routed bench: line {bench}, launched {bench_counts} in {steps} "
+                             "steps")
+    print(f"routed bench: {steps} steps launched B9 {bench_counts['routed_gather_sum']} times, "
+          f"kernel 3 none", flush=True)
+    torch.cuda.empty_cache()
     return counts, {"route_build_cold_s": build_s[0], "route_build_cached_s": build_s[1],
+                    "bench_b256": bench,
                     "grad_rel_err_bf16_vs_block_gather": worst,
                     "grad_rel_err_bf16_mxu_vs_block_gather": worst_mxu,
                     "train_step": {f"B={b}": v for b, v in times.items()}}
@@ -1658,7 +1756,8 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="spectre_smoke_") as tmp:
         routing.ROUTE_CACHE_DIR = os.path.join(tmp, "routes")
         k10 = phase_routed_kernel(kernels, routing, perf_cli)
-        routed_run, routed = phase_routed_trainer(kernels, parse_config, train_cli, tmp)
+        routed_run, routed = phase_routed_trainer(kernels, parse_config, train_cli, bench_cli,
+                                                  tmp)
         branch_run, branch_serving, branch = phase_branch(
             kernels, build_model, parse_config, serve, SpectreClient, train_cli, bench_cli, tmp)
         gather_tm = phase_gather_tm(kernels, parse_config)

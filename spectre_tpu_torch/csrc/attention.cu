@@ -7,26 +7,71 @@
 //             dQ = dS k * D^-1/2,  dK = dS^T q * D^-1/2
 //
 // q, k, v, O, dO, dQ, dK, dV are [B, H, N, D] with any strides on B, H and N
-// and D contiguous, every row of q, k, v and dO starting on a 16-byte boundary
-// and a whole number of 16-byte chunks long (the wrapper refuses anything
-// else); LSE is float32 [B, H, N]; pm is null or a float32 [N, N]
+// and D contiguous, every row of q, k, v, O and dO starting on a 16-byte
+// boundary and a whole number of 16-byte chunks long (the wrapper refuses
+// anything else); LSE is float32 [B, H, N]; pm is null or a float32 [N, N]
 // multiplier on P shared by every batch and head (a dropout keep-mask over
 // its keep-probability; null computes plain softmax attention). Replaces the
 // two TPU kernels of spectre_tpu/ops/pallas/attention.py (_fwd_kernel,
-// _bwd_kernel), which take no pm. As there, all arithmetic is float32
-// whatever the storage type, results are cast once on store, the backward
-// rebuilds P from the saved LSE without reducing the rows again, and neither
-// S, P, dP nor dS ever reaches device memory.
+// _bwd_kernel), which take no pm. As there, the backward rebuilds P from the
+// saved LSE without reducing the rows again, and neither S, P, dP nor dS
+// ever reaches device memory. One thread block owns a (batch, head) pair's
+// dK and dV whole: there are no atomics, and the result does not change from
+// run to run.
 //
 // What bounds it on the H100: bytes. At N = 65, D = 32 a (batch, head) pair
-// needs 0.54 MFLOP forward and 1.35 MFLOP backward on 4 + 8 tensors of 4 KB,
-// so at the float32 rate outside the tensor cores the arithmetic takes about
-// as long as the memory traffic, and at the tensor-core rate far less.
+// needs 0.54 MFLOP forward and 1.35 MFLOP backward on 4 + 8 tensors of 4 KB
+// in bf16: 2.2 GFLOP forward at B = 256, H = 16 takes 2 us at the
+// tensor-core rate against a 20.7 us byte bound.
 //
-// Design: one thread block owns one (batch, head) pair, as one grid program
-// does on the TPU, with its operands widened into shared memory: K (and V in
-// the backward) transposed with an odd row stride so that both "lanes walk
-// the keys" and "lanes walk the feature columns" are free of bank conflicts.
+// bfloat16, every config's compute type: the tensor-core kernels
+// (flash_attention_{fwd,bwd}_kernel_tc). Operands stay bf16 in shared
+// memory, copied in by 16-byte cp.async without widening, rows and features
+// padded with zeros to multiples of 16, rows 16 * k + 8 elements apart (an
+// odd number of 16-byte units, so the eight row addresses of an ldmatrix
+// fall in eight different bank groups). Every product is
+// mma.sync.m16n8k16 (bf16 operands, f32 sums) fed by ldmatrix (.trans for
+// operands read transposed); wgmma's 64-row tiles would nearly double the
+// rows at N = 65, and the work is bound by bytes, not by the product rate.
+// A warp owns 16 query rows (five warps at N = 65, four at N = 50).
+//   Forward: S for the warp's rows and all keys stays in f32 registers (the
+//   mma C layout); row max and sum are quad shuffles; P = exp(S - m) / l,
+//   times pm, is rounded to bf16 and feeds P v from registers (the C layout
+//   of one mma is the A layout of the next), so P never touches shared
+//   memory. LSE = m + log l in f32.
+//   Backward, phase 1 by query rows and 16 keys at a time: S and dP by mma,
+//   P = exp(S * scale - LSE), delta from dO and O in bf16 (O read once,
+//   straight from device memory), dS = P * (dP * pm - delta); dQ = dS k *
+//   scale from registers; P * pm and dS go to shared memory as bf16 ([Npad,
+//   Npad] each). Phase 2 by key rows: dV = (P pm)^T dO and dK = dS^T q *
+//   scale, both operands through ldmatrix.trans.
+//   Results leave through the warp's own rows of a tile nobody reads any
+//   more (q for O, k and v for dK and dV), as whole 16-byte chunks.
+// So P * pm (forward and for dV) and dS (for dQ and dK) are rounded to bf16
+// before their products, where the float32 design keeps them in f32: the
+// plain versions (ops/kernels/attention.py) round at the same places for
+// bf16 inputs. q k^T and dO v^T have exact bf16 operands; only the order of
+// their sums differs. Where a second buffer costs no block an SM (the
+// forward), a block walks several (batch, head) pairs, the grid sized to the
+// SMs times the blocks that fit, and copies the next pair's tiles in with
+// cp.async while it computes the current one; else one block takes one pair
+// (the backward: 140 KB at N = 128, D = 64).
+// Measured (chip_smoke.py, H100 SXM at 700 W, [256, 16, 65, 32], device
+// time): forward 0.046 ms, backward 0.095 ms, 45% and 43% of their byte
+// bounds, against 0.072 and 0.239 ms for scaled_dot_product_attention and
+// its autograd; walking pairs with the copy in flight gained the forward
+// little over one block a pair (PERF.md). What holds them back: the
+// instructions each pair costs (five 16-row warps for 65 rows, 80 padded
+// keys, the softmax and the address arithmetic around few mma), the
+// scattered reads of pm (+17% forward, +23% backward with it), and, for a
+// caller that launches them one after another, the host's time per call
+// (Python, ctypes and the launch), near the forward's device time at B = 256.
+//
+// float32: the kernels of the first design (flash_attention_{fwd,bwd}_kernel),
+// all arithmetic float32, results cast once on store. Operands are widened
+// into shared memory, K (and V in the backward) transposed with an odd row
+// stride so that both "lanes walk the keys" and "lanes walk the feature
+// columns" are free of bank conflicts.
 // A warp owns four query rows at a time: lanes hold the score columns
 // (column j = lane + 32 c), row maxima and sums are warp shuffles, the
 // normalised row goes to a per-warp strip of shared memory and is read back
@@ -36,35 +81,33 @@
 // a ragged row group repeats its last row and stores nothing for it. The
 // backward keeps P * pm and dS in shared memory ([N, N] each) because dV and
 // dK sum over query rows: phase 1 walks query rows (S, P, dP, dS, dQ), phase
-// 2 walks key rows (dV, dK). One block owns both sums whole, so there are no
-// atomics and the result does not change from run to run. Products run on
-// the float32 pipes; tensor cores (and more than 128 keys or 64 features)
-// are later work.
+// 2 walks key rows (dV, dK). Products run on the float32 pipes.
 //
-// A block first waits for device memory: it loads its three or four matrices
-// together, sixteen bytes a thread and matrix, all loads of a chunk started
-// before any is used; the backward asks for its rows of O and LSE before the
-// products that hide their latency. What the inner loops pay for is
-// shared-memory loads, so: operands that are broadcast to the warp (a query
-// row, a row of P or dS) are read four values at a time as one 16-byte load;
-// the number of score and feature columns a lane holds is a template
+// A float32 block first waits for device memory: it loads its three or four
+// matrices together, sixteen bytes a thread and matrix, all loads of a chunk
+// started before any is used; the backward asks for its rows of O and LSE
+// before the products that hide their latency. What the inner loops pay for
+// is shared-memory loads, so: operands that are broadcast to the warp (a
+// query row, a row of P or dS) are read four values at a time as one 16-byte
+// load; the number of score and feature columns a lane holds is a template
 // parameter, built for the shapes the configs have (two or three score
 // columns with one feature column: N <= 64 or 96 with D <= 32) and once for
 // everything else (four and two), so no lane of a config's shape multiplies a
 // column that does not exist; and the block has as many warps as divide the
 // row groups evenly (nine for 65 rows: 17 groups in two rounds where eight
-// warps would need three). Registers are capped so that three
-// forward blocks or two backward blocks (what its shared memory allows) fit
-// an SM: uncapped, the backward took 0.63 ms where it now takes 0.44 at
-// [256, 16, 65, 32] in bf16 on an H100. What is left is the shared-memory
-// pipe: four or eight rows a warp, and scalar or 16-byte broadcast loads,
-// moved the forward's time by under a tenth, so both kernels run at the rate
-// of their shared-memory loads, not of their FMAs (PERF.md).
+// warps would need three). Registers are capped so that three forward
+// blocks or two backward blocks (what its shared memory allows) fit an SM.
+// These kernels run at the rate of their shared-memory loads, not of their
+// FMAs (PERF.md, where their earlier bf16 times stand).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <algorithm>
+#include <atomic>
+#include <mutex>
 
 namespace {
 
@@ -82,13 +125,10 @@ struct Strides {
 };
 
 __device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
 template <typename T>
 __device__ __forceinline__ T from_f(float v);
 template <>
 __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -103,7 +143,7 @@ __device__ __forceinline__ float warp_max(float v) {
 
 __host__ __device__ constexpr int round_up(int v, int m) { return (v + m - 1) / m * m; }
 
-// Sixteen bytes of T widened to float32.
+// Sixteen bytes of T widened to float32 (the float32 kernels).
 template <typename T>
 struct Chunk;
 template <>
@@ -112,18 +152,6 @@ struct Chunk<float> {
   __device__ static void unpack(const uint4& u, float* f) {
     f[0] = __uint_as_float(u.x); f[1] = __uint_as_float(u.y);
     f[2] = __uint_as_float(u.z); f[3] = __uint_as_float(u.w);
-  }
-};
-template <>
-struct Chunk<bf16> {
-  static constexpr int V = 8;
-  __device__ static void unpack(const uint4& u, float* f) {
-    const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {  // bf16 -> f32 is a 16-bit shift
-      f[2 * i] = __uint_as_float(w[i] << 16);
-      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
   }
 };
 
@@ -456,6 +484,446 @@ flash_attention_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+// ---- bfloat16: the tensor-core kernels ----------------------------------
+
+constexpr int kPad = 8;  // a tile's rows are 16 * k + kPad elements apart
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(bf16* dst, const bf16* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int Pending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(Pending) : "memory");
+}
+
+// Four 8x8 bf16 matrices; lanes 8m .. 8m + 7 give the row addresses of matrix m.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p))
+               : "memory");
+}
+
+// c[16x8] += a[16x16] b[16x8], bf16 operands, f32 sums. Lane l = 4 g + t holds
+// c[0..1] at (row g, cols 2t, 2t + 1) and c[2..3] at row g + 8; a[0..3] at
+// (row g, cols 2t..), (g + 8, 2t..), (g, 2t + 8..), (g + 8, 2t + 8..); b0, b1
+// at (rows 2t.., col g) and (rows 2t + 8.., col g).
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// Where lane l points ldmatrix for the 16x16 tile at (row0, col0) of a
+// row-major tile with rows ld apart:
+//   a_frag  the A operand (rows of the tile are rows of A);
+//   b_frag  the B operands of two 8-column tiles, B[k][n] = tile[row0 + n][col0 + k]
+//           (x4 gives b0, b1 of columns row0 .. + 7, then of row0 + 8 .. + 15);
+//           with .trans the same addresses give the A operand of the
+//           transposed tile, A[m][k] = tile[row0 + k][col0 + m];
+//   t_frag  (.trans) the B operands of two 8-column tiles, B[k][n] = tile[row0 + k][col0 + n].
+__device__ __forceinline__ const bf16* a_frag(const bf16* t, int ld, int row0, int col0,
+                                              int lane) {
+  return t + (row0 + (lane & 15)) * ld + col0 + (lane >> 4) * 8;
+}
+__device__ __forceinline__ const bf16* b_frag(const bf16* t, int ld, int row0, int col0,
+                                              int lane) {
+  return t + (row0 + (lane & 7) + (lane >> 4) * 8) * ld + col0 + ((lane >> 3) & 1) * 8;
+}
+__device__ __forceinline__ const bf16* t_frag(const bf16* t, int ld, int row0, int col0,
+                                              int lane) {
+  return t + (row0 + (lane & 7) + ((lane >> 3) & 1) * 8) * ld + col0 + (lane >> 4) * 8;
+}
+// The [N, D] rows of M matrices of one (batch, head) pair, copied by cp.async
+// into consecutive tiles of shared memory (tile elements apart, rows ld
+// apart). The pads past N and D are never written: they stay zero.
+template <int M>
+struct PairSrc {
+  const bf16* p[M];
+  Strides s[M];
+};
+
+// A thread copies chunk (n, c) of every matrix, then steps blockDim.x chunks
+// on (no division in the loop).
+template <int M>
+__device__ __forceinline__ void copy_pair_async(const PairSrc<M>& src, int b, int h, bf16* dst,
+                                                int tile, int ld, int N, int D) {
+  const int per_row = D / 8;
+  const int step_n = blockDim.x / per_row, step_c = blockDim.x % per_row;
+  const bf16* base[M];
+#pragma unroll
+  for (int m = 0; m < M; ++m) base[m] = src.p[m] + b * src.s[m].b + h * src.s[m].h;
+  int n = threadIdx.x / per_row, c = threadIdx.x % per_row;
+  for (; n < N; n += step_n, c += step_c) {
+    if (c >= per_row) {
+      c -= per_row;
+      if (++n >= N) break;
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+      cp_async16(dst + m * tile + n * ld + 8 * c, base[m] + n * src.s[m].n + 8 * c);
+  }
+}
+
+// The pair loop of both kernels: block x takes pairs x, x + gridDim.x, ...;
+// with two buffers the next pair's copy is in flight while this one computes.
+// work(pair, buffer) runs between two __syncthreads.
+template <int M, typename Work>
+__device__ __forceinline__ void walk_pairs(const PairSrc<M>& src, bf16* bufs, int buf_elems,
+                                           int nbuf, int BH, int H, int N, int D, int tile,
+                                           int ld, Work work) {
+  // zero both buffers once: the copies never touch the pads
+  for (int i = threadIdx.x; i < nbuf * buf_elems / 8; i += blockDim.x)
+    reinterpret_cast<uint4*>(bufs)[i] = make_uint4(0, 0, 0, 0);
+  __syncthreads();
+  int pair = blockIdx.x;
+  if (pair < BH) copy_pair_async<M>(src, pair / H, pair % H, bufs, tile, ld, N, D);
+  cp_async_commit();
+  for (int it = 0; pair < BH; pair += gridDim.x, ++it) {
+    const int next = pair + gridDim.x;
+    bf16* cur = bufs + (it % nbuf) * buf_elems;
+    if (nbuf == 2) {
+      if (next < BH)
+        copy_pair_async<M>(src, next / H, next % H, bufs + ((it + 1) % 2) * buf_elems, tile, ld,
+                           N, D);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    work(pair, cur);
+    __syncthreads();
+    if (nbuf == 1 && next < BH) {
+      copy_pair_async<M>(src, next / H, next % H, bufs, tile, ld, N, D);
+      cp_async_commit();
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// A warp's 16 result rows row0 .. row0 + 15 (those < N), held in the C layout
+// (acc[nt] covers columns 8 nt ..), times mul, stored as bf16: first into the
+// warp's rows of a shared tile that nobody else reads any more (stage, rows
+// ld apart), then out as whole 16-byte chunks of each row.
+template <int DT>
+__device__ __forceinline__ void store_rows(const float (&acc)[2 * DT][4], float mul, bf16* stage,
+                                           int ld, int row0, int N, int D, bf16* dst,
+                                           long long stride_n, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < 2 * DT; ++nt)
+    if (8 * nt < D)
+#pragma unroll
+      for (int r = 0; r < 2; ++r)
+        if (row0 + g + 8 * r < N)
+          *reinterpret_cast<uint32_t*>(stage + (row0 + g + 8 * r) * ld + 8 * nt + 2 * t) =
+              pack_bf16(acc[nt][2 * r] * mul, acc[nt][2 * r + 1] * mul);
+  __syncwarp();
+  const int per_row = D / 8, rows = min(16, N - row0);
+  const int step_r = 32 / per_row, step_c = 32 % per_row;
+  int r = lane / per_row, c = lane % per_row;
+  for (; r < rows; r += step_r, c += step_c) {
+    if (c >= per_row) {
+      c -= per_row;
+      if (++r >= rows) break;
+    }
+    *reinterpret_cast<uint4*>(dst + (row0 + r) * stride_n + 8 * c) =
+        *reinterpret_cast<const uint4*>(stage + (row0 + r) * ld + 8 * c);
+  }
+}
+
+// KT, DT: the most 16-row key tiles and 16-wide feature tiles an instance
+// takes (N <= 16 KT, D <= 16 DT); the loops stop at the pair's own counts.
+template <int KT, int DT>
+__global__ void __launch_bounds__(32 * KT)
+flash_attention_fwd_kernel_tc(PairSrc<3> src, const float* __restrict__ pm,
+                              bf16* __restrict__ o, float* __restrict__ lse, int BH, int H,
+                              int N, int D, Strides so, float scale, int nbuf) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* bufs = reinterpret_cast<bf16*>(smem_raw);
+  const int nkt = (N + 15) / 16, ndt = (D + 15) / 16;
+  const int ld = 16 * ndt + kPad, tile = 16 * nkt * ld;
+  const int lane = threadIdx.x % 32, r0 = 16 * (threadIdx.x / 32), g = lane >> 2, t = lane & 3;
+  const int row[2] = {r0 + g, r0 + g + 8};
+
+  walk_pairs<3>(src, bufs, 3 * tile, nbuf, BH, H, N, D, tile, ld, [&](int pair, bf16* cur) {
+    bf16* qs = cur;
+    const bf16 *ks = cur + tile, *vs = cur + 2 * tile;
+    uint32_t qa[DT][4];
+#pragma unroll
+    for (int kb = 0; kb < DT; ++kb)
+      if (kb < ndt) ldsm_x4(qa[kb], a_frag(qs, ld, r0, 16 * kb, lane));
+    // S = q k^T for the warp's 16 rows and every key, in the C layout
+    float s[2 * KT][4];
+#pragma unroll
+    for (int nb = 0; nb < KT; ++nb) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[2 * nb][e] = s[2 * nb + 1][e] = 0.f;
+      if (nb < nkt) {
+#pragma unroll
+        for (int kb = 0; kb < DT; ++kb)
+          if (kb < ndt) {
+            uint32_t kf[4];
+            ldsm_x4(kf, b_frag(ks, ld, 16 * nb, 16 * kb, lane));
+            mma16816(s[2 * nb], qa[kb], kf[0], kf[1]);
+            mma16816(s[2 * nb + 1], qa[kb], kf[2], kf[3]);
+          }
+      }
+    }
+    // softmax over the columns < N, in base 2: P = exp2(S * scale * log2(e)
+    // - m), one FMA and one ex2; a row's four lanes share m and l by shuffles
+    const float scale2 = scale * kLog2e;
+    float m[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f};
+#pragma unroll
+    for (int nt = 0; nt < 2 * KT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        if (8 * nt + 8 > N && 8 * nt + 2 * t + (e & 1) >= N)  // past the last key
+          s[nt][e] = -CUDART_INF_F;
+        m[e >> 1] = fmaxf(m[e >> 1], s[nt][e]);
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 1));
+      m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], 2));
+      m[r] *= scale2;  // scale2 > 0: the max of the scaled row
+    }
+#pragma unroll
+    for (int nt = 0; nt < 2 * KT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        s[nt][e] = exp2f(fmaf(s[nt][e], scale2, -m[e >> 1]));  // 0 past the last key
+        l[e >> 1] += s[nt][e];
+      }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+      if (t == 0 && row[r] < N)
+        lse[static_cast<long long>(pair) * N + row[r]] = (m[r] + log2f(l[r])) * kLn2;
+      l[r] = 1.f / l[r];
+    }
+    // P * pm rounded to bf16: the A operand of P v, straight from the C layout
+    uint32_t pa[KT][4];
+#pragma unroll
+    for (int nb = 0; nb < KT; ++nb)
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = 16 * nb + 8 * half + 2 * t + (e & 1), r = row[e >> 1];
+          p[e] = s[2 * nb + half][e] * l[e >> 1];  // l holds 1 / l
+          if (pm != nullptr) p[e] *= r < N && col < N ? pm[r * N + col] : 0.f;
+        }
+        pa[nb][2 * half] = pack_bf16(p[0], p[1]);
+        pa[nb][2 * half + 1] = pack_bf16(p[2], p[3]);
+      }
+    float acc[2 * DT][4];
+#pragma unroll
+    for (int nt = 0; nt < 2 * DT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < KT; ++nb)
+      if (nb < nkt) {
+#pragma unroll
+        for (int db = 0; db < DT; ++db)
+          if (db < ndt) {
+            uint32_t vf[4];
+            ldsm_x4_trans(vf, t_frag(vs, ld, 16 * nb, 16 * db, lane));
+            mma16816(acc[2 * db], pa[nb], vf[0], vf[1]);
+            mma16816(acc[2 * db + 1], pa[nb], vf[2], vf[3]);
+          }
+      }
+    // through the warp's own rows of q, which nobody reads any more
+    store_rows<DT>(acc, 1.f, qs, ld, r0, N, D,
+                   o + (pair / H) * so.b + (pair % H) * so.h, so.n, lane);
+  });
+}
+
+// The register cap lets four blocks share an SM at the configs' shapes
+// (shared memory allows four at N = 65, D = 32).
+template <int KT, int DT>
+__global__ void __launch_bounds__(32 * KT, KT <= 5 ? 4 : 1)
+flash_attention_bwd_kernel_tc(PairSrc<4> src, const bf16* __restrict__ o, Strides so,
+                              const float* __restrict__ lse,
+                              const float* __restrict__ pm, bf16* __restrict__ dq,
+                              bf16* __restrict__ dk, bf16* __restrict__ dv, int BH, int H, int N,
+                              int D, Strides sdq, Strides sdk, Strides sdv, float scale,
+                              int nbuf) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* bufs = reinterpret_cast<bf16*>(smem_raw);
+  const int nkt = (N + 15) / 16, ndt = (D + 15) / 16, npad = 16 * nkt;
+  const int ld = 16 * ndt + kPad, tile = npad * ld, ldn = npad + kPad;
+  // P * pm and dS, [npad][ldn] each, after the tile buffers
+  bf16* pps = bufs + nbuf * 4 * tile;
+  bf16* dss = pps + npad * ldn;
+  const int lane = threadIdx.x % 32, r0 = 16 * (threadIdx.x / 32), g = lane >> 2, t = lane & 3;
+  const int row[2] = {r0 + g, r0 + g + 8};
+
+  walk_pairs<4>(src, bufs, 4 * tile, nbuf, BH, H, N, D, tile, ld, [&](int pair, bf16* cur) {
+    // q, k, v, dO
+    bf16 *qs = cur, *ks = cur + tile, *vs = cur + 2 * tile, *gs = cur + 3 * tile;
+    const int b = pair / H, h = pair % H;
+    // phase 1: the warp's 16 query rows
+    // P = exp2(S * scale * log2(e) - LSE * log2(e))
+    const float scale2 = scale * kLog2e;
+    float row_lse[2], delta[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r)
+      row_lse[r] = row[r] < N ? lse[static_cast<long long>(pair) * N + row[r]] * kLog2e : 0.f;
+    {  // delta = rowsum(dO * O): two lanes a row, alternate 16-byte chunks;
+       // O straight from device memory, read once
+      const int dr = r0 + lane / 2;
+      const bf16* gr = gs + dr * ld;
+      const bf16* orow = o + b * so.b + h * so.h + dr * so.n;
+      float part = 0.f;
+      for (int c = (lane & 1) * 8; dr < N && c < D; c += 16) {
+        const uint4 gu = *reinterpret_cast<const uint4*>(gr + c);
+        const uint4 ou = *reinterpret_cast<const uint4*>(orow + c);
+        const __nv_bfloat162* g2 = reinterpret_cast<const __nv_bfloat162*>(&gu);
+        const __nv_bfloat162* o2 = reinterpret_cast<const __nv_bfloat162*>(&ou);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float2 gf = __bfloat1622float2(g2[i]), of = __bfloat1622float2(o2[i]);
+          part = fmaf(gf.x, of.x, part);
+          part = fmaf(gf.y, of.y, part);
+        }
+      }
+      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      delta[0] = __shfl_sync(0xffffffffu, part, 2 * g);
+      delta[1] = __shfl_sync(0xffffffffu, part, 2 * g + 16);
+    }
+    uint32_t qa[DT][4], ga[DT][4];
+#pragma unroll
+    for (int kb = 0; kb < DT; ++kb)
+      if (kb < ndt) {
+        ldsm_x4(qa[kb], a_frag(qs, ld, r0, 16 * kb, lane));
+        ldsm_x4(ga[kb], a_frag(gs, ld, r0, 16 * kb, lane));
+      }
+    float dqa[2 * DT][4];
+#pragma unroll
+    for (int nt = 0; nt < 2 * DT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dqa[nt][e] = 0.f;
+#pragma unroll
+    for (int nb = 0; nb < KT; ++nb)
+      if (nb < nkt) {  // keys 16 nb .. 16 nb + 15
+        float s[2][4] = {}, dp[2][4] = {};
+#pragma unroll
+        for (int kb = 0; kb < DT; ++kb)
+          if (kb < ndt) {
+            uint32_t kf[4], vf[4];
+            ldsm_x4(kf, b_frag(ks, ld, 16 * nb, 16 * kb, lane));
+            ldsm_x4(vf, b_frag(vs, ld, 16 * nb, 16 * kb, lane));
+            mma16816(s[0], qa[kb], kf[0], kf[1]);
+            mma16816(s[1], qa[kb], kf[2], kf[3]);
+            mma16816(dp[0], ga[kb], vf[0], vf[1]);
+            mma16816(dp[1], ga[kb], vf[2], vf[3]);
+          }
+        uint32_t da[4];
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float pv[4], dsv[4];
+          const int col0 = 16 * nb + 8 * half + 2 * t;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int col = col0 + (e & 1), r = e >> 1;
+            pv[e] = dsv[e] = 0.f;
+            if (row[r] < N && col < N) {
+              const float p = exp2f(fmaf(s[half][e], scale2, -row_lse[r]));
+              const float mult = pm != nullptr ? pm[row[r] * N + col] : 1.f;
+              pv[e] = p * mult;
+              dsv[e] = p * (dp[half][e] * mult - delta[r]);
+            }
+          }
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const uint32_t pw = pack_bf16(pv[2 * r], pv[2 * r + 1]);
+            const uint32_t dw = pack_bf16(dsv[2 * r], dsv[2 * r + 1]);
+            *reinterpret_cast<uint32_t*>(pps + row[r] * ldn + col0) = pw;
+            *reinterpret_cast<uint32_t*>(dss + row[r] * ldn + col0) = dw;
+            da[2 * half + r] = dw;
+          }
+        }
+        // dQ += dS k for these keys, dS straight from registers
+#pragma unroll
+        for (int db = 0; db < DT; ++db)
+          if (db < ndt) {
+            uint32_t kf[4];
+            ldsm_x4_trans(kf, t_frag(ks, ld, 16 * nb, 16 * db, lane));
+            mma16816(dqa[2 * db], da, kf[0], kf[1]);
+            mma16816(dqa[2 * db + 1], da, kf[2], kf[3]);
+          }
+      }
+    bf16* dqb = dq + b * sdq.b + h * sdq.h;
+#pragma unroll
+    for (int nt = 0; nt < 2 * DT; ++nt) {
+      const int col = 8 * nt + 2 * t;
+      if (col < D)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+          if (row[r] < N)
+            *reinterpret_cast<uint32_t*>(dqb + row[r] * sdq.n + col) =
+                pack_bf16(dqa[nt][2 * r] * scale, dqa[nt][2 * r + 1] * scale);
+    }
+    __syncthreads();
+    // phase 2: the warp's 16 key rows r0 .. r0 + 15 (columns of P * pm and dS)
+    float dka[2 * DT][4], dva[2 * DT][4];
+#pragma unroll
+    for (int nt = 0; nt < 2 * DT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[nt][e] = dva[nt][e] = 0.f;
+#pragma unroll
+    for (int ib = 0; ib < KT; ++ib)
+      if (ib < nkt) {  // query rows 16 ib .. 16 ib + 15
+        uint32_t pa[4], sa[4];
+        ldsm_x4_trans(pa, b_frag(pps, ldn, 16 * ib, r0, lane));
+        ldsm_x4_trans(sa, b_frag(dss, ldn, 16 * ib, r0, lane));
+#pragma unroll
+        for (int db = 0; db < DT; ++db)
+          if (db < ndt) {
+            uint32_t gf[4], qf[4];
+            ldsm_x4_trans(gf, t_frag(gs, ld, 16 * ib, 16 * db, lane));
+            ldsm_x4_trans(qf, t_frag(qs, ld, 16 * ib, 16 * db, lane));
+            mma16816(dva[2 * db], pa, gf[0], gf[1]);
+            mma16816(dva[2 * db + 1], pa, gf[2], gf[3]);
+            mma16816(dka[2 * db], sa, qf[0], qf[1]);
+            mma16816(dka[2 * db + 1], sa, qf[2], qf[3]);
+          }
+      }
+    // through the warp's rows of k and v, which phase 2 does not read
+    store_rows<DT>(dka, scale, ks, ld, r0, N, D, dk + b * sdk.b + h * sdk.h, sdk.n, lane);
+    store_rows<DT>(dva, 1.f, vs, ld, r0, N, D, dv + b * sdv.b + h * sdv.h, sdv.n, lane);
+  });
+}
+
 bool shape_ok(long long B, long long H, long long N, long long D) {
   return B > 0 && H > 0 && N > 0 && D > 0 && N <= 32 * kMaxNC && D <= 32 * kMaxDC &&
          B * H <= 0x7fffffffLL;
@@ -549,8 +1017,126 @@ int launch_bwd(const BwdArgs& a) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// Pick the instance by the score columns (N) and feature columns (D) a lane
-// holds: the two the configs reach (vit_mnist: N = 50, D = 16; vit_cifar100:
+// Grid, buffers and shared memory of a tensor-core launch. Blocks that walk
+// pairs, as many as fit on the SMs, with a second buffer for the next pair's
+// copy, where the second buffer costs no block an SM (the forward at the
+// configs' shapes); else one block a pair with one buffer (the backward,
+// whose P * pm and dS already fill the SM: two buffers would leave two
+// blocks an SM where one leaves four, and measured slower). The answer
+// depends only on the instance, its pair's tile counts and the card, so it
+// is worked out on an instance's first launch at those counts on a device
+// and kept in the instance's table (one cudaGetDevice a launch after that).
+// buf_bytes: one buffer; extra: shared memory beside the buffers;
+// max_bytes: the most the instance asks for at any tile counts.
+struct TcShape {
+  std::atomic<int> ready;
+  int nbuf, max_grid;
+};
+constexpr int kMaxDevices = 16;
+template <int KT, int DT>
+using TcTable = TcShape[kMaxDevices][KT + 1][DT + 1];
+
+template <typename Kern, int KT, int DT>
+int tc_launch_shape(Kern kern, TcTable<KT, DT>& table, int nkt, int ndt, int threads,
+                    long long buf_bytes, long long extra, long long max_bytes, long long BH,
+                    int* grid, int* nbuf, int* smem) {
+  if (buf_bytes + extra > kMaxSmem) return cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  TcShape& shape = table[dev][nkt][ndt];
+  if (!shape.ready.load(std::memory_order_acquire)) {
+    static std::mutex lock;
+    std::lock_guard<std::mutex> hold(lock);
+    if (!shape.ready.load(std::memory_order_relaxed)) {
+      // the instance's largest request, so that no later launch of it needs more
+      if ((e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                    static_cast<int>(std::min<long long>(max_bytes, kMaxSmem)))) !=
+          cudaSuccess)
+        return static_cast<int>(e);
+      int sms = 0, one = 0, two = 0;
+      shape.nbuf = 1;
+      shape.max_grid = 0;  // one block a pair
+      if (2 * buf_bytes + extra <= kMaxSmem) {
+        if ((e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) !=
+                cudaSuccess ||
+            (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &one, kern, threads, static_cast<int>(buf_bytes + extra))) != cudaSuccess ||
+            (e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                 &two, kern, threads, static_cast<int>(2 * buf_bytes + extra))) != cudaSuccess)
+          return static_cast<int>(e);
+        if (two >= one && two > 0) {
+          shape.nbuf = 2;
+          shape.max_grid = sms * two;
+        }
+      }
+      shape.ready.store(1, std::memory_order_release);
+    }
+  }
+  *nbuf = shape.nbuf;
+  *grid = static_cast<int>(shape.max_grid > 0 ? std::min<long long>(BH, shape.max_grid) : BH);
+  *smem = static_cast<int>(*nbuf * buf_bytes + extra);
+  return cudaSuccess;
+}
+
+template <int KT, int DT>
+int launch_fwd_tc(const FwdArgs& a) {
+  const int nkt = static_cast<int>((a.N + 15) / 16), ndt = static_cast<int>((a.D + 15) / 16);
+  const long long tile = 16LL * nkt * (16 * ndt + kPad);
+  const void* ptrs[3] = {a.q, a.k, a.v};
+  if (!rows_aligned(ptrs, a.s, 3, a.D, sizeof(bf16))) return cudaErrorMisalignedAddress;
+  auto kern = flash_attention_fwd_kernel_tc<KT, DT>;
+  static TcTable<KT, DT> table;
+  const long long max_tile = 16LL * KT * (16 * DT + kPad);
+  int grid, nbuf, smem;
+  const int err = tc_launch_shape<decltype(kern), KT, DT>(
+      kern, table, nkt, ndt, 32 * nkt, 3 * tile * sizeof(bf16), 0,
+      2 * 3 * max_tile * sizeof(bf16), a.B * a.H, &grid, &nbuf, &smem);
+  if (err != cudaSuccess) return err;
+  const PairSrc<3> src{{static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+                        static_cast<const bf16*>(a.v)},
+                       {strides_at(a.s, 0), strides_at(a.s, 1), strides_at(a.s, 2)}};
+  kern<<<grid, 32 * nkt, smem, a.st>>>(
+      src, static_cast<const float*>(a.pm), static_cast<bf16*>(a.o), static_cast<float*>(a.lse),
+      static_cast<int>(a.B * a.H), static_cast<int>(a.H), static_cast<int>(a.N),
+      static_cast<int>(a.D), strides_at(a.s, 3), a.scale, nbuf);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int KT, int DT>
+int launch_bwd_tc(const BwdArgs& a) {
+  const int nkt = static_cast<int>((a.N + 15) / 16), ndt = static_cast<int>((a.D + 15) / 16);
+  const long long npad = 16LL * nkt, tile = npad * (16 * ndt + kPad);
+  // q, k, v, O, dO: strides 0 .. 4
+  const void* ptrs[5] = {a.q, a.k, a.v, a.o, a.g};
+  if (!rows_aligned(ptrs, a.s, 5, a.D, sizeof(bf16))) return cudaErrorMisalignedAddress;
+  auto kern = flash_attention_bwd_kernel_tc<KT, DT>;
+  static TcTable<KT, DT> table;
+  const long long max_npad = 16LL * KT, max_tile = max_npad * (16 * DT + kPad);
+  int grid, nbuf, smem;
+  const int err = tc_launch_shape<decltype(kern), KT, DT>(
+      kern, table, nkt, ndt, 32 * nkt, 4 * tile * sizeof(bf16),
+      2 * npad * (npad + kPad) * sizeof(bf16),
+      (2 * 4 * max_tile + 2 * max_npad * (max_npad + kPad)) * sizeof(bf16), a.B * a.H, &grid,
+      &nbuf, &smem);
+  if (err != cudaSuccess) return err;
+  const PairSrc<4> src{{static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+                        static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.g)},
+                       {strides_at(a.s, 0), strides_at(a.s, 1), strides_at(a.s, 2),
+                        strides_at(a.s, 4)}};
+  kern<<<grid, 32 * nkt, smem, a.st>>>(
+      src, static_cast<const bf16*>(a.o), strides_at(a.s, 3), static_cast<const float*>(a.lse),
+      static_cast<const float*>(a.pm),
+      static_cast<bf16*>(a.dq), static_cast<bf16*>(a.dk), static_cast<bf16*>(a.dv),
+      static_cast<int>(a.B * a.H), static_cast<int>(a.H), static_cast<int>(a.N),
+      static_cast<int>(a.D), strides_at(a.s, 5), strides_at(a.s, 6), strides_at(a.s, 7), a.scale,
+      nbuf);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Pick the float32 instance by the score columns (N) and feature columns (D)
+// a lane holds: the two the configs reach (vit_mnist: N = 50, D = 16; vit_cifar100:
 // N = 65, D = 32), and the widest for every other shape, whose padded columns
 // score -inf or hold zeros. ops/kernels/attention.py::score_columns repeats
 // this choice to size the shared memory.
@@ -570,6 +1156,26 @@ struct Bwd {
   static int run(const BwdArgs& a) { return launch_bwd<T, NC, DC>(a); }
 };
 
+// The tensor-core instances by the most 16-key and 16-feature tiles they
+// take: vit_mnist's shape (N = 50, D = 16), vit_cifar100's (N = 65, D = 32),
+// and everything else up to N = 128, D = 64; a pair's own tile counts bound
+// its loops.
+template <typename Args, template <int, int> class Launch>
+int dispatch_tc(const Args& a) {
+  if (a.N <= 64 && a.D <= 16) return Launch<4, 1>::run(a);
+  if (a.N <= 80 && a.D <= 32) return Launch<5, 2>::run(a);
+  return Launch<8, 4>::run(a);
+}
+
+template <int KT, int DT>
+struct FwdTc {
+  static int run(const FwdArgs& a) { return launch_fwd_tc<KT, DT>(a); }
+};
+template <int KT, int DT>
+struct BwdTc {
+  static int run(const BwdArgs& a) { return launch_bwd_tc<KT, DT>(a); }
+};
+
 }  // namespace
 
 // dtype_code: 0 = float32, 1 = bfloat16 (q, k, v, o in that dtype). pm: null
@@ -584,7 +1190,7 @@ extern "C" int flash_attention_fwd(int dtype_code, const void* q, const void* k,
   const FwdArgs a{q, k, v, pm, o, lse, B, H, N, D, strides, scale,
                   static_cast<cudaStream_t>(stream)};
   if (dtype_code == 0) return dispatch<float, FwdArgs, Fwd>(a);
-  if (dtype_code == 1) return dispatch<bf16, FwdArgs, Fwd>(a);
+  if (dtype_code == 1) return dispatch_tc<FwdArgs, FwdTc>(a);
   return cudaErrorInvalidValue;
 }
 
@@ -598,6 +1204,6 @@ extern "C" int flash_attention_bwd(int dtype_code, const void* q, const void* k,
   const BwdArgs a{q, k, v, o, lse, g, pm, dq, dk, dv, B, H, N, D, strides, scale,
                   static_cast<cudaStream_t>(stream)};
   if (dtype_code == 0) return dispatch<float, BwdArgs, Bwd>(a);
-  if (dtype_code == 1) return dispatch<bf16, BwdArgs, Bwd>(a);
+  if (dtype_code == 1) return dispatch_tc<BwdArgs, BwdTc>(a);
   return cudaErrorInvalidValue;
 }

@@ -25,9 +25,15 @@ caller can pass views of its [B, N, H, D] projections without a copy. O, dQ,
 dK and dV come back as [B, H, N, D] views of [B, N, H, D] memory for the same
 reason.
 
-The plain versions state the kernels' arithmetic in PyTorch: everything
-widened to float32, one cast at the end. On the CPU the autograd Function
-runs them, the analytic backward included.
+The plain versions state the kernels' arithmetic in PyTorch. In float32
+everything is float32, one cast at the end. In bfloat16 the kernels multiply
+on the tensor cores with bf16 operands and float32 sums, so P * pm (the
+forward's P v and the backward's dV) and dS (dQ and dK) are rounded to bf16
+before their products; everything else is float32, one cast at the end, and
+the plain versions round at the same two places. The JAX kernel keeps P in
+float32; the distance this makes is measured in ``chip_smoke.py`` and stated
+in PERF.md. On the CPU the autograd Function runs the plain versions, the
+analytic backward included.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises. There is no fallback from a CUDA tensor to the plain path.
@@ -47,9 +53,9 @@ MAX_SHARED_BYTES = 227 * 1024
 
 
 def score_columns(n: int, d: int) -> int:
-    """Key columns, padding included, of the kernel instance that takes
-    [N, D] (``dispatch`` in csrc/attention.cu): the two built for the configs'
-    shapes, and the widest for every other shape."""
+    """Key columns, padding included, of the float32 kernel instance that
+    takes [N, D] (``dispatch`` in csrc/attention.cu): the two built for the
+    configs' shapes, and the widest for every other shape."""
     if d <= 32 and n <= 64:
         return 64
     if d <= 32 and n <= 96:
@@ -57,15 +63,27 @@ def score_columns(n: int, d: int) -> int:
     return MAX_N
 
 
-def backward_shared_bytes(n: int, d: int) -> int:
+def backward_shared_bytes(n: int, d: int, dtype: torch.dtype = torch.float32) -> int:
     """Shared memory of one block of the backward kernel (the larger of the
-    two): K and V transposed, q and dO, P * pm and dS, in float32."""
+    two) for ``dtype``. float32: K and V transposed, q and dO, P * pm and dS.
+    bfloat16 (the tensor-core kernel, one buffer; ``launch_bwd_tc``): q, k,
+    v and dO with rows and features padded to multiples of 16 and rows 8
+    elements longer, then P * pm and dS likewise."""
+    if dtype == torch.bfloat16:
+        npad, dpad = -(-n // 16) * 16, -(-d // 16) * 16
+        return 2 * (4 * npad * (dpad + 8) + 2 * npad * (npad + 8))
     npad, n4 = score_columns(n, d), -(-n // 4) * 4
     return 4 * (2 * d * (npad + 1) + 2 * n4 * d + 2 * n4 * npad)
 
 
 def _scores(q: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return torch.matmul(q.float(), k.float().transpose(-1, -2)) * (q.shape[-1] ** -0.5)
+
+
+def _operand(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A float32 product operand as the kernel for ``dtype`` feeds it to its
+    product: rounded to bf16 for the tensor cores, as it is in float32."""
+    return x.to(torch.bfloat16).float() if dtype == torch.bfloat16 else x
 
 
 def flash_attention_fwd_plain(q, k, v, pm=None):
@@ -78,7 +96,7 @@ def flash_attention_fwd_plain(q, k, v, pm=None):
     p = e / l
     if pm is not None:
         p = p * pm
-    return torch.matmul(p, v.float()).to(q.dtype), m + torch.log(l)
+    return torch.matmul(_operand(p, q.dtype), v.float()).to(q.dtype), m + torch.log(l)
 
 
 def flash_attention_bwd_plain(q, k, v, o, lse, g, pm=None):
@@ -92,7 +110,8 @@ def flash_attention_bwd_plain(q, k, v, o, lse, g, pm=None):
     pp = p
     if pm is not None:
         pp, dp = p * pm, dp * pm
-    ds = p * (dp - delta)
+    ds = _operand(p * (dp - delta), q.dtype)
+    pp = _operand(pp, q.dtype)
     dq = torch.matmul(ds, k.float()) * scale
     dk = torch.matmul(ds.transpose(-1, -2), q.float()) * scale
     dv = torch.matmul(pp.transpose(-1, -2), gf)
@@ -139,10 +158,11 @@ def _for_kernel(name: str, tensors, pm):
         raise RuntimeError(f"{name}: no kernel for device {q.device}")
     _, _, n, d = q.shape
     # the forward refuses what the backward could not take
-    if n > MAX_N or d > MAX_D or backward_shared_bytes(n, d) > MAX_SHARED_BYTES:
+    need = backward_shared_bytes(n, d, q.dtype)
+    if n > MAX_N or d > MAX_D or need > MAX_SHARED_BYTES:
         raise ValueError(f"{name} kernel takes N <= {MAX_N} and D <= {MAX_D} within "
                          f"{MAX_SHARED_BYTES} bytes of shared memory "
-                         f"(N={n}, D={d} needs {backward_shared_bytes(n, d)})")
+                         f"(N={n}, D={d} in {q.dtype} needs {need})")
     for t in tensors:
         if not rows_aligned(t):
             raise ValueError(f"{name} needs the last axis contiguous and every row a whole "
@@ -180,7 +200,8 @@ def flash_attention_fwd(q, k, v, pm=None):
         err = lib.flash_attention_fwd(
             _DTYPE_CODES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
             None if pm is None else pm.data_ptr(), o.data_ptr(), lse.data_ptr(), b, h, n, d,
-            _bhn_strides(q, k, v, o), d ** -0.5, torch.cuda.current_stream().cuda_stream)
+            _bhn_strides(q, k, v, o), d ** -0.5,
+            torch.cuda.current_stream().cuda_stream)
     check(err, "flash_attention_fwd launch")
     flash_attention_fwd.launches += 1
     return o, lse

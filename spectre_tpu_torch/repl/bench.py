@@ -6,7 +6,9 @@ flagship's by default) on one NVIDIA GPU.
 Prints one JSON line: img/s, ms per step, peak device memory, model FLOP
 utilisation, and the card's name and power limit. The step is the one the
 trainer runs: the dataset's device-side augmentation, forward, backward,
-clipping when configured, AdamW; on one fixed synthetic batch of raw pixels.
+clipping when configured, AdamW, the mix backward through its Clos routes
+under ``--set mix_routed=True`` (``train/loop.py::build_step``); on one fixed
+synthetic batch of raw pixels.
 
 Timing is a two-point slope: the loop is timed on the host clock, with a
 device synchronise before and after, at two iteration counts (best of a few
@@ -133,6 +135,14 @@ def peak_flops(device_name: str) -> float:
             f"PEAK_BF16_FLOPS (known: {sorted(PEAK_BF16_FLOPS)})") from None
 
 
+def config_fields(config: SimpleNamespace) -> dict:
+    """The knobs of the timed step that the bench line reports."""
+    return {"compute_dtype": config.compute_dtype,
+            "mix_block": int(getattr(config, "mix_block", 0)),
+            "mix_routed": bool(getattr(config, "mix_routed", False)),
+            "mix_routed_impl": getattr(config, "mix_routed_impl", "mxu")}
+
+
 def slope_seconds(dt_short: float, dt_long: float, n_short: int, n_long: int) -> tuple[float, float]:
     """(seconds per step, implied constant) from two timed runs; raises when
     the two do not lie on a rising line."""
@@ -158,8 +168,7 @@ def main(argv=None) -> dict:
 
     from spectre_tpu_torch.configs import apply_overrides, parse_config
     from spectre_tpu_torch.data import synthetic_batch
-    from spectre_tpu_torch.train import make_train_step
-    from spectre_tpu_torch.train.loop import create_trainer, default_augment
+    from spectre_tpu_torch.train.loop import build_step
     from spectre_tpu_torch.utils import card_and_power_limit
 
     cfg = apply_overrides(parse_config(args.config), args.set)
@@ -168,10 +177,7 @@ def main(argv=None) -> dict:
     kind = torch.cuda.get_device_name(0)
     peak = peak_flops(kind)
     card = card_and_power_limit()
-    state = create_trainer(cfg, "cuda", steps_per_epoch=16)
-    step = make_train_step(default_augment(cfg.dataset, cfg.in_channels),
-                           grad_accum_steps=int(getattr(cfg, "grad_accum_steps", 1)),
-                           grad_clip_norm=getattr(cfg, "grad_clip_norm", None))
+    state, step = build_step(cfg, "cuda")
     x, y = (torch.from_numpy(a).cuda() for a in synthetic_batch(cfg.dataset, batch))
 
     def timed(iters: int) -> float:
@@ -203,7 +209,7 @@ def main(argv=None) -> dict:
         "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
         "flops_per_step": flops, "mfu_pct": mfu * 100, "peak_bf16_tflops": peak / 1e12,
         "constant_ms": const * 1e3, "device_kind": kind, "card": card,
-        "compute_dtype": cfg.compute_dtype, "mix_block": int(getattr(cfg, "mix_block", 0)),
+        **config_fields(cfg),
     }
     print(json.dumps(result), flush=True)
     return result

@@ -82,8 +82,7 @@ from spectre_tpu_torch.ops.kernels import (
     structured_mix_plain,
 )
 from spectre_tpu_torch.ops.routing import build_route_tables_cached
-from spectre_tpu_torch.train import make_train_step
-from spectre_tpu_torch.train.loop import create_trainer, default_augment
+from spectre_tpu_torch.train.loop import build_step
 from spectre_tpu_torch.utils import card_and_power_limit
 
 
@@ -136,9 +135,7 @@ def _group(kernel_name: str) -> str:
 
 
 def profile_steps(cfg, batch: int) -> dict:
-    state = create_trainer(cfg, "cuda", steps_per_epoch=16)
-    step = make_train_step(default_augment(cfg.dataset, cfg.in_channels),
-                           grad_clip_norm=getattr(cfg, "grad_clip_norm", None))
+    state, step = build_step(cfg, "cuda")
     x, y = (torch.from_numpy(a).cuda() for a in synthetic_batch(cfg.dataset, batch))
     for _ in range(3):
         step(state, x, y)

@@ -2,15 +2,18 @@
 SPQ2/SPQ3 protocol (serving/torch_server.py).
 
     python -m spectre_tpu_torch.repl.serve [--config <config.py>] --device cuda \\
-        [--ckpt weights.npz] [--port 7788 | --uds /tmp/spectre.sock] [--max-batch 256]
+        [--ckpt runs/<experiment>/ckpt | weights.npz] [--port 7788 | --uds /tmp/spectre.sock] \\
+        [--max-batch 256]
 
 ``--config`` defaults to the port's flagship, ``spectre_tpu_torch/configs/
 spectre_vit_cifar100.py``. Without
-``--ckpt`` the weights are the port's init seeded from ``random_seed``;
-``--ckpt`` takes a flax variable tree saved as ``.npz`` by
-``spectre_tpu_torch.models.save_npz``. ``--device cuda`` refuses to start
-when no CUDA device is present. Clients: ``spectre_tpu_torch.serving.
-SpectreClient``.
+``--ckpt`` the weights are the port's init seeded from ``random_seed``.
+``--ckpt`` takes a trainer's checkpoint directory (``repl/train.py`` writes
+``<checkpoint_dir>/<experiment>/ckpt``), whose best-metric step it restores,
+else the latest, and says which; a path ending ``.npz`` is instead a flax
+variable tree saved by ``spectre_tpu_torch.models.save_npz``. ``--device
+cuda`` refuses to start when no CUDA device is present. Clients:
+``spectre_tpu_torch.serving.SpectreClient``.
 """
 
 from __future__ import annotations
@@ -31,8 +34,9 @@ def start(argv=None):
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--config", default=FLAGSHIP, help="path to a python config file")
     p.add_argument("--ckpt", default=None,
-                   help="flax variable tree as .npz (models.save_npz); default: "
-                        "the port's seeded init")
+                   help="a trainer's checkpoint directory (its best step, else its latest), "
+                        "or a flax variable tree as .npz (models.save_npz); default: the "
+                        "port's seeded init")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
     p.add_argument("--port", type=int, default=7788)
     p.add_argument("--uds", default=None,
@@ -64,8 +68,10 @@ def start(argv=None):
             token = f.readline().strip()
     elif os.environ.get("SPECTRE_SERVE_TOKEN"):
         token = os.environ["SPECTRE_SERVE_TOKEN"]
-    weights = load_npz(args.ckpt) if args.ckpt else None
-    srv = from_config(cfg, device, weights=weights, max_batch=args.max_batch, token=token)
+    npz = args.ckpt is not None and args.ckpt.endswith(".npz")
+    srv = from_config(cfg, device, weights=load_npz(args.ckpt) if npz else None,
+                      checkpoint=None if npz else args.ckpt, max_batch=args.max_batch,
+                      token=token)
     if args.uds:
         addr = where = srv.listen_uds(args.uds)
     else:

@@ -338,14 +338,41 @@ class TorchServer:
                 off += n
 
 
-def from_config(config, device: torch.device | str, weights=None, **kw) -> TorchServer:
+def restore_for_serving(model: torch.nn.Module, checkpoint: str) -> tuple[int, str]:
+    """Load a trainer checkpoint directory's parameters and buffers into
+    ``model``: the step with the best recorded metric, else the latest, as
+    the JAX server restores. Returns (step, "best" or "latest"); raises when
+    the directory holds no checkpoint."""
+    from spectre_tpu_torch.models.registry import refresh_mixes
+    from spectre_tpu_torch.train.checkpoint import CheckpointManager
+
+    if not os.path.isdir(checkpoint):
+        raise FileNotFoundError(f"no checkpoint directory {checkpoint!r}")
+    mgr = CheckpointManager(checkpoint)
+    step, which = mgr.best_step, "best"
+    if step is None or mgr.best_metric not in mgr.metrics(step):
+        step, which = mgr.latest_step, "latest"
+    step = mgr.restore_model(model, step)  # raises on an empty directory
+    refresh_mixes(model)
+    return step, which
+
+
+def from_config(config, device: torch.device | str, weights=None, checkpoint: str | None = None,
+                **kw) -> TorchServer:
     """Build a TorchServer for a parsed config: the model on ``device`` with
-    the port's own init seeded from ``config.random_seed``, or the weights of
-    a flax variable tree (numpy leaves) when ``weights`` is given."""
+    the port's own init seeded from ``config.random_seed``; or the weights of
+    a flax variable tree (numpy leaves) when ``weights`` is given; or those
+    of a trainer checkpoint directory (``train/checkpoint.py``; its best
+    step, else its latest) when ``checkpoint`` is given."""
     from spectre_tpu_torch.models import build_model, load_flax_variables
 
+    if weights is not None and checkpoint is not None:
+        raise ValueError("from_config takes weights or a checkpoint, not both")
     model = build_model(config, device)
     if weights is not None:
         load_flax_variables(model, weights)
+    if checkpoint is not None:
+        step, which = restore_for_serving(model, checkpoint)
+        print(f"restored step {step} ({which}) from {checkpoint}", flush=True)
     shape = (int(config.in_channels), int(config.img_size), int(config.img_size))
     return TorchServer(model, shape, device, **kw)

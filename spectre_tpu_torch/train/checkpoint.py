@@ -122,15 +122,30 @@ class CheckpointManager:
         return max(self._metrics, key=lambda s: (
             self._metrics[s].get(self.best_metric, float("-inf")), s))
 
+    def metrics(self, step: int) -> dict[str, float]:
+        """The metrics recorded with ``step``."""
+        return dict(self._metrics[step])
+
+    def _load(self, step: int | None) -> dict:
+        step = self.latest_step if step is None else step
+        if step is None:
+            raise FileNotFoundError(f"no checkpoint under {self.directory}")
+        return torch.load(self._path(step), map_location="cpu", weights_only=True)
+
+    def restore_model(self, model: torch.nn.Module, step: int | None = None) -> int:
+        """Load only the model's parameters and buffers of ``step`` (default
+        the latest) into ``model`` in place, as serving needs them: no
+        optimizer or generator is built. Returns the step restored."""
+        payload = self._load(step)
+        model.load_state_dict(payload["model"])
+        return int(payload["step"])
+
     def restore(self, state: TrainState, step: int | None = None) -> TrainState:
         """Restore into ``state`` in place (it must be built from the same
         model and optimizer configuration) and return it. ``step=None``: the
         latest. The model's buffers change in place, so the mix layers derive
         their tables again at their next forward."""
-        step = self.latest_step if step is None else step
-        if step is None:
-            raise FileNotFoundError(f"no checkpoint under {self.directory}")
-        payload = torch.load(self._path(step), map_location="cpu", weights_only=True)
+        payload = self._load(step)
         state.model.load_state_dict(payload["model"])
         state.optimizer.load_state_dict(payload["optimizer"])
         state.scheduler.load_state_dict(payload["scheduler"])

@@ -96,6 +96,32 @@ def create_trainer(config: SimpleNamespace, device: torch.device | str,
                               seed=int(getattr(config, "random_seed", 42)))
 
 
+def set_mix_routes(model: torch.nn.Module, config: SimpleNamespace) -> int:
+    """Route the folded mixes' backward through their Clos route tables when
+    ``config.mix_routed`` is set (``config.mix_routed_impl``, default "mxu"),
+    from the live (restored) permutation buffers; it takes precedence over
+    the block tables of ``mix_block``. Otherwise clear any route. Returns
+    the number of mixes routed. Call it after a restore."""
+    if getattr(config, "mix_routed", False):
+        return register_mix_routes(model, impl=getattr(config, "mix_routed_impl", "mxu"))
+    clear_mix_routes(model)
+    return 0
+
+
+def build_step(config: SimpleNamespace, device: torch.device | str,
+               steps_per_epoch: int = 16) -> tuple[TrainState, Callable]:
+    """The configured trainer's state and train step as the loop runs them,
+    for the bench and the profiler: the dataset's augmentation inside the
+    step, the config's accumulation and clipping, the mix routes as the
+    config asks."""
+    state = create_trainer(config, device, steps_per_epoch)
+    set_mix_routes(state.model, config)
+    step = make_train_step(default_augment(config.dataset, config.in_channels),
+                           grad_accum_steps=int(getattr(config, "grad_accum_steps", 1)),
+                           grad_clip_norm=getattr(config, "grad_clip_norm", None))
+    return state, step
+
+
 def evaluate_state(state: TrainState, eval_step: Callable, transform: Callable,
                    batches: BatchIterator, device: torch.device) -> tuple[float, float, int]:
     """(mean loss, accuracy, examples) over ``batches`` in eval mode; the
@@ -153,14 +179,9 @@ def train_from_config(config: SimpleNamespace, *, device: torch.device | str = "
     if resume and ckpt and ckpt.latest_step is not None:
         ckpt.restore(state)
         print(f"resumed from step {state.step}", flush=True)
-    if getattr(config, "mix_routed", False):
-        # the Clos-routed mix backward, from the live (restored) permutation
-        # buffers; it takes precedence over the block tables of mix_block
-        routed = register_mix_routes(model, impl=getattr(config, "mix_routed_impl", "mxu"))
-        if routed:
-            print(f"mix routes registered: {routed}", flush=True)
-    else:
-        clear_mix_routes(model)
+    routed = set_mix_routes(model, config)
+    if routed:
+        print(f"mix routes registered: {routed}", flush=True)
     print(f"model={getattr(config, 'model', '?')} params={param_count(model):,} "
           f"device={device} batch={batch_size} steps/epoch={steps_per_epoch}", flush=True)
 

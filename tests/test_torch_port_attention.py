@@ -1,6 +1,7 @@
 """The port's attention (spectre_tpu_torch/ops/kernels/attention.py) against
 the JAX package's Pallas kernels in interpret mode and its einsum reference,
-on the CPU in float32, with inputs made from numpy seeds and fed to both.
+on the CPU in float32 and bfloat16, with inputs made from numpy seeds and fed
+to both.
 
 On a CPU tensor the wrappers run their plain PyTorch versions, the analytic
 backward included, so these tests hold the arithmetic the CUDA kernels state;
@@ -173,3 +174,120 @@ def test_flash_attention_refuses_what_it_cannot_take():
     assert not rows_aligned(torch.zeros(2, 2, 5, 6))  # 24-byte rows
     out, lse = flash_attention_fwd_plain(q, q, q)
     assert out.shape == q.shape and torch.allclose(lse, torch.full_like(lse, np.log(5.0)))
+
+
+# ---- bfloat16: the tensor-core kernels' arithmetic ------------------------------------
+
+def _bf16(x):
+    """float32 values rounded to the nearest bfloat16 (ties to even), as float32."""
+    u = np.asarray(x, np.float32).view(np.uint32)
+    u = (u + np.uint32(0x7FFF) + ((u >> 16) & np.uint32(1))) & np.uint32(0xFFFF0000)
+    return u.view(np.float32)
+
+
+def _formula(q, k, v, g, o, lse, pm, rounded):
+    """O, dQ, dK, dV in float64 from the forward's O and LSE; ``rounded``:
+    P * pm and dS rounded to bf16 before their products, as the tensor-core
+    kernels do."""
+    r = (lambda x: _bf16(x).astype(np.float64)) if rounded else (lambda x: x)
+    scale = q.shape[-1] ** -0.5
+    s = q @ np.swapaxes(k, -1, -2) * scale
+    e = np.exp(s - s.max(-1, keepdims=True))
+    p = e / e.sum(-1, keepdims=True)
+    out = r(p if pm is None else p * pm) @ v
+    p = np.exp(s - lse)
+    delta = (g * o).sum(-1, keepdims=True)
+    dp = g @ np.swapaxes(v, -1, -2)
+    pp = p
+    if pm is not None:
+        pp, dp = p * pm, dp * pm
+    ds = r(p * (dp - delta))
+    return (out, ds @ k * scale, np.swapaxes(ds, -1, -2) @ q * scale,
+            np.swapaxes(r(pp), -1, -2) @ g)
+
+
+def _bf16_case(shape, use_pm, seed):
+    rng = np.random.default_rng(seed)
+    arrays = [_bf16(rng.standard_normal(shape).astype(np.float32)) for _ in range(4)]
+    n = shape[2]
+    pm = ((rng.uniform(size=(n, n)) < 0.8) / 0.8).astype(np.float32) if use_pm else None
+    tensors = [torch.from_numpy(a).to(torch.bfloat16) for a in arrays]
+    return arrays, pm, tensors, None if pm is None else torch.from_numpy(pm)
+
+
+@pytest.mark.parametrize("use_pm", [False, True])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bf16_plain_versions_round_p_and_ds_where_the_kernels_do(shape, use_pm):
+    """In bf16 the plain forward and backward are the explicit formula with
+    P * pm and dS rounded to bf16 before their products and everything else
+    in float32: at least 99% of the entries of O, dQ, dK and dV equal the
+    formula's (float64 here, rounded to bf16 once at the end) bit for bit,
+    the rest differ where a float32 sum order moved a value across a bf16
+    rounding boundary, within 2^-8 of the largest entry. Without the two
+    roundings the formula matches only about 60% of the entries."""
+    arrays, pm, (q, k, v, g), tpm = _bf16_case(shape, use_pm, seed=shape[2])
+    o, lse = flash_attention_fwd_plain(q, k, v, tpm)
+    grads = flash_attention_bwd_plain(q, k, v, o, lse, g, tpm)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    f64 = [a.astype(np.float64) for a in arrays]
+    pm64 = None if pm is None else pm.astype(np.float64)
+    got = [t.double().numpy() for t in (o, *grads)]
+    for rounded in (True, False):
+        want = _formula(*f64, got[0], lse.double().numpy(), pm64, rounded)
+        for name, a, w in zip(("o", "dq", "dk", "dv"), got, want):
+            wb = _bf16(w.astype(np.float32))
+            equal = float((a == wb).mean())
+            if rounded:
+                assert equal >= 0.99, name
+                assert np.abs(a - wb).max() <= 2.0 ** -8 * np.abs(w).max(), name
+            else:
+                assert equal <= 0.8, name
+
+
+@pytest.mark.parametrize("use_pm", [False, True])
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bf16_arithmetic_stays_near_the_float32_arithmetic(shape, use_pm):
+    """The distance of the bf16 plain versions (the tensor-core kernels'
+    arithmetic) from the float32 arithmetic on the same bf16 inputs, as a
+    share of the largest entry: P * pm, dS and the outputs each rounded once
+    to bf16 (2^-9 of a value each). Over these shapes and seeds it is at most
+    0.0056 (O; the gradients 0.0039-0.0049); the bound is 2^-6. LSE is
+    float32 in both."""
+    _, _, (q, k, v, g), tpm = _bf16_case(shape, use_pm, seed=10 + shape[2])
+    o, lse = flash_attention_fwd_plain(q, k, v, tpm)
+    grads = flash_attention_bwd_plain(q, k, v, o, lse, g, tpm)
+    qf, kf, vf, gf = (t.float() for t in (q, k, v, g))
+    o32, lse32 = flash_attention_fwd_plain(qf, kf, vf, tpm)
+    grads32 = flash_attention_bwd_plain(qf, kf, vf, o.float(), lse, gf, tpm)
+    assert torch.equal(lse, lse32)
+    for name, a, w in zip(("o", "dq", "dk", "dv"), (o, *grads), (o32, *grads32)):
+        err = float((a.float() - w).abs().max() / w.abs().max())
+        assert 0.0 < err <= 2.0 ** -6, (name, err)
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+def test_bf16_plain_versions_match_the_pallas_kernels_in_bf16(shape):
+    """bf16 inputs, fed to both: the port's bf16 plain versions (P * pm and dS
+    rounded to bf16) against the Pallas forward in interpret mode and the VJP
+    through its custom backward (P and dS kept in float32), within 2^-6 of
+    the largest entry of the JAX result (at most 0.0088 over these shapes:
+    dK at [1, 1, 7, 8]); the LSE, float32 in both, within 1e-5."""
+    arrays = [_bf16(a) for a in _qkvw(shape, seed=20 + shape[2])]
+    jq, jk, jv, jg = (jnp.asarray(a, dtype=jnp.bfloat16) for a in arrays)
+    want_o, want_lse = jax_forward(jq, jk, jv, True)
+    _, vjp = jax.vjp(lambda a, b, c: jax_flash_attention(a, b, c, True), jq, jk, jv)
+    want_grads = vjp(jg)
+    q, k, v, g = (torch.from_numpy(a).to(torch.bfloat16) for a in arrays)
+    o, lse = flash_attention_fwd_plain(q, k, v)
+    grads = flash_attention_bwd_plain(q, k, v, o, lse, g)
+    ts = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = flash_attention(*ts)
+    out.backward(g)
+    assert torch.equal(out.detach(), o)
+    assert float(np.abs(lse.numpy() - np.asarray(want_lse)).max()) <= 1e-5
+    for name, got, want in (("o", o, want_o), *zip(("dq", "dk", "dv"), grads, want_grads),
+                            *zip(("dq autograd", "dk autograd", "dv autograd"),
+                                 (t.grad for t in ts), want_grads)):
+        want = np.asarray(want.astype(jnp.float32))
+        err = float(np.abs(got.float().numpy() - want).max())
+        assert err <= 2.0 ** -6 * float(np.abs(want).max()), (name, err)

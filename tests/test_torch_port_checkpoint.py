@@ -320,3 +320,40 @@ def test_train_resume_and_eval_from_the_command_line(tmp_path):
     assert r.returncode == 0, r.stderr
     assert "restored step 5" in r.stdout
     assert f"val: loss {val.split()[1]} top-1 {val.split()[3]} (1024 examples)" in r.stdout
+
+
+def test_serve_cli_serves_the_trainers_checkpoint_directory(tmp_path, capsys):
+    """``repl/serve.py --ckpt <run>/ckpt`` restores the trainer's best step
+    (else its latest) and replies with the trained model's eval logits; a
+    directory without a checkpoint raises instead of serving the seeded
+    init. (The ``.npz`` path: tests/test_torch_port_serving.py.)"""
+    from spectre_tpu_torch.repl import serve
+    from spectre_tpu_torch.serving import SpectreClient, from_config
+
+    cfg = _cfg(tmp_path)
+    r = train_from_config(cfg, device="cpu", synthetic=True, max_steps=3, write_metrics=False)
+    ckpt = os.path.join(r.logdir, "ckpt")
+    assert CheckpointManager(ckpt).best_step == 3
+    cfg_path = tmp_path / "tiny.py"
+    cfg_path.write_text("".join(f"{k} = {v!r}\n" for k, v in vars(cfg).items()))
+    capsys.readouterr()
+    srv, addr = serve.start(["--config", str(cfg_path), "--ckpt", ckpt, "--device", "cpu",
+                             "--uds", str(tmp_path / "s.sock"), "--max-batch", "8"])
+    try:
+        assert f"restored step 3 (best) from {ckpt}" in capsys.readouterr().out
+        x = np.random.default_rng(5).uniform(0, 1, (8, 1, 8, 8)).astype(np.float32)
+        with SpectreClient(uds=addr) as c:
+            got = c.infer(x)
+    finally:
+        srv.close()
+    model = r.state.model.eval()
+    with torch.inference_mode():
+        want = model(torch.from_numpy(x)).float().numpy()
+    np.testing.assert_array_equal(got, want)
+    empty = tmp_path / "empty"
+    empty.mkdir()
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        from_config(cfg, "cpu", checkpoint=str(empty))
+    with pytest.raises(FileNotFoundError, match="no checkpoint"):
+        serve.start(["--config", str(cfg_path), "--ckpt", str(tmp_path / "missing"),
+                     "--device", "cpu", "--port", "0"])

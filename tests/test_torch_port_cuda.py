@@ -251,7 +251,10 @@ def test_small_model_gradients_on_the_card_match_the_cpu(cuda_device, mix_block)
 
 
 # as a share of the reference's largest entry. f32: the same float32 products
-# summed in another order; bf16: one bf16 ulp of an entry (2^-8 to 2^-7 of it)
+# summed in another order; bf16: the plain version rounds P * pm and dS to
+# bf16 where the tensor-core kernel does, so what is left is the order of
+# the float32 sums and the one rounding on store: one bf16 ulp of an entry
+# (2^-8 to 2^-7 of it)
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)])
 @pytest.mark.parametrize("use_pm", [False, True])
 @pytest.mark.parametrize("shape", [(3, 4, 65, 32), (5, 2, 50, 16), (1, 1, 7, 8),
@@ -283,6 +286,46 @@ def test_attention_kernels_match_plain(cuda_device, dtype, rel, use_pm, shape):
     for name, (got, want) in zip(("o", "dq", "dk", "dv"), pairs):
         scale = want.float().abs().max().item()
         assert (got.float() - want.float()).abs().max().item() <= rel * scale, name
+
+
+def _attention_case(shape, device, seed=0, use_pm=True):
+    b, h, n, d = shape
+    rng = np.random.default_rng(seed)
+    q, k, v, g = (torch.from_numpy(rng.standard_normal((b, n, h, d)).astype(np.float32))
+                  .to(device, torch.bfloat16).permute(0, 2, 1, 3) for _ in range(4))
+    pm = torch.from_numpy(((rng.uniform(size=(n, n)) < 0.8) / 0.8).astype(np.float32)) \
+        .to(device) if use_pm else None
+    return q, k, v, g, pm
+
+
+@pytest.mark.parametrize("use_pm", [False, True])
+def test_attention_bf16_kernels_take_the_widest_block(cuda_device, use_pm):
+    """[2, 2, 128, 64] in bf16: the tensor-core backward holds it in 140 KB
+    of shared memory (the float32 kernel refuses it, below)."""
+    q, k, v, g, pm = _attention_case((2, 2, 128, 64), cuda_device, seed=3, use_pm=use_pm)
+    o, lse = flash_attention_fwd(q, k, v, pm)
+    grads = flash_attention_bwd(q, k, v, o, lse, g, pm)
+    torch.cuda.synchronize()
+    o_p, lse_p = flash_attention_fwd_plain(q, k, v, pm)
+    assert (lse - lse_p).abs().max().item() <= 1e-5
+    pairs = [(o, o_p)] + list(zip(grads, flash_attention_bwd_plain(q, k, v, o, lse, g, pm)))
+    for name, (got, want) in zip(("o", "dq", "dk", "dv"), pairs):
+        scale = want.float().abs().max().item()
+        assert (got.float() - want.float()).abs().max().item() <= 2.0 ** -7 * scale, name
+
+
+@pytest.mark.parametrize("shape", [(256, 16, 65, 32), (3, 2, 33, 24)])
+def test_attention_bf16_kernels_are_bitwise_repeatable(cuda_device, shape):
+    """No atomics: two runs of the forward, and two of the backward, are
+    bitwise equal."""
+    q, k, v, g, pm = _attention_case(shape, cuda_device, seed=4)
+    o, lse = flash_attention_fwd(q, k, v, pm)
+    o1, lse1 = flash_attention_fwd(q, k, v, pm)
+    assert torch.equal(o, o1) and torch.equal(lse, lse1)
+    first = flash_attention_bwd(q, k, v, o, lse, g, pm)
+    again = flash_attention_bwd(q, k, v, o, lse, g, pm)
+    for name, x, y in zip(("dq", "dk", "dv"), first, again):
+        assert torch.equal(x, y), name
 
 
 def test_attention_function_on_the_card_matches_autograd_of_plain(cuda_device):

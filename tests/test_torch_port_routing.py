@@ -35,6 +35,7 @@ from spectre_tpu_torch.ops.kernels import (
     routed_gather_sum_plain,
 )
 from spectre_tpu_torch.ops.kernels import routed_gather as routed_gather_module
+from spectre_tpu_torch.repl import bench as bench_cli
 from spectre_tpu_torch.repl import train as train_cli
 
 
@@ -354,3 +355,55 @@ def test_train_cli_with_mix_routed_registers_routes_and_derives_them_after_a_res
     off = train_cli.main(args[:4] + ["--steps", "1", "--no-checkpoint"] + args[4:-2])
     assert "mix routes registered" not in capsys.readouterr().out and len(calls) == 3
     assert off.state.model.encoder_blocks.layer_0.mix_layer.route_impl is None
+
+
+class _Built(Exception):
+    """Raised by a stand-in for ``build_step`` once it has seen its config."""
+
+
+def test_bench_and_profiler_route_their_step_as_the_loop_does(monkeypatch):
+    """``train/loop.py::set_mix_routes`` registers the routes under
+    ``mix_routed=True`` (with the config's impl) and clears them otherwise;
+    ``build_step``, through which ``repl/bench.py`` and ``repl/perf.py`` build
+    the step they time, calls it, and its step goes through kernel B9 (its
+    plain version here). The bench line carries both knobs."""
+    from spectre_tpu_torch.configs import apply_overrides, parse_config
+    from spectre_tpu_torch.data import synthetic_batch
+    from spectre_tpu_torch.repl import perf as perf_cli
+    from spectre_tpu_torch.train import loop
+
+    calls = []
+    plain = routed_gather_module.routed_gather_sum_plain
+    monkeypatch.setattr(routed_gather_module, "routed_gather_sum_plain",
+                        lambda *a: calls.append(1) or plain(*a))
+    config = os.path.join(CONFIG_DIR, "spectre_vit_mnist.py")
+    over = ["num_encoders=1", "mix_routed=True", "mix_routed_impl=pallas"]
+    cfg = apply_overrides(parse_config(config), over)
+    state, step = loop.build_step(cfg, "cpu")
+    mix = state.model.encoder_blocks.layer_0.mix_layer
+    assert mix.route_impl == "pallas"
+    x, y = (torch.from_numpy(a) for a in synthetic_batch(cfg.dataset, 8))
+    step(state, x, y)
+    assert len(calls) == 1
+    assert bench_cli.config_fields(cfg) == {"compute_dtype": "bfloat16", "mix_block": 0,
+                                            "mix_routed": True, "mix_routed_impl": "pallas"}
+    cfg.mix_routed = False
+    assert loop.set_mix_routes(state.model, cfg) == 0 and mix.route_impl is None
+    assert not bench_cli.config_fields(cfg)["mix_routed"]
+
+    seen = []
+
+    def stand_in(config, device, steps_per_epoch=16):
+        seen.append((config.mix_routed, config.mix_routed_impl, str(device)))
+        raise _Built
+
+    monkeypatch.setattr(loop, "build_step", stand_in)
+    monkeypatch.setattr(perf_cli, "build_step", stand_in)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "get_device_name", lambda *a: "NVIDIA H100 80GB HBM3")
+    monkeypatch.setattr("spectre_tpu_torch.utils.card_and_power_limit", lambda: "H100, 700 W")
+    with pytest.raises(_Built):
+        bench_cli.main(["--config", config, "--set", *over])
+    with pytest.raises(_Built):
+        perf_cli.profile_steps(apply_overrides(parse_config(config), over), 8)
+    assert seen == [(True, "pallas", "cuda")] * 2
