@@ -17,7 +17,12 @@ Phases, each raising on failure (nothing is caught):
    in [2, 4); <= 4e-2 at K=8,192, whose pre-LN values reach [4, 8)),
    for the output and for the saved pre-LN ``h``; the autograd Function's
    five gradients vs autograd of the plain version (limits at GRAD_REL);
-   times with and without ``h``, and of the backward.
+   times with and without ``h``. Then kernel 2's backward
+   (fused_spectre_linear_bwd: the LayerNorm/GELU chain kernel and the two
+   products) vs its plain version at the path's shapes for B=256 and
+   B=1024 and at K=8,192, f32 (<= 1e-5 of each gradient's largest entry)
+   and bf16 (one bf16 ulp of it, <= 2^-7), two runs bitwise equal; times
+   back to back and on the device beside autograd of the plain version.
 5. kernel 5 (fused_block_bwd) vs its plain version at the flagship mix shape
    (d=33,280, H=16, O=512, blk=64) for B in {256, 1024, 250}, bf16 (<= 1e-2 of
    the largest entry: one bf16 ulp of an entry is 2^-8 of it) and f32 (<= 1e-4
@@ -57,10 +62,11 @@ Phases, each raising on failure (nothing is caught):
    augmentation on, checkpoints and metric files in a temporary directory:
    one run to step 20 (the second epoch's fourth step); a run to step 6 and
    the same command with ``--resume`` to step 20. Exact launch counts of
-   each run (4 + 4 + 9 per step, kernel 5 none); the resumed run must end
-   with the uninterrupted run's step, loss, validation accuracy, parameters,
-   AdamW moments and generator state, bit for bit. These are the
-   ``launches`` of kernels 1-3 in the result line. Checkpoint save and
+   each run (4 + 4 + 9 per step and 9 of kernel 2's backward, kernel 5
+   none); the resumed run must end with the uninterrupted run's step, loss,
+   validation accuracy, parameters, AdamW moments and generator state, bit
+   for bit. These are the ``launches`` of kernels 1-3 and of kernel 2's
+   backward in the result line. Checkpoint save and
    restore seconds and the file's size.
 12. a training subprocess gets SIGTERM after its second epoch: it must save
    and exit 0, and repl/eval.py must restore that checkpoint.
@@ -79,9 +85,10 @@ Phases, each raising on failure (nothing is caught):
    beside the plain version and ``scaled_dot_product_attention`` (forward;
    backward by autograd).
 15. the Walsh-Hadamard kernel (fwht) vs its plain version at [16,640, 512],
-   [16,640, 1024], [4,160, 4,096] and [520, 32,768], bf16 and f32,
-   normalised and not: bitwise equal (the same float32 pairs added in the
-   same order). Times at the first three.
+   [16,640, 1024], [4,160, 4,096], [520, 32,768] and small ragged shapes,
+   bf16 and f32, normalised and not: bitwise equal (the same float32 pairs
+   added in the same order). Times at the first three, back to back and on
+   the device, beside ``x @ H_n`` both ways.
 16. the structured-mix kernels (structured_mix, structured_mix_bwd) vs their
    plain versions at the flagship shape (d=33,280, H=16, tile 128) for B=256
    and B=250 and at small ragged shapes, bf16 and f32: bitwise equal. Times
@@ -128,7 +135,6 @@ import contextlib
 import json
 import os
 import signal
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -138,6 +144,8 @@ from unittest import mock
 
 import numpy as np
 import torch
+
+from spectre_tpu_torch.utils.timing import bound_ms as bound, cuda_time_ms, device_time_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "spectre_tpu_torch", "configs", "spectre_vit_cifar100.py")
@@ -159,10 +167,6 @@ GRAD_REL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 # kernel 2's outputs pass through up to 4 layers of bf16 products and
 # LayerNorms in both directions.
 TRAIN_GRAD_REL = 0.05
-# published peaks of one H100 SXM: device memory rate, dense bf16 tensor-core
-# rate, float32 rate outside the tensor cores
-HBM_BYTES_PER_S = 3.35e12
-BF16_FLOPS = 989e12
 PLAIN_PATCHES = (
     ("spectre_tpu_torch.ops.fused_mix.block_scatter_rows", "block_scatter_rows_plain"),
     ("spectre_tpu_torch.ops.fused_mix.block_gather_sum", "block_gather_sum_plain"),
@@ -171,6 +175,8 @@ PLAIN_PATCHES = (
     ("spectre_tpu_torch.ops.linear.fused_spectre_linear", "fused_spectre_linear_plain"),
     ("spectre_tpu_torch.ops.kernels.fused_linear.fused_spectre_linear",
      "fused_spectre_linear_plain"),
+    ("spectre_tpu_torch.ops.kernels.fused_linear.fused_spectre_linear_bwd",
+     "fused_spectre_linear_bwd_plain"),
 )
 
 
@@ -192,58 +198,6 @@ def plain_versions(kernels):
                  lambda g, tp, sg, inv=None: kernels.structured_mix_bwd_plain(g, tp, sg))):
             stack.enter_context(mock.patch(target, plain))
         yield
-
-
-def bound(n_bytes: float, flops: float = 0.0) -> tuple[float, str]:
-    """The least time (ms) the card could take: the larger of the bytes over
-    the memory rate and the operations over the bf16 tensor-core rate."""
-    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
-    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
-
-
-def cuda_time_ms(fn, iters: int = 20, reps: int = 5) -> float:
-    """Median over ``reps`` of the mean time of ``iters`` back-to-back calls,
-    by CUDA events, after one warm-up call."""
-    fn()
-    times = []
-    for _ in range(reps):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(iters):
-            fn()
-        end.record()
-        torch.cuda.synchronize()
-        times.append(start.elapsed_time(end) / iters)
-    return statistics.median(times)
-
-
-def device_time_ms(fn, iters: int = 20, reps: int = 5) -> float:
-    """As ``cuda_time_ms``, with the calls queued behind a device sleep so
-    that the card runs them back to back: the device's own time, without the
-    host's per-call overhead (Python, ctypes), which a small kernel can fall
-    below. A repetition whose calls took the host longer to queue than the
-    sleep lasted is taken again behind a sleep twice as long."""
-    fn()
-    times, cycles = [], 10_000_000
-    while len(times) < reps:
-        marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-        marks[0].record()
-        t0 = time.perf_counter()
-        torch.cuda._sleep(cycles)
-        marks[1].record()
-        for _ in range(iters):
-            fn()
-        queued_ms = (time.perf_counter() - t0) * 1e3
-        marks[2].record()
-        torch.cuda.synchronize()
-        if queued_ms >= marks[0].elapsed_time(marks[1]):
-            if cycles >= 640_000_000:
-                raise AssertionError(f"device_time_ms: queueing {iters} calls took "
-                                     f"{queued_ms:.2f} ms, longer than any sleep tried")
-            cycles *= 2
-            continue
-        times.append(marks[1].elapsed_time(marks[2]) / iters)
-    return statistics.median(times)
 
 
 def max_abs_diff(got: torch.Tensor, ref: torch.Tensor) -> float:
@@ -368,30 +322,19 @@ def phase_kernel2(kernels, gen):
                     f"(h {err_h:.3g}), grads rel {gerr:.3g}, kernel {ms_k:.4f} ms "
                     f"({gflops / ms_k:.1f} TFLOP/s), with h {ms_h:.4f} ms, plain {ms_p:.4f} ms")
             if dtype == torch.bfloat16:
-                req = [t.detach().clone().requires_grad_() for t in args]
-                cot = ct.to("cuda", dtype)
-                out_k = kernels.fused_spectre_linear_grad(*req)
-                out_p = kernels.fused_spectre_linear_plain(*req)
-                ms_bk = cuda_time_ms(lambda: torch.autograd.grad(out_k, req, cot,
-                                                                 retain_graph=True), iters=5)
-                ms_bp = cuda_time_ms(lambda: torch.autograd.grad(out_p, req, cot,
-                                                                 retain_graph=True), iters=5)
-                line += f"; backward {ms_bk:.4f} ms, plain autograd backward {ms_bp:.4f} ms"
                 el = 2
                 io = (m * k + k * n + 3 * n + 2 * m * n) * el  # x, W, b/gamma/beta, out, h
                 if (m, k, n) == wide:
                     bound_w, by_w = bound(io, gflops * 1e9)
                     wide_res = {"ms_k8192": ms_h, "ms_without_h_k8192": ms_k,
                                 "plain_ms_k8192": ms_p, "bound_ms_k8192": bound_w,
-                                "bound_by_k8192": by_w, "backward_ms_k8192": ms_bk,
-                                "plain_backward_ms_k8192": ms_bp,
-                                "max_abs_err_k8192": max(err, err_h)}
+                                "bound_by_k8192": by_w, "max_abs_err_k8192": max(err, err_h)}
                 elif m <= 65 * 256:  # the result line reports the config's batch
-                    times.append((m, k, n, ms_h, ms_k, ms_p, ms_bk, ms_bp, io, gflops * 1e9))
+                    times.append((m, k, n, ms_h, ms_k, ms_p, io, gflops * 1e9))
             print(line, flush=True)
         del x, w, ct
         torch.cuda.empty_cache()
-    m, k, n, ms_h, ms_k, ms_p, ms_bk, ms_bp, io, flops = max(times, key=lambda t: t[3])
+    m, k, n, ms_h, ms_k, ms_p, io, flops = max(times, key=lambda t: t[3])
     bound_ms, bound_by = bound(io, flops)
     bound_nh, _ = bound(io - m * n * 2, flops)
     print(f"kernel 2 bound at ({m}x{k})x({k}x{n}) bf16: {bound_ms:.4f} ms with h by "
@@ -402,11 +345,96 @@ def phase_kernel2(kernels, gen):
             "max_abs_err": max(worst[torch.bfloat16], worst_h[torch.bfloat16]),
             "ms": ms_h, "plain_ms": ms_p, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": None, "ms_without_h": ms_k, "bound_ms_without_h": bound_nh,
-            "backward_ms": ms_bk, "plain_backward_ms": ms_bp,
             "max_abs_err_f32": max(worst[torch.float32], worst_h[torch.float32]),
             "grad_rel_err": worst_grad[torch.bfloat16],
             "grad_rel_err_f32": worst_grad[torch.float32], **wide_res,
             "shape": f"({m}x{k})x({k}x{n}) bf16, writing h"}
+
+
+# kernel 2's backward (the chain kernel and the two products) against its
+# plain version, each gradient as a share of its largest entry. f32: the
+# chain's row and column sums in another order. bf16: dh and the column sums
+# are rounded once on both paths, so single entries differ by one bf16 ulp
+# (2^-8 to 2^-7 of the largest entry).
+LINEAR_BWD_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -7}
+
+
+def phase_linear_bwd(kernels, gen):
+    """Kernel 2's backward, ``fused_spectre_linear_bwd``, at the path's
+    shapes (B=256 and B=1024, and the structured mix's K=8,192) in bf16 and
+    f32: against its plain version, and twice bitwise. Times at each bf16
+    shape, back to back and on the device, beside autograd of the plain
+    version and the same backward through the autograd Function."""
+    shapes = [(65 * 256, 512, 768), (65 * 256, 768, 512), (256, 512, 100),
+              (65 * 1024, 512, 768), (65 * 256, 8192, 512)]
+    worst, worst_abs, res = {}, {}, {}
+    for m, k, n in shapes:
+        x = torch.randn(m, k, generator=gen)
+        w = torch.empty(k, n).uniform_(-k ** -0.5, k ** -0.5, generator=gen)
+        bias = torch.empty(n).uniform_(-k ** -0.5, k ** -0.5, generator=gen)
+        gamma = 1.0 + 0.1 * torch.randn(n, generator=gen)
+        beta = 0.1 * torch.randn(n, generator=gen)
+        ct = torch.randn(m, n, generator=gen)
+        for dtype, rel in LINEAR_BWD_REL.items():
+            xd, wd, bd, gd, bed, cd = (t.to("cuda", dtype) for t in (x, w, bias, gamma, beta, ct))
+            h = kernels.fused_spectre_linear(xd, wd, bd, gd, bed, save_h=True)[1]
+            args = (xd, wd, gd, bed, h, cd)
+            got = kernels.fused_spectre_linear_bwd(*args)
+            again = kernels.fused_spectre_linear_bwd(*args)
+            want = kernels.fused_spectre_linear_bwd_plain(*args)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"fused_spectre_linear_bwd ({m}x{k})x({k}x{n}) {dtype}: "
+                                     f"two runs differ")
+            err = max(rel_to_largest(a, b) for a, b in zip(got, want))
+            worst[dtype] = max(worst.get(dtype, 0.0), err)
+            worst_abs[dtype] = max([worst_abs.get(dtype, 0.0)] +
+                                   [max_abs_diff(a, b) for a, b in zip(got, want)])
+            if not err <= rel:
+                raise AssertionError(f"fused_spectre_linear_bwd ({m}x{k})x({k}x{n}) {dtype}: "
+                                     f"rel err {err} > {rel}")
+            if dtype != torch.bfloat16:
+                continue
+            it = 5 if k > 1024 else 20
+            req = [t.detach().clone().requires_grad_() for t in (xd, wd, bd, gd, bed)]
+            out_k = kernels.fused_spectre_linear_grad(*req)
+            out_p = kernels.fused_spectre_linear_plain(*req)
+            t = {"ms": cuda_time_ms(lambda: kernels.fused_spectre_linear_bwd(*args), iters=it),
+                 "device_ms": device_time_ms(lambda: kernels.fused_spectre_linear_bwd(*args),
+                                             iters=it),
+                 "plain_ms": cuda_time_ms(lambda: torch.autograd.grad(
+                     out_p, req, cd, retain_graph=True), iters=5),
+                 "autograd_ms": cuda_time_ms(lambda: torch.autograd.grad(
+                     out_k, req, cd, retain_graph=True), iters=it)}
+            # two products of 2 M K N; x, h, g, W, gamma, beta read and dx, dW
+            # and the three [N] gradients written once
+            t["bound_ms"], t["bound_by"] = bound((2 * m * k + 2 * m * n + 2 * k * n + 5 * n) * 2,
+                                                 4 * m * k * n)
+            res[m, k, n] = t
+            print(f"kernel 2 backward ({m}x{k})x({k}x{n}) bf16: {t['ms']:.4f} ms back to back, "
+                  f"{t['device_ms']:.4f} on the device, through autograd {t['autograd_ms']:.4f}; "
+                  f"autograd of plain {t['plain_ms']:.4f}; bound {t['bound_ms']:.4f} ms by "
+                  f"{t['bound_by']}; rel err {err:.3g}", flush=True)
+            del req, out_k, out_p
+        del x, w, ct, xd, wd, cd, h, got, again, want
+        torch.cuda.empty_cache()
+    main = res[65 * 256, 512, 768]
+    extra = {f"{key}_{tag}": res[shape][key] for tag, shape in
+             (("b1024", (65 * 1024, 512, 768)), ("k8192", (65 * 256, 8192, 512)),
+              ("768x512", (65 * 256, 768, 512)), ("head", (256, 512, 100)))
+             for key in ("ms", "device_ms", "plain_ms", "bound_ms")}
+    print(f"kernel 2 backward: bf16 rel err {worst[torch.bfloat16]:.3g}, f32 "
+          f"{worst[torch.float32]:.3g}; two runs bitwise equal at every shape", flush=True)
+    return {"name": "fused_spectre_linear_bwd", "route": "cuda",
+            "source": "spectre_tpu_torch/csrc/fused_spectre_linear_bwd.cu",
+            "replaces": "spectre_tpu/ops/pallas/fused_linear.py:147",
+            "max_abs_err": worst_abs[torch.bfloat16], "max_rel_err": worst[torch.bfloat16],
+            "max_rel_err_f32": worst[torch.float32],
+            "ms": main["ms"], "device_ms": main["device_ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound_ms"], "bound_by": main["bound_by"], "library_ms": None,
+            "autograd_ms": main["autograd_ms"], **extra,
+            "shape": "(16640x512)x(512x768) bf16: the chain kernel and both products; "
+                     "max_rel_err: relative to each gradient's largest entry"}
 
 
 # kernel 5 against its plain version, as a share of the result's largest
@@ -560,9 +588,9 @@ def phase_gather_kernels(kernels, gen):
 
 
 KERNEL_NAMES = ("block_scatter_rows", "block_gather_sum", "inverse_gather_sum",
-                "fused_spectre_linear", "fused_block_bwd", "flash_attention_fwd",
-                "flash_attention_bwd", "fwht", "structured_mix", "structured_mix_bwd",
-                "routed_gather_sum")
+                "fused_spectre_linear", "fused_spectre_linear_bwd", "fused_block_bwd",
+                "flash_attention_fwd", "flash_attention_bwd", "fwht", "structured_mix",
+                "structured_mix_bwd", "routed_gather_sum")
 
 
 def expected_launches(cfg, forwards: int = 0, steps: int = 0) -> dict[str, int]:
@@ -589,6 +617,7 @@ def expected_launches(cfg, forwards: int = 0, steps: int = 0) -> dict[str, int]:
         if cfg.mix_impl == "structured":
             counts.update(structured_mix=layers * both, structured_mix_bwd=layers * steps)
     counts["fused_spectre_linear"] = linears * both
+    counts["fused_spectre_linear_bwd"] = linears * steps
     return counts
 
 
@@ -1109,7 +1138,8 @@ def phase_fwht(kernels, hadamard_matrix):
     """Kernel 6 against its plain version: bitwise equal, the same float32
     pairs added in the same order."""
     gen = torch.Generator(device="cuda").manual_seed(6)
-    shapes = ((16_640, 512), (16_640, 1024), (4160, 4096), (520, 32_768), (7, 8), (5, 4), (3, 1))
+    shapes = ((16_640, 512), (16_640, 1024), (4160, 4096), (520, 32_768), (7, 8), (5, 4), (3, 1),
+              (33, 256), (9, 64), (65, 2048))
     worst = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         for m, n in shapes:
@@ -1134,23 +1164,28 @@ def phase_fwht(kernels, hadamard_matrix):
         err_lib = rel_to_largest(torch.matmul(x, h_n).float() * n ** -0.5, kernels.fwht(x))
         if not err_lib <= 2.0 ** -6:  # the product rounds before the scale, the kernel after
             raise AssertionError(f"x @ H_{n} differs from fwht by {err_lib} of the largest entry")
-        ms_k = cuda_time_ms(lambda: kernels.fwht(x))
-        ms_p = cuda_time_ms(lambda: kernels.fwht_plain(x), iters=3, reps=3)
-        ms_lib = cuda_time_ms(lambda: torch.matmul(x, h_n))
-        bound_ms, bound_by = bound(2 * m * n * 2)
-        res[n] = (ms_k, ms_p, bound_ms, ms_lib, bound_by)
-        print(f"kernel 6 fwht at [{m}, {n}] bf16: kernel {ms_k:.4f} ms "
-              f"({2 * m * n * 2 / ms_k / 1e6:.1f} GB/s of read+write), plain {ms_p:.4f} ms, "
-              f"matmul with H_{n} {ms_lib:.4f} ms ({2 * m * n * n / ms_lib / 1e9:.1f} TFLOP/s, "
-              f"within {err_lib:.3g} of the kernel), bound {bound_ms:.4f} ms by {bound_by}",
+        # back to back from the host, as every kernel's "ms"; "device": the
+        # calls queued ahead of the card, its own time
+        t = {"ms": cuda_time_ms(lambda: kernels.fwht(x)),
+             "device_ms": device_time_ms(lambda: kernels.fwht(x)),
+             "plain_ms": cuda_time_ms(lambda: kernels.fwht_plain(x), iters=3, reps=3),
+             "library_ms": cuda_time_ms(lambda: torch.matmul(x, h_n)),
+             "library_device_ms": device_time_ms(lambda: torch.matmul(x, h_n))}
+        t["bound_ms"], t["bound_by"] = bound(2 * m * n * 2)
+        res[n] = t
+        print(f"kernel 6 fwht at [{m}, {n}] bf16: kernel {t['ms']:.4f} ms back to back, "
+              f"{t['device_ms']:.4f} on the device ({2 * m * n * 2 / t['device_ms'] / 1e6:.1f} "
+              f"GB/s of read+write), plain {t['plain_ms']:.4f} ms, matmul with H_{n} "
+              f"{t['library_ms']:.4f} / {t['library_device_ms']:.4f} ms "
+              f"({2 * m * n * n / t['library_device_ms'] / 1e9:.1f} TFLOP/s, within "
+              f"{err_lib:.3g} of the kernel), bound {t['bound_ms']:.4f} ms by {t['bound_by']}",
               flush=True)
         del x, h_n
-    ms_k, ms_p, bound_ms, ms_lib, bound_by = res[512]
     return {"name": "fwht", "route": "cuda", "source": "spectre_tpu_torch/csrc/fwht.cu",
-            "replaces": "spectre_tpu/ops/pallas/fwht.py:71", "max_abs_err": worst, "ms": ms_k,
-            "plain_ms": ms_p, "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": ms_lib,
-            **{f"{key}_n{n}": res[n][i] for n in (1024, 4096)
-               for i, key in enumerate(("ms", "plain_ms", "bound_ms", "library_ms"))},
+            "replaces": "spectre_tpu/ops/pallas/fwht.py:71", "max_abs_err": worst, **res[512],
+            **{f"{key}_n{n}": res[n][key] for n in (1024, 4096)
+               for key in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
+                           "library_device_ms")},
             "shape": "x [16640, 512] bf16"}
 
 
@@ -1728,6 +1763,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(0)
     k1 = phase_kernel1(kernels, gen)
     k2 = phase_kernel2(kernels, gen)
+    k11 = phase_linear_bwd(kernels, gen)
     k5 = phase_kernel5(kernels)
     k3, k4 = phase_gather_kernels(kernels, gen)
     k8, k9 = phase_attention(kernels)
@@ -1767,6 +1803,7 @@ def main() -> int:
     # entry point, repl/perf.py fused-bwd
     k1["launches"] = trainer_run["block_scatter_rows"]
     k2["launches"] = trainer_run["fused_spectre_linear"]
+    k11["launches"] = trainer_run["fused_spectre_linear_bwd"]
     k3["launches"] = trainer_run["block_gather_sum"]
     k4["launches"] = uniform_run["inverse_gather_sum"]
     k5["launches"] = fused_run["fused_block_bwd"]
@@ -1789,7 +1826,7 @@ def main() -> int:
     k1["launches_branch"] = branch_run["block_scatter_rows"]
     k1["launches_branch_serving"] = branch_serving["block_scatter_rows"]
     k4["launches_branch"] = branch_run["inverse_gather_sum"]
-    result = {"kernels": [k1, k2, k3, k4, k5, k8, k9, k6, k7, k10],
+    result = {"kernels": [k1, k2, k11, k3, k4, k5, k8, k9, k6, k7, k10],
               "train_step": {f"mix_block={blk}": {f"B={b}": v for b, v in t.items()}
                              for blk, t in step_times.items()},
               "trainer": trainer, "fused_bwd": fused_bwd, "bench": bench, "vit": vit,

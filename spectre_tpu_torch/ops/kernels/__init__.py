@@ -26,6 +26,8 @@ from spectre_tpu_torch.ops.kernels.fused_block_bwd import (
 )
 from spectre_tpu_torch.ops.kernels.fused_linear import (
     fused_spectre_linear,
+    fused_spectre_linear_bwd,
+    fused_spectre_linear_bwd_plain,
     fused_spectre_linear_grad,
     fused_spectre_linear_plain,
 )
@@ -48,8 +50,8 @@ from spectre_tpu_torch.ops.kernels.structured_mix import (
 )
 
 KERNELS = (block_scatter_rows, block_gather_sum, inverse_gather_sum, fused_spectre_linear,
-           fused_block_bwd, flash_attention_fwd, flash_attention_bwd, fwht, structured_mix,
-           structured_mix_bwd, routed_gather_sum)
+           fused_spectre_linear_bwd, fused_block_bwd, flash_attention_fwd, flash_attention_bwd,
+           fwht, structured_mix, structured_mix_bwd, routed_gather_sum)
 
 
 def reset_launch_counts() -> None:
@@ -76,6 +78,8 @@ __all__ = [
     "fused_block_bwd",
     "fused_block_bwd_plain",
     "fused_spectre_linear",
+    "fused_spectre_linear_bwd",
+    "fused_spectre_linear_bwd_plain",
     "fused_spectre_linear_grad",
     "fused_spectre_linear_plain",
     "fwht",

@@ -24,6 +24,8 @@ import shutil
 import subprocess
 import tempfile
 
+import torch
+
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
@@ -40,6 +42,8 @@ _SIGNATURES = {
     "routed_gather_sum": (_P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, ctypes.c_int, _P),
     "fused_spectre_linear_fwd": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
                                  _LL, _LL, _LL, ctypes.c_float, _P),
+    "fused_spectre_linear_bwd_chain": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                       _LL, _LL, _LL, ctypes.c_float, _P),
     "fused_block_bwd": (ctypes.c_int, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P),
     "fwht": (_P, _P, _LL, _LL, ctypes.c_float, ctypes.c_int, _P),
     "structured_mix_fwd": (ctypes.c_int, _P, _P, _P, _P, _LL, _LL, _LL, _LL, ctypes.c_float, _P),
@@ -106,6 +110,13 @@ def load_library() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+def current_stream(device_index: int) -> int:
+    """The raw handle of a device's current CUDA stream, the int a C entry
+    point takes: ``torch.cuda.current_stream(i).cuda_stream`` without
+    building a Stream object at every launch."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 def check(err: int, what: str) -> None:

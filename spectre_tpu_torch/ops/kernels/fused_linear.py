@@ -1,4 +1,5 @@
-"""Kernel 2: the SpectreLinear block's product, LayerNorm and GELU in one pass.
+"""Kernel 2: the SpectreLinear block's product, LayerNorm and GELU in one pass,
+and the LayerNorm/GELU chain of its backward.
 
 ``out = GELU(LN(x @ W + b) * gamma + beta)`` plus ``x`` when K == N, with
 x [..., K] and W [K, N] in the JAX [in, out] layout. The K != N pool residual
@@ -9,10 +10,21 @@ TPU kernel ``spectre_tpu/ops/pallas/fused_linear.py::fused_spectre_linear``).
 With ``save_h`` the kernel also writes the pre-LayerNorm activation
 ``h = x @ W + b`` in x's dtype. ``fused_spectre_linear_grad`` is the
 differentiable form: a ``torch.autograd.Function`` whose forward is the
-kernel with ``save_h`` and whose backward is the analytic LayerNorm/GELU
-chain and two products on the saved ``h`` (the JAX package's ``_bwd``, which
-is jnp outside any kernel there and torch ops here). The forward product is
-not run again in the backward.
+kernel with ``save_h`` and whose backward is ``fused_spectre_linear_bwd``
+on the saved ``h``: the analytic LayerNorm/GELU chain and its three column
+sums in one CUDA kernel (``csrc/fused_spectre_linear_bwd.cu``; the JAX
+package's ``_bwd``, jnp beside its Pallas kernel), then the two products
+``dW = x^T dh`` and ``dx = dh W^T`` (+ g when K == N, added before the one
+rounding). The forward product is not run again in the backward.
+
+Arithmetic of the backward, stated by ``fused_spectre_linear_bwd_plain``:
+the chain in float32 from the saved h (LayerNorm statistics of the rounded
+h); in bfloat16 dh is rounded to bf16 and the products take bf16 operands
+with float32 sums (the JAX package multiplies float32 operands at the
+TPU's default precision, which is not float32 either); in float32
+everything is float32, the products true float32 (no TF32). dgamma, dbeta
+and db are float32 sums (db of the unrounded dh), each gradient cast once
+to its tensor's dtype.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises. There is no fallback from a CUDA tensor to the plain path.
@@ -20,15 +32,17 @@ kernel or raises. There is no fallback from a CUDA tensor to the plain path.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 
-from spectre_tpu_torch.ops.kernels.build import check, load_library
+from spectre_tpu_torch.ops.kernels.build import check, current_stream, load_library
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_N = 1024  # one block owns a whole output row (csrc/fused_spectre_linear.cu)
+BWD_BLOCKS_PER_SM = 3  # the chain kernel's blocks an SM (csrc/fused_spectre_linear_bwd.cu)
 
 
 def fused_spectre_linear_plain(x, w, b, gamma, beta, eps: float = 1e-5,
@@ -96,10 +110,113 @@ _INV_SQRT2 = 2.0 ** -0.5
 _INV_SQRT_2PI = (2.0 * math.pi) ** -0.5
 
 
+def _chain_plain(h, g, gamma, beta, eps):
+    """The LayerNorm/GELU chain in float32: (dh, dgamma, dbeta, db), all
+    float32, from h and g [M, N]."""
+    hf, gy, gam = h.float(), g.float(), gamma.float()
+    var, mu = torch.var_mean(hf, dim=-1, keepdim=True, correction=0)
+    rsig = torch.rsqrt(var + eps)
+    u = (hf - mu) * rsig
+    z = u * gam + beta.float()
+    # gelu'(z) = Phi(z) + z * phi(z), the exact erf form
+    dgelu = 0.5 * (1.0 + torch.erf(z * _INV_SQRT2)) \
+        + z * torch.exp(-0.5 * z * z) * _INV_SQRT_2PI
+    dz = gy * dgelu
+    du = dz * gam
+    dh = rsig * (du - du.mean(-1, keepdim=True) - u * (du * u).mean(-1, keepdim=True))
+    return dh, (dz * u).sum(0), dz.sum(0), dh.sum(0)
+
+
+def _bwd_validate(x, w, gamma, beta, h, g) -> None:
+    k, n = w.shape
+    if x.shape[-1] != k or h.shape != g.shape or h.shape[:-1] != x.shape[:-1] \
+            or h.shape[-1] != n:
+        raise ValueError(f"want x [..., {k}], h and g [..., {n}] over x's rows; got "
+                         f"{tuple(x.shape)}, {tuple(h.shape)}, {tuple(g.shape)}")
+    for t in (w, gamma, beta, h, g):
+        if t.dtype != x.dtype or t.device != x.device:
+            raise TypeError(f"all operands must share x's dtype {x.dtype} and device "
+                            f"{x.device}; got {t.dtype} on {t.device}")
+
+
+def fused_spectre_linear_bwd_plain(x, w, gamma, beta, h, g, eps: float = 1e-5):
+    """Plain PyTorch version of the backward: (dx, dw, db, dgamma, dbeta)
+    from the saved pre-LN ``h`` and the cotangent ``g`` of the output (the
+    K != N pool residual's part of dx stays with the caller). The chain in
+    float32; for bf16 inputs dh is rounded to bf16 before the two products,
+    whose sums are float32; one cast of each gradient."""
+    _bwd_validate(x, w, gamma, beta, h, g)
+    k, n = w.shape
+    dh, dgamma, dbeta, db = _chain_plain(h.reshape(-1, n), g.reshape(-1, n), gamma, beta, eps)
+    dh_op = dh.to(x.dtype).float()  # the products' operand: rounded for bf16
+    dw = torch.matmul(x.reshape(-1, k).float().t(), dh_op)
+    dx = torch.matmul(dh_op, w.float().t())
+    if k == n:
+        dx = dx + g.reshape(-1, n).float()
+    return (dx.reshape(x.shape).to(x.dtype), dw.to(w.dtype), db.to(w.dtype),
+            dgamma.to(gamma.dtype), dbeta.to(beta.dtype))
+
+
+@functools.lru_cache(maxsize=None)
+def _bwd_grid(device_index: int) -> int:
+    """The chain kernel's grid on a card: as many blocks as are resident at
+    once, each owning a contiguous share of the rows (one partial row of
+    column sums a block)."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    return BWD_BLOCKS_PER_SM * sms
+
+
+def fused_spectre_linear_bwd(x, w, gamma, beta, h, g, eps: float = 1e-5):
+    """(dx, dw, db, dgamma, dbeta) of ``fused_spectre_linear`` from the saved
+    pre-LN ``h`` and the cotangent ``g``: the chain kernel, then the two
+    products (bf16 operands and float32 sums for bf16 inputs)."""
+    _bwd_validate(x, w, gamma, beta, h, g)
+    if x.device.type == "cpu":
+        return fused_spectre_linear_bwd_plain(x, w, gamma, beta, h, g, eps)
+    if x.device.type != "cuda":
+        raise RuntimeError(f"fused_spectre_linear_bwd: no kernel for device {x.device}")
+    if x.dtype not in _DTYPE_CODES:
+        raise TypeError(f"fused_spectre_linear_bwd takes float32 or bfloat16, not {x.dtype}")
+    k, n = w.shape
+    if n > MAX_N:
+        raise ValueError(f"fused_spectre_linear_bwd kernel takes N <= {MAX_N}, got {n}")
+    if not all(t.is_contiguous() for t in (x, w, gamma, beta, h, g)):
+        raise ValueError("fused_spectre_linear_bwd needs contiguous operands")
+    dev = x.get_device()
+    if dev != torch.cuda.current_device():  # the kernel launches on the current device
+        with torch.cuda.device(dev):
+            return fused_spectre_linear_bwd(x, w, gamma, beta, h, g, eps)
+    m = h.numel() // n
+    x2, g2 = x.reshape(m, k), g.reshape(m, n)
+    dh = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    sums = torch.empty((3, n), dtype=x.dtype, device=x.device)  # dgamma, dbeta, db
+    if m == 0:
+        sums.zero_()
+    else:
+        blocks = min(m, _bwd_grid(dev))
+        partial = torch.empty((blocks, 3, n), dtype=torch.float32, device=x.device)
+        at, step = sums.data_ptr(), n * sums.element_size()
+        err = load_library().fused_spectre_linear_bwd_chain(
+            _DTYPE_CODES[x.dtype], h.data_ptr(), g.data_ptr(), gamma.data_ptr(),
+            beta.data_ptr(), dh.data_ptr(), at, at + step, at + 2 * step, partial.data_ptr(),
+            m, n, blocks, eps, current_stream(dev))
+        check(err, "fused_spectre_linear_bwd_chain launch")
+        fused_spectre_linear_bwd.launches += 1
+    if x.dtype == torch.bfloat16:  # float32 sums, one rounding
+        dw = torch.mm(x2.t(), dh, out_dtype=torch.float32).to(w.dtype)
+    else:
+        dw = torch.mm(x2.t(), dh)
+    # the identity residual joins the product's float32 sum before its rounding
+    dx = torch.addmm(g2, dh, w.t()) if k == n else torch.mm(dh, w.t())
+    return dx.reshape(x.shape), dw, sums[2], sums[0], sums[1]
+
+
+fused_spectre_linear_bwd.launches = 0
+
+
 class _FusedSpectreLinear(torch.autograd.Function):
-    """Forward: the kernel, saving the pre-LN ``h``. Backward: float32
-    throughout, each gradient cast to the dtype of what it is the gradient
-    of. LayerNorm statistics come from the saved (rounded) ``h``."""
+    """Forward: the kernel, saving the pre-LN ``h``. Backward:
+    ``fused_spectre_linear_bwd`` on the saved ``h``."""
 
     @staticmethod
     def forward(ctx, x, w, b, gamma, beta, eps):
@@ -111,31 +228,7 @@ class _FusedSpectreLinear(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, w, gamma, beta, h = ctx.saved_tensors
-        K, N = w.shape
-        hf = h.float().reshape(-1, N)
-        gy = g.float().reshape(-1, N)
-        gam = gamma.float()
-
-        var, mu = torch.var_mean(hf, dim=-1, keepdim=True, correction=0)
-        rsig = torch.rsqrt(var + ctx.eps)
-        u = (hf - mu) * rsig
-        z = u * gam + beta.float()
-        # gelu'(z) = Phi(z) + z * phi(z), the exact erf form
-        dgelu = 0.5 * (1.0 + torch.erf(z * _INV_SQRT2)) \
-            + z * torch.exp(-0.5 * z * z) * _INV_SQRT_2PI
-        dz = gy * dgelu
-        dgamma = (dz * u).sum(0)
-        dbeta = dz.sum(0)
-        du = dz * gam
-        dh = rsig * (du - du.mean(-1, keepdim=True) - u * (du * u).mean(-1, keepdim=True))
-        db = dh.sum(0)
-        x2 = x.float().reshape(-1, K)
-        dw = torch.matmul(x2.t(), dh)
-        dx = torch.matmul(dh, w.float().t())
-        if K == N:
-            dx = dx + gy
-        return (dx.reshape(x.shape).to(x.dtype), dw.to(w.dtype), db.to(w.dtype),
-                dgamma.to(gamma.dtype), dbeta.to(beta.dtype), None)
+        return (*fused_spectre_linear_bwd(x, w, gamma, beta, h, g.contiguous(), ctx.eps), None)
 
 
 def fused_spectre_linear_grad(x, w, b, gamma, beta, eps: float = 1e-5):

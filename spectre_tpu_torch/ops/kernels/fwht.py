@@ -20,10 +20,10 @@ from __future__ import annotations
 
 import torch
 
-from spectre_tpu_torch.ops.kernels.build import check, load_library
+from spectre_tpu_torch.ops.kernels.build import check, current_stream, load_library
 
 _DTYPES = (torch.float32, torch.bfloat16)
-MAX_N = 32768  # a row lives in shared memory as float32 (csrc/fwht.cu)
+MAX_N = 32768  # above 1,024 a row lives in shared memory as float32 (csrc/fwht.cu)
 
 
 def _check_pow2(n: int) -> None:
@@ -57,22 +57,24 @@ def fwht(x: torch.Tensor, normalize: bool = True) -> torch.Tensor:
     _check_pow2(n)
     if x.dtype not in _DTYPES:
         raise TypeError(f"fwht takes float32 or bfloat16, not {x.dtype}")
-    if x.device.type == "cpu":
-        return fwht_plain(x, normalize)
-    if x.device.type != "cuda":
+    if not x.is_cuda:
+        if x.device.type == "cpu":
+            return fwht_plain(x, normalize)
         raise RuntimeError(f"fwht: no kernel for device {x.device}")
     if n > MAX_N:
         raise ValueError(f"fwht kernel takes n <= {MAX_N}, got {n}")
     if not x.is_contiguous():
         raise ValueError("fwht needs a contiguous x")
+    dev = x.get_device()
+    if dev != torch.cuda.current_device():  # the kernel launches on the current device
+        with torch.cuda.device(dev):
+            return fwht(x, normalize)
     out = torch.empty_like(x)
     if x.numel() == 0:
         return out
-    lib = load_library()
-    with torch.cuda.device(x.device):
-        err = lib.fwht(x.data_ptr(), out.data_ptr(), x.numel(), n,
-                       n ** -0.5 if normalize else 1.0, x.element_size(),
-                       torch.cuda.current_stream().cuda_stream)
+    err = load_library().fwht(x.data_ptr(), out.data_ptr(), x.numel(), n,
+                              n ** -0.5 if normalize else 1.0, x.element_size(),
+                              current_stream(dev))
     check(err, "fwht launch")
     fwht.launches += 1
     return out

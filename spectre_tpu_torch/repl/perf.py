@@ -11,6 +11,8 @@ any config with ``--config``), and single kernels beside what they replace.
         [--tokens 65] [--embed 512] [--iters 30]
     python -m spectre_tpu_torch.repl.perf routed [--batch 256 1024] [--heads 16]
         [--tokens 65] [--embed 512] [--iters 30]
+    python -m spectre_tpu_torch.repl.perf fwht [--iters 30]
+    python -m spectre_tpu_torch.repl.perf linear-bwd [--batch 256 1024] [--iters 30]
 
 Needs a CUDA card. ``attention`` and ``structured`` (the counterparts of the
 JAX package's ``repl/perf.py attention`` and ``mixer``) time the attention
@@ -30,7 +32,17 @@ chain against one rounding). ``fused-bwd`` (the counterpart of the JAX package's
 shapes in bf16 both ways, the chain of the train step (``_FoldedProj``'s
 ``dg4`` product and signs, then ``block_gather_sum``) and the one-launch
 kernel ``fused_block_bwd``, and prints their largest difference, both times,
-GFLOP/s and the ratio.
+GFLOP/s and the ratio. ``fwht`` times the Walsh-Hadamard kernel in bf16 at
+[16,640, 512], [16,640, 1024] and [4,160, 4,096] beside ``x @ H_n`` (the
+TPU kernel's form, as a yardstick), each back to back from the host and on
+the device alone (``utils/timing.py``), with the bytes bound. ``linear-bwd``
+times the SpectreLinear block's backward in bf16 at the path's shapes for
+each batch (65 B rows; 512 -> 768, 768 -> 512, the head's 512 -> 100) and at
+the structured mix's K = 8,192: ``fused_spectre_linear_bwd`` on a saved h
+(the chain kernel and the two products; device time by kernel from
+``torch.profiler``), the same through kernel 2's autograd Function, and
+autograd of the plain version, both ways, with the bound of its two
+products.
 
 The default mode builds, for each batch size, the config's trainer (synthetic
 data, the trainer's augmentation for the config's dataset inside the step,
@@ -69,11 +81,17 @@ from spectre_tpu_torch.configs import FLAGSHIP, parse_config
 from spectre_tpu_torch.data import synthetic_batch
 from spectre_tpu_torch.ops import fused_mix
 from spectre_tpu_torch.ops import structured_mix as structured_mix_matrix
+from spectre_tpu_torch.ops import hadamard_matrix
 from spectre_tpu_torch.ops.kernels import (
     block_gather_sum,
     flash_attention,
     flash_attention_plain,
     fused_block_bwd,
+    fused_spectre_linear,
+    fused_spectre_linear_bwd,
+    fused_spectre_linear_grad,
+    fused_spectre_linear_plain,
+    fwht,
     inverse_gather_sum,
     invert_tile_perms,
     routed_gather_sum,
@@ -84,6 +102,12 @@ from spectre_tpu_torch.ops.kernels import (
 from spectre_tpu_torch.ops.routing import build_route_tables_cached
 from spectre_tpu_torch.train.loop import build_step
 from spectre_tpu_torch.utils import card_and_power_limit
+from spectre_tpu_torch.utils.timing import (
+    HBM_BYTES_PER_S,
+    bound_ms,
+    cuda_time_ms,
+    queued_time_ms,
+)
 
 
 def _events_ms(fn, reps: int) -> list[float]:
@@ -113,10 +137,12 @@ _GROUPS = (
     ("block_scatter_rows_kernel", "kernel 1 block_scatter_rows"),
     ("gather_sum_kernel", "kernels 3/4 gather_sum"),
     ("fused_spectre_linear_kernel", "kernel 2 fused_spectre_linear_fwd"),
+    ("chain_kernel", "kernel 2's backward chain (fused_spectre_linear_bwd)"),
+    ("column_sum_kernel", "kernel 2's backward chain (fused_spectre_linear_bwd)"),
     ("flash_attention_fwd_kernel", "kernel 8 flash_attention_fwd"),
     ("flash_attention_bwd_kernel", "kernel 9 flash_attention_bwd"),
     ("structured_mix_kernel", "kernel 7 structured_mix (forward and backward)"),
-    ("fwht_kernel", "kernel 6 fwht"),
+    ("fwht_", "kernel 6 fwht"),
     ("f32f32", "matrix products, f32"), ("simt_sgemm", "matrix products, f32"),
     ("gemm", "matrix products, bf16"), ("nvjet", "matrix products, bf16"),
     ("cutlass", "matrix products, bf16"), ("gemv", "matrix products, bf16"),
@@ -132,6 +158,25 @@ def _group(kernel_name: str) -> str:
         if needle in kernel_name:
             return group
     return "other"
+
+
+def kernel_rows(fn, n: int) -> tuple[list, float]:
+    """``torch.profiler`` over ``n`` calls of ``fn``: (name, launches, ms) of
+    every kernel, largest first, and the span of the calls in ms (CUDA
+    events)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        span = _events_ms(lambda: [fn() for _ in range(n)], 1)[0]
+    # kernel events only: an operator's row repeats the time of its kernels,
+    # and so does the range torch.optim records around a step on the device's
+    # timeline ("Optimizer.step#AdamW.step"), which is no kernel
+    rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
+            and not e.key.startswith("Optimizer.")]
+    rows.sort(key=lambda r: -r[2])
+    return rows, span
 
 
 def profile_steps(cfg, batch: int) -> dict:
@@ -159,19 +204,8 @@ def profile_steps(cfg, batch: int) -> dict:
     res["noncontiguous_cotangents"] = [e for e in log if not e[1]]
     res["cotangents_seen"] = len(log)
 
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     n = 3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        span = _events_ms(lambda: [step(state, x, y) for _ in range(n)], 1)[0]
-    # kernel events only: an operator's row repeats the time of its kernels,
-    # and so does the range torch.optim records around a step on the device's
-    # timeline ("Optimizer.step#AdamW.step"), which is no kernel
-    rows = [(e.key, e.count, e.self_device_time_total / 1e3) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0
-            and not e.key.startswith("Optimizer.")]
-    rows.sort(key=lambda r: -r[2])
+    rows, span = kernel_rows(lambda: step(state, x, y), n)
     device_ms = sum(r[2] for r in rows)
     groups: dict[str, list] = {}
     for key, count, ms in rows:
@@ -355,7 +389,87 @@ def structured(args) -> dict:
     return out
 
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published
+def _both_ways(fns: dict, iters: int, device_iters: int | None = None) -> dict:
+    """Each function back to back (``_ms``, ``iters`` calls), on the device
+    alone (``_device_ms``) and the host's time to issue it (``_host_ms``),
+    the last two from ``device_iters`` calls (few enough that their launches
+    fit the launch queue while the card sleeps), in the order given and
+    again in reverse; the lower of the two turns."""
+    t = {}
+    for key in list(fns) + list(reversed(list(fns))):
+        ms = cuda_time_ms(fns[key], iters=iters)
+        dev, host = queued_time_ms(fns[key], iters=device_iters or iters)
+        for way, v in (("ms", ms), ("device_ms", dev), ("host_ms", host)):
+            t[f"{key}_{way}"] = min(v, t.get(f"{key}_{way}", v))
+    return t
+
+
+def fwht_times(args) -> dict:
+    """The Walsh-Hadamard kernel in bf16 beside ``x @ H_n``."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for m, n in ((16_640, 512), (16_640, 1024), (4160, 4096)):
+        x = torch.randn(m, n, generator=gen, device="cuda").to(torch.bfloat16)
+        h_n = hadamard_matrix(n, normalize=False).to("cuda", torch.bfloat16)
+        t = _both_ways({"kernel": lambda: fwht(x), "matmul": lambda: torch.matmul(x, h_n)},
+                       args.iters)
+        bound, by = bound_ms(2 * m * n * 2)
+        out[str(n)] = dict(t, bound_ms=bound, bound_by=by, rows=m)
+        print(f"fwht [{m}, {n}] bf16: kernel {t['kernel_ms']:.4f} ms back to back, "
+              f"{t['kernel_device_ms']:.4f} on the device, {t['kernel_host_ms']:.4f} to issue; "
+              f"x @ H_{n} {t['matmul_ms']:.4f} / {t['matmul_device_ms']:.4f} / "
+              f"{t['matmul_host_ms']:.4f} ms; bound {bound:.4f} ms by {by} (device "
+              f"{bound / t['kernel_device_ms']:.0%} of it)", flush=True)
+        del x, h_n
+    return out
+
+
+def linear_bwd(args) -> dict:
+    """Kernel 2's backward in bf16 beside autograd of the plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = [(65 * b, k, n) for b in args.batch
+              for k, n in ((512, 768), (768, 512))] + [(b, 512, 100) for b in args.batch]
+    shapes.append((65 * 256, 8192, 512))
+    out = {}
+    for m, k, n in shapes:
+        kw = dict(device="cuda", dtype=torch.bfloat16)
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.rand(k, n, generator=gen, device="cuda") * 2 - 1).mul_(k ** -0.5).to(**kw)
+        bias, beta = (0.1 * torch.randn(n, generator=gen, **kw) for _ in range(2))
+        gamma = 1.0 + 0.1 * torch.randn(n, generator=gen, **kw)
+        cot = torch.randn(m, n, generator=gen, **kw)
+        leaves = [t.requires_grad_() for t in (x, w, bias, gamma, beta)]
+        y_k, y_p = fused_spectre_linear_grad(*leaves), fused_spectre_linear_plain(*leaves)
+        got = torch.autograd.grad(y_k, leaves, cot, retain_graph=True)
+        want = torch.autograd.grad(y_p, leaves, cot, retain_graph=True)
+        rel = max(((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
+                  for a, b in zip(got, want))
+        iters = max(1, args.iters // 6) if k > 1024 else args.iters
+        saved = [t.detach() for t in (x, w, gamma, beta)]
+        h = fused_spectre_linear(*saved[:2], bias.detach(), *saved[2:], save_h=True)[1]
+        t = _both_ways({
+            "kernel": lambda: fused_spectre_linear_bwd(*saved, h, cot),
+            "backward": lambda: torch.autograd.grad(y_k, leaves, cot, retain_graph=True),
+            "plain_autograd": lambda: torch.autograd.grad(y_p, leaves, cot, retain_graph=True)},
+            iters, device_iters=min(iters, 5))
+        rows, _ = kernel_rows(lambda: fused_spectre_linear_bwd(*saved, h, cot), 5)
+        t["kernels"] = {name[:80]: ms / 5 for name, _, ms in rows}
+        # the two products, 2 M K N operations each; x, h, g, W, gamma, beta
+        # read and dx, dW and the three [N] gradients written once, in bf16
+        bound, by = bound_ms((2 * m * k + 2 * m * n + 2 * k * n + 5 * n) * 2, 4 * m * k * n)
+        out[f"{m}x{k}x{n}"] = dict(t, bound_ms=bound, bound_by=by, max_rel_diff=rel)
+        print(f"backward ({m}x{k})x({k}x{n}) bf16: fused_spectre_linear_bwd "
+              f"{t['kernel_ms']:.4f} ms back to back, {t['kernel_device_ms']:.4f} on the device, "
+              f"{t['kernel_host_ms']:.4f} to issue "
+              f"(by kernel: " + ", ".join(f"{key[:40]} {ms:.4f}" for key, ms in
+                                          t["kernels"].items()) + "); through autograd "
+              f"{t['backward_ms']:.4f} / {t['backward_device_ms']:.4f} ms; autograd of plain "
+              f"{t['plain_autograd_ms']:.4f} / {t['plain_autograd_device_ms']:.4f} ms; bound "
+              f"{bound:.4f} ms by {by}; gradients within {rel:.3g} of the largest entry",
+              flush=True)
+        del x, w, cot, leaves, y_k, y_p, got, want
+        torch.cuda.empty_cache()
+    return out
 
 
 def routed(args) -> dict:
@@ -411,7 +525,8 @@ def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("mode", nargs="?", default="train",
-                   choices=("train", "fused-bwd", "attention", "structured", "routed"))
+                   choices=("train", "fused-bwd", "attention", "structured", "routed", "fwht",
+                            "linear-bwd"))
     p.add_argument("--config", default=FLAGSHIP)
     p.add_argument("--batch", type=int, nargs="*", default=[256, 1024])
     p.add_argument("--mix-block", type=int, default=None, help="override the config's mix_block")
@@ -438,6 +553,10 @@ def main(argv=None) -> dict:
         return {"card": card, "structured": structured(args)}
     if args.mode == "routed":
         return {"card": card, "routed": routed(args)}
+    if args.mode == "fwht":
+        return {"card": card, "fwht": fwht_times(args)}
+    if args.mode == "linear-bwd":
+        return {"card": card, "linear_bwd": linear_bwd(args)}
     folded = (getattr(cfg, "model", "spectre_vit") == "spectre_vit"
               and getattr(cfg, "method", "permut_mix") == "permut_mix"
               and getattr(cfg, "mix_impl", "gather") == "folded")

@@ -31,6 +31,8 @@ from spectre_tpu_torch.ops.kernels import (
     fused_block_bwd,
     fused_block_bwd_plain,
     fused_spectre_linear,
+    fused_spectre_linear_bwd,
+    fused_spectre_linear_bwd_plain,
     fused_spectre_linear_grad,
     fused_spectre_linear_plain,
     flash_attention,
@@ -203,6 +205,59 @@ def test_fused_spectre_linear_kernel_matches_plain(cuda_device, dtype, atol, m, 
     assert (got.float() - want.float()).abs().max().item() <= atol
 
 
+def _bwd_case(m, k, n, dtype, device, seed=0):
+    """x, w, gamma, beta of ``_linear_case`` with a saved h = x @ w + b and a
+    cotangent g, in ``dtype`` on ``device``."""
+    x, w, b, gamma, beta = _linear_case(m, k, n, seed)
+    g = np.random.default_rng(seed + 1).standard_normal((m, n)).astype(np.float32)
+    return [torch.from_numpy(a).to(device, dtype) for a in (x, w, gamma, beta, x @ w + b, g)]
+
+
+# each gradient against the plain version, as a share of its largest entry.
+# f32: the chain's sums (row statistics, column sums) in another order; bf16:
+# dh and the column sums round once each on both paths, so single entries
+# differ by one bf16 ulp (2^-8 to 2^-7 of the largest entry), and the
+# products sum the same bf16 operands in float32 in another order
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)])
+@pytest.mark.parametrize("m,k,n", [(1040, 512, 768), (1040, 768, 512), (33, 512, 100),
+                                   (70, 64, 64), (9, 40, 24), (130, 96, 1024), (65, 24, 36)])
+def test_fused_spectre_linear_bwd_kernel_matches_plain(cuda_device, dtype, rel, m, k, n):
+    """16-byte vectors (N a multiple of 8 or 4), one value a lane (N = 100,
+    36), ragged rows in a block (9, 33, 65), K == N (the residual in the
+    product) and K != N."""
+    args = _bwd_case(m, k, n, dtype, cuda_device, seed=m + n)
+    n0 = fused_spectre_linear_bwd.launches
+    got = fused_spectre_linear_bwd(*args)
+    assert fused_spectre_linear_bwd.launches == n0 + 1
+    want = fused_spectre_linear_bwd_plain(*args)
+    for name, a, b in zip(("dx", "dw", "db", "dgamma", "dbeta"), got, want):
+        assert a.dtype == b.dtype == dtype and a.shape == b.shape, name
+        scale = b.float().abs().max().item()
+        diff = (a.float() - b.float()).abs().max().item()
+        assert diff <= rel * scale, (name, diff, scale)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_spectre_linear_bwd_kernel_is_deterministic(cuda_device, dtype):
+    """Two runs at a flagship layer's shape give the same bits: the column
+    sums go through per-block partials added in a fixed order."""
+    args = _bwd_case(65 * 64, 512, 768, dtype, cuda_device)
+    first = fused_spectre_linear_bwd(*args)
+    for a, b in zip(first, fused_spectre_linear_bwd(*args)):
+        assert torch.equal(a, b)
+
+
+def test_fused_spectre_linear_bwd_refuses_what_the_kernel_does_not_take(cuda_device):
+    x, w, gamma, beta, h, g = _bwd_case(8, 16, 1040, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="N <= 1024"):
+        fused_spectre_linear_bwd(x, w, gamma, beta, h, g)
+    x, w, gamma, beta, h, g = _bwd_case(8, 16, 16, torch.float32, cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_spectre_linear_bwd(x, w, gamma, beta, h, g.t().contiguous().t())
+    with pytest.raises(TypeError):
+        fused_spectre_linear_bwd(x, w, gamma, beta, h.half(), g)
+
+
 def test_small_model_on_the_card_matches_the_cpu(cuda_device):
     """The whole forward in f32 through both kernels against the CPU path
     (which the CPU tests hold to JAX), same seed, within 1e-4."""
@@ -244,6 +299,7 @@ def test_small_model_gradients_on_the_card_match_the_cpu(cuda_device, mix_block)
     after = launch_counts()
     delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     assert delta == {"block_scatter_rows": 2, "fused_spectre_linear": 5,
+                     "fused_spectre_linear_bwd": 5,
                      "block_gather_sum" if mix_block else "inverse_gather_sum": 2}
     for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
         scale = pc.grad.abs().max().item()
@@ -374,6 +430,21 @@ def test_fwht_kernel_is_bitwise_the_plain_butterfly(cuda_device, dtype):
     assert torch.equal(y.detach(), fwht_plain(x3.detach().movedim(0, -1)).movedim(-1, 0))
     (y.float() ** 2).sum().backward()
     assert x3.grad.shape == x3.shape and torch.isfinite(x3.grad).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [2 ** p for p in range(1, 16)])
+def test_fwht_kernel_is_bitwise_the_plain_butterfly_at_every_length(cuda_device, dtype, n):
+    """n = 2 ... 32,768, both designs (a warp a tile up to 1,024, a block a
+    row above): whole tiles, a ragged last tile, one row, and a base that is
+    not 16-byte aligned."""
+    rng = np.random.default_rng(n)
+    m = max(1, 4096 // n) * 33 + 1
+    flat = torch.from_numpy(rng.standard_normal(1 + m * n).astype(np.float32)) \
+        .to(cuda_device, dtype)
+    for x in (flat[:m * n].view(m, n), flat[:n].view(1, n), flat[1:].view(m, n)):
+        assert torch.equal(fwht(x), fwht_plain(x)), (n, x.shape, x.data_ptr() % 16)
+        assert torch.equal(fwht(x, False), fwht_plain(x, False))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -528,7 +599,8 @@ def test_small_routed_model_gradients_on_the_card_match_the_cpu(cuda_device):
     torch.nn.functional.cross_entropy(gpu(x.to(cuda_device)), y.to(cuda_device)).backward()
     after = launch_counts()
     delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
-    assert delta == {"block_scatter_rows": 2, "fused_spectre_linear": 5, "routed_gather_sum": 2}
+    assert delta == {"block_scatter_rows": 2, "fused_spectre_linear": 5,
+                     "fused_spectre_linear_bwd": 5, "routed_gather_sum": 2}
     for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
         scale = pc.grad.abs().max().item()
         assert (pg.grad.cpu() - pc.grad).abs().max().item() <= 1e-4 * scale, name

@@ -221,6 +221,10 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
     args = [torch.from_numpy(a) for a in _fused_bwd_case(2, 16, 16, 3, 4, 8)]
     assert torch.equal(fused_block_bwd(*args, 16), fused_block_bwd_plain(*args, 16))
     from spectre_tpu_torch.ops import kernels as K
+    hb, gb = torch.randn(6, 8), torch.randn(6, 8)
+    for got, want in zip(K.fused_spectre_linear_bwd(x, w, g, be, hb, gb),
+                         K.fused_spectre_linear_bwd_plain(x, w, g, be, hb, gb)):
+        assert torch.equal(got, want)
     q = torch.randn(2, 2, 5, 4)
     o, lse = K.flash_attention_fwd(q, q, q)
     assert torch.equal(o, K.flash_attention_fwd_plain(q, q, q)[0])
@@ -243,7 +247,8 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
     assert torch.equal(K.routed_gather_sum(gr, *route), K.routed_gather_sum_plain(gr, *route))
     assert launch_counts() == before
     assert list(before) == ["block_scatter_rows", "block_gather_sum", "inverse_gather_sum",
-                            "fused_spectre_linear", "fused_block_bwd", "flash_attention_fwd",
+                            "fused_spectre_linear", "fused_spectre_linear_bwd",
+                            "fused_block_bwd", "flash_attention_fwd",
                             "flash_attention_bwd", "fwht", "structured_mix",
                             "structured_mix_bwd", "routed_gather_sum"]
 
@@ -289,6 +294,8 @@ def test_wrappers_raise_instead_of_falling_back():
                  lambda: K.flash_attention_bwd(qm, qm, qm, qm,
                                                torch.zeros(2, 2, 5, 1, device="meta"), qm),
                  lambda: K.fwht(torch.zeros(4, 8, device="meta")),
+                 lambda: K.fused_spectre_linear_bwd(*(torch.zeros(s, device="meta") for s in (
+                     (4, 8), (8, 8), 8, 8, (4, 8), (4, 8)))),
                  lambda: K.structured_mix(torch.zeros(3, 24, device="meta"), *tables, 1),
                  lambda: K.structured_mix_bwd(torch.zeros(3, 48, device="meta"), *tables)):
         with pytest.raises(RuntimeError, match="no kernel"):
