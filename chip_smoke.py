@@ -10,25 +10,33 @@ Phases, each raising on failure (nothing is caught):
    shape (d=33,280, H=16) with a block table (blk=64) and a uniform one
    (blk=1, as mix_block=0 trains), B in {1, 3, 64, 256, 1024}, bf16 and f32:
    bitwise equal. Median times at B=256 for both tables.
-4. kernel 2 (fused_spectre_linear_fwd) vs its plain version at the path's
-   three shapes for B=256 and B=1024, and at the structured and gather mixes'
-   projection (16,640 x 8,192)·(8,192 x 512), f32 (<= 1e-4: only the summation
-   order differs) and bf16 (<= 2e-2: one bf16 ulp is 7.8e-3 near 1 and 1.6e-2
-   in [2, 4); <= 4e-2 at K=8,192, whose pre-LN values reach [4, 8)),
-   for the output and for the saved pre-LN ``h``; the autograd Function's
-   five gradients vs autograd of the plain version (limits at GRAD_REL);
-   times with and without ``h``. Then kernel 2's backward
+4. kernel 2's forward, both of its kernels (fused_spectre_linear_wgmma: bf16
+   on wgmma + TMA; fused_spectre_linear_wmma_fma: f32, and bf16 where TMA
+   cannot describe the operands, as the head's N = 100), vs the plain version
+   at the path's three shapes for B=256 and B=1024, at the structured and
+   gather mixes' projection (16,640 x 8,192)·(8,192 x 512), f32 (<= 1e-4: only
+   the summation order differs) and bf16 (<= 2e-2: one bf16 ulp is 7.8e-3 near
+   1 and 1.6e-2 in [2, 4); <= 4e-2 at K=8,192, whose pre-LN values reach
+   [4, 8)), and at the serving buckets' rows 65 x {1, 2, 7, 64, 256} in bf16,
+   for the output and for the saved pre-LN ``h``; the kernel each call takes
+   (``forward_kernel``) and its launches; two runs bitwise equal; the autograd
+   Function's five gradients vs autograd of the plain version (limits at
+   GRAD_REL); at the path's bf16 shapes, times of the call with and without
+   ``h``, on the device, of the other kernel, of the plain version and of the
+   cuBLAS chain ``gelu(layer_norm(addmm(b, x, w)))``. Then kernel 2's backward
    (fused_spectre_linear_bwd: the LayerNorm/GELU chain kernel and the two
    products) vs its plain version at the path's shapes for B=256 and
    B=1024 and at K=8,192, f32 (<= 1e-5 of each gradient's largest entry)
    and bf16 (one bf16 ulp of it, <= 2^-7), two runs bitwise equal; times
    back to back and on the device beside autograd of the plain version.
-5. kernel 5 (fused_block_bwd) vs its plain version at the flagship mix shape
-   (d=33,280, H=16, O=512, blk=64) for B in {256, 1024, 250}, bf16 (<= 1e-2 of
-   the largest entry: one bf16 ulp of an entry is 2^-8 of it) and f32 (<= 1e-4
-   of the largest entry: FMAs in another order), with its distance to the
-   chain it fuses (the dg4 product, the signs, block_gather_sum); times of
-   the kernel, the plain version and the chain.
+5. kernel 5 (fused_block_bwd: bf16 on the wgmma kernel, f32 on the FP32
+   pipes) vs its plain version at the flagship mix shape (d=33,280, H=16,
+   O=512, blk=64) for B in {256, 1024, 250}, bf16 (<= 1e-2 of the largest
+   entry: one bf16 ulp of an entry is 2^-8 of it) and f32 (<= 1e-4 of the
+   largest entry: FMAs in another order), and against the chain it fuses
+   (the dg4 product, the signs, block_gather_sum); bf16 with blk=32 on the
+   bf16 WMMA kernel the same way; two runs bitwise equal; times of the
+   kernel (and on the device in bf16), the plain version and the chain.
 6. kernel 3 (block_gather_sum) and kernel 4 (inverse_gather_sum) vs their
    plain versions at the flagship mix shape, B in {1, 3, 64, 256, 1024},
    bf16 and f32: bitwise equal (kernel and plain version add the same
@@ -46,7 +54,8 @@ Phases, each raising on failure (nothing is caught):
    reset just before the server starts and read right after its run.
 9. train: the flagship in train mode at the config's batch 256 on synthetic
    data. One step must launch exactly 4 block-scatter, 4 block-gather and 9
-   fused-linear kernels, give a finite loss and a finite gradient for every
+   fused-linear kernels (8 of them the wgmma kernel, the head's the
+   float32/WMMA one), give a finite loss and a finite gradient for every
    parameter; 8 steps on one fixed batch must end below the first loss; one
    backward on the kernel path must agree with the same backward on the
    plain versions (TRAIN_GRAD_REL). With mix_block=0 one step must launch 4
@@ -272,83 +281,148 @@ def _grad_errors(kernels, args, ct):
     return worst
 
 
+# the serving path's buckets: a bucket of b images is 65 b rows of kernel 2
+SERVING_BUCKETS = (1, 2, 7, 64, 256)
+
+
 def phase_kernel2(kernels, gen):
-    # the path's three shapes at the config's batch 256 and at the batch 1024
-    # whose train steps are timed below
-    shapes = [(rows, k, n) for b in (256, 1024)
-              for rows, k, n in ((65 * b, 512, 768), (65 * b, 768, 512), (b, 512, 100))]
-    # the mix projection under mix_impl "gather" and "structured", at B=256
-    wide = (65 * 256, 8192, 512)
-    shapes.append(wide)
+    """Kernel 2's forward, both kernels, against the plain version: the path's
+    three shapes at B=256 and B=1024 and the mix projection at K=8,192 in
+    bf16 and f32, and the serving buckets' rows in bf16 (the ragged edge).
+    bf16 with N and K multiples of 8 must take the wgmma kernel, which must
+    repeat itself bit for bit; times of both kernels, the plain version and
+    the cuBLAS chain at the path's bf16 shapes."""
+    import torch.nn.functional as F
+
+    wgmma, wmma_fma = kernels.fused_spectre_linear_wgmma, kernels.fused_spectre_linear_wmma_fma
+    path = [(rows, k, n) for b in (256, 1024)
+            for rows, k, n in ((65 * b, 512, 768), (65 * b, 768, 512), (b, 512, 100))]
+    path.append((65 * 256, 8192, 512))  # the mix projection under "gather" and "structured"
+    serving = [(65 * b, k, n) for b in SERVING_BUCKETS for k, n in ((512, 768), (768, 512))
+               if (65 * b, k, n) not in path]
     limits = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
-    worst, worst_h, worst_grad = {}, {}, {}
-    times, wide_res = [], {}
-    for m, k, n in shapes:
+    worst, worst_grad, times = {}, {}, {}
+    for m, k, n in path + serving:
+        on_path = (m, k, n) in path
         x = torch.randn(m, k, generator=gen)
         w = torch.empty(k, n).uniform_(-k ** -0.5, k ** -0.5, generator=gen)
         bias = torch.empty(n).uniform_(-k ** -0.5, k ** -0.5, generator=gen)
         gamma = 1.0 + 0.1 * torch.randn(n, generator=gen)
         beta = 0.1 * torch.randn(n, generator=gen)
-        ct = torch.randn(m, n, generator=gen)
+        ct = torch.randn(m, n, generator=gen) if on_path else None
         for dtype, limit in limits.items():
+            if not on_path and dtype == torch.float32:
+                continue  # the server runs bf16
             if k > 1024 and dtype == torch.bfloat16:
                 limit = 4e-2  # pre-LN values reach [4, 8): one bf16 ulp there is 3.1e-2
+            route = kernels.forward_kernel(dtype, k, n)
+            # every shape here but the head's N = 100 takes the wgmma kernel in bf16
+            want_route = (wgmma.__name__ if dtype == torch.bfloat16 and n != 100
+                          else wmma_fma.__name__)
+            if route != want_route:
+                raise AssertionError(f"kernel 2 ({m}x{k})x({k}x{n}) {dtype} routed to {route}")
             args = [t.to("cuda", dtype) for t in (x, w, bias, gamma, beta)]
+            n0 = kernels.launch_counts()[route]
             got = kernels.fused_spectre_linear(*args)
             got2, h = kernels.fused_spectre_linear(*args, save_h=True)
+            got3, h3 = kernels.fused_spectre_linear(*args, save_h=True)
             ref, ref_h = kernels.fused_spectre_linear_plain(*args, save_h=True)
             torch.cuda.synchronize()
+            if kernels.launch_counts()[route] != n0 + 3:
+                raise AssertionError(f"kernel 2: three calls did not launch {route} three times")
             if not torch.equal(got, got2):
-                raise AssertionError("fused_spectre_linear: writing h changed the output")
-            err = (got.float() - ref.float()).abs().max().item()
-            err_h = (h.float() - ref_h.float()).abs().max().item()
-            worst[dtype] = max(worst.get(dtype, 0.0), err)
-            worst_h[dtype] = max(worst_h.get(dtype, 0.0), err_h)
-            if not max(err, err_h) <= limit:
-                raise AssertionError(f"fused_spectre_linear ({m}x{k})x({k}x{n}) {dtype}: "
-                                     f"max abs err out {err}, h {err_h} > {limit}")
-            gerr = _grad_errors(kernels, args, ct.to("cuda", dtype))
-            worst_grad[dtype] = max(worst_grad.get(dtype, 0.0), gerr)
-            if not gerr <= GRAD_REL[dtype]:
-                raise AssertionError(f"fused_spectre_linear_grad ({m}x{k})x({k}x{n}) {dtype}: "
-                                     f"gradient rel err {gerr} > {GRAD_REL[dtype]}")
-            it = 5 if k > 1024 else 20
-            ms_k = cuda_time_ms(lambda: kernels.fused_spectre_linear(*args), iters=it)
-            ms_h = cuda_time_ms(lambda: kernels.fused_spectre_linear(*args, save_h=True),
-                                iters=it)
-            ms_p = cuda_time_ms(lambda: kernels.fused_spectre_linear_plain(*args), iters=it)
-            gflops = 2 * m * k * n / 1e9
-            line = (f"kernel 2 ({m}x{k})x({k}x{n}) {str(dtype)[6:]}: max abs err {err:.3g} "
-                    f"(h {err_h:.3g}), grads rel {gerr:.3g}, kernel {ms_k:.4f} ms "
-                    f"({gflops / ms_k:.1f} TFLOP/s), with h {ms_h:.4f} ms, plain {ms_p:.4f} ms")
-            if dtype == torch.bfloat16:
+                raise AssertionError(f"{route}: writing h changed the output")
+            if not (torch.equal(got2, got3) and torch.equal(h, h3)):
+                raise AssertionError(f"{route} ({m}x{k})x({k}x{n}): two runs differ")
+            err = max((got.float() - ref.float()).abs().max().item(),
+                      (h.float() - ref_h.float()).abs().max().item())
+            worst[route, dtype] = max(worst.get((route, dtype), 0.0), err)
+            if not err <= limit:
+                raise AssertionError(f"{route} ({m}x{k})x({k}x{n}) {dtype}: max abs err of out "
+                                     f"and h {err} > {limit}")
+            line = (f"kernel 2 {route} ({m}x{k})x({k}x{n}) {str(dtype)[6:]}: max abs err "
+                    f"{err:.3g} (out and h, limit {limit}), two runs bitwise equal")
+            if on_path:
+                gerr = _grad_errors(kernels, args, ct.to("cuda", dtype))
+                worst_grad[dtype] = max(worst_grad.get(dtype, 0.0), gerr)
+                if not gerr <= GRAD_REL[dtype]:
+                    raise AssertionError(f"fused_spectre_linear_grad ({m}x{k})x({k}x{n}) "
+                                         f"{dtype}: gradient rel err {gerr} > {GRAD_REL[dtype]}")
+                line += f", grads rel {gerr:.3g}"
+            if on_path and dtype == torch.bfloat16:
+                it = 5 if k > 1024 else 20
+                out, hb = torch.empty_like(got), torch.empty_like(got)
+                t = {"ms": cuda_time_ms(lambda: kernels.fused_spectre_linear(*args, save_h=True),
+                                        iters=it),
+                     "ms_without_h": cuda_time_ms(lambda: kernels.fused_spectre_linear(*args),
+                                                  iters=it),
+                     "device_ms": device_time_ms(
+                         lambda: kernels.fused_spectre_linear(*args, save_h=True), iters=5),
+                     "wmma_fma_ms": cuda_time_ms(lambda: wmma_fma(*args, out, hb, 1e-5),
+                                                 iters=it),
+                     "plain_ms": cuda_time_ms(lambda: kernels.fused_spectre_linear_plain(*args),
+                                              iters=it),
+                     # the cuBLAS chain for the same function, a yardstick the port never
+                     # calls: addmm writes h, then LayerNorm and GELU (no K == N residual
+                     # at these shapes)
+                     "library_ms": cuda_time_ms(lambda: F.gelu(F.layer_norm(
+                         torch.addmm(args[2], args[0], args[1]), (n,), args[3], args[4])),
+                         iters=it)}
                 el = 2
                 io = (m * k + k * n + 3 * n + 2 * m * n) * el  # x, W, b/gamma/beta, out, h
-                if (m, k, n) == wide:
-                    bound_w, by_w = bound(io, gflops * 1e9)
-                    wide_res = {"ms_k8192": ms_h, "ms_without_h_k8192": ms_k,
-                                "plain_ms_k8192": ms_p, "bound_ms_k8192": bound_w,
-                                "bound_by_k8192": by_w, "max_abs_err_k8192": max(err, err_h)}
-                elif m <= 65 * 256:  # the result line reports the config's batch
-                    times.append((m, k, n, ms_h, ms_k, ms_p, io, gflops * 1e9))
+                t["bound_ms"], t["bound_by"] = bound(io, 2 * m * k * n)
+                t["route"] = route
+                times[m, k, n] = t
+                # the float32/WMMA kernel's bf16 result of its timed calls, at the same limit
+                werr = max((out.float() - ref.float()).abs().max().item(),
+                           (hb.float() - ref_h.float()).abs().max().item())
+                key = (wmma_fma.__name__, dtype)
+                worst[key] = max(worst.get(key, 0.0), werr)
+                if not werr <= limit:
+                    raise AssertionError(f"{wmma_fma.__name__} ({m}x{k})x({k}x{n}) {dtype}: max "
+                                         f"abs err of out and h {werr} > {limit}")
+                line += (f"; {route} {t['ms']:.4f} ms with h (device {t['device_ms']:.4f}, "
+                         f"{2 * m * k * n / t['device_ms'] / 1e9:.1f} TFLOP/s), "
+                         f"{t['ms_without_h']:.4f} without; the float32/WMMA kernel "
+                         f"{t['wmma_fma_ms']:.4f} (max abs err {werr:.3g}); cuBLAS chain "
+                         f"{t['library_ms']:.4f}; plain {t['plain_ms']:.4f}; bound "
+                         f"{t['bound_ms']:.4f} by {t['bound_by']}")
             print(line, flush=True)
         del x, w, ct
         torch.cuda.empty_cache()
-    m, k, n, ms_h, ms_k, ms_p, io, flops = max(times, key=lambda t: t[3])
-    bound_ms, bound_by = bound(io, flops)
-    bound_nh, _ = bound(io - m * n * 2, flops)
-    print(f"kernel 2 bound at ({m}x{k})x({k}x{n}) bf16: {bound_ms:.4f} ms with h by "
-          f"{bound_by}, {bound_nh:.4f} ms without", flush=True)
-    return {"name": "fused_spectre_linear_fwd", "route": "cuda",
-            "source": "spectre_tpu_torch/csrc/fused_spectre_linear.cu",
-            "replaces": "spectre_tpu/ops/pallas/fused_linear.py:94",
-            "max_abs_err": max(worst[torch.bfloat16], worst_h[torch.bfloat16]),
-            "ms": ms_h, "plain_ms": ms_p, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": None, "ms_without_h": ms_k, "bound_ms_without_h": bound_nh,
-            "max_abs_err_f32": max(worst[torch.float32], worst_h[torch.float32]),
-            "grad_rel_err": worst_grad[torch.bfloat16],
-            "grad_rel_err_f32": worst_grad[torch.float32], **wide_res,
-            "shape": f"({m}x{k})x({k}x{n}) bf16, writing h"}
+
+    def row(name, shape, extra):
+        t = times[shape]
+        m, k, n = shape
+        if t["route"] != name:
+            raise AssertionError(f"kernel 2: {shape} ran {t['route']}, not {name}")
+        return {"name": name, "route": "cuda",
+                "source": "spectre_tpu_torch/csrc/fused_spectre_linear.cu",
+                "replaces": "spectre_tpu/ops/pallas/fused_linear.py:94",
+                "max_abs_err": worst[name, torch.bfloat16], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": t["library_ms"], "device_ms": t["device_ms"],
+                "ms_without_h": t["ms_without_h"],
+                "shape": f"({m}x{k})x({k}x{n}) bf16, writing h", **extra}
+
+    main, wide = (65 * 256, 512, 768), (65 * 256, 8192, 512)
+    others = {f"{m}x{k}x{n}": {key: t[key] for key in ("ms", "device_ms", "wmma_fma_ms",
+                                                         "library_ms", "bound_ms")}
+              for (m, k, n), t in times.items() if t["route"] == wgmma.__name__}
+    new = row(wgmma.__name__, main, {
+        "wmma_fma_ms": times[main]["wmma_fma_ms"], "times": others,
+        "grad_rel_err": worst_grad[torch.bfloat16],
+        "grad_rel_err_f32": worst_grad[torch.float32]})
+    old = row(wmma_fma.__name__, (256, 512, 100), {
+        "max_abs_err_f32": worst[wmma_fma.__name__, torch.float32],
+        "ms_1024": times[1024, 512, 100]["ms"]})
+    print(f"kernel 2 forward at ({main[0]}x{main[1]})x({main[1]}x{main[2]}) bf16 with h: "
+          f"wgmma {new['ms']:.4f} ms (device {new['device_ms']:.4f}), the float32/WMMA kernel "
+          f"{new['wmma_fma_ms']:.4f}, cuBLAS chain {new['library_ms']:.4f}, bound "
+          f"{new['bound_ms']:.4f} by {new['bound_by']}; K=8,192: wgmma "
+          f"{times[wide]['ms']:.4f}, the float32/WMMA kernel {times[wide]['wmma_fma_ms']:.4f}",
+          flush=True)
+    return new, old
 
 
 # kernel 2's backward (the chain kernel and the two products) against its
@@ -446,16 +520,27 @@ FUSED_BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 def phase_kernel5(kernels):
     """Kernel 5 at the flagship mix backward's shape: dy [65, B, 512],
-    w [8,192, 512], s4 [65, 8,192], binv [16, 520], blk 64 -> dxt [33,280, B]."""
-    d, heads, blk, n_tok, o = 33_280, 16, 64, 65, 512
+    w [8,192, 512], s4 [65, 8,192], binv [16, 520], blk 64 -> dxt [33,280, B].
+    bf16 takes the wgmma kernel (two runs bitwise equal), f32 the FP32-pipe
+    kernel, and bf16 with blk 32 (binv [16, 1,040]) the bf16 WMMA kernel,
+    the one case where the port launches it; each against the plain version
+    and the chain it fuses, with times."""
+    d, heads, n_tok, o = 33_280, 16, 65, 512
     eh = heads * d // n_tok
     gen = torch.Generator(device="cuda").manual_seed(5)
-    binv = torch.stack([torch.randperm(d // blk, generator=gen, device="cuda")
-                        for _ in range(heads)]).to(torch.int32)
+    routes = {(torch.bfloat16, 64): "fused_block_bwd_wgmma",
+              (torch.float32, 64): "fused_block_bwd_wmma_fma",
+              (torch.bfloat16, 32): "fused_block_bwd_wmma_fma"}
     res = {}
-    for dtype in (torch.bfloat16, torch.float32):
+    for (dtype, blk), want_route in routes.items():
+        binv = torch.stack([torch.randperm(d // blk, generator=gen, device="cuda")
+                            for _ in range(heads)]).to(torch.int32)
         w = torch.randn(eh, o, generator=gen, device="cuda").to(dtype)
         s4 = (torch.randint(0, 2, (n_tok, eh), generator=gen, device="cuda") * 2 - 1).to(dtype)
+        bf = dtype == torch.bfloat16
+        route = kernels.block_bwd_kernel(dtype, blk)
+        if route != want_route:
+            raise AssertionError(f"kernel 5 {dtype} blk={blk} routed to {route}")
         for b in (256, 1024, 250):
             dy = torch.randn(n_tok, b, o, generator=gen, device="cuda").to(dtype)
 
@@ -464,51 +549,67 @@ def phase_kernel5(kernels):
                 dg4.mul_(s4[:, :, None])
                 return kernels.block_gather_sum(dg4.view(heads * d, b), binv, blk)
 
+            n0 = kernels.launch_counts()[route]
             got = kernels.fused_block_bwd(dy, w, s4, binv, blk)
+            again = kernels.fused_block_bwd(dy, w, s4, binv, blk)
             torch.cuda.synchronize()
+            if kernels.launch_counts()[route] != n0 + 2:
+                raise AssertionError(f"kernel 5: two calls did not launch {route} twice")
+            if not torch.equal(got, again):
+                raise AssertionError(f"{route} blk={blk} B={b}: two runs differ")
             want = kernels.fused_block_bwd_plain(dy, w, s4, binv, blk)
             scale = want.float().abs().max().item()
             err, err_chain = max_abs_diff(got, want), max_abs_diff(got, chain())
             limit = FUSED_BWD_REL[dtype] * scale
-            if tuple(got.shape) != (d, b) or not err <= limit:
-                raise AssertionError(f"fused_block_bwd B={b} {dtype}: max abs err {err} > "
-                                     f"{limit} ({FUSED_BWD_REL[dtype]} of {scale})")
-            bf = dtype == torch.bfloat16
+            # the chain rounds dg4 to the data type per head before it adds
+            if tuple(got.shape) != (d, b) or not err <= limit or not err_chain <= 4 * limit:
+                raise AssertionError(f"{route} blk={blk} B={b} {dtype}: max abs err {err} > "
+                                     f"{limit} ({FUSED_BWD_REL[dtype]} of {scale}) or "
+                                     f"{err_chain} from the chain")
             ms_k = cuda_time_ms(lambda: kernels.fused_block_bwd(dy, w, s4, binv, blk),
                                 iters=20 if bf else 3)
             ms_p = cuda_time_ms(lambda: kernels.fused_block_bwd_plain(dy, w, s4, binv, blk),
                                 iters=2, reps=3)
             ms_c = cuda_time_ms(chain, iters=20 if bf else 3)
-            flops = 2 * d * heads * o * b
-            moved = (n_tok * b * o + eh * o + n_tok * eh + d * b) * dy.element_size() \
-                + binv.numel() * 4
-            bound_ms, bound_by = bound(moved, flops)
-            res[dtype, b] = dict(err=err, scale=scale, err_chain=err_chain, ms=ms_k, plain=ms_p,
-                                 chain=ms_c, bound=bound_ms, by=bound_by)
-            print(f"kernel 5 fused_block_bwd B={b} {str(dtype)[6:]}: max abs err {err:.4g} "
-                  f"({err / scale:.3g} of the largest entry {scale:.1f}, limit "
-                  f"{FUSED_BWD_REL[dtype]}), to the chain {err_chain:.4g}; kernel {ms_k:.4f} ms "
-                  f"({flops / ms_k / 1e9:.1f} TFLOP/s), chain {ms_c:.4f} ms, plain {ms_p:.4f} "
-                  f"ms, bound {bound_ms:.4f} ms by {bound_by} (bf16 tensor-core peak)",
-                  flush=True)
-            del dy, got, want
+            r = dict(err=err, scale=scale, err_chain=err_chain, ms=ms_k, plain=ms_p, chain=ms_c)
+            line = (f"kernel 5 {route} blk={blk} B={b} {str(dtype)[6:]}: max abs err {err:.4g} "
+                    f"({err / scale:.3g} of the largest entry {scale:.1f}, limit "
+                    f"{FUSED_BWD_REL[dtype]}), to the chain {err_chain:.4g}, two runs bitwise "
+                    f"equal; kernel {ms_k:.4f} ms, chain {ms_c:.4f} ms, plain {ms_p:.4f} ms")
+            if bf:
+                r["device"] = device_time_ms(
+                    lambda: kernels.fused_block_bwd(dy, w, s4, binv, blk), iters=5)
+                flops = 2 * d * heads * o * b
+                moved = (n_tok * b * o + eh * o + n_tok * eh + d * b) * dy.element_size() \
+                    + binv.numel() * 4
+                r["bound"], r["by"] = bound(moved, flops)
+                line += (f" (device {r['device']:.4f}, {flops / r['device'] / 1e9:.1f} "
+                         f"TFLOP/s); bound {r['bound']:.4f} ms by {r['by']}")
+            res[dtype, blk, b] = r
+            print(line, flush=True)
+            del dy, got, again, want
             torch.cuda.empty_cache()
-    r = res[torch.bfloat16, 256]
-    bf16 = [v for (dt, _), v in res.items() if dt == torch.bfloat16]
-    f32 = [v for (dt, _), v in res.items() if dt == torch.float32]
-    return {"name": "fused_block_bwd", "route": "cuda",
+    r = res[torch.bfloat16, 64, 256]
+    bf16 = [v for (dt, blk, _), v in res.items() if dt == torch.bfloat16 and blk == 64]
+    f32 = [v for (dt, _, _), v in res.items() if dt == torch.float32]
+    wmma = [v for (dt, blk, _), v in res.items() if dt == torch.bfloat16 and blk == 32]
+    return {"name": "fused_block_bwd_wgmma", "route": "cuda",
             "source": "spectre_tpu_torch/csrc/fused_block_bwd.cu",
             "replaces": "spectre_tpu/ops/pallas/bwd_gather.py:426",
             "max_abs_err": max(v["err"] for v in bf16), "ms": r["ms"], "plain_ms": r["plain"],
             "bound_ms": r["bound"], "bound_by": r["by"], "library_ms": None,
-            "chain_ms": r["chain"],
+            "chain_ms": r["chain"], "device_ms": r["device"],
             "max_rel_err": max(v["err"] / v["scale"] for v in bf16),
             "max_rel_err_f32": max(v["err"] / v["scale"] for v in f32),
+            "max_rel_err_wmma_blk32": max(v["err"] / v["scale"] for v in wmma),
             "max_abs_err_to_chain": max(v["err_chain"] for v in bf16),
-            **{f"{key}_b{b}": res[torch.bfloat16, b][src] for b in (1024, 250)
-               for key, src in (("ms", "ms"), ("chain_ms", "chain"), ("bound_ms", "bound"))},
-            **{f"{key}_f32_b{b}": res[torch.float32, b][src] for b in (256, 1024)
+            **{f"{key}_b{b}": res[torch.bfloat16, 64, b][src] for b in (1024, 250)
+               for key, src in (("ms", "ms"), ("device_ms", "device"), ("chain_ms", "chain"),
+                                ("bound_ms", "bound"))},
+            **{f"{key}_f32_b{b}": res[torch.float32, 64, b][src] for b in (256, 1024)
                for key, src in (("ms", "ms"), ("chain_ms", "chain"))},
+            **{f"{key}_wmma_blk32_b{b}": res[torch.bfloat16, 32, b][src] for b in (256, 1024)
+               for key, src in (("ms", "ms"), ("device_ms", "device"), ("chain_ms", "chain"))},
             "shape": f"dy[{n_tok},256,{o}] w[{eh},{o}] bf16 -> [{d},256]"}
 
 
@@ -590,7 +691,9 @@ def phase_gather_kernels(kernels, gen):
 KERNEL_NAMES = ("block_scatter_rows", "block_gather_sum", "inverse_gather_sum",
                 "fused_spectre_linear", "fused_spectre_linear_bwd", "fused_block_bwd",
                 "flash_attention_fwd", "flash_attention_bwd", "fwht", "structured_mix",
-                "structured_mix_bwd", "routed_gather_sum")
+                "structured_mix_bwd", "routed_gather_sum", "fused_spectre_linear_wgmma",
+                "fused_spectre_linear_wmma_fma", "fused_block_bwd_wgmma",
+                "fused_block_bwd_wmma_fma")
 
 
 def expected_launches(cfg, forwards: int = 0, steps: int = 0) -> dict[str, int]:
@@ -601,8 +704,11 @@ def expected_launches(cfg, forwards: int = 0, steps: int = 0) -> dict[str, int]:
     if cfg.model == "vit":  # Dense layers, no SpectreLinear
         counts.update(flash_attention_fwd=layers * both, flash_attention_bwd=layers * steps)
         return counts
-    # linear1 and linear3 of each layer and the head; the branch's are Denses
-    linears = 0 if cfg.model == "spectre_branch" else 2 * layers + 1
+    # linear1 and linear3 of each layer and the head, as (K, N); the branch's
+    # are Denses
+    shapes = [] if cfg.model == "spectre_branch" else (
+        [(cfg.embed_dim, cfg.hidden_dim), (cfg.hidden_dim, cfg.embed_dim)] * layers
+        + [(cfg.embed_dim, cfg.num_classes)])
     if cfg.method == "attention":
         counts.update(flash_attention_fwd=layers * both, flash_attention_bwd=layers * steps)
     elif cfg.method == "permut_mix" and cfg.mix_impl == "folded":
@@ -613,11 +719,17 @@ def expected_launches(cfg, forwards: int = 0, steps: int = 0) -> dict[str, int]:
                       inverse_gather_sum=layers * steps * (not block and not routed),
                       routed_gather_sum=layers * steps * routed)
     elif cfg.method == "permut_mix" and cfg.mix_impl != "gather_tm":
-        linears += layers  # the mix projection is a SpectreLinear at K = E*H
+        # the mix projection is a SpectreLinear at K = E*H
+        shapes += [(cfg.embed_dim * cfg.num_heads, cfg.embed_dim)] * layers
         if cfg.mix_impl == "structured":
             counts.update(structured_mix=layers * both, structured_mix_bwd=layers * steps)
-    counts["fused_spectre_linear"] = linears * both
-    counts["fused_spectre_linear_bwd"] = linears * steps
+    counts["fused_spectre_linear"] = len(shapes) * both
+    counts["fused_spectre_linear_bwd"] = len(shapes) * steps
+    from spectre_tpu_torch.ops.kernels import forward_kernel
+
+    dtype = getattr(torch, cfg.compute_dtype)
+    for k, n in shapes:  # each forward on the kernel that kernel 2's dispatch picks
+        counts[forward_kernel(dtype, k, n)] += both
     return counts
 
 
@@ -768,6 +880,10 @@ def phase_train(kernels, parse_config, mix_block: int):
     counts, want = kernels.launch_counts(), expected_launches(cfg, steps=1)
     if counts != want:
         raise AssertionError(f"{tag}: one step launched {counts}, want {want}")
+    # 8 of the step's 9 forwards of kernel 2 on the wgmma kernel, the head's
+    # N = 100 on the float32/WMMA one
+    if (counts["fused_spectre_linear_wgmma"], counts["fused_spectre_linear_wmma_fma"]) != (8, 1):
+        raise AssertionError(f"{tag}: kernel 2's forwards split {counts}, want 8 wgmma, 1 head")
     bad = [n for n, p in state.model.named_parameters()
            if p.grad is None or not torch.isfinite(p.grad).all()]
     if bad or not torch.isfinite(first["loss"]):
@@ -985,7 +1101,8 @@ def phase_fused_bwd_cli(kernels, perf_cli):
     kernels.reset_launch_counts()
     res = perf_cli.main(["fused-bwd", "--batch", "256", "1024", "--iters", "10"])
     counts = kernels.launch_counts()
-    if counts["fused_block_bwd"] < 1 or counts["block_gather_sum"] < 1:
+    if (counts["fused_block_bwd"] < 1 or counts["block_gather_sum"] < 1
+            or counts["fused_block_bwd_wgmma"] != counts["fused_block_bwd"]):
         raise AssertionError(f"perf fused-bwd launched {counts}")
     for b, r in res["fused_bwd"].items():
         if not r["max_abs_diff"] <= 4 * FUSED_BWD_REL[torch.bfloat16] * r["largest_entry"]:
@@ -1762,7 +1879,7 @@ def main() -> int:
 
     gen = torch.Generator().manual_seed(0)
     k1 = phase_kernel1(kernels, gen)
-    k2 = phase_kernel2(kernels, gen)
+    k2, k2_head = phase_kernel2(kernels, gen)
     k11 = phase_linear_bwd(kernels, gen)
     k5 = phase_kernel5(kernels)
     k3, k4 = phase_gather_kernels(kernels, gen)
@@ -1802,13 +1919,15 @@ def main() -> int:
     # batches); kernel 4 from the mix_block=0 CLI run, kernel 5 from its own
     # entry point, repl/perf.py fused-bwd
     k1["launches"] = trainer_run["block_scatter_rows"]
-    k2["launches"] = trainer_run["fused_spectre_linear"]
+    k2["launches"] = trainer_run["fused_spectre_linear_wgmma"]
+    k2_head["launches"] = trainer_run["fused_spectre_linear_wmma_fma"]
     k11["launches"] = trainer_run["fused_spectre_linear_bwd"]
     k3["launches"] = trainer_run["block_gather_sum"]
     k4["launches"] = uniform_run["inverse_gather_sum"]
-    k5["launches"] = fused_run["fused_block_bwd"]
+    k5["launches"] = fused_run["fused_block_bwd_wgmma"]
     k1["launches_serving"] = serving["block_scatter_rows"]
-    k2["launches_serving"] = serving["fused_spectre_linear"]
+    k2["launches_serving"] = serving["fused_spectre_linear_wgmma"]
+    k2_head["launches_serving"] = serving["fused_spectre_linear_wmma_fma"]
     # this slice's paths: kernels 8 and 9 from the ViT trainer's uninterrupted
     # run (14 steps, 2 validation batches), kernel 7 from the structured
     # trainer run (3 steps, 2 validation batches), kernel 6 from
@@ -1818,7 +1937,7 @@ def main() -> int:
     k8["launches_serving"] = vit_serving["flash_attention_fwd"]
     k7["launches"] = structured_run["structured_mix"]
     k7["backward_launches"] = structured_run["structured_mix_bwd"]
-    k2["launches_structured"] = structured_run["fused_spectre_linear"]
+    k2["launches_structured"] = structured_run["fused_spectre_linear_wgmma"]
     k6["launches"] = entry_run["fwht"]
     # B9 from the routed trainer's CLI run (4 steps, 2 validation batches);
     # the branch's CLI run (the same) and serving run for kernels 1 and 4
@@ -1826,7 +1945,7 @@ def main() -> int:
     k1["launches_branch"] = branch_run["block_scatter_rows"]
     k1["launches_branch_serving"] = branch_serving["block_scatter_rows"]
     k4["launches_branch"] = branch_run["inverse_gather_sum"]
-    result = {"kernels": [k1, k2, k11, k3, k4, k5, k8, k9, k6, k7, k10],
+    result = {"kernels": [k1, k2, k2_head, k11, k3, k4, k5, k8, k9, k6, k7, k10],
               "train_step": {f"mix_block={blk}": {f"B={b}": v for b, v in t.items()}
                              for blk, t in step_times.items()},
               "trainer": trainer, "fused_bwd": fused_bwd, "bench": bench, "vit": vit,

@@ -36,7 +36,45 @@
 // a multiple of 128 with zero weight columns; ragged N and ragged M are
 // masked on load and store. Shared-memory rows are padded by 16 bytes so the
 // fragment loads do not pile onto one bank. Tiles above 48 KB use dynamic
-// shared memory, raised with cudaFuncSetAttribute. wgmma/TMA are later work.
+// shared memory, raised with cudaFuncSetAttribute.
+//
+// fused_spectre_linear_wgmma: the same function in bf16 on the Hopper
+// mainloop of wgmma_gemm.cuh, which the wrapper (ops/kernels/fused_linear.py
+// ::forward_kernel) picks for every bf16 call that TMA can describe (N and K
+// multiples of 8, 16-byte aligned x and W) with N <= 768. float32 (exact f32
+// on the FP32 pipes), the head's N = 100 (W's 200-byte rows break TMA's
+// 16-byte stride rule) and 768 < N <= 1024 stay on the kernel above.
+// Why 768: a block owns 64 rows and the whole N so that LayerNorm never
+// leaves it, and 64 x N f32 sums in registers take 64 N of the SM's 65,536:
+// 49,152 at N = 768, all of them at N = 1,024.
+//
+// Design. A block owns 64 rows (the wgmma M) and N/256 warpgroups, each
+// holding a 64 x 256 f32 tile in 128 registers a thread (ptxas gives 168 a
+// thread at 384 threads). Its first thread keeps a ring of K stages full by
+// TMA (wgmma_gemm.cuh::Ring). A stage is the [64 rows, 64 K] tile of x
+// (K-major, one 128-byte-swizzled box) and the [64 K, N] tile of W in the
+// JAX [in, out] layout, N contiguous, as N/64 boxes side by side: W is the
+// MN-major ("transposed") B operand of wgmma.mma_async m64n256k16 (trans-b
+// = 1; descriptors in wgmma_gemm.cuh). A stage is released by every warp
+// once its warpgroup's wgmma on it has completed (wait_group 1 keeps one
+// stage's products in flight) and is refilled at once. Ragged M, N and K
+// are zeros loaded by TMA and masked in the epilogue. Stages: 2 at N = 768
+// (104 KB each: 8 KB of x, 96 KB of W), 3 at N = 512, 4 at N <= 256.
+// Epilogue, in registers: h = sums + bias; row sums meet across the quad by
+// shuffles and across warpgroups in shared memory behind a named barrier
+// (bar.sync 1), first for the mean, then for the variance (two passes over
+// the registers); GELU(LN) in f32 with erff; h and out are cast once,
+// written into the freed stage buffers in the 128-byte-swizzled box layout
+// (no bank conflicts) and stored by TMA, which clips ragged rows and
+// columns. What bounds it: at
+// (16,640 x 512)(512 x 768) the bytes of x, W, out and h (0.0206 ms at
+// 3.35 TB/s) against 13.1 GFLOP (0.0132 ms); every tile reads all of W
+// from L2 (260 tiles x 768 KB at B = 256). Measured on the H100 and not
+// used: stores straight from the registers in a persistent grid (slower
+// than the TMA store), a cluster of two blocks multicasting W (half the L2
+// reads, but every stage then waits for both blocks: slower at every
+// shape, most at K = 8,192), and 32-deep stages, 4 at N = 768 and 6 at
+// N = 512 (faster at N = 768 only).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -44,6 +82,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "wgmma_gemm.cuh"
 
 namespace {
 
@@ -70,6 +110,10 @@ template <>
 struct Cfg<bf16> { static constexpr int TK = 32, THREADS = 512; };
 template <>
 struct Cfg<float> { static constexpr int TK = 16, THREADS = 256; };
+
+__device__ __forceinline__ float gelu_erf(float z) {
+  return 0.5f * z * (1.f + erff(z * 0.70710678118654752f));
+}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -245,7 +289,7 @@ fused_spectre_linear_kernel(const T* __restrict__ x, const T* __restrict__ w,
     const float rstd = rsqrtf(warp_sum(q) * inv_n + eps);
     for (int n = lane; n < N; n += 32) {
       const float z = (row[n] - mean) * rstd * to_f(gamma[n]) + to_f(beta[n]);
-      float y = 0.5f * z * (1.f + erff(z * 0.70710678118654752f));
+      float y = gelu_erf(z);
       if (identity) y += to_f(x[m * K + n]);
       out[m * N + n] = from_f<T>(y);
     }
@@ -287,6 +331,238 @@ int dispatch(const void* x, const void* w, const void* b, const void* g, const v
   return launch<T, 1024>(x, w, b, g, be, out, h_out, M, K, N, eps, st);
 }
 
+
+// ---------------------------------------------------------------- wgmma, bf16
+
+constexpr int kWgMaxN = 768;
+
+template <int NWG>
+struct WgCfg {
+  static constexpr int STAGE = wg::kBoxBytes * (1 + 4 * NWG);  // x box, then N/64 W boxes
+  static constexpr int STAGES = NWG == 3 ? 2 : (NWG == 2 ? 3 : 4);
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int PARAMS = 3 * 256 * NWG;  // bias, gamma, beta in f32, zero past N
+  static constexpr int SMEM = STAGES * STAGE + PARAMS * 4 + 1024;
+  // out and h staged for the TMA store in the freed stage buffers
+  static_assert(2 * NWG * 4 * wg::kBoxBytes <= STAGES * STAGE, "staging does not fit");
+};
+
+template <int NWG>
+__global__ void __launch_bounds__(WgCfg<NWG>::THREADS, 1)
+fused_linear_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                          const __grid_constant__ CUtensorMap wmap,
+                          const __grid_constant__ CUtensorMap omap,
+                          const __grid_constant__ CUtensorMap hmap, const bf16* __restrict__ x,
+                          const bf16* __restrict__ bias, const bf16* __restrict__ gamma,
+                          const bf16* __restrict__ beta, int M, int K, int N, float eps,
+                          int save_h) {
+  using C = WgCfg<NWG>;
+  constexpr int S = C::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ wg::Ring<S> ring;
+  __shared__ float red[2][NWG][64];
+  unsigned char* smem = wg::align1024(smem_raw);
+  float* pb = reinterpret_cast<float*>(smem + S * C::STAGE);  // [3][256 NWG]
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * 64;
+  const int nk = (K + 63) / 64, nbox = (N + 63) / 64;
+  // step i: the x box at (k, m) = (64 i, m0) and the W boxes at (n, k) = (64 j, 64 i)
+  auto load = [&](int i) {
+    uint64_t* bar = ring.acquire(i, wg::kBoxBytes * (1 + nbox));
+    unsigned char* st = smem + (i % S) * C::STAGE;
+    wg::tma_load_2d(st, &xmap, bar, i * 64, m0);
+    for (int j = 0; j < nbox; ++j)
+      wg::tma_load_2d(st + wg::kBoxBytes * (1 + j), &wmap, bar, j * 64, i * 64);
+  };
+  if (tid == 0) ring.init(C::THREADS / 32);
+  for (int c = tid; c < 256 * NWG; c += C::THREADS) {
+    const bool in = c < N;
+    pb[c] = in ? __bfloat162float(bias[c]) : 0.f;
+    pb[256 * NWG + c] = in ? __bfloat162float(gamma[c]) : 0.f;
+    pb[512 * NWG + c] = in ? __bfloat162float(beta[c]) : 0.f;
+  }
+  __syncthreads();
+  if (tid == 0)
+    for (int i = 0; i < S && i < nk; ++i) load(i);
+
+  // warpgroup g owns columns [256 g, 256 g + 256) of the 64-row tile.
+  // Thread (warp, lane) holds rows r0 and r0 + 8 of it, and of each
+  // 8-column chunk c the columns 8c + cq, 8c + cq + 1: acc[4c + 2 half + e]
+  // is row r0 + 8 half, column 256 g + 8c + cq + e. Only wgmma writes acc
+  // (the first product overwrites it): other writes to the accumulators
+  // make ptxas serialize the wgmma pipeline.
+  const int g = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
+  const int r0 = warp * 16 + lane / 4, cq = (lane % 4) * 2, col0 = g * 256 + cq;
+  float acc[128];
+  const uint32_t base = wg::smem_u32(smem);
+  for (int kt = 0; kt < nk; ++kt) {
+    ring.wait_full(kt);
+    const uint32_t xs = base + (kt % S) * C::STAGE;
+    const uint32_t ws = xs + wg::kBoxBytes * (1 + 4 * g);
+    wg::fence_operands(acc);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wg::wgmma_m64n256k16<1>(acc, wg::desc_k_major(xs + kk * 32),
+                              wg::desc_mn_major(ws + kk * 2048, wg::kBoxBytes),
+                              kt > 0 || kk > 0);
+    wg::wgmma_commit();
+    if (kt > 0) {
+      wg::wgmma_wait<1>();  // the previous step's products are done: free, refill
+      if (lane == 0) ring.release(kt - 1);
+      if (tid == 0 && kt - 1 + S < nk) load(kt - 1 + S);
+      __syncwarp();
+    }
+  }
+  wg::wgmma_wait<0>();
+  wg::fence_operands(acc);
+
+  // Epilogue. out and h go to this warpgroup's four 64 x 64 boxes of each
+  // in the stage memory, laid out as the 128-byte-swizzled TMA boxes (no
+  // bank conflicts); one thread a warpgroup stores them by TMA, which clips
+  // ragged edges. h = acc + bias goes first, so that its store drains while
+  // the LayerNorm and GELU run.
+  wg::named_barrier(1, C::THREADS);  // every warpgroup is past its last wgmma
+  unsigned char* ostage = smem + g * 4 * wg::kBoxBytes;
+  unsigned char* hstage = smem + (NWG + g) * 4 * wg::kBoxBytes;
+  // box c / 8, row r0 + 8 half, 16-byte chunk (c % 8) ^ (row % 8), element cq
+  auto box_offset = [&](int c, int half) {
+    const int r = r0 + 8 * half;
+    return (c / 8) * wg::kBoxBytes + r * 128 + (((c % 8) ^ (r % 8)) * 16) + cq * 2;
+  };
+  auto store_boxes = [&](const CUtensorMap* map, const unsigned char* stage) {
+    wg::fence_proxy_async();
+    wg::named_barrier(2 + g, 128);
+    if (tid % 128 == 0) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (g * 256 + b * 64 < N)
+          wg::tma_store_2d(map, stage + b * wg::kBoxBytes, g * 256 + b * 64, m0);
+      wg::tma_store_commit();
+    }
+  };
+  if (save_h) {
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      const float2 bb = *reinterpret_cast<const float2*>(pb + col0 + c * 8);
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        *reinterpret_cast<__nv_bfloat162*>(hstage + box_offset(c, half)) =
+            __floats2bfloat162_rn(acc[4 * c + 2 * half] + bb.x, acc[4 * c + 2 * half + 1] + bb.y);
+    }
+    store_boxes(&hmap, hstage);
+  }
+
+  // the row sums of h, across the quad by shuffles and across warpgroups in
+  // shared memory: first for the mean, then for the variance (two passes
+  // over the registers)
+  const float inv_n = 1.f / static_cast<float>(N);
+  float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+  for (int c = 0; c < 32; ++c) {
+    const int col = col0 + c * 8;
+    if (col < N) {  // N % 8 == 0: col + 1 < N too
+      const float2 b = *reinterpret_cast<const float2*>(pb + col);
+      s0 += (acc[4 * c] + b.x) + (acc[4 * c + 1] + b.y);
+      s1 += (acc[4 * c + 2] + b.x) + (acc[4 * c + 3] + b.y);
+    }
+  }
+  s0 += __shfl_xor_sync(0xffffffffu, s0, 1);
+  s0 += __shfl_xor_sync(0xffffffffu, s0, 2);
+  s1 += __shfl_xor_sync(0xffffffffu, s1, 1);
+  s1 += __shfl_xor_sync(0xffffffffu, s1, 2);
+  if (lane % 4 == 0) {
+    red[0][g][r0] = s0;
+    red[0][g][r0 + 8] = s1;
+  }
+  wg::named_barrier(1, C::THREADS);
+  float mean0 = 0.f, mean1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NWG; ++j) {
+    mean0 += red[0][j][r0];
+    mean1 += red[0][j][r0 + 8];
+  }
+  mean0 *= inv_n;
+  mean1 *= inv_n;
+  float q0 = 0.f, q1 = 0.f;
+#pragma unroll
+  for (int c = 0; c < 32; ++c) {
+    const int col = col0 + c * 8;
+    if (col < N) {
+      const float2 bb = *reinterpret_cast<const float2*>(pb + col);
+      const float a = acc[4 * c] + bb.x - mean0, b = acc[4 * c + 1] + bb.y - mean0;
+      const float d = acc[4 * c + 2] + bb.x - mean1, e = acc[4 * c + 3] + bb.y - mean1;
+      q0 += a * a + b * b;
+      q1 += d * d + e * e;
+    }
+  }
+  q0 += __shfl_xor_sync(0xffffffffu, q0, 1);
+  q0 += __shfl_xor_sync(0xffffffffu, q0, 2);
+  q1 += __shfl_xor_sync(0xffffffffu, q1, 1);
+  q1 += __shfl_xor_sync(0xffffffffu, q1, 2);
+  if (lane % 4 == 0) {
+    red[1][g][r0] = q0;
+    red[1][g][r0 + 8] = q1;
+  }
+  wg::named_barrier(1, C::THREADS);
+  float var0 = 0.f, var1 = 0.f;
+#pragma unroll
+  for (int j = 0; j < NWG; ++j) {
+    var0 += red[1][j][r0];
+    var1 += red[1][j][r0 + 8];
+  }
+  const float rstd0 = rsqrtf(var0 * inv_n + eps), rstd1 = rsqrtf(var1 * inv_n + eps);
+
+  const bool identity = K == N;
+#pragma unroll
+  for (int c = 0; c < 32; ++c) {
+    const int col = col0 + c * 8;
+    const float2 bb = *reinterpret_cast<const float2*>(pb + col);
+    const float2 gm = *reinterpret_cast<const float2*>(pb + 256 * NWG + col);
+    const float2 bt = *reinterpret_cast<const float2*>(pb + 512 * NWG + col);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = r0 + 8 * half;
+      const float mean = half ? mean1 : mean0, rstd = half ? rstd1 : rstd0;
+      const float v0 = acc[4 * c + 2 * half] + bb.x, v1 = acc[4 * c + 2 * half + 1] + bb.y;
+      float y0 = gelu_erf((v0 - mean) * rstd * gm.x + bt.x);
+      float y1 = gelu_erf((v1 - mean) * rstd * gm.y + bt.y);
+      if (identity && m0 + r < M && col < N) {  // K == N: x's row has N entries
+        const float2 xr = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            x + static_cast<long long>(m0 + r) * K + col));
+        y0 += xr.x;
+        y1 += xr.y;
+      }
+      *reinterpret_cast<__nv_bfloat162*>(ostage + box_offset(c, half)) =
+          __floats2bfloat162_rn(y0, y1);
+    }
+  }
+  store_boxes(&omap, ostage);
+  if (tid % 128 == 0) wg::tma_store_wait_read();  // the stage memory outlives the reads
+}
+
+template <int NWG>
+int launch_wgmma(const void* x, const void* w, const void* b, const void* g, const void* be,
+                 void* out, void* h_out, long long M, long long K, long long N, float eps,
+                 cudaStream_t st) {
+  using C = WgCfg<NWG>;
+  CUtensorMap xm, wm, om, hm;
+  int e = wg::encode_rows(&xm, x, M, K);
+  if (e == 0) e = wg::encode_rows(&wm, w, K, N);
+  if (e == 0) e = wg::encode_rows(&om, out, M, N);
+  if (e == 0) e = wg::encode_rows(&hm, h_out != nullptr ? h_out : out, M, N);
+  if (e != 0) return e;
+  auto kern = fused_linear_wgmma_kernel<NWG>;
+  static std::atomic<bool> raised[wg::kMaxDevices];
+  if ((e = wg::raise_smem_once(kern, C::SMEM, raised)) != 0) return e;
+  const dim3 grid(static_cast<unsigned>((M + 63) / 64));
+  kern<<<grid, C::THREADS, C::SMEM, st>>>(
+      xm, wm, om, hm, static_cast<const bf16*>(x), static_cast<const bf16*>(b),
+      static_cast<const bf16*>(g), static_cast<const bf16*>(be), static_cast<int>(M),
+      static_cast<int>(K), static_cast<int>(N), eps, h_out != nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // dtype_code: 0 = float32, 1 = bfloat16 (every tensor in that dtype).
@@ -303,4 +579,23 @@ extern "C" int fused_spectre_linear_fwd(int dtype_code, const void* x, const voi
   if (dtype_code == 0) return dispatch<float>(x, w, b, gamma, beta, out, h_out, M, K, N, eps, st);
   if (dtype_code == 1) return dispatch<bf16>(x, w, b, gamma, beta, out, h_out, M, K, N, eps, st);
   return cudaErrorInvalidValue;
+}
+
+// bfloat16 only, every tensor in it; N and K multiples of 8, N <= 768, x,
+// W, out and h_out 16-byte aligned (what TMA can describe). h_out: null, or
+// [M, N] to receive the pre-LN activation. Returns cudaGetLastError() after
+// the launch (0 on success).
+extern "C" int fused_spectre_linear_wgmma(const void* x, const void* w, const void* b,
+                                          const void* gamma, const void* beta, void* out,
+                                          void* h_out, long long M, long long K, long long N,
+                                          float eps, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || K % 8 || N % 8 || N > kWgMaxN || M > 0x7fffffffLL ||
+      K > 0x7fffffffLL || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16 || reinterpret_cast<uintptr_t>(out) % 16 ||
+      reinterpret_cast<uintptr_t>(h_out) % 16)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N <= 256) return launch_wgmma<1>(x, w, b, gamma, beta, out, h_out, M, K, N, eps, st);
+  if (N <= 512) return launch_wgmma<2>(x, w, b, gamma, beta, out, h_out, M, K, N, eps, st);
+  return launch_wgmma<3>(x, w, b, gamma, beta, out, h_out, M, K, N, eps, st);
 }

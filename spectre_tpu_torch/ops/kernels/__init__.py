@@ -21,15 +21,21 @@ from spectre_tpu_torch.ops.kernels.block_scatter import (
     block_scatter_rows_plain,
 )
 from spectre_tpu_torch.ops.kernels.fused_block_bwd import (
+    block_bwd_kernel,
     fused_block_bwd,
     fused_block_bwd_plain,
+    fused_block_bwd_wgmma,
+    fused_block_bwd_wmma_fma,
 )
 from spectre_tpu_torch.ops.kernels.fused_linear import (
+    forward_kernel,
     fused_spectre_linear,
     fused_spectre_linear_bwd,
     fused_spectre_linear_bwd_plain,
     fused_spectre_linear_grad,
     fused_spectre_linear_plain,
+    fused_spectre_linear_wgmma,
+    fused_spectre_linear_wmma_fma,
 )
 from spectre_tpu_torch.ops.kernels.fwht import fwht, fwht_grad, fwht_plain
 from spectre_tpu_torch.ops.kernels.inverse_gather import (
@@ -49,9 +55,13 @@ from spectre_tpu_torch.ops.kernels.structured_mix import (
     structured_mix_plain,
 )
 
+# kernel 2's forward and kernel 5 count each call in their wrapper and again
+# in the kernel it launched (the ``_wgmma`` and ``_wmma_fma`` entries)
 KERNELS = (block_scatter_rows, block_gather_sum, inverse_gather_sum, fused_spectre_linear,
            fused_spectre_linear_bwd, fused_block_bwd, flash_attention_fwd, flash_attention_bwd,
-           fwht, structured_mix, structured_mix_bwd, routed_gather_sum)
+           fwht, structured_mix, structured_mix_bwd, routed_gather_sum,
+           fused_spectre_linear_wgmma, fused_spectre_linear_wmma_fma, fused_block_bwd_wgmma,
+           fused_block_bwd_wmma_fma)
 
 
 def reset_launch_counts() -> None:
@@ -65,6 +75,7 @@ def launch_counts() -> dict[str, int]:
 
 __all__ = [
     "KERNELS",
+    "block_bwd_kernel",
     "block_gather_sum",
     "block_gather_sum_plain",
     "flash_attention",
@@ -73,15 +84,20 @@ __all__ = [
     "flash_attention_fwd",
     "flash_attention_fwd_plain",
     "flash_attention_plain",
+    "forward_kernel",
     "block_scatter_rows",
     "block_scatter_rows_plain",
     "fused_block_bwd",
     "fused_block_bwd_plain",
+    "fused_block_bwd_wgmma",
+    "fused_block_bwd_wmma_fma",
     "fused_spectre_linear",
     "fused_spectre_linear_bwd",
     "fused_spectre_linear_bwd_plain",
     "fused_spectre_linear_grad",
     "fused_spectre_linear_plain",
+    "fused_spectre_linear_wgmma",
+    "fused_spectre_linear_wmma_fma",
     "fwht",
     "fwht_grad",
     "fwht_plain",

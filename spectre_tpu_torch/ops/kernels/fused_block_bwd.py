@@ -5,8 +5,12 @@
 ``s4f`` the flat view of ``s4``: dy [N, B, O], w [EH, O], s4 [N, EH] of +-1,
 binv [H, d/blk] -> dxt [d, B]. It is ``block_gather_sum`` of the ``dg4`` that
 ``ops.fused_mix._FoldedProj.backward`` makes, without the [H*d, B] cotangent
-in device memory. The CUDA kernel is ``csrc/fused_block_bwd.cu`` (it replaces
-the TPU kernel ``spectre_tpu/ops/pallas/bwd_gather.py::fused_block_bwd_pallas``).
+in device memory. The CUDA kernels are in ``csrc/fused_block_bwd.cu`` (they
+replace the TPU kernel ``spectre_tpu/ops/pallas/bwd_gather.py::fused_block_bwd_pallas``):
+``fused_block_bwd_wgmma``, bf16 with blk a multiple of 64 on Hopper's wgmma +
+TMA mainloop (``csrc/wgmma_gemm.cuh``), and ``fused_block_bwd_wmma_fma``,
+float32 on the FP32 pipes (no TF32) and bf16 with blk 16 or 32 on WMMA.
+``block_bwd_kernel`` decides which one a call launches.
 As in the JAX package, the train step does not call it: it is reached from
 ``python -m spectre_tpu_torch.repl.perf fused-bwd``, which times it against
 the chain.
@@ -24,7 +28,7 @@ from __future__ import annotations
 
 import torch
 
-from spectre_tpu_torch.ops.kernels.build import check, load_library
+from spectre_tpu_torch.ops.kernels.build import check, current_stream, load_library
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEADS = 128  # the per-block table of head coordinates (csrc/fused_block_bwd.cu)
@@ -94,24 +98,63 @@ def _validate(dy, w, s4, binv, blk: int) -> None:
         raise ValueError("fused_block_bwd needs dy and w aligned to 16 bytes")
 
 
+def block_bwd_kernel(dtype: torch.dtype, blk: int) -> str:
+    """The name of the CUDA kernel that runs a call on the card:
+    ``fused_block_bwd_wgmma`` for bfloat16 with blk a multiple of 64 (a
+    64-row wgmma tile then lies in one token), else
+    ``fused_block_bwd_wmma_fma``."""
+    if dtype == torch.bfloat16 and blk % 64 == 0:
+        return "fused_block_bwd_wgmma"
+    return "fused_block_bwd_wmma_fma"
+
+
+def _dims(dy, w, binv, blk: int) -> tuple:
+    n_tok, b, o = dy.shape
+    h, nb = binv.shape
+    return h, nb, blk, n_tok, w.shape[0], o, b
+
+
+def fused_block_bwd_wgmma(dy, w, s4, binv, blk: int, out) -> None:
+    """Launch the bf16 wgmma kernel on checked operands of the current
+    device into ``out``."""
+    err = load_library().fused_block_bwd_wgmma(
+        dy.data_ptr(), w.data_ptr(), s4.data_ptr(), binv.data_ptr(), out.data_ptr(),
+        *_dims(dy, w, binv, blk), current_stream(dy.get_device()))
+    check(err, "fused_block_bwd_wgmma launch")
+    fused_block_bwd_wgmma.launches += 1
+
+
+def fused_block_bwd_wmma_fma(dy, w, s4, binv, blk: int, out) -> None:
+    """Launch the float32 / WMMA kernels on checked operands of the current
+    device into ``out``."""
+    err = load_library().fused_block_bwd(
+        _DTYPE_CODES[dy.dtype], dy.data_ptr(), w.data_ptr(), s4.data_ptr(), binv.data_ptr(),
+        out.data_ptr(), *_dims(dy, w, binv, blk), current_stream(dy.get_device()))
+    check(err, "fused_block_bwd launch")
+    fused_block_bwd_wmma_fma.launches += 1
+
+
+fused_block_bwd_wgmma.launches = 0
+fused_block_bwd_wmma_fma.launches = 0
+_KERNELS = {fn.__name__: fn for fn in (fused_block_bwd_wgmma, fused_block_bwd_wmma_fma)}
+
+
 def fused_block_bwd(dy: torch.Tensor, w: torch.Tensor, s4: torch.Tensor,
                     binv: torch.Tensor, blk: int) -> torch.Tensor:
-    """dy [N, B, O], w [EH, O], s4 [N, EH], binv [H, d/blk] -> dxt [d, B]."""
+    """dy [N, B, O], w [EH, O], s4 [N, EH], binv [H, d/blk] -> dxt [d, B].
+    On the card it launches the kernel ``block_bwd_kernel`` names;
+    ``launches`` counts both."""
     _validate(dy, w, s4, binv, blk)
     if dy.device.type == "cpu":
         return fused_block_bwd_plain(dy, w, s4, binv, blk)
     if dy.device.type != "cuda":
         raise RuntimeError(f"fused_block_bwd: no kernel for device {dy.device}")
-    lib = load_library()
-    n_tok, b, o = dy.shape
-    h, nb = binv.shape
-    out = torch.empty((nb * blk, b), dtype=dy.dtype, device=dy.device)
-    with torch.cuda.device(dy.device):
-        err = lib.fused_block_bwd(
-            _DTYPE_CODES[dy.dtype], dy.data_ptr(), w.data_ptr(), s4.data_ptr(),
-            binv.data_ptr(), out.data_ptr(), h, nb, blk, n_tok, w.shape[0], o, b,
-            torch.cuda.current_stream().cuda_stream)
-    check(err, "fused_block_bwd launch")
+    dev = dy.get_device()
+    if dev != torch.cuda.current_device():  # the kernel launches on the current device
+        with torch.cuda.device(dev):
+            return fused_block_bwd(dy, w, s4, binv, blk)
+    out = torch.empty((binv.shape[1] * blk, dy.shape[1]), dtype=dy.dtype, device=dy.device)
+    _KERNELS[block_bwd_kernel(dy.dtype, blk)](dy, w, s4, binv, blk, out)
     fused_block_bwd.launches += 1
     return out
 

@@ -4,8 +4,13 @@ and the LayerNorm/GELU chain of its backward.
 ``out = GELU(LN(x @ W + b) * gamma + beta)`` plus ``x`` when K == N, with
 x [..., K] and W [K, N] in the JAX [in, out] layout. The K != N pool residual
 stays with the caller (``ops/linear.py``), as in the JAX package. The CUDA
-kernel is ``csrc/fused_spectre_linear.cu`` (it replaces the forward of the
-TPU kernel ``spectre_tpu/ops/pallas/fused_linear.py::fused_spectre_linear``).
+kernels are in ``csrc/fused_spectre_linear.cu`` (they replace the forward of
+the TPU kernel ``spectre_tpu/ops/pallas/fused_linear.py::fused_spectre_linear``):
+``fused_spectre_linear_wgmma``, bf16 on Hopper's wgmma + TMA mainloop
+(``csrc/wgmma_gemm.cuh``), and ``fused_spectre_linear_wmma_fma``, float32 on
+the FP32 pipes (exact float32, no TF32) and bf16 on WMMA.
+``forward_kernel`` decides which one a call launches, from what it can see:
+the dtype, K and N, and the alignment of the operands.
 
 With ``save_h`` the kernel also writes the pre-LayerNorm activation
 ``h = x @ W + b`` in x's dtype. ``fused_spectre_linear_grad`` is the
@@ -42,6 +47,8 @@ from spectre_tpu_torch.ops.kernels.build import check, current_stream, load_libr
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_N = 1024  # one block owns a whole output row (csrc/fused_spectre_linear.cu)
+# the wgmma kernel's 64 x N float32 sums live in registers: 64 N of an SM's 65,536
+WGMMA_MAX_N = 768
 BWD_BLOCKS_PER_SM = 3  # the chain kernel's blocks an SM (csrc/fused_spectre_linear_bwd.cu)
 
 
@@ -77,29 +84,72 @@ def _validate(x, w, b, gamma, beta) -> None:
         raise TypeError(f"fused_spectre_linear takes float32 or bfloat16, not {x.dtype}")
 
 
+def forward_kernel(dtype: torch.dtype, k: int, n: int, aligned: bool = True) -> str:
+    """The name of the CUDA kernel that runs a forward with W [k, n] on the
+    card: ``fused_spectre_linear_wgmma`` for bfloat16 where TMA can describe
+    the operands (k and n multiples of 8, ``aligned``: x and W 16-byte
+    aligned) and n <= WGMMA_MAX_N, else
+    ``fused_spectre_linear_wmma_fma`` (float32 stays exact float32; the
+    head's n = 100 makes 200-byte rows of W, which TMA cannot stride).
+    Raises for n > MAX_N, which no kernel takes."""
+    if n > MAX_N:
+        raise ValueError(f"fused_spectre_linear kernel takes N <= {MAX_N}, got {n}")
+    if (dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 and n <= WGMMA_MAX_N
+            and aligned):
+        return "fused_spectre_linear_wgmma"
+    return "fused_spectre_linear_wmma_fma"
+
+
+def fused_spectre_linear_wgmma(x, w, b, gamma, beta, out, h, eps: float) -> None:
+    """Launch the bf16 wgmma kernel on checked operands of the current
+    device into ``out`` (and ``h`` unless it is None)."""
+    k, n = w.shape
+    err = load_library().fused_spectre_linear_wgmma(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        out.data_ptr(), None if h is None else h.data_ptr(), x.numel() // k, k, n, eps,
+        current_stream(x.get_device()))
+    check(err, "fused_spectre_linear_wgmma launch")
+    fused_spectre_linear_wgmma.launches += 1
+
+
+def fused_spectre_linear_wmma_fma(x, w, b, gamma, beta, out, h, eps: float) -> None:
+    """Launch the float32 / WMMA kernel on checked operands of the current
+    device into ``out`` (and ``h`` unless it is None)."""
+    k, n = w.shape
+    err = load_library().fused_spectre_linear_fwd(
+        _DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
+        beta.data_ptr(), out.data_ptr(), None if h is None else h.data_ptr(), x.numel() // k,
+        k, n, eps, current_stream(x.get_device()))
+    check(err, "fused_spectre_linear_fwd launch")
+    fused_spectre_linear_wmma_fma.launches += 1
+
+
+fused_spectre_linear_wgmma.launches = 0
+fused_spectre_linear_wmma_fma.launches = 0
+_FORWARD_KERNELS = {fn.__name__: fn for fn in (fused_spectre_linear_wgmma,
+                                               fused_spectre_linear_wmma_fma)}
+
+
 def fused_spectre_linear(x, w, b, gamma, beta, eps: float = 1e-5, save_h: bool = False):
     """GELU(LN(x @ w + b)) (+ x when K == N); leading axes of x are rows.
     With ``save_h`` returns ``(out, h)``, h = x @ w + b in x's dtype. Not
-    differentiable: ``fused_spectre_linear_grad`` is."""
+    differentiable: ``fused_spectre_linear_grad`` is. On the card it
+    launches the kernel ``forward_kernel`` names; ``launches`` counts both."""
     _validate(x, w, b, gamma, beta)
     if x.device.type == "cpu":
         return fused_spectre_linear_plain(x, w, b, gamma, beta, eps, save_h)
     if x.device.type != "cuda":
         raise RuntimeError(f"fused_spectre_linear: no kernel for device {x.device}")
+    dev = x.get_device()
+    if dev != torch.cuda.current_device():  # the kernel launches on the current device
+        with torch.cuda.device(dev):
+            return fused_spectre_linear(x, w, b, gamma, beta, eps, save_h)
     K, N = w.shape
-    if N > MAX_N:
-        raise ValueError(f"fused_spectre_linear kernel takes N <= {MAX_N}, got {N}")
-    lib = load_library()
-    m = x.numel() // K
+    aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
+    launch = _FORWARD_KERNELS[forward_kernel(x.dtype, K, N, aligned)]
     out = torch.empty((*x.shape[:-1], N), dtype=x.dtype, device=x.device)
     h = torch.empty_like(out) if save_h else None
-    with torch.cuda.device(x.device):
-        err = lib.fused_spectre_linear_fwd(
-            _DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(),
-            gamma.data_ptr(), beta.data_ptr(), out.data_ptr(),
-            h.data_ptr() if save_h else None, m, K, N, eps,
-            torch.cuda.current_stream().cuda_stream)
-    check(err, "fused_spectre_linear_fwd launch")
+    launch(x, w, b, gamma, beta, out, h, eps)
     fused_spectre_linear.launches += 1
     return (out, h) if save_h else out
 

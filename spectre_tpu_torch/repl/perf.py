@@ -13,6 +13,7 @@ any config with ``--config``), and single kernels beside what they replace.
         [--tokens 65] [--embed 512] [--iters 30]
     python -m spectre_tpu_torch.repl.perf fwht [--iters 30]
     python -m spectre_tpu_torch.repl.perf linear-bwd [--batch 256 1024] [--iters 30]
+    python -m spectre_tpu_torch.repl.perf linear-fwd [--batch 256 1024] [--iters 30]
 
 Needs a CUDA card. ``attention`` and ``structured`` (the counterparts of the
 JAX package's ``repl/perf.py attention`` and ``mixer``) time the attention
@@ -42,7 +43,12 @@ the structured mix's K = 8,192: ``fused_spectre_linear_bwd`` on a saved h
 (the chain kernel and the two products; device time by kernel from
 ``torch.profiler``), the same through kernel 2's autograd Function, and
 autograd of the plain version, both ways, with the bound of its two
-products.
+products. ``linear-fwd`` times the block's forward in bf16 at the same
+shapes, writing h as the trainer does: the kernel ``forward_kernel`` picks
+(the wgmma kernel; the float32/WMMA kernel for the head's N = 100) beside the
+float32/WMMA kernel and the cuBLAS chain ``gelu(layer_norm(addmm(b, x, w)))``
+(a yardstick the port does not call), both ways, with its bound, and prints
+the kernel's largest difference from the plain version.
 
 The default mode builds, for each batch size, the config's trainer (synthetic
 data, the trainer's augmentation for the config's dataset inside the step,
@@ -86,11 +92,13 @@ from spectre_tpu_torch.ops.kernels import (
     block_gather_sum,
     flash_attention,
     flash_attention_plain,
+    forward_kernel,
     fused_block_bwd,
     fused_spectre_linear,
     fused_spectre_linear_bwd,
     fused_spectre_linear_grad,
     fused_spectre_linear_plain,
+    fused_spectre_linear_wmma_fma,
     fwht,
     inverse_gather_sum,
     invert_tile_perms,
@@ -137,6 +145,7 @@ _GROUPS = (
     ("block_scatter_rows_kernel", "kernel 1 block_scatter_rows"),
     ("gather_sum_kernel", "kernels 3/4 gather_sum"),
     ("fused_spectre_linear_kernel", "kernel 2 fused_spectre_linear_fwd"),
+    ("fused_linear_wgmma_kernel", "kernel 2 fused_spectre_linear_fwd"),
     ("chain_kernel", "kernel 2's backward chain (fused_spectre_linear_bwd)"),
     ("column_sum_kernel", "kernel 2's backward chain (fused_spectre_linear_bwd)"),
     ("flash_attention_fwd_kernel", "kernel 8 flash_attention_fwd"),
@@ -472,6 +481,49 @@ def linear_bwd(args) -> dict:
     return out
 
 
+def linear_fwd(args) -> dict:
+    """Kernel 2's forward in bf16 beside the float32/WMMA kernel and the
+    cuBLAS chain."""
+    import torch.nn.functional as F
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    shapes = [(65 * b, k, n) for b in args.batch
+              for k, n in ((512, 768), (768, 512))] + [(b, 512, 100) for b in args.batch]
+    shapes.append((65 * 256, 8192, 512))
+    out = {}
+    for m, k, n in shapes:
+        kw = dict(device="cuda", dtype=torch.bfloat16)
+        x = torch.randn(m, k, generator=gen, device="cuda").to(torch.bfloat16)
+        w = (torch.rand(k, n, generator=gen, device="cuda") * 2 - 1).mul_(k ** -0.5).to(**kw)
+        bias, beta = (0.1 * torch.randn(n, generator=gen, **kw) for _ in range(2))
+        gamma = 1.0 + 0.1 * torch.randn(n, generator=gen, **kw)
+        args5 = (x, w, bias, gamma, beta)
+        y, h = torch.empty(m, n, **kw), torch.empty(m, n, **kw)
+        got = fused_spectre_linear(*args5, save_h=True)
+        want = fused_spectre_linear_plain(*args5, save_h=True)
+        diff = max((a.float() - b.float()).abs().max().item() for a, b in zip(got, want))
+        iters = max(1, args.iters // 6) if k > 1024 else args.iters
+        t = _both_ways({
+            "kernel": lambda: fused_spectre_linear(*args5, save_h=True),
+            "wmma_fma": lambda: fused_spectre_linear_wmma_fma(*args5, y, h, 1e-5),
+            "chain": lambda: F.gelu(F.layer_norm(torch.addmm(bias, x, w), (n,), gamma, beta))},
+            iters, device_iters=min(iters, 10))
+        # x, W, b, gamma and beta read, out and h written once, in bf16
+        bound, by = bound_ms((m * k + k * n + 3 * n + 2 * m * n) * 2, 2 * m * k * n)
+        route = forward_kernel(torch.bfloat16, k, n)
+        out[f"{m}x{k}x{n}"] = dict(t, kernel_name=route, bound_ms=bound, bound_by=by,
+                                   max_abs_diff=diff)
+        print(f"forward ({m}x{k})x({k}x{n}) bf16 with h: {route} {t['kernel_ms']:.4f} ms back to "
+              f"back, {t['kernel_device_ms']:.4f} on the device ({bound / t['kernel_device_ms']:.0%} "
+              f"of the bound), {t['kernel_host_ms']:.4f} to issue; fused_spectre_linear_wmma_fma "
+              f"{t['wmma_fma_ms']:.4f} / {t['wmma_fma_device_ms']:.4f} ms; cuBLAS chain "
+              f"{t['chain_ms']:.4f} / {t['chain_device_ms']:.4f} ms; bound {bound:.4f} ms by {by}; "
+              f"max |kernel - plain| {diff:.4g}", flush=True)
+        del x, w, y, h, got, want
+        torch.cuda.empty_cache()
+    return out
+
+
 def routed(args) -> dict:
     """The mix backward through the route at one layer's shape, bf16:
     kernel B9 beside kernel 4, B9's plain version and ``index_add_``."""
@@ -526,7 +578,7 @@ def main(argv=None) -> dict:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("mode", nargs="?", default="train",
                    choices=("train", "fused-bwd", "attention", "structured", "routed", "fwht",
-                            "linear-bwd"))
+                            "linear-bwd", "linear-fwd"))
     p.add_argument("--config", default=FLAGSHIP)
     p.add_argument("--batch", type=int, nargs="*", default=[256, 1024])
     p.add_argument("--mix-block", type=int, default=None, help="override the config's mix_block")
@@ -557,6 +609,8 @@ def main(argv=None) -> dict:
         return {"card": card, "fwht": fwht_times(args)}
     if args.mode == "linear-bwd":
         return {"card": card, "linear_bwd": linear_bwd(args)}
+    if args.mode == "linear-fwd":
+        return {"card": card, "linear_fwd": linear_fwd(args)}
     folded = (getattr(cfg, "model", "spectre_vit") == "spectre_vit"
               and getattr(cfg, "method", "permut_mix") == "permut_mix"
               and getattr(cfg, "mix_impl", "gather") == "folded")

@@ -28,6 +28,8 @@ from spectre_tpu_torch.ops.kernels import (
     block_gather_sum_plain,
     block_scatter_rows,
     block_scatter_rows_plain,
+    block_bwd_kernel,
+    forward_kernel,
     fused_block_bwd,
     fused_block_bwd_plain,
     fused_spectre_linear,
@@ -129,14 +131,18 @@ def test_gather_sum_kernels_are_bitwise_the_plain_head_sum(cuda_device, dtype):
 # the plain version's product. bf16: both add exact products in float32 and
 # round once, so single entries differ by one bf16 ulp (2^-8 of the entry)
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("blk", [16, 32, 64])
-@pytest.mark.parametrize("b", [5, 250, 256])
+@pytest.mark.parametrize("blk", [16, 32, 64, 128])
+@pytest.mark.parametrize("b", [5, 250, 256, 1024])
 def test_fused_block_bwd_kernel_matches_plain_and_the_chain(cuda_device, dtype, rel, blk, b):
     """Kernel 5 against its plain version and against the chain it fuses
     (dg4 product, signs, block_gather_sum), with a ragged batch tail, an O
-    that is no multiple of the kernel's K stage, and every row-tile size."""
+    that is no multiple of the kernel's K stage, and every row-tile size;
+    bf16 with blk = 64 and 128 (two 64-row tiles a block of the table) on
+    the wgmma kernel (batch tiles of 256 columns: B = 1024 is four), the
+    rest on the float32/WMMA kernels."""
     rng = np.random.default_rng(blk + b)
-    h, e, n, o = 4, 64, 5, 40
+    # blk = 128 divides EH = 256 and d = 384 with six tokens
+    h, e, n, o = 4, 64, 6 if blk == 128 else 5, 40
     d, eh = n * e, e * h
     binv = torch.from_numpy(np.stack([rng.permutation(d // blk) for _ in range(h)])
                             .astype(np.int32)).to(cuda_device)
@@ -144,10 +150,13 @@ def test_fused_block_bwd_kernel_matches_plain_and_the_chain(cuda_device, dtype, 
     w = torch.from_numpy(rng.standard_normal((eh, o)).astype(np.float32)).to(cuda_device, dtype)
     s4 = torch.from_numpy(rng.choice([-1.0, 1.0], (n, eh)).astype(np.float32)).to(cuda_device,
                                                                                  dtype)
-    n0 = fused_block_bwd.launches
+    n0, route = fused_block_bwd.launches, block_bwd_kernel(dtype, blk)
+    assert (route == "fused_block_bwd_wgmma") == (dtype == torch.bfloat16 and blk % 64 == 0)
+    k0 = launch_counts()[route]
     got = fused_block_bwd(dy, w, s4, binv, blk)
     torch.cuda.synchronize()
-    assert fused_block_bwd.launches == n0 + 1
+    assert fused_block_bwd.launches == n0 + 1 and launch_counts()[route] == k0 + 1
+    assert torch.equal(got, fused_block_bwd(dy, w, s4, binv, blk))  # two runs bitwise
     want = fused_block_bwd_plain(dy, w, s4, binv, blk)
     assert got.shape == want.shape == (d, b) and got.dtype == dtype
     scale = want.float().abs().max().item()
@@ -203,6 +212,43 @@ def test_fused_spectre_linear_kernel_matches_plain(cuda_device, dtype, atol, m, 
     assert fused_spectre_linear.launches == n0 + 1
     want = fused_spectre_linear_plain(*args)
     assert (got.float() - want.float()).abs().max().item() <= atol
+
+
+# kernel 2's bf16 wgmma kernel: the flagship's shapes at B=256, the mix
+# projection at K=8,192, the serving buckets' rows 65 x {1, 2, 7, 64, 256},
+# and ragged rows, N not a multiple of the 256-wide warpgroup tile, K == N
+# (the identity residual) and K < 64. bf16: one ulp of the output (2e-2),
+# 4e-2 at K=8,192, whose pre-LN values reach [4, 8)
+@pytest.mark.parametrize("m,k,n", [(65 * 256, 512, 768), (65 * 256, 768, 512),
+                                   (65 * 256, 8192, 512), (195, 128, 192), (195, 768, 768),
+                                   (130, 96, 48), (9, 40, 24)]
+                         + [(65 * b, k, n) for b in (1, 2, 7, 64, 256)
+                            for k, n in ((512, 768), (768, 512))])
+def test_fused_spectre_linear_wgmma_kernel_matches_plain(cuda_device, m, k, n):
+    atol = 4e-2 if k > 1024 else 2e-2
+    args = [torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+            for a in _linear_case(m, k, n, seed=m + k + n)]
+    assert forward_kernel(torch.bfloat16, k, n) == "fused_spectre_linear_wgmma"
+    n0 = launch_counts()
+    got, h = fused_spectre_linear(*args, save_h=True)
+    out_only = fused_spectre_linear(*args)
+    torch.cuda.synchronize()
+    n1 = launch_counts()
+    assert n1["fused_spectre_linear_wgmma"] - n0["fused_spectre_linear_wgmma"] == 2
+    assert n1["fused_spectre_linear"] - n0["fused_spectre_linear"] == 2
+    assert n1["fused_spectre_linear_wmma_fma"] == n0["fused_spectre_linear_wmma_fma"]
+    want, want_h = fused_spectre_linear_plain(*args, save_h=True)
+    assert torch.equal(got, out_only)
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    assert (h.float() - want_h.float()).abs().max().item() <= atol
+
+
+@pytest.mark.parametrize("m,k,n", [(65 * 256, 512, 768), (65 * 7, 768, 512)])
+def test_fused_spectre_linear_wgmma_kernel_is_bitwise_repeatable(cuda_device, m, k, n):
+    args = [torch.from_numpy(a).to(cuda_device, torch.bfloat16) for a in _linear_case(m, k, n)]
+    first = fused_spectre_linear(*args, save_h=True)
+    for a, b in zip(first, fused_spectre_linear(*args, save_h=True)):
+        assert torch.equal(a, b)
 
 
 def _bwd_case(m, k, n, dtype, device, seed=0):
@@ -299,7 +345,7 @@ def test_small_model_gradients_on_the_card_match_the_cpu(cuda_device, mix_block)
     after = launch_counts()
     delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     assert delta == {"block_scatter_rows": 2, "fused_spectre_linear": 5,
-                     "fused_spectre_linear_bwd": 5,
+                     "fused_spectre_linear_wmma_fma": 5, "fused_spectre_linear_bwd": 5,
                      "block_gather_sum" if mix_block else "inverse_gather_sum": 2}
     for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
         scale = pc.grad.abs().max().item()
@@ -600,7 +646,7 @@ def test_small_routed_model_gradients_on_the_card_match_the_cpu(cuda_device):
     after = launch_counts()
     delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     assert delta == {"block_scatter_rows": 2, "fused_spectre_linear": 5,
-                     "fused_spectre_linear_bwd": 5, "routed_gather_sum": 2}
+                     "fused_spectre_linear_wmma_fma": 5, "fused_spectre_linear_bwd": 5, "routed_gather_sum": 2}
     for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
         scale = pc.grad.abs().max().item()
         assert (pg.grad.cpu() - pc.grad).abs().max().item() <= 1e-4 * scale, name

@@ -250,7 +250,9 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
                             "fused_spectre_linear", "fused_spectre_linear_bwd",
                             "fused_block_bwd", "flash_attention_fwd",
                             "flash_attention_bwd", "fwht", "structured_mix",
-                            "structured_mix_bwd", "routed_gather_sum"]
+                            "structured_mix_bwd", "routed_gather_sum",
+                            "fused_spectre_linear_wgmma", "fused_spectre_linear_wmma_fma",
+                            "fused_block_bwd_wgmma", "fused_block_bwd_wmma_fma"]
 
 
 def test_wrappers_raise_instead_of_falling_back():
