@@ -133,6 +133,30 @@ Phases, each raising on failure (nothing is caught):
    true`` on its line; SpectreBranch through the server, the training CLI
    and the bench; ``gather_tm`` steps.
 
+20. kernel 2 above N = 1,024 (C6: fused_spectre_linear_wide_wgmma, bf16 that
+   TMA can describe; fused_spectre_linear_wide_wmma_fma, float32 and bf16
+   at N = 1,100; fused_spectre_linear_bwd_wide, the backward's chain) at
+   (4,160 x 1,536)(1,536 x 1,536), K == N, and (4,160 x 768)(768 x 2,048)
+   and (768 x 1,100), bf16 and f32: out and h against the plain version,
+   the Function's gradients and the backward against theirs, under the
+   limits of phases 4 and the backward's; two runs bitwise; the kernel
+   ``forward_kernel`` names; times back to back and on the device beside
+   the bound, the plain version and the cuBLAS chain. It runs after
+   kernel 2's backward, among the kernel phases.
+21. distillation (configs/distill_cifar100.py: the flagship student at
+   B=256, the ViT-S/16 teacher at 224 px with 201 tokens, seeded): both
+   teacher views against float64 (VIEW_ATOL); the bf16 teacher against the
+   f32 teacher (TEACHER_LOGIT_ATOL, TEACHER_TOKEN_ATOL); one step with the
+   cached logits launches exactly 4 + 4 + 9 (8 wgmma) and 9 backwards and
+   no teacher, every gradient finite; the loop with the cache and with
+   recompute, 3 steps bit for bit; ``repl/distill.py`` through one epoch
+   (16 steps, validation, checkpoint) and ``--resume`` to step 20 against
+   one run to step 20, bit for bit, with exact launches; 2 steps with
+   ``mix_routed=True mix_routed_impl=pallas`` (B9 on every layer, the route
+   tables of phase 19's cache); step times with the cache and with
+   recompute, the teacher's time, the cache pass and peak memory. It runs
+   after phase 19.
+
 Prints the card line, one JSON line of per-kernel results, then
 ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero, with no
 result, when CUDA is missing or the port is not beside this script.
@@ -693,7 +717,8 @@ KERNEL_NAMES = ("block_scatter_rows", "block_gather_sum", "inverse_gather_sum",
                 "flash_attention_fwd", "flash_attention_bwd", "fwht", "structured_mix",
                 "structured_mix_bwd", "routed_gather_sum", "fused_spectre_linear_wgmma",
                 "fused_spectre_linear_wmma_fma", "fused_block_bwd_wgmma",
-                "fused_block_bwd_wmma_fma")
+                "fused_block_bwd_wmma_fma", "fused_spectre_linear_wide_wgmma",
+                "fused_spectre_linear_wide_wmma_fma", "fused_spectre_linear_bwd_wide")
 
 
 def expected_launches(cfg, forwards: int = 0, steps: int = 0) -> dict[str, int]:
@@ -1841,6 +1866,364 @@ def phase_gather_tm(kernels, parse_config):
     return {f"B={b}": v for b, v in _step_times("gather_tm", cfg, kernels, (256,)).items()}
 
 
+# kernel 2 above N = 1,024 (C6): K == N (the identity residual inside the
+# kernel) and the pool's K != N, in bf16 and f32, and N = 1,100 (not a
+# multiple of 8: bf16 on the WMMA product); rows of a B=64 batch
+C6_SHAPES = ((4160, 1536, 1536), (4160, 768, 2048), (4160, 768, 1100))
+
+
+def phase_c6(kernels, gen):
+    """Kernel 2's wide kernels (N > 1,024) against the plain versions under
+    the limits of the one-pass kernels' phases: out and h, the Function's
+    gradients, and the backward with its wide chain; two runs bitwise; the
+    kernel each call takes; times back to back and on the device beside the
+    bound, the plain version and the cuBLAS chain."""
+    import torch.nn.functional as F
+
+    from spectre_tpu_torch.utils.timing import BF16_FLOPS, FP32_FLOPS
+
+    limits = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+    worst, worst_bwd, worst_bwd_abs, times = {}, {}, {}, {}
+    start = kernels.launch_counts()
+    bwd_wide = kernels.fused_spectre_linear_bwd_wide
+    for m, k, n in C6_SHAPES:
+        x = torch.randn(m, k, generator=gen)
+        w = torch.empty(k, n).uniform_(-k ** -0.5, k ** -0.5, generator=gen)
+        bias = torch.empty(n).uniform_(-k ** -0.5, k ** -0.5, generator=gen)
+        gamma = 1.0 + 0.1 * torch.randn(n, generator=gen)
+        beta = 0.1 * torch.randn(n, generator=gen)
+        ct = torch.randn(m, n, generator=gen)
+        for dtype, limit in limits.items():
+            if k > 1024 and dtype == torch.bfloat16:
+                limit = 4e-2  # phase_kernel2's rule: pre-LN values and the residual reach [4, 8)
+            route = kernels.forward_kernel(dtype, k, n)
+            want_route = ("fused_spectre_linear_wide_wgmma"
+                          if dtype == torch.bfloat16 and n % 8 == 0
+                          else "fused_spectre_linear_wide_wmma_fma")
+            if route != want_route:
+                raise AssertionError(f"C6 ({m}x{k})x({k}x{n}) {dtype} routed to {route}")
+            args = [t.to("cuda", dtype) for t in (x, w, bias, gamma, beta)]
+            cd = ct.to("cuda", dtype)
+            n0 = kernels.launch_counts()[route]
+            got = kernels.fused_spectre_linear(*args)
+            got2, h = kernels.fused_spectre_linear(*args, save_h=True)
+            got3, h3 = kernels.fused_spectre_linear(*args, save_h=True)
+            ref, ref_h = kernels.fused_spectre_linear_plain(*args, save_h=True)
+            torch.cuda.synchronize()
+            if kernels.launch_counts()[route] != n0 + 3:
+                raise AssertionError(f"C6: three calls did not launch {route} three times")
+            if not (torch.equal(got, got2) and torch.equal(got2, got3) and torch.equal(h, h3)):
+                raise AssertionError(f"C6 {route} ({m}x{k})x({k}x{n}) {dtype}: two runs differ")
+            err = max(max_abs_diff(got, ref), max_abs_diff(h, ref_h))
+            worst[route, dtype] = max(worst.get((route, dtype), 0.0), err)
+            if not err <= limit:
+                raise AssertionError(f"C6 {route} ({m}x{k})x({k}x{n}) {dtype}: max abs err of "
+                                     f"out and h {err} > {limit}")
+            gerr = _grad_errors(kernels, args, cd)
+            if not gerr <= GRAD_REL[dtype]:
+                raise AssertionError(f"C6 ({m}x{k})x({k}x{n}) {dtype}: Function gradient rel "
+                                     f"err {gerr} > {GRAD_REL[dtype]}")
+            bargs = (args[0], args[1], args[3], args[4], h, cd)
+            b0 = bwd_wide.launches
+            gb = kernels.fused_spectre_linear_bwd(*bargs)
+            gb2 = kernels.fused_spectre_linear_bwd(*bargs)
+            want_b = kernels.fused_spectre_linear_bwd_plain(*bargs)
+            torch.cuda.synchronize()
+            if bwd_wide.launches != b0 + 2:
+                raise AssertionError("C6: two backwards did not launch the wide chain twice")
+            if not all(torch.equal(a, b) for a, b in zip(gb, gb2)):
+                raise AssertionError(f"C6 backward ({m}x{k})x({k}x{n}) {dtype}: two runs differ")
+            berr = max(rel_to_largest(a, b) for a, b in zip(gb, want_b))
+            worst_bwd[dtype] = max(worst_bwd.get(dtype, 0.0), berr)
+            worst_bwd_abs[dtype] = max([worst_bwd_abs.get(dtype, 0.0)] +
+                                       [max_abs_diff(a, b) for a, b in zip(gb, want_b)])
+            if not berr <= LINEAR_BWD_REL[dtype]:
+                raise AssertionError(f"C6 backward ({m}x{k})x({k}x{n}) {dtype}: rel err {berr} "
+                                     f"> {LINEAR_BWD_REL[dtype]}")
+            el = args[0].element_size()
+            peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+            residual = (lambda y: y + args[0]) if k == n else (lambda y: y)
+            t = {"ms": cuda_time_ms(lambda: kernels.fused_spectre_linear(*args, save_h=True),
+                                    iters=10),
+                 "device_ms": device_time_ms(
+                     lambda: kernels.fused_spectre_linear(*args, save_h=True), iters=5),
+                 "plain_ms": cuda_time_ms(lambda: kernels.fused_spectre_linear_plain(*args),
+                                          iters=5),
+                 # the cuBLAS chain for the same function, a yardstick the port never calls
+                 "library_ms": cuda_time_ms(lambda: residual(F.gelu(F.layer_norm(
+                     torch.addmm(args[2], args[0], args[1]), (n,), args[3], args[4]))),
+                     iters=10),
+                 "bwd_ms": cuda_time_ms(lambda: kernels.fused_spectre_linear_bwd(*bargs),
+                                        iters=10),
+                 "bwd_device_ms": device_time_ms(
+                     lambda: kernels.fused_spectre_linear_bwd(*bargs), iters=5)}
+            req = [a.detach().clone().requires_grad_() for a in args]
+            out_p = kernels.fused_spectre_linear_plain(*req)
+            t["bwd_plain_ms"] = cuda_time_ms(lambda: torch.autograd.grad(
+                out_p, req, cd, retain_graph=True), iters=3)
+            del req, out_p
+            t["bound_ms"], t["bound_by"] = bound((m * k + k * n + 3 * n + 2 * m * n) * el,
+                                                 2 * m * k * n, peak)
+            t["bwd_bound_ms"], t["bwd_bound_by"] = bound(
+                (2 * m * k + 2 * m * n + 2 * k * n + 5 * n) * el, 4 * m * k * n, peak)
+            t.update(route=route, err=err, grad_rel_err=gerr, bwd_rel_err=berr)
+            times[m, k, n, dtype] = t
+            print(f"C6 {route} ({m}x{k})x({k}x{n}) {str(dtype)[6:]}: max abs err {err:.3g} "
+                  f"(out and h, limit {limit}), Function grads rel {gerr:.3g}, backward rel "
+                  f"{berr:.3g} (wide chain), two runs bitwise; forward {t['ms']:.4f} ms with h "
+                  f"(device {t['device_ms']:.4f}), cuBLAS chain {t['library_ms']:.4f}, plain "
+                  f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} by {t['bound_by']}; backward "
+                  f"{t['bwd_ms']:.4f} (device {t['bwd_device_ms']:.4f}), autograd of plain "
+                  f"{t['bwd_plain_ms']:.4f}, bound {t['bwd_bound_ms']:.4f} by "
+                  f"{t['bwd_bound_by']}", flush=True)
+            del args, cd, got, got2, got3, h, h3, ref, ref_h, gb, gb2, want_b
+        del x, w, ct
+        torch.cuda.empty_cache()
+
+    def entry(name, src, line, key, bwd=False):
+        t = times[key]
+        m, k, n, dtype = key
+        p = "bwd_" if bwd else ""
+        others = {f"{mm}x{kk}x{nn}_{str(dt)[6:]}": {
+            "ms": v[p + "ms"], "device_ms": v[p + "device_ms"], "bound_ms": v[p + "bound_ms"]}
+            for (mm, kk, nn, dt), v in times.items()
+            if (bwd or v["route"] == name) and (mm, kk, nn, dt) != key}
+        return {"name": name, "route": "cuda", "source": f"spectre_tpu_torch/csrc/{src}",
+                "replaces": f"spectre_tpu/ops/pallas/fused_linear.py:{line}",
+                "ms": t[p + "ms"],
+                "device_ms": t[p + "device_ms"], "plain_ms": t[p + "plain_ms"],
+                "bound_ms": t[p + "bound_ms"], "bound_by": t[p + "bound_by"],
+                "library_ms": None if bwd else t["library_ms"], "times": others,
+                "shape": f"({m}x{k})x({k}x{n}) {str(dtype)[6:]}" + (
+                    ": the wide chain and both products" if bwd else ", writing h")}
+
+    bf, f32 = torch.bfloat16, torch.float32
+    wide_wgmma = entry("fused_spectre_linear_wide_wgmma", "fused_spectre_linear.cu", 94,
+                       (4160, 1536, 1536, bf))
+    wide_wmma = entry("fused_spectre_linear_wide_wmma_fma", "fused_spectre_linear.cu", 94,
+                      (4160, 1536, 1536, f32))
+    wide_bwd = entry("fused_spectre_linear_bwd_wide", "fused_spectre_linear_bwd.cu", 147,
+                     (4160, 1536, 1536, bf), bwd=True)
+    wide_bwd["max_abs_err"] = worst_bwd_abs[bf]
+    wide_bwd["max_rel_err"] = worst_bwd[bf]
+    wide_bwd["max_rel_err_f32"] = worst_bwd[f32]
+    wide_wgmma["max_abs_err"] = worst["fused_spectre_linear_wide_wgmma", bf]
+    wide_wmma["max_abs_err"] = worst["fused_spectre_linear_wide_wmma_fma", f32]
+    wide_wmma["max_abs_err_bf16"] = worst["fused_spectre_linear_wide_wmma_fma", bf]
+    end = kernels.launch_counts()
+    for k in (wide_wgmma, wide_wmma, wide_bwd):
+        k["launches_c6_phase"] = end[k["name"]] - start[k["name"]]
+    print(f"C6: kernel 2 takes N = {', '.join(str(s[2]) for s in C6_SHAPES)} on the card in bf16 "
+          f"and f32; forward max abs err bf16 {wide_wgmma['max_abs_err']:.3g}, f32 "
+          f"{wide_wmma['max_abs_err']:.3g}; backward rel err bf16 {worst_bwd[bf]:.3g}, f32 "
+          f"{worst_bwd[f32]:.3g}", flush=True)
+    return wide_wgmma, wide_wmma, wide_bwd
+
+
+DISTILL_CONFIG = os.path.join(ROOT, "spectre_tpu_torch", "configs", "distill_cifar100.py")
+# the teacher in bf16 against the same teacher in float32 on the card, at
+# B=256. Logits: the decoder sums 384 features each carrying bf16 rounding
+# (2^-8 relative) times weights of about 384^-1/2, so an error of about
+# 2^-8 on O(1) logits; 0.05 is ten times that. Patch tokens: LayerNorm
+# outputs up to about 4, where one bf16 ulp is 1.6e-2, after a few roundings.
+TEACHER_LOGIT_ATOL = 0.05
+TEACHER_TOKEN_ATOL = 0.1
+# both views in float32 on the card against the same matrices in float64:
+# float32 rounding of normalised values up to about 11 (4e-6 a rounding)
+VIEW_ATOL = 1e-4
+
+
+def phase_distill(kernels, parse_config, distill_cli, tmp: str):
+    """Distillation at full width (configs/distill_cifar100.py: the flagship
+    student at B=256, the ViT-S/16 teacher at 224 px, 201 tokens):
+    the teacher views against float64, the bf16 teacher against the f32
+    teacher, one step's exact launches with no teacher run when its logits
+    are cached, cache on against recompute bit for bit, the CLI through an
+    epoch and a resume bit for bit equal to an uninterrupted run, two routed
+    steps through B9; step, teacher and cache times and peak memory."""
+    import copy
+
+    from spectre_tpu_torch.data import make_train_augment, synthetic_dataset
+    from spectre_tpu_torch.distill import (
+        distill_from_config,
+        make_teacher_view,
+        precompute_teacher_logits,
+        teacher_from_config,
+    )
+    from spectre_tpu_torch.distill.loop import TEACHER_VIEWS
+    from spectre_tpu_torch.train import make_distill_step
+    from spectre_tpu_torch.train.loop import create_trainer, dataset_stats
+
+    cfg = parse_config(DISTILL_CONFIG)
+    b, t_size = int(cfg.batch_size), int(cfg.teacher_img_size)
+    train_x, train_y = synthetic_dataset(cfg.dataset, "train")
+    raw, y = torch.from_numpy(train_x[:b]).cuda(), torch.from_numpy(train_y[:b]).cuda()
+    out = {}
+
+    # 1. the views in float32 against float64, and the teacher bf16 against f32
+    for mode in TEACHER_VIEWS:
+        view = make_teacher_view(t_size, mode=mode)
+        got = view(raw)
+        err = max_abs_diff(got, view(raw.double()))
+        if tuple(got.shape) != (b, 3, t_size, t_size) or not err <= VIEW_ATOL:
+            raise AssertionError(f"distill: teacher view {mode!r} {tuple(got.shape)}, err {err} "
+                                 f"against float64 > {VIEW_ATOL}")
+        out[f"view_err_{mode}"] = err
+    t0 = time.perf_counter()
+    teacher = teacher_from_config(cfg, t_size, "cuda")
+    torch.cuda.synchronize()
+    out["teacher_build_s"] = time.perf_counter() - t0
+    cfg32 = copy.copy(cfg)
+    cfg32.compute_dtype = "float32"
+    teacher32 = teacher_from_config(cfg32, t_size, "cuda")
+    xv = make_teacher_view(t_size)(raw)
+    with torch.inference_mode():
+        feats, feats32 = teacher.backbone(xv), teacher32.backbone(xv)
+        logits = teacher.decoder(feats["x_norm_clstoken"])
+        logits32 = teacher32.decoder(feats32["x_norm_clstoken"])
+    tokens = 1 + feats["x_norm_regtokens"].shape[1] + feats["x_norm_patchtokens"].shape[1]
+    bb = teacher.backbone
+    want_tokens = 1 + bb.num_registers + (bb.img_size // bb.patch_size) ** 2  # 201 at 224 px
+    logit_err = max_abs_diff(logits, logits32)
+    token_err = max_abs_diff(feats["x_norm_patchtokens"], feats32["x_norm_patchtokens"])
+    if (tuple(logits.shape) != (b, cfg.num_classes) or tokens != want_tokens
+            or logits.dtype != torch.float32 or not torch.isfinite(logits).all()
+            or not logit_err <= TEACHER_LOGIT_ATOL or not token_err <= TEACHER_TOKEN_ATOL):
+        raise AssertionError(f"distill: teacher logits {tuple(logits.shape)} {logits.dtype}, "
+                             f"{tokens} tokens; bf16 vs f32: logits {logit_err} (limit "
+                             f"{TEACHER_LOGIT_ATOL}), patch tokens {token_err} (limit "
+                             f"{TEACHER_TOKEN_ATOL})")
+    out.update(teacher_logit_err=logit_err, teacher_token_err=token_err)
+    print(f"distill: teacher ViT-S/16 at {t_size} px, {tokens} tokens, "
+          f"{sum(p.numel() for p in teacher.parameters()):,} parameters, built in "
+          f"{out['teacher_build_s']:.2f} s; bf16 against f32 at B={b}: logits max abs err "
+          f"{logit_err:.3g} (limit {TEACHER_LOGIT_ATOL}), patch tokens {token_err:.3g} (limit "
+          f"{TEACHER_TOKEN_ATOL}); views against float64: "
+          f"{ {m: round(out[f'view_err_{m}'], 9) for m in TEACHER_VIEWS} } (limit {VIEW_ATOL})",
+          flush=True)
+    del teacher32, feats, feats32, logits, logits32
+    torch.cuda.empty_cache()
+
+    # 2. one step with the cached logits: exact launches, no teacher call
+    view = make_teacher_view(t_size)
+    calls = [0]
+    hook = teacher.register_forward_hook(lambda *_: calls.__setitem__(0, calls[0] + 1))
+
+    def teacher_logits(r):
+        with torch.inference_mode():
+            logits = teacher(view(r))
+        return logits.clone()
+
+    t0 = time.perf_counter()
+    cache = precompute_teacher_logits(teacher_logits, train_x, b, cfg.num_classes, "cuda")
+    torch.cuda.synchronize()
+    out["cache_s"] = time.perf_counter() - t0
+    if calls[0] != -(-len(train_x) // b):
+        raise AssertionError(f"distill: the cache pass called the teacher {calls[0]} times")
+    state = create_trainer(cfg, "cuda", steps_per_epoch=len(train_x) // b)
+    alpha = float(cfg.distill_alpha)
+    step = make_distill_step(make_train_augment(*dataset_stats(cfg.dataset)),
+                             float(cfg.distill_temperature), alpha, 1.0 - alpha,
+                             cfg.grad_clip_norm)
+    cached = cache[torch.arange(b, device="cuda")]
+    calls[0] = 0
+    kernels.reset_launch_counts()
+    m = step(state, raw, cached, y)
+    torch.cuda.synchronize()
+    counts, want = kernels.launch_counts(), expected_launches(cfg, steps=1)
+    if counts != want or calls[0]:
+        raise AssertionError(f"distill: one cached step launched {counts} (want {want}) and "
+                             f"called the teacher {calls[0]} times")
+    if (counts["fused_spectre_linear_wgmma"], counts["fused_spectre_linear_wmma_fma"]) != (8, 1):
+        raise AssertionError(f"distill: kernel 2's forwards split {counts}")
+    bad = [n for n, p in state.model.named_parameters()
+           if p.grad is None or not torch.isfinite(p.grad).all()]
+    if bad or not all(torch.isfinite(v) for v in m.values()):
+        raise AssertionError(f"distill: metrics { {k: v.item() for k, v in m.items()} }, no "
+                             f"finite gradient for {bad}")
+    print(f"distill: one step with cached teacher logits launched "
+          f"{ {k: v for k, v in counts.items() if v} } and no teacher; every parameter has a "
+          f"finite gradient; loss {m['loss'].item():.4f} (kd {m['loss_dist'].item():.4f}, ce "
+          f"{m['loss_ce'].item():.4f})", flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    out["step_ms_cache"] = cuda_time_ms(lambda: step(state, raw, cached, y), iters=1, reps=5)
+    out["peak_gb_cache"] = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    out["step_ms_recompute"] = cuda_time_ms(lambda: step(state, raw, teacher_logits(raw), y),
+                                            iters=1, reps=5)
+    out["peak_gb_recompute"] = torch.cuda.max_memory_allocated() / 1e9
+    out["teacher_ms"] = cuda_time_ms(lambda: teacher_logits(raw), iters=3, reps=5)
+    hook.remove()
+    print(f"distill at B={b}: step {out['step_ms_cache']:.2f} ms with the cached logits, "
+          f"{out['step_ms_recompute']:.2f} ms with the teacher in the step (CUDA events, median "
+          f"of 5); teacher view and forward {out['teacher_ms']:.2f} ms; cache pass over "
+          f"{len(train_x)} images {out['cache_s']:.2f} s; peak memory "
+          f"{out['peak_gb_cache']:.2f} / {out['peak_gb_recompute']:.2f} GB", flush=True)
+    del state, cache, cached, m
+    torch.cuda.empty_cache()
+
+    # 3. cache on against recompute through the loop: 3 steps bit for bit
+    runs = {c: distill_from_config(cfg, device="cuda", max_steps=3, synthetic=True,
+                                   teacher=teacher, checkpoint=False, write_metrics=False,
+                                   cache_teacher=c) for c in (True, False)}
+    if runs[True].batch_losses != runs[False].batch_losses or len(runs[True].batch_losses) != 3:
+        raise AssertionError(f"distill: cached {runs[True].batch_losses} != recomputed "
+                             f"{runs[False].batch_losses}")
+    print(f"distill: cache on and recompute, 3 steps: loss, kd and ce bit for bit "
+          f"{runs[True].batch_losses}", flush=True)
+    del runs, teacher
+    torch.cuda.empty_cache()
+
+    # 4. the CLI through one epoch (16 steps, validation, a checkpoint) and
+    # --resume to step 20, against one run to step 20
+    val_batches = -(-1024 // cfg.val_batch_size)
+
+    def run(name, steps, flags=(), sets=()):
+        kernels.reset_launch_counts()
+        result = distill_cli.main(["--config", DISTILL_CONFIG, "--synthetic", "--steps",
+                                   str(steps), *flags, "--set", *sets,
+                                   f"checkpoint_dir={os.path.join(tmp, 'distill_' + name)}"])
+        return result, kernels.launch_counts()
+
+    whole, whole_counts = run("whole", 20)
+    want = expected_launches(cfg, forwards=2 * val_batches, steps=20)
+    if whole_counts != want or whole.state.step != 20:
+        raise AssertionError(f"distill CLI to step 20 launched {whole_counts}, want {want}")
+    first, _ = run("parts", 16)
+    resumed, _ = run("parts", 20, ["--resume"])
+    bad = _same_state(whole.state, resumed.state)
+    if (bad or first.state.step != 16 or whole.batch_losses[16:] != resumed.batch_losses
+            or whole.last_val_accuracy != resumed.last_val_accuracy):
+        raise AssertionError(f"distill: resumed run differs from the uninterrupted one: "
+                             f"{bad[:8]} ({len(bad)} in all); losses {whole.batch_losses[16:]} "
+                             f"vs {resumed.batch_losses}")
+    for must in ("events.jsonl", os.path.join("ckpt", "index.json"),
+                 os.path.join("ckpt", "step_00000016.pt"), os.path.join("ckpt", "step_00000020.pt")):
+        if not os.path.exists(os.path.join(resumed.logdir, must)):
+            raise AssertionError(f"distill CLI: {must} missing under {resumed.logdir}")
+    out["cli_cache_s"] = whole.cache_seconds
+    print(f"distill CLI: one epoch (16 steps, validation, checkpoint) then --resume to step 20 "
+          f"== one run to step 20, bit for bit; to step 20 launched "
+          f"{ {k: v for k, v in whole_counts.items() if v} }; val acc "
+          f"{whole.last_val_accuracy:.4f}", flush=True)
+    del whole, first, resumed
+    torch.cuda.empty_cache()
+
+    # 5. two steps with the routed backward: B9 on every layer (the route
+    # tables from the routed trainer's cache)
+    routed, routed_counts = run("routed", 2, ["--no-checkpoint"],
+                                ["mix_routed=True", "mix_routed_impl=pallas"])
+    cfg.mix_routed, cfg.mix_routed_impl = True, "pallas"
+    want = expected_launches(cfg, forwards=val_batches, steps=2)
+    if routed_counts != want or routed.state.step != 2 or not np.isfinite(routed.metrics["loss"]):
+        raise AssertionError(f"distill routed CLI launched {routed_counts}, want {want}")
+    print(f"distill routed CLI: 2 steps launched "
+          f"{ {k: v for k, v in routed_counts.items() if v} }", flush=True)
+    del routed
+    torch.cuda.empty_cache()
+    return whole_counts, out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -1855,6 +2238,7 @@ def main() -> int:
     from spectre_tpu_torch.ops import structured_mix as structured_matrix
     from spectre_tpu_torch.ops.kernels import build
     from spectre_tpu_torch.repl import bench as bench_cli
+    from spectre_tpu_torch.repl import distill as distill_cli
     from spectre_tpu_torch.repl import eval as eval_cli
     from spectre_tpu_torch.repl import perf as perf_cli
     from spectre_tpu_torch.repl import serve
@@ -1862,7 +2246,7 @@ def main() -> int:
     from spectre_tpu_torch.serving import SpectreClient
     from spectre_tpu_torch.utils import card_and_power_limit
 
-    for path in (CONFIG, VIT_CONFIG, BRANCH_CONFIG):
+    for path in (CONFIG, VIT_CONFIG, BRANCH_CONFIG, DISTILL_CONFIG):
         if not os.path.exists(path):
             raise FileNotFoundError(path)
     name = torch.cuda.get_device_name(0)
@@ -1881,6 +2265,7 @@ def main() -> int:
     k1 = phase_kernel1(kernels, gen)
     k2, k2_head = phase_kernel2(kernels, gen)
     k11 = phase_linear_bwd(kernels, gen)
+    k12, k13, k14 = phase_c6(kernels, gen)
     k5 = phase_kernel5(kernels)
     k3, k4 = phase_gather_kernels(kernels, gen)
     k8, k9 = phase_attention(kernels)
@@ -1914,6 +2299,7 @@ def main() -> int:
         branch_run, branch_serving, branch = phase_branch(
             kernels, build_model, parse_config, serve, SpectreClient, train_cli, bench_cli, tmp)
         gather_tm = phase_gather_tm(kernels, parse_config)
+        distill_run, distill = phase_distill(kernels, parse_config, distill_cli, tmp)
 
     # launches: the whole trainer's uninterrupted run (20 steps, 4 validation
     # batches); kernel 4 from the mix_block=0 CLI run, kernel 5 from its own
@@ -1945,12 +2331,21 @@ def main() -> int:
     k1["launches_branch"] = branch_run["block_scatter_rows"]
     k1["launches_branch_serving"] = branch_serving["block_scatter_rows"]
     k4["launches_branch"] = branch_run["inverse_gather_sum"]
-    result = {"kernels": [k1, k2, k2_head, k11, k3, k4, k5, k8, k9, k6, k7, k10],
+    # the distill CLI's uninterrupted run (20 steps, 2 validation passes)
+    for k, counter in ((k1, "block_scatter_rows"), (k2, "fused_spectre_linear_wgmma"),
+                       (k2_head, "fused_spectre_linear_wmma_fma"),
+                       (k11, "fused_spectre_linear_bwd"), (k3, "block_gather_sum")):
+        k["launches_distill"] = distill_run[counter]
+    # kernel 2 above N = 1,024: no shipped config reaches it, so the main
+    # path launches it no time; the C6 phase's own launches are beside
+    for k in (k12, k13, k14):
+        k["launches"] = trainer_run[k["name"]]
+    result = {"kernels": [k1, k2, k2_head, k11, k3, k4, k5, k8, k9, k6, k7, k10, k12, k13, k14],
               "train_step": {f"mix_block={blk}": {f"B={b}": v for b, v in t.items()}
                              for blk, t in step_times.items()},
               "trainer": trainer, "fused_bwd": fused_bwd, "bench": bench, "vit": vit,
               "structured": structured, "routed": routed, "branch": branch,
-              "gather_tm": {"train_step": gather_tm}}
+              "gather_tm": {"train_step": gather_tm}, "distill": distill}
     print(smi, flush=True)
     print(json.dumps(result), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -599,3 +599,342 @@ extern "C" int fused_spectre_linear_wgmma(const void* x, const void* w, const vo
   if (N <= 512) return launch_wgmma<2>(x, w, b, gamma, beta, out, h_out, M, K, N, eps, st);
   return launch_wgmma<3>(x, w, b, gamma, beta, out, h_out, M, K, N, eps, st);
 }
+
+
+// ------------------------------------------------------------ N > 1,024
+//
+// fused_spectre_linear_wide_wgmma (bf16 that TMA can describe) and
+// fused_spectre_linear_wide_wmma_fma (float32, and bf16 that TMA cannot
+// describe): the same function for any N, where a block can no longer hold
+// a whole output row, in two passes.
+//
+// 1. A column-tiled product writes work = x @ W + b, float32 [M, N], a
+//    workspace the wrapper allocates for the call. bf16 through TMA: 64 x
+//    256 tiles on the wgmma mainloop above (one warpgroup, a ring of 4
+//    stages of the x box and four W boxes). Otherwise: 32 x 128 tiles on the
+//    mainloop of fused_spectre_linear_kernel (WMMA for bf16, exact float32
+//    FMAs for float32), its cp.async double buffer and its padded strides.
+// 2. A row kernel, one block a row: the LayerNorm statistics of the float32
+//    row (two passes, the mean, then the squared deviations), GELU with
+//    erff, the identity residual when K == N, out cast once; with h_out, h
+//    is the row cast once to the input dtype.
+//
+// Where pass 2 reads from: the float32 workspace, not h. The plain version
+// (and the TPU kernel) normalise the float32 sums, so the statistics here
+// are of the same values; h in bf16 is only the saved copy for the
+// backward. A float32 call that saves h passes h itself as the workspace.
+// Both passes add in a fixed order (block reductions in warp order), so two
+// runs give the same bits. What bounds it: at (4,160 x 1,536)(1,536 x
+// 1,536) bf16, 19.6 GFLOP (0.020 ms at 989 TFLOP/s) against 2 M N bytes of
+// h and out and the operands (0.011 ms); the workspace adds 8 M N bytes
+// (written once, read once from L2 or memory), a price of the design.
+
+namespace {
+
+constexpr int kWideTN = 128;     // tiled product: columns a block
+constexpr int kWideStages = 4;   // wgmma product: ring stages
+constexpr int kWideStage = wg::kBoxBytes * 5;  // the x box, then four W boxes
+constexpr int kWideSmem = kWideStages * kWideStage + 1024;
+constexpr int kRowThreads = 256;
+
+// 64 x 256 tile (blockIdx.x: rows, blockIdx.y: columns) of x @ W + b into
+// work, float32. The mainloop of fused_linear_wgmma_kernel<1>, its W boxes
+// shifted to the tile's columns.
+__global__ void __launch_bounds__(128, 1)
+wide_product_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                          const __grid_constant__ CUtensorMap wmap,
+                          const bf16* __restrict__ bias, float* __restrict__ work, int M, int K,
+                          int N) {
+  constexpr int S = kWideStages;
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ wg::Ring<S> ring;
+  unsigned char* smem = wg::align1024(smem_raw);
+  const int tid = threadIdx.x;
+  const int m0 = blockIdx.x * 64, n0 = blockIdx.y * 256;
+  const int nk = (K + 63) / 64;
+  const int nbox = min(4, (N - n0 + 63) / 64);
+  auto load = [&](int i) {
+    uint64_t* bar = ring.acquire(i, wg::kBoxBytes * (1 + nbox));
+    unsigned char* st = smem + (i % S) * kWideStage;
+    wg::tma_load_2d(st, &xmap, bar, i * 64, m0);
+    for (int j = 0; j < nbox; ++j)
+      wg::tma_load_2d(st + wg::kBoxBytes * (1 + j), &wmap, bar, n0 + j * 64, i * 64);
+  };
+  if (tid == 0) ring.init(4);
+  __syncthreads();
+  if (tid == 0)
+    for (int i = 0; i < S && i < nk; ++i) load(i);
+
+  // acc[4c + 2 half + e]: row r0 + 8 half, column n0 + 8c + cq + e (the
+  // layout of fused_linear_wgmma_kernel). Boxes past N are not loaded:
+  // their columns hold stale values and are not stored.
+  const int warp = tid / 32, lane = tid % 32;
+  const int r0 = warp * 16 + lane / 4, cq = (lane % 4) * 2;
+  float acc[128];
+  const uint32_t base = wg::smem_u32(smem);
+  for (int kt = 0; kt < nk; ++kt) {
+    ring.wait_full(kt);
+    const uint32_t xs = base + (kt % S) * kWideStage;
+    const uint32_t ws = xs + wg::kBoxBytes;
+    wg::fence_operands(acc);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wg::wgmma_m64n256k16<1>(acc, wg::desc_k_major(xs + kk * 32),
+                              wg::desc_mn_major(ws + kk * 2048, wg::kBoxBytes),
+                              kt > 0 || kk > 0);
+    wg::wgmma_commit();
+    if (kt > 0) {
+      wg::wgmma_wait<1>();
+      if (lane == 0) ring.release(kt - 1);
+      if (tid == 0 && kt - 1 + S < nk) load(kt - 1 + S);
+      __syncwarp();
+    }
+  }
+  wg::wgmma_wait<0>();
+  wg::fence_operands(acc);
+
+#pragma unroll
+  for (int c = 0; c < 32; ++c) {
+    const int col = n0 + c * 8 + cq;
+    if (col < N) {  // N % 8 == 0: col + 1 < N too
+      const float b0 = __bfloat162float(bias[col]), b1 = __bfloat162float(bias[col + 1]);
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int r = m0 + r0 + 8 * half;
+        if (r < M)
+          *reinterpret_cast<float2*>(work + static_cast<long long>(r) * N + col) =
+              make_float2(acc[4 * c + 2 * half] + b0, acc[4 * c + 2 * half + 1] + b1);
+      }
+    }
+  }
+}
+
+// kTM x kWideTN tile (blockIdx.x: rows, blockIdx.y: columns) of x @ W + b
+// into work, float32: the K loop of fused_spectre_linear_kernel<T, 128>
+// with the W tile taken at the block's columns.
+template <typename T>
+__global__ void __launch_bounds__(Cfg<T>::THREADS)
+wide_product_tiled_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                          const T* __restrict__ bias, float* __restrict__ work, long long M,
+                          int K, int N, int xvec, int wvec) {
+  constexpr int NPAD = kWideTN;
+  constexpr int TK = Cfg<T>::TK, NT = Cfg<T>::THREADS;
+  constexpr int LDX = TK + 16 / sizeof(T), LDW = NPAD + 16 / sizeof(T), LDC = NPAD + 4;
+  constexpr int STAGE = kTM * LDX + TK * LDW;
+  extern __shared__ __align__(128) unsigned char smem[];
+  T* stages = reinterpret_cast<T*>(smem);
+  float* cs = reinterpret_cast<float*>(smem);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long m0 = static_cast<long long>(blockIdx.x) * kTM;
+  const int n0 = blockIdx.y * NPAD;
+  const int nk = (K + TK - 1) / TK;
+
+  auto fetch = [&](int kt) {
+    T* xs = stages + (kt & 1) * STAGE;
+    load_tile<T, kTM, TK, LDX, NT>(xs, x, K, m0, static_cast<long long>(kt) * TK, M, K, xvec);
+    load_tile<T, TK, NPAD, LDW, NT>(xs + kTM * LDX, w, N, static_cast<long long>(kt) * TK, n0,
+                                    K, N, wvec);
+    cp_async_commit();
+  };
+
+  if constexpr (std::is_same<T, bf16>::value) {
+    using namespace nvcuda;
+    const int wr = warp / 8, wc = warp % 8;  // 16-row group, 16-column group
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::fill_fragment(acc, 0.f);
+    fetch(0);
+    for (int kt = 0; kt < nk; ++kt) {
+      if (kt + 1 < nk) {
+        fetch(kt + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const T* xs = stages + (kt & 1) * STAGE;
+      const T* ws = xs + kTM * LDX;
+#pragma unroll
+      for (int kk = 0; kk < TK; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
+        wmma::load_matrix_sync(a, xs + wr * 16 * LDX + kk, LDX);
+        wmma::load_matrix_sync(b, ws + kk * LDW + wc * 16, LDW);
+        wmma::mma_sync(acc, a, b, acc);
+      }
+      __syncthreads();
+    }
+    wmma::store_matrix_sync(cs + wr * 16 * LDC + wc * 16, acc, LDC, wmma::mem_row_major);
+  } else {
+    constexpr int CPT = NPAD / 32;
+    float acc[4][CPT];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
+    fetch(0);
+    for (int kt = 0; kt < nk; ++kt) {
+      if (kt + 1 < nk) {
+        fetch(kt + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncthreads();
+      const T* xs = stages + (kt & 1) * STAGE;
+      const T* ws = xs + kTM * LDX;
+#pragma unroll 4
+      for (int k = 0; k < TK; ++k) {
+        float a[4];
+#pragma unroll
+        for (int i = 0; i < 4; ++i) a[i] = to_f(xs[(warp * 4 + i) * LDX + k]);
+#pragma unroll
+        for (int j = 0; j < CPT; ++j) {
+          const float bv = to_f(ws[k * LDW + lane + 32 * j]);
+#pragma unroll
+          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(a[i], bv, acc[i][j]);
+        }
+      }
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < CPT; ++j) cs[(warp * 4 + i) * LDC + lane + 32 * j] = acc[i][j];
+  }
+  __syncthreads();
+  for (int i = threadIdx.x; i < kTM * NPAD; i += NT) {
+    const int r = i / NPAD, c = i % NPAD;
+    const long long m = m0 + r;
+    if (m < M && n0 + c < N) work[m * N + n0 + c] = cs[r * LDC + c] + to_f(bias[n0 + c]);
+  }
+}
+
+// the sum of v over the block, every thread getting the same bits: warps by
+// shuffles, then the warp sums in warp order
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = warp_sum(v);
+  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
+  __syncthreads();
+  float s = 0.f;
+#pragma unroll
+  for (int i = 0; i < kRowThreads / 32; ++i) s += red[i];
+  __syncthreads();  // red is reused by the next call
+  return s;
+}
+
+// one block a row: LayerNorm of the float32 row of work, GELU, the identity
+// residual, out and (with h_out) h in T
+template <typename T>
+__global__ void __launch_bounds__(kRowThreads)
+wide_row_kernel(const float* __restrict__ work, const T* __restrict__ x,
+                const T* __restrict__ gamma, const T* __restrict__ beta, T* __restrict__ out,
+                T* __restrict__ h_out, int K, int N, float eps) {
+  __shared__ float red[kRowThreads / 32];
+  const long long m = blockIdx.x;
+  const float* row = work + m * N;
+  const float inv_n = 1.f / static_cast<float>(N);
+  float s = 0.f;
+  for (int n = threadIdx.x; n < N; n += kRowThreads) s += row[n];
+  const float mean = block_sum(s, red) * inv_n;
+  float q = 0.f;
+  for (int n = threadIdx.x; n < N; n += kRowThreads) {
+    const float d = row[n] - mean;
+    q += d * d;
+  }
+  const float rstd = rsqrtf(block_sum(q, red) * inv_n + eps);
+  for (int n = threadIdx.x; n < N; n += kRowThreads) {
+    const float v = row[n];
+    if (h_out != nullptr) h_out[m * N + n] = from_f<T>(v);
+    float y = gelu_erf((v - mean) * rstd * to_f(gamma[n]) + to_f(beta[n]));
+    if (K == N) y += to_f(x[m * K + n]);
+    out[m * N + n] = from_f<T>(y);
+  }
+}
+
+template <typename T>
+int launch_wide_row(const void* x, const void* g, const void* be, void* out, void* h_out,
+                    const float* work, long long M, long long K, long long N, float eps,
+                    cudaStream_t st) {
+  wide_row_kernel<T><<<static_cast<unsigned>(M), kRowThreads, 0, st>>>(
+      work, static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(be),
+      static_cast<T*>(out), static_cast<T*>(h_out), static_cast<int>(K), static_cast<int>(N),
+      eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int launch_wide_tiled(const void* x, const void* w, const void* b, const void* g,
+                      const void* be, void* out, void* h_out, void* work, long long M,
+                      long long K, long long N, float eps, cudaStream_t st) {
+  constexpr int TK = Cfg<T>::TK;
+  constexpr int V = 16 / sizeof(T);
+  constexpr int stage_bytes =
+      2 * (kTM * (TK + V) + TK * (kWideTN + V)) * static_cast<int>(sizeof(T));
+  constexpr int tile_bytes = kTM * (kWideTN + 4) * static_cast<int>(sizeof(float));
+  constexpr int smem = stage_bytes > tile_bytes ? stage_bytes : tile_bytes;
+  static_assert(smem <= 48 * 1024, "the tiled product needs no raised shared-memory limit");
+  const int xvec = (K % V == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
+  const int wvec = (N % V == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
+  const dim3 grid(static_cast<unsigned>((M + kTM - 1) / kTM),
+                  static_cast<unsigned>((N + kWideTN - 1) / kWideTN));
+  float* wk = static_cast<float*>(work);
+  wide_product_tiled_kernel<T><<<grid, Cfg<T>::THREADS, smem, st>>>(
+      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b), wk, M,
+      static_cast<int>(K), static_cast<int>(N), xvec, wvec);
+  const int e = static_cast<int>(cudaGetLastError());
+  if (e != 0) return e;
+  return launch_wide_row<T>(x, g, be, out, h_out, wk, M, K, N, eps, st);
+}
+
+}  // namespace
+
+// N > 1,024 (any N >= 1) in two passes through work, float32 [M, N].
+// dtype_code: 0 = float32, 1 = bfloat16 (every tensor but work in that
+// dtype). h_out: null, or [M, N] to receive the pre-LN activation; a
+// float32 caller that wants h passes it as work and h_out null. Returns
+// cudaGetLastError() after the launches (0 on success).
+extern "C" int fused_spectre_linear_wide_wmma_fma(int dtype_code, const void* x, const void* w,
+                                                  const void* b, const void* gamma,
+                                                  const void* beta, void* out, void* h_out,
+                                                  void* work, long long M, long long K,
+                                                  long long N, float eps, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || K > 0x7fffffffLL || N > 0x7fffffffLL ||
+      M > 0x7fffffffLL || (N + kWideTN - 1) / kWideTN > 65535)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype_code == 0)
+    return launch_wide_tiled<float>(x, w, b, gamma, beta, out, h_out, work, M, K, N, eps, st);
+  if (dtype_code == 1)
+    return launch_wide_tiled<bf16>(x, w, b, gamma, beta, out, h_out, work, M, K, N, eps, st);
+  return cudaErrorInvalidValue;
+}
+
+// bfloat16 only; N and K multiples of 8, x and W 16-byte aligned (what TMA
+// can describe); any N. h_out: null, or [M, N]; work: float32 [M, N].
+// Returns cudaGetLastError() after the launches (0 on success).
+extern "C" int fused_spectre_linear_wide_wgmma(const void* x, const void* w, const void* b,
+                                               const void* gamma, const void* beta, void* out,
+                                               void* h_out, void* work, long long M,
+                                               long long K, long long N, float eps,
+                                               void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || K % 8 || N % 8 || M > 0x7fffffffLL || K > 0x7fffffffLL ||
+      N > 0x7fffffffLL || (N + 255) / 256 > 65535 || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  CUtensorMap xm, wm;
+  int e = wg::encode_rows(&xm, x, M, K);
+  if (e == 0) e = wg::encode_rows(&wm, w, K, N);
+  if (e != 0) return e;
+  static std::atomic<bool> raised[wg::kMaxDevices];
+  if ((e = wg::raise_smem_once(wide_product_wgmma_kernel, kWideSmem, raised)) != 0) return e;
+  float* wk = static_cast<float*>(work);
+  const dim3 grid(static_cast<unsigned>((M + 63) / 64), static_cast<unsigned>((N + 255) / 256));
+  wide_product_wgmma_kernel<<<grid, 128, kWideSmem, st>>>(
+      xm, wm, static_cast<const bf16*>(b), wk, static_cast<int>(M), static_cast<int>(K),
+      static_cast<int>(N));
+  e = static_cast<int>(cudaGetLastError());
+  if (e != 0) return e;
+  return launch_wide_row<bf16>(x, gamma, beta, out, h_out, wk, M, K, N, eps, st);
+}

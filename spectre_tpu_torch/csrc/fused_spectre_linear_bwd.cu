@@ -398,3 +398,165 @@ extern "C" int fused_spectre_linear_bwd_chain(int dtype_code, const void* h, con
     return run<bf16>(h, g, gamma, beta, dh, dgamma, dbeta, db, partial, M, n, blocks, eps, st);
   return cudaErrorInvalidValue;
 }
+
+
+// ------------------------------------------------------------ N > 1,024
+//
+// fused_spectre_linear_bwd_wide: the same chain for any N, where a warp can
+// no longer hold a row in registers. One block of 256 threads a row, the
+// blocks owning contiguous shares of the rows as above. A row is walked
+// four times in chunks of E values a thread (16-byte vectors where N and
+// the bases allow, else one value), from memory (the row, 2 N values,
+// stays in L1 between the walks): the sum for the mean, the squared
+// deviations for the variance, dz and du = dz * gamma for the two means of
+// the LayerNorm backward, then dh. Row sums go through block_sum (warps by
+// shuffles, then the warp sums in warp order). Each thread owns the same
+// columns in every row, so the block's partial column sums live in its
+// own row of `partial` (float32 [blocks, 3, N], in memory: no bound on N)
+// and each entry is read and written by one thread only; the column-sum
+// kernel above adds the blocks' rows in its fixed order. No atomics: two
+// runs give the same bits.
+
+namespace {
+
+constexpr int kWideThreads = 256;
+constexpr int kWideBlocksPerSM = 3;  // ops/kernels/fused_linear.py: BWD_BLOCKS_PER_SM
+
+__device__ __forceinline__ float2 block_sum2(float a, float b, float (*red)[kWideThreads / 32]) {
+  a = warp_sum(a);
+  b = warp_sum(b);
+  if (threadIdx.x % 32 == 0) {
+    red[0][threadIdx.x / 32] = a;
+    red[1][threadIdx.x / 32] = b;
+  }
+  __syncthreads();
+  float2 s = make_float2(0.f, 0.f);
+#pragma unroll
+  for (int i = 0; i < kWideThreads / 32; ++i) {
+    s.x += red[0][i];
+    s.y += red[1][i];
+  }
+  __syncthreads();  // red is reused by the next call
+  return s;
+}
+
+template <typename T, int E>
+__global__ void __launch_bounds__(kWideThreads, kWideBlocksPerSM)
+chain_wide_kernel(const T* __restrict__ h, const T* __restrict__ g, const T* __restrict__ gamma,
+                  const T* __restrict__ beta, T* __restrict__ dh, float* __restrict__ partial,
+                  long long M, int N, long long rows, float eps) {
+  __shared__ float red[2][kWideThreads / 32];
+  constexpr int kStep = kWideThreads * E;
+  const int first = threadIdx.x * E;
+  const float inv_n = 1.0f / static_cast<float>(N);
+  float* p_dgamma = partial + static_cast<long long>(blockIdx.x) * 3 * N;
+  float* p_dbeta = p_dgamma + N;
+  float* p_db = p_dbeta + N;
+  for (int col = first; col < N; col += kStep)
+#pragma unroll
+    for (int e = 0; e < E; ++e) p_dgamma[col + e] = p_dbeta[col + e] = p_db[col + e] = 0.f;
+
+  const long long r0 = static_cast<long long>(blockIdx.x) * rows;
+  const long long r1 = r0 + rows < M ? r0 + rows : M;
+  for (long long r = r0; r < r1; ++r) {
+    const T* hr = h + r * N;
+    const T* gr = g + r * N;
+    float v[E], d[E];
+    float s = 0.f;
+    for (int col = first; col < N; col += kStep) {
+      load_chunk<T, E>(hr + col, v);
+#pragma unroll
+      for (int e = 0; e < E; ++e) s += v[e];
+    }
+    const float mu = block_sum2(s, 0.f, red).x * inv_n;
+    float q = 0.f;
+    for (int col = first; col < N; col += kStep) {
+      load_chunk<T, E>(hr + col, v);
+#pragma unroll
+      for (int e = 0; e < E; ++e) q += (v[e] - mu) * (v[e] - mu);
+    }
+    const float rsig = rsqrtf(block_sum2(q, 0.f, red).x * inv_n + eps);
+    float m1 = 0.f, m2 = 0.f;
+    for (int col = first; col < N; col += kStep) {
+      load_chunk<T, E>(hr + col, v);
+      load_chunk<T, E>(gr + col, d);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float gam = to_f(gamma[col + e]);
+        const float uu = (v[e] - mu) * rsig;
+        const float dz = d[e] * gelu_grad(uu * gam + to_f(beta[col + e]));
+        p_dgamma[col + e] += dz * uu;
+        p_dbeta[col + e] += dz;
+        const float du = dz * gam;
+        m1 += du;
+        m2 += du * uu;
+      }
+    }
+    const float2 ms = block_sum2(m1, m2, red);
+    m1 = ms.x * inv_n;
+    m2 = ms.y * inv_n;
+    for (int col = first; col < N; col += kStep) {
+      load_chunk<T, E>(hr + col, v);
+      load_chunk<T, E>(gr + col, d);
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const float gam = to_f(gamma[col + e]);
+        const float uu = (v[e] - mu) * rsig;
+        const float du = d[e] * gelu_grad(uu * gam + to_f(beta[col + e])) * gam;
+        d[e] = rsig * (du - m1 - uu * m2);
+        p_db[col + e] += d[e];
+      }
+      store_chunk<T, E>(dh + r * N + col, d);
+    }
+  }
+}
+
+template <typename T, int E>
+int launch_chain_wide(const void* h, const void* g, const void* gamma, const void* beta,
+                      void* dh, float* partial, long long M, int N, float eps, long long blocks,
+                      cudaStream_t st) {
+  chain_wide_kernel<T, E><<<static_cast<unsigned>(blocks), kWideThreads, 0, st>>>(
+      static_cast<const T*>(h), static_cast<const T*>(g), static_cast<const T*>(gamma),
+      static_cast<const T*>(beta), static_cast<T*>(dh), partial, M, N,
+      (M + blocks - 1) / blocks, eps);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int run_wide(const void* h, const void* g, const void* gamma, const void* beta, void* dh,
+             void* dgamma, void* dbeta, void* db, void* partial, long long M, int N,
+             long long blocks, float eps, cudaStream_t st) {
+  constexpr int E = 16 / sizeof(T);
+  float* part = static_cast<float*>(partial);
+  const bool vec = N % E == 0 &&
+                   ((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(g) |
+                     reinterpret_cast<uintptr_t>(dh)) & 15) == 0;
+  int err = vec ? launch_chain_wide<T, E>(h, g, gamma, beta, dh, part, M, N, eps, blocks, st)
+                : launch_chain_wide<T, 1>(h, g, gamma, beta, dh, part, M, N, eps, blocks, st);
+  if (err != 0) return err;
+  column_sum_kernel<T><<<static_cast<unsigned>((3LL * N + 31) / 32), 32 * kSegments, 0, st>>>(
+      part, blocks, N, static_cast<T*>(dgamma), static_cast<T*>(dbeta), static_cast<T*>(db));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The arguments of fused_spectre_linear_bwd_chain, for any N >= 1.
+extern "C" int fused_spectre_linear_bwd_wide(int dtype_code, const void* h, const void* g,
+                                             const void* gamma, const void* beta, void* dh,
+                                             void* dgamma, void* dbeta, void* db,
+                                             void* partial, long long M, long long N,
+                                             long long blocks, float eps, void* stream) {
+  if (M <= 0 || N <= 0 || 3 * N > 0x7fffffffLL || blocks <= 0 || blocks > M ||
+      blocks > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int n = static_cast<int>(N);
+  if (dtype_code == 0)
+    return run_wide<float>(h, g, gamma, beta, dh, dgamma, dbeta, db, partial, M, n, blocks, eps,
+                           st);
+  if (dtype_code == 1)
+    return run_wide<bf16>(h, g, gamma, beta, dh, dgamma, dbeta, db, partial, M, n, blocks, eps,
+                          st);
+  return cudaErrorInvalidValue;
+}

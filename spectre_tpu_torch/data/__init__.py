@@ -2,6 +2,7 @@
 iterator with its prefetch queue, and the device-side augmentation."""
 
 from spectre_tpu_torch.data.augment import (
+    center_crop,
     color_jitter_apply,
     erasing_apply,
     gaussian_blur_apply,
@@ -16,6 +17,10 @@ from spectre_tpu_torch.data.augment import (
     random_grayscale,
     random_hflip,
     random_rotate,
+    resize_bicubic_pil,
+    resize_bilinear,
+    resize_matrix,
+    resize_separable,
     rotate_apply,
 )
 from spectre_tpu_torch.data.datasets import load_dataset, synthetic_batch, synthetic_dataset
@@ -30,6 +35,7 @@ DATASET_STATS = {
 __all__ = [
     "BatchIterator",
     "DATASET_STATS",
+    "center_crop",
     "color_jitter_apply",
     "erasing_apply",
     "gaussian_blur_apply",
@@ -46,6 +52,10 @@ __all__ = [
     "random_grayscale",
     "random_hflip",
     "random_rotate",
+    "resize_bicubic_pil",
+    "resize_bilinear",
+    "resize_matrix",
+    "resize_separable",
     "rotate_apply",
     "synthetic_batch",
     "synthetic_dataset",

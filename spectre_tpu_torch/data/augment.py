@@ -15,8 +15,16 @@ over the whole batch. Constant tensors (channel statistics, colour matrices)
 are made once per device and kept. The blur is written as shifted adds, not
 as a convolution call: a float32 convolution would run in TF32 on the card.
 
-The resize and crop functions of the JAX module serve the distillation
-teacher and are not ported yet (ROADMAP.md, queue A10).
+The resize and crop functions serve the distillation teacher's view
+(``distill/loop.py``): ``resize_separable`` (bilinear or Keys-cubic, as two
+products with 1-D resize matrices), ``resize_bilinear``,
+``resize_bicubic_pil`` (PIL's pass order with a [0, 1] clip after each
+pass) and ``center_crop`` (torchvision's offsets). The matrices are
+``jax.image.resize``'s operators, built here in numpy: half-pixel centres,
+the triangle kernel or Keys' cubic with a = -0.5, taps outside the image
+dropped and the rest renormalised, and on a downscale the kernel widened by
+the scale (antialias). ``F.interpolate(mode="bicubic")`` is another operator
+(a = -0.75, edge pixels clamped) and is not used.
 """
 
 from __future__ import annotations
@@ -262,3 +270,93 @@ def make_train_augment(mean: Sequence[float], std: Sequence[float], *, hflip: bo
 def make_eval_transform(mean: Sequence[float], std: Sequence[float]) -> Callable:
     """The eval path: normalise only."""
     return lambda x: normalize(x, mean, std)
+
+
+def _fma(a, b, c) -> np.ndarray:
+    """a * b + c in float32 with one rounding, as a fused multiply-add: the
+    product and sum are exact in float64 for float32 operands of these
+    magnitudes."""
+    return (np.float64(a) * np.float64(b) + np.float64(c)).astype(np.float32)
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic convolution kernel with a = -0.5 at |x|, float32."""
+    f = np.float32
+    inner = _fma(_fma(f(1.5), x, f(-2.5)) * x, x, f(1.0))
+    outer = _fma(_fma(_fma(f(-0.5), x, f(2.5)), x, f(-4.0)), x, f(2.0))
+    return np.where(x >= 2.0, f(0.0), np.where(x >= 1.0, outer, inner)).astype(f)
+
+
+_RESIZE_KERNELS = {"bilinear": lambda x: np.maximum(np.float32(0.0), np.float32(1.0) - x),
+                   "bicubic": _keys_cubic}
+
+
+@functools.lru_cache(maxsize=None)
+def resize_matrix(in_size: int, out_size: int, method: str = "bilinear") -> np.ndarray:
+    """The [out_size, in_size] float32 operator of a 1-D resize: output i
+    samples the input at (i + 0.5) / scale - 0.5; the kernel is widened by
+    1 / scale on a downscale; each output's weights over the input's taps
+    are renormalised to sum to one (taps past the edge are dropped). In
+    float32, with the multiply-adds fused, as the compiled
+    ``jax.image.resize`` computes it (within 2.4e-7 of it)."""
+    f32 = np.float32
+    kernel = _RESIZE_KERNELS[method]
+    inv_scale = f32(1.0 / (out_size / in_size))  # in float64 first, as JAX takes it
+    sample = _fma(np.arange(out_size, dtype=f32) + f32(0.5), inv_scale, f32(-0.5))
+    dist = np.abs(sample[None, :] - np.arange(in_size, dtype=f32)[:, None])
+    w = kernel(dist / max(inv_scale, f32(1.0)))
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > f32(1000.0) * np.finfo(f32).eps,
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    m = np.ascontiguousarray(np.where(inside[None, :], w, f32(0.0)).T.astype(f32))
+    m.setflags(write=False)
+    return m
+
+
+@functools.lru_cache(maxsize=None)
+def _resize_tensor(in_size: int, out_size: int, method: str, device: torch.device,
+                   dtype: torch.dtype) -> torch.Tensor:
+    return torch.from_numpy(resize_matrix(in_size, out_size, method).copy()).to(device, dtype)
+
+
+def _resize_operator(in_size: int, out_size: int, method: str,
+                     like: torch.Tensor) -> torch.Tensor:
+    """``resize_matrix`` on ``like``'s device and dtype, copied there once."""
+    return _resize_tensor(in_size, out_size, method, like.device, like.dtype)
+
+
+def resize_separable(x: torch.Tensor, size: int, method: str = "bilinear") -> torch.Tensor:
+    """Resize [B, C, H, W] to [B, C, size, size] as two products with 1-D
+    operators (``resize_matrix``): rows (H) first, then columns (W)."""
+    h, w = x.shape[-2:]
+    if (h, w) == (size, size):
+        return x
+    rh = _resize_operator(h, size, method, x)
+    rw = _resize_operator(w, size, method, x)
+    return torch.matmul(torch.matmul(rh, x), rw.t())
+
+
+def resize_bilinear(x: torch.Tensor, size: int) -> torch.Tensor:
+    return resize_separable(x, size, "bilinear")
+
+
+def resize_bicubic_pil(x: torch.Tensor, size: int) -> torch.Tensor:
+    """Bicubic resize of [0, 1] pixels in PIL's pass order: columns (W)
+    first, then rows (H), with a [0, 1] clip after each pass, as PIL stores
+    each pass as uint8. Square inputs (the caller checks)."""
+    h, w = x.shape[-2:]
+    if (h, w) == (size, size):
+        return x
+    rw = _resize_operator(w, size, "bicubic", x)
+    rh = _resize_operator(h, size, "bicubic", x)
+    x = torch.matmul(x, rw.t()).clamp(0.0, 1.0)
+    return torch.matmul(rh, x).clamp(0.0, 1.0)
+
+
+def center_crop(x: torch.Tensor, size: int) -> torch.Tensor:
+    """torchvision ``CenterCrop(size)`` of [B, C, H, W]: offsets
+    ``int(round((H - size) / 2))`` per axis (round half to even)."""
+    h, w = x.shape[-2:]
+    top, left = int(round((h - size) / 2.0)), int(round((w - size) / 2.0))
+    return x[..., top:top + size, left:left + size]

@@ -16,7 +16,11 @@ Kernels keep the flax layouts in the port ([in, out] for ``Dense``;
 [E, H, D] for the attention's query/key/value and [H, D, E] for its out
 projection; [kH, kW, I, O] for the convolutions of SpectreBranch's
 feature extractor), so no array is transposed. Missing or extra keys and any shape mismatch raise. The mix
-tables are copied, never resampled.
+tables are copied, never resampled. The distillation teacher
+(``distill/teacher.py``) carries the flax names too, so the variables of the
+JAX package's ``DinoClassifier`` load into the port's as they are
+(``backbone/block_<i>/attn/query/kernel`` [E, H, D], ``ls1_gamma``,
+``decoder/kernel``, ...).
 
 A JAX ``TrainState`` carries over as ``load_flax_variables(state.model,
 {"params": jax_state.params, "buffers": jax_state.buffers})``: the port's

@@ -28,13 +28,17 @@ from spectre_tpu_torch.ops.kernels.fused_block_bwd import (
     fused_block_bwd_wmma_fma,
 )
 from spectre_tpu_torch.ops.kernels.fused_linear import (
+    backward_kernel,
     forward_kernel,
     fused_spectre_linear,
     fused_spectre_linear_bwd,
     fused_spectre_linear_bwd_plain,
+    fused_spectre_linear_bwd_wide,
     fused_spectre_linear_grad,
     fused_spectre_linear_plain,
     fused_spectre_linear_wgmma,
+    fused_spectre_linear_wide_wgmma,
+    fused_spectre_linear_wide_wmma_fma,
     fused_spectre_linear_wmma_fma,
 )
 from spectre_tpu_torch.ops.kernels.fwht import fwht, fwht_grad, fwht_plain
@@ -56,12 +60,14 @@ from spectre_tpu_torch.ops.kernels.structured_mix import (
 )
 
 # kernel 2's forward and kernel 5 count each call in their wrapper and again
-# in the kernel it launched (the ``_wgmma`` and ``_wmma_fma`` entries)
+# in the kernel it launched (the ``_wgmma`` and ``_wmma_fma`` entries);
+# kernel 2's backward counts a wide chain again in ``_bwd_wide``
 KERNELS = (block_scatter_rows, block_gather_sum, inverse_gather_sum, fused_spectre_linear,
            fused_spectre_linear_bwd, fused_block_bwd, flash_attention_fwd, flash_attention_bwd,
            fwht, structured_mix, structured_mix_bwd, routed_gather_sum,
            fused_spectre_linear_wgmma, fused_spectre_linear_wmma_fma, fused_block_bwd_wgmma,
-           fused_block_bwd_wmma_fma)
+           fused_block_bwd_wmma_fma, fused_spectre_linear_wide_wgmma,
+           fused_spectre_linear_wide_wmma_fma, fused_spectre_linear_bwd_wide)
 
 
 def reset_launch_counts() -> None:
@@ -75,6 +81,7 @@ def launch_counts() -> dict[str, int]:
 
 __all__ = [
     "KERNELS",
+    "backward_kernel",
     "block_bwd_kernel",
     "block_gather_sum",
     "block_gather_sum_plain",
@@ -94,9 +101,12 @@ __all__ = [
     "fused_spectre_linear",
     "fused_spectre_linear_bwd",
     "fused_spectre_linear_bwd_plain",
+    "fused_spectre_linear_bwd_wide",
     "fused_spectre_linear_grad",
     "fused_spectre_linear_plain",
     "fused_spectre_linear_wgmma",
+    "fused_spectre_linear_wide_wgmma",
+    "fused_spectre_linear_wide_wmma_fma",
     "fused_spectre_linear_wmma_fma",
     "fwht",
     "fwht_grad",

@@ -45,6 +45,12 @@ _SIGNATURES = {
     "fused_spectre_linear_bwd_chain": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _LL, _LL, _LL, ctypes.c_float, _P),
     "fused_spectre_linear_wgmma": (_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, ctypes.c_float, _P),
+    "fused_spectre_linear_wide_wgmma": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL,
+                                        ctypes.c_float, _P),
+    "fused_spectre_linear_wide_wmma_fma": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P,
+                                           _LL, _LL, _LL, ctypes.c_float, _P),
+    "fused_spectre_linear_bwd_wide": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                      _LL, _LL, _LL, ctypes.c_float, _P),
     "fused_block_bwd": (ctypes.c_int, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P),
     "fused_block_bwd_wgmma": (_P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P),
     "fwht": (_P, _P, _LL, _LL, ctypes.c_float, ctypes.c_int, _P),

@@ -9,8 +9,13 @@ the TPU kernel ``spectre_tpu/ops/pallas/fused_linear.py::fused_spectre_linear``)
 ``fused_spectre_linear_wgmma``, bf16 on Hopper's wgmma + TMA mainloop
 (``csrc/wgmma_gemm.cuh``), and ``fused_spectre_linear_wmma_fma``, float32 on
 the FP32 pipes (exact float32, no TF32) and bf16 on WMMA.
-``forward_kernel`` decides which one a call launches, from what it can see:
-the dtype, K and N, and the alignment of the operands.
+Above N = 1,024, where a block can no longer hold a whole output row, two
+more take any N in two passes (a column-tiled product into a float32
+workspace, then a row kernel for LayerNorm, GELU and the residual):
+``fused_spectre_linear_wide_wgmma`` (bf16 that TMA can describe) and
+``fused_spectre_linear_wide_wmma_fma`` (the rest). ``forward_kernel``
+decides which one a call launches, from what it can see: the dtype, K and
+N, and the alignment of the operands.
 
 With ``save_h`` the kernel also writes the pre-LayerNorm activation
 ``h = x @ W + b`` in x's dtype. ``fused_spectre_linear_grad`` is the
@@ -29,7 +34,9 @@ with float32 sums (the JAX package multiplies float32 operands at the
 TPU's default precision, which is not float32 either); in float32
 everything is float32, the products true float32 (no TF32). dgamma, dbeta
 and db are float32 sums (db of the unrounded dh), each gradient cast once
-to its tensor's dtype.
+to its tensor's dtype. The chain kernel holds a row in a warp's registers up
+to N = 1,024; above, ``fused_spectre_linear_bwd_wide`` walks the row in
+chunks (``backward_kernel``).
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises. There is no fallback from a CUDA tensor to the plain path.
@@ -46,7 +53,9 @@ import torch.nn.functional as F
 from spectre_tpu_torch.ops.kernels.build import check, current_stream, load_library
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_N = 1024  # one block owns a whole output row (csrc/fused_spectre_linear.cu)
+# up to this N one block owns a whole output row and one warp a row of the
+# backward's chain; above, the wide kernels (csrc/fused_spectre_linear*.cu)
+ROW_N = 1024
 # the wgmma kernel's 64 x N float32 sums live in registers: 64 N of an SM's 65,536
 WGMMA_MAX_N = 768
 BWD_BLOCKS_PER_SM = 3  # the chain kernel's blocks an SM (csrc/fused_spectre_linear_bwd.cu)
@@ -86,16 +95,17 @@ def _validate(x, w, b, gamma, beta) -> None:
 
 def forward_kernel(dtype: torch.dtype, k: int, n: int, aligned: bool = True) -> str:
     """The name of the CUDA kernel that runs a forward with W [k, n] on the
-    card: ``fused_spectre_linear_wgmma`` for bfloat16 where TMA can describe
-    the operands (k and n multiples of 8, ``aligned``: x and W 16-byte
-    aligned) and n <= WGMMA_MAX_N, else
-    ``fused_spectre_linear_wmma_fma`` (float32 stays exact float32; the
-    head's n = 100 makes 200-byte rows of W, which TMA cannot stride).
-    Raises for n > MAX_N, which no kernel takes."""
-    if n > MAX_N:
-        raise ValueError(f"fused_spectre_linear kernel takes N <= {MAX_N}, got {n}")
-    if (dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 and n <= WGMMA_MAX_N
-            and aligned):
+    card. Where TMA can describe the operands (bfloat16, k and n multiples
+    of 8, ``aligned``: x and W 16-byte aligned): ``fused_spectre_linear_wgmma``
+    for n <= WGMMA_MAX_N, ``fused_spectre_linear_wide_wgmma`` for n > ROW_N.
+    Else ``fused_spectre_linear_wmma_fma`` up to ROW_N and
+    ``fused_spectre_linear_wide_wmma_fma`` above (float32 stays exact
+    float32; the head's n = 100 makes 200-byte rows of W, which TMA cannot
+    stride)."""
+    tma = dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 and aligned
+    if n > ROW_N:
+        return "fused_spectre_linear_wide_wgmma" if tma else "fused_spectre_linear_wide_wmma_fma"
+    if tma and n <= WGMMA_MAX_N:
         return "fused_spectre_linear_wgmma"
     return "fused_spectre_linear_wmma_fma"
 
@@ -124,17 +134,54 @@ def fused_spectre_linear_wmma_fma(x, w, b, gamma, beta, out, h, eps: float) -> N
     fused_spectre_linear_wmma_fma.launches += 1
 
 
-fused_spectre_linear_wgmma.launches = 0
-fused_spectre_linear_wmma_fma.launches = 0
-_FORWARD_KERNELS = {fn.__name__: fn for fn in (fused_spectre_linear_wgmma,
-                                               fused_spectre_linear_wmma_fma)}
+def _wide_workspace(x, h, n):
+    """The float32 [rows, n] workspace of a wide kernel's two passes: h
+    itself when a float32 call saves it (then the row pass need not write
+    h), else a new tensor for this call. Returns (workspace, h for the row
+    pass)."""
+    if h is not None and h.dtype == torch.float32:
+        return h, None
+    return torch.empty((x.numel() // x.shape[-1], n), dtype=torch.float32, device=x.device), h
+
+
+def fused_spectre_linear_wide_wgmma(x, w, b, gamma, beta, out, h, eps: float) -> None:
+    """Launch the bf16 two-pass kernel (wgmma product, then the row pass) for
+    any N on checked operands of the current device."""
+    k, n = w.shape
+    work, h = _wide_workspace(x, h, n)
+    err = load_library().fused_spectre_linear_wide_wgmma(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        out.data_ptr(), None if h is None else h.data_ptr(), work.data_ptr(), x.numel() // k,
+        k, n, eps, current_stream(x.get_device()))
+    check(err, "fused_spectre_linear_wide_wgmma launch")
+    fused_spectre_linear_wide_wgmma.launches += 1
+
+
+def fused_spectre_linear_wide_wmma_fma(x, w, b, gamma, beta, out, h, eps: float) -> None:
+    """Launch the float32 / WMMA two-pass kernel (tiled product, then the row
+    pass) for any N on checked operands of the current device."""
+    k, n = w.shape
+    work, h = _wide_workspace(x, h, n)
+    err = load_library().fused_spectre_linear_wide_wmma_fma(
+        _DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
+        beta.data_ptr(), out.data_ptr(), None if h is None else h.data_ptr(), work.data_ptr(),
+        x.numel() // k, k, n, eps, current_stream(x.get_device()))
+    check(err, "fused_spectre_linear_wide_wmma_fma launch")
+    fused_spectre_linear_wide_wmma_fma.launches += 1
+
+
+_FORWARD_KERNELS = {fn.__name__: fn for fn in (
+    fused_spectre_linear_wgmma, fused_spectre_linear_wmma_fma, fused_spectre_linear_wide_wgmma,
+    fused_spectre_linear_wide_wmma_fma)}
+for _fn in _FORWARD_KERNELS.values():
+    _fn.launches = 0
 
 
 def fused_spectre_linear(x, w, b, gamma, beta, eps: float = 1e-5, save_h: bool = False):
     """GELU(LN(x @ w + b)) (+ x when K == N); leading axes of x are rows.
     With ``save_h`` returns ``(out, h)``, h = x @ w + b in x's dtype. Not
     differentiable: ``fused_spectre_linear_grad`` is. On the card it
-    launches the kernel ``forward_kernel`` names; ``launches`` counts both."""
+    launches the kernel ``forward_kernel`` names; ``launches`` counts all four."""
     _validate(x, w, b, gamma, beta)
     if x.device.type == "cpu":
         return fused_spectre_linear_plain(x, w, b, gamma, beta, eps, save_h)
@@ -216,10 +263,28 @@ def _bwd_grid(device_index: int) -> int:
     return BWD_BLOCKS_PER_SM * sms
 
 
+def backward_kernel(n: int) -> str:
+    """The C entry point of the chain a backward with N = ``n`` launches: a
+    row in a warp's registers up to ROW_N, else walked in chunks by a block."""
+    return "fused_spectre_linear_bwd_chain" if n <= ROW_N else "fused_spectre_linear_bwd_wide"
+
+
+def fused_spectre_linear_bwd_wide(*args) -> None:
+    """Launch the chain for N > ROW_N (the arguments of the C entry point)."""
+    check(load_library().fused_spectre_linear_bwd_wide(*args),
+          "fused_spectre_linear_bwd_wide launch")
+    fused_spectre_linear_bwd_wide.launches += 1
+
+
+fused_spectre_linear_bwd_wide.launches = 0
+
+
 def fused_spectre_linear_bwd(x, w, gamma, beta, h, g, eps: float = 1e-5):
     """(dx, dw, db, dgamma, dbeta) of ``fused_spectre_linear`` from the saved
-    pre-LN ``h`` and the cotangent ``g``: the chain kernel, then the two
-    products (bf16 operands and float32 sums for bf16 inputs)."""
+    pre-LN ``h`` and the cotangent ``g``: the chain kernel
+    (``backward_kernel``), then the two products (bf16 operands and float32
+    sums for bf16 inputs). ``launches`` counts both chains,
+    ``fused_spectre_linear_bwd_wide.launches`` the wide one."""
     _bwd_validate(x, w, gamma, beta, h, g)
     if x.device.type == "cpu":
         return fused_spectre_linear_bwd_plain(x, w, gamma, beta, h, g, eps)
@@ -228,8 +293,6 @@ def fused_spectre_linear_bwd(x, w, gamma, beta, h, g, eps: float = 1e-5):
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"fused_spectre_linear_bwd takes float32 or bfloat16, not {x.dtype}")
     k, n = w.shape
-    if n > MAX_N:
-        raise ValueError(f"fused_spectre_linear_bwd kernel takes N <= {MAX_N}, got {n}")
     if not all(t.is_contiguous() for t in (x, w, gamma, beta, h, g)):
         raise ValueError("fused_spectre_linear_bwd needs contiguous operands")
     dev = x.get_device()
@@ -246,11 +309,14 @@ def fused_spectre_linear_bwd(x, w, gamma, beta, h, g, eps: float = 1e-5):
         blocks = min(m, _bwd_grid(dev))
         partial = torch.empty((blocks, 3, n), dtype=torch.float32, device=x.device)
         at, step = sums.data_ptr(), n * sums.element_size()
-        err = load_library().fused_spectre_linear_bwd_chain(
-            _DTYPE_CODES[x.dtype], h.data_ptr(), g.data_ptr(), gamma.data_ptr(),
-            beta.data_ptr(), dh.data_ptr(), at, at + step, at + 2 * step, partial.data_ptr(),
-            m, n, blocks, eps, current_stream(dev))
-        check(err, "fused_spectre_linear_bwd_chain launch")
+        args = (_DTYPE_CODES[x.dtype], h.data_ptr(), g.data_ptr(), gamma.data_ptr(),
+                beta.data_ptr(), dh.data_ptr(), at, at + step, at + 2 * step,
+                partial.data_ptr(), m, n, blocks, eps, current_stream(dev))
+        if backward_kernel(n) == "fused_spectre_linear_bwd_wide":
+            fused_spectre_linear_bwd_wide(*args)
+        else:
+            check(load_library().fused_spectre_linear_bwd_chain(*args),
+                  "fused_spectre_linear_bwd_chain launch")
         fused_spectre_linear_bwd.launches += 1
     if x.dtype == torch.bfloat16:  # float32 sums, one rounding
         dw = torch.mm(x2.t(), dh, out_dtype=torch.float32).to(w.dtype)

@@ -14,6 +14,8 @@ any config with ``--config``), and single kernels beside what they replace.
     python -m spectre_tpu_torch.repl.perf fwht [--iters 30]
     python -m spectre_tpu_torch.repl.perf linear-bwd [--batch 256 1024] [--iters 30]
     python -m spectre_tpu_torch.repl.perf linear-fwd [--batch 256 1024] [--iters 30]
+    python -m spectre_tpu_torch.repl.perf distill --config spectre_tpu_torch/configs/distill_cifar100.py
+        [--batch 256] [--out build/perf_distill.json]
 
 Needs a CUDA card. ``attention`` and ``structured`` (the counterparts of the
 JAX package's ``repl/perf.py attention`` and ``mixer``) time the attention
@@ -48,7 +50,10 @@ shapes, writing h as the trainer does: the kernel ``forward_kernel`` picks
 (the wgmma kernel; the float32/WMMA kernel for the head's N = 100) beside the
 float32/WMMA kernel and the cuBLAS chain ``gelu(layer_norm(addmm(b, x, w)))``
 (a yardstick the port does not call), both ways, with its bound, and prints
-the kernel's largest difference from the plain version.
+the kernel's largest difference from the plain version. ``distill`` (with a
+distillation config) times the teacher's view and forward, the distill step
+with the cached teacher logits and the step with the teacher inside, each by
+CUDA events with its device time by group and by kernel.
 
 The default mode builds, for each batch size, the config's trainer (synthetic
 data, the trainer's augmentation for the config's dataset inside the step,
@@ -147,6 +152,9 @@ _GROUPS = (
     ("fused_spectre_linear_kernel", "kernel 2 fused_spectre_linear_fwd"),
     ("fused_linear_wgmma_kernel", "kernel 2 fused_spectre_linear_fwd"),
     ("chain_kernel", "kernel 2's backward chain (fused_spectre_linear_bwd)"),
+    ("chain_wide_kernel", "kernel 2's backward chain (fused_spectre_linear_bwd)"),
+    ("wide_product", "kernel 2 fused_spectre_linear_fwd"),
+    ("wide_row_kernel", "kernel 2 fused_spectre_linear_fwd"),
     ("column_sum_kernel", "kernel 2's backward chain (fused_spectre_linear_bwd)"),
     ("flash_attention_fwd_kernel", "kernel 8 flash_attention_fwd"),
     ("flash_attention_bwd_kernel", "kernel 9 flash_attention_bwd"),
@@ -157,7 +165,7 @@ _GROUPS = (
     ("cutlass", "matrix products, bf16"), ("gemv", "matrix products, bf16"),
     ("multi_tensor_apply", "optimizer (foreach)"),
     ("layer_norm", "LayerNorm"), ("LayerNorm", "LayerNorm"),
-    ("reduce_kernel", "reductions"),
+    ("reduce_kernel", "reductions"), ("SoftMax", "softmax"),
     ("elementwise", "elementwise (casts, signs, adds, GELU chain, dropout)"),
 )
 
@@ -213,23 +221,69 @@ def profile_steps(cfg, batch: int) -> dict:
     res["noncontiguous_cotangents"] = [e for e in log if not e[1]]
     res["cotangents_seen"] = len(log)
 
-    n = 3
-    rows, span = kernel_rows(lambda: step(state, x, y), n)
+    res.update(device_breakdown(lambda: step(state, x, y), res["events_ms_median"]))
+    return res
+
+
+def device_breakdown(fn, events_ms: float, n: int = 3) -> dict:
+    """``torch.profiler`` over ``n`` calls of ``fn``: kernel time a call by
+    group and for the largest kernels by name, and the idle share against
+    the profiled span and against ``events_ms``, the unprofiled call."""
+    rows, span = kernel_rows(fn, n)
     device_ms = sum(r[2] for r in rows)
     groups: dict[str, list] = {}
     for key, count, ms in rows:
         g = groups.setdefault(_group(key), [0, 0.0])
         g[0] += count
         g[1] += ms
-    res.update(profiled_span_ms_per_step=span / n, device_ms_per_step=device_ms / n,
-               idle_share_profiled=1.0 - device_ms / span,
-               # the profiler slows the host: against the unprofiled step time.
-               # Not clamped: a negative share means the kernel rows were miscounted
-               idle_share=1.0 - device_ms / n / res["events_ms_median"],
-               by_group={k: {"launches_per_step": c / n, "ms_per_step": ms / n}
-                         for k, (c, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1])},
-               by_kernel=[{"name": k[:110], "launches_per_step": c / n, "ms_per_step": ms / n}
-                          for k, c, ms in rows[:14]])
+    return dict(profiled_span_ms_per_step=span / n, device_ms_per_step=device_ms / n,
+                idle_share_profiled=1.0 - device_ms / span,
+                # the profiler slows the host: against the unprofiled call's time.
+                # Not clamped: a negative share means the kernel rows were miscounted
+                idle_share=1.0 - device_ms / n / events_ms,
+                by_group={k: {"launches_per_step": c / n, "ms_per_step": ms / n}
+                          for k, (c, ms) in sorted(groups.items(), key=lambda kv: -kv[1][1])},
+                by_kernel=[{"name": k[:110], "launches_per_step": c / n, "ms_per_step": ms / n}
+                           for k, c, ms in rows[:14]])
+
+
+def distill_profile(cfg, batch: int) -> dict:
+    """The distill config's teacher (its view and forward) and its step, with
+    the cached logits and with the teacher in the step: CUDA-event times
+    (median of 5 after 2 warm-up calls) and each one's device breakdown."""
+    from spectre_tpu_torch.data import make_train_augment
+    from spectre_tpu_torch.distill import make_teacher_view, teacher_from_config
+    from spectre_tpu_torch.train import make_distill_step
+    from spectre_tpu_torch.train.loop import create_trainer, dataset_stats
+
+    t_size = int(getattr(cfg, "teacher_img_size", 224))
+    teacher = teacher_from_config(cfg, t_size, "cuda")
+    view = make_teacher_view(t_size, in_ch=int(cfg.in_channels),
+                             mode=str(getattr(cfg, "teacher_view", "imagenet")))
+    x, y = (torch.from_numpy(a).cuda() for a in synthetic_batch(cfg.dataset, batch))
+
+    def teacher_logits():
+        with torch.inference_mode():
+            return teacher(view(x))
+
+    state = create_trainer(cfg, "cuda", steps_per_epoch=16)
+    alpha = float(getattr(cfg, "distill_alpha", 0.25))
+    step = make_distill_step(
+        make_train_augment(*dataset_stats(cfg.dataset), jitter=int(cfg.in_channels) == 3),
+        float(getattr(cfg, "distill_temperature", 2.0)), alpha, 1.0 - alpha,
+        getattr(cfg, "grad_clip_norm", None))
+    cached = teacher_logits().clone()
+    res = {"batch": batch}
+    for name, fn in (("teacher", teacher_logits),
+                     ("step_cached", lambda: step(state, x, cached, y)),
+                     ("step_recompute", lambda: step(state, x, teacher_logits().clone(), y))):
+        for _ in range(2):
+            fn()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ev = statistics.median(_events_ms(fn, 5))
+        res[name] = {"events_ms_median": ev, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                     **device_breakdown(fn, ev)}
     return res
 
 
@@ -578,7 +632,7 @@ def main(argv=None) -> dict:
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("mode", nargs="?", default="train",
                    choices=("train", "fused-bwd", "attention", "structured", "routed", "fwht",
-                            "linear-bwd", "linear-fwd"))
+                            "linear-bwd", "linear-fwd", "distill"))
     p.add_argument("--config", default=FLAGSHIP)
     p.add_argument("--batch", type=int, nargs="*", default=[256, 1024])
     p.add_argument("--mix-block", type=int, default=None, help="override the config's mix_block")
@@ -611,6 +665,24 @@ def main(argv=None) -> dict:
         return {"card": card, "linear_bwd": linear_bwd(args)}
     if args.mode == "linear-fwd":
         return {"card": card, "linear_fwd": linear_fwd(args)}
+    if args.mode == "distill":
+        out = {"card": card, "distill": [distill_profile(cfg, b) for b in args.batch]}
+        for r in out["distill"]:
+            for name in ("teacher", "step_cached", "step_recompute"):
+                t = r[name]
+                print(f"distill B={r['batch']} {name}: {t['events_ms_median']:.2f} ms by CUDA "
+                      f"events, {t['device_ms_per_step']:.2f} ms of kernels (idle share "
+                      f"{t['idle_share']:.3f}), peak {t['peak_gb']:.2f} GB", flush=True)
+                for group, g in t["by_group"].items():
+                    print(f"  {g['ms_per_step']:8.3f} ms  x{g['launches_per_step']:6.1f}  "
+                          f"{group}", flush=True)
+                for row in t["by_kernel"][:8]:
+                    print(f"    {row['ms_per_step']:8.3f} ms  x{row['launches_per_step']:6.1f}  "
+                          f"{row['name']}", flush=True)
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as fh:
+            json.dump(out, fh, indent=1)
+        return out
     folded = (getattr(cfg, "model", "spectre_vit") == "spectre_vit"
               and getattr(cfg, "method", "permut_mix") == "permut_mix"
               and getattr(cfg, "mix_impl", "gather") == "folded")

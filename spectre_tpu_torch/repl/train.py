@@ -12,8 +12,10 @@ when no CUDA device is present. The dataset is read from ``data_dir``,
 or always with ``--synthetic``). Metric files and a checkpoint per epoch go
 under ``<checkpoint_dir>/<experiment name>/`` unless ``--no-checkpoint``;
 ``--resume`` continues from the latest checkpoint there, and a SIGTERM or
-SIGINT finishes the current step, saves and stops. ``--multihost`` and a
-config with ``use_distillation = True`` raise with a pointer to ROADMAP.md.
+SIGINT finishes the current step, saves and stops. A config with
+``use_distillation = True`` runs the distill loop
+(``distill/loop.py::distill_from_config``, as ``repl/distill.py`` does);
+``--multihost`` raises with a pointer to ROADMAP.md.
 """
 
 from __future__ import annotations
@@ -50,7 +52,15 @@ def main(argv=None):
 
     config = apply_overrides(parse_config(args.config), args.set)
     if getattr(config, "use_distillation", False):
-        raise NotImplementedError("distillation is not ported yet (ROADMAP.md, queue A10)")
+        from spectre_tpu_torch.distill import distill_from_config
+
+        result = distill_from_config(
+            config, device=device, max_steps=args.steps, synthetic=args.synthetic,
+            teacher_img_size=int(getattr(config, "teacher_img_size", 224)), resume=args.resume,
+            checkpoint=not args.no_checkpoint)
+        print(f"distill done: step {result.state.step} loss {result.metrics['loss']:.4f} -> "
+              f"{result.logdir}", flush=True)
+        return result
     result = train_from_config(config, device=device, max_steps=args.steps,
                                synthetic=args.synthetic, resume=args.resume,
                                checkpoint=not args.no_checkpoint)

@@ -6,6 +6,10 @@ learning rate. Activations run in the model's compute dtype over float32
 master parameters (the modules cast per call; no autocast, no loss scaling:
 bf16 has float32's range). Metrics are device tensors; callers read them on
 the host once per epoch, not per step.
+
+The distillation step is the same update on ``distill_loss``: soft-target
+KL at temperature T (times T^2) against the frozen teacher's logits,
+weighted ``kd_weight``, plus cross-entropy weighted ``ce_weight``.
 """
 
 from __future__ import annotations
@@ -22,6 +26,21 @@ from spectre_tpu_torch.train.state import TrainState
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean softmax cross-entropy with integer labels."""
     return F.cross_entropy(logits.float(), labels.long())
+
+
+def distill_loss(student_logits: torch.Tensor, teacher_logits: torch.Tensor,
+                 labels: torch.Tensor, temperature: float = 2.0, kd_weight: float = 0.25,
+                 ce_weight: float = 0.75) -> tuple[torch.Tensor, dict]:
+    """``kd_weight * KD + ce_weight * CE``, KD = T^2 mean_B sum_c p_T (log p_T
+    - log p_S) with both softmaxes at T in float32 whatever the logits'
+    dtype; the teacher's logits are detached. Returns (loss, {"loss_dist":
+    KD, "loss_ce": CE})."""
+    t = float(temperature)
+    log_p_s = F.log_softmax(student_logits.float() / t, dim=-1)
+    log_p_t = F.log_softmax(teacher_logits.detach().float() / t, dim=-1)
+    kd = (t * t) * (log_p_t.exp() * (log_p_t - log_p_s)).sum(dim=-1).mean()
+    ce = cross_entropy_loss(student_logits, labels)
+    return kd_weight * kd + ce_weight * ce, {"loss_dist": kd, "loss_ce": ce}
 
 
 def _accuracy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -83,6 +102,37 @@ def make_train_step(augment_fn: Callable | None = None, grad_accum_steps: int = 
         return metrics
 
     return train_step
+
+
+def make_distill_step(augment_fn: Callable | None = None, temperature: float = 2.0,
+                      kd_weight: float = 0.25, ce_weight: float = 0.75,
+                      grad_clip_norm: float | None = None) -> Callable:
+    """Build ``distill_step(state, images, teacher_logits, labels) ->
+    metrics``: the student's forward in train mode on ``images`` (through
+    ``augment_fn(generator, images)`` first when given, its draws from the
+    state's generator), ``distill_loss`` against ``teacher_logits``, and the
+    update of ``make_train_step``. Metrics ``loss``, ``accuracy``,
+    ``loss_dist`` and ``loss_ce`` stay on the device."""
+
+    def distill_step(state: TrainState, images: torch.Tensor, teacher_logits: torch.Tensor,
+                     labels: torch.Tensor) -> dict:
+        model = state.model
+        state.optimizer.zero_grad(set_to_none=True)
+        if augment_fn is not None:
+            images = augment_fn(state.dropout_generator, images)
+        logits = model(images)
+        loss, parts = distill_loss(logits, teacher_logits, labels, temperature, kd_weight,
+                                   ce_weight)
+        loss.backward()
+        if grad_clip_norm:
+            clip_by_global_norm_(model.parameters(), float(grad_clip_norm))
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
+        return {"loss": loss.detach(), "accuracy": _accuracy(logits.detach(), labels),
+                **{k: v.detach() for k, v in parts.items()}}
+
+    return distill_step
 
 
 def make_eval_step(model: torch.nn.Module) -> Callable:

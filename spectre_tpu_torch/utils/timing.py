@@ -15,16 +15,20 @@ import time
 
 import torch
 
-# published peaks of one H100 SXM: device memory rate, dense bf16 tensor-core rate
+# published peaks of one H100 SXM: device memory rate, dense bf16 tensor-core
+# rate, float32 outside the tensor cores
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
 
 
-def bound_ms(n_bytes: float, flops: float = 0.0) -> tuple[float, str]:
+def bound_ms(n_bytes: float, flops: float = 0.0,
+             flops_per_s: float = BF16_FLOPS) -> tuple[float, str]:
     """The least time (ms) the card could take: the larger of the bytes over
-    the memory rate and the operations over the bf16 tensor-core rate, and
-    which of the two it is."""
-    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    the memory rate and the operations over their type's peak rate (bf16
+    tensor cores unless ``flops_per_s`` says otherwise), and which of the
+    two it is."""
+    by_bytes, by_ops = n_bytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 

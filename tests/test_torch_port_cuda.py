@@ -35,6 +35,7 @@ from spectre_tpu_torch.ops.kernels import (
     fused_spectre_linear,
     fused_spectre_linear_bwd,
     fused_spectre_linear_bwd_plain,
+    fused_spectre_linear_bwd_wide,
     fused_spectre_linear_grad,
     fused_spectre_linear_plain,
     flash_attention,
@@ -251,6 +252,52 @@ def test_fused_spectre_linear_wgmma_kernel_is_bitwise_repeatable(cuda_device, m,
         assert torch.equal(a, b)
 
 
+# kernel 2 at N > 1,024 (the two-pass wide kernels): K == N (the identity
+# residual), K != N, N not a multiple of 8 (bf16 then on the WMMA product),
+# ragged rows and ragged column tiles; out and h against the plain version
+# (which normalises the float32 sums, as the row pass does) under the limits
+# of the one-pass kernels, and two runs bitwise equal
+@pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("m,k,n", [(4160, 1536, 1536), (4160, 768, 2048), (195, 768, 1100),
+                                   (70, 40, 1032), (9, 1100, 1100)])
+def test_fused_spectre_linear_wide_kernels_match_plain(cuda_device, dtype, atol, m, k, n):
+    args = [torch.from_numpy(a).to(cuda_device, dtype)
+            for a in _linear_case(m, k, n, seed=m + k + n)]
+    name = forward_kernel(dtype, k, n)
+    assert name.startswith("fused_spectre_linear_wide_")
+    n0 = launch_counts()
+    got, h = fused_spectre_linear(*args, save_h=True)
+    out_only = fused_spectre_linear(*args)
+    again = fused_spectre_linear(*args, save_h=True)
+    torch.cuda.synchronize()
+    n1 = launch_counts()
+    assert n1[name] - n0[name] == 3 and n1["fused_spectre_linear"] - n0["fused_spectre_linear"] == 3
+    want, want_h = fused_spectre_linear_plain(*args, save_h=True)
+    assert torch.equal(got, out_only) and torch.equal(got, again[0]) and torch.equal(h, again[1])
+    assert (got.float() - want.float()).abs().max().item() <= atol
+    assert (h.float() - want_h.float()).abs().max().item() <= atol
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)])
+@pytest.mark.parametrize("m,k,n", [(4160, 1536, 1536), (4160, 768, 2048), (195, 768, 1100),
+                                   (33, 40, 1025)])
+def test_fused_spectre_linear_bwd_wide_chain_matches_plain(cuda_device, dtype, rel, m, k, n):
+    """The wide chain (a block a row, the row walked in chunks) against the
+    plain version with the limits of the one-warp chain, two runs bitwise."""
+    args = _bwd_case(m, k, n, dtype, cuda_device, seed=m + n)
+    n0 = fused_spectre_linear_bwd_wide.launches
+    got = fused_spectre_linear_bwd(*args)
+    assert fused_spectre_linear_bwd_wide.launches == n0 + 1
+    for a, b in zip(got, fused_spectre_linear_bwd(*args)):
+        assert torch.equal(a, b)
+    want = fused_spectre_linear_bwd_plain(*args)
+    for name, a, b in zip(("dx", "dw", "db", "dgamma", "dbeta"), got, want):
+        assert a.dtype == b.dtype == dtype and a.shape == b.shape, name
+        scale = b.float().abs().max().item()
+        diff = (a.float() - b.float()).abs().max().item()
+        assert diff <= rel * scale, (name, diff, scale)
+
+
 def _bwd_case(m, k, n, dtype, device, seed=0):
     """x, w, gamma, beta of ``_linear_case`` with a saved h = x @ w + b and a
     cotangent g, in ``dtype`` on ``device``."""
@@ -294,9 +341,11 @@ def test_fused_spectre_linear_bwd_kernel_is_deterministic(cuda_device, dtype):
 
 
 def test_fused_spectre_linear_bwd_refuses_what_the_kernel_does_not_take(cuda_device):
+    # N > 1,024 is no longer refused: the wide chain takes it
     x, w, gamma, beta, h, g = _bwd_case(8, 16, 1040, torch.float32, cuda_device)
-    with pytest.raises(ValueError, match="N <= 1024"):
-        fused_spectre_linear_bwd(x, w, gamma, beta, h, g)
+    n0 = fused_spectre_linear_bwd_wide.launches
+    fused_spectre_linear_bwd(x, w, gamma, beta, h, g)
+    assert fused_spectre_linear_bwd_wide.launches == n0 + 1
     x, w, gamma, beta, h, g = _bwd_case(8, 16, 16, torch.float32, cuda_device)
     with pytest.raises(ValueError, match="contiguous"):
         fused_spectre_linear_bwd(x, w, gamma, beta, h, g.t().contiguous().t())
@@ -671,3 +720,34 @@ def test_small_branch_on_the_card_matches_the_cpu(cuda_device):
     delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     assert delta == {"block_scatter_rows": 2}
     np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-4, rtol=0)
+
+
+def test_small_distill_on_the_card_matches_the_cpu(cuda_device):
+    """A tiny teacher's view and logits, and one distill step of a tiny
+    student on them, in f32 on the card against the CPU: logits within
+    1e-4, the step's loss, KD and CE within 1e-4."""
+    from spectre_tpu_torch.distill import load_teacher, make_teacher_view
+    from spectre_tpu_torch.train import create_train_state, make_distill_step, make_optimizer
+
+    cfg = SimpleNamespace(model="spectre_vit", method="permut_mix", mix_impl="folded",
+                          mix_block=8, img_size=8, patch_size=4, in_channels=3,
+                          num_classes=10, embed_dim=16, num_encoders=2, num_heads=2,
+                          hidden_dim=32, random_seed=0, compute_dtype="float32",
+                          param_dtype="float32", dropout=0.0, epochs=1, learning_rate=1e-3)
+    rng = np.random.default_rng(2)
+    raw = torch.from_numpy(rng.uniform(0, 1, (8, 3, 8, 8)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, 8))
+    metrics = {}
+    for dev in ("cpu", cuda_device):
+        teacher = load_teacher(10, img_size=32, seed=1, embed_dim=32, depth=2, num_heads=2,
+                               num_registers=2, device=dev)
+        with torch.inference_mode():
+            logits = teacher(make_teacher_view(32)(raw.to(dev))).clone()
+        model = build_model(cfg, dev, train=True)
+        state = create_train_state(model, *make_optimizer(cfg, model.parameters(), 4), seed=0)
+        m = make_distill_step()(state, raw.to(dev), logits, y.to(dev))
+        metrics[str(dev)] = (logits.cpu(), {k: float(v) for k, v in m.items()})
+    (lc, mc), (lg, mg) = metrics["cpu"], metrics[str(cuda_device)]
+    np.testing.assert_allclose(lg.numpy(), lc.numpy(), atol=1e-4, rtol=0)
+    for k in ("loss", "loss_dist", "loss_ce"):
+        assert abs(mg[k] - mc[k]) <= 1e-4, k

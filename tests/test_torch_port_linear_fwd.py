@@ -53,8 +53,12 @@ def test_what_tma_or_the_registers_cannot_take_stays_on_the_wmma_fma_kernel(dtyp
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_no_kernel_takes_n_above_1024(dtype):
-    with pytest.raises(ValueError, match="N <= 1024"):
-        forward_kernel(dtype, 512, 1032)
+    """No one-pass kernel takes N > 1,024 (a block holds a whole output
+    row): the two-pass wide kernels do, in both dtypes."""
+    want = ("fused_spectre_linear_wide_wgmma" if dtype == torch.bfloat16
+            else "fused_spectre_linear_wide_wmma_fma")
+    assert forward_kernel(dtype, 512, 1032) == want
+    assert forward_kernel(dtype, 512, 1032) not in (WGMMA, WMMA_FMA)
 
 
 def test_the_cpu_takes_the_plain_version_at_any_n():

@@ -97,7 +97,7 @@ def test_port_parses_the_jax_config_files_identically():
     copies of them (which it reads at run time), give the JAX namespaces."""
     for name in ("default.py", "spectre_vit_cifar100.py", "spectre_vit_mnist.py",
                  "vit_cifar100.py", "vit_mnist.py", "fnet_cifar100.py", "fnet_mnist.py",
-                 "dwt_cifar100.py", "spectre_branch.py"):
+                 "dwt_cifar100.py", "spectre_branch.py", "distill_cifar100.py"):
         want = vars(jax_parse_config(os.path.join(JAX_CONFIGS, name)))
         assert vars(parse_config(os.path.join(JAX_CONFIGS, name))) == want
         assert vars(parse_config(os.path.join(CONFIG_DIR, name))) == want
@@ -240,8 +240,9 @@ def test_model_built_and_bridged_under_inference_mode(tiny_flax):
 def test_unported_variants_raise_with_a_pointer():
     """Nothing of the models is left to port: the token-major gather and
     SpectreBranch build like the rest, and every trainable config in the
-    port's configs/ builds (8 of 8). What the port does not know raises by
-    name: an unknown model, mix impl or mixer method."""
+    port's configs/ builds (8 of 8, and the distillation config's student).
+    What the port does not know raises by name: an unknown model, mix impl
+    or mixer method."""
     assert MHPermutMix(4, 6, 2, 4, impl="gather_tm").impl == "gather_tm"
     with pytest.raises(ValueError, match="unknown model"):
         build_model(tiny_export_cfg(model="resnet"), "cpu")
@@ -257,7 +258,7 @@ def test_unported_variants_raise_with_a_pointer():
             assert build_model(tiny_export_cfg(**over), "cpu")(x).shape == (2, 10), over
     trainable = sorted(n for n in os.listdir(CONFIG_DIR) if n.endswith(".py")
                        and n not in ("__init__.py", "parser.py", "default.py"))
-    assert len(trainable) == 8, trainable
+    assert len(trainable) == 9 and "distill_cifar100.py" in trainable, trainable
     for name in trainable:
         cfg = parse_config(os.path.join(CONFIG_DIR, name))
         cfg.num_encoders, cfg.compute_dtype = 1, "float32"
@@ -301,6 +302,6 @@ def test_port_imports_no_jax():
                 "repl.perf", "ops.kernels.fused_block_bwd", "ops.kernels.attention",
                 "ops.kernels.fwht", "ops.kernels.structured_mix", "ops.hadamard", "ops.dwt",
                 "models.mixers", "models.vit", "ops.routing", "ops.kernels.routed_gather",
-                "models.spectre_branch"):
+                "models.spectre_branch", "distill.teacher", "distill.loop", "repl.distill"):
         assert f"spectre_tpu_torch.{sub}" in names
     assert len(names) >= 48

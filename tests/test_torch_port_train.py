@@ -299,5 +299,9 @@ def test_train_cli_takes_steps_on_the_cpu_and_refuses_cuda_without_a_card(tmp_pa
         assert r.returncode != 0 and "torch.cuda.is_available() is False" in r.stderr
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         train_cli.main(["--device", "cpu", "--multihost", *tiny])
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_cli.main(["--device", "cpu", *tiny, "use_distillation=True"])
+    # a config with use_distillation runs the distill loop (a tiny teacher)
+    r = train_cli.main(["--device", "cpu", *tiny, "use_distillation=True", "teacher_img_size=32",
+                        "teacher_depth=1", "teacher_embed_dim=32", "teacher_num_heads=2",
+                        "teacher_num_registers=2"])
+    assert r.state.step == 3 and np.isfinite(r.metrics["loss"])
+    assert r.logdir.split("/")[-1].startswith("distill_")
