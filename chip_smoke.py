@@ -157,6 +157,35 @@ Phases, each raising on failure (nothing is caught):
    recompute, the teacher's time, the cache pass and peak memory. It runs
    after phase 19.
 
+22. deployment (after phase 8, on phase 7's flagship): a reference-layout
+   state_dict of that model (``models/torch_import.py::reference_state_dict``,
+   on the host as ``torch.load`` gives one) imported into a model of another
+   seed must equal its source bit for bit; ``torch.export`` of it at batch
+   64 in bf16, saved as ``.pt2`` and loaded in this process: the program
+   holds 4 block-scatter and 9 fused-linear nodes, one call launches exactly
+   4 block-scatter, 8 wgmma and 1 f32/WMMA kernels (``launches_export``),
+   its logits are within EXPORT_ATOL of the live model and MODEL_ATOL of
+   the plain path; export, save and load seconds, the file's size, and the
+   program's forward beside the live model's (CUDA events). ``.stw`` at full
+   width: written, read into a model of another seed, the logits bit for
+   bit. ``repl/export.py`` (flagship, batch 2) and ``repl/infer.py
+   --expect`` in fresh processes, exit 0, the runner without model code.
+   The ViT and the structured mix (2 layers) exported: their programs
+   launch B4's forward and B6 (``launches_export_vit``,
+   ``launches_export_structured``) and match their live models within
+   EXPORT_ATOL.
+23. the serving pipeline: the serving CLI's server with 8 concurrent
+   clients, 16 requests of batch 32 each: img/s, p50 and p99 per request,
+   every reply within 1e-3 of a direct forward of its request (alone, or
+   padded to a bucket the batcher could have coalesced it into), exact
+   launches; then an A/B under a load generator in its own processes
+   (8, then 16 clients, each in a process of its own, requests of batch 32
+   back to back for AB_SECONDS) on the shipped server, on one that answers
+   each bucket as it dispatches it (the batcher without the pipeline) and
+   on one that dispatches without waiting for the pending bucket (the
+   pipeline without coalescing), in turns (shipped, unpipelined, no-wait,
+   no-wait, unpipelined, shipped): img/s, p50/p99 and images a bucket.
+
 Prints the card line, one JSON line of per-kernel results, then
 ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero, with no
 result, when CUDA is missing or the port is not beside this script.
@@ -173,12 +202,14 @@ import sys
 import tempfile
 import threading
 import time
+from types import SimpleNamespace
 from unittest import mock
 
 import numpy as np
 import torch
 
-from spectre_tpu_torch.utils.timing import bound_ms as bound, cuda_time_ms, device_time_ms
+from spectre_tpu_torch.utils.timing import bound_ms as bound, cuda_time_ms, device_time_ms, \
+    queued_time_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "spectre_tpu_torch", "configs", "spectre_vit_cifar100.py")
@@ -2224,6 +2255,395 @@ def phase_distill(kernels, parse_config, distill_cli, tmp: str):
     return whole_counts, out
 
 
+EXPORT_BATCH = 64
+# the exported program against the live model: the JAX package's replay
+# limit for bf16 (repl/export.py), the summation order of the folded
+# projection's product being the only difference
+EXPORT_ATOL = 5e-2
+PIPELINE_CLIENTS, PIPELINE_REQUESTS, PIPELINE_BATCH = 8, 16, 32
+AB_SECONDS = 4.0  # each turn of the pipeline A/B
+# one client of the A/B, in a process of its own: the port's client module
+# loaded from its file (numpy and sockets only), four requests drawn once
+# and sent in turn, back to back from a line on stdin for argv[5] seconds
+_AB_CLIENT = r"""
+import importlib.util, json, sys, time
+import numpy as np
+path, port, seed, batch, seconds = sys.argv[1:6]
+spec = importlib.util.spec_from_file_location("spectre_client", path)
+client = importlib.util.module_from_spec(spec)
+spec.loader.exec_module(client)
+rng = np.random.default_rng(int(seed))
+xs = [rng.uniform(0, 1, (int(batch), 3, 32, 32)).astype(np.float32) for _ in range(4)]
+with client.SpectreClient(port=int(port)) as c:
+    for x in xs:
+        c.infer(x)
+    print("READY", flush=True)
+    sys.stdin.readline()
+    ms, t0 = [], time.perf_counter()
+    while time.perf_counter() - t0 < float(seconds):
+        t = time.perf_counter()
+        c.infer(xs[len(ms) % 4])
+        ms.append((time.perf_counter() - t) * 1e3)
+    print(json.dumps({"elapsed": time.perf_counter() - t0, "ms": ms}), flush=True)
+"""
+
+
+def phase_export(kernels, build_model, parse_config, source, tmp: str):
+    """The deployment path at full width in bf16: a reference-layout
+    state_dict of ``source`` (the phase-7 flagship) imported into a model of
+    another seed, ``torch.export`` of it at batch 64, saved and loaded in
+    this process; the loaded program's launches per call, its logits
+    against the live model and the plain path, and its times. Returns
+    (the importer's model, launches of one call of the program, numbers)."""
+    from spectre_tpu_torch.export import export_forward, exported_module, kernel_nodes, \
+        load_exported, save_exported
+    from spectre_tpu_torch.models import import_spectre_vit, reference_state_dict
+
+    cfg = parse_config(CONFIG)
+    # a reference checkpoint as torch.load gives one: keys and layouts of the
+    # reference SpectreViT, tensors on the host
+    sd = {k: v.cpu() for k, v in reference_state_dict(source).items()}
+    model = build_model(SimpleNamespace(**{**vars(cfg), "random_seed": 7}), "cuda")
+    t0 = time.perf_counter()
+    import_spectre_vit(model, sd)
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    bad = [k for k, t in source.state_dict().items() if not torch.equal(model.state_dict()[k], t)]
+    if bad:
+        raise AssertionError(f"export: the reference import differs from its source in {bad[:8]}")
+    x = torch.from_numpy(np.random.default_rng(5).uniform(
+        0, 1, (EXPORT_BATCH, cfg.in_channels, cfg.img_size, cfg.img_size))
+        .astype(np.float32)).cuda()
+    t0 = time.perf_counter()
+    program = export_forward(model, x)
+    export_s = time.perf_counter() - t0
+    path = os.path.join(tmp, "flagship.pt2")
+    t0 = time.perf_counter()
+    save_exported(program, path)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = load_exported(path)
+    fwd = exported_module(loaded)
+    load_s = time.perf_counter() - t0
+    nodes = kernel_nodes(loaded)
+    if nodes != {"block_scatter_rows": cfg.num_encoders,
+                 "fused_spectre_linear": 2 * cfg.num_encoders + 1}:
+        raise AssertionError(f"export: the program's kernel nodes are {nodes}")
+    fwd(x)  # warm-up
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    got = fwd(x)
+    torch.cuda.synchronize()
+    counts, want = kernels.launch_counts(), expected_launches(cfg, forwards=1)
+    if counts != want:
+        raise AssertionError(f"export: one call of the loaded program launched {counts}, "
+                             f"want {want}")
+    with torch.no_grad():
+        live = model(x)
+        with plain_versions(kernels):
+            plain = model(x)
+    torch.cuda.synchronize()
+    ok = tuple(got.shape) == (EXPORT_BATCH, cfg.num_classes) and bool(torch.isfinite(got).all())
+    d_live, d_plain = max_abs_diff(got, live), max_abs_diff(got, plain)
+    if not ok or not d_live <= EXPORT_ATOL or not d_plain <= MODEL_ATOL:
+        raise AssertionError(f"export: logits {tuple(got.shape)} finite {ok}, program vs live "
+                             f"{d_live} (limit {EXPORT_ATOL}), vs plain {d_plain} "
+                             f"(limit {MODEL_ATOL})")
+
+    def live_forward():
+        with torch.inference_mode():
+            return model(x)
+    program_ms = cuda_time_ms(lambda: fwd(x), iters=5, reps=5)
+    live_ms = cuda_time_ms(live_forward, iters=5, reps=5)
+    # the device's own time and the host's to issue a call: 3 calls (a few
+    # hundred launches) fit the launch queue behind the sleep
+    program_dev, program_host = queued_time_ms(lambda: fwd(x), iters=3, reps=5)
+    live_dev, live_host = queued_time_ms(live_forward, iters=3, reps=5)
+    mb = os.path.getsize(path) / 1e6
+    print(f"export: reference state_dict ({len(sd)} keys) imported in {import_s:.3f} s, equal "
+          f"to its source bit for bit; torch.export at batch {EXPORT_BATCH} in {export_s:.2f} s, "
+          f"saved in {save_s:.2f} s ({mb:.1f} MB .pt2), loaded in {load_s:.2f} s; kernel "
+          f"nodes {nodes}; one call launched { {k: v for k, v in counts.items() if v} }; "
+          f"program vs live {d_live:.4g} (limit {EXPORT_ATOL}), vs plain {d_plain:.4g} "
+          f"(limit {MODEL_ATOL}); forward {program_ms:.3f} ms exported, {live_ms:.3f} ms "
+          f"live (CUDA events, median of 5 runs of 5 calls); on the device {program_dev:.3f} "
+          f"and {live_dev:.3f} ms, the host's issue {program_host:.3f} and {live_host:.3f} ms",
+          flush=True)
+    return model, counts, {
+        "import_s": import_s, "export_s": export_s, "save_s": save_s, "load_s": load_s,
+        "pt2_mb": mb, "kernel_nodes": nodes, "max_abs_vs_live": d_live,
+        "max_abs_vs_plain": d_plain, "program_ms_b64": program_ms, "live_ms_b64": live_ms,
+        "program_device_ms_b64": program_dev, "live_device_ms_b64": live_dev,
+        "program_host_ms_b64": program_host, "live_host_ms_b64": live_host}
+
+
+def phase_export_clis(tmp: str) -> dict:
+    """``repl/export.py`` (flagship, batch 2, on the card) and then
+    ``repl/infer.py --expect`` on what it wrote, each a fresh process that
+    must exit 0; the runner must not import the port's model code."""
+    out = os.path.join(tmp, "export_cli")
+    runs = {}
+    for name, args in (
+            ("export", ["-m", "spectre_tpu_torch.repl.export", "--outdir", out, "--batch", "2"]),
+            ("infer", ["-m", "spectre_tpu_torch.repl.infer", "--artifact",
+                       os.path.join(out, "model.pt2"), "--input",
+                       os.path.join(out, "example_input.f32"), "--batch", "2", "--channels",
+                       "3", "--size", "32", "--expect",
+                       os.path.join(out, "example_logits.f32")])):
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, *args], cwd=ROOT, capture_output=True, text=True,
+                           timeout=600)
+        runs[name] = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"export CLIs: {name} exited {r.returncode}:\n"
+                                 f"{r.stdout[-2000:]}\n{r.stderr[-3000:]}")
+        for line in r.stdout.strip().splitlines():
+            print(f"export CLIs: {name}: {line}", flush=True)
+    if "model code imported: none" not in r.stdout:
+        raise AssertionError("export CLIs: repl/infer.py imported the port's model code")
+    print(f"export CLIs: export {runs['export']:.1f} s, infer {runs['infer']:.1f} s "
+          f"(fresh processes, wall clock)", flush=True)
+    return {f"{k}_s": v for k, v in runs.items()}
+
+
+def phase_stw(build_model, parse_config, model, tmp: str) -> dict:
+    """``.stw`` at full width: ``model`` written, read into a model of
+    another seed on the card, and the two give the same logits bit for
+    bit."""
+    from spectre_tpu_torch.export import load_stw_into, save_stw
+
+    cfg = parse_config(CONFIG)
+    path = os.path.join(tmp, "weights.stw")
+    t0 = time.perf_counter()
+    save_stw(model, path)
+    save_s = time.perf_counter() - t0
+    fresh = build_model(SimpleNamespace(**{**vars(cfg), "random_seed": 11}), "cuda")
+    t0 = time.perf_counter()
+    load_stw_into(fresh, path)
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    x = torch.from_numpy(np.random.default_rng(6).uniform(
+        0, 1, (EXPORT_BATCH, cfg.in_channels, cfg.img_size, cfg.img_size))
+        .astype(np.float32)).cuda()
+    with torch.inference_mode():
+        a, b = model(x), fresh(x)
+    if not torch.equal(a, b):
+        raise AssertionError(f".stw: logits after the round trip differ by {max_abs_diff(a, b)}")
+    mb = os.path.getsize(path) / 1e6
+    print(f".stw: flagship written in {save_s:.2f} s ({mb:.1f} MB), read into a model of "
+          f"another seed in {load_s:.2f} s; batch-{EXPORT_BATCH} logits equal bit for bit",
+          flush=True)
+    del fresh
+    return {"save_s": save_s, "load_s": load_s, "stw_mb": mb}
+
+
+def phase_export_families(kernels, build_model, parse_config, tmp: str):
+    """The ViT and the structured mix exported at full width (2 layers):
+    their loaded programs launch B4's forward and B6, and match their live
+    models within EXPORT_ATOL. Returns {family: launches of one call}."""
+    from spectre_tpu_torch.export import export_forward, exported_module, load_exported, \
+        save_exported
+
+    launches = {}
+    for tag, config, over, kernel in (
+            ("vit", VIT_CONFIG, {}, "flash_attention_fwd"),
+            ("structured", CONFIG, {"mix_impl": "structured"}, "structured_mix")):
+        cfg = SimpleNamespace(**{**vars(parse_config(config)), "num_encoders": 2, **over})
+        model = build_model(cfg, "cuda")
+        x = torch.from_numpy(np.random.default_rng(7).uniform(
+            0, 1, (EXPORT_BATCH, cfg.in_channels, cfg.img_size, cfg.img_size))
+            .astype(np.float32)).cuda()
+        path = save_exported(export_forward(model, x), os.path.join(tmp, f"{tag}.pt2"))
+        fwd = exported_module(load_exported(path))
+        fwd(x)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        got = fwd(x)
+        torch.cuda.synchronize()
+        counts, want = kernels.launch_counts(), expected_launches(cfg, forwards=1)
+        with torch.no_grad():
+            live = model(x)
+        diff = max_abs_diff(got, live)
+        if counts != want or not counts[kernel] > 0 or not diff <= EXPORT_ATOL:
+            raise AssertionError(f"export {tag}: one call launched {counts}, want {want}; "
+                                 f"program vs live {diff} (limit {EXPORT_ATOL})")
+        print(f"export {tag}: 2 layers at full width, batch {EXPORT_BATCH}: one call of the "
+              f"loaded program launched { {k: v for k, v in counts.items() if v} }, program vs "
+              f"live {diff:.4g} (limit {EXPORT_ATOL})", flush=True)
+        launches[tag] = counts
+        del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def _load(port: int, seed: int, clients: int = PIPELINE_CLIENTS,
+          requests: int = PIPELINE_REQUESTS) -> tuple[float, list, list]:
+    """``clients`` clients, each on its own connection, each sending
+    ``requests`` requests of PIPELINE_BATCH images back to back. Returns
+    (wall seconds, per-request ms, (images, reply) pairs)."""
+    from spectre_tpu_torch.serving import SpectreClient
+
+    results, errors = [[] for _ in range(clients)], []
+
+    def client(i):
+        rng = np.random.default_rng(seed + i)
+        try:
+            with SpectreClient(port=port) as c:
+                for _ in range(requests):
+                    x = rng.uniform(0, 1, (PIPELINE_BATCH, 3, 32, 32)).astype(np.float32)
+                    t0 = time.perf_counter()
+                    got = c.infer(x)
+                    results[i].append(((time.perf_counter() - t0) * 1e3, x, got))
+        except Exception as e:  # noqa: BLE001 -- raised below
+            errors.append(e)
+
+    threads = [threading.Thread(target=client, args=(i,)) for i in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    flat = [r for rs in results for r in rs]
+    return wall, [ms for ms, _, _ in flat], [(x, got) for _, x, got in flat]
+
+
+def _load_numbers(wall: float, ms: list) -> dict:
+    images = len(ms) * PIPELINE_BATCH
+    return {"img_per_s": images / wall, "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99)), "wall_s": wall}
+
+
+def _load_processes(srv, port: int, clients: int, seed: int) -> dict:
+    """``clients`` client processes on ``port`` (``_AB_CLIENT``), started
+    together once all are connected and warm: img/s over the slowest
+    client's window, p50/p99 per request, and the server's buckets and
+    images a bucket in the window."""
+    path = os.path.join(ROOT, "spectre_tpu_torch", "serving", "client.py")
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", _AB_CLIENT, path, str(port), str(seed + i), str(PIPELINE_BATCH),
+         str(AB_SECONDS)], stdin=subprocess.PIPE, stdout=subprocess.PIPE, text=True)
+        for i in range(clients)]
+    out = []
+    try:
+        for p in procs:
+            if p.stdout.readline().strip() != "READY":
+                raise AssertionError(f"pipeline A/B: a client failed (exit {p.wait()})")
+        before = srv.forwards
+        for p in procs:
+            p.stdin.write("\n")
+            p.stdin.flush()
+        out = [json.loads(p.stdout.readline()) for p in procs]
+        buckets = srv.forwards - before
+    finally:
+        for p in procs:
+            if len(out) < clients:
+                p.kill()
+            p.stdin.close()
+            p.wait(timeout=60)
+    if any(p.returncode for p in procs):
+        raise AssertionError(f"pipeline A/B: client exits {[p.returncode for p in procs]}")
+    ms = [m for o in out for m in o["ms"]]
+    images = len(ms) * PIPELINE_BATCH
+    return {"img_per_s": images / max(o["elapsed"] for o in out),
+            "p50_ms": float(np.percentile(ms, 50)), "p99_ms": float(np.percentile(ms, 99)),
+            "requests": len(ms), "buckets": buckets, "images_per_bucket": images / buckets}
+
+
+def phase_pipeline(kernels, serve, model, cfg):
+    """The serving CLI's server under load: 8 concurrent clients, 16 requests
+    of batch 32 each. Every reply within 1e-3 of a direct forward of the
+    request at a bucket the batcher could have put it in (the request alone
+    first); exact launches. Then the A/B of the shipped server against the
+    batcher without the pipeline and the pipeline without coalescing, all
+    on ``model``, under 8 and 16 client processes."""
+    from spectre_tpu_torch.serving import TorchServer
+
+    shape = (cfg.in_channels, cfg.img_size, cfg.img_size)
+    kernels.reset_launch_counts()
+    srv, port = serve.start(["--config", CONFIG, "--device", "cuda", "--port", "0"])
+    try:
+        _load(port, seed=90, requests=2)  # warm-up: the buckets' first forwards
+        wall, ms, replies = _load(port, seed=100)
+    finally:
+        srv.close()
+    counts, want = kernels.launch_counts(), expected_launches(cfg, forwards=srv.forwards)
+    if counts != want:
+        raise AssertionError(f"pipeline: {srv.forwards} forwards launched {counts}, want {want}")
+    served = _load_numbers(wall, ms)
+    alone, worst = 0, 0.0
+    with torch.inference_mode():
+        for x, got in replies:
+            for bucket in (32, 64, 128, 256):
+                xp = np.concatenate([x, np.zeros((bucket - len(x), *shape), np.float32)])
+                diff = float(np.abs(got - model(torch.from_numpy(xp).cuda())[:len(x)]
+                                    .float().cpu().numpy()).max())
+                if diff <= 1e-3:
+                    alone += bucket == 32
+                    worst = max(worst, diff)
+                    break
+            else:
+                raise AssertionError(f"pipeline: a reply differs from every bucket's direct "
+                                     f"forward (last {diff})")
+    print(f"pipeline: {PIPELINE_CLIENTS} clients x {PIPELINE_REQUESTS} requests of batch "
+          f"{PIPELINE_BATCH} through the serving CLI: {served['img_per_s']:.0f} img/s, "
+          f"p50 {served['p50_ms']:.2f} ms, p99 {served['p99_ms']:.2f} ms per request, "
+          f"{srv.forwards} buckets; {len(replies)} replies within 1e-3 of direct forwards "
+          f"({alone} of the request alone, the rest at a larger bucket; worst {worst:.3g}); "
+          f"launches { {k: v for k, v in counts.items() if v} }", flush=True)
+
+    class Unpipelined(TorchServer):
+        """Each bucket answered as soon as it is dispatched, as the batcher
+        worked before the pipeline."""
+
+        def _dispatch(self, x, parts):
+            self._resolve(super()._dispatch(x, parts))
+            return [], None, None
+
+        @staticmethod
+        def _resolve(pending):
+            if pending[0]:
+                TorchServer._resolve(pending)
+
+    class NoWait(TorchServer):
+        """The pipeline dispatching as soon as the queue is empty, without
+        coalescing while the card runs the pending bucket."""
+
+        @staticmethod
+        def _running(pending):
+            return False
+
+    # 8 clients of batch 32 never queue more than one bucket of 256; 16 do
+    runs = []
+    for clients in (PIPELINE_CLIENTS, 16):
+        for name, cls in (("pipelined", TorchServer), ("unpipelined", Unpipelined),
+                          ("no_wait", NoWait), ("no_wait", NoWait),
+                          ("unpipelined", Unpipelined), ("pipelined", TorchServer)):
+            s = cls(model, shape, "cuda")
+            port = s.listen_tcp()
+            try:
+                runs.append({"server": name, "clients": clients,
+                             **_load_processes(s, port, clients, seed=300)})
+            finally:
+                s.close()
+            r = runs[-1]
+            print(f"pipeline A/B: {clients} client processes, {name}: {r['img_per_s']:.0f} "
+                  f"img/s, p50 {r['p50_ms']:.2f} ms, p99 {r['p99_ms']:.2f} ms, "
+                  f"{r['requests']} requests in {r['buckets']} buckets "
+                  f"({r['images_per_bucket']:.1f} images a bucket)", flush=True)
+
+    def bucket256():
+        with torch.inference_mode():
+            return model(torch.zeros((256, *shape), device="cuda"))
+    dev, host = queued_time_ms(bucket256, iters=3, reps=5)
+    print(f"pipeline: a bucket-256 forward takes the device {dev:.3f} ms and the host "
+          f"{host:.3f} ms to issue", flush=True)
+    return {"served": served, "buckets": srv.forwards, "replies_alone": alone,
+            "a_b": runs, "bucket256_device_ms": dev, "bucket256_host_ms": host}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -2273,6 +2693,15 @@ def main() -> int:
     k7 = phase_structured_kernels(kernels, structured_matrix)
     model, cfg = phase_model(kernels, build_model, parse_config)
     serving = phase_serve(kernels, serve, SpectreClient, model, cfg)
+    with tempfile.TemporaryDirectory(prefix="spectre_smoke_") as tmp:
+        imported, export_run, export = phase_export(kernels, build_model, parse_config, model,
+                                                    tmp)
+        export["stw"] = phase_stw(build_model, parse_config, imported, tmp)
+        del imported
+        torch.cuda.empty_cache()
+        export["clis"] = phase_export_clis(tmp)
+        export_families = phase_export_families(kernels, build_model, parse_config, tmp)
+    pipeline = phase_pipeline(kernels, serve, model, cfg)
     del model
     torch.cuda.empty_cache()
     step_times = {blk: phase_train(kernels, parse_config, blk) for blk in (64, 0)}
@@ -2336,6 +2765,13 @@ def main() -> int:
                        (k2_head, "fused_spectre_linear_wmma_fma"),
                        (k11, "fused_spectre_linear_bwd"), (k3, "block_gather_sum")):
         k["launches_distill"] = distill_run[counter]
+    # the deployment path: one call of the loaded flagship program (batch 64),
+    # of the ViT's and of the structured mix's (2 layers each)
+    k1["launches_export"] = export_run["block_scatter_rows"]
+    k2["launches_export"] = export_run["fused_spectre_linear_wgmma"]
+    k2_head["launches_export"] = export_run["fused_spectre_linear_wmma_fma"]
+    k8["launches_export_vit"] = export_families["vit"]["flash_attention_fwd"]
+    k7["launches_export_structured"] = export_families["structured"]["structured_mix"]
     # kernel 2 above N = 1,024: no shipped config reaches it, so the main
     # path launches it no time; the C6 phase's own launches are beside
     for k in (k12, k13, k14):
@@ -2345,7 +2781,8 @@ def main() -> int:
                              for blk, t in step_times.items()},
               "trainer": trainer, "fused_bwd": fused_bwd, "bench": bench, "vit": vit,
               "structured": structured, "routed": routed, "branch": branch,
-              "gather_tm": {"train_step": gather_tm}, "distill": distill}
+              "gather_tm": {"train_step": gather_tm}, "distill": distill, "export": export,
+              "pipeline": pipeline}
     print(smi, flush=True)
     print(json.dumps(result), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

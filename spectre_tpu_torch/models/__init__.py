@@ -1,5 +1,6 @@
 """Models of the port: SpectreViT with its pluggable mixers, SpectreBranch,
-the baseline ViT, the layer library and the weight bridge."""
+the baseline ViT, the layer library, the weight bridge from flax trees and the
+importer of reference checkpoints."""
 
 from spectre_tpu_torch.models.jax_import import (
     flax_state_dict,
@@ -42,6 +43,12 @@ from spectre_tpu_torch.models.spectre_branch import (
     SpectreFeatExtractor,
     rfft2_log_magnitude_matmul,
 )
+from spectre_tpu_torch.models.torch_import import (
+    import_spectre_branch,
+    import_spectre_vit,
+    import_vit,
+    reference_state_dict,
+)
 from spectre_tpu_torch.models.vit import TransformerEncoderLayer, ViT
 
 __all__ = [
@@ -78,9 +85,13 @@ __all__ = [
     "ViT",
     "build_model",
     "flax_state_dict",
+    "import_spectre_branch",
+    "import_spectre_vit",
+    "import_vit",
     "load_flax_variables",
     "load_npz",
     "make_mixer",
+    "reference_state_dict",
     "refresh_mixes",
     "resolve_dtype",
     "rfft2_log_magnitude_matmul",

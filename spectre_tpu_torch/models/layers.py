@@ -59,6 +59,7 @@ from spectre_tpu_torch.ops import (
     permut_mix_fused_t,
     pick_tile,
     rfft_real,
+    signed_stream_proj,
     spectre_linear_apply,
 )
 from spectre_tpu_torch.ops.kernels import invert_tile_perms, structured_mix_grad
@@ -185,7 +186,11 @@ class FoldedMixLinear(_ProjectionLN):
     When a gradient is wanted, y goes through ``ops.folded_proj`` (its
     backward never builds the [N, in, O] cotangent). Otherwise the folded
     weights ``diag(s_n) W`` are built once per value of ``kernel`` and kept:
-    serving must not fold 8,192 x 512 weights for 65 tokens on every call."""
+    serving must not fold 8,192 x 512 weights for 65 tokens on every call.
+    While ``torch.export`` traces, y is ``ops.signed_stream_proj``: the
+    program holds the shared [in, O] kernel and no folded copy (which would
+    be 65 x 8,192 x 512 a layer at the flagship's widths), and folds nothing
+    per call; only the product's summation order differs from eager."""
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
@@ -217,7 +222,9 @@ class FoldedMixLinear(_ProjectionLN):
     def forward(self, g4: torch.Tensor, mix: FoldedMix) -> torch.Tensor:
         dt = self.dtype
         n, _, b = g4.shape
-        if torch.is_grad_enabled() and (self.kernel.requires_grad or g4.requires_grad):
+        if torch.compiler.is_exporting():
+            y = signed_stream_proj(g4, self.kernel.to(dt), mix.s4)
+        elif torch.is_grad_enabled() and (self.kernel.requires_grad or g4.requires_grad):
             self._wp = None  # training: do not hold a stale [N, in, O] copy
             y = folded_proj(g4, self.kernel.to(dt), mix.s4)
         else:
@@ -312,6 +319,10 @@ class MHPermutMix(nn.Module):
     row kernel. The structured mix derives its inverse tile table and its
     signs in the compute dtype the same way; the gather impls derive
     nothing.
+    While ``torch.export`` traces, the forward reads the derived tables as
+    they are (``export/program.py::export_forward`` derives them first), so
+    that their tensors become constants of the program and nothing reads
+    the host or a data pointer.
 
     ``set_mix_route(impl)`` (``ops.register_mix_routes``, the config's
     ``mix_routed``) routes a folded mix's backward through its 3-stage Clos
@@ -415,7 +426,7 @@ class MHPermutMix(nn.Module):
         return self._mix
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        mix = self.refresh()
+        mix = self._mix if torch.compiler.is_exporting() else self.refresh()
         b = x.shape[0]
         x = x.to(self.dtype)
         if self.impl == "folded":

@@ -49,6 +49,7 @@ from spectre_tpu_torch.ops.kernels import (
     block_gather_sum,
     block_scatter_rows,
     inverse_gather_sum,
+    library,
     routed_gather_sum,
 )
 from spectre_tpu_torch.ops.permute import MixTables
@@ -152,7 +153,11 @@ def perm_rows_t(xt: torch.Tensor, tables: MixTables,
     """``perm_rows_t_plain`` for the permutation ``tables`` was derived from
     (``derive_mix_tables``), through the kernels in both directions; with
     ``route`` (``derive_mix_route`` of the same table) the backward goes
-    through the route. xt must be contiguous [d, B]."""
+    through the route. xt must be contiguous [d, B]. While ``torch.export``
+    traces, the forward is the custom op ``kernels.library.block_scatter_rows``
+    (one node of the program; no backward is traced)."""
+    if torch.compiler.is_exporting():
+        return library.block_scatter_rows(xt, tables.bsrc, tables.blk)
     return _PermRowsT.apply(xt, tables.blk, tables.bsrc, tables.binv, route)
 
 
@@ -191,6 +196,16 @@ class _FoldedProj(torch.autograd.Function):
             torch.mul(g4.transpose(0, 1), s4.t()[:, :, None], out=sg)
             dw = torch.matmul(sg.view(e, n * b), dy.view(n * b, -1))
         return dg4, dw, None
+
+
+def signed_stream_proj(g4: torch.Tensor, w: torch.Tensor, s4: torch.Tensor) -> torch.Tensor:
+    """``folded_proj``'s value with the signs on the stream: (s4 * g4) read as
+    [N, B, in] rows, then one product with the shared w [in, O] -> [N, B, O].
+    The exported program's folded projection: it holds w, never the
+    [N, in, O] folded weights. A +-1 product is exact, so against
+    ``folded_bmm`` with ``fold_weights`` only the summation order of the
+    product can differ."""
+    return torch.matmul((g4 * s4[:, :, None]).transpose(1, 2), w)
 
 
 def folded_proj(g4: torch.Tensor, w: torch.Tensor, s4: torch.Tensor) -> torch.Tensor:

@@ -50,6 +50,7 @@ from spectre_tpu_torch.ops.kernels.routed_gather import (
     routed_gather_sum,
     routed_gather_sum_plain,
 )
+from spectre_tpu_torch.ops.kernels import library  # registers the custom ops
 from spectre_tpu_torch.ops.kernels.structured_mix import (
     invert_tile_perms,
     structured_mix,
@@ -115,6 +116,7 @@ __all__ = [
     "inverse_gather_sum_plain",
     "invert_tile_perms",
     "launch_counts",
+    "library",
     "reset_launch_counts",
     "routed_gather_sum",
     "routed_gather_sum_plain",

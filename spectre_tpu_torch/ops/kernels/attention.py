@@ -257,5 +257,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     pm: torch.Tensor | None = None) -> torch.Tensor:
     """Softmax attention over [B, H, N, D] q, k, v -> [B, H, N, D], with
     gradients for q, k and v; ``pm`` (float32 [N, N], no gradient) multiplies
-    the probabilities."""
+    the probabilities. While ``torch.export`` traces (the eval forward,
+    ``pm`` None), the forward is the custom op
+    ``library.flash_attention_fwd``."""
+    if torch.compiler.is_exporting():
+        from spectre_tpu_torch.ops.kernels import library
+
+        return library.flash_attention_fwd(q, k, v)
     return _FlashAttention.apply(q, k, v, pm)

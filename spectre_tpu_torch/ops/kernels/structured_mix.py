@@ -173,7 +173,13 @@ class _StructuredMix(torch.autograd.Function):
 
 def structured_mix_grad(x: torch.Tensor, tile_perms: torch.Tensor, signs: torch.Tensor,
                         token_dim: int, inv: torch.Tensor | None = None) -> torch.Tensor:
-    """``structured_mix`` with a gradient for x (the tables are fixed)."""
+    """``structured_mix`` with a gradient for x (the tables are fixed).
+    While ``torch.export`` traces, the forward is the custom op
+    ``library.structured_mix``."""
     if inv is None:
         inv = invert_tile_perms(tile_perms)
+    if torch.compiler.is_exporting():
+        from spectre_tpu_torch.ops.kernels import library
+
+        return library.structured_mix(x, tile_perms, signs, token_dim, inv)
     return _StructuredMix.apply(x, tile_perms, signs, token_dim, inv)

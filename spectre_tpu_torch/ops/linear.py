@@ -20,7 +20,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from spectre_tpu_torch.ops.kernels import fused_spectre_linear, fused_spectre_linear_grad
+from spectre_tpu_torch.ops.kernels import fused_spectre_linear, fused_spectre_linear_grad, library
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -78,10 +78,13 @@ def spectre_linear_apply(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     Every operand must share x's dtype and device. The identity residual
     (K == N) is part of the kernel; the pool residual (K != N) is added here,
     through ``pool_matrix`` ([K, N], ``adaptive_pool_matrix``) when the
-    caller holds one.
+    caller holds one. While ``torch.export`` traces, the kernel is the custom
+    op ``kernels.library.fused_spectre_linear`` (the forward without h).
     """
     operands = (x, w, b, gamma, beta)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+    if torch.compiler.is_exporting():
+        out = library.fused_spectre_linear(*operands, eps)
+    elif torch.is_grad_enabled() and any(t.requires_grad for t in operands):
         out = fused_spectre_linear_grad(*operands, eps)
     else:  # nothing to differentiate: the kernel does not write its saved h
         out = fused_spectre_linear(*operands, eps)

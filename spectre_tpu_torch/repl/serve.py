@@ -1,9 +1,9 @@
 """Serve SpectreViT with the port: the model on a torch device behind the
-SPQ2/SPQ3 protocol (serving/torch_server.py).
+SPQ2/SPQ3 protocol (serving/torch_server.py), or the native CPU daemon.
 
     python -m spectre_tpu_torch.repl.serve [--config <config.py>] --device cuda \\
         [--ckpt runs/<experiment>/ckpt | weights.npz] [--port 7788 | --uds /tmp/spectre.sock] \\
-        [--max-batch 256]
+        [--max-batch 256] [--backend torch | native [--export-dir runs/serve_export]]
 
 ``--config`` defaults to the port's flagship, ``spectre_tpu_torch/configs/
 spectre_vit_cifar100.py``. Without
@@ -14,22 +14,30 @@ else the latest, and says which; a path ending ``.npz`` is instead a flax
 variable tree saved by ``spectre_tpu_torch.models.save_npz``. ``--device
 cuda`` refuses to start when no CUDA device is present. Clients:
 ``spectre_tpu_torch.serving.SpectreClient``.
+
+``--backend native`` asks for the CPU daemon instead: it builds ``native/``
+(``make -C native``), exports ``weights.stw`` and ``meta.txt`` of the same
+weights on the CPU to ``--export-dir`` (``repl/export.py``) and runs
+``native/build/spectre_serve`` on them until interrupted. The default,
+``torch``, serves on ``--device``.
 """
 
 from __future__ import annotations
 
 import argparse
 import os
+import subprocess
+import sys
 import time
 
 import torch
 
 from spectre_tpu_torch.configs import FLAGSHIP
 
+_REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
 
-def start(argv=None):
-    """Parse the CLI flags, build the model and start listening. Returns
-    ``(server, address)``: the bound TCP port, or the unix-socket path."""
+
+def _parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("--config", default=FLAGSHIP, help="path to a python config file")
@@ -50,7 +58,21 @@ def start(argv=None):
                    help="file holding the shared-secret auth token")
     p.add_argument("--max-batch", type=int, default=256)
     p.add_argument("--set", nargs="*", default=[], help="config overrides key=value")
-    args = p.parse_args(argv)
+    p.add_argument("--backend", choices=("torch", "native"), default="torch",
+                   help="torch: the port on --device (default); native: the CPU daemon of "
+                        "native/ on an export of the same weights")
+    p.add_argument("--export-dir", default=None,
+                   help="where --backend native writes its export (default "
+                        "runs/serve_export)")
+    return p
+
+
+def start(argv=None):
+    """Parse the CLI flags, build the model and start listening. Returns
+    ``(server, address)``: the bound TCP port, or the unix-socket path."""
+    args = _parser().parse_args(argv)
+    if args.backend != "torch":
+        raise ValueError("start() serves the torch backend; main() runs --backend native")
 
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -83,7 +105,38 @@ def start(argv=None):
     return srv, addr
 
 
+def start_native(args):
+    """Build native/, export the weights on the CPU and launch the daemon.
+    Returns ``(process, address)``."""
+    from spectre_tpu_torch.configs import apply_overrides, parse_config
+    from spectre_tpu_torch.repl.export import export_from_config
+    from spectre_tpu_torch.serving import start_server
+
+    r = subprocess.run(["make", "-C", os.path.join(_REPO, "native")],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        sys.exit(f"native build failed:\n{r.stderr}")
+    cfg = apply_overrides(parse_config(args.config), args.set)
+    outdir = args.export_dir or os.path.join("runs", "serve_export")
+    export_from_config(cfg, checkpoint=args.ckpt, outdir=outdir, batch=1, device="cpu")
+    proc, addr = start_server(outdir, port=args.port, max_batch=args.max_batch, uds=args.uds,
+                              host=args.host, token_file=args.token_file)
+    where = addr if args.uds else f"{args.host or '127.0.0.1'}:{addr}"
+    print(f"serving {getattr(cfg, 'model', 'spectre_vit')} from {outdir} on {where} "
+          "(native daemon, CPU)", flush=True)
+    return proc, addr
+
+
 def main(argv=None):
+    args = _parser().parse_args(argv)
+    if args.backend == "native":
+        proc, _ = start_native(args)
+        try:
+            proc.wait()
+        except KeyboardInterrupt:
+            proc.kill()
+            proc.wait()
+        return
     srv, _ = start(argv)
     try:
         while True:

@@ -1,6 +1,6 @@
-"""Python client of the SpectreViT serving protocol (the port's copy of
-spectre_tpu/serving/client.py::SpectreClient, without the native-daemon
-launcher). Length-prefixed frames over TCP or a unix-domain socket:
+"""Python client of the SpectreViT serving protocol and launcher of the
+native daemon (the port's copy of spectre_tpu/serving/client.py).
+Length-prefixed frames over TCP or a unix-domain socket:
 
     request : b"SPQ2" | u32 batch | u32 C | u32 H | u32 W | float32 pixels
               (the explicit dims let the server reject a shape-mismatched
@@ -15,16 +15,72 @@ launcher). Length-prefixed frames over TCP or a unix-domain socket:
 
 Usage:
 
+    proc, port = start_server(export_dir)           # or a running server's port
     with SpectreClient(port=port) as client:
         logits = client.infer(images)               # [B, C, H, W] float32
+
+The daemon (native/serving/spectre_serve.cc) serves the ``weights.stw`` and
+``meta.txt`` that ``repl/export.py`` writes, on the CPU.
 """
 
 from __future__ import annotations
 
+import os
+import select
 import socket
 import struct
+import subprocess
+import time
 
 import numpy as np
+
+_REPO = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
+SERVER_BIN = os.path.join(_REPO, "native", "build", "spectre_serve")
+_START_TIMEOUT_S = 30.0  # for the daemon's LISTENING line
+
+
+def start_server(export_dir: str, port: int = 0, max_batch: int = 256,
+                 uds: str | None = None, host: str | None = None,
+                 token_file: str | None = None):
+    """Launch ``native/build/spectre_serve`` on an export directory
+    (weights.stw + meta.txt). Returns ``(Popen, addr)``: the bound TCP port,
+    or the unix-socket path when ``uds`` is given. A non-loopback ``host``
+    needs a token (``token_file`` or $SPECTRE_SERVE_TOKEN, which the daemon
+    inherits)."""
+    transport = ["--uds", uds] if uds else ["--port", str(port)]
+    if host is not None:
+        transport += ["--host", host]
+    if token_file is not None:
+        transport += ["--token-file", token_file]
+    proc = subprocess.Popen(
+        [SERVER_BIN, "--weights", os.path.join(export_dir, "weights.stw"),
+         "--meta", os.path.join(export_dir, "meta.txt"), *transport,
+         "--max-batch", str(max_batch)],
+        stdout=subprocess.PIPE)
+    # read the raw pipe fd and parse whole lines only: a buffered reader can
+    # hold the LISTENING line where select() does not see it, and a read can
+    # end in the middle of a socket path
+    fd = proc.stdout.fileno()
+    deadline = time.time() + _START_TIMEOUT_S
+    buf = b""
+    while time.time() < deadline:
+        ready, _, _ = select.select([fd], [], [], max(0.0, deadline - time.time()))
+        if not ready:
+            break
+        chunk = os.read(fd, 4096)
+        if not chunk:
+            break  # the daemon exited
+        buf += chunk
+        *lines, buf = buf.split(b"\n")
+        for raw in lines:
+            line = raw.decode(errors="replace")
+            if line.startswith("LISTENING_UDS"):
+                return proc, line.split(None, 1)[1]
+            if line.startswith("LISTENING"):
+                return proc, int(line.split()[1])
+    proc.kill()
+    proc.wait()
+    raise RuntimeError(f"spectre_serve did not come up (output: {buf[-500:]!r})")
 
 
 class SpectreClient:

@@ -12,10 +12,26 @@ Speaks the same length-prefixed wire protocol as the JAX package's server
   batch to the next power-of-two bucket, runs the forward under
   ``torch.inference_mode()`` on ``device`` and answers each request with its
   slice. u8 pixels (SPQ3) are upcast and scaled by 1/255 on the device.
+- The batcher is a one-deep fetch pipeline, as the JAX server's
+  ``_resolve``: it dispatches bucket k+1 before it resolves bucket k. On a
+  card, dispatching is the copy of the batch into a pinned staging buffer,
+  its host-to-device copy (non-blocking), the forward, and a non-blocking
+  copy of the logits into pinned host memory behind a recorded CUDA event;
+  resolving waits on the event and slices the replies. So the card runs
+  bucket k+1 while the host answers bucket k and coalesces the next.
+  While the card still runs the pending bucket, the batcher goes on
+  coalescing: bucket k+1 is dispatched once bucket k has completed or
+  k+1 is full, so requests that arrive meanwhile join it instead of
+  waiting for a bucket of their own. Each bucket shape has two pinned
+  staging buffers, used in turn, and a buffer is rewritten only after its
+  last host-to-device copy has completed. When the queue is empty the
+  pending bucket is resolved at once; ``close()`` resolves it before the
+  batcher stops. An error fans out to every request of its batch, and a
+  bucket that fails to dispatch resolves the pending one first.
 
 All torch work happens on the batcher thread; connection threads touch only
-numpy and sockets. A multi-device mesh and a one-deep fetch pipeline are
-not ported yet (ROADMAP.md, queue A11/A12).
+numpy and sockets. A multi-device mesh is not ported yet (ROADMAP.md, queue
+A12).
 """
 
 from __future__ import annotations
@@ -32,6 +48,7 @@ import numpy as np
 import torch
 
 _MAX_PAYLOAD = 1 << 30  # 1 GiB per request (and per drained bad-dims payload)
+_POLL_S = 2e-4  # how often the coalescing batcher asks whether the card is done
 
 
 def _read_full(sock: socket.socket, n: int) -> bytes | None:
@@ -72,6 +89,9 @@ class TorchServer:
         self.batch_timeout_s = float(batch_timeout_s)
         self._token = token or ""
         self.forwards = 0  # buckets the batcher has run through the model
+        # (bucket, wire dtype) -> two [pinned staging buffer, event of its
+        # last host-to-device copy], the next to use first
+        self._staging: dict[tuple, list] = {}
         self._jobs: queue.Queue = queue.Queue()
         self._stop = threading.Event()
         self._listener: socket.socket | None = None
@@ -283,35 +303,110 @@ class TorchServer:
             b *= 2
         return b
 
-    def _run(self, x: np.ndarray) -> np.ndarray:
-        """One padded bucket through the model on the device."""
+    def _upload(self, x: np.ndarray) -> torch.Tensor:
+        """``x`` on the card, copied without blocking from the next pinned
+        staging buffer of its bucket and dtype. A buffer is rewritten only
+        once its previous copy has completed."""
+        key = (x.shape, x.dtype.str)
+        slots = self._staging.get(key)
+        if slots is None:
+            slots = self._staging[key] = [
+                [torch.empty(x.shape, dtype=torch.from_numpy(x).dtype, pin_memory=True), None]
+                for _ in range(2)]
+        slot = slots.pop(0)
+        slots.append(slot)
+        buf, copied = slot
+        if copied is not None:
+            copied.synchronize()
+        buf.numpy()[...] = x
+        xt = buf.to(self.device, non_blocking=True)
+        slot[1] = torch.cuda.Event()
+        slot[1].record()
+        return xt
+
+    def _dispatch(self, x: np.ndarray, parts: list):
+        """Start one padded bucket on the device: returns ``(parts, logits,
+        event)``, the logits float32 in pinned host memory once ``event``
+        (None off the card) has completed."""
         with torch.inference_mode():
-            xt = torch.from_numpy(x).to(self.device)
+            if self.device.type == "cuda":
+                xt = self._upload(x)
+            else:
+                xt = torch.from_numpy(x).to(self.device)
             if xt.dtype == torch.uint8:
                 xt = xt.to(torch.float32) / 255.0
-            logits = self._forward(xt).float().cpu().numpy()
+            logits = self._forward(xt).float()
+            event = None
+            if self.device.type == "cuda":
+                host = torch.empty(logits.shape, dtype=torch.float32, pin_memory=True)
+                host.copy_(logits, non_blocking=True)
+                event = torch.cuda.Event()
+                event.record()
+                logits = host
+            else:
+                logits = logits.cpu()
         self.forwards += 1
-        return logits
+        return parts, logits, event
+
+    @staticmethod
+    def _running(pending) -> bool:
+        """Whether the card is still running the pending bucket."""
+        return pending is not None and pending[2] is not None and not pending[2].query()
+
+    @staticmethod
+    def _resolve(pending):
+        """Wait for a dispatched bucket's logits and answer its requests (an
+        error goes to every one of them)."""
+        parts, logits, event = pending
+        try:
+            if event is not None:
+                event.synchronize()
+            out = logits.numpy()
+        except Exception as e:  # noqa: BLE001 -- fanned out to every request
+            for _, f in parts:
+                f.set_exception(e)
+            return
+        off = 0
+        for part, f in parts:
+            n = part.shape[0]
+            f.set_result(out[off:off + n])
+            off += n
 
     def _batcher_loop(self):
         c, h, w = self.input_shape
+        pending = None  # a bucket dispatched but not yet resolved
         while True:
-            job = self._jobs.get()
+            try:
+                job = self._jobs.get_nowait()
+            except queue.Empty:
+                if pending is not None:  # nothing to overlap with: answer now
+                    self._resolve(pending)
+                    pending = None
+                job = self._jobs.get()
             if job is None or self._stop.is_set():
+                if pending is not None:
+                    self._resolve(pending)
                 return
             parts = [job]
             total = job[0].shape[0]
             wire = job[0].dtype
             # coalesce whatever else is queued (waiting once for up to
-            # batch_timeout_s when set), up to max_batch; only requests of
-            # one wire dtype share a batch
+            # batch_timeout_s when set), and what arrives while the card
+            # still runs the pending bucket, up to max_batch; only requests
+            # of one wire dtype share a batch
             deadline = self.batch_timeout_s or None
             while total < self.max_batch:
                 try:
                     nxt = (self._jobs.get(timeout=deadline) if deadline
                            else self._jobs.get_nowait())
                 except queue.Empty:
-                    break
+                    deadline = None
+                    if not self._running(pending):
+                        break
+                    try:
+                        nxt = self._jobs.get(timeout=_POLL_S)
+                    except queue.Empty:
+                        continue
                 if nxt is None:
                     self._jobs.put(None)  # re-post the stop token
                     break
@@ -326,16 +421,14 @@ class TorchServer:
             if bucket > total:
                 x = np.concatenate([x, np.zeros((bucket - total, c, h, w), wire)], axis=0)
             try:
-                logits = self._run(x)
+                dispatched = self._dispatch(x, parts)
             except Exception as e:  # noqa: BLE001 -- fanned out to every request
                 for _, f in parts:
                     f.set_exception(e)
-                continue
-            off = 0
-            for part, f in parts:
-                n = part.shape[0]
-                f.set_result(logits[off:off + n])
-                off += n
+                dispatched = None
+            if pending is not None:
+                self._resolve(pending)
+            pending = dispatched
 
 
 def restore_for_serving(model: torch.nn.Module, checkpoint: str) -> tuple[int, str]:

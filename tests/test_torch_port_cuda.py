@@ -751,3 +751,80 @@ def test_small_distill_on_the_card_matches_the_cpu(cuda_device):
     np.testing.assert_allclose(lg.numpy(), lc.numpy(), atol=1e-4, rtol=0)
     for k in ("loss", "loss_dist", "loss_ce"):
         assert abs(mg[k] - mc[k]) <= 1e-4, k
+
+
+@pytest.mark.parametrize("over,ops", [
+    (dict(mix_impl="folded", mix_block=8), {"block_scatter_rows": 2}),
+    (dict(mix_impl="structured"), {"structured_mix": 2}),
+    (dict(model="vit", method="attention"), {"flash_attention_fwd": 2}),
+])
+def test_exported_program_on_the_card_launches_the_kernels(cuda_device, tmp_path, over, ops):
+    """A small model exported on the card (f32), saved and loaded: one call
+    of the loaded program launches each kernel of the eval forward as many
+    times as the eager forward does, and its logits are within 1e-5 of the
+    live model's and within 1e-4 of the CPU's."""
+    from spectre_tpu_torch.export import export_forward, exported_module, load_exported, \
+        save_exported
+
+    cfg = SimpleNamespace(model="spectre_vit", method="permut_mix", img_size=8, patch_size=4,
+                          in_channels=3, num_classes=10, embed_dim=16, num_encoders=2,
+                          num_heads=2, hidden_dim=32, random_seed=0, compute_dtype="float32",
+                          param_dtype="float32", dropout=0.0)
+    for k, v in over.items():
+        setattr(cfg, k, v)
+    x = torch.from_numpy(np.random.default_rng(3).uniform(0, 1, (4, 3, 8, 8))
+                         .astype(np.float32))
+    model = build_model(cfg, cuda_device)
+    with torch.no_grad():
+        before = launch_counts()
+        live = model(x.to(cuda_device))
+        eager = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+    path = save_exported(export_forward(model, x.to(cuda_device)), str(tmp_path / "m.pt2"))
+    program = load_exported(path)
+    before = launch_counts()
+    got = exported_module(program)(x.to(cuda_device))
+    torch.cuda.synchronize()
+    delta = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+    assert delta == eager
+    assert all(delta.get(k) == n for k, n in ops.items()), delta
+    np.testing.assert_allclose(got.cpu().numpy(), live.cpu().numpy(), atol=1e-5, rtol=0)
+    with torch.no_grad():
+        cpu = build_model(cfg, "cpu")(x)
+    np.testing.assert_allclose(got.cpu().numpy(), cpu.numpy(), atol=1e-4, rtol=0)
+
+
+def test_server_on_the_card_answers_around_buckets_that_fail(cuda_device):
+    """Buckets of one shape through the pinned staging buffers, every third
+    one's forward raising after its upload: its request gets the error, the
+    others exactly their own rows (no staging buffer rewritten under a copy
+    still pending)."""
+    import threading
+    from concurrent.futures import Future
+
+    from spectre_tpu_torch.serving import TorchServer
+
+    def forward(x):
+        if bool((x[:, 0, 0, 0] < 0).any()):
+            raise RuntimeError("bad bucket")
+        return x.reshape(x.shape[0], -1)[:, :4] * 2
+
+    srv = TorchServer(forward, (3, 8, 8), cuda_device, max_batch=2)
+    rng = np.random.default_rng(11)
+    jobs = []
+    for i in range(30):
+        x = rng.uniform(0, 1, (2, 3, 8, 8)).astype(np.float32)
+        if i % 3 == 1:
+            x[0, 0, 0, 0] = -1
+        jobs.append((x, Future()))
+        srv._jobs.put(jobs[-1])
+    t = threading.Thread(target=srv._batcher_loop, daemon=True)
+    t.start()
+    for i, (x, f) in enumerate(jobs):
+        if i % 3 == 1:
+            with pytest.raises(RuntimeError, match="bad bucket"):
+                f.result(timeout=60)
+        else:
+            np.testing.assert_array_equal(f.result(timeout=60), x.reshape(2, -1)[:, :4] * 2)
+    srv._jobs.put(None)
+    t.join(timeout=60)
+    assert srv.forwards == 20
