@@ -185,6 +185,31 @@ Phases, each raising on failure (nothing is caught):
    on one that dispatches without waiting for the pending bucket (the
    pipeline without coalescing), in turns (shipped, unpipelined, no-wait,
    no-wait, unpipelined, shipped): img/s, p50/p99 and images a bucket.
+24. profile: ``profile.trace_step`` around 3 flagship train steps at B=256
+   and ``ProfilerParser(...).remove_idle().add_percentages().sort_by_device()``:
+   the table's device total within 5% of ``key_averages()``'s for the same
+   trace (the annotations Kineto draws over the device's timeline left out
+   of both), the kernels of B1, B2 and B3 (forward and backward chain) under
+   their CUDA names with calls equal to the wrappers' launches over the
+   traced window, which are exact; the 15 largest rows printed.
+25. ``repl/perf.py latency``, ``linear``, ``mixer`` and ``encoder`` through
+   its ``main`` at the JAX package's defaults (B=8, E=512, heads 4, 10 + 100
+   calls, d up to 2^13, the gather mix): exact launches of each (latency
+   8 x 110 x 13 of kernel 2's f32/WMMA kernel; linear 3 x 110 of it and
+   2 x 110 of the wide one; mixer 8 x 110 of kernel 7; encoder 6); one
+   shape per mode against the plain versions (latency's logits within
+   MODEL_ATOL, the encoder layer and kernel 2 at dims 256, 2,048 and 4,096
+   within 1e-4 in float32, kernel 7 at d = 4,096 bit for bit); the wide
+   kernel's times at 8 rows beside its bound, its plain version and the
+   cuBLAS chain; the head's shape, kernel and cuBLAS chain on the device.
+26. tools: ``repl/mnist_submission.py::write_submission`` on the card (3
+   steps of the MNIST config, the validation pass and the submission split;
+   exact launches; a row per image; logits within MODEL_ATOL of the plain
+   path); ``deterministic_mode`` (a [4,096 x 4,096] float32 product within
+   1e-5 of the largest entry of float64 where TF32 is not, and TF32 back
+   after ``False``); ``enable_nan_checks`` naming the layer a NaN was fed
+   to; ``model_summary`` of the flagship at full width, its FLOPs within 2%
+   of ``repl/bench.py``'s count.
 
 Prints the card line, one JSON line of per-kernel results, then
 ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero, with no
@@ -2644,6 +2669,348 @@ def phase_pipeline(kernels, serve, model, cfg):
             "a_b": runs, "bucket256_device_ms": dev, "bucket256_host_ms": host}
 
 
+# -- slice 11: the tools around the model -----------------------------------
+
+PROFILE_BATCH, PROFILE_STEPS = 256, 3
+# torch.profiler's own device total against the parser's sum of the same
+# trace's kernel, copy and fill events: they read one trace, so only the
+# rows the two count differently can part them
+PROFILE_TOTAL_REL = 0.05
+# the CUDA names of the kernels a flagship step launches, by wrapper count
+PROFILE_KERNELS = (("block_scatter_rows_kernel", "block_scatter_rows"),
+                   ("gather_sum_kernel", "block_gather_sum"),
+                   ("fused_linear_wgmma_kernel", "fused_spectre_linear_wgmma"),
+                   ("fused_spectre_linear_kernel", "fused_spectre_linear_wmma_fma"),
+                   ("chain_kernel", "fused_spectre_linear_bwd"))
+
+
+def phase_profile(kernels, parse_config, tmp: str) -> dict:
+    """``trace_step`` around 3 flagship train steps at B=256 and the table of
+    ``ProfilerParser``: its device total against ``key_averages()``'s, the
+    kernels of B1, B2 and B3 under their CUDA names with the wrappers'
+    launches, and the 15 largest rows."""
+    from torch.autograd import DeviceType
+
+    from spectre_tpu_torch.profile import ProfilerParser, trace_step, tracer
+    from spectre_tpu_torch.train.loop import build_step
+
+    cfg = parse_config(CONFIG)
+    state, step = build_step(cfg, "cuda")
+    x, y = _train_batch(cfg, PROFILE_BATCH)
+    for _ in range(2):
+        step(state, x, y)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with trace_step(os.path.join(tmp, "profile"), "cuda") as t:
+        for _ in range(PROFILE_STEPS):
+            step(state, x, y)
+        torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = expected_launches(cfg, steps=PROFILE_STEPS)
+    if {k: v for k, v in counts.items() if v} != {k: v for k, v in want.items() if v}:
+        raise AssertionError(f"profile: {PROFILE_STEPS} steps launched {counts}, not {want}")
+    with open(t.trace_file) as f:
+        annotations = {e["name"] for e in json.load(f)["traceEvents"]
+                       if e.get("cat") == "gpu_user_annotation"}
+    ka_ms = sum(e.self_device_time_total for e in t.profiler.key_averages()
+                if e.device_type == DeviceType.CUDA and e.key not in annotations) / 1e3
+    table = ProfilerParser(t.trace_file).remove_idle().add_percentages().sort_by_device()
+    rows = table.rows
+    total_ms = sum(r["device_total_ms"] for r in rows)
+    if not abs(total_ms - ka_ms) <= PROFILE_TOTAL_REL * ka_ms:
+        raise AssertionError(f"profile: the parser's device total {total_ms:.3f} ms is not within "
+                             f"{PROFILE_TOTAL_REL:.0%} of key_averages' {ka_ms:.3f} ms")
+    seen = {}
+    for needle, counter in PROFILE_KERNELS:
+        calls = sum(r["calls"] for r in rows if needle in r["name"]
+                    and not (needle == "chain_kernel" and "chain_wide_kernel" in r["name"]))
+        seen[needle] = calls
+        if calls != counts[counter] or not calls:
+            raise AssertionError(f"profile: {needle} has {calls} calls in the trace, the "
+                                 f"{counter} wrapper counted {counts[counter]}")
+    # short windows, unpadded and padded: how many of their kernels the
+    # trace keeps, against the launches the host recorded
+    a = torch.randn(512, 512, generator=torch.Generator().manual_seed(0)).cuda()
+    windows = {}
+    for pad in (0.0, tracer.PAD_S) * 3:
+        with mock.patch.object(tracer, "PAD_S", pad), \
+                trace_step(os.path.join(tmp, f"window_{pad}"), "cuda") as w:
+            for _ in range(20):
+                (a @ a).relu_()
+            torch.cuda.synchronize()
+        wrows = ProfilerParser(w.trace_file).rows
+        kept = sum(r["calls"] for r in wrows if r["device_total_ms"] > 0)
+        launched = sum(r["calls"] for r in wrows if "Launch" in r["name"])
+        windows.setdefault("padded" if pad else "unpadded", []).append((kept, launched))
+    if any(k != n or not n for k, n in windows["padded"]):
+        raise AssertionError(f"profile: padded windows kept (kernels, launches) "
+                             f"{windows['padded']}")
+    print(f"profile: (kernels kept, launched) by short windows, unpadded {windows['unpadded']}, "
+          f"padded by {tracer.PAD_S} s {windows['padded']}", flush=True)
+    print(f"profile: {PROFILE_STEPS} flagship steps at B={PROFILE_BATCH}: {total_ms:.3f} ms on "
+          f"the device by the parser, {ka_ms:.3f} by key_averages; kernels by CUDA name and "
+          f"calls {seen} equal to the wrappers' launches; {len(rows)} rows; top 15:",
+          flush=True)
+    table.head(15).show(name_width=200)
+    return {"batch": PROFILE_BATCH, "steps": PROFILE_STEPS, "device_ms": total_ms,
+            "key_averages_device_ms": ka_ms, "kernel_calls": seen, "launches": counts,
+            "short_windows_kept_launched": windows,
+            "top": [dict(r, name=r["name"][:300]) for r in rows[:15]]}
+
+
+# the JAX package's defaults for repl/perf.py latency|linear|mixer|encoder
+PERF_WARMUP, PERF_ITERS, PERF_EMBED, PERF_HEADS, PERF_BATCH = 10, 100, 512, 4, 8
+F32_LINEAR_ATOL = 1e-4  # phase_kernel2 and phase_c6: float32, another summation order
+
+
+def _only(counts: dict, want: dict, tag: str) -> None:
+    got = {k: v for k, v in counts.items() if v}
+    if got != want:
+        raise AssertionError(f"{tag} launched {got}, not {want}")
+
+
+def phase_perf_modes(kernels, perf_cli, gen) -> dict:
+    """``repl/perf.py latency|linear|mixer|encoder`` through its ``main`` at
+    the JAX package's defaults: exact launches each, then one shape per mode
+    against the plain versions, and the wide kernels' times at 8 rows."""
+    import torch.nn.functional as F
+
+    from spectre_tpu_torch.models import SpectreEncoderLayer, SpectreLinear, SpectreViT
+    from spectre_tpu_torch.ops import make_structured_tables
+    from spectre_tpu_torch.utils.timing import FP32_FLOPS
+
+    calls = PERF_WARMUP + PERF_ITERS
+    fwd, wmma, wide = ("fused_spectre_linear", "fused_spectre_linear_wmma_fma",
+                       "fused_spectre_linear_wide_wmma_fma")
+    res, launches = {}, {}
+    for mode, want in (
+            # 8 SpectreViTs (patch x heads), 4 layers of 3 SpectreLinears and
+            # the head, float32: all on the f32/WMMA kernel; the gather mix is
+            # torch ops, as the JAX function is jnp
+            ("latency", {fwd: 8 * calls * 13, wmma: 8 * calls * 13}),
+            # dims 256, 512, 1024 on the f32/WMMA kernel, 2,048 and 4,096 wide
+            ("linear", {fwd: 5 * calls, wmma: 3 * calls, wide: 2 * calls}),
+            # the structured-mix kernel at every d = 2^6 .. 2^13
+            ("mixer", {"structured_mix": 8 * calls}),
+            # 3 SpectreLinears, one forward outside the trace and one in it
+            ("encoder", {fwd: 6, wmma: 6})):
+        kernels.reset_launch_counts()
+        res[mode] = perf_cli.main([mode])[mode]
+        torch.cuda.synchronize()
+        launches[mode] = kernels.launch_counts()
+        _only(launches[mode], want, f"perf {mode}")
+    if len(res["mixer"]) != 8 or any(not r["structured_kernel_ms"] > 0 for r in res["mixer"]):
+        raise AssertionError(f"perf mixer: rows {res['mixer']}")
+
+    checks = {}
+    seed = torch.Generator().manual_seed(0)
+    # latency: one SpectreViT (patch 4, heads 4) against the plain path
+    vit = SpectreViT(img_size=32, patch_size=4, in_channels=3, num_classes=100,
+                     embed_dim=PERF_EMBED, num_encoders=4, num_heads=PERF_HEADS,
+                     hidden_dim=PERF_EMBED, dropout=0.0, mix_impl="gather", device="cuda")
+    perf_cli._seeded(vit)
+    xi = torch.rand(PERF_BATCH, 3, 32, 32, generator=seed).cuda()
+    with torch.no_grad():
+        got = vit(xi)
+        with plain_versions(kernels):
+            ref = vit(xi)
+    checks["latency_logits"] = max_abs_diff(got, ref)
+    # encoder: the layer against the plain path
+    layer = perf_cli._seeded(SpectreEncoderLayer(
+        seq_length=65, d_model=PERF_EMBED, nhead=PERF_HEADS, dim_feedforward=PERF_EMBED,
+        dropout=0.0, mix_impl="gather", device="cuda"))
+    xe = torch.randn(PERF_BATCH, 65, PERF_EMBED, generator=seed).cuda()
+    with torch.no_grad():
+        got = layer(xe)
+        with plain_versions(kernels):
+            ref = layer(xe)
+    checks["encoder_out"] = max_abs_diff(got, ref)
+    del vit, layer
+    # linear: kernel 2 at dims 256 (f32/WMMA) and 4,096 (wide), 8 rows
+    wide_times = {}
+    for dim in (256, 2048, 4096):
+        sl = perf_cli._seeded(SpectreLinear(dim, dim, device="cuda"))
+        xl = torch.randn(PERF_BATCH, dim, generator=seed).cuda()
+        args = (xl, sl.kernel.detach(), sl.bias.detach(), sl.ln_scale.detach(),
+                sl.ln_bias.detach())
+        got = kernels.fused_spectre_linear(*args)
+        checks[f"linear_{dim}"] = max_abs_diff(got, kernels.fused_spectre_linear_plain(*args))
+        if dim == 256:
+            continue
+        t = {"ms": cuda_time_ms(lambda: kernels.fused_spectre_linear(*args), iters=20),
+             "device_ms": device_time_ms(lambda: kernels.fused_spectre_linear(*args), iters=10),
+             "plain_ms": cuda_time_ms(lambda: kernels.fused_spectre_linear_plain(*args),
+                                      iters=10),
+             "library_ms": cuda_time_ms(lambda: F.gelu(F.layer_norm(
+                 torch.addmm(args[2], xl, args[1]), (dim,), args[3], args[4])) + xl, iters=20),
+             "library_device_ms": device_time_ms(lambda: F.gelu(F.layer_norm(
+                 torch.addmm(args[2], xl, args[1]), (dim,), args[3], args[4])) + xl, iters=10)}
+        t["bound_ms"], t["bound_by"] = bound(
+            (2 * PERF_BATCH * dim + dim * dim + 3 * dim) * 4, 2 * PERF_BATCH * dim * dim,
+            FP32_FLOPS)
+        wide_times[f"{PERF_BATCH}x{dim}x{dim}_float32"] = t
+        print(f"perf linear's wide kernel ({PERF_BATCH}x{dim})x({dim}x{dim}) f32: "
+              f"{t['ms']:.4f} ms back to back, device {t['device_ms']:.4f}, bound "
+              f"{t['bound_ms']:.4f} by {t['bound_by']}; plain {t['plain_ms']:.4f}; cuBLAS "
+              f"chain {t['library_ms']:.4f} (device {t['library_device_ms']:.4f})", flush=True)
+        del sl, xl, args, got
+    # mixer: kernel 7 at d = 4,096 bit for bit
+    d, n = 4096, 8
+    tperms, ssigns = (t.cuda() for t in make_structured_tables(seed, PERF_HEADS, d))
+    xm = torch.randn(PERF_BATCH, n, d // n, generator=seed).cuda()
+    got = kernels.structured_mix(xm, tperms, ssigns, n)
+    if not torch.equal(got, kernels.structured_mix_plain(xm, tperms, ssigns, n)):
+        raise AssertionError("perf mixer: kernel 7 at d=4,096 differs from its plain version")
+    checks["mixer_4096"] = 0.0
+    for key, err in checks.items():
+        limit = 0.0 if key.startswith("mixer") else (
+            MODEL_ATOL if key == "latency_logits" else F32_LINEAR_ATOL)
+        if not err <= limit:
+            raise AssertionError(f"perf modes: {key} max abs err {err} > {limit}")
+    print(f"perf modes against plain (float32): {checks}; launches exact in all four "
+          f"({ {m: {k: v for k, v in c.items() if v} for m, c in launches.items()} })",
+          flush=True)
+    return {"rows": res, "launches": launches, "max_abs_err": checks, "wide": wide_times}
+
+
+def phase_head_chain(kernels, gen) -> dict:
+    """The head's shape, (256 x 512)(512 x 100) bf16: kernel 2 (its f32/WMMA
+    kernel) and the cuBLAS chain, each back to back and on the device."""
+    import torch.nn.functional as F
+
+    m, k, n = 256, 512, 100
+    x = torch.randn(m, k, generator=gen).to("cuda", torch.bfloat16)
+    w = (torch.rand(k, n, generator=gen) * 2 - 1).mul_(k ** -0.5).to("cuda", torch.bfloat16)
+    b, beta = (0.1 * torch.randn(n, generator=gen).to("cuda", torch.bfloat16) for _ in range(2))
+    gamma = (1.0 + 0.1 * torch.randn(n, generator=gen)).to("cuda", torch.bfloat16)
+
+    def chain():
+        return F.gelu(F.layer_norm(torch.addmm(b, x, w), (n,), gamma, beta))
+
+    def kernel():
+        return kernels.fused_spectre_linear(x, w, b, gamma, beta)
+
+    out = {}
+    for name, fn in (("kernel", kernel), ("chain", chain), ("chain", chain), ("kernel", kernel)):
+        for key, v in ((name + "_ms", cuda_time_ms(fn, iters=20)),
+                       (name + "_device_ms", device_time_ms(fn, iters=10))):
+            out[key] = min(v, out.get(key, v))  # the lower of two turns
+    print(f"head (256x512)(512x100) bf16: kernel {out['kernel_ms']:.4f} ms back to back, "
+          f"device {out['kernel_device_ms']:.4f}; cuBLAS chain {out['chain_ms']:.4f}, device "
+          f"{out['chain_device_ms']:.4f}", flush=True)
+    return out
+
+
+MNIST_CONFIG = os.path.join(ROOT, "spectre_tpu_torch", "configs", "spectre_vit_mnist.py")
+SUBMISSION_STEPS = 3
+DETERMINISTIC_REL = 1e-5  # a float32 product of depth 4,096 against float64
+FLOPS_REL = 0.02  # FlopCounterMode on the plain path against repl/bench.py's count
+
+
+def phase_tools(kernels, parse_config, build_model, tmp: str) -> dict:
+    """``write_submission`` on the card (exact launches, the CSV's rows, the
+    logits against the plain path), ``deterministic_mode`` (a [4,096 x
+    4,096] float32 product against float64, TF32 restored after),
+    ``enable_nan_checks`` (a NaN fed to one layer is named) and
+    ``model_summary`` of the flagship at full width against the bench's
+    FLOP count."""
+    from spectre_tpu_torch.data import DATASET_STATS, make_eval_transform
+    from spectre_tpu_torch.models import example_input
+    from spectre_tpu_torch.repl.bench import forward_flops_per_image
+    from spectre_tpu_torch.repl.mnist_submission import write_submission
+    from spectre_tpu_torch.utils.debug import deterministic_mode, enable_nan_checks
+    from spectre_tpu_torch.utils.summary import format_summary, model_summary
+
+    out = {}
+    cfg = parse_config(MNIST_CONFIG)
+    path = os.path.join(tmp, "submission.csv")
+    kernels.reset_launch_counts()
+    sub = write_submission(cfg, path, device="cuda", steps=SUBMISSION_STEPS, synthetic=True)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    val_batches = -(-1024 // int(cfg.val_batch_size))  # the synthetic test and submission sets
+    want = expected_launches(cfg, forwards=2 * val_batches, steps=SUBMISSION_STEPS)
+    _only(counts, {k: v for k, v in want.items() if v}, "write_submission")
+    with open(path) as f:
+        lines = f.read().strip().splitlines()
+    if lines[0] != "ImageId,Label" or len(lines) - 1 != len(sub.images):
+        raise AssertionError(f"submission: {len(lines) - 1} rows for {len(sub.images)} images")
+    xs = make_eval_transform(*DATASET_STATS["mnist"])(torch.from_numpy(sub.images[:512]).cuda())
+    with torch.no_grad(), plain_versions(kernels):
+        ref = sub.model(xs).float().cpu()
+    err = max_abs_diff(sub.logits[:512], ref)
+    if not err <= MODEL_ATOL:
+        raise AssertionError(f"submission logits differ from the plain path by {err}")
+    out["submission"] = {"rows": len(lines) - 1, "launches": counts, "max_abs_err": err}
+    print(f"tools: write_submission on the card, {SUBMISSION_STEPS} steps: {len(lines) - 1} "
+          f"rows, logits within {err:.4g} of the plain path, launches "
+          f"{ {k: v for k, v in counts.items() if v} }", flush=True)
+    del sub
+
+    a, b = (torch.randn(4096, 4096, generator=torch.Generator().manual_seed(i)).cuda()
+            for i in (1, 2))
+    ref = (a.double() @ b.double())
+    scale = ref.abs().max().item()
+    torch.set_float32_matmul_precision("high")  # TF32 on, as a user may have it
+    tf32 = ((a @ b).double() - ref).abs().max().item() / scale
+    deterministic_mode(True)
+    exact = ((a @ b).double() - ref).abs().max().item() / scale
+    deterministic_mode(False)
+    restored = (torch.get_float32_matmul_precision(), torch.backends.cuda.matmul.allow_tf32)
+    torch.set_float32_matmul_precision("highest")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    if not (exact <= DETERMINISTIC_REL < tf32 and restored == ("high", True)):
+        raise AssertionError(f"deterministic_mode: rel err {exact} (TF32 {tf32}), state after "
+                             f"off {restored}")
+    out["deterministic"] = {"rel_err": exact, "rel_err_tf32": tf32}
+    print(f"tools: deterministic_mode: [4096 x 4096] f32 product within {exact:.3g} of the "
+          f"largest entry of float64 (TF32: {tf32:.3g}); TF32 back on after off", flush=True)
+    del a, b, ref
+
+    small = parse_config(CONFIG)
+    small.num_encoders = 2
+    model = build_model(small, "cuda")
+    poisoned = model.encoder_blocks.layer_1.linear1
+
+    def poison(module, args):
+        y = args[0].clone()
+        y[0, 0, 0] = float("nan")
+        return (y,)
+
+    handle = poisoned.register_forward_pre_hook(poison)
+    enable_nan_checks(True)
+    try:
+        with torch.no_grad():
+            model(example_input(small, 4, "cuda").uniform_())
+        raise AssertionError("enable_nan_checks: a NaN fed to layer_1.linear1 did not raise")
+    except FloatingPointError as e:
+        named = str(e)
+    finally:
+        enable_nan_checks(False)
+        handle.remove()
+    if not named.endswith("SpectreViT.encoder_blocks.layer_1.linear1"):
+        raise AssertionError(f"enable_nan_checks named {named!r}")
+    out["nan_checks"] = named
+    print(f"tools: enable_nan_checks: {named}", flush=True)
+    del model
+
+    cfg = parse_config(CONFIG)
+    model = build_model(cfg, "cuda")
+    t0 = time.perf_counter()
+    summary = model_summary(model, example_input(cfg, 2, "cuda"))
+    analytic = 2 * forward_flops_per_image(cfg)
+    rel = summary["flops"] / analytic - 1.0
+    if not abs(rel) <= FLOPS_REL:
+        raise AssertionError(f"model_summary: {summary['flops']:.4g} FLOPs against the bench's "
+                             f"{analytic:.4g}")
+    out["summary"] = dict(summary, analytic_flops=analytic, rel=rel,
+                          seconds=time.perf_counter() - t0)
+    print(f"tools: {format_summary('flagship', summary)}; the bench counts {analytic / 1e9:.4f} "
+          f"GFLOP for 2 images ({rel:+.3%}); {out['summary']['seconds']:.1f} s on a CPU copy",
+          flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -2729,6 +3096,15 @@ def main() -> int:
             kernels, build_model, parse_config, serve, SpectreClient, train_cli, bench_cli, tmp)
         gather_tm = phase_gather_tm(kernels, parse_config)
         distill_run, distill = phase_distill(kernels, parse_config, distill_cli, tmp)
+    # this slice: profile/, the repl/perf.py sweeps of the JAX package, the
+    # submission CLI and utils/{debug,summary}.py
+    with tempfile.TemporaryDirectory(prefix="spectre_smoke_") as tmp:
+        profile = phase_profile(kernels, parse_config, tmp)
+        torch.cuda.empty_cache()
+        perf_modes = phase_perf_modes(kernels, perf_cli, gen)
+        perf_modes["head"] = phase_head_chain(kernels, gen)
+        torch.cuda.empty_cache()
+        tools = phase_tools(kernels, parse_config, build_model, tmp)
 
     # launches: the whole trainer's uninterrupted run (20 steps, 4 validation
     # batches); kernel 4 from the mix_block=0 CLI run, kernel 5 from its own
@@ -2772,17 +3148,42 @@ def main() -> int:
     k2_head["launches_export"] = export_run["fused_spectre_linear_wmma_fma"]
     k8["launches_export_vit"] = export_families["vit"]["flash_attention_fwd"]
     k7["launches_export_structured"] = export_families["structured"]["structured_mix"]
-    # kernel 2 above N = 1,024: no shipped config reaches it, so the main
-    # path launches it no time; the C6 phase's own launches are beside
+    # kernel 2 above N = 1,024: the trainer launches it no time (no shipped
+    # config has N > 1,024); repl/perf.py linear launches the float32 wide
+    # kernel at dims 2,048 and 4,096, its main path since this slice; the C6
+    # phase's own launches are beside
     for k in (k12, k13, k14):
-        k["launches"] = trainer_run[k["name"]]
+        k["launches"] = k["launches_trainer"] = trainer_run[k["name"]]
+    k13["launches"] = perf_modes["launches"]["linear"][k13["name"]]
+    k13["launches_perf_linear"] = k13["launches"]
+    k13["times_perf_linear"] = perf_modes["wide"]
+    # this slice's paths: the four sweeps, the profiled steps and the
+    # submission CLI's run
+    for k, counter in ((k2_head, "fused_spectre_linear_wmma_fma"), (k7, "structured_mix")):
+        for mode, c in perf_modes["launches"].items():
+            if c[counter]:
+                k[f"launches_perf_{mode}"] = c[counter]
+    for k, counter in ((k1, "block_scatter_rows"), (k3, "block_gather_sum"),
+                       (k2, "fused_spectre_linear_wgmma"),
+                       (k2_head, "fused_spectre_linear_wmma_fma"),
+                       (k11, "fused_spectre_linear_bwd")):
+        k["launches_profile"] = profile["launches"][counter]
+    for k, counter in ((k1, "block_scatter_rows"), (k4, "inverse_gather_sum"),
+                       (k2, "fused_spectre_linear_wgmma"),
+                       (k2_head, "fused_spectre_linear_wmma_fma"),
+                       (k11, "fused_spectre_linear_bwd")):
+        k["launches_mnist_submission"] = tools["submission"]["launches"][counter]
+    k2_head["library_device_ms"] = perf_modes["head"]["chain_device_ms"]
+    k2_head["head_times_again"] = perf_modes["head"]
     result = {"kernels": [k1, k2, k2_head, k11, k3, k4, k5, k8, k9, k6, k7, k10, k12, k13, k14],
               "train_step": {f"mix_block={blk}": {f"B={b}": v for b, v in t.items()}
                              for blk, t in step_times.items()},
               "trainer": trainer, "fused_bwd": fused_bwd, "bench": bench, "vit": vit,
               "structured": structured, "routed": routed, "branch": branch,
               "gather_tm": {"train_step": gather_tm}, "distill": distill, "export": export,
-              "pipeline": pipeline}
+              "pipeline": pipeline, "profile": profile,
+              "perf_modes": {k: v for k, v in perf_modes.items() if k != "launches"},
+              "tools": tools}
     print(smi, flush=True)
     print(json.dumps(result), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

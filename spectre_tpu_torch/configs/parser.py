@@ -63,6 +63,11 @@ def parse_config(config_path: str) -> SimpleNamespace:
     return SimpleNamespace(**_load_config_dict(config_path))
 
 
+def config_to_dict(config: SimpleNamespace) -> dict[str, Any]:
+    """The config's fields as a plain dict (a copy)."""
+    return dict(vars(config))
+
+
 def apply_overrides(config: SimpleNamespace, pairs: list[str]) -> SimpleNamespace:
     """Apply ``key=value`` overrides; values parse as Python literals, else
     stay strings (the JAX CLIs' ``--set`` semantics)."""

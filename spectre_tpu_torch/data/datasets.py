@@ -7,9 +7,10 @@ pipeline and test runs without a download. All return plain numpy: images
 [N, C, H, W] float32 in [0, 1], labels [N] int32. Augmentation and
 normalisation happen on the device (``data/augment.py``).
 
-The JAX package's threaded native decoder for ``cifar-100-binary`` (its
-``data/native_loader``, built from ``native/``) is an optional accelerator
-that is not ported; the numpy reading below gives the same arrays.
+A ``cifar-100-binary`` file goes through the threaded native decoder
+(``data/native_loader.py``, built by ``make -C native``) when the library is
+there, as in the JAX package, and is read with numpy otherwise, to the same
+arrays.
 """
 
 from __future__ import annotations
@@ -34,6 +35,13 @@ def _load_cifar100(data_dir: str, split: str) -> tuple[np.ndarray, np.ndarray]:
         images = d[b"data"].reshape(-1, 3, 32, 32).astype(np.float32) / 255.0
         return images, np.asarray(d[b"fine_labels"], dtype=np.int32)
     if os.path.exists(binary_path):
+        from spectre_tpu_torch.data import native_loader
+
+        if native_loader.available():
+            try:
+                return native_loader.load_cifar100_bin(binary_path)
+            except OSError:  # the library refused the file: numpy says why, or reads it
+                pass
         raw = np.fromfile(binary_path, np.uint8).reshape(-1, 2 + 3072)
         labels = raw[:, 1].astype(np.int32)  # byte 0 is the coarse label, byte 1 the fine one
         return raw[:, 2:].reshape(-1, 3, 32, 32).astype(np.float32) / 255.0, labels

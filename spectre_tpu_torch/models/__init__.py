@@ -33,7 +33,12 @@ from spectre_tpu_torch.models.mixers import (
     make_mixer,
 )
 from spectre_tpu_torch.models.patch_embed import PatchEmbedding, SpectralPatchEmbed
-from spectre_tpu_torch.models.registry import build_model, refresh_mixes, resolve_dtype
+from spectre_tpu_torch.models.registry import (
+    build_model,
+    example_input,
+    refresh_mixes,
+    resolve_dtype,
+)
 from spectre_tpu_torch.models.spectre import SpectreEncoder, SpectreEncoderLayer, SpectreViT
 from spectre_tpu_torch.models.spectre_branch import (
     Conv,
@@ -84,6 +89,7 @@ __all__ = [
     "TransformerEncoderLayer",
     "ViT",
     "build_model",
+    "example_input",
     "flax_state_dict",
     "import_spectre_branch",
     "import_spectre_vit",

@@ -69,3 +69,13 @@ def build_model(config: SimpleNamespace, device: torch.device | str,
     model.train(train)
     refresh_mixes(model)
     return model
+
+
+def example_input(config: SimpleNamespace, batch_size: int | None = None,
+                  device: torch.device | str = "cuda") -> torch.Tensor:
+    """A zero float32 batch of the configured input shape on ``device``
+    (``config.batch_size`` images unless ``batch_size``); the model casts it
+    to its compute dtype."""
+    b = batch_size or config.batch_size
+    return torch.zeros(b, config.in_channels, config.img_size, config.img_size,
+                       device=device)

@@ -75,6 +75,13 @@ def extract_patches(x: torch.Tensor, patch_size: int) -> torch.Tensor:
     return x.reshape(B, C, nH * nW, P, P)
 
 
+def patch_rfft2_real(x: torch.Tensor, patch_size: int) -> torch.Tensor:
+    """Per-patch Re(rfft2(., norm="ortho")) through torch.fft, the direct form
+    of what ``spectral_patch_matrix`` folds into one product: [B, C, H, W] ->
+    [B, C, N, P, P//2+1]."""
+    return torch.fft.rfft2(extract_patches(x, patch_size), norm="ortho").real
+
+
 @lru_cache(maxsize=None)
 def _rfft2_real_matrix_np(p: int) -> np.ndarray:
     """Dense matrix D of the linear map patch[P,P] -> Re(rfft2(patch, ortho)).

@@ -16,8 +16,24 @@ any config with ``--config``), and single kernels beside what they replace.
     python -m spectre_tpu_torch.repl.perf linear-fwd [--batch 256 1024] [--iters 30]
     python -m spectre_tpu_torch.repl.perf distill --config spectre_tpu_torch/configs/distill_cifar100.py
         [--batch 256] [--out build/perf_distill.json]
+    python -m spectre_tpu_torch.repl.perf latency|linear|mixer|encoder [--batch 8]
+        [--embed-dim 512] [--heads 4] [--warmup 10] [--iters 100] [--max-pow 13]
+        [--mix-impl gather] [--use-pallas] [--device cuda]
 
-Needs a CUDA card. ``attention`` and ``structured`` (the counterparts of the
+``latency``, ``linear``, ``mixer`` and ``encoder`` are the JAX package's
+sweeps with its flags, defaults and rows, on the card unless ``--device
+cpu``: SpectreViT forwards over patch {4, 8} x heads {1, 2, 4, 8};
+SpectreLinear beside a dense layer at square dims 256 to 4,096 on 8 rows in
+float32 (kernel 2's float32 kernel, and its wide kernels at 2,048 and
+4,096); the gather mix, the structured mix's matrix form, the 2-D DFT by
+products and the structured-mix kernel at d = 2^6 .. 2^13 (the kernel at
+every d: it has no fallback); one SpectreEncoderLayer forward through
+``profile.trace_step`` and ``ProfilerParser`` into plots/encoder_layer.csv.
+Times are CUDA events over ``--iters`` calls after ``--warmup``; a time at or
+below 1.5x one trivial launch's is marked dispatch-bound. ``--use-pallas``
+has no effect (the port has no second path on the card) and says so.
+
+The other modes need a CUDA card. ``attention`` and ``structured`` (the counterparts of the
 JAX package's ``repl/perf.py attention`` and ``mixer``) time the attention
 kernels and the structured-mix kernels in bf16 against their plain versions,
 forward and forward + backward, and print their largest difference; beside
@@ -80,12 +96,14 @@ The card's name and power limit head the output; all results also go to
 from __future__ import annotations
 
 import argparse
+import itertools
 import json
 import os
 import statistics
 import time
 from unittest import mock
 
+import numpy as np
 import torch
 
 from spectre_tpu_torch.configs import FLAGSHIP, parse_config
@@ -114,7 +132,7 @@ from spectre_tpu_torch.ops.kernels import (
 )
 from spectre_tpu_torch.ops.routing import build_route_tables_cached
 from spectre_tpu_torch.train.loop import build_step
-from spectre_tpu_torch.utils import card_and_power_limit
+from spectre_tpu_torch.utils import card_and_power_limit, cli_device
 from spectre_tpu_torch.utils.timing import (
     HBM_BYTES_PER_S,
     bound_ms,
@@ -627,21 +645,224 @@ def routed(args) -> dict:
     return out
 
 
+# -- the JAX package's sweeps: latency, linear, mixer, encoder ---------------
+
+
+def _time_fn(fn, device: torch.device, warmup: int = 5, iters: int = 50) -> float:
+    """Seconds a call: ``iters`` calls back to back after ``warmup`` calls,
+    by CUDA events on a card (the host clock on the CPU)."""
+    for _ in range(warmup):
+        fn()
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            fn()
+        return (time.perf_counter() - t0) / iters
+    torch.cuda.synchronize(device)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / 1e3 / iters
+
+
+def _dispatch_floor(device: torch.device, iters: int = 200) -> float:
+    """Seconds of one trivial launch issued back to back (an in-place add on
+    [8, 128]): a time at or below it measures the issue, not the work."""
+    x = torch.zeros(8, 128, device=device)
+    return _time_fn(lambda: x.add_(1.0), device, warmup=10, iters=iters)
+
+
+def _fmt(dt: float, floor: float) -> str:
+    ms = dt * 1e3
+    return f"<= {ms:.3f} ms (dispatch-bound)" if dt <= floor * 1.5 else f"{ms:.3f} ms"
+
+
+def _seeded(module: torch.nn.Module) -> torch.nn.Module:
+    """``module`` with the port's init from seed 0, its mixes derived, in
+    eval mode."""
+    from spectre_tpu_torch.models import refresh_mixes
+    from spectre_tpu_torch.models.init import init_weights
+
+    init_weights(module, torch.Generator().manual_seed(0))
+    refresh_mixes(module)
+    return module.eval()
+
+
+def _normal(device: torch.device, *shape: int) -> torch.Tensor:
+    return torch.from_numpy(np.random.default_rng(0).standard_normal(shape).astype(
+        np.float32)).to(device)
+
+
+def cmd_latency(args, device: torch.device) -> list[dict]:
+    """SpectreViT forwards over patch x heads (the JAX package's sweep)."""
+    from spectre_tpu_torch.models import SpectreViT
+
+    b = args.batch[0]
+    print(f"SpectreViT forward latency on {device} (B={b}, {args.warmup} warmup + "
+          f"{args.iters} iters)", flush=True)
+    x = torch.from_numpy(np.random.default_rng(0).uniform(
+        0, 1, (b, 3, 32, 32)).astype(np.float32)).to(device)
+    out = []
+    for patch, heads in itertools.product([4, 8], [1, 2, 4, 8]):
+        model = _seeded(SpectreViT(
+            img_size=32, patch_size=patch, in_channels=3, num_classes=100,
+            embed_dim=args.embed_dim, num_encoders=4, num_heads=heads,
+            hidden_dim=args.embed_dim, dropout=0.0, mix_impl=args.mix_impl, device=device))
+        with torch.no_grad():
+            dt = _time_fn(lambda: model(x), device, warmup=args.warmup, iters=args.iters)
+        print(f"  patch={patch} heads={heads}: {dt * 1e3:.3f} ms/iter ({b / dt:.0f} img/s)",
+              flush=True)
+        out.append({"patch": patch, "heads": heads, "ms": dt * 1e3, "img_per_s": b / dt})
+        del model
+    return out
+
+
+def cmd_linear(args, device: torch.device) -> list[dict]:
+    """SpectreLinear against a dense layer at square dims 2^8 .. 2^12."""
+    from spectre_tpu_torch.models import Dense, SpectreLinear
+
+    floor = _dispatch_floor(device)
+    print(f"SpectreLinear vs Dense on {device} (square dims, {args.batch[0]} rows, float32), "
+          f"avg ms/iter (dispatch floor {floor * 1e3:.3f} ms)", flush=True)
+    out = []
+    for p in range(8, 13):
+        dim = 2 ** p
+        x = _normal(device, args.batch[0], dim)
+        sl = _seeded(SpectreLinear(dim, dim, device=device))
+        dense = _seeded(Dense(dim, dim, device=device))
+        n_sl = sum(t.numel() for t in sl.parameters())
+        n_d = sum(t.numel() for t in dense.parameters())
+        with torch.no_grad():
+            t_sl = _time_fn(lambda: sl(x), device, warmup=args.warmup, iters=args.iters)
+            t_d = _time_fn(lambda: dense(x), device, warmup=args.warmup, iters=args.iters)
+        print(f"  dim={dim}: spectre {_fmt(t_sl, floor)} ({n_sl:,} params) | "
+              f"dense {_fmt(t_d, floor)} ({n_d:,} params)", flush=True)
+        out.append({"dim": dim, "spectre_ms": t_sl * 1e3, "dense_ms": t_d * 1e3,
+                    "spectre_params": n_sl, "dense_params": n_d,
+                    "kernel": forward_kernel(torch.float32, dim, dim)})
+    return out
+
+
+def mixer_sweep(device: torch.device, batch: int = 8, heads: int = 4, max_pow: int = 13,
+                warmup: int = 10, iters: int = 100) -> list[dict]:
+    """The mixing transforms across d = 2^6 .. 2^max_pow on 8 tokens: the
+    gather mix, the structured mix's matrix form, the 2-D DFT by products
+    and the structured-mix kernel (kernel 7, on a card; on the CPU its
+    wrapper runs the plain version). Every d goes through the kernel: it
+    takes every shape the tables give or raises. Prints a row per d and
+    returns the rows (ms)."""
+    from spectre_tpu_torch.ops import (
+        fft2_real_matmul,
+        make_mix_tables,
+        make_structured_tables,
+        permut_mix,
+    )
+    from spectre_tpu_torch.ops import structured_mix as structured_matrix
+    from spectre_tpu_torch.ops.kernels import structured_mix as structured_kernel
+
+    floor = _dispatch_floor(device)
+    print(f"mixing time on {device}, H={heads}, avg ms/iter (dims 2^6..2^{max_pow}; "
+          f"dispatch floor {floor * 1e3:.3f} ms)", flush=True)
+    tag = "structured-kernel" if device.type == "cuda" else "structured-kernel(plain on cpu)"
+    out = []
+    n = 8  # tokens; embed = d // n
+    for p in range(6, max_pow + 1):
+        d = 2 ** p
+        if d // n < 8:
+            continue
+        x = _normal(device, batch, n, d // n)
+        perms, signs = (t.to(device) for t in make_mix_tables(
+            torch.Generator().manual_seed(0), heads, d))
+        tperms, ssigns = (t.to(device) for t in make_structured_tables(
+            torch.Generator().manual_seed(0), heads, d))
+        runs = {"gather": lambda: permut_mix(x, perms, signs, n),
+                "structured": lambda: structured_matrix(x, tperms, ssigns, n),
+                "fft2": lambda: fft2_real_matmul(x),
+                tag: lambda: structured_kernel(x, tperms, ssigns, n)}
+        t = {k: _time_fn(fn, device, warmup=warmup, iters=iters) for k, fn in runs.items()}
+        print(f"  d={d}: " + " | ".join(f"{k} {_fmt(v, floor)}" for k, v in t.items()),
+              flush=True)
+        out.append({"d": d, "tile": d // tperms.shape[1], "gather_ms": t["gather"] * 1e3,
+                    "structured_ms": t["structured"] * 1e3, "fft2_ms": t["fft2"] * 1e3,
+                    "structured_kernel_ms": t[tag] * 1e3})
+    return out
+
+
+def cmd_mixer(args, device: torch.device) -> list[dict]:
+    return mixer_sweep(device, args.batch[0], args.heads, args.max_pow, args.warmup, args.iters)
+
+
+def cmd_encoder(args, device: torch.device) -> list[dict]:
+    """One SpectreEncoderLayer forward under ``trace_step``, through
+    ``ProfilerParser`` into plots/encoder_layer.csv."""
+    from spectre_tpu_torch.models import SpectreEncoderLayer
+    from spectre_tpu_torch.profile import ProfilerParser, trace_step
+
+    layer = _seeded(SpectreEncoderLayer(
+        seq_length=65, d_model=args.embed_dim, nhead=args.heads,
+        dim_feedforward=args.embed_dim, dropout=0.0, mix_impl=args.mix_impl, device=device))
+    x = _normal(device, args.batch[0], 65, args.embed_dim)
+    with torch.no_grad():
+        layer(x)  # first call outside the trace
+        with trace_step("plots/encoder_trace", device) as t:
+            layer(x)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+    table = (ProfilerParser(t.trace_file).remove_idle().add_percentages().round()
+             .sort_by_device().head(25).show().to_csv("plots/encoder_layer.csv"))
+    print("wrote plots/encoder_layer.csv", flush=True)
+    return table.rows
+
+
+JAX_MODES = {"latency": cmd_latency, "linear": cmd_linear, "mixer": cmd_mixer,
+             "encoder": cmd_encoder}
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__,
                                 formatter_class=argparse.RawDescriptionHelpFormatter)
     p.add_argument("mode", nargs="?", default="train",
                    choices=("train", "fused-bwd", "attention", "structured", "routed", "fwht",
-                            "linear-bwd", "linear-fwd", "distill"))
+                            "linear-bwd", "linear-fwd", "distill", *JAX_MODES))
     p.add_argument("--config", default=FLAGSHIP)
-    p.add_argument("--batch", type=int, nargs="*", default=[256, 1024])
+    p.add_argument("--batch", type=int, nargs="*", default=None,
+                   help="default 256 1024; 8 for latency, linear, mixer and encoder")
     p.add_argument("--mix-block", type=int, default=None, help="override the config's mix_block")
     p.add_argument("--out", default=os.path.join("build", "perf.json"))
-    for flag, default in (("--heads", 16), ("--tokens", 65), ("--embed", 512),
-                          ("--out-dim", 512), ("--blk", 64), ("--iters", 30),
+    for flag, default in (("--tokens", 65), ("--embed", 512), ("--out-dim", 512), ("--blk", 64),
                           ("--head-dim", 32)):
         p.add_argument(flag, type=int, default=default, help="kernel modes only")
+    p.add_argument("--heads", type=int, default=None,
+                   help="default 16; 4 for latency, linear, mixer and encoder")
+    p.add_argument("--iters", type=int, default=None,
+                   help="default 30; 100 for latency, linear, mixer and encoder")
+    # the JAX package's sweeps: its flags and defaults
+    p.add_argument("--warmup", type=int, default=10)
+    p.add_argument("--embed-dim", dest="embed_dim", type=int, default=512)
+    p.add_argument("--max-pow", dest="max_pow", type=int, default=13)
+    p.add_argument("--mix-impl", dest="mix_impl", default="gather")
+    p.add_argument("--use-pallas", dest="use_pallas", action="store_true",
+                   help="accepted for the JAX package's command lines; no effect here")
+    p.add_argument("--device", default="cuda",
+                   help="latency, linear, mixer and encoder only (the others need a card)")
     args = p.parse_args(argv)
+    sweep = args.mode in JAX_MODES
+    args.batch = args.batch or ([8] if sweep else [256, 1024])
+    args.heads = args.heads or (4 if sweep else 16)
+    args.iters = args.iters or (100 if sweep else 30)
+    if sweep:
+        device = cli_device(args.device)
+        card = card_and_power_limit() if device.type == "cuda" else "cpu"
+        print(f"card: {card}; torch {torch.__version__}", flush=True)
+        if args.use_pallas:
+            print("--use-pallas has no effect: on a card the port always runs its kernels",
+                  flush=True)
+        if device.type == "cuda":
+            torch.backends.cuda.matmul.allow_tf32 = False
+        return {"card": card, args.mode: JAX_MODES[args.mode](args, device)}
     if not torch.cuda.is_available():
         raise RuntimeError("torch.cuda.is_available() is False: this measures on a CUDA card")
     cfg = parse_config(args.config)
