@@ -211,6 +211,21 @@ Phases, each raising on failure (nothing is caught):
    to; ``model_summary`` of the flagship at full width, its FLOPs within 2%
    of ``repl/bench.py``'s count.
 
+27. parallel (``spectre_tpu_torch/parallel/``), the flagship at full width as
+   the config ships it (bf16, B=256): ``repl/train.py --multihost`` under
+   torchrun on one rank (NCCL) with DDP and with ``--set fsdp=True``, 8
+   steps and the validation pass, against the unwrapped CLI: exact
+   launches of B1, B2, B3's forward (8 wgmma and the head a step) and
+   backward; the per-step losses DDP's bit for bit, FSDP's bit for bit at
+   step 1 and within FSDP_CURVE_REL after. Then 2 torchrun ranks on the one
+   card over gloo (card tensors), DDP and FSDP at 128 rows a rank: exact
+   launches, the audit's signature of each, the loss after 3 steps within
+   GLOO_LOSS_REL of one process at batch 256. Then, at one rank in this
+   process: ms per step of the unwrapped step, DDP and FSDP at B=256 and
+   B=1,024 in turns, the step's peak memory and the collectives of a step.
+   The torchrun ranks run this script (``--rank-train``, ``--rank-gloo``),
+   which calls the CLI's ``main`` and writes the launches.
+
 Prints the card line, one JSON line of per-kernel results, then
 ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero, with no
 result, when CUDA is missing or the port is not beside this script.
@@ -2625,7 +2640,7 @@ def phase_pipeline(kernels, serve, model, cfg):
 
         def _dispatch(self, x, parts):
             self._resolve(super()._dispatch(x, parts))
-            return [], None, None
+            return [], [], []
 
         @staticmethod
         def _resolve(pending):
@@ -3011,6 +3026,314 @@ def phase_tools(kernels, parse_config, build_model, tmp: str) -> dict:
     return out
 
 
+# phase 27: parallelism
+PARALLEL_STEPS = 8
+GLOO_STEPS = 3
+GLOO_BATCH = 256  # global: 128 a rank
+# FSDP's loss curve at one rank against the unwrapped trainer's: the forward
+# and AdamW are bitwise the same (measured), and so is every gradient except
+# those of cls_token and position_embeddings, which sum the encoder's global
+# residual and the layers' path: FSDP2's hooks on each layer's input make
+# autograd add those in another order. The last bits so moved grow through
+# AdamW; the limit is a quarter of one bf16 ulp (2^-8) of the loss, about 25
+# times the largest difference measured over 8 steps.
+FSDP_CURVE_REL = 2.0 ** -10
+# the 2-rank loss against one process at the same global batch: each rank
+# draws its own dropout masks (p = 0.001), and the gradient's sum runs in
+# another order; the train phase's gradient limit
+GLOO_LOSS_REL = TRAIN_GRAD_REL
+
+
+LAYOUT_TRACE_STEPS = 3
+
+
+def _layout_trace(step, state, x, y, logdir: str) -> dict:
+    """One layout's step under ``trace_step``, after 2 untraced ones: ms a
+    step by CUDA events, the card's busy ms a step (the union of its
+    kernels, copies and fills in the trace), its idle share, and the
+    trace's rows by name (``ProfilerParser``)."""
+    from spectre_tpu_torch.profile import ProfilerParser, trace_step
+    from spectre_tpu_torch.profile.parser import DEVICE_CATEGORIES
+
+    for _ in range(2):
+        step(state, x, y)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with trace_step(logdir, "cuda") as t:
+        start.record()
+        for _ in range(LAYOUT_TRACE_STEPS):
+            step(state, x, y)
+        end.record()
+        torch.cuda.synchronize()
+    with open(t.trace_file) as f:
+        spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in json.load(f)["traceEvents"]
+                       if e.get("ph") == "X" and e.get("cat") in DEVICE_CATEGORIES)
+    busy_us, reach = 0.0, float("-inf")
+    for a, b in spans:
+        if b > reach:
+            busy_us += b - max(a, reach)
+            reach = b
+    ms = start.elapsed_time(end) / LAYOUT_TRACE_STEPS
+    busy = busy_us / 1e3 / LAYOUT_TRACE_STEPS
+    return {"ms": ms, "busy_ms": busy, "idle": 1.0 - busy / ms, "kernels": len(spans)
+            / LAYOUT_TRACE_STEPS, "rows": {r["name"]: r for r in ProfilerParser(t.trace_file).rows}}
+
+
+def _trace_diff(base: dict, other: dict, key: str, top: int = 8) -> list:
+    """The ``top`` rows whose ``key`` (ms) grew most a step from ``base`` to
+    ``other``: (ms a step, calls a step, name)."""
+    grown = []
+    for name in set(base["rows"]) | set(other["rows"]):
+        a, b = base["rows"].get(name, {}), other["rows"].get(name, {})
+        d = (b.get(key, 0.0) - a.get(key, 0.0)) / LAYOUT_TRACE_STEPS
+        if d > 0:
+            grown.append((round(d, 4), (b.get("calls", 0) - a.get("calls", 0))
+                          / LAYOUT_TRACE_STEPS, name[:120]))
+    return sorted(grown, reverse=True)[:top]
+
+
+def _step_losses(logdir: str) -> list[float]:
+    """The per-step training losses a run wrote to its events file."""
+    with open(os.path.join(logdir, "events.jsonl")) as f:
+        events = [json.loads(line) for line in f]
+    return [e["value"] for e in events if e["tag"] == "Loss/Train"]
+
+
+def _torchrun(nproc: int, args: list, timeout: int = 300) -> None:
+    """Run this script under torchrun on ``nproc`` ranks; raise with the
+    ranks' output when it fails."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(nproc), os.path.abspath(__file__), *args]
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=timeout)
+    if r.returncode != 0:
+        raise AssertionError(f"torchrun {' '.join(args[:2])} exited {r.returncode}:\n"
+                             f"{r.stdout[-4000:]}\n{r.stderr[-6000:]}")
+
+
+def rank_train(out: str, argv: list) -> None:
+    """One torchrun rank of phase 27's CLI legs: ``repl/train.py``'s main with
+    ``argv`` (which holds ``--multihost``); rank 0 writes its launches."""
+    from spectre_tpu_torch.ops import kernels
+    from spectre_tpu_torch.repl import train as train_cli
+
+    kernels.reset_launch_counts()
+    result = train_cli.main(argv)
+    if int(os.environ.get("RANK", 0)) == 0:
+        with open(out, "w") as f:
+            json.dump({"launches": kernels.launch_counts(), "step": result.state.step,
+                       "logdir": result.logdir, "layout": result.state.layout.kind}, f)
+
+
+def rank_gloo(out: str) -> None:
+    """One of 2 torchrun ranks on the one card over gloo: the flagship's
+    step under DDP, then under FSDP, on this rank's half of a global batch,
+    exact launches, the audit's signature; rank 0 writes the losses."""
+    import torch.distributed as dist
+
+    from spectre_tpu_torch.configs import parse_config
+    from spectre_tpu_torch.data import make_eval_transform
+    from spectre_tpu_torch.ops import kernels
+    from spectre_tpu_torch.parallel import (assert_dp_signature, assert_fsdp_signature,
+                                            collective_counts, create_mesh, init_distributed,
+                                            local_rows, parallelize)
+    from spectre_tpu_torch.train import make_train_step
+    from spectre_tpu_torch.train.loop import create_trainer, dataset_stats
+
+    init_distributed(device="cuda", backend="gloo", local_rank=0)
+    cfg = parse_config(CONFIG)
+    mesh = create_mesh(device_type="cuda")
+    raw, y = _train_batch(cfg, GLOO_BATCH)
+    rows = local_rows(mesh, GLOO_BATCH)
+    x, y = make_eval_transform(*dataset_stats(cfg.dataset))(raw)[rows], y[rows]
+    step = make_train_step(grad_clip_norm=cfg.grad_clip_norm)
+    result = {}
+    for kind in ("ddp", "fsdp"):
+        state = parallelize(create_trainer(cfg, "cuda", steps_per_epoch=16), mesh,
+                            fsdp=kind == "fsdp", seed=cfg.random_seed)
+        t0 = time.perf_counter()
+        kernels.reset_launch_counts()
+        losses = [step(state, x, y)["loss"].item() for _ in range(GLOO_STEPS)]
+        counts = kernels.launch_counts()
+        audit = collective_counts(step, state, x, y)
+        (assert_fsdp_signature if kind == "fsdp" else assert_dp_signature)(audit)
+        result[kind] = {"losses": losses, "launches": counts, "audit": audit,
+                        "rows": rows.stop - rows.start,
+                        "s_per_step_host": (time.perf_counter() - t0) / (GLOO_STEPS + 1)}
+        del state
+    if dist.get_rank() == 0:
+        with open(out, "w") as f:
+            json.dump(result, f)
+    dist.destroy_process_group()
+
+
+def phase_parallel(kernels, train_cli, parse_config, tmp: str) -> dict:
+    """The flagship through the parallel layouts: the training CLI under
+    torchrun (one rank, NCCL) with DDP and with FSDP against the unwrapped
+    CLI, per-step losses and exact launches; 2 ranks on the one card over
+    gloo, DDP and FSDP, against one process; then ms per step, peak memory
+    and the audit's counts of the three layouts in this process."""
+    from spectre_tpu_torch.data import make_eval_transform
+    from spectre_tpu_torch.parallel import collective_counts, create_mesh, init_distributed, \
+        parallelize
+    from spectre_tpu_torch.train import make_train_step
+    from spectre_tpu_torch.train.loop import create_trainer, dataset_stats
+
+    cfg = parse_config(CONFIG)
+    val_batches = -(-1024 // cfg.val_batch_size)
+    want = expected_launches(cfg, forwards=val_batches, steps=PARALLEL_STEPS)
+    common = ["--config", CONFIG, "--synthetic", "--steps", str(PARALLEL_STEPS),
+              "--no-checkpoint", "--set", "epochs=1", "log_every=1"]
+    out = {"launches": {}, "losses": {}}
+
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    plain = train_cli.main(common + [f"checkpoint_dir={os.path.join(tmp, 'par_none')}"])
+    out["cli_s"] = {"none": time.perf_counter() - t0}
+    out["launches"]["none"] = kernels.launch_counts()
+    out["losses"]["none"] = _step_losses(plain.logdir)
+    for kind, extra in (("ddp", []), ("fsdp", ["fsdp=True"])):
+        path = os.path.join(tmp, f"par_{kind}.json")
+        t0 = time.perf_counter()
+        _torchrun(1, ["--rank-train", path, "--multihost", *common, *extra,
+                      f"checkpoint_dir={os.path.join(tmp, 'par_' + kind)}"])
+        out["cli_s"][kind] = time.perf_counter() - t0
+        with open(path) as f:
+            rank0 = json.load(f)
+        layout = {"ddp": "dp"}.get(kind, kind)
+        if rank0["layout"] != layout or rank0["step"] != PARALLEL_STEPS:
+            raise AssertionError(f"parallel {kind}: ran {rank0}")
+        out["launches"][kind] = rank0["launches"]
+        out["losses"][kind] = _step_losses(rank0["logdir"])
+    for kind, counts in out["launches"].items():
+        if counts != want:
+            raise AssertionError(f"parallel {kind}: {PARALLEL_STEPS} steps + {val_batches} "
+                                 f"validation batches launched {counts}, want {want}")
+    plain_curve = np.asarray(out["losses"]["none"])
+    for kind in ("ddp", "fsdp"):
+        curve = np.asarray(out["losses"][kind])
+        rel = np.abs(curve - plain_curve) / np.abs(plain_curve) if len(curve) == \
+            PARALLEL_STEPS else np.array([np.inf])
+        out[f"curve_rel_{kind}"] = float(rel.max())
+        # DDP bit for bit; FSDP bit for bit at step 1 (the same weights) and
+        # within FSDP_CURVE_REL after
+        ok = rel.max() == 0 if kind == "ddp" else \
+            (rel[0] == 0 and rel.max() <= FSDP_CURVE_REL)
+        if not ok:
+            raise AssertionError(f"parallel {kind}: loss curve {curve.tolist()} against the "
+                                 f"unwrapped trainer's {plain_curve.tolist()}: rel {rel}")
+    print(f"parallel: repl/train.py --multihost under torchrun (1 rank, NCCL), DDP and "
+          f"FSDP: {PARALLEL_STEPS} steps + {val_batches} validation batches launched "
+          f"exactly {want} each; the unwrapped CLI's per-step losses {plain_curve.tolist()}, "
+          f"DDP's bit for bit, FSDP's {out['losses']['fsdp']} (step 1 bit for bit, worst "
+          f"rel {out['curve_rel_fsdp']:.3g}, limit {FSDP_CURVE_REL:.3g}); wall s "
+          f"{out['cli_s']}", flush=True)
+
+    # 2 ranks on the one card, gloo on card tensors
+    normalize = make_eval_transform(*dataset_stats(cfg.dataset))
+    state = create_trainer(cfg, "cuda", steps_per_epoch=16)
+    raw, y = _train_batch(cfg, GLOO_BATCH)
+    x = normalize(raw)
+    step = make_train_step(grad_clip_norm=cfg.grad_clip_norm)
+    single = [step(state, x, y)["loss"].item() for _ in range(GLOO_STEPS)]
+    del state
+    out["gloo"] = {"single_losses": single}
+    path = os.path.join(tmp, "gloo.json")
+    t0 = time.perf_counter()
+    _torchrun(2, ["--rank-gloo", path])
+    out["gloo"]["wall_s"] = time.perf_counter() - t0
+    with open(path) as f:
+        legs = json.load(f)
+    for kind in ("ddp", "fsdp"):
+        r = legs[kind]
+        rel = abs(r["losses"][-1] - single[-1]) / abs(single[-1])
+        rank_want = expected_launches(cfg, steps=GLOO_STEPS)
+        if r["launches"] != rank_want or not rel <= GLOO_LOSS_REL:
+            raise AssertionError(f"gloo {kind}: launches {r['launches']} (want {rank_want}), "
+                                 f"loss {r['losses']} vs one process {single}: rel {rel}")
+        r["loss_rel"] = rel
+        out["gloo"][kind] = r
+        print(f"parallel: 2 ranks on one card over gloo, {kind}, {r['rows']} rows a rank: "
+              f"losses {r['losses']} vs one process at batch {GLOO_BATCH} {single} (step "
+              f"{GLOO_STEPS} rel {rel:.3g}, limit {GLOO_LOSS_REL}); launches a rank "
+              f"{r['launches']}; audit of a step {r['audit']} (signature held); "
+              f"{r['s_per_step_host']:.3f} s a step (host clock)", flush=True)
+
+    # ms per step, peak memory and collectives of the three layouts, one rank
+    # (NCCL) in this process
+    init_distributed(device="cuda")
+    try:
+        states = {}
+        for kind in ("none", "ddp", "fsdp"):
+            st = create_trainer(cfg, "cuda", steps_per_epoch=16)
+            if kind != "none":
+                parallelize(st, create_mesh(device_type="cuda"), fsdp=kind == "fsdp",
+                            seed=cfg.random_seed)
+            states[kind] = st
+        timings, audits = {}, {}
+        for batch in (256, 1024):
+            rawb, yb = _train_batch(cfg, batch)
+            xb = normalize(rawb)
+            ms = {k: [] for k in states}
+            for kind in ("none", "ddp", "fsdp", "fsdp", "ddp", "none"):
+                ms[kind].append(cuda_time_ms(lambda: step(states[kind], xb, yb), iters=1,
+                                             reps=5))
+            peak = {}
+            for kind, st in states.items():
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                step(st, xb, yb)
+                torch.cuda.synchronize()
+                peak[kind] = (torch.cuda.max_memory_allocated() - base) / 1e9
+            timings[batch] = {k: {"ms": min(v), "ms_turns": v, "step_peak_gb": peak[k]}
+                              for k, v in ms.items()}
+            for kind in ("ddp", "fsdp"):
+                timings[batch][kind]["overhead_ms"] = min(ms[kind]) - min(ms["none"])
+            print(f"parallel: B={batch} ms/step (CUDA events, median of 5, the lesser of two "
+                  f"turns none/ddp/fsdp/fsdp/ddp/none): "
+                  + ", ".join(f"{k} {min(v):.3f}" for k, v in ms.items())
+                  + "; step's peak above the resident state GB: "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in peak.items()), flush=True)
+            del rawb, xb, yb
+        xs, ys = _train_batch(cfg, 256)
+        xs = normalize(xs)
+        for kind in ("ddp", "fsdp"):
+            audits[kind] = collective_counts(step, states[kind], xs, ys)
+        print(f"parallel: one rank, collectives of a step: {audits} (FSDP2 issues none at one "
+              "rank; the 2-rank gloo legs show its all-gathers and reduce-scatters)",
+              flush=True)
+        # where a layout's cost goes: each step traced at B=256
+        traces = {k: _layout_trace(step, st, xs, ys, os.path.join(tmp, f"trace_{k}"))
+                  for k, st in states.items()}
+        for kind in ("ddp", "fsdp"):
+            tr = traces[kind]
+            tr["device_grown"] = _trace_diff(traces["none"], tr, "device_total_ms")
+            tr["host_grown"] = _trace_diff(traces["none"], tr, "host_total_ms", top=12)
+        for kind, tr in traces.items():
+            # the profiler's own host cost idles the card in every layout:
+            # the untraced step's idle share takes its busy time over the
+            # untraced ms/step above
+            tr["idle_untraced"] = 1.0 - tr["busy_ms"] / timings[256][kind]["ms"]
+            print(f"parallel: traced B=256 step, {kind}: {tr['ms']:.3f} ms (CUDA events, "
+                  f"{LAYOUT_TRACE_STEPS} steps under the profiler), the card busy "
+                  f"{tr['busy_ms']:.3f} ms in {tr['kernels']:.0f} kernels/copies, idle "
+                  f"{tr['idle']:.3f} traced, {tr['idle_untraced']:.3f} against the untraced "
+                  f"{timings[256][kind]['ms']:.3f} ms", flush=True)
+            if kind != "none":
+                print(f"parallel: {kind} over none, device rows grown (ms, calls a step, "
+                      f"name): {tr['device_grown']}", flush=True)
+                print(f"parallel: {kind} over none, host rows grown (nested spans; ms, calls "
+                      f"a step, name): {tr['host_grown']}", flush=True)
+        out["traces"] = {k: {n: v for n, v in tr.items() if n != "rows"}
+                         for k, tr in traces.items()}
+        out["timings"], out["audit_one_rank"] = timings, audits
+        del states
+    finally:
+        torch.distributed.destroy_process_group()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -3105,6 +3428,9 @@ def main() -> int:
         perf_modes["head"] = phase_head_chain(kernels, gen)
         torch.cuda.empty_cache()
         tools = phase_tools(kernels, parse_config, build_model, tmp)
+    # this slice: the parallel layouts (phase 27)
+    with tempfile.TemporaryDirectory(prefix="spectre_smoke_") as tmp:
+        parallel = phase_parallel(kernels, train_cli, parse_config, tmp)
 
     # launches: the whole trainer's uninterrupted run (20 steps, 4 validation
     # batches); kernel 4 from the mix_block=0 CLI run, kernel 5 from its own
@@ -3173,6 +3499,15 @@ def main() -> int:
                        (k2_head, "fused_spectre_linear_wmma_fma"),
                        (k11, "fused_spectre_linear_bwd")):
         k["launches_mnist_submission"] = tools["submission"]["launches"][counter]
+    # phase 27: the CLI's runs under torchrun with DDP and FSDP (8 steps, 2
+    # validation batches each)
+    for k, counter in ((k1, "block_scatter_rows"), (k3, "block_gather_sum"),
+                       (k2, "fused_spectre_linear_wgmma"),
+                       (k2_head, "fused_spectre_linear_wmma_fma"),
+                       (k11, "fused_spectre_linear_bwd")):
+        for kind in ("ddp", "fsdp"):
+            k[f"launches_parallel_{kind}"] = parallel["launches"][kind][counter]
+            k[f"launches_parallel_gloo_{kind}_rank0"] = parallel["gloo"][kind]["launches"][counter]
     k2_head["library_device_ms"] = perf_modes["head"]["chain_device_ms"]
     k2_head["head_times_again"] = perf_modes["head"]
     result = {"kernels": [k1, k2, k2_head, k11, k3, k4, k5, k8, k9, k6, k7, k10, k12, k13, k14],
@@ -3183,7 +3518,7 @@ def main() -> int:
               "gather_tm": {"train_step": gather_tm}, "distill": distill, "export": export,
               "pipeline": pipeline, "profile": profile,
               "perf_modes": {k: v for k, v in perf_modes.items() if k != "launches"},
-              "tools": tools}
+              "tools": tools, "parallel": parallel}
     print(smi, flush=True)
     print(json.dumps(result), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -3192,4 +3527,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    if sys.argv[1:2] == ["--rank-train"]:  # a torchrun rank of phase 27
+        rank_train(sys.argv[2], sys.argv[3:])
+    elif sys.argv[1:2] == ["--rank-gloo"]:
+        rank_gloo(sys.argv[2])
+    else:
+        sys.exit(main())

@@ -2,6 +2,7 @@
 iterator with its prefetch queue, and the device-side augmentation."""
 
 from spectre_tpu_torch.data.augment import (
+    RowWindow,
     center_crop,
     color_jitter_apply,
     erasing_apply,
@@ -24,7 +25,7 @@ from spectre_tpu_torch.data.augment import (
     rotate_apply,
 )
 from spectre_tpu_torch.data.datasets import load_dataset, synthetic_batch, synthetic_dataset
-from spectre_tpu_torch.data.pipeline import BatchIterator, prefetch_to_device
+from spectre_tpu_torch.data.pipeline import BatchIterator, prefetch_to_device, rank_slice
 
 # per-channel statistics the inputs are normalised with
 DATASET_STATS = {
@@ -33,6 +34,7 @@ DATASET_STATS = {
 }
 
 __all__ = [
+    "RowWindow",
     "BatchIterator",
     "DATASET_STATS",
     "center_crop",
@@ -46,6 +48,7 @@ __all__ = [
     "make_train_augment",
     "normalize",
     "prefetch_to_device",
+    "rank_slice",
     "random_color_jitter",
     "random_erasing",
     "random_gaussian_blur",

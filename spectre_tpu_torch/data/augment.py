@@ -32,6 +32,7 @@ from __future__ import annotations
 import functools
 import math
 from collections.abc import Callable, Sequence
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -58,15 +59,33 @@ def _yiq_matrices(like: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
             _constant(tuple(map(tuple, inv.tolist())), (3, 3), like.device, like.dtype))
 
 
-def _uniform(generator: torch.Generator, shape: tuple, lo: float, hi: float,
+class RowWindow(NamedTuple):
+    """A generator seen by one slice of a larger batch: each per-sample draw
+    is made for all ``rows`` samples and this slice keeps its ``start``..
+    rows, so that the draws do not depend on how the batch is split over
+    ranks (``parallel/layout.py``). Per-batch draws are made whole."""
+    generator: torch.Generator
+    rows: int
+    start: int
+
+
+def _rand(generator, shape: tuple, like: torch.Tensor) -> torch.Tensor:
+    if isinstance(generator, RowWindow):
+        if shape and shape[0] == like.shape[0]:
+            full = torch.rand((generator.rows, *shape[1:]), generator=generator.generator,
+                              device=like.device, dtype=like.dtype)
+            return full[generator.start:generator.start + shape[0]]
+        generator = generator.generator
+    return torch.rand(shape, generator=generator, device=like.device, dtype=like.dtype)
+
+
+def _uniform(generator, shape: tuple, lo: float, hi: float,
              like: torch.Tensor) -> torch.Tensor:
-    u = torch.rand(shape, generator=generator, device=like.device, dtype=like.dtype)
-    return u * (hi - lo) + lo
+    return _rand(generator, shape, like) * (hi - lo) + lo
 
 
-def _bernoulli(generator: torch.Generator, shape: tuple, p: float,
-               like: torch.Tensor) -> torch.Tensor:
-    return torch.rand(shape, generator=generator, device=like.device, dtype=like.dtype) < p
+def _bernoulli(generator, shape: tuple, p: float, like: torch.Tensor) -> torch.Tensor:
+    return _rand(generator, shape, like) < p
 
 
 def normalize(x: torch.Tensor, mean: Sequence[float], std: Sequence[float]) -> torch.Tensor:

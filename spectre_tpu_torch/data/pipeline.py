@@ -7,6 +7,11 @@ augmentation runs on the device inside the step. ``prefetch_to_device`` keeps
 ``prefetch`` batches in flight: each is copied into a pinned host buffer and
 from there to the device with a non-blocking copy on a side stream, so the
 copy of batch k+1 overlaps step k.
+
+On a mesh each data rank iterates its own slice of the dataset
+(``rank_slice``) in batches of global / data ranks and stages them onto its
+own card, the counterpart of the JAX package's ``prefetch_to_mesh``, whose
+global array is here the sum of the ranks' local tensors.
 """
 
 from __future__ import annotations
@@ -64,6 +69,18 @@ class BatchIterator:
             # tables against a shuffled batch; valid: the count of real examples
             yield {"image": self.images[sel], "label": self.labels[sel], "mask": mask,
                    "index": sel, "valid": np.int32(valid)}
+
+
+def rank_slice(images: np.ndarray, labels: np.ndarray, rank: int,
+               size: int) -> tuple[np.ndarray, np.ndarray]:
+    """Data rank ``rank``'s strided slice of a dataset, as each JAX process
+    loads its own: every rank gets the same length, the shortest slice's.
+    Ranks that ran different numbers of batches would wait on each other's
+    collectives for ever."""
+    if size == 1:
+        return images, labels
+    n = len(images) // size
+    return images[rank::size][:n], labels[rank::size][:n]
 
 
 class _Slot:

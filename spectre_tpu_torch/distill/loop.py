@@ -23,9 +23,12 @@ Per-epoch validation of the student, best and latest checkpoints under
 ``<checkpoint_dir>/distill_<experiment>/ckpt`` (best on ``accuracy``), an
 exact resume (the finished epochs' shuffles and the interrupted epoch's
 trained prefix skipped) and a save on SIGTERM/SIGINT follow the train loop
-(``train/loop.py``), as do the mix routes (``set_mix_routes``). The JAX
-loop's multi-host and FSDP branches are not ported (ROADMAP.md, queue
-A12): ``fsdp=True`` raises.
+(``train/loop.py``), as do the mix routes (``set_mix_routes``) and the
+mesh: under a process group (or with ``fsdp=True``) the student takes the
+train loop's layout (DDP, FSDP, tensor parallelism), each data rank loads
+its own slice of the training and validation sets and fills the logit
+table for its slice alone, the teacher runs whole on every rank, and
+metrics come from rank 0.
 """
 
 from __future__ import annotations
@@ -56,12 +59,18 @@ from spectre_tpu_torch.distill.teacher import DinoClassifier, freeze, load_teach
 from spectre_tpu_torch.models.jax_import import load_flax_variables
 from spectre_tpu_torch.models.registry import resolve_dtype
 from spectre_tpu_torch.train.checkpoint import CheckpointManager
+from spectre_tpu_torch.parallel import DATA_AXIS, axis_size
 from spectre_tpu_torch.train.loop import (
+    config_mesh,
     create_trainer,
     dataset_stats,
+    end_own_group,
     evaluate_state,
+    lay_out,
     load_sized_dataset,
+    local_batch_size,
     set_mix_routes,
+    slice_for_rank,
 )
 from spectre_tpu_torch.train.state import TrainState, param_count
 from spectre_tpu_torch.train.step import make_distill_step, make_eval_step
@@ -166,9 +175,7 @@ def distill_from_config(config: SimpleNamespace, *, device: torch.device | str =
     ``DinoClassifier``) replaces the configured one, ``teacher_variables``
     (a flax variable tree of numpy arrays) is loaded into it through the
     weight bridge; ``cache_teacher`` forces the logit table on or off."""
-    if getattr(config, "fsdp", False):
-        raise NotImplementedError("fsdp is not ported yet (ROADMAP.md, queue A12)")
-    device = torch.device(device)
+    mesh, device, own_group = config_mesh(config, torch.device(device))
     dataset = getattr(config, "dataset", "cifar100")
     if synthetic:
         train_x, train_y = synthetic_dataset(dataset, "train")
@@ -176,15 +183,19 @@ def distill_from_config(config: SimpleNamespace, *, device: torch.device | str =
         train_x, train_y = load_dataset(dataset, "train", data_dir=getattr(config, "data_dir",
                                                                            None))
     val_x, val_y = load_sized_dataset(config, "test", synthetic)
-    batch_size = int(config.batch_size)
+    dp = axis_size(mesh, DATA_AXIS)
+    batch_size = local_batch_size(int(config.batch_size), mesh)  # this rank's
+    (train_x, train_y), (val_x, val_y) = slice_for_rank(mesh, (train_x, train_y),
+                                                        (val_x, val_y))
     if batch_size > len(train_x):
         raise ValueError(f"batch {batch_size} exceeds the training set ({len(train_x)} "
                          "examples): the drop-last iterator would yield no batch")
     seed = int(getattr(config, "random_seed", 42))
     train_iter = BatchIterator(train_x, train_y, batch_size, shuffle=True, seed=seed)
     steps_per_epoch = max(1, len(train_iter))
-    state = create_trainer(config, device, steps_per_epoch)
+    state = lay_out(create_trainer(config, device, steps_per_epoch), config, mesh)
     model = state.model
+    is_main = state.layout is None or state.layout.is_main
 
     if teacher is None:
         teacher = teacher_from_config(config, teacher_img_size, device)
@@ -225,23 +236,28 @@ def distill_from_config(config: SimpleNamespace, *, device: torch.device | str =
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         cache_seconds = time.perf_counter() - t
-        print(f"teacher-logit cache: {logit_cache.shape[0]} x {logit_cache.shape[1]} f32 "
-              f"({logit_cache.numel() * 4 / 1e6:.1f} MB) in {cache_seconds:.2f} s: the "
-              "teacher leaves the hot loop", flush=True)
+        if is_main:
+            print(f"teacher-logit cache: {logit_cache.shape[0]} x {logit_cache.shape[1]} "
+                  f"f32 ({logit_cache.numel() * 4 / 1e6:.1f} MB) in {cache_seconds:.2f} s: "
+                  "the teacher leaves the hot loop", flush=True)
 
     logdir = f"{getattr(config, 'checkpoint_dir', 'runs')}/distill_{experiment_name(config)}"
-    writer = MetricsWriter(logdir) if write_metrics else None
+    writer = MetricsWriter(logdir) if write_metrics and is_main else None
     ckpt = CheckpointManager(f"{logdir}/ckpt", max_to_keep=getattr(config, "keep_checkpoints", 3),
                              best_metric="accuracy") if checkpoint else None
     if resume and ckpt and ckpt.latest_step is not None:
         ckpt.restore(state)
-        print(f"resumed from step {state.step}", flush=True)
+        if is_main:
+            print(f"resumed from step {state.step}", flush=True)
     routed = set_mix_routes(model, config)
-    if routed:
+    if routed and is_main:
         print(f"mix routes registered: {routed}", flush=True)
-    print(f"distill: student params={param_count(model):,} teacher "
-          f"params={param_count(teacher):,} device={device} batch={batch_size} "
-          f"steps/epoch={steps_per_epoch}", flush=True)
+    if is_main:
+        layout = "" if state.layout is None else \
+            f" layout={state.layout.kind} mesh={tuple(mesh.shape)}"
+        print(f"distill: student params={param_count(model):,} teacher "
+              f"params={param_count(teacher):,} device={device} batch={batch_size * dp}"
+              f"{layout} steps/epoch={steps_per_epoch}", flush=True)
 
     # on SIGTERM/SIGINT: finish the step, save the whole state, stop
     preempted = {"flag": False}
@@ -278,7 +294,7 @@ def distill_from_config(config: SimpleNamespace, *, device: torch.device | str =
         train_iter.skip_epoch()
     log_every = int(getattr(config, "log_every", 50))
     prefetch = int(getattr(config, "prefetch_depth", 2))
-    val_batch = int(getattr(config, "val_batch_size", batch_size))
+    val_batch = max(1, int(getattr(config, "val_batch_size", batch_size * dp)) // dp)
     epochs = int(config.epochs)
     done = max_steps is not None and state.step >= max_steps
     metrics = None
@@ -300,6 +316,8 @@ def distill_from_config(config: SimpleNamespace, *, device: torch.device | str =
             pending.append((state.step, metrics))
             if len(pending) >= log_every:
                 fetch(pending)
+            if state.layout is not None:
+                preempted["flag"] = state.layout.agree(preempted["flag"])
             if preempted["flag"] or (max_steps is not None and state.step >= max_steps):
                 done = True
                 break
@@ -315,8 +333,9 @@ def distill_from_config(config: SimpleNamespace, *, device: torch.device | str =
             writer.scalar("Accuracy/Validation", last_val, state.step)
             writer.flush()
         if metrics is not None:
-            print(f"distill epoch {epoch + 1}/{epochs} step {state.step} val loss "
-                  f"{val_loss:.4f} acc {last_val:.4f}", flush=True)
+            if is_main:
+                print(f"distill epoch {epoch + 1}/{epochs} step {state.step} val loss "
+                      f"{val_loss:.4f} acc {last_val:.4f}", flush=True)
             if ckpt:
                 ckpt.save(state, {"accuracy": last_val, "neg_loss": -batch_losses[-1][1]})
 
@@ -328,8 +347,9 @@ def distill_from_config(config: SimpleNamespace, *, device: torch.device | str =
     if ckpt:
         if preempted["flag"]:
             ckpt.save(state, {"accuracy": last_val})
-            print(f"preempted at step {state.step}: state checkpointed, resume with --resume",
-                  flush=True)
+            if is_main:
+                print(f"preempted at step {state.step}: state checkpointed, resume with "
+                      "--resume", flush=True)
         ckpt.wait()
         ckpt.close()
     if writer:
@@ -338,5 +358,6 @@ def distill_from_config(config: SimpleNamespace, *, device: torch.device | str =
     for sig, handler in prev_handlers.items():
         signal.signal(sig, handler)
     model.train()
+    end_own_group(own_group)
     return DistillResult(state, {k: float(v) for k, v in metrics.items()}, batch_losses,
                          last_val, cache_seconds, logdir)

@@ -379,8 +379,9 @@ def import_torch_state_dict(model: DinoVisionTransformer, sd: dict) -> list[str]
 
 def load_teacher(num_classes: int, img_size: int = 224, seed: int = 0, variant: str = "v3",
                  weights_path: str | None = None, dtype=torch.float32,
-                 device: torch.device | str = "cpu", **backbone) -> DinoClassifier:
-    """The frozen teacher (eval mode, no gradients) on ``device``: ViT-S/16
+                 device: torch.device | str = "cuda", **backbone) -> DinoClassifier:
+    """The frozen teacher (eval mode, no gradients) on ``device`` (the card
+    by default, as every entry point of the port; pass "cpu"): ViT-S/16
     unless ``backbone`` overrides its sizes (``patch_size``, ``embed_dim``,
     ``depth``, ``num_heads``, ``num_registers``). ``dtype`` is the compute
     dtype; the parameters stay float32. Weights come from ``weights_path``

@@ -100,7 +100,10 @@ class LayerNorm(nn.LayerNorm):
 
 class Dense(nn.Module):
     """x @ kernel + bias in the compute dtype; ``kernel`` [in, out] and
-    ``bias`` [out] are flax ``nn.Dense``'s, not ``nn.Linear``'s [out, in]."""
+    ``bias`` [out] are flax ``nn.Dense``'s, not ``nn.Linear``'s [out, in].
+    ``tp`` (set by ``parallel.apply_tp``) runs a tensor-parallel shard."""
+
+    tp = None
 
     def __init__(self, in_features: int, features: int, *, dtype=torch.float32,
                  param_dtype=torch.float32, device=None):
@@ -115,13 +118,18 @@ class Dense(nn.Module):
         uniform_fan_in_(self.bias, self.in_features, gen)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return self.tp.dense(self, x)
         dt = self.dtype
         return torch.matmul(x.to(dt), self.kernel.to(dt)) + self.bias.to(dt)
 
 
 class _ProjectionLN(nn.Module):
     """The parameters shared by SpectreLinear and FoldedMixLinear, with the
-    flax names: kernel [in, out], bias [out], ln_scale, ln_bias."""
+    flax names: kernel [in, out], bias [out], ln_scale, ln_bias. ``tp`` (set
+    by ``parallel.apply_tp``) runs a tensor-parallel shard."""
+
+    tp = None
 
     def __init__(self, in_features: int, features: int, *, dtype=torch.float32,
                  param_dtype=torch.float32, device=None):
@@ -157,6 +165,8 @@ class SpectreLinear(_ProjectionLN):
             persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return self.tp.projection_ln(self, x)
         dt = self.dtype
         return spectre_linear_apply(x.to(dt).contiguous(), self.kernel.to(dt),
                                     self.bias.to(dt), self.ln_scale.to(dt),
@@ -192,6 +202,12 @@ class FoldedMixLinear(_ProjectionLN):
     be 65 x 8,192 x 512 a layer at the flagship's widths), and folds nothing
     per call; only the product's summation order differs from eager."""
 
+    # None: the cache keys on the kernel's storage and version. Under FSDP
+    # the kernel a forward sees is gathered into a buffer that is refilled
+    # every forward (its address and version say nothing of its values), so
+    # parallel/fsdp.py sets a function of the stored shard's version instead
+    fold_key = None
+
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
         # (key of the kernel, folded weights [N, in, O]); MHPermutMix.refresh
@@ -214,12 +230,15 @@ class FoldedMixLinear(_ProjectionLN):
         # MHPermutMix.refresh(force=True), as build_model and the weight
         # bridge do
         k = self.kernel
-        key = (k.device, k.data_ptr(), None if k.is_inference() else k._version)
+        key = self.fold_key() if self.fold_key is not None else \
+            (k.device, k.data_ptr(), None if k.is_inference() else k._version)
         if self._wp is None or self._wp[0] != key:
             self._wp = (key, fold_weights(k.to(self.dtype), mix.s4))
         return self._wp[1]
 
     def forward(self, g4: torch.Tensor, mix: FoldedMix) -> torch.Tensor:
+        if self.tp is not None:
+            return self.tp.folded_mix_linear(self, g4, mix)
         dt = self.dtype
         n, _, b = g4.shape
         if torch.compiler.is_exporting():
@@ -257,6 +276,8 @@ class TokenMajorMixLinear(_ProjectionLN):
 
     def forward(self, x: torch.Tensor, perms: torch.Tensor,
                 signs2: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return self.tp.token_major_mix_linear(self, x, perms, signs2)
         dt = self.dtype
         b, n, e = x.shape
         xt = x.to(dt).permute(1, 2, 0).reshape(n * e, b)  # [d, B]

@@ -71,7 +71,10 @@ class DWTMixer(nn.Module):
 
 class _HeadsDense(nn.Module):
     """flax ``DenseGeneral`` onto (heads, head_dim): kernel [E, H, D], bias
-    [H, D]. The forward returns [B, N, H, D]."""
+    [H, D]. The forward returns [B, N, H, D]; under tensor parallelism
+    (``tp``, set by ``parallel.apply_tp``) this rank's heads."""
+
+    tp = None
 
     def __init__(self, embed_dim: int, num_heads: int, *, dtype, param_dtype, device):
         super().__init__()
@@ -87,6 +90,8 @@ class _HeadsDense(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.tp is not None:
+            return self.tp.heads_dense(self, x)
         dt = self.dtype
         e, h, d = self.kernel.shape
         y = torch.matmul(x, self.kernel.to(dt).view(e, h * d)) + self.bias.to(dt).view(h * d)
@@ -95,7 +100,9 @@ class _HeadsDense(nn.Module):
 
 class _HeadsOut(nn.Module):
     """flax ``DenseGeneral`` from (heads, head_dim) back to E: kernel
-    [H, D, E], bias [E]."""
+    [H, D, E], bias [E]; ``tp`` as ``_HeadsDense``'s."""
+
+    tp = None
 
     def __init__(self, embed_dim: int, num_heads: int, *, dtype, param_dtype, device):
         super().__init__()
@@ -111,6 +118,8 @@ class _HeadsOut(nn.Module):
             self.bias.zero_()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # x [B, N, H, D]
+        if self.tp is not None:
+            return self.tp.heads_out(self, x)
         dt = self.dtype
         h, d, e = self.kernel.shape
         return torch.matmul(x.reshape(*x.shape[:-2], h * d),

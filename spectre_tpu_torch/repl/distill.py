@@ -14,7 +14,8 @@ ViT-S/16. ``--set teacher_depth=... teacher_embed_dim=...`` (also
 shrinks it, and ``--teacher-size`` sets its input size. Metric files and a
 checkpoint per epoch go under ``<checkpoint_dir>/distill_<experiment>/``
 unless ``--no-checkpoint``; a SIGTERM or SIGINT finishes the step, saves and
-stops.
+stops. ``--multihost`` trains the student on a mesh over torchrun's ranks,
+as ``repl/train.py --multihost`` does (``--set fsdp=True`` for FSDP).
 """
 
 from __future__ import annotations
@@ -37,12 +38,18 @@ def main(argv=None):
                    help="resume from the latest distill checkpoint")
     p.add_argument("--no-teacher-cache", action="store_true",
                    help="run the teacher every step instead of caching its logits once")
+    p.add_argument("--multihost", action="store_true",
+                   help="join torchrun's process group and train on a mesh over its ranks")
     p.add_argument("--set", nargs="*", default=[], help="config overrides key=value")
     args = p.parse_args(argv)
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda asked, but torch.cuda.is_available() is "
                            "False; pass --device cpu to run on the CPU")
+    if args.multihost:
+        from spectre_tpu_torch.parallel import init_distributed
+
+        init_distributed(device=device.type)
 
     from spectre_tpu_torch.configs import apply_overrides, parse_config
     from spectre_tpu_torch.distill import distill_from_config
@@ -52,6 +59,11 @@ def main(argv=None):
         config, device=device, max_steps=args.steps, synthetic=args.synthetic,
         teacher_img_size=args.teacher_size, checkpoint=not args.no_checkpoint,
         resume=args.resume, cache_teacher=False if args.no_teacher_cache else None)
+    if args.multihost:
+        main_rank = result.state.layout is None or result.state.layout.is_main
+        torch.distributed.destroy_process_group()
+        if not main_rank:
+            return result
     m = result.metrics
     print(f"distill done: step {result.state.step} loss {m['loss']:.4f} (kd "
           f"{m['loss_dist']:.4f} / ce {m['loss_ce']:.4f}) -> {result.logdir}", flush=True)

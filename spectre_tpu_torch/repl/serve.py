@@ -12,7 +12,11 @@ spectre_vit_cifar100.py``. Without
 ``<checkpoint_dir>/<experiment>/ckpt``), whose best-metric step it restores,
 else the latest, and says which; a path ending ``.npz`` is instead a flax
 variable tree saved by ``spectre_tpu_torch.models.save_npz``. ``--device
-cuda`` refuses to start when no CUDA device is present. Clients:
+cuda`` refuses to start when no CUDA device is present; on a host with
+several cards it serves a replica on each (every bucket split over them,
+``--max-batch`` a multiple of their count), as the JAX server shards its
+buckets over a mesh of every local chip; ``--devices cuda:0,cuda:1`` (or
+``cpu,cpu``) names the devices instead. Clients:
 ``spectre_tpu_torch.serving.SpectreClient``.
 
 ``--backend native`` asks for the CPU daemon instead: it builds ``native/``
@@ -46,6 +50,9 @@ def _parser() -> argparse.ArgumentParser:
                         "or a flax variable tree as .npz (models.save_npz); default: the "
                         "port's seeded init")
     p.add_argument("--device", default="cuda", help="torch device (default cuda)")
+    p.add_argument("--devices", default=None,
+                   help="comma-separated devices, a replica on each (default: every card "
+                        "with --device cuda)")
     p.add_argument("--port", type=int, default=7788)
     p.add_argument("--uds", default=None,
                    help="serve on a unix-domain socket path instead of TCP")
@@ -90,10 +97,18 @@ def start(argv=None):
             token = f.readline().strip()
     elif os.environ.get("SPECTRE_SERVE_TOKEN"):
         token = os.environ["SPECTRE_SERVE_TOKEN"]
+    if args.devices:
+        devices = args.devices.split(",")
+    elif device.type == "cuda" and device.index is None and torch.cuda.device_count() > 1:
+        devices = [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    else:
+        devices = None
+    if devices and args.max_batch % len(devices):
+        sys.exit(f"--max-batch {args.max_batch} must divide over {len(devices)} devices")
     npz = args.ckpt is not None and args.ckpt.endswith(".npz")
     srv = from_config(cfg, device, weights=load_npz(args.ckpt) if npz else None,
                       checkpoint=None if npz else args.ckpt, max_batch=args.max_batch,
-                      token=token)
+                      token=token, devices=devices)
     if args.uds:
         addr = where = srv.listen_uds(args.uds)
     else:
@@ -101,7 +116,7 @@ def start(argv=None):
         addr = srv.listen_tcp(host=host, port=args.port)
         where = f"{host}:{addr}"
     print(f"serving {getattr(cfg, 'model', 'spectre_vit')} on {where} "
-          f"(device {device})", flush=True)
+          f"(device {', '.join(devices) if devices else device})", flush=True)
     return srv, addr
 
 

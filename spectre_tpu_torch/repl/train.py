@@ -14,8 +14,17 @@ under ``<checkpoint_dir>/<experiment name>/`` unless ``--no-checkpoint``;
 ``--resume`` continues from the latest checkpoint there, and a SIGTERM or
 SIGINT finishes the current step, saves and stops. A config with
 ``use_distillation = True`` runs the distill loop
-(``distill/loop.py::distill_from_config``, as ``repl/distill.py`` does);
-``--multihost`` raises with a pointer to ROADMAP.md.
+(``distill/loop.py::distill_from_config``, as ``repl/distill.py`` does).
+
+``--multihost`` joins the process group that torchrun describes
+(``parallel.init_distributed``: NCCL on the card this rank's LOCAL_RANK
+names, gloo with ``--device cpu``) and trains on the ("data", "model") mesh
+over every rank: DDP, or FSDP with ``--set fsdp=True``, or, with
+``--device cpu`` only, tensor parallelism with ``--set model_parallel=2``;
+``batch_size`` is the global batch:
+
+    torchrun --standalone --nproc_per_node 8 -m spectre_tpu_torch.repl.train \
+        --multihost --synthetic --steps 20 [--set fsdp=True]
 """
 
 from __future__ import annotations
@@ -36,16 +45,19 @@ def main(argv=None):
     p.add_argument("--synthetic", action="store_true", help="train on the synthetic dataset")
     p.add_argument("--resume", action="store_true", help="resume from the latest checkpoint")
     p.add_argument("--no-checkpoint", action="store_true")
-    p.add_argument("--multihost", action="store_true")
+    p.add_argument("--multihost", action="store_true",
+                   help="join torchrun's process group and train on a mesh over its ranks")
     p.add_argument("--set", nargs="*", default=[], help="config overrides key=value")
     args = p.parse_args(argv)
 
-    if args.multihost:
-        raise NotImplementedError("--multihost is not ported yet (ROADMAP.md, queue A12)")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("--device cuda asked, but torch.cuda.is_available() is "
                            "False; pass --device cpu to train on the CPU")
+    if args.multihost:
+        from spectre_tpu_torch.parallel import init_distributed
+
+        init_distributed(device=device.type)
 
     from spectre_tpu_torch.configs import apply_overrides, parse_config
     from spectre_tpu_torch.train import train_from_config
@@ -65,6 +77,11 @@ def main(argv=None):
                                synthetic=args.synthetic, resume=args.resume,
                                checkpoint=not args.no_checkpoint)
     last = f"{result.train_losses[-1]:.4f}" if result.train_losses else "n/a"
+    if args.multihost:
+        main_rank = result.state.layout is None or result.state.layout.is_main
+        torch.distributed.destroy_process_group()
+        if not main_rank:
+            return result
     print(f"done: {result.state.step} steps, last train loss {last}, "
           f"best val acc {result.best_val_accuracy:.4f} ({result.steps_per_sec:.2f} steps/s, "
           f"{result.images_per_sec:.1f} img/s) -> {result.logdir}", flush=True)

@@ -30,12 +30,22 @@ Speaks the same length-prefixed wire protocol as the JAX package's server
   bucket that fails to dispatch resolves the pending one first.
 
 All torch work happens on the batcher thread; connection threads touch only
-numpy and sockets. A multi-device mesh is not ported yet (ROADMAP.md, queue
-A12).
+numpy and sockets.
+
+Several devices (``devices=[...]``, the counterpart of the JAX server's
+``mesh``): one replica of the model per device, and every bucket padded to
+a multiple of the device count and split into equal slices, one a device.
+Each slice is copied to its device and forwarded on that device's current
+stream (launches return at once, so the devices run together), its logits
+copied back behind an event of their own; resolving waits for every
+device's event and joins the slices in order. ``max_batch`` must divide over
+the devices, as the JAX server asks of its data axis.
 """
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import hmac
 import os
 import queue
@@ -80,10 +90,23 @@ class TorchServer:
     ``repl/serve.py`` does."""
 
     def __init__(self, forward, input_shape: tuple[int, int, int],
-                 device: torch.device | str, max_batch: int = 256,
-                 batch_timeout_s: float = 0.0, token: str | None = None):
-        self._forward = forward
-        self.device = torch.device(device)
+                 device: torch.device | str | None, max_batch: int = 256,
+                 batch_timeout_s: float = 0.0, token: str | None = None,
+                 devices: list | None = None):
+        # one (device, forward) replica per device; ``forward`` is then a
+        # sequence of forwards, one per device of ``devices``
+        if devices is None:
+            self._replicas = [(torch.device(device), forward)]
+        else:
+            devices = [torch.device(d) for d in devices]
+            if len(forward) != len(devices):
+                raise ValueError(f"{len(devices)} devices need as many forwards, got "
+                                 f"{len(forward)}")
+            if max_batch % len(devices):
+                raise ValueError(f"max_batch={max_batch} must divide over the "
+                                 f"{len(devices)} devices")
+            self._replicas = list(zip(devices, forward))
+        self.device = self._replicas[0][0]
         self.input_shape = tuple(int(d) for d in input_shape)  # (C, H, W)
         self.max_batch = int(max_batch)
         self.batch_timeout_s = float(batch_timeout_s)
@@ -303,11 +326,11 @@ class TorchServer:
             b *= 2
         return b
 
-    def _upload(self, x: np.ndarray) -> torch.Tensor:
-        """``x`` on the card, copied without blocking from the next pinned
-        staging buffer of its bucket and dtype. A buffer is rewritten only
-        once its previous copy has completed."""
-        key = (x.shape, x.dtype.str)
+    def _upload(self, x: np.ndarray, device: torch.device) -> torch.Tensor:
+        """``x`` on the card ``device``, copied without blocking from the next
+        pinned staging buffer of its bucket, dtype and card. A buffer is
+        rewritten only once its previous copy has completed."""
+        key = (x.shape, x.dtype.str, device)
         slots = self._staging.get(key)
         if slots is None:
             slots = self._staging[key] = [
@@ -319,49 +342,55 @@ class TorchServer:
         if copied is not None:
             copied.synchronize()
         buf.numpy()[...] = x
-        xt = buf.to(self.device, non_blocking=True)
+        xt = buf.to(device, non_blocking=True)
         slot[1] = torch.cuda.Event()
         slot[1].record()
         return xt
 
     def _dispatch(self, x: np.ndarray, parts: list):
-        """Start one padded bucket on the device: returns ``(parts, logits,
-        event)``, the logits float32 in pinned host memory once ``event``
-        (None off the card) has completed."""
+        """Start one padded bucket on the devices, a slice each: returns
+        ``(parts, logits, events)``, the logits float32 in host memory
+        (pinned off a card) once every event (none off the card) has
+        completed."""
+        n = len(self._replicas)
+        rows = x.shape[0] // n
+        host, events = [], []
         with torch.inference_mode():
-            if self.device.type == "cuda":
-                xt = self._upload(x)
-            else:
-                xt = torch.from_numpy(x).to(self.device)
-            if xt.dtype == torch.uint8:
-                xt = xt.to(torch.float32) / 255.0
-            logits = self._forward(xt).float()
-            event = None
-            if self.device.type == "cuda":
-                host = torch.empty(logits.shape, dtype=torch.float32, pin_memory=True)
-                host.copy_(logits, non_blocking=True)
-                event = torch.cuda.Event()
-                event.record()
-                logits = host
-            else:
-                logits = logits.cpu()
+            for i, (device, forward) in enumerate(self._replicas):
+                xi = x[i * rows:(i + 1) * rows]
+                with torch.cuda.device(device) if device.type == "cuda" \
+                        else contextlib.nullcontext():
+                    xt = self._upload(xi, device) if device.type == "cuda" \
+                        else torch.from_numpy(xi).to(device)
+                    if xt.dtype == torch.uint8:
+                        xt = xt.to(torch.float32) / 255.0
+                    logits = forward(xt).float()
+                    if device.type == "cuda":
+                        out = torch.empty(logits.shape, dtype=torch.float32, pin_memory=True)
+                        out.copy_(logits, non_blocking=True)
+                        events.append(torch.cuda.Event())
+                        events[-1].record()
+                        logits = out
+                    else:
+                        logits = logits.cpu()
+                host.append(logits)
         self.forwards += 1
-        return parts, logits, event
+        return parts, host, events
 
     @staticmethod
     def _running(pending) -> bool:
-        """Whether the card is still running the pending bucket."""
-        return pending is not None and pending[2] is not None and not pending[2].query()
+        """Whether a device still runs the pending bucket."""
+        return pending is not None and not all(e.query() for e in pending[2])
 
     @staticmethod
     def _resolve(pending):
         """Wait for a dispatched bucket's logits and answer its requests (an
         error goes to every one of them)."""
-        parts, logits, event = pending
+        parts, logits, events = pending
         try:
-            if event is not None:
+            for event in events:
                 event.synchronize()
-            out = logits.numpy()
+            out = np.concatenate([t.numpy() for t in logits])
         except Exception as e:  # noqa: BLE001 -- fanned out to every request
             for _, f in parts:
                 f.set_exception(e)
@@ -418,6 +447,9 @@ class TorchServer:
                 deadline = None
             x = np.concatenate([p[0] for p in parts], axis=0)
             bucket = min(self._bucket(total), self.max_batch)
+            n_dev = len(self._replicas)
+            if bucket % n_dev:  # a slice for every device
+                bucket = min(-(-bucket // n_dev) * n_dev, self.max_batch)
             if bucket > total:
                 x = np.concatenate([x, np.zeros((bucket - total, c, h, w), wire)], axis=0)
             try:
@@ -451,13 +483,15 @@ def restore_for_serving(model: torch.nn.Module, checkpoint: str) -> tuple[int, s
 
 
 def from_config(config, device: torch.device | str, weights=None, checkpoint: str | None = None,
-                **kw) -> TorchServer:
+                devices: list | None = None, **kw) -> TorchServer:
     """Build a TorchServer for a parsed config: the model on ``device`` with
     the port's own init seeded from ``config.random_seed``; or the weights of
     a flax variable tree (numpy leaves) when ``weights`` is given; or those
     of a trainer checkpoint directory (``train/checkpoint.py``; its best
-    step, else its latest) when ``checkpoint`` is given."""
+    step, else its latest) when ``checkpoint`` is given. With ``devices``
+    (two or more), a replica of that model on each of them."""
     from spectre_tpu_torch.models import build_model, load_flax_variables
+    from spectre_tpu_torch.models.registry import refresh_mixes
 
     if weights is not None and checkpoint is not None:
         raise ValueError("from_config takes weights or a checkpoint, not both")
@@ -468,4 +502,11 @@ def from_config(config, device: torch.device | str, weights=None, checkpoint: st
         step, which = restore_for_serving(model, checkpoint)
         print(f"restored step {step} ({which}) from {checkpoint}", flush=True)
     shape = (int(config.in_channels), int(config.img_size), int(config.img_size))
+    if devices and len(devices) > 1:
+        replicas = []
+        for d in devices:
+            replica = copy.deepcopy(model).to(d)
+            refresh_mixes(replica)
+            replicas.append(replica)
+        return TorchServer(replicas, shape, None, devices=devices, **kw)
     return TorchServer(model, shape, device, **kw)

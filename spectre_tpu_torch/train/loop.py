@@ -3,8 +3,19 @@ on one device with the augmentation inside it, a prefetch queue onto the
 device, a validation pass per epoch, named metric files, best and latest
 checkpoints, exact resume, and a save on SIGTERM/SIGINT.
 
-The multi-host, mesh, FSDP and tensor-parallel parts of the JAX loop are not
-ported (ROADMAP.md, queue A12). The block-route registration has no
+On a mesh (a process group, from ``repl/train.py --multihost`` under
+torchrun, or made here for ``fsdp=True`` or ``model_parallel > 1`` in a
+plain process) the loop takes the JAX loop's layouts (``parallel/``):
+``fsdp`` (with ``fsdp_min_size``) shards parameters and moments, else
+``model_parallel > 1`` splits the layers' kernels over ranks (on the CPU
+only, ``parallel/tp.py``), else DDP.
+The global ``batch_size`` must divide over the data ranks (it is cut to a
+multiple, as in JAX); each data rank loads its own strided slice of the
+training and validation sets, all of one length, and runs batches of
+global / data ranks. Validation sums are all-reduced, metrics and prints
+come from rank 0, and a SIGTERM that one rank sees is agreed by all at the
+next step boundary, so that the collective save runs on every rank. The
+block-route registration has no
 counterpart, as each mix derives its block tables from its own buffers; the
 config's ``mix_routed`` (with ``mix_routed_impl``, default ``"mxu"``) routes
 the mix backward through its Clos route, as the JAX loop does, read after
@@ -22,6 +33,7 @@ from types import SimpleNamespace
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from spectre_tpu_torch.data import (
@@ -31,10 +43,22 @@ from spectre_tpu_torch.data import (
     make_eval_transform,
     make_train_augment,
     prefetch_to_device,
+    rank_slice,
     synthetic_dataset,
 )
 from spectre_tpu_torch.models import build_model
 from spectre_tpu_torch.ops import clear_mix_routes, register_mix_routes
+from spectre_tpu_torch.parallel import (
+    DATA_AXIS,
+    SPECTRE_TP_RULES,
+    VIT_TP_RULES,
+    axis_rank,
+    axis_size,
+    create_mesh,
+    init_distributed,
+    parallelize,
+)
+from spectre_tpu_torch.parallel.fsdp import MIN_SHARD_SIZE
 from spectre_tpu_torch.train.checkpoint import CheckpointManager
 from spectre_tpu_torch.train.optim import make_optimizer
 from spectre_tpu_torch.train.state import TrainState, create_train_state, param_count
@@ -108,6 +132,56 @@ def set_mix_routes(model: torch.nn.Module, config: SimpleNamespace) -> int:
     return 0
 
 
+def config_mesh(config: SimpleNamespace, device: torch.device):
+    """(mesh, device, own) of a run: no mesh for one device without FSDP or
+    tensor parallelism and no process group; else the ("data", "model") mesh
+    over the process group and, on a card, this rank's card. When no group
+    exists, one of this process alone is made, and ``own`` says that the run
+    must destroy it at its end (``end_own_group``)."""
+    mp = int(getattr(config, "model_parallel", 1))
+    own = not dist.is_initialized()
+    if own and not getattr(config, "fsdp", False) and mp == 1:
+        return None, device, False
+    init_distributed(device=device.type)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
+    return create_mesh(model_parallel=mp, device_type=device.type), device, own
+
+
+def end_own_group(own: bool) -> None:
+    if own:
+        dist.destroy_process_group()
+
+
+def local_batch_size(batch_size: int, mesh) -> int:
+    """A data rank's share of the global ``batch_size``, which is first cut
+    to a multiple of the data ranks (raises when smaller than their count)."""
+    dp = axis_size(mesh, DATA_AXIS)
+    if batch_size < dp:
+        raise ValueError(f"batch_size={batch_size} is smaller than the data-parallel rank "
+                         f"count {dp}: every rank needs at least one sample per step")
+    return batch_size // dp
+
+
+def slice_for_rank(mesh, *arrays_pairs):
+    """Each (images, labels) pair cut to this data rank's strided slice."""
+    dp, rank = axis_size(mesh, DATA_AXIS), axis_rank(mesh, DATA_AXIS)
+    return [rank_slice(x, y, rank, dp) for x, y in arrays_pairs]
+
+
+def lay_out(state: TrainState, config: SimpleNamespace, mesh) -> TrainState:
+    """``state`` on ``mesh`` as the config asks: FSDP (``fsdp``,
+    ``fsdp_min_size``), tensor parallelism (``model_parallel``; the ViT's
+    rules or SpectreViT's), else DDP; ``shard_local_augment`` per rank."""
+    if mesh is None:
+        return state
+    rules = VIT_TP_RULES if getattr(config, "model", "") == "vit" else SPECTRE_TP_RULES
+    return parallelize(state, mesh, fsdp=bool(getattr(config, "fsdp", False)),
+                       min_size=int(getattr(config, "fsdp_min_size", MIN_SHARD_SIZE)),
+                       tp_rules=rules, seed=int(getattr(config, "random_seed", 42)),
+                       shard_local_augment=bool(getattr(config, "shard_local_augment", False)))
+
+
 def build_step(config: SimpleNamespace, device: torch.device | str,
                steps_per_epoch: int = 16) -> tuple[TrainState, Callable]:
     """The configured trainer's state and train step as the loop runs them,
@@ -125,7 +199,8 @@ def build_step(config: SimpleNamespace, device: torch.device | str,
 def evaluate_state(state: TrainState, eval_step: Callable, transform: Callable,
                    batches: BatchIterator, device: torch.device) -> tuple[float, float, int]:
     """(mean loss, accuracy, examples) over ``batches`` in eval mode; the
-    sums stay on the device until one read at the end."""
+    sums stay on the device until one read at the end. On a mesh they are
+    summed over the data ranks, each of which evaluates its own slice."""
     was_training = state.model.training
     state.model.eval()
     sums = None
@@ -135,6 +210,8 @@ def evaluate_state(state: TrainState, eval_step: Callable, transform: Callable,
     state.model.train(was_training)
     if sums is None:
         return 0.0, 0.0, 0
+    if state.layout is not None:
+        sums = state.layout.sum_over_data(sums)
     count = float(sums["count"])
     return (float(sums["loss_sum"]) / max(count, 1.0), float(sums["correct"]) / max(count, 1.0),
             int(count))
@@ -151,16 +228,20 @@ def train_from_config(config: SimpleNamespace, *, device: torch.device | str = "
     synthetic dataset; ``resume`` continues from the latest checkpoint under
     ``<checkpoint_dir>/<experiment name>/ckpt``; ``augment_fn(generator,
     images)`` replaces the dataset's recipe."""
-    device = torch.device(device)
+    mesh, device, own_group = config_mesh(config, torch.device(device))
     dataset = getattr(config, "dataset", "mnist")
     train_x, train_y = load_sized_dataset(config, "train", synthetic)
     val_x, val_y = load_sized_dataset(config, "test", synthetic)
-    batch_size = int(config.batch_size)
+    local_batch = local_batch_size(int(config.batch_size), mesh)
+    batch_size = local_batch * axis_size(mesh, DATA_AXIS)
+    (train_x, train_y), (val_x, val_y) = slice_for_rank(mesh, (train_x, train_y),
+                                                        (val_x, val_y))
     seed = int(getattr(config, "random_seed", 42))
-    train_iter = BatchIterator(train_x, train_y, batch_size, shuffle=True, seed=seed)
+    train_iter = BatchIterator(train_x, train_y, local_batch, shuffle=True, seed=seed)
     steps_per_epoch = max(1, len(train_iter))
-    state = create_trainer(config, device, steps_per_epoch)
+    state = lay_out(create_trainer(config, device, steps_per_epoch), config, mesh)
     model = state.model
+    is_main = state.layout is None or state.layout.is_main
 
     augment = augment_fn if augment_fn is not None else default_augment(dataset,
                                                                        train_x.shape[1])
@@ -172,18 +253,23 @@ def train_from_config(config: SimpleNamespace, *, device: torch.device | str = "
     eval_step = make_eval_step(model)
 
     logdir = f"{getattr(config, 'checkpoint_dir', 'runs')}/{experiment_name(config)}"
-    writer = MetricsWriter(logdir) if write_metrics else None
+    writer = MetricsWriter(logdir) if write_metrics and is_main else None
     ckpt = CheckpointManager(f"{logdir}/ckpt",
                              max_to_keep=getattr(config, "keep_checkpoints", 3)) \
         if checkpoint else None
     if resume and ckpt and ckpt.latest_step is not None:
         ckpt.restore(state)
-        print(f"resumed from step {state.step}", flush=True)
+        if is_main:
+            print(f"resumed from step {state.step}", flush=True)
     routed = set_mix_routes(model, config)
-    if routed:
+    if routed and is_main:
         print(f"mix routes registered: {routed}", flush=True)
-    print(f"model={getattr(config, 'model', '?')} params={param_count(model):,} "
-          f"device={device} batch={batch_size} steps/epoch={steps_per_epoch}", flush=True)
+    if is_main:
+        layout = "" if state.layout is None else \
+            f" layout={state.layout.kind} mesh={tuple(mesh.shape)}"
+        print(f"model={getattr(config, 'model', '?')} params={param_count(model):,} "
+              f"device={device} batch={batch_size}{layout} steps/epoch={steps_per_epoch}",
+              flush=True)
 
     # on SIGTERM/SIGINT: finish the current step, checkpoint the whole state,
     # stop; a resumed run picks up exactly where this one stopped
@@ -213,7 +299,8 @@ def train_from_config(config: SimpleNamespace, *, device: torch.device | str = "
     epochs = int(config.epochs)
     log_every = int(getattr(config, "log_every", 50))
     prefetch = int(getattr(config, "prefetch_depth", 2))
-    val_batch = int(getattr(config, "val_batch_size", batch_size))
+    val_batch = max(1, int(getattr(config, "val_batch_size", batch_size))
+                    // axis_size(mesh, DATA_AXIS))
     images_seen = 0
     done = max_steps is not None and state.step >= max_steps
     t0 = time.perf_counter()
@@ -233,6 +320,8 @@ def train_from_config(config: SimpleNamespace, *, device: torch.device | str = "
             if writer and state.step % log_every == 0:
                 writer.scalar("Loss/Train", metrics["loss"], state.step)
                 writer.scalar("Accuracy/Train", metrics["accuracy"], state.step)
+            if state.layout is not None:
+                preempted["flag"] = state.layout.agree(preempted["flag"])
             if preempted["flag"] or (max_steps is not None and state.step >= max_steps):
                 done = True
                 break
@@ -260,8 +349,9 @@ def train_from_config(config: SimpleNamespace, *, device: torch.device | str = "
             writer.flush()
         if ckpt:
             ckpt.save(state, {"accuracy": last_val, "loss": val_loss})
-        print(f"epoch {epoch + 1}/{epochs} step {state.step} train loss {tr_loss:.4f} "
-              f"acc {tr_acc:.4f} | val loss {val_loss:.4f} acc {last_val:.4f}", flush=True)
+        if is_main:
+            print(f"epoch {epoch + 1}/{epochs} step {state.step} train loss {tr_loss:.4f} "
+                  f"acc {tr_acc:.4f} | val loss {val_loss:.4f} acc {last_val:.4f}", flush=True)
 
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -272,13 +362,15 @@ def train_from_config(config: SimpleNamespace, *, device: torch.device | str = "
     if ckpt:
         if preempted["flag"]:
             ckpt.save(state, {"accuracy": last_val})
-            print(f"preempted at step {state.step}: state checkpointed, resume with --resume",
-                  flush=True)
+            if is_main:
+                print(f"preempted at step {state.step}: state checkpointed, resume with "
+                      "--resume", flush=True)
         ckpt.wait()
         ckpt.close()
     for sig, handler in prev_handlers.items():
         signal.signal(sig, handler)
     model.train()
+    end_own_group(own_group)
     return TrainResult(state, best_val, last_val, train_losses,
                        (state.step - start_step) / elapsed if elapsed > 0 else 0.0,
                        images_seen / elapsed if elapsed > 0 else 0.0, logdir)

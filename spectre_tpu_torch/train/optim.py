@@ -62,14 +62,22 @@ def make_optimizer(config: SimpleNamespace, params: Iterable[torch.nn.Parameter]
 
 
 @torch.no_grad()
-def clip_by_global_norm_(params: Iterable[torch.nn.Parameter], max_norm: float) -> None:
+def clip_by_global_norm_(params: Iterable[torch.nn.Parameter], max_norm: float,
+                         norm_fn: Callable | None = None) -> None:
     """Scale the gradients in place by ``max_norm / norm`` when their global
     L2 norm reaches ``max_norm`` (optax's ``clip_by_global_norm``). The
-    decision stays on the device: no host sync."""
+    decision stays on the device: no host sync. ``norm_fn(grads)`` gives the
+    norm when the gradients are shards (``parallel.Layout.global_norm``
+    reduces it over every rank); a ``DTensor`` gradient is read and scaled
+    through its local shard, which on one rank is the whole of it."""
     grads = [p.grad for p in params if p.grad is not None]
     if not grads:
         return
-    norm = torch.linalg.vector_norm(
-        torch.stack([torch.linalg.vector_norm(g.float()) for g in grads]))
+    local = [g.to_local() if hasattr(g, "to_local") else g for g in grads]
+    if norm_fn is not None:
+        norm = norm_fn(grads)
+    else:
+        norm = torch.linalg.vector_norm(
+            torch.stack([torch.linalg.vector_norm(g.float()) for g in local]))
     scale = torch.where(norm < max_norm, torch.ones_like(norm), max_norm / norm)
-    torch._foreach_mul_(grads, scale)
+    torch._foreach_mul_(local, scale)

@@ -6,6 +6,11 @@ moments, the scheduler the learning rate; ``step`` counts optimizer updates
 on the host, and ``dropout_generator`` is the one generator that every Dropout
 of the model draws its masks from and that the train step hands to the
 augmentation; its state is part of a checkpoint (``train/checkpoint.py``).
+
+On a mesh (``parallel.parallelize``) ``layout`` says how the state is laid
+out and what the step calls, and with more than one data rank the
+augmentation draws from ``augment_generator``, seeded alike on every rank
+(None: it draws from ``dropout_generator``).
 """
 
 from __future__ import annotations
@@ -24,6 +29,12 @@ class TrainState:
     scheduler: torch.optim.lr_scheduler.LRScheduler
     dropout_generator: torch.Generator
     step: int = 0
+    augment_generator: torch.Generator | None = None
+    layout: object = None  # parallel.layout.Layout
+
+    @property
+    def augment_source(self) -> torch.Generator:
+        return self.augment_generator or self.dropout_generator
 
 
 def create_train_state(model: torch.nn.Module, optimizer: torch.optim.Optimizer,

@@ -10,15 +10,25 @@ the host once per epoch, not per step.
 The distillation step is the same update on ``distill_loss``: soft-target
 KL at temperature T (times T^2) against the frozen teacher's logits,
 weighted ``kd_weight``, plus cross-entropy weighted ``ce_weight``.
+
+On a mesh (``state.layout``, ``parallel/layout.py``) the step calls the
+layout's module (DDP's wrapper, or the FSDP or tensor-parallel model),
+skips the gradient reduction on every microbatch but the last, reduces the
+gradients no wrapper reduced, clips on the norm over every rank's shards,
+and returns metrics averaged over the data ranks. The augmentation draws
+for the global batch and keeps this rank's rows (``parallel.augment_rows``).
 """
 
 from __future__ import annotations
 
 from collections.abc import Callable
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 
+from spectre_tpu_torch.parallel.layout import augment_rows
 from spectre_tpu_torch.train.optim import clip_by_global_norm_
 from spectre_tpu_torch.train.state import TrainState
 
@@ -59,6 +69,27 @@ def _aux_loss(model: torch.nn.Module, like: torch.Tensor) -> torch.Tensor:
     return aux
 
 
+def _clip(state: TrainState, max_norm) -> None:
+    layout = state.layout
+    # on one rank a shard is the whole gradient: the single device's norm
+    norm_fn = layout.global_norm if layout is not None and layout.sharded \
+        and torch.distributed.get_world_size() > 1 else None
+    clip_by_global_norm_(state.model.parameters(), float(max_norm), norm_fn)
+
+
+def _finish(state: TrainState, grad_clip_norm, metrics: dict) -> dict:
+    """Reduce what no wrapper reduced, clip, step the optimizer and the
+    schedule; the metrics averaged over the data ranks."""
+    if state.layout is not None:
+        state.layout.reduce_gradients()
+    if grad_clip_norm:
+        _clip(state, grad_clip_norm)
+    state.optimizer.step()
+    state.scheduler.step()
+    state.step += 1
+    return metrics if state.layout is None else state.layout.mean_over_data(metrics)
+
+
 def make_train_step(augment_fn: Callable | None = None, grad_accum_steps: int = 1,
                     grad_clip_norm: float | None = None) -> Callable:
     """Build ``train_step(state, images, labels) -> metrics``; it updates
@@ -76,30 +107,28 @@ def make_train_step(augment_fn: Callable | None = None, grad_accum_steps: int = 
     a = max(1, int(grad_accum_steps))
 
     def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor) -> dict:
-        model = state.model
+        model, layout = state.model, state.layout
+        net = model if layout is None else layout.module
         if images.shape[0] % a:
             raise ValueError(f"batch {images.shape[0]} not divisible by "
                              f"grad_accum_steps={a}: samples would be dropped")
         state.optimizer.zero_grad(set_to_none=True)
         metrics = None
-        for x, y in zip(images.chunk(a), labels.chunk(a)):
+        for i, (x, y) in enumerate(zip(images.chunk(a), labels.chunk(a))):
             if augment_fn is not None:
-                x = augment_fn(state.dropout_generator, x)
-            logits = model(x)
-            aux = _aux_loss(model, logits)
-            loss = cross_entropy_loss(logits, y) + aux
-            (loss / a).backward()
+                x = augment_fn(augment_rows(state.augment_source, layout, x.shape[0]), x)
+            with (contextlib.nullcontext() if layout is None
+                  else layout.accumulating(last=i == a - 1)):
+                logits = net(x)
+                aux = _aux_loss(model, logits)
+                loss = cross_entropy_loss(logits, y) + aux
+                (loss / a).backward()
             part = {"loss": loss.detach(), "accuracy": _accuracy(logits.detach(), y),
                     "loss_aux": aux.detach()}
             metrics = part if metrics is None else {k: metrics[k] + v for k, v in part.items()}
         if a > 1:
             metrics = {k: v / a for k, v in metrics.items()}
-        if grad_clip_norm:
-            clip_by_global_norm_(model.parameters(), float(grad_clip_norm))
-        state.optimizer.step()
-        state.scheduler.step()
-        state.step += 1
-        return metrics
+        return _finish(state, grad_clip_norm, metrics)
 
     return train_step
 
@@ -116,21 +145,18 @@ def make_distill_step(augment_fn: Callable | None = None, temperature: float = 2
 
     def distill_step(state: TrainState, images: torch.Tensor, teacher_logits: torch.Tensor,
                      labels: torch.Tensor) -> dict:
-        model = state.model
+        net = state.model if state.layout is None else state.layout.module
         state.optimizer.zero_grad(set_to_none=True)
         if augment_fn is not None:
-            images = augment_fn(state.dropout_generator, images)
-        logits = model(images)
+            images = augment_fn(augment_rows(state.augment_source, state.layout,
+                                             images.shape[0]), images)
+        logits = net(images)
         loss, parts = distill_loss(logits, teacher_logits, labels, temperature, kd_weight,
                                    ce_weight)
         loss.backward()
-        if grad_clip_norm:
-            clip_by_global_norm_(model.parameters(), float(grad_clip_norm))
-        state.optimizer.step()
-        state.scheduler.step()
-        state.step += 1
-        return {"loss": loss.detach(), "accuracy": _accuracy(logits.detach(), labels),
-                **{k: v.detach() for k, v in parts.items()}}
+        return _finish(state, grad_clip_norm,
+                       {"loss": loss.detach(), "accuracy": _accuracy(logits.detach(), labels),
+                        **{k: v.detach() for k, v in parts.items()}})
 
     return distill_step
 

@@ -828,3 +828,19 @@ def test_server_on_the_card_answers_around_buckets_that_fail(cuda_device):
     srv._jobs.put(None)
     t.join(timeout=60)
     assert srv.forwards == 20
+
+
+def test_tensor_parallelism_refuses_a_model_on_the_card(cuda_device):
+    """Tensor parallelism runs its layers' plain products, since kernel B3
+    takes its LayerNorm over the whole width: ``apply_tp`` refuses a model
+    on the card before it splits anything."""
+    from spectre_tpu_torch.parallel import SPECTRE_TP_RULES, apply_tp
+
+    cfg = SimpleNamespace(model="spectre_vit", method="permut_mix", mix_impl="folded",
+                          img_size=8, patch_size=4, in_channels=3, num_classes=10,
+                          embed_dim=32, num_encoders=1, num_heads=2, hidden_dim=64,
+                          random_seed=0, compute_dtype="float32", param_dtype="float32")
+    model = build_model(cfg, cuda_device)
+    with pytest.raises(NotImplementedError, match="CPU only"):
+        apply_tp(model, None, SPECTRE_TP_RULES)
+    assert all(getattr(m, "tp", None) is None for m in model.modules())

@@ -184,8 +184,10 @@ def test_full_width_teacher_at_reduced_depth_matches_jax(rng):
 def test_port_teacher_init_draws_the_flax_distributions():
     """Seeded: the same seed gives the same teacher; kernels are lecun-normal
     over their fan-in, biases zero, tokens normal(0, 0.02), LayerScale 1e-5."""
-    a = load_teacher(10, img_size=32, seed=3, embed_dim=64, depth=2, num_heads=4)
-    b = load_teacher(10, img_size=32, seed=3, embed_dim=64, depth=2, num_heads=4)
+    a = load_teacher(10, img_size=32, seed=3, embed_dim=64, depth=2, num_heads=4,
+                     device="cpu")
+    b = load_teacher(10, img_size=32, seed=3, embed_dim=64, depth=2, num_heads=4,
+                     device="cpu")
     for (name, pa), pb in zip(a.state_dict().items(), b.state_dict().values()):
         assert torch.equal(pa, pb), name
     assert not a.training and not any(p.requires_grad for p in a.parameters())
@@ -255,7 +257,7 @@ def test_state_dict_import_checks_rope_periods_and_reports_unused_keys(rng, tmp_
     sd = _dinov3_state_dict(rng, depth=1, e=48, heads=4, regs=4, patch=8,
                             periods=np.geomspace(0.3, 7.0, 3))
     port = load_teacher(10, img_size=16, patch_size=8, embed_dim=48, depth=1,
-                        num_heads=4).backbone
+                        num_heads=4, device="cpu").backbone
     before = {k: v.clone() for k, v in port.state_dict().items()}
     with pytest.raises(ValueError, match="rope_embed.periods"):
         import_torch_state_dict(port, sd)
@@ -269,7 +271,7 @@ def test_state_dict_import_checks_rope_periods_and_reports_unused_keys(rng, tmp_
     path = str(tmp_path / "teacher.npz")
     np.savez(path, **sd)
     clf = load_teacher(10, img_size=16, weights_path=path, patch_size=8, embed_dim=48, depth=1,
-                       num_heads=4)
+                       num_heads=4, device="cpu")
     np.testing.assert_allclose(clf.backbone.rope_periods, sd["rope_embed.periods"], rtol=1e-6)
     assert torch.equal(clf.backbone.norm.weight, torch.from_numpy(sd["norm.weight"]))
 
@@ -349,7 +351,7 @@ def _distill_cfg(tmp_path, **over):
 
 def _tiny_teacher():
     return load_teacher(10, img_size=16, seed=1, embed_dim=32, depth=2, num_heads=2,
-                        num_registers=2)
+                        num_registers=2, device="cpu")
 
 
 def test_precompute_teacher_logits_pads_the_last_chunk_and_equals_the_direct_call(rng):
@@ -471,8 +473,17 @@ def test_sigterm_saves_without_validating_and_the_checkpoint_resumes(tmp_path, m
 
 
 def test_fsdp_is_refused_with_a_pointer(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        distill_from_config(_distill_cfg(tmp_path, fsdp=True), device="cpu", synthetic=True)
+    """``fsdp=True`` is no longer refused (parallel/ is ported): in a plain
+    process the loop makes a process group of its own, shards the student
+    over its one rank, and leaves no group behind; the losses equal the
+    unwrapped run's, bit for bit (one rank issues no collective)."""
+    runs = [distill_from_config(_distill_cfg(tmp_path / str(fsdp), fsdp=fsdp), device="cpu",
+                                synthetic=True, teacher=_tiny_teacher(), max_steps=2,
+                                write_metrics=False, checkpoint=False)
+            for fsdp in (True, False)]
+    assert runs[0].state.layout.kind == "fsdp" and runs[1].state.layout is None
+    assert not torch.distributed.is_initialized()
+    assert runs[0].batch_losses == runs[1].batch_losses
 
 
 # ------------------------------------------------------------------ the CLIs

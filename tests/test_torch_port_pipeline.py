@@ -103,7 +103,7 @@ def test_requests_arriving_while_the_card_runs_join_the_next_bucket():
     class Busy(TorchServer):
         def _dispatch(self, x, parts):
             parts, logits, _ = super()._dispatch(x, parts)
-            return parts, logits, _GatedEvent(gate)
+            return parts, logits, [_GatedEvent(gate)]  # one event per device
 
     srv = Busy(forward, (3, 8, 8), "cpu", max_batch=8)
     t = _batcher(srv)

@@ -297,8 +297,13 @@ def test_train_cli_takes_steps_on_the_cpu_and_refuses_cuda_without_a_card(tmp_pa
     if not torch.cuda.is_available():
         r = _cli("--device", "cuda", *tiny)
         assert r.returncode != 0 and "torch.cuda.is_available() is False" in r.stderr
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        train_cli.main(["--device", "cpu", "--multihost", *tiny])
+    # --multihost joins a process group (without torchrun's variables, one
+    # of this process alone), trains under DDP and leaves no group behind;
+    # at one rank its losses are the plain run's, bit for bit
+    plain = train_cli.main(["--device", "cpu", *tiny])
+    multi = train_cli.main(["--device", "cpu", "--multihost", *tiny])
+    assert multi.state.layout.kind == "dp" and not torch.distributed.is_initialized()
+    assert multi.train_losses == plain.train_losses
     # a config with use_distillation runs the distill loop (a tiny teacher)
     r = train_cli.main(["--device", "cpu", *tiny, "use_distillation=True", "teacher_img_size=32",
                         "teacher_depth=1", "teacher_embed_dim=32", "teacher_num_heads=2",
