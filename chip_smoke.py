@@ -10,20 +10,25 @@ Phases, each raising on failure (nothing is caught):
    shape (d=33,280, H=16) with a block table (blk=64) and a uniform one
    (blk=1, as mix_block=0 trains), B in {1, 3, 64, 256, 1024}, bf16 and f32:
    bitwise equal. Median times at B=256 for both tables.
-4. kernel 2's forward, both of its kernels (fused_spectre_linear_wgmma: bf16
-   on wgmma + TMA; fused_spectre_linear_wmma_fma: f32, and bf16 where TMA
-   cannot describe the operands, as the head's N = 100), vs the plain version
+4. kernel 2's forward, both of its kernels on the path
+   (fused_spectre_linear_wgmma: bf16 on wgmma + TMA;
+   fused_spectre_linear_cluster: f32, and bf16 where TMA cannot describe the
+   operands, as the head's N = 100, its blocks splitting a row tile across a
+   thread-block cluster), vs the plain version
    at the path's three shapes for B=256 and B=1024, at the structured and
    gather mixes' projection (16,640 x 8,192)·(8,192 x 512), f32 (<= 1e-4: only
    the summation order differs) and bf16 (<= 2e-2: one bf16 ulp is 7.8e-3 near
    1 and 1.6e-2 in [2, 4); <= 4e-2 at K=8,192, whose pre-LN values reach
-   [4, 8)), and at the serving buckets' rows 65 x {1, 2, 7, 64, 256} in bf16,
-   for the output and for the saved pre-LN ``h``; the kernel each call takes
+   [4, 8)), and at the serving buckets' rows 65 x {1, 2, 7, 64, 256} and the
+   head's rows {1, 2, 7, 64} in bf16, for the output and for the saved
+   pre-LN ``h``; the kernel each call takes
    (``forward_kernel``) and its launches; two runs bitwise equal; the autograd
    Function's five gradients vs autograd of the plain version (limits at
-   GRAD_REL); at the path's bf16 shapes, times of the call with and without
-   ``h``, on the device, of the other kernel, of the plain version and of the
-   cuBLAS chain ``gelu(layer_norm(addmm(b, x, w)))``. Then kernel 2's backward
+   GRAD_REL); at the path's bf16 shapes and every head bucket, times of the
+   call with and without ``h``, on the device, of the plain version and of
+   the cuBLAS chain ``gelu(layer_norm(addmm(b, x, w)))`` (back to back and on
+   the device), and at the wgmma shapes of the cluster kernel (its result
+   held to the same limit). Then kernel 2's backward
    (fused_spectre_linear_bwd: the LayerNorm/GELU chain kernel and the two
    products) vs its plain version at the path's shapes for B=256 and
    B=1024 and at K=8,192, f32 (<= 1e-5 of each gradient's largest entry)
@@ -55,7 +60,7 @@ Phases, each raising on failure (nothing is caught):
 9. train: the flagship in train mode at the config's batch 256 on synthetic
    data. One step must launch exactly 4 block-scatter, 4 block-gather and 9
    fused-linear kernels (8 of them the wgmma kernel, the head's the
-   float32/WMMA one), give a finite loss and a finite gradient for every
+   cluster kernel), give a finite loss and a finite gradient for every
    parameter; 8 steps on one fixed batch must end below the first loss; one
    backward on the kernel path must agree with the same backward on the
    plain versions (TRAIN_GRAD_REL). With mix_block=0 one step must launch 4
@@ -134,8 +139,8 @@ Phases, each raising on failure (nothing is caught):
    and the bench; ``gather_tm`` steps.
 
 20. kernel 2 above N = 1,024 (C6: fused_spectre_linear_wide_wgmma, bf16 that
-   TMA can describe; fused_spectre_linear_wide_wmma_fma, float32 and bf16
-   at N = 1,100; fused_spectre_linear_bwd_wide, the backward's chain) at
+   TMA can describe; fused_spectre_linear_cluster, float32 and bf16 at N =
+   1,100; fused_spectre_linear_bwd_wide, the backward's chain) at
    (4,160 x 1,536)(1,536 x 1,536), K == N, and (4,160 x 768)(768 x 2,048)
    and (768 x 1,100), bf16 and f32: out and h against the plain version,
    the Function's gradients and the backward against theirs, under the
@@ -163,7 +168,7 @@ Phases, each raising on failure (nothing is caught):
    seed must equal its source bit for bit; ``torch.export`` of it at batch
    64 in bf16, saved as ``.pt2`` and loaded in this process: the program
    holds 4 block-scatter and 9 fused-linear nodes, one call launches exactly
-   4 block-scatter, 8 wgmma and 1 f32/WMMA kernels (``launches_export``),
+   4 block-scatter, 8 wgmma and 1 cluster kernels (``launches_export``),
    its logits are within EXPORT_ATOL of the live model and MODEL_ATOL of
    the plain path; export, save and load seconds, the file's size, and the
    program's forward beside the live model's (CUDA events). ``.stw`` at full
@@ -195,13 +200,13 @@ Phases, each raising on failure (nothing is caught):
 25. ``repl/perf.py latency``, ``linear``, ``mixer`` and ``encoder`` through
    its ``main`` at the JAX package's defaults (B=8, E=512, heads 4, 10 + 100
    calls, d up to 2^13, the gather mix): exact launches of each (latency
-   8 x 110 x 13 of kernel 2's f32/WMMA kernel; linear 3 x 110 of it and
-   2 x 110 of the wide one; mixer 8 x 110 of kernel 7; encoder 6); one
-   shape per mode against the plain versions (latency's logits within
-   MODEL_ATOL, the encoder layer and kernel 2 at dims 256, 2,048 and 4,096
-   within 1e-4 in float32, kernel 7 at d = 4,096 bit for bit); the wide
-   kernel's times at 8 rows beside its bound, its plain version and the
-   cuBLAS chain; the head's shape, kernel and cuBLAS chain on the device.
+   8 x 110 x 13 of kernel 2's cluster kernel; linear 5 x 110 of it; mixer
+   8 x 110 of kernel 7; encoder 6); one shape per mode against the plain
+   versions (latency's logits within MODEL_ATOL, the encoder layer and
+   kernel 2 at dims 256, 1,024, 2,048 and 4,096 within 1e-4 in float32,
+   kernel 7 at d = 4,096 bit for bit); the cluster kernel's times at 8
+   rows from dim 1,024 beside its bound, its plain version and the cuBLAS
+   chain; the head's shape, kernel and cuBLAS chain on the device.
 26. tools: ``repl/mnist_submission.py::write_submission`` on the card (3
    steps of the MNIST config, the validation pass and the submission split;
    exact launches; a row per image; logits within MODEL_ATOL of the plain
@@ -381,20 +386,23 @@ SERVING_BUCKETS = (1, 2, 7, 64, 256)
 
 
 def phase_kernel2(kernels, gen):
-    """Kernel 2's forward, both kernels, against the plain version: the path's
-    three shapes at B=256 and B=1024 and the mix projection at K=8,192 in
-    bf16 and f32, and the serving buckets' rows in bf16 (the ragged edge).
-    bf16 with N and K multiples of 8 must take the wgmma kernel, which must
-    repeat itself bit for bit; times of both kernels, the plain version and
-    the cuBLAS chain at the path's bf16 shapes."""
+    """Kernel 2's forward, both kernels of the path, against the plain
+    version: the path's three shapes at B=256 and B=1024 and the mix
+    projection at K=8,192 in bf16 and f32, and the serving buckets' rows in
+    bf16 (the ragged edge), the head's among them. bf16 with N and K
+    multiples of 8 must take the wgmma kernel, the head's N = 100 and every
+    float32 call the cluster kernel; each must repeat itself bit for bit.
+    Times of both kernels, the plain version and the cuBLAS chain at the
+    path's bf16 shapes and at every head bucket."""
     import torch.nn.functional as F
 
-    wgmma, wmma_fma = kernels.fused_spectre_linear_wgmma, kernels.fused_spectre_linear_wmma_fma
+    wgmma, cluster = kernels.fused_spectre_linear_wgmma, kernels.fused_spectre_linear_cluster
     path = [(rows, k, n) for b in (256, 1024)
             for rows, k, n in ((65 * b, 512, 768), (65 * b, 768, 512), (b, 512, 100))]
     path.append((65 * 256, 8192, 512))  # the mix projection under "gather" and "structured"
     serving = [(65 * b, k, n) for b in SERVING_BUCKETS for k, n in ((512, 768), (768, 512))
                if (65 * b, k, n) not in path]
+    serving += [(b, 512, 100) for b in SERVING_BUCKETS if (b, 512, 100) not in path]
     limits = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     worst, worst_grad, times = {}, {}, {}
     for m, k, n in path + serving:
@@ -413,7 +421,7 @@ def phase_kernel2(kernels, gen):
             route = kernels.forward_kernel(dtype, k, n)
             # every shape here but the head's N = 100 takes the wgmma kernel in bf16
             want_route = (wgmma.__name__ if dtype == torch.bfloat16 and n != 100
-                          else wmma_fma.__name__)
+                          else cluster.__name__)
             if route != want_route:
                 raise AssertionError(f"kernel 2 ({m}x{k})x({k}x{n}) {dtype} routed to {route}")
             args = [t.to("cuda", dtype) for t in (x, w, bias, gamma, beta)]
@@ -444,44 +452,50 @@ def phase_kernel2(kernels, gen):
                     raise AssertionError(f"fused_spectre_linear_grad ({m}x{k})x({k}x{n}) "
                                          f"{dtype}: gradient rel err {gerr} > {GRAD_REL[dtype]}")
                 line += f", grads rel {gerr:.3g}"
-            if on_path and dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 and (on_path or n == 100):
                 it = 5 if k > 1024 else 20
-                out, hb = torch.empty_like(got), torch.empty_like(got)
+
+                def chain():  # the cuBLAS chain for the same function, a yardstick the
+                    # port never calls: addmm writes h, then LayerNorm and GELU (no
+                    # K == N residual at these shapes)
+                    return F.gelu(F.layer_norm(torch.addmm(args[2], args[0], args[1]), (n,),
+                                               args[3], args[4]))
+
                 t = {"ms": cuda_time_ms(lambda: kernels.fused_spectre_linear(*args, save_h=True),
                                         iters=it),
                      "ms_without_h": cuda_time_ms(lambda: kernels.fused_spectre_linear(*args),
                                                   iters=it),
                      "device_ms": device_time_ms(
                          lambda: kernels.fused_spectre_linear(*args, save_h=True), iters=5),
-                     "wmma_fma_ms": cuda_time_ms(lambda: wmma_fma(*args, out, hb, 1e-5),
-                                                 iters=it),
                      "plain_ms": cuda_time_ms(lambda: kernels.fused_spectre_linear_plain(*args),
                                               iters=it),
-                     # the cuBLAS chain for the same function, a yardstick the port never
-                     # calls: addmm writes h, then LayerNorm and GELU (no K == N residual
-                     # at these shapes)
-                     "library_ms": cuda_time_ms(lambda: F.gelu(F.layer_norm(
-                         torch.addmm(args[2], args[0], args[1]), (n,), args[3], args[4])),
-                         iters=it)}
+                     "library_ms": cuda_time_ms(chain, iters=it),
+                     "library_device_ms": device_time_ms(chain, iters=5)}
                 el = 2
                 io = (m * k + k * n + 3 * n + 2 * m * n) * el  # x, W, b/gamma/beta, out, h
                 t["bound_ms"], t["bound_by"] = bound(io, 2 * m * k * n)
                 t["route"] = route
                 times[m, k, n] = t
-                # the float32/WMMA kernel's bf16 result of its timed calls, at the same limit
-                werr = max((out.float() - ref.float()).abs().max().item(),
-                           (hb.float() - ref_h.float()).abs().max().item())
-                key = (wmma_fma.__name__, dtype)
-                worst[key] = max(worst.get(key, 0.0), werr)
-                if not werr <= limit:
-                    raise AssertionError(f"{wmma_fma.__name__} ({m}x{k})x({k}x{n}) {dtype}: max "
-                                         f"abs err of out and h {werr} > {limit}")
                 line += (f"; {route} {t['ms']:.4f} ms with h (device {t['device_ms']:.4f}, "
                          f"{2 * m * k * n / t['device_ms'] / 1e9:.1f} TFLOP/s), "
-                         f"{t['ms_without_h']:.4f} without; the float32/WMMA kernel "
-                         f"{t['wmma_fma_ms']:.4f} (max abs err {werr:.3g}); cuBLAS chain "
-                         f"{t['library_ms']:.4f}; plain {t['plain_ms']:.4f}; bound "
-                         f"{t['bound_ms']:.4f} by {t['bound_by']}")
+                         f"{t['ms_without_h']:.4f} without; cuBLAS chain {t['library_ms']:.4f} "
+                         f"(device {t['library_device_ms']:.4f}); plain {t['plain_ms']:.4f}; "
+                         f"bound {t['bound_ms']:.4f} by {t['bound_by']}")
+                if route == wgmma.__name__:
+                    # the cluster kernel at the same shape, its bf16 result of its timed
+                    # calls held at the same limit
+                    out, hb = torch.empty_like(got), torch.empty_like(got)
+                    t["cluster_ms"] = cuda_time_ms(lambda: cluster(*args, out, hb, 1e-5),
+                                                   iters=it)
+                    werr = max((out.float() - ref.float()).abs().max().item(),
+                               (hb.float() - ref_h.float()).abs().max().item())
+                    key = (cluster.__name__, dtype)
+                    worst[key] = max(worst.get(key, 0.0), werr)
+                    if not werr <= limit:
+                        raise AssertionError(f"{cluster.__name__} ({m}x{k})x({k}x{n}) {dtype}: "
+                                             f"max abs err of out and h {werr} > {limit}")
+                    line += (f"; the cluster kernel {t['cluster_ms']:.4f} (max abs err "
+                             f"{werr:.3g})")
             print(line, flush=True)
         del x, w, ct
         torch.cuda.empty_cache()
@@ -497,27 +511,30 @@ def phase_kernel2(kernels, gen):
                 "max_abs_err": worst[name, torch.bfloat16], "ms": t["ms"],
                 "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": t["library_ms"], "device_ms": t["device_ms"],
-                "ms_without_h": t["ms_without_h"],
+                "library_device_ms": t["library_device_ms"], "ms_without_h": t["ms_without_h"],
                 "shape": f"({m}x{k})x({k}x{n}) bf16, writing h", **extra}
 
     main, wide = (65 * 256, 512, 768), (65 * 256, 8192, 512)
-    others = {f"{m}x{k}x{n}": {key: t[key] for key in ("ms", "device_ms", "wmma_fma_ms",
-                                                         "library_ms", "bound_ms")}
-              for (m, k, n), t in times.items() if t["route"] == wgmma.__name__}
+    keys = ("ms", "device_ms", "cluster_ms", "library_ms", "library_device_ms", "bound_ms")
+    others = {f"{m}x{k}x{n}": {key: t[key] for key in keys if key in t}
+              for (m, k, n), t in times.items() if (m, k, n) != main}
     new = row(wgmma.__name__, main, {
-        "wmma_fma_ms": times[main]["wmma_fma_ms"], "times": others,
+        "cluster_ms": times[main]["cluster_ms"],
+        "times": {key: v for key, v in others.items() if not key.endswith("x100")},
         "grad_rel_err": worst_grad[torch.bfloat16],
         "grad_rel_err_f32": worst_grad[torch.float32]})
-    old = row(wmma_fma.__name__, (256, 512, 100), {
-        "max_abs_err_f32": worst[wmma_fma.__name__, torch.float32],
-        "ms_1024": times[1024, 512, 100]["ms"]})
+    head = row(cluster.__name__, (256, 512, 100), {
+        "max_abs_err_f32": worst[cluster.__name__, torch.float32],
+        "times": {key: v for key, v in others.items() if key.endswith("x100")}})
     print(f"kernel 2 forward at ({main[0]}x{main[1]})x({main[1]}x{main[2]}) bf16 with h: "
-          f"wgmma {new['ms']:.4f} ms (device {new['device_ms']:.4f}), the float32/WMMA kernel "
-          f"{new['wmma_fma_ms']:.4f}, cuBLAS chain {new['library_ms']:.4f}, bound "
+          f"wgmma {new['ms']:.4f} ms (device {new['device_ms']:.4f}), the cluster kernel "
+          f"{new['cluster_ms']:.4f}, cuBLAS chain {new['library_ms']:.4f}, bound "
           f"{new['bound_ms']:.4f} by {new['bound_by']}; K=8,192: wgmma "
-          f"{times[wide]['ms']:.4f}, the float32/WMMA kernel {times[wide]['wmma_fma_ms']:.4f}",
+          f"{times[wide]['ms']:.4f}, the cluster kernel {times[wide]['cluster_ms']:.4f}; the "
+          f"head at B=256 on the cluster kernel {head['ms']:.4f} (device {head['device_ms']:.4f}"
+          f"), cuBLAS chain {head['library_ms']:.4f} (device {head['library_device_ms']:.4f})",
           flush=True)
-    return new, old
+    return new, head
 
 
 # kernel 2's backward (the chain kernel and the two products) against its
@@ -787,9 +804,9 @@ KERNEL_NAMES = ("block_scatter_rows", "block_gather_sum", "inverse_gather_sum",
                 "fused_spectre_linear", "fused_spectre_linear_bwd", "fused_block_bwd",
                 "flash_attention_fwd", "flash_attention_bwd", "fwht", "structured_mix",
                 "structured_mix_bwd", "routed_gather_sum", "fused_spectre_linear_wgmma",
-                "fused_spectre_linear_wmma_fma", "fused_block_bwd_wgmma",
+                "fused_spectre_linear_cluster", "fused_block_bwd_wgmma",
                 "fused_block_bwd_wmma_fma", "fused_spectre_linear_wide_wgmma",
-                "fused_spectre_linear_wide_wmma_fma", "fused_spectre_linear_bwd_wide")
+                "fused_spectre_linear_bwd_wide")
 
 
 def expected_launches(cfg, forwards: int = 0, steps: int = 0) -> dict[str, int]:
@@ -977,8 +994,8 @@ def phase_train(kernels, parse_config, mix_block: int):
     if counts != want:
         raise AssertionError(f"{tag}: one step launched {counts}, want {want}")
     # 8 of the step's 9 forwards of kernel 2 on the wgmma kernel, the head's
-    # N = 100 on the float32/WMMA one
-    if (counts["fused_spectre_linear_wgmma"], counts["fused_spectre_linear_wmma_fma"]) != (8, 1):
+    # N = 100 on the cluster kernel
+    if (counts["fused_spectre_linear_wgmma"], counts["fused_spectre_linear_cluster"]) != (8, 1):
         raise AssertionError(f"{tag}: kernel 2's forwards split {counts}, want 8 wgmma, 1 head")
     bad = [n for n, p in state.model.named_parameters()
            if p.grad is None or not torch.isfinite(p.grad).all()]
@@ -1944,11 +1961,14 @@ C6_SHAPES = ((4160, 1536, 1536), (4160, 768, 2048), (4160, 768, 1100))
 
 
 def phase_c6(kernels, gen):
-    """Kernel 2's wide kernels (N > 1,024) against the plain versions under
-    the limits of the one-pass kernels' phases: out and h, the Function's
-    gradients, and the backward with its wide chain; two runs bitwise; the
-    kernel each call takes; times back to back and on the device beside the
-    bound, the plain version and the cuBLAS chain."""
+    """Kernel 2 above N = 1,024 (the two-pass wide kernel for bf16 that TMA
+    can describe, the cluster kernel for float32 and N = 1,100) against the
+    plain versions under the limits of the one-pass kernels' phases: out and
+    h, the Function's gradients, and the backward with its wide chain; two
+    runs bitwise; the kernel each call takes; times back to back and on the
+    device beside the bound, the plain version and the cuBLAS chain. Returns
+    the wide kernel's entry, the wide chain's, and the cluster kernel's
+    numbers here (for its entry of phase 4)."""
     import torch.nn.functional as F
 
     from spectre_tpu_torch.utils.timing import BF16_FLOPS, FP32_FLOPS
@@ -1970,7 +1990,7 @@ def phase_c6(kernels, gen):
             route = kernels.forward_kernel(dtype, k, n)
             want_route = ("fused_spectre_linear_wide_wgmma"
                           if dtype == torch.bfloat16 and n % 8 == 0
-                          else "fused_spectre_linear_wide_wmma_fma")
+                          else "fused_spectre_linear_cluster")
             if route != want_route:
                 raise AssertionError(f"C6 ({m}x{k})x({k}x{n}) {dtype} routed to {route}")
             args = [t.to("cuda", dtype) for t in (x, w, bias, gamma, beta)]
@@ -2024,6 +2044,9 @@ def phase_c6(kernels, gen):
                  "library_ms": cuda_time_ms(lambda: residual(F.gelu(F.layer_norm(
                      torch.addmm(args[2], args[0], args[1]), (n,), args[3], args[4]))),
                      iters=10),
+                 "library_device_ms": device_time_ms(lambda: residual(F.gelu(F.layer_norm(
+                     torch.addmm(args[2], args[0], args[1]), (n,), args[3], args[4]))),
+                     iters=5),
                  "bwd_ms": cuda_time_ms(lambda: kernels.fused_spectre_linear_bwd(*bargs),
                                         iters=10),
                  "bwd_device_ms": device_time_ms(
@@ -2042,7 +2065,8 @@ def phase_c6(kernels, gen):
             print(f"C6 {route} ({m}x{k})x({k}x{n}) {str(dtype)[6:]}: max abs err {err:.3g} "
                   f"(out and h, limit {limit}), Function grads rel {gerr:.3g}, backward rel "
                   f"{berr:.3g} (wide chain), two runs bitwise; forward {t['ms']:.4f} ms with h "
-                  f"(device {t['device_ms']:.4f}), cuBLAS chain {t['library_ms']:.4f}, plain "
+                  f"(device {t['device_ms']:.4f}), cuBLAS chain {t['library_ms']:.4f} (device "
+                  f"{t['library_device_ms']:.4f}), plain "
                   f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} by {t['bound_by']}; backward "
                   f"{t['bwd_ms']:.4f} (device {t['bwd_device_ms']:.4f}), autograd of plain "
                   f"{t['bwd_plain_ms']:.4f}, bound {t['bwd_bound_ms']:.4f} by "
@@ -2071,24 +2095,28 @@ def phase_c6(kernels, gen):
     bf, f32 = torch.bfloat16, torch.float32
     wide_wgmma = entry("fused_spectre_linear_wide_wgmma", "fused_spectre_linear.cu", 94,
                        (4160, 1536, 1536, bf))
-    wide_wmma = entry("fused_spectre_linear_wide_wmma_fma", "fused_spectre_linear.cu", 94,
-                      (4160, 1536, 1536, f32))
     wide_bwd = entry("fused_spectre_linear_bwd_wide", "fused_spectre_linear_bwd.cu", 147,
                      (4160, 1536, 1536, bf), bwd=True)
     wide_bwd["max_abs_err"] = worst_bwd_abs[bf]
     wide_bwd["max_rel_err"] = worst_bwd[bf]
     wide_bwd["max_rel_err_f32"] = worst_bwd[f32]
     wide_wgmma["max_abs_err"] = worst["fused_spectre_linear_wide_wgmma", bf]
-    wide_wmma["max_abs_err"] = worst["fused_spectre_linear_wide_wmma_fma", f32]
-    wide_wmma["max_abs_err_bf16"] = worst["fused_spectre_linear_wide_wmma_fma", bf]
+    name = "fused_spectre_linear_cluster"
+    cluster = {"max_abs_err_c6": worst[name, f32], "max_abs_err_c6_bf16": worst[name, bf],
+               "times_c6": {f"{m}x{k}x{n}_{str(dt)[6:]}": {
+                   key: v[key] for key in ("ms", "device_ms", "plain_ms", "library_ms",
+                                           "library_device_ms", "bound_ms", "bound_by")}
+                   for (m, k, n, dt), v in times.items() if v["route"] == name}}
     end = kernels.launch_counts()
-    for k in (wide_wgmma, wide_wmma, wide_bwd):
+    for k in (wide_wgmma, wide_bwd):
         k["launches_c6_phase"] = end[k["name"]] - start[k["name"]]
+    cluster["launches_c6_phase"] = end[name] - start[name]
     print(f"C6: kernel 2 takes N = {', '.join(str(s[2]) for s in C6_SHAPES)} on the card in bf16 "
-          f"and f32; forward max abs err bf16 {wide_wgmma['max_abs_err']:.3g}, f32 "
-          f"{wide_wmma['max_abs_err']:.3g}; backward rel err bf16 {worst_bwd[bf]:.3g}, f32 "
-          f"{worst_bwd[f32]:.3g}", flush=True)
-    return wide_wgmma, wide_wmma, wide_bwd
+          f"and f32; forward max abs err bf16 {wide_wgmma['max_abs_err']:.3g} (wide wgmma), "
+          f"{cluster['max_abs_err_c6_bf16']:.3g} (cluster, N = 1,100), f32 "
+          f"{cluster['max_abs_err_c6']:.3g} (cluster); backward rel err bf16 "
+          f"{worst_bwd[bf]:.3g}, f32 {worst_bwd[f32]:.3g}", flush=True)
+    return wide_wgmma, wide_bwd, cluster
 
 
 DISTILL_CONFIG = os.path.join(ROOT, "spectre_tpu_torch", "configs", "distill_cifar100.py")
@@ -2205,7 +2233,7 @@ def phase_distill(kernels, parse_config, distill_cli, tmp: str):
     if counts != want or calls[0]:
         raise AssertionError(f"distill: one cached step launched {counts} (want {want}) and "
                              f"called the teacher {calls[0]} times")
-    if (counts["fused_spectre_linear_wgmma"], counts["fused_spectre_linear_wmma_fma"]) != (8, 1):
+    if (counts["fused_spectre_linear_wgmma"], counts["fused_spectre_linear_cluster"]) != (8, 1):
         raise AssertionError(f"distill: kernel 2's forwards split {counts}")
     bad = [n for n, p in state.model.named_parameters()
            if p.grad is None or not torch.isfinite(p.grad).all()]
@@ -2695,7 +2723,7 @@ PROFILE_TOTAL_REL = 0.05
 PROFILE_KERNELS = (("block_scatter_rows_kernel", "block_scatter_rows"),
                    ("gather_sum_kernel", "block_gather_sum"),
                    ("fused_linear_wgmma_kernel", "fused_spectre_linear_wgmma"),
-                   ("fused_spectre_linear_kernel", "fused_spectre_linear_wmma_fma"),
+                   ("fused_linear_cluster_kernel", "fused_spectre_linear_cluster"),
                    ("chain_kernel", "fused_spectre_linear_bwd"))
 
 
@@ -2787,7 +2815,7 @@ def _only(counts: dict, want: dict, tag: str) -> None:
 def phase_perf_modes(kernels, perf_cli, gen) -> dict:
     """``repl/perf.py latency|linear|mixer|encoder`` through its ``main`` at
     the JAX package's defaults: exact launches each, then one shape per mode
-    against the plain versions, and the wide kernels' times at 8 rows."""
+    against the plain versions, and the cluster kernel's times at 8 rows."""
     import torch.nn.functional as F
 
     from spectre_tpu_torch.models import SpectreEncoderLayer, SpectreLinear, SpectreViT
@@ -2795,20 +2823,19 @@ def phase_perf_modes(kernels, perf_cli, gen) -> dict:
     from spectre_tpu_torch.utils.timing import FP32_FLOPS
 
     calls = PERF_WARMUP + PERF_ITERS
-    fwd, wmma, wide = ("fused_spectre_linear", "fused_spectre_linear_wmma_fma",
-                       "fused_spectre_linear_wide_wmma_fma")
+    fwd, cluster = "fused_spectre_linear", "fused_spectre_linear_cluster"
     res, launches = {}, {}
     for mode, want in (
             # 8 SpectreViTs (patch x heads), 4 layers of 3 SpectreLinears and
-            # the head, float32: all on the f32/WMMA kernel; the gather mix is
+            # the head, float32: all on the cluster kernel; the gather mix is
             # torch ops, as the JAX function is jnp
-            ("latency", {fwd: 8 * calls * 13, wmma: 8 * calls * 13}),
-            # dims 256, 512, 1024 on the f32/WMMA kernel, 2,048 and 4,096 wide
-            ("linear", {fwd: 5 * calls, wmma: 3 * calls, wide: 2 * calls}),
+            ("latency", {fwd: 8 * calls * 13, cluster: 8 * calls * 13}),
+            # dims 256 to 4,096, float32: all on the cluster kernel
+            ("linear", {fwd: 5 * calls, cluster: 5 * calls}),
             # the structured-mix kernel at every d = 2^6 .. 2^13
             ("mixer", {"structured_mix": 8 * calls}),
             # 3 SpectreLinears, one forward outside the trace and one in it
-            ("encoder", {fwd: 6, wmma: 6})):
+            ("encoder", {fwd: 6, cluster: 6})):
         kernels.reset_launch_counts()
         res[mode] = perf_cli.main([mode])[mode]
         torch.cuda.synchronize()
@@ -2841,9 +2868,10 @@ def phase_perf_modes(kernels, perf_cli, gen) -> dict:
             ref = layer(xe)
     checks["encoder_out"] = max_abs_diff(got, ref)
     del vit, layer
-    # linear: kernel 2 at dims 256 (f32/WMMA) and 4,096 (wide), 8 rows
+    # linear: kernel 2 (the cluster kernel) at dims 256 to 4,096, 8 rows;
+    # times from 1,024
     wide_times = {}
-    for dim in (256, 2048, 4096):
+    for dim in (256, 1024, 2048, 4096):
         sl = perf_cli._seeded(SpectreLinear(dim, dim, device="cuda"))
         xl = torch.randn(PERF_BATCH, dim, generator=seed).cuda()
         args = (xl, sl.kernel.detach(), sl.bias.detach(), sl.ln_scale.detach(),
@@ -2864,7 +2892,7 @@ def phase_perf_modes(kernels, perf_cli, gen) -> dict:
             (2 * PERF_BATCH * dim + dim * dim + 3 * dim) * 4, 2 * PERF_BATCH * dim * dim,
             FP32_FLOPS)
         wide_times[f"{PERF_BATCH}x{dim}x{dim}_float32"] = t
-        print(f"perf linear's wide kernel ({PERF_BATCH}x{dim})x({dim}x{dim}) f32: "
+        print(f"perf linear's cluster kernel ({PERF_BATCH}x{dim})x({dim}x{dim}) f32: "
               f"{t['ms']:.4f} ms back to back, device {t['device_ms']:.4f}, bound "
               f"{t['bound_ms']:.4f} by {t['bound_by']}; plain {t['plain_ms']:.4f}; cuBLAS "
               f"chain {t['library_ms']:.4f} (device {t['library_device_ms']:.4f})", flush=True)
@@ -2889,7 +2917,7 @@ def phase_perf_modes(kernels, perf_cli, gen) -> dict:
 
 
 def phase_head_chain(kernels, gen) -> dict:
-    """The head's shape, (256 x 512)(512 x 100) bf16: kernel 2 (its f32/WMMA
+    """The head's shape, (256 x 512)(512 x 100) bf16: kernel 2 (its cluster
     kernel) and the cuBLAS chain, each back to back and on the device."""
     import torch.nn.functional as F
 
@@ -3375,7 +3403,8 @@ def main() -> int:
     k1 = phase_kernel1(kernels, gen)
     k2, k2_head = phase_kernel2(kernels, gen)
     k11 = phase_linear_bwd(kernels, gen)
-    k12, k13, k14 = phase_c6(kernels, gen)
+    k12, k14, c6_cluster = phase_c6(kernels, gen)
+    k2_head.update(c6_cluster)
     k5 = phase_kernel5(kernels)
     k3, k4 = phase_gather_kernels(kernels, gen)
     k8, k9 = phase_attention(kernels)
@@ -3437,14 +3466,14 @@ def main() -> int:
     # entry point, repl/perf.py fused-bwd
     k1["launches"] = trainer_run["block_scatter_rows"]
     k2["launches"] = trainer_run["fused_spectre_linear_wgmma"]
-    k2_head["launches"] = trainer_run["fused_spectre_linear_wmma_fma"]
+    k2_head["launches"] = trainer_run["fused_spectre_linear_cluster"]
     k11["launches"] = trainer_run["fused_spectre_linear_bwd"]
     k3["launches"] = trainer_run["block_gather_sum"]
     k4["launches"] = uniform_run["inverse_gather_sum"]
     k5["launches"] = fused_run["fused_block_bwd_wgmma"]
     k1["launches_serving"] = serving["block_scatter_rows"]
     k2["launches_serving"] = serving["fused_spectre_linear_wgmma"]
-    k2_head["launches_serving"] = serving["fused_spectre_linear_wmma_fma"]
+    k2_head["launches_serving"] = serving["fused_spectre_linear_cluster"]
     # this slice's paths: kernels 8 and 9 from the ViT trainer's uninterrupted
     # run (14 steps, 2 validation batches), kernel 7 from the structured
     # trainer run (3 steps, 2 validation batches), kernel 6 from
@@ -3464,53 +3493,51 @@ def main() -> int:
     k4["launches_branch"] = branch_run["inverse_gather_sum"]
     # the distill CLI's uninterrupted run (20 steps, 2 validation passes)
     for k, counter in ((k1, "block_scatter_rows"), (k2, "fused_spectre_linear_wgmma"),
-                       (k2_head, "fused_spectre_linear_wmma_fma"),
+                       (k2_head, "fused_spectre_linear_cluster"),
                        (k11, "fused_spectre_linear_bwd"), (k3, "block_gather_sum")):
         k["launches_distill"] = distill_run[counter]
     # the deployment path: one call of the loaded flagship program (batch 64),
     # of the ViT's and of the structured mix's (2 layers each)
     k1["launches_export"] = export_run["block_scatter_rows"]
     k2["launches_export"] = export_run["fused_spectre_linear_wgmma"]
-    k2_head["launches_export"] = export_run["fused_spectre_linear_wmma_fma"]
+    k2_head["launches_export"] = export_run["fused_spectre_linear_cluster"]
     k8["launches_export_vit"] = export_families["vit"]["flash_attention_fwd"]
     k7["launches_export_structured"] = export_families["structured"]["structured_mix"]
-    # kernel 2 above N = 1,024: the trainer launches it no time (no shipped
-    # config has N > 1,024); repl/perf.py linear launches the float32 wide
-    # kernel at dims 2,048 and 4,096, its main path since this slice; the C6
-    # phase's own launches are beside
-    for k in (k12, k13, k14):
+    # kernel 2 above N = 1,024 in bf16 that TMA can describe: the trainer
+    # launches it no time (no shipped config has N > 1,024); the C6 phase's
+    # own launches are beside. repl/perf.py linear's 8-row float32 rows run
+    # the cluster kernel at every dim
+    for k in (k12, k14):
         k["launches"] = k["launches_trainer"] = trainer_run[k["name"]]
-    k13["launches"] = perf_modes["launches"]["linear"][k13["name"]]
-    k13["launches_perf_linear"] = k13["launches"]
-    k13["times_perf_linear"] = perf_modes["wide"]
+    k2_head["times_perf_linear"] = perf_modes["wide"]
     # this slice's paths: the four sweeps, the profiled steps and the
     # submission CLI's run
-    for k, counter in ((k2_head, "fused_spectre_linear_wmma_fma"), (k7, "structured_mix")):
+    for k, counter in ((k2_head, "fused_spectre_linear_cluster"), (k7, "structured_mix")):
         for mode, c in perf_modes["launches"].items():
             if c[counter]:
                 k[f"launches_perf_{mode}"] = c[counter]
     for k, counter in ((k1, "block_scatter_rows"), (k3, "block_gather_sum"),
                        (k2, "fused_spectre_linear_wgmma"),
-                       (k2_head, "fused_spectre_linear_wmma_fma"),
+                       (k2_head, "fused_spectre_linear_cluster"),
                        (k11, "fused_spectre_linear_bwd")):
         k["launches_profile"] = profile["launches"][counter]
     for k, counter in ((k1, "block_scatter_rows"), (k4, "inverse_gather_sum"),
                        (k2, "fused_spectre_linear_wgmma"),
-                       (k2_head, "fused_spectre_linear_wmma_fma"),
+                       (k2_head, "fused_spectre_linear_cluster"),
                        (k11, "fused_spectre_linear_bwd")):
         k["launches_mnist_submission"] = tools["submission"]["launches"][counter]
     # phase 27: the CLI's runs under torchrun with DDP and FSDP (8 steps, 2
     # validation batches each)
     for k, counter in ((k1, "block_scatter_rows"), (k3, "block_gather_sum"),
                        (k2, "fused_spectre_linear_wgmma"),
-                       (k2_head, "fused_spectre_linear_wmma_fma"),
+                       (k2_head, "fused_spectre_linear_cluster"),
                        (k11, "fused_spectre_linear_bwd")):
         for kind in ("ddp", "fsdp"):
             k[f"launches_parallel_{kind}"] = parallel["launches"][kind][counter]
             k[f"launches_parallel_gloo_{kind}_rank0"] = parallel["gloo"][kind]["launches"][counter]
     k2_head["library_device_ms"] = perf_modes["head"]["chain_device_ms"]
     k2_head["head_times_again"] = perf_modes["head"]
-    result = {"kernels": [k1, k2, k2_head, k11, k3, k4, k5, k8, k9, k6, k7, k10, k12, k13, k14],
+    result = {"kernels": [k1, k2, k2_head, k11, k3, k4, k5, k8, k9, k6, k7, k10, k12, k14],
               "train_step": {f"mix_block={blk}": {f"B={b}": v for b, v in t.items()}
                              for blk, t in step_times.items()},
               "trainer": trainer, "fused_bwd": fused_bwd, "bench": bench, "vit": vit,

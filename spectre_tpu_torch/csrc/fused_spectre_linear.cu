@@ -1,4 +1,4 @@
-// fused_spectre_linear_fwd: the SpectreLinear block in one pass,
+// Kernel 2's forward: the SpectreLinear block in one pass,
 //
 //   out = GELU(LayerNorm(x @ W + b) * gamma + beta)  [+ x when K == N]
 //   x [M, K], W [K, N] (the JAX [in, out] layout), b/gamma/beta [N].
@@ -14,39 +14,66 @@
 // also written there in x's dtype, as the TPU kernel writes its saved
 // residual; the backward (ops/kernels/fused_linear.py) reads it and does not
 // run the product again. With h_out null (serving) nothing more is written.
+// The statistics are always those of the float32 sums, not of the rounded h.
 //
-// What bounds it on the H100: at the serving path's shapes (M = 65*B rows,
-// K x N = 512x768, 768x512; and B x 512x100 for the head) the product is
-// ~13 GFLOP per call at B=256, so the tensor cores set the floor in bf16,
-// while the epilogue only needs each [M, N] row once. Each block re-reads
-// all of W (<= 1.5 MB, L2-resident), so the operand stream comes from L2.
+// Three kernels, picked by ops/kernels/fused_linear.py::forward_kernel:
+// fused_spectre_linear_wgmma (bf16 that TMA can describe, N <= 768),
+// fused_spectre_linear_wide_wgmma (the same above N = 1,024, further down),
+// and fused_spectre_linear_cluster, everything else: float32 at any K and N,
+// bf16 whose operands TMA cannot describe (the head's N = 100, whose 200-byte
+// rows of W break TMA's 16-byte stride rule; K or N not a multiple of 8;
+// unaligned pointers), and bf16 with 768 < N <= 1,024.
 //
-// Design: one block owns a tile of 32 rows and the whole N (N <= 1024), so
-// the LayerNorm reduction never leaves the block and the [M, N] pre-LN
-// activation touches device memory only when h_out asks for it. K is walked
-// through shared memory in 32-deep (bf16) or 16-deep (f32) stages, double-buffered: cp.async
-// fetches stage k+1 while the block multiplies stage k (synchronous loads
-// where a 16-byte chunk would straddle the ragged N=100 edge). bf16 runs the
-// product on the tensor cores through WMMA 16x16x16 fragments (f32
-// accumulators; 16 warps as 2 row groups x 8 column groups); f32 runs it on
-// the FP32 pipes (8 warps, 4 rows x N/32 columns per thread), so that f32
-// stays exact f32 (tensor-core TF32 would lose digits). After the K loop the
-// f32 tile is parked in shared memory (the stage buffers are reused) and
-// each warp normalises its rows with warp-shuffle reductions. N is padded to
-// a multiple of 128 with zero weight columns; ragged N and ragged M are
-// masked on load and store. Shared-memory rows are padded by 16 bytes so the
-// fragment loads do not pile onto one bank. Tiles above 48 KB use dynamic
-// shared memory, raised with cudaFuncSetAttribute.
+// fused_spectre_linear_cluster. What bounds it: the shapes it takes are
+// small in rows (the head: M = 1 .. 1,024 rows, N = 100; float32 sweeps on 8
+// rows) or float32 (the FP32 pipes' 67 TFLOP/s). A design that gives a block
+// whole output rows launches ceil(M / rows a block) blocks: 8 for the head at
+// M = 256, one for 8 rows, which then streams all of W through one SM. So the
+// card is filled by splitting each row tile's work across a thread-block
+// cluster: the c = cn * ck blocks of a cluster share BM rows; block (jn, jk)
+// owns bn columns [jn bn, jn bn + bn) and kc of K [jk kc, jk kc + kc). The
+// plan (bm, bn, cn, ck, kc) comes from the caller
+// (ops/kernels/fused_linear.py::cluster_plan), so the choice is testable on
+// a machine without a card; it fills the card where M, N and K allow.
+//
+// A block walks its columns in chunks of TN (64 to 256) and, for each
+// chunk, its K range in TK-deep stages (32; 16 for float32 at 32 rows)
+// through a ring of cp.async stages, as one stream of tiles so the ring
+// never drains between chunks. Copies are 16, 8 or 4 bytes wide, as x's and
+// W's row strides and pointers allow (the head's W: 8 bytes; N = 10: 4
+// bytes); bf16 with an odd stride is copied element by element. Copies past
+// M or N are not made (those rows and columns of the products are never
+// stored); past K they write zeros. bf16 products run on the tensor cores
+// (mma.sync m16n8k16, f32 sums, fed by ldmatrix; .trans for W's [K, N]
+// rows); float32 runs exact float32 FMAs on the FP32 pipes (no TF32), each
+// thread 8 rows by 2 columns, x kept transposed in shared memory (4-byte
+// copies) so that a thread reads its 8 rows as two float4. Each chunk's
+// float32 sums are parked in the block's shared memory ([BM, bn], rows
+// padded so the fragment stores do not collide in a bank).
+//
+// Epilogue, on the float32 sums. With a K split, after a cluster.sync()
+// block (jn, jk) takes the rows r with r % ck == jk: it adds the ck partial
+// sums of its columns in rank order, reading the other blocks' shared
+// memory through DSMEM (cluster.map_shared_rank), and adds the bias. Each
+// block reduces its rows over its own columns to (mean, M2) by two passes
+// over shared memory (the second corrects the first mean by the sum of the
+// deviations from it) and pushes them into the shared memory of the cn
+// blocks that share the rows. One cluster.sync(); then every block combines
+// the cn partials of its rows in rank order by Chan's formula (the count of
+// a block is its columns inside N; the divisor is N), normalises its
+// columns, applies gamma, beta, erf GELU and the identity residual, and
+// writes out (and h) once, lanes along the row. After that barrier no block
+// touches another's shared memory, so none waits for the others to leave.
+// Without a K split the first barrier is only an arrive at the start and a
+// wait before the push (the peers must have started). The fixed orders make
+// two runs equal bit for bit.
 //
 // fused_spectre_linear_wgmma: the same function in bf16 on the Hopper
-// mainloop of wgmma_gemm.cuh, which the wrapper (ops/kernels/fused_linear.py
-// ::forward_kernel) picks for every bf16 call that TMA can describe (N and K
-// multiples of 8, 16-byte aligned x and W) with N <= 768. float32 (exact f32
-// on the FP32 pipes), the head's N = 100 (W's 200-byte rows break TMA's
-// 16-byte stride rule) and 768 < N <= 1024 stay on the kernel above.
-// Why 768: a block owns 64 rows and the whole N so that LayerNorm never
-// leaves it, and 64 x N f32 sums in registers take 64 N of the SM's 65,536:
-// 49,152 at N = 768, all of them at N = 1,024.
+// mainloop of wgmma_gemm.cuh, which the wrapper picks for every bf16 call
+// that TMA can describe (N and K multiples of 8, 16-byte aligned x and W)
+// with N <= 768. Why 768: a block owns 64 rows and the whole N so that
+// LayerNorm never leaves it, and 64 x N f32 sums in registers take 64 N of
+// the SM's 65,536: 49,152 at N = 768, all of them at N = 1,024.
 //
 // Design. A block owns 64 rows (the wgmma M) and N/256 warpgroups, each
 // holding a 64 x 256 f32 tile in 128 registers a thread (ptxas gives 168 a
@@ -76,9 +103,9 @@
 // shape, most at K = 8,192), and 32-deep stages, 4 at N = 768 and 6 at
 // N = 512 (faster at N = 768 only).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include <type_traits>
@@ -87,10 +114,8 @@
 
 namespace {
 
+namespace cg = cooperative_groups;
 using bf16 = __nv_bfloat16;
-
-constexpr int kTM = 32;  // rows per block
-constexpr int kMaxN = 1024;
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
@@ -102,15 +127,6 @@ __device__ __forceinline__ float from_f<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
 
-// Per-dtype shape of the block: K depth of one stage (two 16-deep WMMA steps
-// for bf16; 16 for f32 keeps a W stage at 64 KB for N=1024) and threads.
-template <typename T>
-struct Cfg;
-template <>
-struct Cfg<bf16> { static constexpr int TK = 32, THREADS = 512; };
-template <>
-struct Cfg<float> { static constexpr int TK = 16, THREADS = 256; };
-
 __device__ __forceinline__ float gelu_erf(float z) {
   return 0.5f * z * (1.f + erff(z * 0.70710678118654752f));
 }
@@ -121,216 +137,508 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// 16-byte global -> shared copy that bypasses registers; src_bytes = 0 writes
-// zeros (the masked edge) without reading src.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(s), "l"(src), "r"(valid ? 16 : 0));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int PENDING>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING));
+// ------------------------------------------------------- the cluster kernel
+
+constexpr int kClTK = 32;          // the K split's unit: a multiple of every stage's TK
+constexpr int kClMaxCluster = 16;  // blocks a cluster (above 8: non-portable)
+constexpr int kClMaxSmem = 232448;  // dynamic shared memory a block may have (227 KB)
+
+// The block shape of an instance: TN columns a chunk, TK of K a stage,
+// threads, ring stages, blocks an SM must hold (registers:
+// __launch_bounds__); bf16 also its warps' grid (WM x WN warps, each
+// (BM / WM) x (TN / WN)). float32 threads own 8 rows and TN / (THREADS /
+// (BM / 8)) columns each.
+template <typename T, int BM>
+struct Cl;
+template <>
+struct Cl<bf16, 16> {
+  static constexpr int TN = 64, TK = 32, THREADS = 128, STAGES = 8, MINB = 3, WM = 1, WN = 4;
+};
+template <>
+struct Cl<bf16, 64> {
+  static constexpr int TN = 128, TK = 32, THREADS = 256, STAGES = 4, MINB = 1, WM = 2, WN = 4;
+};
+template <>
+struct Cl<float, 16> {
+  static constexpr int TN = 256, TK = 32, THREADS = 256, STAGES = 4, MINB = 1;
+};
+template <>
+struct Cl<float, 32> {
+  static constexpr int TN = 128, TK = 16, THREADS = 256, STAGES = 3, MINB = 3;
+};
+
+// A stage: the x tile, then the W tile [TK][TN]. bf16 keeps x row-major
+// [BM][TK] for ldmatrix; float32 keeps it transposed, [TK][BM], so that a
+// thread reads its 8 rows of one k as two float4. Rows are padded by 16
+// bytes, so that the 8 rows of an ldmatrix (or the rows of a warp's
+// reads and copies) start in different banks.
+template <typename T, int BM>
+struct ClLayout {
+  static constexpr bool XT = std::is_same<T, float>::value;
+  static constexpr int PAD = static_cast<int>(16 / sizeof(T)), TK = Cl<T, BM>::TK;
+  static constexpr int LDX = XT ? BM + PAD : TK + PAD, LDW = Cl<T, BM>::TN + PAD;
+  static constexpr int XTILE = XT ? TK * LDX : BM * LDX;
+  static constexpr int STAGE = XTILE + TK * LDW;  // elements
+  static constexpr int STAGE_BYTES = STAGE * static_cast<int>(sizeof(T));
+};
+
+// The parked sums' row stride for bn columns: bn rounded up to 8 mod 32
+// floats, so that the fragment stores of 4 rows fall in different banks.
+__host__ __device__ __forceinline__ int cluster_ldp(int bn) { return bn + ((8 - bn % 32) + 32) % 32; }
+
+template <typename T, int BM>
+__host__ __device__ __forceinline__ int cluster_smem(int bn, int cn) {
+  return Cl<T, BM>::STAGES * ClLayout<T, BM>::STAGE_BYTES + BM * cluster_ldp(bn) * 4 + cn * BM * 8;
 }
 
-// dst[r * LD + c] = src[(r0 + r) * ld + c0 + c] for r0 + r < rmax and
-// c0 + c < cmax, else 0, for r < ROWS and c < COLS. With vec, 16-byte chunks
-// go by cp.async (completion awaited by the caller); the host sets vec only
-// when cmax and ld are multiples of the chunk and src is 16-byte aligned, so
-// a chunk is either wholly in range or wholly out. Without vec, elements are
-// stored directly.
-template <typename T, int ROWS, int COLS, int LD, int NT>
-__device__ __forceinline__ void load_tile(T* __restrict__ dst, const T* __restrict__ src,
-                                          long long ld, long long r0, long long c0,
-                                          long long rmax, long long cmax, bool vec) {
-  constexpr int V = 16 / sizeof(T);
-  if (vec) {
-    constexpr int CV = COLS / V;
-    for (int i = threadIdx.x; i < ROWS * CV; i += NT) {
-      const int r = i / CV, c = (i % CV) * V;
-      const bool ok = r0 + r < rmax && c0 + c < cmax;
-      cp_async16(dst + r * LD + c, ok ? src + (r0 + r) * ld + c0 + c : src, ok);
-    }
-  } else {
-    for (int i = threadIdx.x; i < ROWS * COLS; i += NT) {
-      const int r = i / COLS, c = i % COLS;
-      T v = from_f<T>(0.f);
-      if (r0 + r < rmax && c0 + c < cmax) v = src[(r0 + r) * ld + c0 + c];
-      dst[r * LD + c] = v;
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, bool valid) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(src),
+                 "r"(valid ? 16 : 0) : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(s), "l"(src),
+                 "n"(BYTES), "r"(valid ? BYTES : 0) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// dst[r * LD + c] = src[r * ld + c] for r < ROWS and c < COLS, src the
+// tile's first element, in copies of V elements (cp.async, completion
+// awaited by the caller). The host picks V so that ld and the tile's column
+// offset and limit are multiples of it and the base is aligned to it: a copy
+// is wholly in range (r < rlim, c < clim) or wholly out. Out of range along
+// K (the columns if KCOLS, else the rows) the copy writes zeros, so that no
+// stale value enters a sum; out of range along M or N it is not made at
+// all: those rows and columns of the products are never stored.
+template <typename T, int V, int ROWS, int COLS, int LD, int NT, bool KCOLS>
+__device__ __forceinline__ void load_tile_v(T* __restrict__ dst, const T* __restrict__ src,
+                                            long long ld, int rlim, int clim) {
+  constexpr int BYTES = V * sizeof(T);
+  constexpr int CV = COLS / V;
+#pragma unroll
+  for (int i0 = 0; i0 < ROWS * CV; i0 += NT) {
+    const int i = i0 + threadIdx.x;
+    if (ROWS * CV % NT != 0 && i >= ROWS * CV) break;
+    const int r = i / CV, c = (i % CV) * V;
+    const bool rin = r < rlim, cin = c < clim;
+    if (KCOLS ? !rin : !cin) continue;
+    if constexpr (BYTES >= 4) {
+      cp_async<BYTES>(dst + r * LD + c, rin && cin ? src + r * ld + c : src, rin && cin);
+    } else {  // a 2-byte element (bf16 at an odd stride): cp.async copies 4 bytes or more
+      dst[r * LD + c] = rin && cin ? src[r * ld + c] : from_f<T>(0.f);
     }
   }
 }
 
-// NPAD: N padded to a multiple of 128 (the template instance covers N <= NPAD).
-template <typename T, int NPAD>
-__global__ void __launch_bounds__(Cfg<T>::THREADS)
-fused_spectre_linear_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                            const T* __restrict__ bias, const T* __restrict__ gamma,
-                            const T* __restrict__ beta, T* __restrict__ out,
-                            T* __restrict__ h_out, long long M, int K, int N, float eps, int identity,
-                            int xvec, int wvec) {
-  constexpr int TK = Cfg<T>::TK, NT = Cfg<T>::THREADS, NWARPS = NT / 32;
-  // shared-memory row strides, padded by 16 bytes so that the 8 rows one
-  // fragment load touches start in different banks
-  constexpr int LDX = TK + 16 / sizeof(T), LDW = NPAD + 16 / sizeof(T), LDC = NPAD + 4;
-  constexpr int STAGE = kTM * LDX + TK * LDW;  // elements: x tile, then W tile
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* stages = reinterpret_cast<T*>(smem);     // 2 x [x: kTM][LDX], [W: TK][LDW]
-  float* cs = reinterpret_cast<float*>(smem);  // [kTM][LDC], after the K loop
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long m0 = static_cast<long long>(blockIdx.x) * kTM;
-  const int nk = (K + TK - 1) / TK;
+// the tile at (r0, c0) of src, rows below rmax and columns below cmax, with
+// V the widest copy the strides allow (v: elements a copy)
+template <typename T, int ROWS, int COLS, int LD, int NT, bool KCOLS>
+__device__ __forceinline__ void load_tile(T* __restrict__ dst, const T* __restrict__ src,
+                                          long long ld, long long r0, long long c0,
+                                          long long rmax, long long cmax, int v) {
+  constexpr int V16 = static_cast<int>(16 / sizeof(T)), V8 = static_cast<int>(8 / sizeof(T));
+  constexpr int V4 = static_cast<int>(4 / sizeof(T));
+  const T* tile = src + r0 * ld + c0;
+  const int rlim = static_cast<int>(max(min(rmax - r0, static_cast<long long>(ROWS)), 0LL));
+  const int clim = static_cast<int>(max(min(cmax - c0, static_cast<long long>(COLS)), 0LL));
+  if (v == V16)
+    load_tile_v<T, V16, ROWS, COLS, LD, NT, KCOLS>(dst, tile, ld, rlim, clim);
+  else if (v == V8)
+    load_tile_v<T, V8, ROWS, COLS, LD, NT, KCOLS>(dst, tile, ld, rlim, clim);
+  else if (v == V4)
+    load_tile_v<T, V4, ROWS, COLS, LD, NT, KCOLS>(dst, tile, ld, rlim, clim);
+  else
+    load_tile_v<T, 1, ROWS, COLS, LD, NT, KCOLS>(dst, tile, ld, rlim, clim);
+}
 
-  auto fetch = [&](int kt) {
-    T* xs = stages + (kt & 1) * STAGE;
-    load_tile<T, kTM, TK, LDX, NT>(xs, x, K, m0, static_cast<long long>(kt) * TK, M, K, xvec);
-    load_tile<T, TK, NPAD, LDW, NT>(xs + kTM * LDX, w, N, static_cast<long long>(kt) * TK, 0, K,
-                                    N, wvec);
-    cp_async_commit();
+// dst[c * LD + r] = src[(r0 + r) * ld + c0 + c] (x transposed into shared
+// memory, float32) for r < ROWS and c < COLS, a 4-byte cp.async each; zeros
+// past K (c0 + c >= cmax), nothing past M. A warp copies 8 consecutive c of
+// 4 consecutive rows: 32-byte pieces of global memory, 32 banks of shared.
+template <int ROWS, int COLS, int LD, int NT>
+__device__ __forceinline__ void load_tile_t(float* __restrict__ dst, const float* __restrict__ src,
+                                            long long ld, long long r0, long long c0,
+                                            long long rmax, long long cmax) {
+  static_assert(COLS % 8 == 0 && ROWS * COLS % NT == 0, "copies go 8 columns at a time");
+  const float* tile = src + r0 * ld + c0;
+  const int rlim = static_cast<int>(max(min(rmax - r0, static_cast<long long>(ROWS)), 0LL));
+  const int clim = static_cast<int>(max(min(cmax - c0, static_cast<long long>(COLS)), 0LL));
+#pragma unroll
+  for (int i0 = 0; i0 < ROWS * COLS; i0 += NT) {
+    const int i = i0 + threadIdx.x;
+    const int rest = i / 8, r = rest % ROWS, c = (rest / ROWS) * 8 + i % 8;
+    if (r >= rlim) continue;
+    cp_async<4>(dst + c * LD + r, c < clim ? tile + r * ld + c : tile, c < clim);
+  }
+}
+
+// four 8x8 bf16 matrices; lanes 8m .. 8m + 7 give the row addresses of matrix m
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(wg::smem_u32(p))
+               : "memory");
+}
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(wg::smem_u32(p))
+               : "memory");
+}
+// c[16x8] += a[16x16] b[16x8], bf16 operands, f32 sums. Lane l = 4 g + t holds
+// c[0..1] at (row g, cols 2t, 2t + 1) and c[2..3] at row g + 8.
+__device__ __forceinline__ void mma16816(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The products of one block: its columns in chunks of TN, each chunk's K
+// range in stages, the float32 sums of each chunk parked at P[r * ldp + c]
+// (c < bn: the block's own columns). tile t of the stream is chunk t / nk,
+// stage t % nk.
+template <typename T, int BM>
+__device__ __forceinline__ void cluster_products(const T* __restrict__ x, const T* __restrict__ w,
+                                                 T* stages, float* P, int ldp, long long M,
+                                                 int K, int N, long long m0, int n0, int ncols,
+                                                 int bn, int k0, int kend, int vx, int vw) {
+  using C = Cl<T, BM>;
+  using L = ClLayout<T, BM>;
+  constexpr int TK = C::TK, TN = C::TN, NT = C::THREADS, S = C::STAGES;
+  constexpr int LDX = L::LDX, LDW = L::LDW;
+  const int nk = (kend - k0 + TK - 1) / TK, nch = (ncols + TN - 1) / TN, total = nk * nch;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  auto fetch = [&](int t) {
+    T* xs = stages + (t % S) * L::STAGE;
+    const int ch = t / nk, k = k0 + (t % nk) * TK;
+    if constexpr (L::XT)
+      load_tile_t<BM, TK, LDX, NT>(xs, x, K, m0, k, M, kend);
+    else
+      load_tile<T, BM, TK, LDX, NT, true>(xs, x, K, m0, k, M, kend, vx);
+    load_tile<T, TK, TN, LDW, NT, false>(xs + L::XTILE, w, N, k, n0 + ch * TN, kend, n0 + ncols,
+                                         vw);
   };
 
   if constexpr (std::is_same<T, bf16>::value) {
-    using namespace nvcuda;
-    constexpr int FN = NPAD / 128;           // 16-column fragments per warp
-    const int wr = warp / 8, wc = warp % 8;  // 16-row group, 16*FN-column group
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[FN];
+    constexpr int WN = C::WN;
+    constexpr int MI = BM / C::WM / 16, NI = TN / WN / 8;  // m16 and n8 tiles a warp
+    static_assert(NI % 2 == 0, "B fragments come in pairs of n8 tiles");
+    const int wm = warp / WN, wn = warp % WN;
+    float acc[MI][NI][4];
 #pragma unroll
-    for (int f = 0; f < FN; ++f) wmma::fill_fragment(acc[f], 0.f);
-    fetch(0);
-    for (int kt = 0; kt < nk; ++kt) {
-      if (kt + 1 < nk) {
-        fetch(kt + 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const T* xs = stages + (kt & 1) * STAGE;
-      const T* ws = xs + kTM * LDX;
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NI; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+#pragma unroll 1
+    for (int s = 0; s < S - 1; ++s) {
+      if (s < total) fetch(s);
+      cp_async_commit();
+    }
+    for (int t = 0; t < total; ++t) {
+      cp_async_wait<S - 2>();
+      __syncthreads();  // tile t is in; every warp is done with tile t - 1
+      if (t + S - 1 < total) fetch(t + S - 1);
+      cp_async_commit();
+      const bf16* xs = stages + (t % S) * L::STAGE;
+      const bf16* ws = xs + L::XTILE;
 #pragma unroll
       for (int kk = 0; kk < TK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, xs + wr * 16 * LDX + kk, LDX);
+        uint32_t a[MI][4];
 #pragma unroll
-        for (int f = 0; f < FN; ++f) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-          wmma::load_matrix_sync(b, ws + kk * LDW + (wc * FN + f) * 16, LDW);
-          wmma::mma_sync(acc[f], a, b, acc[f]);
+        for (int i = 0; i < MI; ++i)
+          ldsm_x4(a[i], xs + (wm * MI * 16 + i * 16 + (lane & 15)) * LDX + kk + (lane >> 4) * 8);
+#pragma unroll
+        for (int p = 0; p < NI / 2; ++p) {
+          uint32_t b[4];
+          ldsm_x4_trans(b, ws + (kk + (lane & 7) + ((lane >> 3) & 1) * 8) * LDW + wn * NI * 8 +
+                               p * 16 + (lane >> 4) * 8);
+#pragma unroll
+          for (int i = 0; i < MI; ++i) {
+            mma16816(acc[i][2 * p], a[i], b[0], b[1]);
+            mma16816(acc[i][2 * p + 1], a[i], b[2], b[3]);
+          }
         }
       }
-      __syncthreads();  // the next fetch overwrites this stage
+      if (t % nk == nk - 1) {  // the chunk's sums are complete: park them
+        const int cb = (t / nk) * TN;
+#pragma unroll
+        for (int i = 0; i < MI; ++i)
+#pragma unroll
+          for (int j = 0; j < NI; ++j) {
+            const int r = wm * MI * 16 + i * 16 + lane / 4;
+            const int c = cb + wn * NI * 8 + j * 8 + (lane % 4) * 2;
+            if (c < bn) {
+              *reinterpret_cast<float2*>(P + r * ldp + c) = make_float2(acc[i][j][0], acc[i][j][1]);
+              *reinterpret_cast<float2*>(P + (r + 8) * ldp + c) =
+                  make_float2(acc[i][j][2], acc[i][j][3]);
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+          }
+      }
     }
-#pragma unroll
-    for (int f = 0; f < FN; ++f)
-      wmma::store_matrix_sync(cs + wr * 16 * LDC + (wc * FN + f) * 16, acc[f], LDC,
-                              wmma::mem_row_major);
   } else {
-    constexpr int CPT = NPAD / 32;  // columns per thread: lane + 32*j; rows warp*4 + i
-    float acc[4][CPT];
+    // thread (ty, tx): rows 8 ty + i of the tile; columns 2 tx + j of a chunk
+    // (CPT = 2), or g TN / G + 4 tx + e for G = CPT / 4 float4 groups
+    constexpr int TX = NT / (BM / 8), CPT = TN / TX, G = CPT < 4 ? 1 : CPT / 4;
+    static_assert(CPT == 2 || CPT % 4 == 0, "a thread's columns: a float2 or float4 groups");
+    const int ty = tid / TX, tx = tid % TX;
+    auto col = [&](int j) { return CPT == 2 ? 2 * tx + j : (j / 4) * (TN / G) + 4 * tx + j % 4; };
+    float acc[8][CPT];
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
-    fetch(0);
-    for (int kt = 0; kt < nk; ++kt) {
-      if (kt + 1 < nk) {
-        fetch(kt + 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
+#pragma unroll 1
+    for (int s = 0; s < S - 1; ++s) {
+      if (s < total) fetch(s);
+      cp_async_commit();
+    }
+    for (int t = 0; t < total; ++t) {
+      cp_async_wait<S - 2>();
       __syncthreads();
-      const T* xs = stages + (kt & 1) * STAGE;
-      const T* ws = xs + kTM * LDX;
+      if (t + S - 1 < total) fetch(t + S - 1);
+      cp_async_commit();
+      const float* xs = stages + (t % S) * L::STAGE;
+      const float* ws = xs + L::XTILE;
 #pragma unroll 4
       for (int k = 0; k < TK; ++k) {
-        float a[4];
+        const float4 a0 = *reinterpret_cast<const float4*>(xs + k * LDX + 8 * ty);
+        const float4 a1 = *reinterpret_cast<const float4*>(xs + k * LDX + 8 * ty + 4);
+        const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+        float b[CPT];
+        if constexpr (CPT == 2) {
+          const float2 v = *reinterpret_cast<const float2*>(ws + k * LDW + 2 * tx);
+          b[0] = v.x;
+          b[1] = v.y;
+        } else {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = to_f(xs[(warp * 4 + i) * LDX + k]);
+          for (int g = 0; g < G; ++g) {
+            const float4 v = *reinterpret_cast<const float4*>(ws + k * LDW + g * (TN / G) + 4 * tx);
+            b[4 * g] = v.x;
+            b[4 * g + 1] = v.y;
+            b[4 * g + 2] = v.z;
+            b[4 * g + 3] = v.w;
+          }
+        }
 #pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          const float bv = to_f(ws[k * LDW + lane + 32 * j]);
+        for (int i = 0; i < 8; ++i)
 #pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(a[i], bv, acc[i][j]);
+          for (int j = 0; j < CPT; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+      }
+      if (t % nk == nk - 1) {  // the chunk's sums are complete: park them
+        const int cb = (t / nk) * TN;
+#pragma unroll
+        for (int i = 0; i < 8; ++i) {
+          float* row = P + (8 * ty + i) * ldp + cb;
+          if constexpr (CPT == 2) {
+            if (cb + col(0) < bn)
+              *reinterpret_cast<float2*>(row + col(0)) = make_float2(acc[i][0], acc[i][1]);
+          } else {
+#pragma unroll
+            for (int g = 0; g < G; ++g)
+              if (cb + col(4 * g) < bn)
+                *reinterpret_cast<float4*>(row + col(4 * g)) =
+                    make_float4(acc[i][4 * g], acc[i][4 * g + 1], acc[i][4 * g + 2],
+                                acc[i][4 * g + 3]);
+          }
+#pragma unroll
+          for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
         }
       }
-      __syncthreads();
     }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) cs[(warp * 4 + i) * LDC + lane + 32 * j] = acc[i][j];
   }
-  __syncthreads();
+  cp_async_wait<0>();  // only empty groups are left; nothing may be pending at exit
+}
 
-  // Epilogue: warp `warp` owns kTM / NWARPS consecutive rows of the tile.
-  constexpr int RPW = kTM / NWARPS;
-  const float inv_n = 1.f / static_cast<float>(N);
-#pragma unroll 1
-  for (int i = 0; i < RPW; ++i) {
-    const int r = warp * RPW + i;
-    const long long m = m0 + r;
-    if (m >= M) break;  // warp-uniform
-    float* row = cs + r * LDC;
+template <typename T, int BM>
+__global__ void __launch_bounds__(Cl<T, BM>::THREADS, Cl<T, BM>::MINB)
+fused_linear_cluster_kernel(const T* __restrict__ x, const T* __restrict__ w,
+                            const T* __restrict__ bias, const T* __restrict__ gamma,
+                            const T* __restrict__ beta, T* __restrict__ out,
+                            T* __restrict__ h_out, long long M, int K, int N, int bn, int cn,
+                            int ck, int kc, float eps, int vx, int vw) {
+  constexpr int NT = Cl<T, BM>::THREADS, NWARPS = NT / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int ldp = cluster_ldp(bn);
+  T* stages = reinterpret_cast<T*>(smem);
+  float* P = reinterpret_cast<float*>(smem + Cl<T, BM>::STAGES * ClLayout<T, BM>::STAGE_BYTES);
+  // [cn][BM]: (mean, M2) of each column block's columns, pushed by every
+  // block of the row group into the shared memory of all of them
+  float2* stats = reinterpret_cast<float2*>(P + BM * ldp);
+
+  const bool solo = cn * ck == 1;
+  const int rank = solo ? 0 : static_cast<int>(cluster.block_rank());
+  const int jn = rank % cn, jk = rank / cn;
+  const long long m0 = static_cast<long long>(blockIdx.x / (cn * ck)) * BM;
+  const int n0 = jn * bn, ncols = min(bn, N - n0);
+  const int k0 = jk * kc, kend = min(K, k0 + kc);
+  // Without a K split a block reads only its own sums, and the first touch
+  // of another block's shared memory (step 1's push) only needs every
+  // block to have started: arrive now, wait before the push. A cluster of
+  // one block (launched as a plain grid) needs no cluster barrier at all.
+  if (ck == 1 && !solo) asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  cluster_products<T, BM>(x, w, stages, P, ldp, M, K, N, m0, n0, ncols, bn, k0, kend, vx, vw);
+  if (ck > 1) {
+    cluster.sync();  // every block's partial sums are parked
+  } else {
+    if (!solo) asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+    __syncthreads();
+  }
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  // 1. this block's rows (r % ck == jk), its columns: the K split's partial
+  // sums in rank order, + bias, back into P; (mean, M2) over the columns,
+  // pushed to the cn blocks that share the rows
+  for (int r = jk + warp * ck; r < BM; r += NWARPS * ck) {
+    float* row = P + r * ldp;
     float s = 0.f;
-    for (int n = lane; n < N; n += 32) {
-      const float v = row[n] + to_f(bias[n]);
-      row[n] = v;
-      if (h_out != nullptr) h_out[m * N + n] = from_f<T>(v);
+    for (int c = lane; c < ncols; c += 32) {
+      float v;
+      if (ck == 1) {
+        v = row[c];
+      } else {
+        v = 0.f;
+        for (int q = 0; q < ck; ++q) v += cluster.map_shared_rank(row, jn + q * cn)[c];
+      }
+      v += to_f(bias[n0 + c]);
+      row[c] = v;
       s += v;
     }
-    const float mean = warp_sum(s) * inv_n;
-    float q = 0.f;
-    for (int n = lane; n < N; n += 32) {
-      const float dv = row[n] - mean;
-      q += dv * dv;
+    // the second pass also sums the deviations from the first mean, which
+    // corrects it (and M2) for the first sum's rounding: the blocks' means
+    // enter Chan's combine through their differences
+    const float nb = static_cast<float>(ncols), mean1 = warp_sum(s) / nb;
+    float dsum = 0.f, q2 = 0.f;
+    for (int c = lane; c < ncols; c += 32) {
+      const float d = row[c] - mean1;
+      dsum += d;
+      q2 += d * d;
     }
-    const float rstd = rsqrtf(warp_sum(q) * inv_n + eps);
-    for (int n = lane; n < N; n += 32) {
-      const float z = (row[n] - mean) * rstd * to_f(gamma[n]) + to_f(beta[n]);
-      float y = gelu_erf(z);
-      if (identity) y += to_f(x[m * K + n]);
+    dsum = warp_sum(dsum);
+    q2 = warp_sum(q2);
+    const float2 st = make_float2(mean1 + dsum / nb, q2 - dsum * dsum / nb);
+    if (solo && lane == 0)
+      stats[r] = st;
+    else if (!solo && lane < cn)
+      *cluster.map_shared_rank(stats + jn * BM + r, lane + jk * cn) = st;
+  }
+  // every (mean, M2) is in; after this no block touches another's shared
+  // memory, so none has to wait for the others before it leaves
+  if (solo)
+    __syncthreads();
+  else
+    cluster.sync();
+
+  // 2. the row statistics over N: the cn column blocks' partials in rank
+  // order (Chan), then LayerNorm, GELU, the identity residual; out and h
+  const float inv_n = 1.f / static_cast<float>(N);
+  for (int r = jk + warp * ck; r < BM; r += NWARPS * ck) {
+    const long long m = m0 + r;
+    if (m >= M) break;  // warp-uniform; the rows go up
+    float na = 0.f, mean = 0.f, m2 = 0.f;
+    for (int j = 0; j < cn; ++j) {
+      const float2 st = stats[j * BM + r];
+      const float nb = static_cast<float>(min(bn, N - j * bn));
+      if (j == 0) {
+        na = nb;
+        mean = st.x;
+        m2 = st.y;
+      } else {
+        const float n = na + nb, d = st.x - mean;
+        mean += d * (nb / n);
+        m2 += st.y + d * d * (na * nb / n);
+        na = n;
+      }
+    }
+    const float rstd = rsqrtf(m2 * inv_n + eps);
+    const float* row = P + r * ldp;
+    for (int c = lane; c < ncols; c += 32) {
+      const int n = n0 + c;
+      const float v = row[c];
+      if (h_out != nullptr) h_out[m * N + n] = from_f<T>(v);
+      float y = gelu_erf((v - mean) * rstd * to_f(gamma[n]) + to_f(beta[n]));
+      if (K == N) y += to_f(x[m * K + n]);
       out[m * N + n] = from_f<T>(y);
     }
   }
 }
 
-template <typename T, int NPAD>
-int launch(const void* x, const void* w, const void* b, const void* g, const void* be, void* out,
-           void* h_out, long long M, long long K, long long N, float eps, cudaStream_t st) {
-  constexpr int TK = Cfg<T>::TK;
-  constexpr int V = 16 / sizeof(T);
-  // the kernel's padded strides: x and W rows + V elements, the f32 tile + 4
-  constexpr int stage_bytes =
-      2 * (kTM * (TK + V) + TK * (NPAD + V)) * static_cast<int>(sizeof(T));
-  constexpr int tile_bytes = kTM * (NPAD + 4) * static_cast<int>(sizeof(float));
-  constexpr int smem = stage_bytes > tile_bytes ? stage_bytes : tile_bytes;
-  auto kern = fused_spectre_linear_kernel<T, NPAD>;
-  cudaError_t e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+// the widest copy (elements) that a row stride of ld elements and a base
+// pointer allow: 16, 8 or 4 bytes, else one element
+template <typename T>
+int copy_width(long long ld, const void* p) {
+  for (int bytes = 16; bytes >= 4; bytes /= 2) {
+    const int v = bytes / static_cast<int>(sizeof(T));
+    if (v >= 1 && ld % v == 0 && reinterpret_cast<uintptr_t>(p) % bytes == 0) return v;
+  }
+  return 1;
+}
+
+template <typename T, int BM>
+int launch_cluster(const void* x, const void* w, const void* b, const void* g, const void* be,
+                   void* out, void* h_out, long long M, long long K, long long N, int bn, int cn,
+                   int ck, int kc, float eps, cudaStream_t st) {
+  const int c = cn * ck;
+  const long long tiles = (M + BM - 1) / BM;
+  const int smem = cluster_smem<T, BM>(bn, cn);
+  if (tiles * c > 0x7fffffffLL || smem > kClMaxSmem) return cudaErrorInvalidValue;
+  auto kern = fused_linear_cluster_kernel<T, BM>;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int xvec = (K % V == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
-  const int wvec = (N % V == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
-  const dim3 grid(static_cast<unsigned>((M + kTM - 1) / kTM));
-  kern<<<grid, Cfg<T>::THREADS, smem, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b),
-      static_cast<const T*>(g), static_cast<const T*>(be), static_cast<T*>(out),
-      static_cast<T*>(h_out), M,
-      static_cast<int>(K), static_cast<int>(N), eps, K == N, xvec, wvec);
+  if (dev >= wg::kMaxDevices) return cudaErrorInvalidDevice;
+  // once a device: the shared-memory cap raised to the most a plan may ask,
+  // and clusters above 8 blocks allowed
+  static std::atomic<bool> prepared[wg::kMaxDevices];
+  if (!prepared[dev].load(std::memory_order_acquire)) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kClMaxSmem);
+    if (e == cudaSuccess) e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    prepared[dev].store(true, std::memory_order_release);
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>(tiles * c));
+  cfg.blockDim = dim3(Cl<T, BM>::THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = c;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = c > 1;  // one block: a plain grid
+  // a cluster that cannot be resident is refused here, not left to hang or
+  // to fail quietly: the largest shared memory checked so far a cluster size
+  static std::atomic<int> checked[wg::kMaxDevices][kClMaxCluster + 1];
+  if (c > 1 && smem > checked[dev][c].load(std::memory_order_acquire)) {
+    int clusters = 0;
+    e = cudaOccupancyMaxActiveClusters(&clusters, kern, &cfg);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (clusters == 0) return cudaErrorInvalidConfiguration;
+    checked[dev][c].store(smem, std::memory_order_release);
+  }
+  const int vx = copy_width<T>(K, x), vw = copy_width<T>(N, w);
+  e = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(x), static_cast<const T*>(w),
+                         static_cast<const T*>(b), static_cast<const T*>(g),
+                         static_cast<const T*>(be), static_cast<T*>(out), static_cast<T*>(h_out),
+                         M, static_cast<int>(K), static_cast<int>(N), bn, cn, ck, kc, eps, vx, vw);
+  if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
-
-template <typename T>
-int dispatch(const void* x, const void* w, const void* b, const void* g, const void* be,
-             void* out, void* h_out, long long M, long long K, long long N, float eps,
-             cudaStream_t st) {
-  if (N <= 128) return launch<T, 128>(x, w, b, g, be, out, h_out, M, K, N, eps, st);
-  if (N <= 256) return launch<T, 256>(x, w, b, g, be, out, h_out, M, K, N, eps, st);
-  if (N <= 512) return launch<T, 512>(x, w, b, g, be, out, h_out, M, K, N, eps, st);
-  if (N <= 768) return launch<T, 768>(x, w, b, g, be, out, h_out, M, K, N, eps, st);
-  return launch<T, 1024>(x, w, b, g, be, out, h_out, M, K, N, eps, st);
-}
-
 
 // ---------------------------------------------------------------- wgmma, bf16
 
@@ -565,19 +873,33 @@ int launch_wgmma(const void* x, const void* w, const void* b, const void* g, con
 
 }  // namespace
 
-// dtype_code: 0 = float32, 1 = bfloat16 (every tensor in that dtype).
-// h_out: null, or [M, N] to receive the pre-LN activation.
-// Returns cudaGetLastError() after the launch (0 on success).
-extern "C" int fused_spectre_linear_fwd(int dtype_code, const void* x, const void* w,
-                                        const void* b, const void* gamma, const void* beta,
-                                        void* out, void* h_out, long long M, long long K,
-                                        long long N, float eps, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || N > kMaxN || K > 0x7fffffffLL ||
-      (M + kTM - 1) / kTM > 0x7fffffffLL)
+// fused_spectre_linear_cluster: dtype_code 0 = float32, 1 = bfloat16 (every
+// tensor in that dtype); any K and N. The plan (ops/kernels/fused_linear.py::
+// cluster_plan): bm rows a cluster (16; 32 float32, 64 bf16), cn column blocks of bn
+// columns (bn % 8 == 0, each block at least one column inside N), ck K
+// blocks of kc (kc % 32 == 0, each inside K), cn * ck <= 16. h_out: null, or
+// [M, N] to receive the pre-LN activation. Returns cudaGetLastError() after
+// the launch (0 on success); a plan that does not cover the shape, or a
+// cluster that cannot be resident, is refused with an error.
+extern "C" int fused_spectre_linear_cluster(int dtype_code, const void* x, const void* w,
+                                            const void* b, const void* gamma, const void* beta,
+                                            void* out, void* h_out, long long M, long long K,
+                                            long long N, int bm, int bn, int cn, int ck, int kc,
+                                            float eps, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || K > 0x7fffffffLL || N > 0x7fffffffLL || cn < 1 || ck < 1 ||
+      cn * ck > kClMaxCluster || bn < 8 || bn % 8 || kc < kClTK || kc % kClTK ||
+      static_cast<long long>(cn) * bn < N || static_cast<long long>(cn - 1) * bn >= N ||
+      static_cast<long long>(ck) * kc < K || static_cast<long long>(ck - 1) * kc >= K)
     return cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype_code == 0) return dispatch<float>(x, w, b, gamma, beta, out, h_out, M, K, N, eps, st);
-  if (dtype_code == 1) return dispatch<bf16>(x, w, b, gamma, beta, out, h_out, M, K, N, eps, st);
+  if (dtype_code == 0 && bm == 16)
+    return launch_cluster<float, 16>(x, w, b, gamma, beta, out, h_out, M, K, N, bn, cn, ck, kc, eps, st);
+  if (dtype_code == 0 && bm == 32)
+    return launch_cluster<float, 32>(x, w, b, gamma, beta, out, h_out, M, K, N, bn, cn, ck, kc, eps, st);
+  if (dtype_code == 1 && bm == 16)
+    return launch_cluster<bf16, 16>(x, w, b, gamma, beta, out, h_out, M, K, N, bn, cn, ck, kc, eps, st);
+  if (dtype_code == 1 && bm == 64)
+    return launch_cluster<bf16, 64>(x, w, b, gamma, beta, out, h_out, M, K, N, bn, cn, ck, kc, eps, st);
   return cudaErrorInvalidValue;
 }
 
@@ -603,17 +925,15 @@ extern "C" int fused_spectre_linear_wgmma(const void* x, const void* w, const vo
 
 // ------------------------------------------------------------ N > 1,024
 //
-// fused_spectre_linear_wide_wgmma (bf16 that TMA can describe) and
-// fused_spectre_linear_wide_wmma_fma (float32, and bf16 that TMA cannot
-// describe): the same function for any N, where a block can no longer hold
-// a whole output row, in two passes.
+// fused_spectre_linear_wide_wgmma (bf16 that TMA can describe): the same
+// function for any N, where a block can no longer hold a whole output row,
+// in two passes. (float32, and bf16 that TMA cannot describe, take the
+// cluster kernel above at any N.)
 //
 // 1. A column-tiled product writes work = x @ W + b, float32 [M, N], a
-//    workspace the wrapper allocates for the call. bf16 through TMA: 64 x
-//    256 tiles on the wgmma mainloop above (one warpgroup, a ring of 4
-//    stages of the x box and four W boxes). Otherwise: 32 x 128 tiles on the
-//    mainloop of fused_spectre_linear_kernel (WMMA for bf16, exact float32
-//    FMAs for float32), its cp.async double buffer and its padded strides.
+//    workspace the wrapper allocates for the call: 64 x 256 tiles on the
+//    wgmma mainloop above (one warpgroup, a ring of 4 stages of the x box
+//    and four W boxes).
 // 2. A row kernel, one block a row: the LayerNorm statistics of the float32
 //    row (two passes, the mean, then the squared deviations), GELU with
 //    erff, the identity residual when K == N, out cast once; with h_out, h
@@ -622,16 +942,15 @@ extern "C" int fused_spectre_linear_wgmma(const void* x, const void* w, const vo
 // Where pass 2 reads from: the float32 workspace, not h. The plain version
 // (and the TPU kernel) normalise the float32 sums, so the statistics here
 // are of the same values; h in bf16 is only the saved copy for the
-// backward. A float32 call that saves h passes h itself as the workspace.
-// Both passes add in a fixed order (block reductions in warp order), so two
-// runs give the same bits. What bounds it: at (4,160 x 1,536)(1,536 x
-// 1,536) bf16, 19.6 GFLOP (0.020 ms at 989 TFLOP/s) against 2 M N bytes of
-// h and out and the operands (0.011 ms); the workspace adds 8 M N bytes
-// (written once, read once from L2 or memory), a price of the design.
+// backward. Both passes add in a fixed order (block reductions in warp
+// order), so two runs give the same bits. What bounds it: at (4,160 x
+// 1,536)(1,536 x 1,536) bf16, 19.6 GFLOP (0.020 ms at 989 TFLOP/s) against
+// 2 M N bytes of h and out and the operands (0.011 ms); the workspace adds
+// 8 M N bytes (written once, read once from L2 or memory), a price of the
+// design.
 
 namespace {
 
-constexpr int kWideTN = 128;     // tiled product: columns a block
 constexpr int kWideStages = 4;   // wgmma product: ring stages
 constexpr int kWideStage = wg::kBoxBytes * 5;  // the x box, then four W boxes
 constexpr int kWideSmem = kWideStages * kWideStage + 1024;
@@ -710,106 +1029,6 @@ wide_product_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-// kTM x kWideTN tile (blockIdx.x: rows, blockIdx.y: columns) of x @ W + b
-// into work, float32: the K loop of fused_spectre_linear_kernel<T, 128>
-// with the W tile taken at the block's columns.
-template <typename T>
-__global__ void __launch_bounds__(Cfg<T>::THREADS)
-wide_product_tiled_kernel(const T* __restrict__ x, const T* __restrict__ w,
-                          const T* __restrict__ bias, float* __restrict__ work, long long M,
-                          int K, int N, int xvec, int wvec) {
-  constexpr int NPAD = kWideTN;
-  constexpr int TK = Cfg<T>::TK, NT = Cfg<T>::THREADS;
-  constexpr int LDX = TK + 16 / sizeof(T), LDW = NPAD + 16 / sizeof(T), LDC = NPAD + 4;
-  constexpr int STAGE = kTM * LDX + TK * LDW;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* stages = reinterpret_cast<T*>(smem);
-  float* cs = reinterpret_cast<float*>(smem);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long m0 = static_cast<long long>(blockIdx.x) * kTM;
-  const int n0 = blockIdx.y * NPAD;
-  const int nk = (K + TK - 1) / TK;
-
-  auto fetch = [&](int kt) {
-    T* xs = stages + (kt & 1) * STAGE;
-    load_tile<T, kTM, TK, LDX, NT>(xs, x, K, m0, static_cast<long long>(kt) * TK, M, K, xvec);
-    load_tile<T, TK, NPAD, LDW, NT>(xs + kTM * LDX, w, N, static_cast<long long>(kt) * TK, n0,
-                                    K, N, wvec);
-    cp_async_commit();
-  };
-
-  if constexpr (std::is_same<T, bf16>::value) {
-    using namespace nvcuda;
-    const int wr = warp / 8, wc = warp % 8;  // 16-row group, 16-column group
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.f);
-    fetch(0);
-    for (int kt = 0; kt < nk; ++kt) {
-      if (kt + 1 < nk) {
-        fetch(kt + 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const T* xs = stages + (kt & 1) * STAGE;
-      const T* ws = xs + kTM * LDX;
-#pragma unroll
-      for (int kk = 0; kk < TK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b;
-        wmma::load_matrix_sync(a, xs + wr * 16 * LDX + kk, LDX);
-        wmma::load_matrix_sync(b, ws + kk * LDW + wc * 16, LDW);
-        wmma::mma_sync(acc, a, b, acc);
-      }
-      __syncthreads();
-    }
-    wmma::store_matrix_sync(cs + wr * 16 * LDC + wc * 16, acc, LDC, wmma::mem_row_major);
-  } else {
-    constexpr int CPT = NPAD / 32;
-    float acc[4][CPT];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) acc[i][j] = 0.f;
-    fetch(0);
-    for (int kt = 0; kt < nk; ++kt) {
-      if (kt + 1 < nk) {
-        fetch(kt + 1);
-        cp_async_wait<1>();
-      } else {
-        cp_async_wait<0>();
-      }
-      __syncthreads();
-      const T* xs = stages + (kt & 1) * STAGE;
-      const T* ws = xs + kTM * LDX;
-#pragma unroll 4
-      for (int k = 0; k < TK; ++k) {
-        float a[4];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = to_f(xs[(warp * 4 + i) * LDX + k]);
-#pragma unroll
-        for (int j = 0; j < CPT; ++j) {
-          const float bv = to_f(ws[k * LDW + lane + 32 * j]);
-#pragma unroll
-          for (int i = 0; i < 4; ++i) acc[i][j] = fmaf(a[i], bv, acc[i][j]);
-        }
-      }
-      __syncthreads();
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < CPT; ++j) cs[(warp * 4 + i) * LDC + lane + 32 * j] = acc[i][j];
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kTM * NPAD; i += NT) {
-    const int r = i / NPAD, c = i % NPAD;
-    const long long m = m0 + r;
-    if (m < M && n0 + c < N) work[m * N + n0 + c] = cs[r * LDC + c] + to_f(bias[n0 + c]);
-  }
-}
-
 // the sum of v over the block, every thread getting the same bits: warps by
 // shuffles, then the warp sums in warp order
 __device__ __forceinline__ float block_sum(float v, float* red) {
@@ -863,52 +1082,7 @@ int launch_wide_row(const void* x, const void* g, const void* be, void* out, voi
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
-int launch_wide_tiled(const void* x, const void* w, const void* b, const void* g,
-                      const void* be, void* out, void* h_out, void* work, long long M,
-                      long long K, long long N, float eps, cudaStream_t st) {
-  constexpr int TK = Cfg<T>::TK;
-  constexpr int V = 16 / sizeof(T);
-  constexpr int stage_bytes =
-      2 * (kTM * (TK + V) + TK * (kWideTN + V)) * static_cast<int>(sizeof(T));
-  constexpr int tile_bytes = kTM * (kWideTN + 4) * static_cast<int>(sizeof(float));
-  constexpr int smem = stage_bytes > tile_bytes ? stage_bytes : tile_bytes;
-  static_assert(smem <= 48 * 1024, "the tiled product needs no raised shared-memory limit");
-  const int xvec = (K % V == 0) && (reinterpret_cast<uintptr_t>(x) % 16 == 0);
-  const int wvec = (N % V == 0) && (reinterpret_cast<uintptr_t>(w) % 16 == 0);
-  const dim3 grid(static_cast<unsigned>((M + kTM - 1) / kTM),
-                  static_cast<unsigned>((N + kWideTN - 1) / kWideTN));
-  float* wk = static_cast<float*>(work);
-  wide_product_tiled_kernel<T><<<grid, Cfg<T>::THREADS, smem, st>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<const T*>(b), wk, M,
-      static_cast<int>(K), static_cast<int>(N), xvec, wvec);
-  const int e = static_cast<int>(cudaGetLastError());
-  if (e != 0) return e;
-  return launch_wide_row<T>(x, g, be, out, h_out, wk, M, K, N, eps, st);
-}
-
 }  // namespace
-
-// N > 1,024 (any N >= 1) in two passes through work, float32 [M, N].
-// dtype_code: 0 = float32, 1 = bfloat16 (every tensor but work in that
-// dtype). h_out: null, or [M, N] to receive the pre-LN activation; a
-// float32 caller that wants h passes it as work and h_out null. Returns
-// cudaGetLastError() after the launches (0 on success).
-extern "C" int fused_spectre_linear_wide_wmma_fma(int dtype_code, const void* x, const void* w,
-                                                  const void* b, const void* gamma,
-                                                  const void* beta, void* out, void* h_out,
-                                                  void* work, long long M, long long K,
-                                                  long long N, float eps, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || K > 0x7fffffffLL || N > 0x7fffffffLL ||
-      M > 0x7fffffffLL || (N + kWideTN - 1) / kWideTN > 65535)
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype_code == 0)
-    return launch_wide_tiled<float>(x, w, b, gamma, beta, out, h_out, work, M, K, N, eps, st);
-  if (dtype_code == 1)
-    return launch_wide_tiled<bf16>(x, w, b, gamma, beta, out, h_out, work, M, K, N, eps, st);
-  return cudaErrorInvalidValue;
-}
 
 // bfloat16 only; N and K multiples of 8, x and W 16-byte aligned (what TMA
 // can describe); any N. h_out: null, or [M, N]; work: float32 [M, N].

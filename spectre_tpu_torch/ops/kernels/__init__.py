@@ -28,18 +28,19 @@ from spectre_tpu_torch.ops.kernels.fused_block_bwd import (
     fused_block_bwd_wmma_fma,
 )
 from spectre_tpu_torch.ops.kernels.fused_linear import (
+    ClusterPlan,
     backward_kernel,
+    cluster_plan,
     forward_kernel,
     fused_spectre_linear,
     fused_spectre_linear_bwd,
     fused_spectre_linear_bwd_plain,
     fused_spectre_linear_bwd_wide,
+    fused_spectre_linear_cluster,
     fused_spectre_linear_grad,
     fused_spectre_linear_plain,
     fused_spectre_linear_wgmma,
     fused_spectre_linear_wide_wgmma,
-    fused_spectre_linear_wide_wmma_fma,
-    fused_spectre_linear_wmma_fma,
 )
 from spectre_tpu_torch.ops.kernels.fwht import fwht, fwht_grad, fwht_plain
 from spectre_tpu_torch.ops.kernels.inverse_gather import (
@@ -61,14 +62,15 @@ from spectre_tpu_torch.ops.kernels.structured_mix import (
 )
 
 # kernel 2's forward and kernel 5 count each call in their wrapper and again
-# in the kernel it launched (the ``_wgmma`` and ``_wmma_fma`` entries);
-# kernel 2's backward counts a wide chain again in ``_bwd_wide``
+# in the kernel it launched (kernel 2: ``_wgmma``, ``_cluster`` and
+# ``_wide_wgmma``; kernel 5: ``_wgmma`` and ``_wmma_fma``); kernel 2's
+# backward counts a wide chain again in ``_bwd_wide``
 KERNELS = (block_scatter_rows, block_gather_sum, inverse_gather_sum, fused_spectre_linear,
            fused_spectre_linear_bwd, fused_block_bwd, flash_attention_fwd, flash_attention_bwd,
            fwht, structured_mix, structured_mix_bwd, routed_gather_sum,
-           fused_spectre_linear_wgmma, fused_spectre_linear_wmma_fma, fused_block_bwd_wgmma,
+           fused_spectre_linear_wgmma, fused_spectre_linear_cluster, fused_block_bwd_wgmma,
            fused_block_bwd_wmma_fma, fused_spectre_linear_wide_wgmma,
-           fused_spectre_linear_wide_wmma_fma, fused_spectre_linear_bwd_wide)
+           fused_spectre_linear_bwd_wide)
 
 
 def reset_launch_counts() -> None:
@@ -81,6 +83,7 @@ def launch_counts() -> dict[str, int]:
 
 
 __all__ = [
+    "ClusterPlan",
     "KERNELS",
     "backward_kernel",
     "block_bwd_kernel",
@@ -95,6 +98,7 @@ __all__ = [
     "forward_kernel",
     "block_scatter_rows",
     "block_scatter_rows_plain",
+    "cluster_plan",
     "fused_block_bwd",
     "fused_block_bwd_plain",
     "fused_block_bwd_wgmma",
@@ -103,12 +107,11 @@ __all__ = [
     "fused_spectre_linear_bwd",
     "fused_spectre_linear_bwd_plain",
     "fused_spectre_linear_bwd_wide",
+    "fused_spectre_linear_cluster",
     "fused_spectre_linear_grad",
     "fused_spectre_linear_plain",
     "fused_spectre_linear_wgmma",
     "fused_spectre_linear_wide_wgmma",
-    "fused_spectre_linear_wide_wmma_fma",
-    "fused_spectre_linear_wmma_fma",
     "fwht",
     "fwht_grad",
     "fwht_plain",

@@ -40,15 +40,14 @@ _SIGNATURES = {
     "block_gather_sum": (_P, _P, _P, _LL, _LL, _LL, _LL, ctypes.c_int, _P),
     "inverse_gather_sum": (_P, _P, _P, _LL, _LL, _LL, ctypes.c_int, _P),
     "routed_gather_sum": (_P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, ctypes.c_int, _P),
-    "fused_spectre_linear_fwd": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P,
-                                 _LL, _LL, _LL, ctypes.c_float, _P),
+    "fused_spectre_linear_cluster": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL,
+                                     ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                     ctypes.c_int, ctypes.c_float, _P),
     "fused_spectre_linear_bwd_chain": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _LL, _LL, _LL, ctypes.c_float, _P),
     "fused_spectre_linear_wgmma": (_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, ctypes.c_float, _P),
     "fused_spectre_linear_wide_wgmma": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL,
                                         ctypes.c_float, _P),
-    "fused_spectre_linear_wide_wmma_fma": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P,
-                                           _LL, _LL, _LL, ctypes.c_float, _P),
     "fused_spectre_linear_bwd_wide": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _LL, _LL, _LL, ctypes.c_float, _P),
     "fused_block_bwd": (ctypes.c_int, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P),

@@ -7,15 +7,16 @@ stays with the caller (``ops/linear.py``), as in the JAX package. The CUDA
 kernels are in ``csrc/fused_spectre_linear.cu`` (they replace the forward of
 the TPU kernel ``spectre_tpu/ops/pallas/fused_linear.py::fused_spectre_linear``):
 ``fused_spectre_linear_wgmma``, bf16 on Hopper's wgmma + TMA mainloop
-(``csrc/wgmma_gemm.cuh``), and ``fused_spectre_linear_wmma_fma``, float32 on
-the FP32 pipes (exact float32, no TF32) and bf16 on WMMA.
-Above N = 1,024, where a block can no longer hold a whole output row, two
-more take any N in two passes (a column-tiled product into a float32
-workspace, then a row kernel for LayerNorm, GELU and the residual):
-``fused_spectre_linear_wide_wgmma`` (bf16 that TMA can describe) and
-``fused_spectre_linear_wide_wmma_fma`` (the rest). ``forward_kernel``
-decides which one a call launches, from what it can see: the dtype, K and
-N, and the alignment of the operands.
+(``csrc/wgmma_gemm.cuh``) up to N = 768, and above N = 1,024
+``fused_spectre_linear_wide_wgmma`` (the same product into a float32
+workspace, then a row kernel), both for bf16 that TMA can describe; and
+``fused_spectre_linear_cluster`` for everything else: float32 at any K and N
+(exact float32 on the FP32 pipes, no TF32), bf16 that TMA cannot describe
+(the head's N = 100) and bf16 with 768 < N <= 1,024. It splits a row tile's
+columns, and for few rows its K, across a thread-block cluster whose blocks
+meet in each other's shared memory for the LayerNorm statistics; the plan is
+``cluster_plan``'s. ``forward_kernel`` decides which kernel a call launches,
+from what it can see: the dtype, K and N, and the alignment of the operands.
 
 With ``save_h`` the kernel also writes the pre-LayerNorm activation
 ``h = x @ W + b`` in x's dtype. ``fused_spectre_linear_grad`` is the
@@ -46,6 +47,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -98,16 +100,137 @@ def forward_kernel(dtype: torch.dtype, k: int, n: int, aligned: bool = True) -> 
     card. Where TMA can describe the operands (bfloat16, k and n multiples
     of 8, ``aligned``: x and W 16-byte aligned): ``fused_spectre_linear_wgmma``
     for n <= WGMMA_MAX_N, ``fused_spectre_linear_wide_wgmma`` for n > ROW_N.
-    Else ``fused_spectre_linear_wmma_fma`` up to ROW_N and
-    ``fused_spectre_linear_wide_wmma_fma`` above (float32 stays exact
-    float32; the head's n = 100 makes 200-byte rows of W, which TMA cannot
-    stride)."""
+    Everything else, ``fused_spectre_linear_cluster``: float32 (exact
+    float32), bf16 that TMA cannot describe (the head's n = 100 makes
+    200-byte rows of W, which TMA cannot stride) and bf16 with
+    WGMMA_MAX_N < n <= ROW_N."""
     tma = dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 and aligned
-    if n > ROW_N:
-        return "fused_spectre_linear_wide_wgmma" if tma else "fused_spectre_linear_wide_wmma_fma"
+    if tma and n > ROW_N:
+        return "fused_spectre_linear_wide_wgmma"
     if tma and n <= WGMMA_MAX_N:
         return "fused_spectre_linear_wgmma"
-    return "fused_spectre_linear_wmma_fma"
+    return "fused_spectre_linear_cluster"
+
+
+# The cluster kernel's shapes (csrc/fused_spectre_linear.cu: Cl, ClLayout,
+# cluster_smem): the K split's unit (a multiple of every stage's depth); the
+# most blocks a cluster (above 8 the card's non-portable sizes); the dynamic
+# shared memory of a block and of an SM on the H100; and, per (dtype, rows a
+# block), the columns a chunk, the K depth of a stage, the threads, the
+# ring's stages and the blocks an SM runs at once (its registers; bf16 at
+# 16 rows as the card's sweep found, 2 where ptxas would allow 3).
+CLUSTER_TK = 32
+MAX_CLUSTER = 16
+PORTABLE_CLUSTER = 8
+# cluster_plan's costs below a full card, in a block's stages: a block's
+# fixed cost (its barriers and epilogue), and each K block's partial sums
+BLOCK_STAGES, K_SPLIT_STAGES = 4, 0.25
+SMEM_BLOCK, SMEM_SM = 232448, 233472
+_CLUSTER_TILES = {(torch.bfloat16, 16): (64, 32, 128, 8, 2),
+                  (torch.bfloat16, 64): (128, 32, 256, 4, 1),
+                  (torch.float32, 16): (256, 32, 256, 4, 1),
+                  (torch.float32, 32): (128, 16, 256, 3, 3)}
+# rows a cluster where row tiles of 128 columns already fill the card
+_BIG_BM = {torch.bfloat16: 64, torch.float32: 32}
+
+
+class ClusterPlan(NamedTuple):
+    """A launch of the cluster kernel: ``bm`` rows a cluster, ``cn`` blocks
+    of ``bn`` columns times ``ck`` blocks of ``kc`` of K in each cluster."""
+    bm: int
+    bn: int
+    cn: int
+    ck: int
+    kc: int
+    threads: int
+    smem: int
+    blocks: int
+
+    @property
+    def cluster(self) -> int:
+        return self.cn * self.ck
+
+
+def _ceil(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def cluster_smem(dtype: torch.dtype, bm: int, bn: int, cn: int) -> int:
+    """Bytes of dynamic shared memory a block takes: the ring of x and W
+    stages (rows padded by 16 bytes; float32 keeps x transposed), the parked
+    float32 sums [bm, bn] (rows rounded up to 8 mod 32 floats) and a (mean,
+    M2) pair a row for each of the cn column blocks."""
+    tn, tk, _, stages, _ = _CLUSTER_TILES[dtype, bm]
+    el = 2 if dtype == torch.bfloat16 else 4
+    pad = 16 // el
+    xtile = tk * (bm + pad) if dtype == torch.float32 else bm * (tk + pad)
+    stage = (xtile + tk * (tn + pad)) * el
+    return stages * stage + bm * (bn + (8 - bn % 32) % 32) * 4 + cn * bm * 8
+
+
+def _plan(dtype, bm, n, k, cn, ck, rows) -> ClusterPlan:
+    bn = _ceil(_ceil(n, cn), 8) * 8
+    kc = _ceil(_ceil(k, ck), CLUSTER_TK) * CLUSTER_TK
+    cn, ck = _ceil(n, bn), _ceil(k, kc)
+    threads = _CLUSTER_TILES[dtype, bm][2]
+    return ClusterPlan(bm, bn, cn, ck, kc, threads, cluster_smem(dtype, bm, bn, cn),
+                       rows * cn * ck)
+
+
+@functools.lru_cache(maxsize=4096)
+def cluster_plan(dtype: torch.dtype, m: int, k: int, n: int, sm_count: int = 132) -> ClusterPlan:
+    """The cluster kernel's launch for x [m, k] and W [k, n] on a card of
+    ``sm_count`` SMs. Rows a cluster: 64 in bf16 (32 in float32) where such
+    row tiles of 128 columns already fill the card, else 16. With rows to
+    spare, of the column splits that give ``sm_count`` blocks (up to
+    PORTABLE_CLUSTER blocks, more only where shared memory forces it), the
+    one whose waves of blocks walk the fewest columns. Below that, among
+    the (columns x K) splits that fill the card (all of them if none does),
+    the one whose waves times a block's stages, plus a fixed cost a block,
+    is least: with few rows a stage costs a block a round of copies and
+    little else (the card's sweeps of these plans); a K split pays its
+    partial sums through shared memory, a little for each block. Raises
+    ValueError for what no plan can launch."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"the cluster kernel takes float32 or bfloat16, not {dtype}")
+    if min(m, k, n) <= 0:
+        raise ValueError(f"want m, k, n >= 1; got {m}, {k}, {n}")
+    big_bm = _BIG_BM[dtype]
+    big = _ceil(m, big_bm) * _ceil(n, 128) >= sm_count
+    for bm in ((big_bm, 16) if big else (16,)):
+        bn_max = max((b for b in range(8, n + 8, 8)
+                      if cluster_smem(dtype, bm, b, MAX_CLUSTER) <= SMEM_BLOCK), default=0)
+        if bn_max and _ceil(n, bn_max) <= MAX_CLUSTER:
+            break
+    else:
+        raise ValueError(f"N = {n} needs more than {MAX_CLUSTER} blocks' shared memory a row")
+    big = big and bm == big_bm
+    rows = _ceil(m, bm)
+    cn_min = _ceil(n, bn_max)
+    cn_max = max(cn_min, min(MAX_CLUSTER, _ceil(n, 8)))
+    tn, tk, _, _, regs_sm = _CLUSTER_TILES[dtype, bm]
+
+    def waves(p):  # of the blocks an SM holds at once, by shared memory and registers
+        return _ceil(p.blocks, sm_count * max(1, min(SMEM_SM // (p.smem + 1024), regs_sm)))
+
+    if big:
+        plans = {_plan(dtype, bm, n, k, cn, 1, rows)
+                 for cn in range(cn_min, max(cn_min, min(PORTABLE_CLUSTER, cn_max)) + 1)}
+        plans = {p for p in plans if p.blocks >= sm_count} or plans
+        return min(plans, key=lambda p: (waves(p) * _ceil(p.bn, tn) * tn, p.cn))
+    plans = {_plan(dtype, bm, n, k, cn, ck, rows)
+             for cn in range(cn_min, cn_max + 1)
+             for ck in range(1, max(1, min(MAX_CLUSTER // cn, _ceil(k, CLUSTER_TK))) + 1)}
+    plans = {p for p in plans if p.cluster <= MAX_CLUSTER and p.smem <= SMEM_BLOCK}
+    plans = {p for p in plans if p.blocks >= sm_count} or plans
+    return min(plans, key=lambda p: (
+        waves(p) * (_ceil(p.bn, tn) * _ceil(p.kc, tk) + BLOCK_STAGES)
+        + K_SPLIT_STAGES * (p.ck - 1), p.cluster, p.cn))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def fused_spectre_linear_wgmma(x, w, b, gamma, beta, out, h, eps: float) -> None:
@@ -122,33 +245,28 @@ def fused_spectre_linear_wgmma(x, w, b, gamma, beta, out, h, eps: float) -> None
     fused_spectre_linear_wgmma.launches += 1
 
 
-def fused_spectre_linear_wmma_fma(x, w, b, gamma, beta, out, h, eps: float) -> None:
-    """Launch the float32 / WMMA kernel on checked operands of the current
-    device into ``out`` (and ``h`` unless it is None)."""
+def fused_spectre_linear_cluster(x, w, b, gamma, beta, out, h, eps: float) -> None:
+    """Launch the cluster kernel (float32, or bf16 that the wgmma kernels do
+    not take) on checked operands of the current device into ``out`` (and
+    ``h`` unless it is None), with ``cluster_plan``'s launch."""
     k, n = w.shape
-    err = load_library().fused_spectre_linear_fwd(
+    m = x.numel() // k
+    dev = x.get_device()
+    p = cluster_plan(x.dtype, m, k, n, _sm_count(dev))
+    err = load_library().fused_spectre_linear_cluster(
         _DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
-        beta.data_ptr(), out.data_ptr(), None if h is None else h.data_ptr(), x.numel() // k,
-        k, n, eps, current_stream(x.get_device()))
-    check(err, "fused_spectre_linear_fwd launch")
-    fused_spectre_linear_wmma_fma.launches += 1
-
-
-def _wide_workspace(x, h, n):
-    """The float32 [rows, n] workspace of a wide kernel's two passes: h
-    itself when a float32 call saves it (then the row pass need not write
-    h), else a new tensor for this call. Returns (workspace, h for the row
-    pass)."""
-    if h is not None and h.dtype == torch.float32:
-        return h, None
-    return torch.empty((x.numel() // x.shape[-1], n), dtype=torch.float32, device=x.device), h
+        beta.data_ptr(), out.data_ptr(), None if h is None else h.data_ptr(), m, k, n, p.bm,
+        p.bn, p.cn, p.ck, p.kc, eps, current_stream(dev))
+    check(err, f"fused_spectre_linear_cluster launch ({p})")
+    fused_spectre_linear_cluster.launches += 1
 
 
 def fused_spectre_linear_wide_wgmma(x, w, b, gamma, beta, out, h, eps: float) -> None:
-    """Launch the bf16 two-pass kernel (wgmma product, then the row pass) for
-    any N on checked operands of the current device."""
+    """Launch the bf16 two-pass kernel (wgmma product into a float32
+    workspace for this call, then the row pass) for any N on checked
+    operands of the current device."""
     k, n = w.shape
-    work, h = _wide_workspace(x, h, n)
+    work = torch.empty((x.numel() // k, n), dtype=torch.float32, device=x.device)
     err = load_library().fused_spectre_linear_wide_wgmma(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         out.data_ptr(), None if h is None else h.data_ptr(), work.data_ptr(), x.numel() // k,
@@ -157,22 +275,8 @@ def fused_spectre_linear_wide_wgmma(x, w, b, gamma, beta, out, h, eps: float) ->
     fused_spectre_linear_wide_wgmma.launches += 1
 
 
-def fused_spectre_linear_wide_wmma_fma(x, w, b, gamma, beta, out, h, eps: float) -> None:
-    """Launch the float32 / WMMA two-pass kernel (tiled product, then the row
-    pass) for any N on checked operands of the current device."""
-    k, n = w.shape
-    work, h = _wide_workspace(x, h, n)
-    err = load_library().fused_spectre_linear_wide_wmma_fma(
-        _DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
-        beta.data_ptr(), out.data_ptr(), None if h is None else h.data_ptr(), work.data_ptr(),
-        x.numel() // k, k, n, eps, current_stream(x.get_device()))
-    check(err, "fused_spectre_linear_wide_wmma_fma launch")
-    fused_spectre_linear_wide_wmma_fma.launches += 1
-
-
 _FORWARD_KERNELS = {fn.__name__: fn for fn in (
-    fused_spectre_linear_wgmma, fused_spectre_linear_wmma_fma, fused_spectre_linear_wide_wgmma,
-    fused_spectre_linear_wide_wmma_fma)}
+    fused_spectre_linear_wgmma, fused_spectre_linear_cluster, fused_spectre_linear_wide_wgmma)}
 for _fn in _FORWARD_KERNELS.values():
     _fn.launches = 0
 
@@ -181,7 +285,7 @@ def fused_spectre_linear(x, w, b, gamma, beta, eps: float = 1e-5, save_h: bool =
     """GELU(LN(x @ w + b)) (+ x when K == N); leading axes of x are rows.
     With ``save_h`` returns ``(out, h)``, h = x @ w + b in x's dtype. Not
     differentiable: ``fused_spectre_linear_grad`` is. On the card it
-    launches the kernel ``forward_kernel`` names; ``launches`` counts all four."""
+    launches the kernel ``forward_kernel`` names; ``launches`` counts all three."""
     _validate(x, w, b, gamma, beta)
     if x.device.type == "cpu":
         return fused_spectre_linear_plain(x, w, b, gamma, beta, eps, save_h)

@@ -24,8 +24,7 @@ any config with ``--config``), and single kernels beside what they replace.
 sweeps with its flags, defaults and rows, on the card unless ``--device
 cpu``: SpectreViT forwards over patch {4, 8} x heads {1, 2, 4, 8};
 SpectreLinear beside a dense layer at square dims 256 to 4,096 on 8 rows in
-float32 (kernel 2's float32 kernel, and its wide kernels at 2,048 and
-4,096); the gather mix, the structured mix's matrix form, the 2-D DFT by
+float32 (kernel 2's cluster kernel at every dim); the gather mix, the structured mix's matrix form, the 2-D DFT by
 products and the structured-mix kernel at d = 2^6 .. 2^13 (the kernel at
 every d: it has no fallback); one SpectreEncoderLayer forward through
 ``profile.trace_step`` and ``ProfilerParser`` into plots/encoder_layer.csv.
@@ -63,8 +62,8 @@ the structured mix's K = 8,192: ``fused_spectre_linear_bwd`` on a saved h
 autograd of the plain version, both ways, with the bound of its two
 products. ``linear-fwd`` times the block's forward in bf16 at the same
 shapes, writing h as the trainer does: the kernel ``forward_kernel`` picks
-(the wgmma kernel; the float32/WMMA kernel for the head's N = 100) beside the
-float32/WMMA kernel and the cuBLAS chain ``gelu(layer_norm(addmm(b, x, w)))``
+(the wgmma kernel; the cluster kernel for the head's N = 100) beside the
+cluster kernel and the cuBLAS chain ``gelu(layer_norm(addmm(b, x, w)))``
 (a yardstick the port does not call), both ways, with its bound, and prints
 the kernel's largest difference from the plain version. ``distill`` (with a
 distillation config) times the teacher's view and forward, the distill step
@@ -121,7 +120,7 @@ from spectre_tpu_torch.ops.kernels import (
     fused_spectre_linear_bwd,
     fused_spectre_linear_grad,
     fused_spectre_linear_plain,
-    fused_spectre_linear_wmma_fma,
+    fused_spectre_linear_cluster,
     fwht,
     inverse_gather_sum,
     invert_tile_perms,
@@ -167,7 +166,7 @@ def _spy(cls, log: list):
 _GROUPS = (
     ("block_scatter_rows_kernel", "kernel 1 block_scatter_rows"),
     ("gather_sum_kernel", "kernels 3/4 gather_sum"),
-    ("fused_spectre_linear_kernel", "kernel 2 fused_spectre_linear_fwd"),
+    ("fused_linear_cluster_kernel", "kernel 2 fused_spectre_linear_fwd"),
     ("fused_linear_wgmma_kernel", "kernel 2 fused_spectre_linear_fwd"),
     ("chain_kernel", "kernel 2's backward chain (fused_spectre_linear_bwd)"),
     ("chain_wide_kernel", "kernel 2's backward chain (fused_spectre_linear_bwd)"),
@@ -554,8 +553,8 @@ def linear_bwd(args) -> dict:
 
 
 def linear_fwd(args) -> dict:
-    """Kernel 2's forward in bf16 beside the float32/WMMA kernel and the
-    cuBLAS chain."""
+    """Kernel 2's forward in bf16 beside the cluster kernel and the cuBLAS
+    chain."""
     import torch.nn.functional as F
 
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -577,7 +576,7 @@ def linear_fwd(args) -> dict:
         iters = max(1, args.iters // 6) if k > 1024 else args.iters
         t = _both_ways({
             "kernel": lambda: fused_spectre_linear(*args5, save_h=True),
-            "wmma_fma": lambda: fused_spectre_linear_wmma_fma(*args5, y, h, 1e-5),
+            "cluster": lambda: fused_spectre_linear_cluster(*args5, y, h, 1e-5),
             "chain": lambda: F.gelu(F.layer_norm(torch.addmm(bias, x, w), (n,), gamma, beta))},
             iters, device_iters=min(iters, 10))
         # x, W, b, gamma and beta read, out and h written once, in bf16
@@ -587,8 +586,8 @@ def linear_fwd(args) -> dict:
                                    max_abs_diff=diff)
         print(f"forward ({m}x{k})x({k}x{n}) bf16 with h: {route} {t['kernel_ms']:.4f} ms back to "
               f"back, {t['kernel_device_ms']:.4f} on the device ({bound / t['kernel_device_ms']:.0%} "
-              f"of the bound), {t['kernel_host_ms']:.4f} to issue; fused_spectre_linear_wmma_fma "
-              f"{t['wmma_fma_ms']:.4f} / {t['wmma_fma_device_ms']:.4f} ms; cuBLAS chain "
+              f"of the bound), {t['kernel_host_ms']:.4f} to issue; fused_spectre_linear_cluster "
+              f"{t['cluster_ms']:.4f} / {t['cluster_device_ms']:.4f} ms; cuBLAS chain "
               f"{t['chain_ms']:.4f} / {t['chain_device_ms']:.4f} ms; bound {bound:.4f} ms by {by}; "
               f"max |kernel - plain| {diff:.4g}", flush=True)
         del x, w, y, h, got, want

@@ -29,6 +29,7 @@ from spectre_tpu_torch.ops.kernels import (
     block_scatter_rows,
     block_scatter_rows_plain,
     block_bwd_kernel,
+    cluster_plan,
     forward_kernel,
     fused_block_bwd,
     fused_block_bwd_plain,
@@ -36,6 +37,7 @@ from spectre_tpu_torch.ops.kernels import (
     fused_spectre_linear_bwd,
     fused_spectre_linear_bwd_plain,
     fused_spectre_linear_bwd_wide,
+    fused_spectre_linear_cluster,
     fused_spectre_linear_grad,
     fused_spectre_linear_plain,
     flash_attention,
@@ -237,7 +239,7 @@ def test_fused_spectre_linear_wgmma_kernel_matches_plain(cuda_device, m, k, n):
     n1 = launch_counts()
     assert n1["fused_spectre_linear_wgmma"] - n0["fused_spectre_linear_wgmma"] == 2
     assert n1["fused_spectre_linear"] - n0["fused_spectre_linear"] == 2
-    assert n1["fused_spectre_linear_wmma_fma"] == n0["fused_spectre_linear_wmma_fma"]
+    assert n1["fused_spectre_linear_cluster"] == n0["fused_spectre_linear_cluster"]
     want, want_h = fused_spectre_linear_plain(*args, save_h=True)
     assert torch.equal(got, out_only)
     assert (got.float() - want.float()).abs().max().item() <= atol
@@ -252,11 +254,57 @@ def test_fused_spectre_linear_wgmma_kernel_is_bitwise_repeatable(cuda_device, m,
         assert torch.equal(a, b)
 
 
-# kernel 2 at N > 1,024 (the two-pass wide kernels): K == N (the identity
-# residual), K != N, N not a multiple of 8 (bf16 then on the WMMA product),
-# ragged rows and ragged column tiles; out and h against the plain version
-# (which normalises the float32 sums, as the row pass does) under the limits
-# of the one-pass kernels, and two runs bitwise equal
+# the cluster kernel, called directly, at every shape the f32/WMMA and wide
+# f32/WMMA kernels took on a path: the head's N = 100 at each serving and
+# train batch, the MNIST head (K 16, N 10), `perf linear`'s 8 rows, the C6
+# shapes; 1,041 rows end in a ragged 16-row tile. f32 within 1e-4 (the
+# order of the sums); bf16 within one bf16 ulp of the largest entry of out
+# and of h (2^-7 of the power of two below it): both round float32 values
+# once, which differ in their last bits, and at 4,160 rows GELU's output
+# reaches [4, 8), where one ulp is 2^-5. With and without h, two runs
+# bitwise equal.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,k,n", [(m, 512, 100) for m in (1, 2, 7, 64, 256, 1024, 1041)]
+                         + [(64, 16, 10), (8, 1024, 1024), (8, 2048, 2048), (8, 4096, 4096),
+                            (4160, 1536, 1536), (4160, 768, 1100)])
+def test_fused_spectre_linear_cluster_kernel_matches_plain(cuda_device, dtype, m, k, n):
+    def atol(ref):
+        if dtype == torch.float32:
+            return 1e-4
+        return 2.0 ** (np.floor(np.log2(ref.float().abs().max().item())) - 7)
+
+    args = [torch.from_numpy(a).to(cuda_device, dtype)
+            for a in _linear_case(m, k, n, seed=m + k + n)]
+    outs = [torch.empty(m, n, dtype=dtype, device=cuda_device) for _ in range(4)]
+    n0 = fused_spectre_linear_cluster.launches
+    fused_spectre_linear_cluster(*args, outs[0], outs[1], 1e-5)
+    fused_spectre_linear_cluster(*args, outs[2], None, 1e-5)
+    fused_spectre_linear_cluster(*args, outs[3], outs[2].new_empty(m, n), 1e-5)
+    torch.cuda.synchronize()
+    assert fused_spectre_linear_cluster.launches == n0 + 3
+    want, want_h = fused_spectre_linear_plain(*args, save_h=True)
+    assert torch.equal(outs[0], outs[2]) and torch.equal(outs[0], outs[3])
+    assert (outs[0].float() - want.float()).abs().max().item() <= atol(want)
+    assert (outs[1].float() - want_h.float()).abs().max().item() <= atol(want_h)
+
+
+def test_fused_spectre_linear_cluster_kernel_is_bitwise_repeatable(cuda_device):
+    """The head at B=256 in bf16, whose plan splits K across the cluster
+    (partial sums added through DSMEM in rank order), and float32 on 8 rows."""
+    for dtype, (m, k, n) in ((torch.bfloat16, (256, 512, 100)), (torch.float32, (8, 1024, 1024))):
+        assert cluster_plan(dtype, m, k, n, 132).cluster > 1
+        args = [torch.from_numpy(a).to(cuda_device, dtype) for a in _linear_case(m, k, n)]
+        first = fused_spectre_linear(*args, save_h=True)
+        for a, b in zip(first, fused_spectre_linear(*args, save_h=True)):
+            assert torch.equal(a, b)
+
+
+# kernel 2 at N > 1,024 (bf16 that TMA can describe on the two-pass wide
+# kernel, the rest on the cluster kernel): K == N (the identity residual),
+# K != N, N not a multiple of 8, ragged rows and ragged column tiles; out
+# and h against the plain version (which normalises the float32 sums, as
+# both kernels do) under the limits of the one-pass kernels, and two runs
+# bitwise equal
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("m,k,n", [(4160, 1536, 1536), (4160, 768, 2048), (195, 768, 1100),
                                    (70, 40, 1032), (9, 1100, 1100)])
@@ -264,7 +312,9 @@ def test_fused_spectre_linear_wide_kernels_match_plain(cuda_device, dtype, atol,
     args = [torch.from_numpy(a).to(cuda_device, dtype)
             for a in _linear_case(m, k, n, seed=m + k + n)]
     name = forward_kernel(dtype, k, n)
-    assert name.startswith("fused_spectre_linear_wide_")
+    assert name == ("fused_spectre_linear_wide_wgmma"
+                    if dtype == torch.bfloat16 and n % 8 == 0 and k % 8 == 0
+                    else "fused_spectre_linear_cluster")
     n0 = launch_counts()
     got, h = fused_spectre_linear(*args, save_h=True)
     out_only = fused_spectre_linear(*args)
@@ -394,7 +444,7 @@ def test_small_model_gradients_on_the_card_match_the_cpu(cuda_device, mix_block)
     after = launch_counts()
     delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     assert delta == {"block_scatter_rows": 2, "fused_spectre_linear": 5,
-                     "fused_spectre_linear_wmma_fma": 5, "fused_spectre_linear_bwd": 5,
+                     "fused_spectre_linear_cluster": 5, "fused_spectre_linear_bwd": 5,
                      "block_gather_sum" if mix_block else "inverse_gather_sum": 2}
     for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
         scale = pc.grad.abs().max().item()
@@ -695,7 +745,7 @@ def test_small_routed_model_gradients_on_the_card_match_the_cpu(cuda_device):
     after = launch_counts()
     delta = {k: after[k] - before[k] for k in after if after[k] != before[k]}
     assert delta == {"block_scatter_rows": 2, "fused_spectre_linear": 5,
-                     "fused_spectre_linear_wmma_fma": 5, "fused_spectre_linear_bwd": 5, "routed_gather_sum": 2}
+                     "fused_spectre_linear_cluster": 5, "fused_spectre_linear_bwd": 5, "routed_gather_sum": 2}
     for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
         scale = pc.grad.abs().max().item()
         assert (pg.grad.cpu() - pc.grad).abs().max().item() <= 1e-4 * scale, name

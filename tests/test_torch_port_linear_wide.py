@@ -1,6 +1,6 @@
 """Kernel 2 above N = 1,024 on the CPU: which CUDA kernels a call on the card
-takes (the two-pass wide kernels of the forward, the wide chain of the
-backward), and the plain forward and backward at such N against the JAX
+takes (the two-pass wide kernel of the forward for bf16 that TMA can
+describe, the cluster kernel for the rest; the wide chain of the backward), and the plain forward and backward at such N against the JAX
 package's Pallas kernel in interpret mode and its VJP, in float32, with the
 JAX package's own tolerances (tests/test_pallas.py: 1e-5 forward, 1e-4
 gradients). tests/test_torch_port_cuda.py holds the kernels to the plain
@@ -21,28 +21,29 @@ from spectre_tpu_torch.ops.kernels import (
     fused_spectre_linear_plain,
 )
 
-WIDE_WGMMA, WIDE_WMMA_FMA = "fused_spectre_linear_wide_wgmma", "fused_spectre_linear_wide_wmma_fma"
+WIDE_WGMMA, CLUSTER = "fused_spectre_linear_wide_wgmma", "fused_spectre_linear_cluster"
 
 
 @pytest.mark.parametrize("n", [1100, 1536, 2048])
 @pytest.mark.parametrize("k", [768, 1536])
 def test_n_above_1024_names_a_wide_kernel(k, n):
-    """bf16 that TMA can describe (N a multiple of 8) on the wgmma product,
-    N = 1,100 in bf16 and every float32 call on the WMMA / FMA product; no
-    call raises."""
-    assert forward_kernel(torch.bfloat16, k, n) == (WIDE_WGMMA if n % 8 == 0 else WIDE_WMMA_FMA)
-    assert forward_kernel(torch.float32, k, n) == WIDE_WMMA_FMA
-    assert forward_kernel(torch.bfloat16, k, n, aligned=False) == WIDE_WMMA_FMA
+    """bf16 that TMA can describe (N a multiple of 8) on the two-pass wgmma
+    kernel; N = 1,100 in bf16, unaligned operands and every float32 call on
+    the cluster kernel, which splits the row across its blocks; no call
+    raises."""
+    assert forward_kernel(torch.bfloat16, k, n) == (WIDE_WGMMA if n % 8 == 0 else CLUSTER)
+    assert forward_kernel(torch.float32, k, n) == CLUSTER
+    assert forward_kernel(torch.bfloat16, k, n, aligned=False) == CLUSTER
     assert backward_kernel(n) == "fused_spectre_linear_bwd_wide"
 
 
 @pytest.mark.parametrize("n", [100, 512, 768, 1024])
 def test_n_up_to_1024_keeps_its_kernels(n):
-    """The dispatch at N <= 1,024 is the one before the wide kernels."""
-    assert forward_kernel(torch.float32, 512, n) == "fused_spectre_linear_wmma_fma"
+    """At N <= 1,024 bf16 that TMA can describe stays on the wgmma kernel up
+    to N = 768; the rest goes to the cluster kernel."""
+    assert forward_kernel(torch.float32, 512, n) == CLUSTER
     assert forward_kernel(torch.bfloat16, 512, n) == (
-        "fused_spectre_linear_wgmma" if n % 8 == 0 and n <= 768
-        else "fused_spectre_linear_wmma_fma")
+        "fused_spectre_linear_wgmma" if n % 8 == 0 and n <= 768 else CLUSTER)
     assert backward_kernel(n) == "fused_spectre_linear_bwd_chain"
 
 

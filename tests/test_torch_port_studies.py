@@ -45,8 +45,7 @@ def test_perf_linear_routes_to_the_float32_and_wide_kernels(capsys):
         d = int(d)
         assert int(n_sl.replace(",", "")) == d * d + 3 * d  # kernel, bias, LN scale and bias
         assert int(n_d.replace(",", "")) == d * d + d
-    assert [r["kernel"] for r in res["linear"]] == ["fused_spectre_linear_wmma_fma"] * 3 + [
-        "fused_spectre_linear_wide_wmma_fma"] * 2
+    assert [r["kernel"] for r in res["linear"]] == ["fused_spectre_linear_cluster"] * 5
 
 
 def test_perf_mixer_runs_the_kernel_at_every_d(capsys):
