@@ -34,14 +34,16 @@ Phases, each raising on failure (nothing is caught):
    B=1024 and at K=8,192, f32 (<= 1e-5 of each gradient's largest entry)
    and bf16 (one bf16 ulp of it, <= 2^-7), two runs bitwise equal; times
    back to back and on the device beside autograd of the plain version.
-5. kernel 5 (fused_block_bwd: bf16 on the wgmma kernel, f32 on the FP32
-   pipes) vs its plain version at the flagship mix shape (d=33,280, H=16,
-   O=512, blk=64) for B in {256, 1024, 250}, bf16 (<= 1e-2 of the largest
-   entry: one bf16 ulp of an entry is 2^-8 of it) and f32 (<= 1e-4 of the
-   largest entry: FMAs in another order), and against the chain it fuses
-   (the dg4 product, the signs, block_gather_sum); bf16 with blk=32 on the
-   bf16 WMMA kernel the same way; two runs bitwise equal; times of the
-   kernel (and on the device in bf16), the plain version and the chain.
+5. kernel 5 (fused_block_bwd: bf16 with blk=64 on the wgmma kernel; bf16
+   with blk 32 and 16 and f32 with blk 64 and 16 on the token-grouped
+   kernel) vs its plain version at the flagship mix shape (d=33,280, H=16,
+   O=512) for B in {256, 1024, 250}, bf16 (<= 1e-2 of the largest entry:
+   one bf16 ulp of an entry is 2^-8 of it) and f32 (<= 1e-4 of the largest
+   entry: FMAs in another order), and against the chain it fuses (the dg4
+   product, the signs, block_gather_sum) within 4 times that; the kernel
+   ``block_bwd_kernel`` names, launched exactly; two runs bitwise equal;
+   times of the kernel back to back and on the device, the plain version
+   and the chain beside the bound, at every route.
 6. kernel 3 (block_gather_sum) and kernel 4 (inverse_gather_sum) vs their
    plain versions at the flagship mix shape, B in {1, 3, 64, 256, 1024},
    bf16 and f32: bitwise equal (kernel and plain version add the same
@@ -85,8 +87,10 @@ Phases, each raising on failure (nothing is caught):
 12. a training subprocess gets SIGTERM after its second epoch: it must save
    and exit 0, and repl/eval.py must restore that checkpoint.
 13. ``repl/perf.py fused-bwd`` (kernel 5's entry point: chain against kernel at
-   B=256 and B=1024; its launch count is kernel 5's ``launches``) and the
-   ``repl/bench.py`` line (flagship step with augmentation at B=1024).
+   B=256 and B=1024, with the flagship's blk=64 on the wgmma kernel and with
+   blk=32 and 16 on the token-grouped kernel; its launch counts are the two
+   kernels' ``launches``) and the ``repl/bench.py`` line (flagship step with
+   augmentation at B=1024).
 14. the attention kernels (flash_attention_fwd, flash_attention_bwd) vs their
    plain versions at [256,16,65,32], [1024,16,65,32] and [64,4,50,16], bf16
    and f32, with and without the probability multiplier ``pm``, on strided
@@ -138,16 +142,18 @@ Phases, each raising on failure (nothing is caught):
    true`` on its line; SpectreBranch through the server, the training CLI
    and the bench; ``gather_tm`` steps.
 
-20. kernel 2 above N = 1,024 (C6: fused_spectre_linear_wide_wgmma, bf16 that
-   TMA can describe; fused_spectre_linear_cluster, float32 and bf16 at N =
-   1,100; fused_spectre_linear_bwd_wide, the backward's chain) at
+20. kernel 2 above N = 1,024 (C6: fused_spectre_linear_wide_cluster, bf16
+   that TMA can describe; fused_spectre_linear_cluster, float32 and bf16 at
+   N = 1,100; fused_spectre_linear_bwd_wide, the backward's chain) at
    (4,160 x 1,536)(1,536 x 1,536), K == N, and (4,160 x 768)(768 x 2,048)
    and (768 x 1,100), bf16 and f32: out and h against the plain version,
    the Function's gradients and the backward against theirs, under the
    limits of phases 4 and the backward's; two runs bitwise; the kernel
-   ``forward_kernel`` names; times back to back and on the device beside
-   the bound, the plain version and the cuBLAS chain. It runs after
-   kernel 2's backward, among the kernel phases.
+   ``forward_kernel`` names, launched exactly; times back to back and on
+   the device beside the bound, the plain version and the cuBLAS chain.
+   Then, forward only in bf16, the wide cluster kernel at N = 4,096 (a
+   cluster of 16 blocks) and the cluster kernel beyond its reach at N =
+   4,608. It runs after kernel 2's backward, among the kernel phases.
 21. distillation (configs/distill_cifar100.py: the flagship student at
    B=256, the ViT-S/16 teacher at 224 px with 201 tokens, seeded): both
    teacher views against float64 (VIEW_ATOL); the bf16 teacher against the
@@ -253,8 +259,8 @@ from unittest import mock
 import numpy as np
 import torch
 
-from spectre_tpu_torch.utils.timing import bound_ms as bound, cuda_time_ms, device_time_ms, \
-    queued_time_ms
+from spectre_tpu_torch.utils.timing import BF16_FLOPS, FP32_FLOPS, bound_ms as bound, \
+    cuda_time_ms, device_time_ms, queued_time_ms
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 CONFIG = os.path.join(ROOT, "spectre_tpu_torch", "configs", "spectre_vit_cifar100.py")
@@ -632,17 +638,21 @@ FUSED_BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 
 def phase_kernel5(kernels):
     """Kernel 5 at the flagship mix backward's shape: dy [65, B, 512],
-    w [8,192, 512], s4 [65, 8,192], binv [16, 520], blk 64 -> dxt [33,280, B].
-    bf16 takes the wgmma kernel (two runs bitwise equal), f32 the FP32-pipe
-    kernel, and bf16 with blk 32 (binv [16, 1,040]) the bf16 WMMA kernel,
-    the one case where the port launches it; each against the plain version
-    and the chain it fuses, with times."""
+    w [8,192, 512], s4 [65, 8,192], binv [16, 33,280 / blk] -> dxt [33,280, B].
+    bf16 with blk 64 takes the wgmma kernel; bf16 with blk 32 and 16 and f32
+    with blk 64 and 16 the token-grouped kernel; each route launches the
+    kernel ``block_bwd_kernel`` names, exactly, two runs bitwise equal, and
+    is held to the plain version and to the chain it fuses, with times of
+    the kernel (back to back and on the device), the plain version and the
+    chain beside the bound. Returns the entries of both kernels."""
     d, heads, n_tok, o = 33_280, 16, 65, 512
     eh = heads * d // n_tok
     gen = torch.Generator(device="cuda").manual_seed(5)
     routes = {(torch.bfloat16, 64): "fused_block_bwd_wgmma",
-              (torch.float32, 64): "fused_block_bwd_wmma_fma",
-              (torch.bfloat16, 32): "fused_block_bwd_wmma_fma"}
+              (torch.float32, 64): "fused_block_bwd_grouped",
+              (torch.bfloat16, 32): "fused_block_bwd_grouped",
+              (torch.bfloat16, 16): "fused_block_bwd_grouped",
+              (torch.float32, 16): "fused_block_bwd_grouped"}
     res = {}
     for (dtype, blk), want_route in routes.items():
         binv = torch.stack([torch.randperm(d // blk, generator=gen, device="cuda")
@@ -661,11 +671,12 @@ def phase_kernel5(kernels):
                 dg4.mul_(s4[:, :, None])
                 return kernels.block_gather_sum(dg4.view(heads * d, b), binv, blk)
 
-            n0 = kernels.launch_counts()[route]
+            n0 = kernels.launch_counts()
             got = kernels.fused_block_bwd(dy, w, s4, binv, blk)
             again = kernels.fused_block_bwd(dy, w, s4, binv, blk)
             torch.cuda.synchronize()
-            if kernels.launch_counts()[route] != n0 + 2:
+            n1 = kernels.launch_counts()
+            if {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]} != {route: 2, "fused_block_bwd": 2}:
                 raise AssertionError(f"kernel 5: two calls did not launch {route} twice")
             if not torch.equal(got, again):
                 raise AssertionError(f"{route} blk={blk} B={b}: two runs differ")
@@ -683,46 +694,47 @@ def phase_kernel5(kernels):
             ms_p = cuda_time_ms(lambda: kernels.fused_block_bwd_plain(dy, w, s4, binv, blk),
                                 iters=2, reps=3)
             ms_c = cuda_time_ms(chain, iters=20 if bf else 3)
-            r = dict(err=err, scale=scale, err_chain=err_chain, ms=ms_k, plain=ms_p, chain=ms_c)
-            line = (f"kernel 5 {route} blk={blk} B={b} {str(dtype)[6:]}: max abs err {err:.4g} "
-                    f"({err / scale:.3g} of the largest entry {scale:.1f}, limit "
-                    f"{FUSED_BWD_REL[dtype]}), to the chain {err_chain:.4g}, two runs bitwise "
-                    f"equal; kernel {ms_k:.4f} ms, chain {ms_c:.4f} ms, plain {ms_p:.4f} ms")
-            if bf:
-                r["device"] = device_time_ms(
-                    lambda: kernels.fused_block_bwd(dy, w, s4, binv, blk), iters=5)
-                flops = 2 * d * heads * o * b
-                moved = (n_tok * b * o + eh * o + n_tok * eh + d * b) * dy.element_size() \
-                    + binv.numel() * 4
-                r["bound"], r["by"] = bound(moved, flops)
-                line += (f" (device {r['device']:.4f}, {flops / r['device'] / 1e9:.1f} "
-                         f"TFLOP/s); bound {r['bound']:.4f} ms by {r['by']}")
+            dev = device_time_ms(lambda: kernels.fused_block_bwd(dy, w, s4, binv, blk),
+                                 iters=5 if bf else 2)
+            flops = 2 * d * heads * o * b
+            moved = (n_tok * b * o + eh * o + n_tok * eh + d * b) * dy.element_size() \
+                + binv.numel() * 4
+            bound_ms, by = bound(moved, flops, BF16_FLOPS if bf else FP32_FLOPS)
+            r = dict(err=err, scale=scale, err_chain=err_chain, ms=ms_k, plain=ms_p, chain=ms_c,
+                     device=dev, bound=bound_ms, by=by)
+            print(f"kernel 5 {route} blk={blk} B={b} {str(dtype)[6:]}: max abs err {err:.4g} "
+                  f"({err / scale:.3g} of the largest entry {scale:.1f}, limit "
+                  f"{FUSED_BWD_REL[dtype]}), to the chain {err_chain:.4g}, two runs bitwise "
+                  f"equal; kernel {ms_k:.4f} ms (device {dev:.4f}, {flops / dev / 1e9:.1f} "
+                  f"TFLOP/s), chain {ms_c:.4f} ms, plain {ms_p:.4f} ms; bound {bound_ms:.4f} ms "
+                  f"by {by}", flush=True)
             res[dtype, blk, b] = r
-            print(line, flush=True)
             del dy, got, again, want
             torch.cuda.empty_cache()
-    r = res[torch.bfloat16, 64, 256]
-    bf16 = [v for (dt, blk, _), v in res.items() if dt == torch.bfloat16 and blk == 64]
-    f32 = [v for (dt, _, _), v in res.items() if dt == torch.float32]
-    wmma = [v for (dt, blk, _), v in res.items() if dt == torch.bfloat16 and blk == 32]
-    return {"name": "fused_block_bwd_wgmma", "route": "cuda",
-            "source": "spectre_tpu_torch/csrc/fused_block_bwd.cu",
-            "replaces": "spectre_tpu/ops/pallas/bwd_gather.py:426",
-            "max_abs_err": max(v["err"] for v in bf16), "ms": r["ms"], "plain_ms": r["plain"],
-            "bound_ms": r["bound"], "bound_by": r["by"], "library_ms": None,
-            "chain_ms": r["chain"], "device_ms": r["device"],
-            "max_rel_err": max(v["err"] / v["scale"] for v in bf16),
-            "max_rel_err_f32": max(v["err"] / v["scale"] for v in f32),
-            "max_rel_err_wmma_blk32": max(v["err"] / v["scale"] for v in wmma),
-            "max_abs_err_to_chain": max(v["err_chain"] for v in bf16),
-            **{f"{key}_b{b}": res[torch.bfloat16, 64, b][src] for b in (1024, 250)
-               for key, src in (("ms", "ms"), ("device_ms", "device"), ("chain_ms", "chain"),
-                                ("bound_ms", "bound"))},
-            **{f"{key}_f32_b{b}": res[torch.float32, 64, b][src] for b in (256, 1024)
-               for key, src in (("ms", "ms"), ("chain_ms", "chain"))},
-            **{f"{key}_wmma_blk32_b{b}": res[torch.bfloat16, 32, b][src] for b in (256, 1024)
-               for key, src in (("ms", "ms"), ("device_ms", "device"), ("chain_ms", "chain"))},
-            "shape": f"dy[{n_tok},256,{o}] w[{eh},{o}] bf16 -> [{d},256]"}
+
+    def entry(name, key, others):
+        r = res[key]
+        return {"name": name, "route": "cuda", "source": "spectre_tpu_torch/csrc/fused_block_bwd.cu",
+                "replaces": "spectre_tpu/ops/pallas/bwd_gather.py:426",
+                "max_abs_err": max(res[k]["err"] for k in others), "ms": r["ms"],
+                "plain_ms": r["plain"], "bound_ms": r["bound"], "bound_by": r["by"],
+                "library_ms": None, "chain_ms": r["chain"], "device_ms": r["device"],
+                "max_rel_err": max(res[k]["err"] / res[k]["scale"] for k in others),
+                "max_abs_err_to_chain": max(res[k]["err_chain"] for k in others),
+                "times": {f"{str(dt)[6:]}_blk{blk}_b{b}": {
+                    key: v[src] for key, src in (("ms", "ms"), ("device_ms", "device"),
+                                                 ("chain_ms", "chain"), ("plain_ms", "plain"),
+                                                 ("bound_ms", "bound"), ("bound_by", "by"))}
+                    for (dt, blk, b), v in res.items() if (dt, blk, b) in others}}
+
+    bf, f32 = torch.bfloat16, torch.float32
+    wgmma = [k for k in res if routes[k[:2]] == "fused_block_bwd_wgmma"]
+    grouped = [k for k in res if routes[k[:2]] == "fused_block_bwd_grouped"]
+    k5 = entry("fused_block_bwd_wgmma", (bf, 64, 256), wgmma)
+    k5["shape"] = f"dy[{n_tok},256,{o}] w[{eh},{o}] bf16, blk 64 -> [{d},256]"
+    k5g = entry("fused_block_bwd_grouped", (bf, 32, 256), grouped)
+    k5g["shape"] = f"dy[{n_tok},256,{o}] w[{eh},{o}] bf16, blk 32 -> [{d},256]"
+    return k5, k5g
 
 
 def phase_gather_kernels(kernels, gen):
@@ -805,7 +817,7 @@ KERNEL_NAMES = ("block_scatter_rows", "block_gather_sum", "inverse_gather_sum",
                 "flash_attention_fwd", "flash_attention_bwd", "fwht", "structured_mix",
                 "structured_mix_bwd", "routed_gather_sum", "fused_spectre_linear_wgmma",
                 "fused_spectre_linear_cluster", "fused_block_bwd_wgmma",
-                "fused_block_bwd_wmma_fma", "fused_spectre_linear_wide_wgmma",
+                "fused_block_bwd_grouped", "fused_spectre_linear_wide_cluster",
                 "fused_spectre_linear_bwd_wide")
 
 
@@ -1210,19 +1222,26 @@ def phase_sigterm(eval_cli, parse_config, tmp: str):
 
 
 def phase_fused_bwd_cli(kernels, perf_cli):
-    """Kernel 5's entry point, as a user starts it."""
-    kernels.reset_launch_counts()
-    res = perf_cli.main(["fused-bwd", "--batch", "256", "1024", "--iters", "10"])
-    counts = kernels.launch_counts()
-    if (counts["fused_block_bwd"] < 1 or counts["block_gather_sum"] < 1
-            or counts["fused_block_bwd_wgmma"] != counts["fused_block_bwd"]):
-        raise AssertionError(f"perf fused-bwd launched {counts}")
-    for b, r in res["fused_bwd"].items():
-        if not r["max_abs_diff"] <= 4 * FUSED_BWD_REL[torch.bfloat16] * r["largest_entry"]:
-            raise AssertionError(f"perf fused-bwd B={b}: chain and kernel differ by "
-                                 f"{r['max_abs_diff']} of {r['largest_entry']}")
-    print(f"perf fused-bwd launched {counts}", flush=True)
-    return counts, res["fused_bwd"]
+    """Kernel 5's entry point, as a user starts it: the flagship's blk=64
+    (the wgmma kernel), then blk=32 and 16 (the token-grouped kernel)."""
+    launches, out = {}, {}
+    for blk, route in ((64, "fused_block_bwd_wgmma"), (32, "fused_block_bwd_grouped"),
+                       (16, "fused_block_bwd_grouped")):
+        kernels.reset_launch_counts()
+        res = perf_cli.main(["fused-bwd", "--batch", "256", "1024", "--iters", "10",
+                             "--blk", str(blk)])
+        counts = kernels.launch_counts()
+        if (counts["fused_block_bwd"] < 1 or counts["block_gather_sum"] < 1
+                or counts[route] != counts["fused_block_bwd"]):
+            raise AssertionError(f"perf fused-bwd --blk {blk} launched {counts}")
+        for b, r in res["fused_bwd"].items():
+            if not r["max_abs_diff"] <= 4 * FUSED_BWD_REL[torch.bfloat16] * r["largest_entry"]:
+                raise AssertionError(f"perf fused-bwd blk={blk} B={b}: chain and kernel differ "
+                                     f"by {r['max_abs_diff']} of {r['largest_entry']}")
+        print(f"perf fused-bwd --blk {blk} launched {counts}", flush=True)
+        launches[route] = launches.get(route, 0) + counts[route]
+        out[f"blk{blk}"] = res["fused_bwd"]
+    return launches, out
 
 
 # the attention kernels against their plain versions, as a share of the
@@ -1958,20 +1977,23 @@ def phase_gather_tm(kernels, parse_config):
 # kernel) and the pool's K != N, in bf16 and f32, and N = 1,100 (not a
 # multiple of 8: bf16 on the WMMA product); rows of a B=64 batch
 C6_SHAPES = ((4160, 1536, 1536), (4160, 768, 2048), (4160, 768, 1100))
+# the wide cluster kernel at its reach (a cluster of 16 blocks) and the
+# cluster kernel beyond it: bf16, forward only
+C6_REACH_SHAPES = ((1040, 512, 4096), (1040, 512, 4608))
 
 
 def phase_c6(kernels, gen):
-    """Kernel 2 above N = 1,024 (the two-pass wide kernel for bf16 that TMA
+    """Kernel 2 above N = 1,024 (the wide cluster kernel for bf16 that TMA
     can describe, the cluster kernel for float32 and N = 1,100) against the
     plain versions under the limits of the one-pass kernels' phases: out and
     h, the Function's gradients, and the backward with its wide chain; two
-    runs bitwise; the kernel each call takes; times back to back and on the
-    device beside the bound, the plain version and the cuBLAS chain. Returns
-    the wide kernel's entry, the wide chain's, and the cluster kernel's
-    numbers here (for its entry of phase 4)."""
+    runs bitwise; the kernel each call takes, launched exactly; times back
+    to back and on the device beside the bound, the plain version and the
+    cuBLAS chain. Then, forward only, the wide cluster kernel at its reach
+    (N = 4,096, a cluster of 16 blocks) and the cluster kernel beyond it.
+    Returns the entries of the wide cluster kernel and the wide chain, and
+    the cluster kernel's numbers here (for its entry of phase 4)."""
     import torch.nn.functional as F
-
-    from spectre_tpu_torch.utils.timing import BF16_FLOPS, FP32_FLOPS
 
     limits = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     worst, worst_bwd, worst_bwd_abs, times = {}, {}, {}, {}
@@ -1988,20 +2010,22 @@ def phase_c6(kernels, gen):
             if k > 1024 and dtype == torch.bfloat16:
                 limit = 4e-2  # phase_kernel2's rule: pre-LN values and the residual reach [4, 8)
             route = kernels.forward_kernel(dtype, k, n)
-            want_route = ("fused_spectre_linear_wide_wgmma"
+            want_route = ("fused_spectre_linear_wide_cluster"
                           if dtype == torch.bfloat16 and n % 8 == 0
                           else "fused_spectre_linear_cluster")
             if route != want_route:
                 raise AssertionError(f"C6 ({m}x{k})x({k}x{n}) {dtype} routed to {route}")
             args = [t.to("cuda", dtype) for t in (x, w, bias, gamma, beta)]
             cd = ct.to("cuda", dtype)
-            n0 = kernels.launch_counts()[route]
+            n0 = kernels.launch_counts()
             got = kernels.fused_spectre_linear(*args)
             got2, h = kernels.fused_spectre_linear(*args, save_h=True)
             got3, h3 = kernels.fused_spectre_linear(*args, save_h=True)
             ref, ref_h = kernels.fused_spectre_linear_plain(*args, save_h=True)
             torch.cuda.synchronize()
-            if kernels.launch_counts()[route] != n0 + 3:
+            n1 = kernels.launch_counts()
+            if {c: n1[c] - n0[c] for c in n1 if n1[c] != n0[c]} != {
+                    route: 3, "fused_spectre_linear": 3}:
                 raise AssertionError(f"C6: three calls did not launch {route} three times")
             if not (torch.equal(got, got2) and torch.equal(got2, got3) and torch.equal(h, h3)):
                 raise AssertionError(f"C6 {route} ({m}x{k})x({k}x{n}) {dtype}: two runs differ")
@@ -2075,6 +2099,57 @@ def phase_c6(kernels, gen):
         del x, w, ct
         torch.cuda.empty_cache()
 
+    # forward only: the wide cluster kernel at its reach and the cluster
+    # kernel beyond it, bf16
+    reach = kernels.fused_linear.wide_cluster_reach(torch.cuda.current_device())
+    if reach != 4096:
+        raise AssertionError(f"C6: the wide cluster kernel reaches N = {reach} on this card, "
+                             "not 4,096 (a non-portable cluster of 16)")
+    for m, k, n in C6_REACH_SHAPES:
+        x = torch.randn(m, k, generator=gen)
+        w = torch.empty(k, n).uniform_(-k ** -0.5, k ** -0.5, generator=gen)
+        args = [t.to("cuda", torch.bfloat16) for t in (
+            x, w, torch.empty(n).uniform_(-k ** -0.5, k ** -0.5, generator=gen),
+            1.0 + 0.1 * torch.randn(n, generator=gen), 0.1 * torch.randn(n, generator=gen))]
+        route = kernels.forward_kernel(torch.bfloat16, k, n)
+        want_route = ("fused_spectre_linear_wide_cluster" if n <= reach
+                      else "fused_spectre_linear_cluster")
+        if route != want_route:
+            raise AssertionError(f"C6 ({m}x{k})x({k}x{n}) bf16 routed to {route}")
+        n0 = kernels.launch_counts()
+        got, h = kernels.fused_spectre_linear(*args, save_h=True)
+        got2, h2 = kernels.fused_spectre_linear(*args, save_h=True)
+        ref, ref_h = kernels.fused_spectre_linear_plain(*args, save_h=True)
+        torch.cuda.synchronize()
+        n1 = kernels.launch_counts()
+        if {c: n1[c] - n0[c] for c in n1 if n1[c] != n0[c]} != {route: 2,
+                                                               "fused_spectre_linear": 2}:
+            raise AssertionError(f"C6: two calls did not launch {route} twice")
+        if not (torch.equal(got, got2) and torch.equal(h, h2)):
+            raise AssertionError(f"C6 {route} ({m}x{k})x({k}x{n}): two runs differ")
+        err = max(max_abs_diff(got, ref), max_abs_diff(h, ref_h))
+        worst[route, torch.bfloat16] = max(worst.get((route, torch.bfloat16), 0.0), err)
+        if not err <= limits[torch.bfloat16]:
+            raise AssertionError(f"C6 {route} ({m}x{k})x({k}x{n}): max abs err {err}")
+        t = {"ms": cuda_time_ms(lambda: kernels.fused_spectre_linear(*args, save_h=True), iters=10),
+             "device_ms": device_time_ms(
+                 lambda: kernels.fused_spectre_linear(*args, save_h=True), iters=5),
+             "plain_ms": cuda_time_ms(lambda: kernels.fused_spectre_linear_plain(*args), iters=5),
+             "library_ms": cuda_time_ms(lambda: F.gelu(F.layer_norm(
+                 torch.addmm(args[2], args[0], args[1]), (n,), args[3], args[4])), iters=10),
+             "library_device_ms": device_time_ms(lambda: F.gelu(F.layer_norm(
+                 torch.addmm(args[2], args[0], args[1]), (n,), args[3], args[4])), iters=5)}
+        t["bound_ms"], t["bound_by"] = bound((m * k + k * n + 3 * n + 2 * m * n) * 2,
+                                             2 * m * k * n, BF16_FLOPS)
+        t.update(route=route, err=err)
+        times[m, k, n, torch.bfloat16] = t
+        print(f"C6 {route} ({m}x{k})x({k}x{n}) bf16: max abs err {err:.3g} (out and h), two "
+              f"runs bitwise; forward {t['ms']:.4f} ms with h (device {t['device_ms']:.4f}), "
+              f"cuBLAS chain {t['library_ms']:.4f} (device {t['library_device_ms']:.4f}), plain "
+              f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} by {t['bound_by']}", flush=True)
+        del x, w, args, got, got2, h, h2, ref, ref_h
+        torch.cuda.empty_cache()
+
     def entry(name, src, line, key, bwd=False):
         t = times[key]
         m, k, n, dtype = key
@@ -2082,7 +2157,7 @@ def phase_c6(kernels, gen):
         others = {f"{mm}x{kk}x{nn}_{str(dt)[6:]}": {
             "ms": v[p + "ms"], "device_ms": v[p + "device_ms"], "bound_ms": v[p + "bound_ms"]}
             for (mm, kk, nn, dt), v in times.items()
-            if (bwd or v["route"] == name) and (mm, kk, nn, dt) != key}
+            if (p + "ms" in v if bwd else v["route"] == name) and (mm, kk, nn, dt) != key}
         return {"name": name, "route": "cuda", "source": f"spectre_tpu_torch/csrc/{src}",
                 "replaces": f"spectre_tpu/ops/pallas/fused_linear.py:{line}",
                 "ms": t[p + "ms"],
@@ -2093,14 +2168,14 @@ def phase_c6(kernels, gen):
                     ": the wide chain and both products" if bwd else ", writing h")}
 
     bf, f32 = torch.bfloat16, torch.float32
-    wide_wgmma = entry("fused_spectre_linear_wide_wgmma", "fused_spectre_linear.cu", 94,
-                       (4160, 1536, 1536, bf))
+    wide_cluster = entry("fused_spectre_linear_wide_cluster", "fused_spectre_linear.cu", 94,
+                         (4160, 1536, 1536, bf))
     wide_bwd = entry("fused_spectre_linear_bwd_wide", "fused_spectre_linear_bwd.cu", 147,
                      (4160, 1536, 1536, bf), bwd=True)
     wide_bwd["max_abs_err"] = worst_bwd_abs[bf]
     wide_bwd["max_rel_err"] = worst_bwd[bf]
     wide_bwd["max_rel_err_f32"] = worst_bwd[f32]
-    wide_wgmma["max_abs_err"] = worst["fused_spectre_linear_wide_wgmma", bf]
+    wide_cluster["max_abs_err"] = worst[wide_cluster["name"], bf]
     name = "fused_spectre_linear_cluster"
     cluster = {"max_abs_err_c6": worst[name, f32], "max_abs_err_c6_bf16": worst[name, bf],
                "times_c6": {f"{m}x{k}x{n}_{str(dt)[6:]}": {
@@ -2108,15 +2183,15 @@ def phase_c6(kernels, gen):
                                            "library_device_ms", "bound_ms", "bound_by")}
                    for (m, k, n, dt), v in times.items() if v["route"] == name}}
     end = kernels.launch_counts()
-    for k in (wide_wgmma, wide_bwd):
+    for k in (wide_cluster, wide_bwd):
         k["launches_c6_phase"] = end[k["name"]] - start[k["name"]]
     cluster["launches_c6_phase"] = end[name] - start[name]
-    print(f"C6: kernel 2 takes N = {', '.join(str(s[2]) for s in C6_SHAPES)} on the card in bf16 "
-          f"and f32; forward max abs err bf16 {wide_wgmma['max_abs_err']:.3g} (wide wgmma), "
-          f"{cluster['max_abs_err_c6_bf16']:.3g} (cluster, N = 1,100), f32 "
-          f"{cluster['max_abs_err_c6']:.3g} (cluster); backward rel err bf16 "
+    print(f"C6: kernel 2 takes N = {', '.join(str(s[2]) for s in C6_SHAPES + C6_REACH_SHAPES)} "
+          f"on the card; forward max abs err bf16 {wide_cluster['max_abs_err']:.3g} (wide "
+          f"cluster), {cluster['max_abs_err_c6_bf16']:.3g} (cluster, N = 1,100 and "
+          f"{C6_REACH_SHAPES[-1][2]}), f32 {cluster['max_abs_err_c6']:.3g} (cluster); backward rel err bf16 "
           f"{worst_bwd[bf]:.3g}, f32 {worst_bwd[f32]:.3g}", flush=True)
-    return wide_wgmma, wide_bwd, cluster
+    return wide_cluster, wide_bwd, cluster
 
 
 DISTILL_CONFIG = os.path.join(ROOT, "spectre_tpu_torch", "configs", "distill_cifar100.py")
@@ -2820,7 +2895,6 @@ def phase_perf_modes(kernels, perf_cli, gen) -> dict:
 
     from spectre_tpu_torch.models import SpectreEncoderLayer, SpectreLinear, SpectreViT
     from spectre_tpu_torch.ops import make_structured_tables
-    from spectre_tpu_torch.utils.timing import FP32_FLOPS
 
     calls = PERF_WARMUP + PERF_ITERS
     fwd, cluster = "fused_spectre_linear", "fused_spectre_linear_cluster"
@@ -3405,7 +3479,7 @@ def main() -> int:
     k11 = phase_linear_bwd(kernels, gen)
     k12, k14, c6_cluster = phase_c6(kernels, gen)
     k2_head.update(c6_cluster)
-    k5 = phase_kernel5(kernels)
+    k5, k5g = phase_kernel5(kernels)
     k3, k4 = phase_gather_kernels(kernels, gen)
     k8, k9 = phase_attention(kernels)
     k6 = phase_fwht(kernels, hadamard_matrix)
@@ -3471,6 +3545,7 @@ def main() -> int:
     k3["launches"] = trainer_run["block_gather_sum"]
     k4["launches"] = uniform_run["inverse_gather_sum"]
     k5["launches"] = fused_run["fused_block_bwd_wgmma"]
+    k5g["launches"] = fused_run["fused_block_bwd_grouped"]
     k1["launches_serving"] = serving["block_scatter_rows"]
     k2["launches_serving"] = serving["fused_spectre_linear_wgmma"]
     k2_head["launches_serving"] = serving["fused_spectre_linear_cluster"]
@@ -3504,9 +3579,9 @@ def main() -> int:
     k8["launches_export_vit"] = export_families["vit"]["flash_attention_fwd"]
     k7["launches_export_structured"] = export_families["structured"]["structured_mix"]
     # kernel 2 above N = 1,024 in bf16 that TMA can describe: the trainer
-    # launches it no time (no shipped config has N > 1,024); the C6 phase's
-    # own launches are beside. repl/perf.py linear's 8-row float32 rows run
-    # the cluster kernel at every dim
+    # launches neither wide kernel (no shipped config has N > 1,024); the C6
+    # phase's own launches are beside. repl/perf.py linear's 8-row float32
+    # rows run the cluster kernel at every dim
     for k in (k12, k14):
         k["launches"] = k["launches_trainer"] = trainer_run[k["name"]]
     k2_head["times_perf_linear"] = perf_modes["wide"]
@@ -3537,7 +3612,7 @@ def main() -> int:
             k[f"launches_parallel_gloo_{kind}_rank0"] = parallel["gloo"][kind]["launches"][counter]
     k2_head["library_device_ms"] = perf_modes["head"]["chain_device_ms"]
     k2_head["head_times_again"] = perf_modes["head"]
-    result = {"kernels": [k1, k2, k2_head, k11, k3, k4, k5, k8, k9, k6, k7, k10, k12, k14],
+    result = {"kernels": [k1, k2, k2_head, k11, k3, k4, k5, k5g, k8, k9, k6, k7, k10, k12, k14],
               "train_step": {f"mix_block={blk}": {f"B={b}": v for b, v in t.items()}
                              for blk, t in step_times.items()},
               "trainer": trainer, "fused_bwd": fused_bwd, "bench": bench, "vit": vit,

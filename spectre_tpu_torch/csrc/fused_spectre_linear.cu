@@ -17,12 +17,13 @@
 // The statistics are always those of the float32 sums, not of the rounded h.
 //
 // Three kernels, picked by ops/kernels/fused_linear.py::forward_kernel:
-// fused_spectre_linear_wgmma (bf16 that TMA can describe, N <= 768),
-// fused_spectre_linear_wide_wgmma (the same above N = 1,024, further down),
-// and fused_spectre_linear_cluster, everything else: float32 at any K and N,
-// bf16 whose operands TMA cannot describe (the head's N = 100, whose 200-byte
-// rows of W break TMA's 16-byte stride rule; K or N not a multiple of 8;
-// unaligned pointers), and bf16 with 768 < N <= 1,024.
+// fused_spectre_linear_wgmma (bf16 that TMA can describe, N <= 768);
+// fused_spectre_linear_wide_cluster (the same above N = 768, up to the
+// largest cluster the card holds: N = 4,096 on the H100, further down); and
+// fused_spectre_linear_cluster, everything else: float32 at any K and N,
+// bf16 whose operands TMA cannot describe (the head's N = 100, whose
+// 200-byte rows of W break TMA's 16-byte stride rule; K or N not a multiple
+// of 8; unaligned pointers) and bf16 beyond the wide cluster's reach.
 //
 // fused_spectre_linear_cluster. What bounds it: the shapes it takes are
 // small in rows (the head: M = 1 .. 1,024 rows, N = 100; float32 sweeps on 8
@@ -923,78 +924,104 @@ extern "C" int fused_spectre_linear_wgmma(const void* x, const void* w, const vo
 }
 
 
-// ------------------------------------------------------------ N > 1,024
+// ------------------------------------------------------------ N > 768
 //
-// fused_spectre_linear_wide_wgmma (bf16 that TMA can describe): the same
-// function for any N, where a block can no longer hold a whole output row,
-// in two passes. (float32, and bf16 that TMA cannot describe, take the
-// cluster kernel above at any N.)
+// fused_spectre_linear_wide_cluster (bf16 that TMA can describe, 768 < N
+// <= 256 * the largest cluster the card launches: 2,048 with a portable 8,
+// 4,096 with a non-portable 16): the whole function in one launch with no
+// workspace, where a block can no longer hold a whole output row. A
+// thread-block cluster of cn = ceil(N / 256) blocks shares a row tile of
+// 128 rows; block jn (its rank) owns columns [256 jn, 256 jn + 256). Each
+// block runs the mainloop of fused_linear_wgmma_kernel: two warpgroups of
+// 64 rows, each a 64 x 256 f32 tile in 128 registers a thread; its first
+// thread fills a ring of 4 stages by TMA, a stage being the two x boxes
+// and the four W boxes of the block's columns (48 KB). One block an SM.
+// Measured on the H100 and not kept: one warpgroup a block with 2 stages
+// (two blocks an SM) or 4, and a producer warp beside two warpgroups, all
+// slower at the C6 shapes.
+// Epilogue, in registers: h = sums + bias (stored by TMA when asked); each
+// row's (mean, M2) over the block's columns, by two passes over the
+// registers (a row's 256 columns are one quad's: shuffles, no shared memory),
+// the second summing the deviations from the first mean to correct it; the
+// pair pushed into the shared memory of every block of the cluster (DSMEM);
+// one cluster barrier; the cn partials combined in rank order by Chan's
+// formula (count of a block: its columns inside N; divisor N), as the
+// cluster kernel above does; then gamma, beta, erf GELU and the identity
+// residual (x's columns of this block, K == N), and out stored once by TMA.
+// The statistics are those of the float32 sums. After the cluster barrier
+// no block touches another's shared memory, so none waits to leave; before
+// the push every block must have started (an arrive at the start, a wait
+// before the push). Fixed orders throughout: two runs give the same bits.
+// What bounds it: at (4,160 x 1,536)(1,536 x 1,536) bf16 19.6 GFLOP (0.0198
+// ms) against 2 M N + M K + K N values moved (0.011 ms); every block of a
+// cluster reads the x tile, and every row tile all of W, from L2.
 //
-// 1. A column-tiled product writes work = x @ W + b, float32 [M, N], a
-//    workspace the wrapper allocates for the call: 64 x 256 tiles on the
-//    wgmma mainloop above (one warpgroup, a ring of 4 stages of the x box
-//    and four W boxes).
-// 2. A row kernel, one block a row: the LayerNorm statistics of the float32
-//    row (two passes, the mean, then the squared deviations), GELU with
-//    erff, the identity residual when K == N, out cast once; with h_out, h
-//    is the row cast once to the input dtype.
-//
-// Where pass 2 reads from: the float32 workspace, not h. The plain version
-// (and the TPU kernel) normalise the float32 sums, so the statistics here
-// are of the same values; h in bf16 is only the saved copy for the
-// backward. Both passes add in a fixed order (block reductions in warp
-// order), so two runs give the same bits. What bounds it: at (4,160 x
-// 1,536)(1,536 x 1,536) bf16, 19.6 GFLOP (0.020 ms at 989 TFLOP/s) against
-// 2 M N bytes of h and out and the operands (0.011 ms); the workspace adds
-// 8 M N bytes (written once, read once from L2 or memory), a price of the
-// design.
-
 namespace {
 
-constexpr int kWideStages = 4;   // wgmma product: ring stages
-constexpr int kWideStage = wg::kBoxBytes * 5;  // the x box, then four W boxes
-constexpr int kWideSmem = kWideStages * kWideStage + 1024;
-constexpr int kRowThreads = 256;
+struct WcCfg {
+  static constexpr int NWG = 2;  // warpgroups of 64 rows
+  static constexpr int S = 4;    // ring stages
+  static constexpr int ROWS = 64 * NWG;
+  static constexpr int STAGE = wg::kBoxBytes * (NWG + 4);  // NWG x boxes, then four W boxes
+  static constexpr int THREADS = 128 * NWG;
+  static constexpr int SMEM = S * STAGE + 3 * 256 * 4 + kClMaxCluster * ROWS * 8 + 1024;
+  // out and h staged for the TMA store in the freed stage buffers
+  static_assert(2 * NWG * 4 * wg::kBoxBytes <= S * STAGE, "staging does not fit");
+};
 
-// 64 x 256 tile (blockIdx.x: rows, blockIdx.y: columns) of x @ W + b into
-// work, float32. The mainloop of fused_linear_wgmma_kernel<1>, its W boxes
-// shifted to the tile's columns.
-__global__ void __launch_bounds__(128, 1)
-wide_product_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
-                          const __grid_constant__ CUtensorMap wmap,
-                          const bf16* __restrict__ bias, float* __restrict__ work, int M, int K,
-                          int N) {
-  constexpr int S = kWideStages;
+__global__ void __launch_bounds__(WcCfg::THREADS, 1)
+fused_linear_wide_cluster_kernel(const __grid_constant__ CUtensorMap xmap,
+                                 const __grid_constant__ CUtensorMap wmap,
+                                 const __grid_constant__ CUtensorMap omap,
+                                 const __grid_constant__ CUtensorMap hmap,
+                                 const bf16* __restrict__ x, const bf16* __restrict__ bias,
+                                 const bf16* __restrict__ gamma, const bf16* __restrict__ beta,
+                                 int M, int K, int N, int cn, float eps, int save_h) {
+  using C = WcCfg;
+  constexpr int NWG = C::NWG, S = C::S;
   extern __shared__ unsigned char smem_raw[];
   __shared__ wg::Ring<S> ring;
   unsigned char* smem = wg::align1024(smem_raw);
+  float* pb = reinterpret_cast<float*>(smem + S * C::STAGE);  // [3][256]: bias, gamma, beta
+  float2* stats = reinterpret_cast<float2*>(pb + 3 * 256);     // [cn][ROWS]: (mean, M2)
+  cg::cluster_group cluster = cg::this_cluster();
+  const int jn = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x;
-  const int m0 = blockIdx.x * 64, n0 = blockIdx.y * 256;
-  const int nk = (K + 63) / 64;
-  const int nbox = min(4, (N - n0 + 63) / 64);
+  const int m0 = static_cast<int>(blockIdx.x / cn) * C::ROWS, n0 = jn * 256;
+  const int ncols = min(256, N - n0), nk = (K + 63) / 64, nbox = (ncols + 63) / 64;
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+  // step i: the x boxes at (k, m) = (64 i, m0 + 64 g), the W boxes at (n, k)
+  // = (n0 + 64 j, 64 i); boxes past N are not loaded (their columns are
+  // never stored)
   auto load = [&](int i) {
-    uint64_t* bar = ring.acquire(i, wg::kBoxBytes * (1 + nbox));
-    unsigned char* st = smem + (i % S) * kWideStage;
-    wg::tma_load_2d(st, &xmap, bar, i * 64, m0);
+    uint64_t* bar = ring.acquire(i, wg::kBoxBytes * (NWG + nbox));
+    unsigned char* st = smem + (i % S) * C::STAGE;
+    for (int g = 0; g < NWG; ++g) wg::tma_load_2d(st + g * wg::kBoxBytes, &xmap, bar, i * 64, m0 + 64 * g);
     for (int j = 0; j < nbox; ++j)
-      wg::tma_load_2d(st + wg::kBoxBytes * (1 + j), &wmap, bar, n0 + j * 64, i * 64);
+      wg::tma_load_2d(st + wg::kBoxBytes * (NWG + j), &wmap, bar, n0 + j * 64, i * 64);
   };
-  if (tid == 0) ring.init(4);
+  if (tid == 0) ring.init(C::THREADS / 32);
+  for (int c = tid; c < 256; c += C::THREADS) {
+    const bool in = c < ncols;
+    pb[c] = in ? __bfloat162float(bias[n0 + c]) : 0.f;
+    pb[256 + c] = in ? __bfloat162float(gamma[n0 + c]) : 0.f;
+    pb[512 + c] = in ? __bfloat162float(beta[n0 + c]) : 0.f;
+  }
   __syncthreads();
   if (tid == 0)
     for (int i = 0; i < S && i < nk; ++i) load(i);
 
-  // acc[4c + 2 half + e]: row r0 + 8 half, column n0 + 8c + cq + e (the
-  // layout of fused_linear_wgmma_kernel). Boxes past N are not loaded:
-  // their columns hold stale values and are not stored.
-  const int warp = tid / 32, lane = tid % 32;
+  // warpgroup g owns rows [64 g, 64 g + 64) of the tile, all 256 columns:
+  // acc[4c + 2 half + e] is row r0 + 8 half, column 8c + cq + e (the layout
+  // of fused_linear_wgmma_kernel)
+  const int g = tid / 128, warp = (tid % 128) / 32, lane = tid % 32;
   const int r0 = warp * 16 + lane / 4, cq = (lane % 4) * 2;
   float acc[128];
   const uint32_t base = wg::smem_u32(smem);
   for (int kt = 0; kt < nk; ++kt) {
     ring.wait_full(kt);
-    const uint32_t xs = base + (kt % S) * kWideStage;
-    const uint32_t ws = xs + wg::kBoxBytes;
+    const uint32_t st = base + (kt % S) * C::STAGE;
+    const uint32_t xs = st + g * wg::kBoxBytes, ws = st + NWG * wg::kBoxBytes;
     wg::fence_operands(acc);
     wg::wgmma_fence();
 #pragma unroll
@@ -1004,7 +1031,7 @@ wide_product_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                               kt > 0 || kk > 0);
     wg::wgmma_commit();
     if (kt > 0) {
-      wg::wgmma_wait<1>();
+      wg::wgmma_wait<1>();  // the previous step's products are done: free, refill
       if (lane == 0) ring.release(kt - 1);
       if (tid == 0 && kt - 1 + S < nk) load(kt - 1 + S);
       __syncwarp();
@@ -1013,102 +1040,239 @@ wide_product_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
   wg::wgmma_wait<0>();
   wg::fence_operands(acc);
 
+  // out and h go to this warpgroup's four 64 x 64 boxes of each in the
+  // stage memory, in the 128-byte-swizzled box layout, and out by TMA
+  wg::named_barrier(1, C::THREADS);  // every warpgroup is past its last wgmma
+  unsigned char* ostage = smem + g * 4 * wg::kBoxBytes;
+  unsigned char* hstage = smem + (NWG + g) * 4 * wg::kBoxBytes;
+  auto box_offset = [&](int c, int half) {
+    const int r = r0 + 8 * half;
+    return (c / 8) * wg::kBoxBytes + r * 128 + (((c % 8) ^ (r % 8)) * 16) + cq * 2;
+  };
+  auto store_boxes = [&](const CUtensorMap* map, const unsigned char* stage) {
+    wg::fence_proxy_async();
+    wg::named_barrier(2 + g, 128);
+    if (tid % 128 == 0) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+        if (b * 64 < ncols) wg::tma_store_2d(map, stage + b * wg::kBoxBytes, n0 + b * 64, m0 + 64 * g);
+      wg::tma_store_commit();
+    }
+  };
+  if (save_h) {
+#pragma unroll
+    for (int c = 0; c < 32; ++c) {
+      const float2 bb = *reinterpret_cast<const float2*>(pb + c * 8 + cq);
+#pragma unroll
+      for (int half = 0; half < 2; ++half)
+        *reinterpret_cast<__nv_bfloat162*>(hstage + box_offset(c, half)) =
+            __floats2bfloat162_rn(acc[4 * c + 2 * half] + bb.x, acc[4 * c + 2 * half + 1] + bb.y);
+    }
+    store_boxes(&hmap, hstage);
+  }
+
+  // (mean, M2) of rows r0 and r0 + 8 over this block's columns; a quad
+  // holds a row
+  const float nb = static_cast<float>(ncols);
+  float s0 = 0.f, s1 = 0.f;
 #pragma unroll
   for (int c = 0; c < 32; ++c) {
-    const int col = n0 + c * 8 + cq;
-    if (col < N) {  // N % 8 == 0: col + 1 < N too
-      const float b0 = __bfloat162float(bias[col]), b1 = __bfloat162float(bias[col + 1]);
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = m0 + r0 + 8 * half;
-        if (r < M)
-          *reinterpret_cast<float2*>(work + static_cast<long long>(r) * N + col) =
-              make_float2(acc[4 * c + 2 * half] + b0, acc[4 * c + 2 * half + 1] + b1);
-      }
+    if (c * 8 + cq < ncols) {  // N % 8 == 0: both columns are in
+      const float2 b = *reinterpret_cast<const float2*>(pb + c * 8 + cq);
+      s0 += (acc[4 * c] + b.x) + (acc[4 * c + 1] + b.y);
+      s1 += (acc[4 * c + 2] + b.x) + (acc[4 * c + 3] + b.y);
     }
   }
-}
-
-// the sum of v over the block, every thread getting the same bits: warps by
-// shuffles, then the warp sums in warp order
-__device__ __forceinline__ float block_sum(float v, float* red) {
-  v = warp_sum(v);
-  if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
-  __syncthreads();
-  float s = 0.f;
+  auto quad_sum = [](float v) {
+    v += __shfl_xor_sync(0xffffffffu, v, 1);
+    return v + __shfl_xor_sync(0xffffffffu, v, 2);
+  };
+  const float mean0 = quad_sum(s0) / nb, mean1 = quad_sum(s1) / nb;
+  float d0 = 0.f, d1 = 0.f, q0 = 0.f, q1 = 0.f;
 #pragma unroll
-  for (int i = 0; i < kRowThreads / 32; ++i) s += red[i];
-  __syncthreads();  // red is reused by the next call
-  return s;
-}
+  for (int c = 0; c < 32; ++c) {
+    if (c * 8 + cq < ncols) {
+      const float2 b = *reinterpret_cast<const float2*>(pb + c * 8 + cq);
+      const float a = acc[4 * c] + b.x - mean0, e = acc[4 * c + 1] + b.y - mean0;
+      const float f = acc[4 * c + 2] + b.x - mean1, u = acc[4 * c + 3] + b.y - mean1;
+      d0 += a + e;
+      q0 += a * a + e * e;
+      d1 += f + u;
+      q1 += f * f + u * u;
+    }
+  }
+  d0 = quad_sum(d0);
+  q0 = quad_sum(q0);
+  d1 = quad_sum(d1);
+  q1 = quad_sum(q1);
+  const float2 st0 = make_float2(mean0 + d0 / nb, q0 - d0 * d0 / nb);
+  const float2 st1 = make_float2(mean1 + d1 / nb, q1 - d1 * d1 / nb);
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");  // every peer has started
+  const int row = 64 * g + r0;
+  for (int q = lane % 4; q < cn; q += 4) {
+    float2* peer = cluster.map_shared_rank(stats + jn * C::ROWS + row, q);
+    peer[0] = st0;
+    peer[8] = st1;
+  }
+  cluster.sync();  // every (mean, M2) is in; no block touches another's shared memory after
 
-// one block a row: LayerNorm of the float32 row of work, GELU, the identity
-// residual, out and (with h_out) h in T
-template <typename T>
-__global__ void __launch_bounds__(kRowThreads)
-wide_row_kernel(const float* __restrict__ work, const T* __restrict__ x,
-                const T* __restrict__ gamma, const T* __restrict__ beta, T* __restrict__ out,
-                T* __restrict__ h_out, int K, int N, float eps) {
-  __shared__ float red[kRowThreads / 32];
-  const long long m = blockIdx.x;
-  const float* row = work + m * N;
+  // the row statistics over N: the cn partials in rank order (Chan)
   const float inv_n = 1.f / static_cast<float>(N);
-  float s = 0.f;
-  for (int n = threadIdx.x; n < N; n += kRowThreads) s += row[n];
-  const float mean = block_sum(s, red) * inv_n;
-  float q = 0.f;
-  for (int n = threadIdx.x; n < N; n += kRowThreads) {
-    const float d = row[n] - mean;
-    q += d * d;
+  float mean[2], rstd[2];
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    float na = 0.f, mu = 0.f, m2 = 0.f;
+    for (int j = 0; j < cn; ++j) {
+      const float2 st = stats[j * C::ROWS + row + 8 * half];
+      const float nj = static_cast<float>(min(256, N - 256 * j));
+      if (j == 0) {
+        na = nj;
+        mu = st.x;
+        m2 = st.y;
+      } else {
+        const float n = na + nj, d = st.x - mu;
+        mu += d * (nj / n);
+        m2 += st.y + d * d * (na * nj / n);
+        na = n;
+      }
+    }
+    mean[half] = mu;
+    rstd[half] = rsqrtf(m2 * inv_n + eps);
   }
-  const float rstd = rsqrtf(block_sum(q, red) * inv_n + eps);
-  for (int n = threadIdx.x; n < N; n += kRowThreads) {
-    const float v = row[n];
-    if (h_out != nullptr) h_out[m * N + n] = from_f<T>(v);
-    float y = gelu_erf((v - mean) * rstd * to_f(gamma[n]) + to_f(beta[n]));
-    if (K == N) y += to_f(x[m * K + n]);
-    out[m * N + n] = from_f<T>(y);
+
+  const bool identity = K == N;
+#pragma unroll
+  for (int c = 0; c < 32; ++c) {
+    const int col = c * 8 + cq;
+    const float2 bb = *reinterpret_cast<const float2*>(pb + col);
+    const float2 gm = *reinterpret_cast<const float2*>(pb + 256 + col);
+    const float2 bt = *reinterpret_cast<const float2*>(pb + 512 + col);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int m = m0 + row + 8 * half;
+      const float v0 = acc[4 * c + 2 * half] + bb.x, v1 = acc[4 * c + 2 * half + 1] + bb.y;
+      float y0 = gelu_erf((v0 - mean[half]) * rstd[half] * gm.x + bt.x);
+      float y1 = gelu_erf((v1 - mean[half]) * rstd[half] * gm.y + bt.y);
+      if (identity && m < M && col < ncols) {  // K == N: x's row has N entries
+        const float2 xr = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            x + static_cast<long long>(m) * K + n0 + col));
+        y0 += xr.x;
+        y1 += xr.y;
+      }
+      *reinterpret_cast<__nv_bfloat162*>(ostage + box_offset(c, half)) =
+          __floats2bfloat162_rn(y0, y1);
+    }
   }
+  store_boxes(&omap, ostage);
+  if (tid % 128 == 0) wg::tma_store_wait_read();  // the stage memory outlives the reads
 }
 
-template <typename T>
-int launch_wide_row(const void* x, const void* g, const void* be, void* out, void* h_out,
-                    const float* work, long long M, long long K, long long N, float eps,
-                    cudaStream_t st) {
-  wide_row_kernel<T><<<static_cast<unsigned>(M), kRowThreads, 0, st>>>(
-      work, static_cast<const T*>(x), static_cast<const T*>(g), static_cast<const T*>(be),
-      static_cast<T*>(out), static_cast<T*>(h_out), static_cast<int>(K), static_cast<int>(N),
-      eps);
+int wide_cluster_config(cudaLaunchConfig_t& cfg, cudaLaunchAttribute* attr, int cn,
+                        long long M) {
+  using C = WcCfg;
+  auto kern = fused_linear_wide_cluster_kernel;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= wg::kMaxDevices) return cudaErrorInvalidDevice;
+  static std::atomic<bool> prepared[wg::kMaxDevices];
+  if (!prepared[dev].load(std::memory_order_acquire)) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::SMEM);
+    if (e == cudaSuccess) e = cudaFuncSetAttribute(kern, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    prepared[dev].store(true, std::memory_order_release);
+  }
+  cfg = {};
+  cfg.gridDim = dim3(static_cast<unsigned>((M + C::ROWS - 1) / C::ROWS * cn));
+  cfg.blockDim = dim3(C::THREADS);
+  cfg.dynamicSmemBytes = C::SMEM;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cn;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return 0;
+}
+
+// the clusters of cn blocks that can be resident at once (0: none launches)
+int wide_cluster_fits(int cn, int* clusters) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  const int e = wide_cluster_config(cfg, attr, cn, WcCfg::ROWS);
+  if (e != 0) return e;
+  const cudaError_t r =
+      cudaOccupancyMaxActiveClusters(clusters, fused_linear_wide_cluster_kernel, &cfg);
+  if (r != cudaSuccess) cudaGetLastError();  // not left for a later launch's check to find
+  return static_cast<int>(r);
+}
+
+int launch_wide_cluster(const void* x, const void* w, const void* b, const void* g,
+                        const void* be, void* out, void* h_out, long long M, long long K,
+                        long long N, float eps, cudaStream_t st) {
+  const int cn = static_cast<int>((N + 255) / 256);
+  CUtensorMap xm, wm, om, hm;
+  int e = wg::encode_rows(&xm, x, M, K);
+  if (e == 0) e = wg::encode_rows(&wm, w, K, N);
+  if (e == 0) e = wg::encode_rows(&om, out, M, N);
+  if (e == 0) e = wg::encode_rows(&hm, h_out != nullptr ? h_out : out, M, N);
+  if (e != 0) return e;
+  int dev = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= wg::kMaxDevices) return cudaErrorInvalidDevice;
+  // a cluster that cannot be resident is refused here, not left to hang
+  static std::atomic<bool> checked[wg::kMaxDevices][kClMaxCluster + 1];
+  if (!checked[dev][cn].load(std::memory_order_acquire)) {
+    int clusters = 0;
+    if ((e = wide_cluster_fits(cn, &clusters)) != 0) return e;
+    if (clusters == 0) return cudaErrorInvalidConfiguration;
+    checked[dev][cn].store(true, std::memory_order_release);
+  }
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr[1];
+  if ((e = wide_cluster_config(cfg, attr, cn, M)) != 0) return e;
+  cfg.stream = st;
+  const cudaError_t r = cudaLaunchKernelEx(
+      &cfg, fused_linear_wide_cluster_kernel, xm, wm, om, hm, static_cast<const bf16*>(x),
+      static_cast<const bf16*>(b), static_cast<const bf16*>(g), static_cast<const bf16*>(be),
+      static_cast<int>(M), static_cast<int>(K), static_cast<int>(N), cn, eps,
+      static_cast<int>(h_out != nullptr));
+  if (r != cudaSuccess) return static_cast<int>(r);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// bfloat16 only; N and K multiples of 8, x and W 16-byte aligned (what TMA
-// can describe); any N. h_out: null, or [M, N]; work: float32 [M, N].
-// Returns cudaGetLastError() after the launches (0 on success).
-extern "C" int fused_spectre_linear_wide_wgmma(const void* x, const void* w, const void* b,
-                                               const void* gamma, const void* beta, void* out,
-                                               void* h_out, void* work, long long M,
-                                               long long K, long long N, float eps,
-                                               void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || K % 8 || N % 8 || M > 0x7fffffffLL || K > 0x7fffffffLL ||
-      N > 0x7fffffffLL || (N + 255) / 256 > 65535 || reinterpret_cast<uintptr_t>(x) % 16 ||
-      reinterpret_cast<uintptr_t>(w) % 16)
+// bfloat16 only, every tensor in it; N and K multiples of 8, N <= 4,096,
+// x, W, out and h_out 16-byte aligned (what TMA can describe). h_out: null,
+// or [M, N] to receive the pre-LN activation. Returns cudaGetLastError()
+// after the launch (0 on success); a cluster of ceil(N / 256) blocks that
+// the card cannot hold is refused with an error.
+extern "C" int fused_spectre_linear_wide_cluster(const void* x, const void* w, const void* b,
+                                                 const void* gamma, const void* beta, void* out,
+                                                 void* h_out, long long M, long long K,
+                                                 long long N, float eps, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || K % 8 || N % 8 || N > 256LL * kClMaxCluster ||
+      M > 0x7fffffffLL || K > 0x7fffffffLL || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16 || reinterpret_cast<uintptr_t>(out) % 16 ||
+      reinterpret_cast<uintptr_t>(h_out) % 16)
     return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  CUtensorMap xm, wm;
-  int e = wg::encode_rows(&xm, x, M, K);
-  if (e == 0) e = wg::encode_rows(&wm, w, K, N);
-  if (e != 0) return e;
-  static std::atomic<bool> raised[wg::kMaxDevices];
-  if ((e = wg::raise_smem_once(wide_product_wgmma_kernel, kWideSmem, raised)) != 0) return e;
-  float* wk = static_cast<float*>(work);
-  const dim3 grid(static_cast<unsigned>((M + 63) / 64), static_cast<unsigned>((N + 255) / 256));
-  wide_product_wgmma_kernel<<<grid, 128, kWideSmem, st>>>(
-      xm, wm, static_cast<const bf16*>(b), wk, static_cast<int>(M), static_cast<int>(K),
-      static_cast<int>(N));
-  e = static_cast<int>(cudaGetLastError());
-  if (e != 0) return e;
-  return launch_wide_row<bf16>(x, gamma, beta, out, h_out, wk, M, K, N, eps, st);
+  return launch_wide_cluster(x, w, b, gamma, beta, out, h_out, M, K, N, eps,
+                             static_cast<cudaStream_t>(stream));
+}
+
+// The largest cluster of the wide cluster kernel's blocks (at most 16) that
+// the current card can hold, in *size: the kernel then takes N up to 256
+// times it. Returns 0 or a CUDA error.
+extern "C" int fused_spectre_linear_wide_cluster_reach(int* size) {
+  *size = 0;
+  for (int cn = kClMaxCluster; cn >= 1; --cn) {
+    int clusters = 0;
+    const int e = wide_cluster_fits(cn, &clusters);
+    if (e != 0 && e != cudaErrorInvalidClusterSize) return e;
+    if (e == 0 && clusters > 0) {
+      *size = cn;
+      return 0;
+    }
+  }
+  return 0;
 }

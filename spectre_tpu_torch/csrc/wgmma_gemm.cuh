@@ -1,5 +1,5 @@
 // wgmma_gemm.cuh: the Hopper matrix-product mainloop shared by kernel 2's
-// bf16 forward (csrc/fused_spectre_linear.cu) and kernel 5's bf16 kernel
+// bf16 forwards (csrc/fused_spectre_linear.cu) and kernel 5's bf16 kernels
 // (csrc/fused_block_bwd.cu), written by hand as inline PTX.
 //
 // The pieces, each a thin wrapper over one PTX instruction or CUDA call:
@@ -228,6 +228,11 @@ __device__ __forceinline__ void fence_proxy_async() {
 }
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+// arrive at a named barrier without waiting: the other `threads` - (this
+// warp's group) wait for it with named_barrier
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {

@@ -23,9 +23,10 @@ from spectre_tpu_torch.ops.kernels.block_scatter import (
 from spectre_tpu_torch.ops.kernels.fused_block_bwd import (
     block_bwd_kernel,
     fused_block_bwd,
+    fused_block_bwd_grouped,
     fused_block_bwd_plain,
     fused_block_bwd_wgmma,
-    fused_block_bwd_wmma_fma,
+    grouped_plan,
 )
 from spectre_tpu_torch.ops.kernels.fused_linear import (
     ClusterPlan,
@@ -40,7 +41,8 @@ from spectre_tpu_torch.ops.kernels.fused_linear import (
     fused_spectre_linear_grad,
     fused_spectre_linear_plain,
     fused_spectre_linear_wgmma,
-    fused_spectre_linear_wide_wgmma,
+    fused_spectre_linear_wide_cluster,
+    wide_cluster_size,
 )
 from spectre_tpu_torch.ops.kernels.fwht import fwht, fwht_grad, fwht_plain
 from spectre_tpu_torch.ops.kernels.inverse_gather import (
@@ -63,13 +65,13 @@ from spectre_tpu_torch.ops.kernels.structured_mix import (
 
 # kernel 2's forward and kernel 5 count each call in their wrapper and again
 # in the kernel it launched (kernel 2: ``_wgmma``, ``_cluster`` and
-# ``_wide_wgmma``; kernel 5: ``_wgmma`` and ``_wmma_fma``); kernel 2's
+# ``_wide_cluster``; kernel 5: ``_wgmma`` and ``_grouped``); kernel 2's
 # backward counts a wide chain again in ``_bwd_wide``
 KERNELS = (block_scatter_rows, block_gather_sum, inverse_gather_sum, fused_spectre_linear,
            fused_spectre_linear_bwd, fused_block_bwd, flash_attention_fwd, flash_attention_bwd,
            fwht, structured_mix, structured_mix_bwd, routed_gather_sum,
            fused_spectre_linear_wgmma, fused_spectre_linear_cluster, fused_block_bwd_wgmma,
-           fused_block_bwd_wmma_fma, fused_spectre_linear_wide_wgmma,
+           fused_block_bwd_grouped, fused_spectre_linear_wide_cluster,
            fused_spectre_linear_bwd_wide)
 
 
@@ -100,9 +102,9 @@ __all__ = [
     "block_scatter_rows_plain",
     "cluster_plan",
     "fused_block_bwd",
+    "fused_block_bwd_grouped",
     "fused_block_bwd_plain",
     "fused_block_bwd_wgmma",
-    "fused_block_bwd_wmma_fma",
     "fused_spectre_linear",
     "fused_spectre_linear_bwd",
     "fused_spectre_linear_bwd_plain",
@@ -111,10 +113,11 @@ __all__ = [
     "fused_spectre_linear_grad",
     "fused_spectre_linear_plain",
     "fused_spectre_linear_wgmma",
-    "fused_spectre_linear_wide_wgmma",
+    "fused_spectre_linear_wide_cluster",
     "fwht",
     "fwht_grad",
     "fwht_plain",
+    "grouped_plan",
     "inverse_gather_sum",
     "inverse_gather_sum_plain",
     "invert_tile_perms",
@@ -128,4 +131,5 @@ __all__ = [
     "structured_mix_bwd_plain",
     "structured_mix_grad",
     "structured_mix_plain",
+    "wide_cluster_size",
 ]

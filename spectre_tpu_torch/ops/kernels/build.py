@@ -46,11 +46,13 @@ _SIGNATURES = {
     "fused_spectre_linear_bwd_chain": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                        _LL, _LL, _LL, ctypes.c_float, _P),
     "fused_spectre_linear_wgmma": (_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL, ctypes.c_float, _P),
-    "fused_spectre_linear_wide_wgmma": (_P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL,
-                                        ctypes.c_float, _P),
+    "fused_spectre_linear_wide_cluster": (_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL,
+                                          ctypes.c_float, _P),
+    "fused_spectre_linear_wide_cluster_reach": (ctypes.POINTER(ctypes.c_int),),
     "fused_spectre_linear_bwd_wide": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _LL, _LL, _LL, ctypes.c_float, _P),
-    "fused_block_bwd": (ctypes.c_int, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P),
+    "fused_block_bwd_grouped": (ctypes.c_int, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL,
+                                _LL, ctypes.c_int, ctypes.c_int, _P),
     "fused_block_bwd_wgmma": (_P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P),
     "fwht": (_P, _P, _LL, _LL, ctypes.c_float, ctypes.c_int, _P),
     "structured_mix_fwd": (ctypes.c_int, _P, _P, _P, _P, _LL, _LL, _LL, _LL, ctypes.c_float, _P),

@@ -8,9 +8,12 @@ binv [H, d/blk] -> dxt [d, B]. It is ``block_gather_sum`` of the ``dg4`` that
 in device memory. The CUDA kernels are in ``csrc/fused_block_bwd.cu`` (they
 replace the TPU kernel ``spectre_tpu/ops/pallas/bwd_gather.py::fused_block_bwd_pallas``):
 ``fused_block_bwd_wgmma``, bf16 with blk a multiple of 64 on Hopper's wgmma +
-TMA mainloop (``csrc/wgmma_gemm.cuh``), and ``fused_block_bwd_wmma_fma``,
-float32 on the FP32 pipes (no TF32) and bf16 with blk 16 or 32 on WMMA.
-``block_bwd_kernel`` decides which one a call launches.
+TMA mainloop (``csrc/wgmma_gemm.cuh``), and ``fused_block_bwd_grouped``,
+float32 on the FP32 pipes (no TF32) and bf16 with blk % 64 != 0 on wgmma: a
+block owns a run of output rows and takes its (head, slab) pairs in steps
+grouped by source token, so that a token's dy tile is read once for all its
+slabs (the launch's shape is ``grouped_plan``'s). ``block_bwd_kernel``
+decides which one a call launches.
 As in the JAX package, the train step does not call it: it is reached from
 ``python -m spectre_tpu_torch.repl.perf fused-bwd``, which times it against
 the chain.
@@ -102,10 +105,27 @@ def block_bwd_kernel(dtype: torch.dtype, blk: int) -> str:
     """The name of the CUDA kernel that runs a call on the card:
     ``fused_block_bwd_wgmma`` for bfloat16 with blk a multiple of 64 (a
     64-row wgmma tile then lies in one token), else
-    ``fused_block_bwd_wmma_fma``."""
+    ``fused_block_bwd_grouped``."""
     if dtype == torch.bfloat16 and blk % 64 == 0:
         return "fused_block_bwd_wgmma"
-    return "fused_block_bwd_wmma_fma"
+    return "fused_block_bwd_grouped"
+
+
+# the grouped kernel's shapes (csrc/fused_block_bwd.cu: GbCfg, GfCfg,
+# kMaxPairs): batch columns a block, rows of dxt a block by dtype, and the
+# (head, slab) pairs a block's schedule holds
+GROUPED_BT = 128
+GROUPED_ROWS = {torch.bfloat16: 256, torch.float32: 128}
+GROUPED_MAX_PAIRS = 256
+
+
+def grouped_plan(dtype: torch.dtype, heads: int, blk: int) -> tuple[int, int]:
+    """(sb, J) of the grouped kernel: slabs of sb rows (64, 32 or 16, the
+    largest that divides blk: a block of the table is a run of slabs), J
+    slabs (J * sb rows of dxt) a thread block, as many as its rows allow
+    with at most GROUPED_MAX_PAIRS (head, slab) pairs."""
+    sb = 64 if blk % 64 == 0 else 32 if blk % 32 == 0 else 16
+    return sb, min(GROUPED_ROWS[dtype] // sb, max(1, GROUPED_MAX_PAIRS // heads))
 
 
 def _dims(dy, w, binv, blk: int) -> tuple:
@@ -124,19 +144,21 @@ def fused_block_bwd_wgmma(dy, w, s4, binv, blk: int, out) -> None:
     fused_block_bwd_wgmma.launches += 1
 
 
-def fused_block_bwd_wmma_fma(dy, w, s4, binv, blk: int, out) -> None:
-    """Launch the float32 / WMMA kernels on checked operands of the current
-    device into ``out``."""
-    err = load_library().fused_block_bwd(
+def fused_block_bwd_grouped(dy, w, s4, binv, blk: int, out) -> None:
+    """Launch the token-grouped kernel (float32, or bf16 with blk % 64 != 0)
+    on checked operands of the current device into ``out``, with
+    ``grouped_plan``'s shape."""
+    sb, j = grouped_plan(dy.dtype, binv.shape[0], blk)
+    err = load_library().fused_block_bwd_grouped(
         _DTYPE_CODES[dy.dtype], dy.data_ptr(), w.data_ptr(), s4.data_ptr(), binv.data_ptr(),
-        out.data_ptr(), *_dims(dy, w, binv, blk), current_stream(dy.get_device()))
-    check(err, "fused_block_bwd launch")
-    fused_block_bwd_wmma_fma.launches += 1
+        out.data_ptr(), *_dims(dy, w, binv, blk), sb, j, current_stream(dy.get_device()))
+    check(err, f"fused_block_bwd_grouped launch (sb={sb}, J={j})")
+    fused_block_bwd_grouped.launches += 1
 
 
 fused_block_bwd_wgmma.launches = 0
-fused_block_bwd_wmma_fma.launches = 0
-_KERNELS = {fn.__name__: fn for fn in (fused_block_bwd_wgmma, fused_block_bwd_wmma_fma)}
+fused_block_bwd_grouped.launches = 0
+_KERNELS = {fn.__name__: fn for fn in (fused_block_bwd_wgmma, fused_block_bwd_grouped)}
 
 
 def fused_block_bwd(dy: torch.Tensor, w: torch.Tensor, s4: torch.Tensor,

@@ -7,16 +7,20 @@ stays with the caller (``ops/linear.py``), as in the JAX package. The CUDA
 kernels are in ``csrc/fused_spectre_linear.cu`` (they replace the forward of
 the TPU kernel ``spectre_tpu/ops/pallas/fused_linear.py::fused_spectre_linear``):
 ``fused_spectre_linear_wgmma``, bf16 on Hopper's wgmma + TMA mainloop
-(``csrc/wgmma_gemm.cuh``) up to N = 768, and above N = 1,024
-``fused_spectre_linear_wide_wgmma`` (the same product into a float32
-workspace, then a row kernel), both for bf16 that TMA can describe; and
-``fused_spectre_linear_cluster`` for everything else: float32 at any K and N
-(exact float32 on the FP32 pipes, no TF32), bf16 that TMA cannot describe
-(the head's N = 100) and bf16 with 768 < N <= 1,024. It splits a row tile's
+(``csrc/wgmma_gemm.cuh``) up to N = 768; above it
+``fused_spectre_linear_wide_cluster``, a thread-block cluster of
+``wide_cluster_size(N)`` blocks on the same mainloop, each owning 256
+columns of a row tile and meeting the others in their shared memory for the
+LayerNorm statistics, up to the largest cluster the card holds (N = 4,096 on
+the H100), both for bf16 that TMA can describe; and
+``fused_spectre_linear_cluster`` for everything else: float32 at any K and
+N (exact float32 on the FP32 pipes, no TF32), bf16 that TMA cannot describe
+(the head's N = 100) and bf16 beyond the wide cluster's reach. It splits a row tile's
 columns, and for few rows its K, across a thread-block cluster whose blocks
-meet in each other's shared memory for the LayerNorm statistics; the plan is
-``cluster_plan``'s. ``forward_kernel`` decides which kernel a call launches,
-from what it can see: the dtype, K and N, and the alignment of the operands.
+meet in each other's shared memory for the LayerNorm statistics; the plan
+is ``cluster_plan``'s. ``forward_kernel`` decides which kernel a call
+launches, from what it can see: the dtype, K and N, the alignment of the
+operands and the wide cluster's reach on the card.
 
 With ``save_h`` the kernel also writes the pre-LayerNorm activation
 ``h = x @ W + b`` in x's dtype. ``fused_spectre_linear_grad`` is the
@@ -45,6 +49,7 @@ kernel or raises. There is no fallback from a CUDA tensor to the plain path.
 
 from __future__ import annotations
 
+import ctypes
 import functools
 import math
 from typing import NamedTuple
@@ -55,8 +60,8 @@ import torch.nn.functional as F
 from spectre_tpu_torch.ops.kernels.build import check, current_stream, load_library
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-# up to this N one block owns a whole output row and one warp a row of the
-# backward's chain; above, the wide kernels (csrc/fused_spectre_linear*.cu)
+# up to this N one warp holds a row of the backward's chain; above, the
+# wide chain (csrc/fused_spectre_linear_bwd.cu)
 ROW_N = 1024
 # the wgmma kernel's 64 x N float32 sums live in registers: 64 N of an SM's 65,536
 WGMMA_MAX_N = 768
@@ -95,20 +100,33 @@ def _validate(x, w, b, gamma, beta) -> None:
         raise TypeError(f"fused_spectre_linear takes float32 or bfloat16, not {x.dtype}")
 
 
-def forward_kernel(dtype: torch.dtype, k: int, n: int, aligned: bool = True) -> str:
-    """The name of the CUDA kernel that runs a forward with W [k, n] on the
-    card. Where TMA can describe the operands (bfloat16, k and n multiples
-    of 8, ``aligned``: x and W 16-byte aligned): ``fused_spectre_linear_wgmma``
-    for n <= WGMMA_MAX_N, ``fused_spectre_linear_wide_wgmma`` for n > ROW_N.
-    Everything else, ``fused_spectre_linear_cluster``: float32 (exact
-    float32), bf16 that TMA cannot describe (the head's n = 100 makes
-    200-byte rows of W, which TMA cannot stride) and bf16 with
-    WGMMA_MAX_N < n <= ROW_N."""
-    tma = dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 and aligned
-    if tma and n > ROW_N:
-        return "fused_spectre_linear_wide_wgmma"
-    if tma and n <= WGMMA_MAX_N:
-        return "fused_spectre_linear_wgmma"
+# the wide cluster kernel's columns a block (csrc/fused_spectre_linear.cu: WcCfg)
+WIDE_COLUMNS = 256
+
+
+def wide_cluster_size(n: int) -> int:
+    """Blocks in a cluster of the wide cluster kernel for N = ``n``: one for
+    every WIDE_COLUMNS columns."""
+    return -(-n // WIDE_COLUMNS)
+
+
+def forward_kernel(dtype: torch.dtype, k: int, n: int, aligned: bool = True,
+                   device: int | None = None) -> str:
+    """The name of the CUDA kernel that runs a forward with W [k, n] on card
+    ``device`` (None: the current one). Where TMA can describe the operands
+    (bfloat16, k and n multiples of 8, ``aligned``: x and W 16-byte
+    aligned): ``fused_spectre_linear_wgmma`` for n <= WGMMA_MAX_N, above it
+    ``fused_spectre_linear_wide_cluster`` up to the card's
+    ``wide_cluster_reach`` (asked only then; 4,096 on the H100). Everything
+    else, ``fused_spectre_linear_cluster``: float32 (exact float32), bf16
+    that TMA cannot describe (the head's n = 100 makes 200-byte rows of W,
+    which TMA cannot stride) and bf16 beyond the wide cluster's reach."""
+    if dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 and aligned:
+        if n <= WGMMA_MAX_N:
+            return "fused_spectre_linear_wgmma"
+        dev = torch.cuda.current_device() if device is None else device
+        if n <= wide_cluster_reach(dev):
+            return "fused_spectre_linear_wide_cluster"
     return "fused_spectre_linear_cluster"
 
 
@@ -261,22 +279,33 @@ def fused_spectre_linear_cluster(x, w, b, gamma, beta, out, h, eps: float) -> No
     fused_spectre_linear_cluster.launches += 1
 
 
-def fused_spectre_linear_wide_wgmma(x, w, b, gamma, beta, out, h, eps: float) -> None:
-    """Launch the bf16 two-pass kernel (wgmma product into a float32
-    workspace for this call, then the row pass) for any N on checked
-    operands of the current device."""
+def fused_spectre_linear_wide_cluster(x, w, b, gamma, beta, out, h, eps: float) -> None:
+    """Launch the bf16 wide cluster kernel (a cluster of
+    ``wide_cluster_size(N)`` blocks a row tile) on checked operands of the
+    current device into ``out`` (and ``h`` unless it is None)."""
     k, n = w.shape
-    work = torch.empty((x.numel() // k, n), dtype=torch.float32, device=x.device)
-    err = load_library().fused_spectre_linear_wide_wgmma(
+    err = load_library().fused_spectre_linear_wide_cluster(
         x.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        out.data_ptr(), None if h is None else h.data_ptr(), work.data_ptr(), x.numel() // k,
-        k, n, eps, current_stream(x.get_device()))
-    check(err, "fused_spectre_linear_wide_wgmma launch")
-    fused_spectre_linear_wide_wgmma.launches += 1
+        out.data_ptr(), None if h is None else h.data_ptr(), x.numel() // k, k, n, eps,
+        current_stream(x.get_device()))
+    check(err, f"fused_spectre_linear_wide_cluster launch (cluster of {wide_cluster_size(n)})")
+    fused_spectre_linear_wide_cluster.launches += 1
+
+
+@functools.lru_cache(maxsize=None)
+def wide_cluster_reach(device_index: int) -> int:
+    """The largest N the wide cluster kernel takes on a card: 256 columns
+    times the largest cluster of its blocks that the card can hold
+    (``cudaOccupancyMaxActiveClusters``), asked once before any launch."""
+    size = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        check(load_library().fused_spectre_linear_wide_cluster_reach(ctypes.byref(size)),
+              "fused_spectre_linear_wide_cluster_reach")
+    return WIDE_COLUMNS * size.value
 
 
 _FORWARD_KERNELS = {fn.__name__: fn for fn in (
-    fused_spectre_linear_wgmma, fused_spectre_linear_cluster, fused_spectre_linear_wide_wgmma)}
+    fused_spectre_linear_wgmma, fused_spectre_linear_cluster, fused_spectre_linear_wide_cluster)}
 for _fn in _FORWARD_KERNELS.values():
     _fn.launches = 0
 
@@ -297,7 +326,7 @@ def fused_spectre_linear(x, w, b, gamma, beta, eps: float = 1e-5, save_h: bool =
             return fused_spectre_linear(x, w, b, gamma, beta, eps, save_h)
     K, N = w.shape
     aligned = x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0
-    launch = _FORWARD_KERNELS[forward_kernel(x.dtype, K, N, aligned)]
+    launch = _FORWARD_KERNELS[forward_kernel(x.dtype, K, N, aligned, dev)]
     out = torch.empty((*x.shape[:-1], N), dtype=x.dtype, device=x.device)
     h = torch.empty_like(out) if save_h else None
     launch(x, w, b, gamma, beta, out, h, eps)

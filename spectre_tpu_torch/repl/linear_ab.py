@@ -1,5 +1,6 @@
-"""Kernel 2's forward at the shapes its cluster kernel took over, timed in
-two trees of the repository in turns on one card.
+"""Kernel 2's forward at the shapes its cluster kernels took over, and kernel
+5 at the tables its token-grouped kernel takes, timed in two trees of the
+repository in turns on one card.
 
     python -m spectre_tpu_torch.repl.linear_ab [--parent DIR] [--out FILE]
 
@@ -14,7 +15,16 @@ never calls), each back to back and on the device alone
 - the MNIST head, (64 x 16)(16 x 10) bf16;
 - ``repl/perf.py linear``'s 8 rows in float32 at dims 1,024, 2,048, 4,096;
 - (4,160 x 1,536)(1,536 x 1,536) float32 and (4,160 x 768)(768 x 1,100)
-  bf16 (C6).
+  bf16 (C6);
+- the wide bf16 shapes (4,160 x 1,536)(1,536 x 1,536), (4,160 x 768)(768 x
+  2,048) and (4,160 x 768)(768 x 1,024), and (1,040 x 512)(512 x 4,096) and
+  (512 x 4,608), at and beyond the wide cluster kernel's reach.
+
+Then ``fused_block_bwd`` (whichever kernel ``block_bwd_kernel`` picks in
+that tree) beside the chain it fuses (the dg4 product, the signs,
+``block_gather_sum``) at the flagship mix backward's shape (d = 33,280, H =
+16, 65 tokens, O = 512) for B = 256 and 1,024: bf16 with blk 16 and 32,
+float32 with blk 16 and 64.
 
 With ``--parent DIR`` (an unpacked tree of another commit, its kernels built
 into its own ``build/kernels/``) the shapes run in four processes in turns,
@@ -38,7 +48,13 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)
 SHAPES = ([("bfloat16", m, 512, 100) for m in (1, 2, 7, 64, 256, 1024)]
           + [("bfloat16", 64, 16, 10)]
           + [("float32", 8, d, d) for d in (1024, 2048, 4096)]
-          + [("float32", 4160, 1536, 1536), ("bfloat16", 4160, 768, 1100)])
+          + [("float32", 4160, 1536, 1536), ("bfloat16", 4160, 768, 1100)]
+          + [("bfloat16", 4160, 1536, 1536), ("bfloat16", 4160, 768, 2048),
+             ("bfloat16", 4160, 768, 1024), ("bfloat16", 1040, 512, 4096),
+             ("bfloat16", 1040, 512, 4608)])
+# kernel 5: (dtype, blk) at the flagship mix backward's shape, and its batches
+BLOCK_BWD_ROUTES = (("bfloat16", 16), ("bfloat16", 32), ("float32", 16), ("float32", 64))
+BLOCK_BWD_BATCHES = (256, 1024)
 
 
 def one_turn(root: str) -> dict:
@@ -89,6 +105,56 @@ def one_turn(root: str) -> dict:
               f"({row['chain_device_ms']:.4f}); bound {row['bound_ms']:.4f} by {row['bound_by']}",
               flush=True)
         del x, w, args
+    rows.update(block_bwd_turn(kernels))
+    return rows
+
+
+def block_bwd_turn(kernels) -> dict:
+    """Kernel 5 and the chain it fuses at the flagship mix backward's shape,
+    every route of BLOCK_BWD_ROUTES at every batch of BLOCK_BWD_BATCHES."""
+    import torch
+
+    from spectre_tpu_torch.utils.timing import (BF16_FLOPS, FP32_FLOPS, bound_ms, cuda_time_ms,
+                                                device_time_ms)
+
+    d, heads, n_tok, o = 33_280, 16, 65, 512
+    eh = heads * d // n_tok
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows = {}
+    for dt, blk in BLOCK_BWD_ROUTES:
+        dtype = getattr(torch, dt)
+        binv = torch.stack([torch.randperm(d // blk, generator=gen, device="cuda")
+                            for _ in range(heads)]).to(torch.int32)
+        w = torch.randn(eh, o, generator=gen, device="cuda").to(dtype)
+        s4 = (torch.randint(0, 2, (n_tok, eh), generator=gen, device="cuda") * 2 - 1).to(dtype)
+        for b in BLOCK_BWD_BATCHES:
+            dy = torch.randn(n_tok, b, o, generator=gen, device="cuda").to(dtype)
+
+            def chain():
+                dg4 = torch.bmm(w.expand(n_tok, -1, -1), dy.transpose(1, 2))
+                dg4.mul_(s4[:, :, None])
+                return kernels.block_gather_sum(dg4.view(heads * d, b), binv, blk)
+
+            def kernel():
+                return kernels.fused_block_bwd(dy, w, s4, binv, blk)
+
+            it = 10 if dtype == torch.bfloat16 else 3
+            row = {"route": kernels.block_bwd_kernel(dtype, blk)}
+            # dy, w, s4 and binv read and dxt written once
+            row["bound_ms"], row["bound_by"] = bound_ms(
+                (n_tok * b * o + eh * o + n_tok * eh + d * b) * dy.element_size()
+                + binv.numel() * 4, 2 * d * heads * o * b,
+                FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
+            for name, fn in (("kernel", kernel), ("chain", chain)):
+                row[name + "_ms"] = cuda_time_ms(fn, iters=it)
+                row[name + "_device_ms"] = device_time_ms(fn, iters=min(it, 5))
+            rows[f"block_bwd_{dt}_blk{blk}_b{b}"] = row
+            print(f"kernel 5 {dt} blk={blk} B={b} {row['route']}: {row['kernel_ms']:.4f} ms "
+                  f"(device {row['kernel_device_ms']:.4f}); chain {row['chain_ms']:.4f} "
+                  f"({row['chain_device_ms']:.4f}); bound {row['bound_ms']:.4f} by "
+                  f"{row['bound_by']}", flush=True)
+            del dy
+            torch.cuda.empty_cache()
     return rows
 
 

@@ -168,10 +168,9 @@ _GROUPS = (
     ("gather_sum_kernel", "kernels 3/4 gather_sum"),
     ("fused_linear_cluster_kernel", "kernel 2 fused_spectre_linear_fwd"),
     ("fused_linear_wgmma_kernel", "kernel 2 fused_spectre_linear_fwd"),
+    ("fused_linear_wide_cluster_kernel", "kernel 2 fused_spectre_linear_fwd"),
     ("chain_kernel", "kernel 2's backward chain (fused_spectre_linear_bwd)"),
     ("chain_wide_kernel", "kernel 2's backward chain (fused_spectre_linear_bwd)"),
-    ("wide_product", "kernel 2 fused_spectre_linear_fwd"),
-    ("wide_row_kernel", "kernel 2 fused_spectre_linear_fwd"),
     ("column_sum_kernel", "kernel 2's backward chain (fused_spectre_linear_bwd)"),
     ("flash_attention_fwd_kernel", "kernel 8 flash_attention_fwd"),
     ("flash_attention_bwd_kernel", "kernel 9 flash_attention_bwd"),

@@ -22,6 +22,7 @@ from spectre_tpu_torch.data import BatchIterator, prefetch_to_device, synthetic_
 from spectre_tpu_torch.models import build_model
 from spectre_tpu_torch.ops import fwht as fwht_any_axis
 from spectre_tpu_torch.ops import register_mix_routes
+from spectre_tpu_torch.ops.kernels.fused_linear import wide_cluster_reach
 from spectre_tpu_torch.ops.routing import build_route_tables_cached
 from spectre_tpu_torch.ops.kernels import (
     block_gather_sum,
@@ -32,6 +33,7 @@ from spectre_tpu_torch.ops.kernels import (
     cluster_plan,
     forward_kernel,
     fused_block_bwd,
+    fused_block_bwd_grouped,
     fused_block_bwd_plain,
     fused_spectre_linear,
     fused_spectre_linear_bwd,
@@ -40,6 +42,7 @@ from spectre_tpu_torch.ops.kernels import (
     fused_spectre_linear_cluster,
     fused_spectre_linear_grad,
     fused_spectre_linear_plain,
+    fused_spectre_linear_wide_cluster,
     flash_attention,
     flash_attention_bwd,
     flash_attention_bwd_plain,
@@ -139,10 +142,10 @@ def test_gather_sum_kernels_are_bitwise_the_plain_head_sum(cuda_device, dtype):
 def test_fused_block_bwd_kernel_matches_plain_and_the_chain(cuda_device, dtype, rel, blk, b):
     """Kernel 5 against its plain version and against the chain it fuses
     (dg4 product, signs, block_gather_sum), with a ragged batch tail, an O
-    that is no multiple of the kernel's K stage, and every row-tile size;
-    bf16 with blk = 64 and 128 (two 64-row tiles a block of the table) on
-    the wgmma kernel (batch tiles of 256 columns: B = 1024 is four), the
-    rest on the float32/WMMA kernels."""
+    that is no multiple of the kernel's K stage, and every slab size; bf16
+    with blk = 64 and 128 (two 64-row tiles a block of the table) on the
+    wgmma kernel (batch tiles of 256 columns: B = 1024 is four), the rest on
+    the token-grouped kernel (batch tiles of 128 columns)."""
     rng = np.random.default_rng(blk + b)
     # blk = 128 divides EH = 256 and d = 384 with six tokens
     h, e, n, o = 4, 64, 6 if blk == 128 else 5, 40
@@ -299,21 +302,24 @@ def test_fused_spectre_linear_cluster_kernel_is_bitwise_repeatable(cuda_device):
             assert torch.equal(a, b)
 
 
-# kernel 2 at N > 1,024 (bf16 that TMA can describe on the two-pass wide
-# kernel, the rest on the cluster kernel): K == N (the identity residual),
+# kernel 2 at N > 1,024 (bf16 that TMA can describe on the wide cluster
+# kernel up to its reach on the card, N = 4,096 with a cluster of 16 blocks;
+# beyond it and the rest on the cluster kernel): K == N (the identity residual),
 # K != N, N not a multiple of 8, ragged rows and ragged column tiles; out
 # and h against the plain version (which normalises the float32 sums, as
-# both kernels do) under the limits of the one-pass kernels, and two runs
+# the kernels do) under the limits of the one-pass kernels, and two runs
 # bitwise equal
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("m,k,n", [(4160, 1536, 1536), (4160, 768, 2048), (195, 768, 1100),
-                                   (70, 40, 1032), (9, 1100, 1100)])
+                                   (70, 40, 1032), (9, 1100, 1100), (1040, 512, 4096),
+                                   (300, 512, 4104)])
 def test_fused_spectre_linear_wide_kernels_match_plain(cuda_device, dtype, atol, m, k, n):
     args = [torch.from_numpy(a).to(cuda_device, dtype)
             for a in _linear_case(m, k, n, seed=m + k + n)]
     name = forward_kernel(dtype, k, n)
-    assert name == ("fused_spectre_linear_wide_wgmma"
-                    if dtype == torch.bfloat16 and n % 8 == 0 and k % 8 == 0
+    tma = dtype == torch.bfloat16 and n % 8 == 0 and k % 8 == 0
+    reach = wide_cluster_reach(cuda_device.index or 0)
+    assert name == ("fused_spectre_linear_wide_cluster" if tma and n <= reach
                     else "fused_spectre_linear_cluster")
     n0 = launch_counts()
     got, h = fused_spectre_linear(*args, save_h=True)
@@ -326,6 +332,61 @@ def test_fused_spectre_linear_wide_kernels_match_plain(cuda_device, dtype, atol,
     assert torch.equal(got, out_only) and torch.equal(got, again[0]) and torch.equal(h, again[1])
     assert (got.float() - want.float()).abs().max().item() <= atol
     assert (h.float() - want_h.float()).abs().max().item() <= atol
+
+
+def test_the_wide_cluster_reaches_n_4096_on_the_card(cuda_device):
+    """The wide cluster kernel launches clusters of 16 blocks on the card
+    (non-portable), so it takes N up to 4,096."""
+    assert wide_cluster_reach(cuda_device.index or 0) == 4096
+
+
+# N from 776 (a cluster of four, the last block with 8 columns) to 2,056,
+# at ragged rows and a ragged last column block, with and without h
+@pytest.mark.parametrize("m,k,n", [(4160, 1536, 1536), (195, 768, 1032), (130, 64, 2056),
+                                   (70, 512, 776)])
+def test_fused_spectre_linear_wide_cluster_matches_plain(cuda_device, m, k, n):
+    args = [torch.from_numpy(a).to(cuda_device, torch.bfloat16)
+            for a in _linear_case(m, k, n, seed=m + n)]
+    want, want_h = fused_spectre_linear_plain(*args, save_h=True)
+    out, h = torch.empty_like(want), torch.empty_like(want)
+    n0 = fused_spectre_linear_wide_cluster.launches
+    fused_spectre_linear_wide_cluster(*args, out, h, 1e-5)
+    out_only = torch.empty_like(want)
+    fused_spectre_linear_wide_cluster(*args, out_only, None, 1e-5)
+    torch.cuda.synchronize()
+    assert fused_spectre_linear_wide_cluster.launches == n0 + 2
+    assert torch.equal(out, out_only)
+    assert (out.float() - want.float()).abs().max().item() <= 2e-2
+    assert (h.float() - want_h.float()).abs().max().item() <= 2e-2
+
+
+# kernel 5's grouped kernel at the flagship mix backward's shape (d =
+# 33,280, H = 16, 65 tokens, O = 512) with the tables it takes there, and
+# with 128 heads (two slabs a block: 256 pairs, the schedule's most)
+@pytest.mark.parametrize("dtype,blk", [(torch.bfloat16, 16), (torch.bfloat16, 32),
+                                       (torch.float32, 16), (torch.float32, 64)])
+def test_fused_block_bwd_grouped_at_the_flagship_shape(cuda_device, dtype, blk):
+    rel = 1e-4 if dtype == torch.float32 else 1e-2
+    for h, e, n, o, b in ((16, 512, 65, 512, 256), (128, 32, 3, 64, 40)):
+        if e % blk:
+            continue
+        rng = np.random.default_rng(h + blk)
+        d = n * e
+        binv = torch.from_numpy(np.stack([rng.permutation(d // blk) for _ in range(h)])
+                                .astype(np.int32)).to(cuda_device)
+        dy = torch.from_numpy(rng.standard_normal((n, b, o)).astype(np.float32)).to(
+            cuda_device, dtype)
+        w = torch.from_numpy(rng.standard_normal((e * h, o)).astype(np.float32)).to(
+            cuda_device, dtype)
+        s4 = torch.from_numpy(rng.choice([-1.0, 1.0], (n, e * h)).astype(np.float32)).to(
+            cuda_device, dtype)
+        k0 = fused_block_bwd_grouped.launches
+        got = fused_block_bwd(dy, w, s4, binv, blk)
+        assert torch.equal(got, fused_block_bwd(dy, w, s4, binv, blk))
+        assert fused_block_bwd_grouped.launches == k0 + 2
+        want = fused_block_bwd_plain(dy, w, s4, binv, blk)
+        scale = want.float().abs().max().item()
+        assert (got.float() - want.float()).abs().max().item() <= rel * scale
 
 
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)])

@@ -252,8 +252,8 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
                             "flash_attention_bwd", "fwht", "structured_mix",
                             "structured_mix_bwd", "routed_gather_sum",
                             "fused_spectre_linear_wgmma", "fused_spectre_linear_cluster",
-                            "fused_block_bwd_wgmma", "fused_block_bwd_wmma_fma",
-                            "fused_spectre_linear_wide_wgmma",
+                            "fused_block_bwd_wgmma", "fused_block_bwd_grouped",
+                            "fused_spectre_linear_wide_cluster",
                             "fused_spectre_linear_bwd_wide"]
 
 

@@ -20,6 +20,7 @@ import torch
 from spectre_tpu.ops.pallas import fused_spectre_linear as jax_fused_spectre_linear
 from spectre_tpu.ops.pallas.fused_linear import _forward as jax_forward
 from spectre_tpu_torch.ops import spectre_linear_apply
+from spectre_tpu_torch.ops.kernels import fused_linear
 from spectre_tpu_torch.ops.kernels import (
     block_bwd_kernel,
     cluster_plan,
@@ -52,21 +53,28 @@ def test_the_flagships_bf16_shapes_take_the_wgmma_kernel(m, k, n):
     (torch.bfloat16, 512, 1024, True),  # N > 768: 64 x N float32 sums outgrow the registers
     (torch.bfloat16, 512, 768, False),  # x or W not 16-byte aligned
 ])
-def test_what_tma_or_the_registers_cannot_take_stays_on_the_wmma_fma_kernel(dtype, k, n,
-                                                                            aligned):
+def test_what_tma_or_the_registers_cannot_take_stays_on_the_wmma_fma_kernel(monkeypatch, dtype,
+                                                                            k, n, aligned):
     """What the wgmma kernel cannot take, the float32/WMMA kernel took; the
-    cluster kernel has replaced it at each of these shapes."""
-    assert forward_kernel(dtype, k, n, aligned) == CLUSTER
+    cluster kernel has replaced it at each of these shapes but N = 1,024 in
+    bf16 that TMA can describe, which the wide cluster kernel takes (a
+    cluster of four blocks of 256 columns)."""
+    tma = dtype == torch.bfloat16 and aligned and k % 8 == 0 and n % 8 == 0
+    # the card's reach of the wide cluster kernel, as the H100 gives it
+    monkeypatch.setattr(fused_linear, "wide_cluster_reach", lambda device: 4096)
+    assert forward_kernel(dtype, k, n, aligned, device=0) == (
+        "fused_spectre_linear_wide_cluster" if tma and n > 768 else CLUSTER)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_no_kernel_takes_n_above_1024(dtype):
+def test_no_kernel_takes_n_above_1024(monkeypatch, dtype):
     """No kernel whose block holds a whole output row takes N > 1,024: bf16
-    that TMA can describe goes to the two-pass wide kernel, float32 to the
+    that TMA can describe goes to the wide cluster kernel, float32 to the
     cluster kernel, whose blocks split the row between them."""
-    want = "fused_spectre_linear_wide_wgmma" if dtype == torch.bfloat16 else CLUSTER
-    assert forward_kernel(dtype, 512, 1032) == want
-    assert forward_kernel(dtype, 512, 1032) != WGMMA
+    monkeypatch.setattr(fused_linear, "wide_cluster_reach", lambda device: 4096)  # the H100's
+    want = "fused_spectre_linear_wide_cluster" if dtype == torch.bfloat16 else CLUSTER
+    assert forward_kernel(dtype, 512, 1032, device=0) == want
+    assert forward_kernel(dtype, 512, 1032, device=0) != WGMMA
 
 
 def test_the_cpu_takes_the_plain_version_at_any_n():
@@ -82,9 +90,9 @@ def test_the_cpu_takes_the_plain_version_at_any_n():
 @pytest.mark.parametrize("dtype,blk,want", [
     (torch.bfloat16, 64, "fused_block_bwd_wgmma"),   # the flagship's tables
     (torch.bfloat16, 128, "fused_block_bwd_wgmma"),
-    (torch.bfloat16, 32, "fused_block_bwd_wmma_fma"),  # a 64-row tile would straddle tokens
-    (torch.bfloat16, 16, "fused_block_bwd_wmma_fma"),
-    (torch.float32, 64, "fused_block_bwd_wmma_fma"),   # float32 on the FP32 pipes
+    (torch.bfloat16, 32, "fused_block_bwd_grouped"),  # a 64-row tile would straddle tokens
+    (torch.bfloat16, 16, "fused_block_bwd_grouped"),
+    (torch.float32, 64, "fused_block_bwd_grouped"),   # float32 on the FP32 pipes
 ])
 def test_kernel_5_dispatch(dtype, blk, want):
     assert block_bwd_kernel(dtype, blk) == want
