@@ -103,10 +103,13 @@ Phases, each raising on failure (nothing is caught):
    beside the plain version and ``scaled_dot_product_attention`` (forward;
    backward by autograd).
 15. the Walsh-Hadamard kernel (fwht) vs its plain version at [16,640, 512],
-   [16,640, 1024], [4,160, 4,096], [520, 32,768] and small ragged shapes,
-   bf16 and f32, normalised and not: bitwise equal (the same float32 pairs
-   added in the same order). Times at the first three, back to back and on
-   the device, beside ``x @ H_n`` both ways.
+   [16,640, 1024], [4,160, 4,096], [520, 32,768], [4,160, 2,048], [1,040,
+   16,384] and small ragged shapes, bf16 and f32, normalised and not:
+   bitwise equal (the same float32 pairs added in the same order). Times at
+   the first three, back to back and on the device, beside ``x @ H_n`` both
+   ways; the block route (n > 1,024) at [4,160, 2,048], [4,160, 4,096],
+   [1,040, 16,384] and [520, 32,768] bf16 and [4,160, 4,096] f32 beside its
+   bound.
 16. the structured-mix kernels (structured_mix, structured_mix_bwd) vs their
    plain versions at the flagship shape (d=33,280, H=16, tile 128) for B=256
    and B=250 and at small ragged shapes, bf16 and f32: bitwise equal. Times
@@ -150,10 +153,14 @@ Phases, each raising on failure (nothing is caught):
    the Function's gradients and the backward against theirs, under the
    limits of phases 4 and the backward's; two runs bitwise; the kernel
    ``forward_kernel`` names, launched exactly; times back to back and on
-   the device beside the bound, the plain version and the cuBLAS chain.
-   Then, forward only in bf16, the wide cluster kernel at N = 4,096 (a
-   cluster of 16 blocks) and the cluster kernel beyond its reach at N =
-   4,608. It runs after kernel 2's backward, among the kernel phases.
+   the device beside the bound, the plain version and the cuBLAS chain,
+   and the wide chain alone on the device beside its byte bound. Then the
+   backward alone, both dtypes, at N = 4,096, N = 16,384 (beyond the wide
+   chain's registers: the row walked) and 4,163 rows (a ragged last block),
+   under the same checks and with the same times. Then, forward only in
+   bf16, the wide cluster kernel at N = 4,096 (a cluster of 16 blocks) and
+   the cluster kernel beyond its reach at N = 4,608. It runs after kernel
+   2's backward, among the kernel phases.
 21. distillation (configs/distill_cifar100.py: the flagship student at
    B=256, the ViT-S/16 teacher at 224 px with 201 tokens, seeded): both
    teacher views against float64 (VIEW_ATOL); the bf16 teacher against the
@@ -1385,10 +1392,11 @@ def phase_attention(kernels):
 
 def phase_fwht(kernels, hadamard_matrix):
     """Kernel 6 against its plain version: bitwise equal, the same float32
-    pairs added in the same order."""
+    pairs added in the same order; times beside x @ H_n and the bound, and
+    the block route (n > 1,024) beside its bound."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     shapes = ((16_640, 512), (16_640, 1024), (4160, 4096), (520, 32_768), (7, 8), (5, 4), (3, 1),
-              (33, 256), (9, 64), (65, 2048))
+              (33, 256), (9, 64), (65, 2048), (4160, 2048), (1040, 16_384), (33, 8192))
     worst = 0.0
     for dtype in (torch.bfloat16, torch.float32):
         for m, n in shapes:
@@ -1430,12 +1438,26 @@ def phase_fwht(kernels, hadamard_matrix):
               f"{err_lib:.3g} of the kernel), bound {t['bound_ms']:.4f} ms by {t['bound_by']}",
               flush=True)
         del x, h_n
+    # n > 1,024, the block route, beside its bound (x read and written once)
+    wide = {}
+    for dtype, m, n in ((torch.bfloat16, 4160, 2048), (torch.bfloat16, 4160, 4096),
+                        (torch.bfloat16, 1040, 16_384), (torch.bfloat16, 520, 32_768),
+                        (torch.float32, 4160, 4096)):
+        x = torch.randn(m, n, generator=gen, device="cuda").to(dtype)
+        t = {"ms": cuda_time_ms(lambda: kernels.fwht(x)),
+             "device_ms": device_time_ms(lambda: kernels.fwht(x))}
+        t["bound_ms"] = bound(2 * m * n * x.element_size())[0]
+        wide[f"{m}x{n}_{str(dtype)[6:]}"] = t
+        print(f"kernel 6 fwht at [{m}, {n}] {str(dtype)[6:]}: {t['ms']:.4f} ms back to back, "
+              f"{t['device_ms']:.4f} on the device, bound {t['bound_ms']:.4f} ms by bytes "
+              f"({t['bound_ms'] / t['device_ms']:.0%} of it)", flush=True)
+        del x
     return {"name": "fwht", "route": "cuda", "source": "spectre_tpu_torch/csrc/fwht.cu",
             "replaces": "spectre_tpu/ops/pallas/fwht.py:71", "max_abs_err": worst, **res[512],
             **{f"{key}_n{n}": res[n][key] for n in (1024, 4096)
                for key in ("ms", "device_ms", "plain_ms", "bound_ms", "library_ms",
                            "library_device_ms")},
-            "shape": "x [16640, 512] bf16"}
+            "times_block_route": wide, "shape": "x [16640, 512] bf16"}
 
 
 def phase_structured_kernels(kernels, structured_matrix):
@@ -1980,6 +2002,27 @@ C6_SHAPES = ((4160, 1536, 1536), (4160, 768, 2048), (4160, 768, 1100))
 # the wide cluster kernel at its reach (a cluster of 16 blocks) and the
 # cluster kernel beyond it: bf16, forward only
 C6_REACH_SHAPES = ((1040, 512, 4096), (1040, 512, 4608))
+# the wide chain of the backward alone, both dtypes: N = 4,096 (two vectors
+# a thread), 16,384 (beyond the registers' reach: the row walked), and a
+# last block of rows shorter than the others (4,163 rows)
+C6_BWD_SHAPES = ((4160, 768, 4096), (1040, 512, 16384), (4163, 256, 1536))
+
+
+def _chain_times(kernels, h, g, gamma, beta) -> dict:
+    """The wide chain with its column-sum pass alone on the device, and its
+    byte bound: h and g read and dh written once; and with the blocks'
+    float32 partial rows written and read once."""
+    fl = kernels.fused_linear
+    m, n = h.shape
+    dev = h.get_device()
+    plan = fl.wide_chain_plan(h.dtype, m, n, 16, fl._sm_count(dev),
+                              lambda *a: fl._wide_occupancy(dev, h.dtype, *a))
+    el = h.element_size()
+    return {"chain_device_ms": device_time_ms(lambda: fl.backward_chain(h, g, gamma, beta),
+                                              iters=10),
+            "chain_bound_ms": bound((3 * m * n + 5 * n) * el)[0],
+            "chain_bound_partial_ms": bound((3 * m * n + 5 * n) * el + 2 * plan.blocks * 3 * n * 4)[0],
+            "chain_plan": plan._asdict()}
 
 
 def phase_c6(kernels, gen):
@@ -1989,7 +2032,10 @@ def phase_c6(kernels, gen):
     h, the Function's gradients, and the backward with its wide chain; two
     runs bitwise; the kernel each call takes, launched exactly; times back
     to back and on the device beside the bound, the plain version and the
-    cuBLAS chain. Then, forward only, the wide cluster kernel at its reach
+    cuBLAS chain, and the wide chain alone on the device beside its byte
+    bound. Then the backward alone at C6_BWD_SHAPES (N = 4,096, N = 16,384
+    beyond the wide chain's registers, a ragged last block of rows) under
+    the same checks. Then, forward only, the wide cluster kernel at its reach
     (N = 4,096, a cluster of 16 blocks) and the cluster kernel beyond it.
     Returns the entries of the wide cluster kernel and the wide chain, and
     the cluster kernel's numbers here (for its entry of phase 4)."""
@@ -2080,6 +2126,7 @@ def phase_c6(kernels, gen):
             t["bwd_plain_ms"] = cuda_time_ms(lambda: torch.autograd.grad(
                 out_p, req, cd, retain_graph=True), iters=3)
             del req, out_p
+            t.update(_chain_times(kernels, h, cd, args[3], args[4]))
             t["bound_ms"], t["bound_by"] = bound((m * k + k * n + 3 * n + 2 * m * n) * el,
                                                  2 * m * k * n, peak)
             t["bwd_bound_ms"], t["bwd_bound_by"] = bound(
@@ -2094,8 +2141,62 @@ def phase_c6(kernels, gen):
                   f"{t['plain_ms']:.4f}, bound {t['bound_ms']:.4f} by {t['bound_by']}; backward "
                   f"{t['bwd_ms']:.4f} (device {t['bwd_device_ms']:.4f}), autograd of plain "
                   f"{t['bwd_plain_ms']:.4f}, bound {t['bwd_bound_ms']:.4f} by "
-                  f"{t['bwd_bound_by']}", flush=True)
+                  f"{t['bwd_bound_by']}; the wide chain alone on the device "
+                  f"{t['chain_device_ms']:.4f}, bound {t['chain_bound_ms']:.4f} by bytes "
+                  f"({t['chain_bound_partial_ms']:.4f} with the partial rows)", flush=True)
             del args, cd, got, got2, got3, h, h3, ref, ref_h, gb, gb2, want_b
+        del x, w, ct
+        torch.cuda.empty_cache()
+
+    # the backward alone: the wide chain at N = 4,096, beyond its registers'
+    # reach and with a ragged last block of rows, against the plain version
+    for m, k, n in C6_BWD_SHAPES:
+        g2 = torch.Generator().manual_seed(m + n)
+        x = torch.randn(m, k, generator=g2)
+        w = torch.empty(k, n).uniform_(-k ** -0.5, k ** -0.5, generator=g2)
+        bias = 0.1 * torch.randn(n, generator=g2)
+        gamma = 1.0 + 0.1 * torch.randn(n, generator=g2)
+        beta = 0.1 * torch.randn(n, generator=g2)
+        ct = torch.randn(m, n, generator=g2)
+        for dtype in limits:
+            bargs = [a.to("cuda", dtype) for a in (x, w, gamma, beta, x @ w + bias, ct)]
+            b0 = bwd_wide.launches
+            gb = kernels.fused_spectre_linear_bwd(*bargs)
+            gb2 = kernels.fused_spectre_linear_bwd(*bargs)
+            want_b = kernels.fused_spectre_linear_bwd_plain(*bargs)
+            torch.cuda.synchronize()
+            if bwd_wide.launches != b0 + 2:
+                raise AssertionError("C6: two backwards did not launch the wide chain twice")
+            if not all(torch.equal(a, b) for a, b in zip(gb, gb2)):
+                raise AssertionError(f"C6 backward ({m}x{k})x({k}x{n}) {dtype}: two runs differ")
+            berr = max(rel_to_largest(a, b) for a, b in zip(gb, want_b))
+            worst_bwd[dtype] = max(worst_bwd.get(dtype, 0.0), berr)
+            worst_bwd_abs[dtype] = max([worst_bwd_abs.get(dtype, 0.0)] +
+                                       [max_abs_diff(a, b) for a, b in zip(gb, want_b)])
+            if not berr <= LINEAR_BWD_REL[dtype]:
+                raise AssertionError(f"C6 backward ({m}x{k})x({k}x{n}) {dtype}: rel err {berr} "
+                                     f"> {LINEAR_BWD_REL[dtype]}")
+            el = bargs[0].element_size()
+            peak = BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS
+            t = {"route": "backward only",
+                 "bwd_ms": cuda_time_ms(lambda: kernels.fused_spectre_linear_bwd(*bargs), iters=10),
+                 "bwd_device_ms": device_time_ms(
+                     lambda: kernels.fused_spectre_linear_bwd(*bargs), iters=5),
+                 "bwd_plain_ms": cuda_time_ms(
+                     lambda: kernels.fused_spectre_linear_bwd_plain(*bargs), iters=3),
+                 "bwd_rel_err": berr}
+            t["bwd_bound_ms"], t["bwd_bound_by"] = bound(
+                (2 * m * k + 2 * m * n + 2 * k * n + 5 * n) * el, 4 * m * k * n, peak)
+            t.update(_chain_times(kernels, *bargs[4:], bargs[2], bargs[3]))
+            times[m, k, n, dtype] = t
+            print(f"C6 backward ({m}x{k})x({k}x{n}) {str(dtype)[6:]}: rel err {berr:.3g}, two runs "
+                  f"bitwise, the wide chain launched once a backward ({t['chain_plan']}); backward "
+                  f"{t['bwd_ms']:.4f} ms (device {t['bwd_device_ms']:.4f}), plain "
+                  f"{t['bwd_plain_ms']:.4f}, bound {t['bwd_bound_ms']:.4f} by {t['bwd_bound_by']}; "
+                  f"the wide chain alone on the device {t['chain_device_ms']:.4f}, bound "
+                  f"{t['chain_bound_ms']:.4f} by bytes ({t['chain_bound_partial_ms']:.4f} with the "
+                  f"partial rows)", flush=True)
+            del bargs, gb, gb2, want_b
         del x, w, ct
         torch.cuda.empty_cache()
 
@@ -2154,8 +2255,10 @@ def phase_c6(kernels, gen):
         t = times[key]
         m, k, n, dtype = key
         p = "bwd_" if bwd else ""
+        chain = ("chain_device_ms", "chain_bound_ms", "chain_bound_partial_ms") if bwd else ()
         others = {f"{mm}x{kk}x{nn}_{str(dt)[6:]}": {
-            "ms": v[p + "ms"], "device_ms": v[p + "device_ms"], "bound_ms": v[p + "bound_ms"]}
+            "ms": v[p + "ms"], "device_ms": v[p + "device_ms"], "bound_ms": v[p + "bound_ms"],
+            **{c: v[c] for c in chain}}
             for (mm, kk, nn, dt), v in times.items()
             if (p + "ms" in v if bwd else v["route"] == name) and (mm, kk, nn, dt) != key}
         return {"name": name, "route": "cuda", "source": f"spectre_tpu_torch/csrc/{src}",
@@ -2164,6 +2267,7 @@ def phase_c6(kernels, gen):
                 "device_ms": t[p + "device_ms"], "plain_ms": t[p + "plain_ms"],
                 "bound_ms": t[p + "bound_ms"], "bound_by": t[p + "bound_by"],
                 "library_ms": None if bwd else t["library_ms"], "times": others,
+                **{c: t[c] for c in chain},
                 "shape": f"({m}x{k})x({k}x{n}) {str(dtype)[6:]}" + (
                     ": the wide chain and both products" if bwd else ", writing h")}
 

@@ -47,6 +47,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace {
 
 using bf16 = __nv_bfloat16;
@@ -314,8 +316,10 @@ column_sum_kernel(const float* __restrict__ partial, long long blocks, int N,
   const int j = blockIdx.x * 32 + lane;
   const int width = 3 * N;
   float acc = 0.f;
-  if (j < width)
+  if (j < width) {
+#pragma unroll 8  // the loads go out together; the sum keeps its order
     for (long long b = seg; b < blocks; b += kSegments) acc += partial[b * width + j];
+  }
   s_seg[seg][lane] = acc;
   __syncthreads();
   if (seg != 0 || j >= width) return;
@@ -402,161 +406,642 @@ extern "C" int fused_spectre_linear_bwd_chain(int dtype_code, const void* h, con
 
 // ------------------------------------------------------------ N > 1,024
 //
-// fused_spectre_linear_bwd_wide: the same chain for any N, where a warp can
-// no longer hold a row in registers. One block of 256 threads a row, the
-// blocks owning contiguous shares of the rows as above. A row is walked
-// four times in chunks of E values a thread (16-byte vectors where N and
-// the bases allow, else one value), from memory (the row, 2 N values,
-// stays in L1 between the walks): the sum for the mean, the squared
-// deviations for the variance, dz and du = dz * gamma for the two means of
-// the LayerNorm backward, then dh. Row sums go through block_sum (warps by
-// shuffles, then the warp sums in warp order). Each thread owns the same
-// columns in every row, so the block's partial column sums live in its
-// own row of `partial` (float32 [blocks, 3, N], in memory: no bound on N)
-// and each entry is read and written by one thread only; the column-sum
-// kernel above adds the blocks' rows in its fixed order. No atomics: two
-// runs give the same bits.
+// fused_spectre_linear_bwd_wide: the same chain for N > 1,024, where a warp
+// can no longer hold a row. What bounds it on the H100: bytes, as above (6 M N
+// in bf16), plus the blocks' float32 partial rows of column sums, written once
+// and read once by column_sum_kernel. What kept the first design (a block a
+// row, walked four times from memory) at 15% of that: the column sums went
+// through memory for every row (24 bytes of traffic an element), three block
+// reductions a row with one row in flight, and threads idle or loading one
+// value at a time.
+//
+// Design. A block takes the rows of a contiguous share one at a time. Thread t
+// owns the columns (c * threads + t) * V + [0, V), c < C = 16 / V, of every
+// row: V values a vector load (16 bytes where N and the bases allow, else 8,
+// 4, or one value), 16 values a thread (kWideValues; fewer threads a row
+// spread the row's reductions over more values, and 16 beat 8 at every C6
+// shape on the card), so a block has N / 16 threads. A thread's h and g
+// sit in registers for the row's whole chain: read once, dh written once. The
+// next rows' h and g come into shared memory by cp.async while the current row
+// computes (a ring of 3 rows, 2 where shared memory is short); each thread
+// copies and reads back only its own columns, so the ring needs no barrier.
+// The column sums of dz u, dz and dh stay in registers over all the block's
+// rows and go once into its row of `partial`; column_sum_kernel above adds the
+// blocks' rows in its fixed order (no atomics: two runs give the same bits).
+// gamma and beta are widened once a block into shared memory, again each
+// thread its own columns. Two block reductions a row, one barrier each: the
+// row's (count, mean, M2), each thread's by Chan's formula over its chunks in
+// order (a chunk's by two passes), then across lanes and across warps by
+// butterflies of Chan's formula whose lower lane's operand goes first, so
+// that every thread holds the same bits; then the sums of du and du u. The
+// grid (at most 4 blocks an SM), the threads and V come from
+// ops/kernels/fused_linear.py::wide_chain_plan; N up to kWideReach = 512
+// threads x 16 values is held in registers. Above, chain_walk_kernel walks
+// the row from memory three times (statistics; dz and the two means; dh)
+// with the same reductions, one block an SM, and keeps its column sums in
+// its row of `partial`.
 
 namespace {
 
-constexpr int kWideThreads = 256;
-constexpr int kWideBlocksPerSM = 3;  // ops/kernels/fused_linear.py: BWD_BLOCKS_PER_SM
+constexpr int kWideMaxThreads = 512;
+constexpr int kWideMaxWarps = kWideMaxThreads / 32;
+constexpr int kWideValues = 16;  // values a thread holds
+constexpr int kWideReach = kWideMaxThreads * kWideValues;  // fused_linear.py: WIDE_REACH
+constexpr int kWideStages = 3;   // rows of the prefetch ring, 2 where shared memory is short
+// dynamic shared memory a block may take: the card's 232,448 bytes less
+// room for the kernels' static reduction buffers
+constexpr int kSmemDynamic = 232448 - 1024;
+constexpr int kMaxDevices = 16;
 
-__device__ __forceinline__ float2 block_sum2(float a, float b, float (*red)[kWideThreads / 32]) {
-  a = warp_sum(a);
-  b = warp_sum(b);
-  if (threadIdx.x % 32 == 0) {
-    red[0][threadIdx.x / 32] = a;
-    red[1][threadIdx.x / 32] = b;
-  }
-  __syncthreads();
-  float2 s = make_float2(0.f, 0.f);
+struct Stats {
+  float n, mean, m2;
+};
+
+// Chan's formula: the statistics of a's values followed by b's (counts are
+// whole numbers of at most N, so the fast division's 2 ulp are all it costs).
+__device__ __forceinline__ Stats chan(Stats a, Stats b) {
+  const float tot = a.n + b.n;
+  const float d = b.mean - a.mean;
+  const float f = tot > 0.f ? __fdividef(b.n, tot) : 0.f;
+  return {tot, a.mean + d * f, a.m2 + b.m2 + d * d * a.n * f};
+}
+
+// (count, mean, M2) of V values by two passes.
+template <int V>
+__device__ __forceinline__ Stats chunk_stats(const float* v) {
+  float s = 0.f;
 #pragma unroll
-  for (int i = 0; i < kWideThreads / 32; ++i) {
-    s.x += red[0][i];
-    s.y += red[1][i];
+  for (int e = 0; e < V; ++e) s += v[e];
+  const float mean = s * (1.0f / V);
+  float m2 = 0.f;
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    const float d = v[e] - mean;
+    m2 += d * d;
   }
-  __syncthreads();  // red is reused by the next call
+  return {static_cast<float>(V), mean, m2};
+}
+
+// A butterfly of Chan's formula over `width` lanes (a power of two): each
+// lane ends with the statistics of all of them; at each level both partners
+// compute chan(lower lane's, upper lane's), so they hold the same bits.
+__device__ __forceinline__ Stats lane_chan(Stats s, int width) {
+  const int lane = threadIdx.x & 31;
+  for (int o = 1; o < width; o <<= 1) {
+    const Stats t = {__shfl_xor_sync(0xffffffffu, s.n, o), __shfl_xor_sync(0xffffffffu, s.mean, o),
+                     __shfl_xor_sync(0xffffffffu, s.m2, o)};
+    s = (lane & o) ? chan(t, s) : chan(s, t);
+  }
   return s;
 }
 
-template <typename T, int E>
-__global__ void __launch_bounds__(kWideThreads, kWideBlocksPerSM)
+// The row's statistics across the block: the lanes' butterfly, then every
+// warp runs the same butterfly over the warps' results (`wpow2`: the warps
+// rounded up to a power of two; each group of wpow2 lanes takes all of them,
+// so every lane ends with the same bits). One barrier; `red` is written again
+// only after the row's next barrier (block_sum2's).
+__device__ __forceinline__ Stats block_stats(Stats s, Stats* red, int wpow2) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  s = lane_chan(s, 32);
+  if (lane == 0) red[warp] = s;
+  __syncthreads();
+  const int w = lane & (wpow2 - 1);  // each group of wpow2 lanes holds every warp's
+  return lane_chan(w < static_cast<int>(blockDim.x >> 5) ? red[w] : Stats{0.f, 0.f, 0.f}, wpow2);
+}
+
+// The sums of a and b across the block, in the same two butterflies.
+__device__ __forceinline__ float2 block_sum2(float a, float b, float2* red, int wpow2) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  a = warp_sum(a);
+  b = warp_sum(b);
+  if (lane == 0) red[warp] = make_float2(a, b);
+  __syncthreads();
+  const int w = lane & (wpow2 - 1);
+  float2 s = w < static_cast<int>(blockDim.x >> 5) ? red[w] : make_float2(0.f, 0.f);
+  for (int o = 1; o < wpow2; o <<= 1) {
+    s.x += __shfl_xor_sync(0xffffffffu, s.x, o);
+    s.y += __shfl_xor_sync(0xffffffffu, s.y, o);
+  }
+  return s;
+}
+
+// u, dz and du = dz * gamma of one element.
+__device__ __forceinline__ void chain_element(float h, float g, float mu, float rsig, float gam,
+                                              float bet, float& u, float& dz, float& du) {
+  u = (h - mu) * rsig;
+  dz = g * gelu_grad(u * gam + bet);
+  du = dz * gam;
+}
+
+// V values of T from 4-byte words (bf16 -> f32 is a 16-bit shift).
+template <typename T, int V>
+__device__ __forceinline__ void unpack(const unsigned* w, float* v) {
+  if constexpr (sizeof(T) == 2) {
+#pragma unroll
+    for (int k = 0; k < V / 2; ++k) {
+      v[2 * k] = __uint_as_float(w[k] << 16);
+      v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < V; ++k) v[k] = __uint_as_float(w[k]);
+  }
+}
+
+// V consecutive values at p (global or shared) in one load of V * sizeof(T)
+// bytes, p aligned to it.
+template <typename T, int V>
+__device__ __forceinline__ void load_vec(const T* p, float* v) {
+  constexpr int kBytes = V * static_cast<int>(sizeof(T));
+  if constexpr (kBytes == 16) {
+    const uint4 u = *reinterpret_cast<const uint4*>(p);
+    const unsigned w[4] = {u.x, u.y, u.z, u.w};
+    unpack<T, V>(w, v);
+  } else if constexpr (kBytes == 8) {
+    const uint2 u = *reinterpret_cast<const uint2*>(p);
+    const unsigned w[2] = {u.x, u.y};
+    unpack<T, V>(w, v);
+  } else if constexpr (kBytes == 4) {
+    const unsigned w[1] = {*reinterpret_cast<const unsigned*>(p)};
+    unpack<T, V>(w, v);
+  } else {
+    v[0] = to_f(*p);
+  }
+}
+
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* p, const float* v) {
+  constexpr int kBytes = V * static_cast<int>(sizeof(T));
+  if constexpr (kBytes < 4) {
+    *p = from_f<T>(v[0]);
+  } else {
+    unsigned w[kBytes / 4];
+    if constexpr (sizeof(T) == 2) {
+#pragma unroll
+      for (int k = 0; k < kBytes / 4; ++k)
+        w[k] = static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * k]))) |
+               (static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * k + 1])))
+                << 16);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kBytes / 4; ++k) w[k] = __float_as_uint(v[k]);
+    }
+    if constexpr (kBytes == 16) {
+      *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
+    } else if constexpr (kBytes == 8) {
+      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+    } else {
+      *reinterpret_cast<unsigned*>(p) = w[0];
+    }
+  }
+}
+
+// V float32 values at p, aligned to 4 V bytes (at most 16).
+template <int V>
+__device__ __forceinline__ void load_f(const float* p, float* v) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < V; k += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(p + k);
+      v[k] = a.x; v[k + 1] = a.y; v[k + 2] = a.z; v[k + 3] = a.w;
+    }
+  } else if constexpr (V == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(p);
+    v[0] = a.x; v[1] = a.y;
+  } else {
+    v[0] = *p;
+  }
+}
+
+template <int V>
+__device__ __forceinline__ void store_f(float* p, const float* v) {
+  if constexpr (V % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < V; k += 4)
+      *reinterpret_cast<float4*>(p + k) = make_float4(v[k], v[k + 1], v[k + 2], v[k + 3]);
+  } else if constexpr (V == 2) {
+    *reinterpret_cast<float2*>(p) = make_float2(v[0], v[1]);
+  } else {
+    *p = v[0];
+  }
+}
+
+// B-byte global -> shared copy (B = 4, 8 or 16) that bypasses registers.
+template <int B>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  if constexpr (B == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src), "n"(B)
+                 : "memory");
+  }
+}
+
+// Waits until at most `pending` (0, 1 or 2) of this thread's groups are in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  if (pending >= 2) {
+    asm volatile("cp.async.wait_group 2;\n" ::: "memory");
+  } else if (pending == 1) {
+    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  } else {
+    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  }
+}
+
+__host__ __device__ constexpr int pow2_at_least(int x) {
+  int p = 1;
+  while (p < x) p <<= 1;
+  return p;
+}
+
+// Shared memory of chain_wide_kernel: gamma and beta as float32 over a row's
+// slots (C threads V of them), and `stages` rows of h and g.
+template <typename T>
+constexpr int wide_smem(int slots, int stages) {
+  return slots * 2 * static_cast<int>(sizeof(float)) +
+         stages * 2 * slots * static_cast<int>(sizeof(T));
+}
+
+// The ring's rows: kWideStages where they fit beside gamma and beta, else
+// 2; none for one bf16 value a chunk (cp.async copies at least 4 bytes).
+template <typename T, int V>
+constexpr int wide_stages(int slots) {
+  if (V * sizeof(T) < 4) return 0;
+  return wide_smem<T>(slots, kWideStages) <= kSmemDynamic ? kWideStages : 2;
+}
+
+template <typename T, int V, int C>
+__global__ void __launch_bounds__(kWideMaxThreads)
 chain_wide_kernel(const T* __restrict__ h, const T* __restrict__ g, const T* __restrict__ gamma,
                   const T* __restrict__ beta, T* __restrict__ dh, float* __restrict__ partial,
+                  long long M, int N, long long rows, int stages, float eps) {
+  constexpr int kBytes = V * static_cast<int>(sizeof(T));
+  __shared__ Stats red_stats[kWideMaxWarps];
+  __shared__ float2 red_sums[kWideMaxWarps];
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int threads = blockDim.x, tid = threadIdx.x;
+  const int slots = C * threads * V;  // column (c * threads + t) * V + e, c < C
+  float* s_gamma = reinterpret_cast<float*>(smem);
+  float* s_beta = s_gamma + slots;
+  T* ring = reinterpret_cast<T*>(s_beta + slots);  // [stage][h, g][slots]
+  const int wpow2 = pow2_at_least(threads >> 5);
+  const float inv_n = 1.0f / static_cast<float>(N);
+
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int col = (c * threads + tid) * V;
+    if (col < N) {
+      float v[V];
+      load_vec<T, V>(gamma + col, v);
+      store_f<V>(s_gamma + col, v);
+      load_vec<T, V>(beta + col, v);
+      store_f<V>(s_beta + col, v);
+    }
+  }
+  float sg[C][V], sb[C][V], sd[C][V];  // the block's column sums of dz u, dz, dh
+#pragma unroll
+  for (int c = 0; c < C; ++c)
+#pragma unroll
+    for (int e = 0; e < V; ++e) sg[c][e] = sb[c][e] = sd[c][e] = 0.f;
+
+  const long long r0 = static_cast<long long>(blockIdx.x) * rows;
+  const long long r1 = r0 + rows < M ? r0 + rows : M;
+  auto fetch = [&](long long r, int stage) {
+    if constexpr (kBytes >= 4) {
+      T* hs = ring + 2 * stage * slots;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        const int col = (c * threads + tid) * V;
+        if (col < N) {
+          cp_async<kBytes>(hs + col, h + r * N + col);
+          cp_async<kBytes>(hs + slots + col, g + r * N + col);
+        }
+      }
+      cp_async_commit();
+    }
+  };
+  // rows r0 .. r0 + stages - 2 in flight before the loop; one group each,
+  // empty past the share, so that wait_group counts rows
+  for (int s = 0; s < stages - 1; ++s) {
+    if (r0 + s < r1) {
+      fetch(r0 + s, s);
+    } else {
+      cp_async_commit();
+    }
+  }
+  int stage = 0;
+  for (long long r = r0; r < r1; ++r) {
+    float hv[C][V], gv[C][V];
+    if (stages > 0) {
+      const int ahead = stage + stages - 1 < stages ? stage + stages - 1 : stage - 1;
+      if (r + stages - 1 < r1) {
+        fetch(r + stages - 1, ahead);
+      } else {
+        cp_async_commit();
+      }
+      cp_async_wait(stages - 1);  // this row's group has landed
+    }
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int col = (c * threads + tid) * V;
+      if (col >= N) continue;
+      if (stages > 0) {
+        load_vec<T, V>(ring + 2 * stage * slots + col, hv[c]);
+        load_vec<T, V>(ring + (2 * stage + 1) * slots + col, gv[c]);
+      } else {
+        load_vec<T, V>(h + r * N + col, hv[c]);
+        load_vec<T, V>(g + r * N + col, gv[c]);
+      }
+    }
+    if (++stage == stages) stage = 0;
+
+    Stats st = {0.f, 0.f, 0.f};
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      if ((c * threads + tid) * V < N) st = chan(st, chunk_stats<V>(hv[c]));
+    st = block_stats(st, red_stats, wpow2);
+    const float mu = st.mean;
+    const float rsig = rsqrtf(st.m2 * inv_n + eps);
+
+    float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int col = (c * threads + tid) * V;
+      if (col >= N) continue;
+      float gam[V], bet[V];
+      load_f<V>(s_gamma + col, gam);
+      load_f<V>(s_beta + col, bet);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        float u, dz, du;
+        chain_element(hv[c][e], gv[c][e], mu, rsig, gam[e], bet[e], u, dz, du);
+        sg[c][e] += dz * u;
+        sb[c][e] += dz;
+        hv[c][e] = u;
+        gv[c][e] = du;
+        m1 += du;
+        m2 += du * u;
+      }
+    }
+    const float2 ms = block_sum2(m1, m2, red_sums, wpow2);
+    m1 = ms.x * inv_n;
+    m2 = ms.y * inv_n;
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int col = (c * threads + tid) * V;
+      if (col >= N) continue;
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float v = rsig * (gv[c][e] - m1 - hv[c][e] * m2);
+        sd[c][e] += v;
+        gv[c][e] = v;
+      }
+      store_vec<T, V>(dh + r * N + col, gv[c]);
+    }
+  }
+
+  float* out = partial + static_cast<long long>(blockIdx.x) * 3 * N;
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int col = (c * threads + tid) * V;
+    if (col < N) {
+      store_f<V>(out + col, sg[c]);
+      store_f<V>(out + N + col, sb[c]);
+      store_f<V>(out + 2 * N + col, sd[c]);
+    }
+  }
+}
+
+// N beyond the registers' reach: the row walked from memory three times,
+// the column sums in the block's row of `partial`, each entry read and
+// written by its one thread.
+template <typename T, int V>
+__global__ void __launch_bounds__(kWideMaxThreads)
+chain_walk_kernel(const T* __restrict__ h, const T* __restrict__ g, const T* __restrict__ gamma,
+                  const T* __restrict__ beta, T* __restrict__ dh, float* __restrict__ partial,
                   long long M, int N, long long rows, float eps) {
-  __shared__ float red[2][kWideThreads / 32];
-  constexpr int kStep = kWideThreads * E;
-  const int first = threadIdx.x * E;
+  __shared__ Stats red_stats[kWideMaxWarps];
+  __shared__ float2 red_sums[kWideMaxWarps];
+  const int step = blockDim.x * V, first = threadIdx.x * V;
+  const int wpow2 = pow2_at_least(blockDim.x >> 5);
   const float inv_n = 1.0f / static_cast<float>(N);
   float* p_dgamma = partial + static_cast<long long>(blockIdx.x) * 3 * N;
   float* p_dbeta = p_dgamma + N;
   float* p_db = p_dbeta + N;
-  for (int col = first; col < N; col += kStep)
-#pragma unroll
-    for (int e = 0; e < E; ++e) p_dgamma[col + e] = p_dbeta[col + e] = p_db[col + e] = 0.f;
+  const float zero[V] = {};
+  for (int col = first; col < N; col += step) {
+    store_f<V>(p_dgamma + col, zero);
+    store_f<V>(p_dbeta + col, zero);
+    store_f<V>(p_db + col, zero);
+  }
 
   const long long r0 = static_cast<long long>(blockIdx.x) * rows;
   const long long r1 = r0 + rows < M ? r0 + rows : M;
   for (long long r = r0; r < r1; ++r) {
     const T* hr = h + r * N;
     const T* gr = g + r * N;
-    float v[E], d[E];
-    float s = 0.f;
-    for (int col = first; col < N; col += kStep) {
-      load_chunk<T, E>(hr + col, v);
-#pragma unroll
-      for (int e = 0; e < E; ++e) s += v[e];
+    float hv[V], gv[V], gam[V], bet[V], a[V], b[V];
+    Stats st = {0.f, 0.f, 0.f};
+    for (int col = first; col < N; col += step) {
+      load_vec<T, V>(hr + col, hv);
+      st = chan(st, chunk_stats<V>(hv));
     }
-    const float mu = block_sum2(s, 0.f, red).x * inv_n;
-    float q = 0.f;
-    for (int col = first; col < N; col += kStep) {
-      load_chunk<T, E>(hr + col, v);
-#pragma unroll
-      for (int e = 0; e < E; ++e) q += (v[e] - mu) * (v[e] - mu);
-    }
-    const float rsig = rsqrtf(block_sum2(q, 0.f, red).x * inv_n + eps);
+    st = block_stats(st, red_stats, wpow2);
+    const float mu = st.mean;
+    const float rsig = rsqrtf(st.m2 * inv_n + eps);
     float m1 = 0.f, m2 = 0.f;
-    for (int col = first; col < N; col += kStep) {
-      load_chunk<T, E>(hr + col, v);
-      load_chunk<T, E>(gr + col, d);
+    for (int col = first; col < N; col += step) {
+      load_vec<T, V>(hr + col, hv);
+      load_vec<T, V>(gr + col, gv);
+      load_vec<T, V>(gamma + col, gam);
+      load_vec<T, V>(beta + col, bet);
+      load_f<V>(p_dgamma + col, a);
+      load_f<V>(p_dbeta + col, b);
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const float gam = to_f(gamma[col + e]);
-        const float uu = (v[e] - mu) * rsig;
-        const float dz = d[e] * gelu_grad(uu * gam + to_f(beta[col + e]));
-        p_dgamma[col + e] += dz * uu;
-        p_dbeta[col + e] += dz;
-        const float du = dz * gam;
+      for (int e = 0; e < V; ++e) {
+        float u, dz, du;
+        chain_element(hv[e], gv[e], mu, rsig, gam[e], bet[e], u, dz, du);
+        a[e] += dz * u;
+        b[e] += dz;
         m1 += du;
-        m2 += du * uu;
+        m2 += du * u;
       }
+      store_f<V>(p_dgamma + col, a);
+      store_f<V>(p_dbeta + col, b);
     }
-    const float2 ms = block_sum2(m1, m2, red);
+    const float2 ms = block_sum2(m1, m2, red_sums, wpow2);
     m1 = ms.x * inv_n;
     m2 = ms.y * inv_n;
-    for (int col = first; col < N; col += kStep) {
-      load_chunk<T, E>(hr + col, v);
-      load_chunk<T, E>(gr + col, d);
+    for (int col = first; col < N; col += step) {
+      load_vec<T, V>(hr + col, hv);
+      load_vec<T, V>(gr + col, gv);
+      load_vec<T, V>(gamma + col, gam);
+      load_vec<T, V>(beta + col, bet);
+      load_f<V>(p_db + col, a);
 #pragma unroll
-      for (int e = 0; e < E; ++e) {
-        const float gam = to_f(gamma[col + e]);
-        const float uu = (v[e] - mu) * rsig;
-        const float du = d[e] * gelu_grad(uu * gam + to_f(beta[col + e])) * gam;
-        d[e] = rsig * (du - m1 - uu * m2);
-        p_db[col + e] += d[e];
+      for (int e = 0; e < V; ++e) {
+        float u, dz, du;
+        chain_element(hv[e], gv[e], mu, rsig, gam[e], bet[e], u, dz, du);
+        gv[e] = rsig * (du - m1 - u * m2);
+        a[e] += gv[e];
       }
-      store_chunk<T, E>(dh + r * N + col, d);
+      store_f<V>(p_db + col, a);
+      store_vec<T, V>(dh + r * N + col, gv);
     }
   }
 }
 
-template <typename T, int E>
-int launch_chain_wide(const void* h, const void* g, const void* gamma, const void* beta,
-                      void* dh, float* partial, long long M, int N, float eps, long long blocks,
-                      cudaStream_t st) {
-  chain_wide_kernel<T, E><<<static_cast<unsigned>(blocks), kWideThreads, 0, st>>>(
-      static_cast<const T*>(h), static_cast<const T*>(g), static_cast<const T*>(gamma),
-      static_cast<const T*>(beta), static_cast<T*>(dh), partial, M, N,
-      (M + blocks - 1) / blocks, eps);
-  return static_cast<int>(cudaGetLastError());
+// Whether an instance may take kSmemDynamic bytes of dynamic shared memory on
+// a device (above the default 48 KB, less its static buffers): set on its
+// first launch or query there.
+template <typename T, int V, int C>
+std::atomic<bool> wide_smem_raised[kMaxDevices];
+
+template <typename T, int V, int C, typename K>
+int raise_smem(K kern) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!wide_smem_raised<T, V, C>[dev].load(std::memory_order_acquire)) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemDynamic);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    wide_smem_raised<T, V, C>[dev].store(true, std::memory_order_release);
+  }
+  return 0;
 }
 
+// One instance of the wide chain (C == 0: the walk), launched or asked how
+// many of its blocks an SM holds.
 template <typename T>
-int run_wide(const void* h, const void* g, const void* gamma, const void* beta, void* dh,
-             void* dgamma, void* dbeta, void* db, void* partial, long long M, int N,
-             long long blocks, float eps, cudaStream_t st) {
-  constexpr int E = 16 / sizeof(T);
-  float* part = static_cast<float*>(partial);
-  const bool vec = N % E == 0 &&
-                   ((reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(g) |
-                     reinterpret_cast<uintptr_t>(dh)) & 15) == 0;
-  int err = vec ? launch_chain_wide<T, E>(h, g, gamma, beta, dh, part, M, N, eps, blocks, st)
-                : launch_chain_wide<T, 1>(h, g, gamma, beta, dh, part, M, N, eps, blocks, st);
-  if (err != 0) return err;
-  column_sum_kernel<T><<<static_cast<unsigned>((3LL * N + 31) / 32), 32 * kSegments, 0, st>>>(
-      part, blocks, N, static_cast<T*>(dgamma), static_cast<T*>(dbeta), static_cast<T*>(db));
-  return static_cast<int>(cudaGetLastError());
+struct WideChain {
+  const void *h, *g, *gamma, *beta;
+  void* dh;
+  float* partial;
+  long long M;
+  int N;
+  long long blocks;
+  int threads;
+  float eps;
+  cudaStream_t st;
+  int* blocks_per_sm;  // non-null: the query, nothing launched
+
+  template <int V, int C>
+  int run() {
+    const long long rows = (M + blocks - 1) / blocks;
+    const T *h_ = static_cast<const T*>(h), *g_ = static_cast<const T*>(g);
+    const T *gam = static_cast<const T*>(gamma), *bet = static_cast<const T*>(beta);
+    T* dh_ = static_cast<T*>(dh);
+    if constexpr (C == 0) {
+      auto kern = chain_walk_kernel<T, V>;
+      if (blocks_per_sm)
+        return static_cast<int>(
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kern, threads, 0));
+      kern<<<static_cast<unsigned>(blocks), threads, 0, st>>>(h_, g_, gam, bet, dh_, partial, M,
+                                                              N, rows, eps);
+    } else {
+      if (C * threads * V < N) return cudaErrorInvalidValue;
+      const int slots = C * threads * V;
+      const int stages = wide_stages<T, V>(slots);
+      const int smem = wide_smem<T>(slots, stages);
+      if (smem > kSmemDynamic) return cudaErrorInvalidValue;
+      auto kern = chain_wide_kernel<T, V, C>;
+      if (int e = raise_smem<T, V, C>(kern)) return e;
+      if (blocks_per_sm)
+        return static_cast<int>(
+            cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kern, threads, smem));
+      kern<<<static_cast<unsigned>(blocks), threads, smem, st>>>(h_, g_, gam, bet, dh_, partial,
+                                                                 M, N, rows, stages, eps);
+    }
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+// The instance for V values a vector and kWideValues / V vectors a thread, or
+// the walk (chunks == 0).
+template <typename T>
+int dispatch_wide(WideChain<T>& op, int vec, int chunks) {
+#define SPECTRE_WIDE(VV)                                                         \
+  if (vec == VV) return chunks == 0 ? op.template run<VV, 0>()                   \
+                                    : op.template run<VV, kWideValues / VV>();
+  if constexpr (sizeof(T) == 2) {
+    SPECTRE_WIDE(8)
+  }
+  SPECTRE_WIDE(4) SPECTRE_WIDE(2) SPECTRE_WIDE(1)
+#undef SPECTRE_WIDE
+  return cudaErrorInvalidValue;
+}
+
+bool wide_plan_ok(int vec, int chunks, int threads) {
+  return vec > 0 && kWideValues % vec == 0 && threads >= 32 && threads <= kWideMaxThreads &&
+         threads % 32 == 0 && (chunks == 0 || chunks * vec == kWideValues);
 }
 
 }  // namespace
 
-// The arguments of fused_spectre_linear_bwd_chain, for any N >= 1.
+// How many blocks of the wide chain's instance (vec values a vector, chunks
+// vectors a thread, 0: the walk; threads a block) an SM of the current
+// device holds, into *blocks_per_sm. Returns a CUDA error code (0 on success).
+extern "C" int fused_spectre_linear_bwd_wide_occupancy(int dtype_code, int vec, int chunks,
+                                                       int threads, int* blocks_per_sm) {
+  if (!wide_plan_ok(vec, chunks, threads) || blocks_per_sm == nullptr)
+    return cudaErrorInvalidValue;
+  if (dtype_code == 0) {
+    WideChain<float> op{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, 1, 1, threads,
+                        0.f, nullptr, blocks_per_sm};
+    return dispatch_wide(op, vec, chunks);
+  }
+  if (dtype_code == 1) {
+    WideChain<bf16> op{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, 1, 1, 1, threads,
+                       0.f, nullptr, blocks_per_sm};
+    return dispatch_wide(op, vec, chunks);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The arguments of fused_spectre_linear_bwd_chain for any N >= 1, and the
+// plan (ops/kernels/fused_linear.py::wide_chain_plan): vec values a vector
+// load (h, g, dh, gamma and beta aligned to vec elements), chunks vectors a
+// thread (0: the walk), threads a block; `blocks` blocks, each owning
+// ceil(M / blocks) rows.
 extern "C" int fused_spectre_linear_bwd_wide(int dtype_code, const void* h, const void* g,
                                              const void* gamma, const void* beta, void* dh,
                                              void* dgamma, void* dbeta, void* db,
                                              void* partial, long long M, long long N,
-                                             long long blocks, float eps, void* stream) {
+                                             long long blocks, float eps, void* stream, int vec,
+                                             int chunks, int threads) {
   if (M <= 0 || N <= 0 || 3 * N > 0x7fffffffLL || blocks <= 0 || blocks > M ||
-      blocks > 0x7fffffffLL)
+      blocks > 0x7fffffffLL || !wide_plan_ok(vec, chunks, threads) || N % vec != 0 ||
+      (chunks > 0 && N > kWideReach))
     return cudaErrorInvalidValue;
+  const int el = dtype_code == 1 ? 2 : 4;
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(h) | reinterpret_cast<uintptr_t>(g) |
+                          reinterpret_cast<uintptr_t>(dh) | reinterpret_cast<uintptr_t>(gamma) |
+                          reinterpret_cast<uintptr_t>(beta);
+  if (bases % (static_cast<uintptr_t>(vec) * el) != 0) return cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int n = static_cast<int>(N);
-  if (dtype_code == 0)
-    return run_wide<float>(h, g, gamma, beta, dh, dgamma, dbeta, db, partial, M, n, blocks, eps,
-                           st);
-  if (dtype_code == 1)
-    return run_wide<bf16>(h, g, gamma, beta, dh, dgamma, dbeta, db, partial, M, n, blocks, eps,
-                          st);
-  return cudaErrorInvalidValue;
+  float* part = static_cast<float*>(partial);
+  int err;
+  if (dtype_code == 0) {
+    WideChain<float> op{h, g, gamma, beta, dh, part, M, n, blocks, threads, eps, st, nullptr};
+    err = dispatch_wide(op, vec, chunks);
+  } else if (dtype_code == 1) {
+    WideChain<bf16> op{h, g, gamma, beta, dh, part, M, n, blocks, threads, eps, st, nullptr};
+    err = dispatch_wide(op, vec, chunks);
+  } else {
+    return cudaErrorInvalidValue;
+  }
+  if (err != 0) return err;
+  if (dtype_code == 0) {
+    column_sum_kernel<float><<<static_cast<unsigned>((3LL * n + 31) / 32), 32 * kSegments, 0, st>>>(
+        part, blocks, n, static_cast<float*>(dgamma), static_cast<float*>(dbeta),
+        static_cast<float*>(db));
+  } else {
+    column_sum_kernel<bf16><<<static_cast<unsigned>((3LL * n + 31) / 32), 32 * kSegments, 0, st>>>(
+        part, blocks, n, static_cast<bf16*>(dgamma), static_cast<bf16*>(dbeta),
+        static_cast<bf16*>(db));
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -24,13 +24,20 @@
 // __shfl_xor_sync; stages h >= 32 E (n = 512 and 1,024 in bf16) pair the
 // chunks of one lane in registers. Shorter rows lie side by side in a tile.
 //
-// n > 1,024: a block transforms one row in shared memory, n <= 32,768 (128
-// KB, raised once per device with cudaFuncSetAttribute). A thread loads
-// eight consecutive values as 16-byte vectors and runs the stages h = 1, 2, 4
-// in registers; the remaining stages run three at a time (radix 8: a thread
-// reads eight values h apart, does three stages in registers and writes them
-// back), with one block barrier per pass; the last pass is followed by the
-// scale, one cast and a vector store of eight consecutive values.
+// n > 1,024 (2,048 to 32,768): a block a row, the warp route extended to a
+// block. What kept the first design (a block a row in shared memory) at 46%
+// of the bound at n = 4,096: four radix-8 passes of the row through shared
+// memory, each behind a block barrier, and no load in flight while a block's
+// stages ran. Here a thread holds V values (16 up to n = 8,192, a block of
+// n / 512 threads: 16 beat 32 at every such n on the card; 32 above): the
+// stages inside a vector run in registers, the next five between lanes by
+// __shfl_xor_sync, the next between a lane's chunks in registers again, and
+// only the stages between warps go through shared memory, in one exchange
+// and one barrier a row (two above n = 8,192, with one buffer). The grid is
+// persistent: the blocks that fit the card at once, each taking every
+// grid-th row, with the next row's vectors loaded into registers while the
+// current one transforms (up to n = 16,384; at 32,768 a block of 1,024
+// threads has 64 registers a thread and loads its row first).
 //
 // A ragged last tile is zero-filled and masked; unaligned bases go element
 // by element.
@@ -50,9 +57,9 @@ using hadamard::butterfly_regs;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr long long kMaxN = 32768;
-constexpr long long kMaxWarpN = 1024;
 constexpr int kDefaultSmem = 48 * 1024;
 constexpr int kMaxDevices = 16;
+constexpr int kBlockValues = 16;  // values a thread of the block route holds up to n = 8,192
 
 // ---- n <= 1,024: a warp a tile -------------------------------------------
 
@@ -163,88 +170,232 @@ int launch_warp(const T* x, T* out, long long total, long long n, float scale, i
   return static_cast<int>(cudaGetLastError());
 }
 
-// ---- n > 1,024: a block a row in shared memory ----------------------------
+// ---- n > 1,024: a block a row, the row in registers ----------------------
 
-// R stages of stride h, 2h, ... on the row in shared memory.
-template <int R>
-__device__ __forceinline__ void smem_pass(float* s, int n, int h) {
-  const int groups = n >> R;
-  for (int g = threadIdx.x; g < groups; g += kThreads) {
-    const int i0 = (g / h) * (h << R) + (g % h);
-    float v[1 << R];
+// The index bits of a row of n = 32 V W values, low to high: e (E values of
+// a 16-byte vector), lane (5), c (C = V / E chunks), w (W warps). Phase 1:
+// thread (w, lane) holds chunk c at w * 32 V + c * 32 E + lane * E, so each
+// warp load is 512 contiguous bytes, and runs the stages of e in registers,
+// of lane by shuffles and of c in registers. Then one exchange through shared
+// memory, and phase 2: thread t holds, for every w, the P = V / W positions
+// t P + [0, P) of the w-th segment of 32 V and runs the stages of w in
+// registers; the scale, one cast, and P consecutive values stored per w.
+// Shared memory goes by 16-byte granules whose low three bits are XORed with
+// the next three, so that neither phase's vector accesses meet in a bank.
+__device__ __forceinline__ int swizzle(int i) { return i ^ (((i >> 5) & 7) << 2); }
+
+// E = 16 / sizeof(T) values at p as the raw bits of one 16-byte vector, in
+// one load when vec, else value by value.
+template <typename T>
+__device__ __forceinline__ uint4 load_raw(const T* p, int vec) {
+  if (vec) return *reinterpret_cast<const uint4*>(p);
+  constexpr int E = 16 / sizeof(T);
+  unsigned w[4];
+  if constexpr (E == 8) {
 #pragma unroll
-    for (int k = 0; k < (1 << R); ++k) v[k] = s[i0 + k * h];
-    butterfly_regs<R>(v);
+    for (int k = 0; k < 4; ++k)
+      w[k] = static_cast<unsigned>(__bfloat16_as_ushort(p[2 * k])) |
+             (static_cast<unsigned>(__bfloat16_as_ushort(p[2 * k + 1])) << 16);
+  } else {
 #pragma unroll
-    for (int k = 0; k < (1 << R); ++k) s[i0 + k * h] = v[k];
+    for (int k = 0; k < 4; ++k) w[k] = __float_as_uint(p[k]);
   }
+  return make_uint4(w[0], w[1], w[2], w[3]);
 }
 
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-fwht_smem_kernel(const T* __restrict__ x, T* __restrict__ out, int n, float scale, int vec) {
-  extern __shared__ __align__(16) float s[];
-  const long long base = static_cast<long long>(blockIdx.x) * n;
-  const int groups = n / 8;
-
-  for (int g = threadIdx.x; g < groups; g += kThreads) {
-    float v[8];
-    hadamard::load_vals<T, 8>(x + base + g * 8, v, vec != 0);
-    butterfly_regs<3>(v);
-    hadamard::store8(s + g * 8, v);
+__device__ __forceinline__ void unpack16(uint4 u, float* v) {
+  const unsigned w[4] = {u.x, u.y, u.z, u.w};
+  if constexpr (sizeof(T) == 2) {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {  // bf16 -> f32 is a 16-bit shift
+      v[2 * k] = __uint_as_float(w[k] << 16);
+      v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < 4; ++k) v[k] = __uint_as_float(w[k]);
   }
-  __syncthreads();
+}
 
-  for (int h = 8; h < n;) {
-    const int left = n / h;
-    if (left >= 8) {
-      smem_pass<3>(s, n, h);
-      h <<= 3;
-    } else if (left == 4) {
-      smem_pass<2>(s, n, h);
-      h <<= 2;
-    } else {
-      smem_pass<1>(s, n, h);
-      h <<= 1;
+// P consecutive values: in vectors of up to 16 bytes when vec (and P *
+// sizeof(T) >= 4), else value by value.
+template <typename T, int P>
+__device__ __forceinline__ void store_run(T* p, const float* v, int vec) {
+  constexpr int kBytes = P * static_cast<int>(sizeof(T));
+  if constexpr (kBytes >= 4) {
+    if (vec) {
+      unsigned w[kBytes / 4];
+#pragma unroll
+      for (int k = 0; k < kBytes / 4; ++k) {
+        if constexpr (sizeof(T) == 2) {
+          w[k] = hadamard::bf16_bits(v[2 * k]) | (hadamard::bf16_bits(v[2 * k + 1]) << 16);
+        } else {
+          w[k] = __float_as_uint(v[k]);
+        }
+      }
+      if constexpr (kBytes >= 16) {
+#pragma unroll
+        for (int k = 0; k < kBytes / 4; k += 4)
+          *reinterpret_cast<uint4*>(p + k * 4 / static_cast<int>(sizeof(T))) =
+              make_uint4(w[k], w[k + 1], w[k + 2], w[k + 3]);
+      } else if constexpr (kBytes == 8) {
+        *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
+      } else {
+        *reinterpret_cast<unsigned*>(p) = w[0];
+      }
+      return;
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < P; ++k) p[k] = hadamard::from_f<T>(v[k]);
+}
+
+// P consecutive floats of shared memory at swizzled index i (P a power of two).
+template <int P>
+__device__ __forceinline__ void load_shared(const float* s, int i, float* v) {
+  if constexpr (P >= 4) {
+#pragma unroll
+    for (int k = 0; k < P; k += 4) {
+      const float4 a = *reinterpret_cast<const float4*>(s + swizzle(i + k));
+      v[k] = a.x; v[k + 1] = a.y; v[k + 2] = a.z; v[k + 3] = a.w;
+    }
+  } else if constexpr (P == 2) {
+    const float2 a = *reinterpret_cast<const float2*>(s + swizzle(i));
+    v[0] = a.x; v[1] = a.y;
+  } else {
+    v[0] = s[swizzle(i)];
+  }
+}
+
+template <typename T, int V, int W>
+__global__ void __launch_bounds__(32 * W)
+fwht_block_kernel(const T* __restrict__ x, T* __restrict__ out, long long rows, float scale,
+                  int vec) {
+  constexpr int E = 16 / sizeof(T), C = V / E;
+  constexpr int kSeg = 32 * V;  // a warp's values
+  constexpr int n = kSeg * W;
+  constexpr int P = V / W;
+  static_assert(C >= 1 && P >= 1, "a thread holds whole vectors and a position of every warp");
+  // the next row's vectors in registers while this one transforms (up to
+  // 512 threads: 1,024 leaves 64 registers a thread); two buffers of the
+  // exchange where they fit beside other blocks, so one barrier a row
+  constexpr bool kPrefetch = W <= 16;
+  constexpr int kBuffers = n <= 8192 ? 2 : 1;
+  extern __shared__ __align__(16) float s[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, t = threadIdx.x;
+  const T* xw = x + warp * kSeg + lane * E;
+  uint4 pre[C];
+  auto load_row = [&](long long row) {
+#pragma unroll
+    for (int c = 0; c < C; ++c) pre[c] = load_raw<T>(xw + row * n + c * 32 * E, vec);
+  };
+  const long long stride = gridDim.x;
+  if constexpr (kPrefetch) {
+    if (blockIdx.x < rows) load_row(blockIdx.x);
+  }
+  int buf = 0;
+  for (long long row = blockIdx.x; row < rows; row += stride) {
+    if constexpr (!kPrefetch) load_row(row);
+    float v[C][E];
+#pragma unroll
+    for (int c = 0; c < C; ++c) unpack16<T>(pre[c], v[c]);
+    if constexpr (kPrefetch) {
+      if (row + stride < rows) load_row(row + stride);
+    }
+    // e: in registers; lane: by shuffles; c: in registers
+#pragma unroll
+    for (int c = 0; c < C; ++c) butterfly_regs<E == 8 ? 3 : 2>(v[c]);
+#pragma unroll
+    for (int m = 1; m < 32; m <<= 1) hadamard::butterfly_lanes<C * E>(&v[0][0], m, (lane & m) != 0);
+#pragma unroll
+    for (int sc = 1; sc < C; sc <<= 1) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if ((c & sc) == 0) {
+#pragma unroll
+          for (int e = 0; e < E; ++e) {
+            const float a = v[c][e], b = v[c | sc][e];
+            v[c][e] = a + b;
+            v[c | sc][e] = a - b;
+          }
+        }
+      }
+    }
+    float* sb = s + buf * n;
+    if (kBuffers == 1 && row != blockIdx.x) __syncthreads();  // the last row's reads are done
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      const int i = warp * kSeg + c * 32 * E + lane * E;
+#pragma unroll
+      for (int k = 0; k < E; k += 4)
+        *reinterpret_cast<float4*>(sb + swizzle(i + k)) =
+            make_float4(v[c][k], v[c][k + 1], v[c][k + 2], v[c][k + 3]);
     }
     __syncthreads();
-  }
-
-  for (int g = threadIdx.x; g < groups; g += kThreads) {
-    float v[8];
-    hadamard::load8(s + g * 8, v);
+    // w: in registers, then the scale and the store
+    float y[W][P];
 #pragma unroll
-    for (int e = 0; e < 8; ++e) v[e] *= scale;
-    hadamard::store_vals<T, 8>(out + base + g * 8, v, vec != 0);
+    for (int w = 0; w < W; ++w) load_shared<P>(sb, w * kSeg + t * P, y[w]);
+#pragma unroll
+    for (int sw = 1; sw < W; sw <<= 1) {
+#pragma unroll
+      for (int w = 0; w < W; ++w) {
+        if ((w & sw) == 0) {
+#pragma unroll
+          for (int k = 0; k < P; ++k) {
+            const float a = y[w][k], b = y[w | sw][k];
+            y[w][k] = a + b;
+            y[w | sw][k] = a - b;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < W; ++w) {
+#pragma unroll
+      for (int k = 0; k < P; ++k) y[w][k] *= scale;
+      store_run<T, P>(out + row * n + w * kSeg + t * P, y[w], vec);
+    }
+    if constexpr (kBuffers == 2) buf ^= 1;
   }
 }
 
-// Whether an instance may take kMaxN floats of shared memory on a device:
-// set on its first launch there that needs more than the default.
-template <typename T>
-std::atomic<bool> smem_raised[kMaxDevices];
+constexpr int block_smem(int n) { return (n <= 8192 ? 2 : 1) * n * 4; }
 
-template <typename T>
-int launch_smem(const T* x, T* out, long long total, long long n, float scale, int vec,
-                cudaStream_t st) {
+// The grid of an instance on a device, a persistent one: the blocks its SMs
+// hold at once, asked once per device (after allowing the instance its shared
+// memory where it needs more than the default).
+template <typename T, int V, int W>
+std::atomic<int> block_grid[kMaxDevices];
+
+template <typename T, int V, int W>
+int launch_block(const T* x, T* out, long long total, float scale, int vec, cudaStream_t st) {
+  constexpr int n = 32 * V * W;
   const long long rows = total / n;
-  if (rows > 0x7fffffffLL) return cudaErrorInvalidValue;
-  const int smem = static_cast<int>(n * sizeof(float));
-  auto kern = fwht_smem_kernel<T>;
-  if (smem > kDefaultSmem) {
-    int dev = 0;
-    cudaError_t e = cudaGetDevice(&dev);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-    if (!smem_raised<T>[dev].load(std::memory_order_acquire)) {
-      e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kMaxN * sizeof(float)));
+  auto kern = fwht_block_kernel<T, V, W>;
+  constexpr int smem = block_smem(n);
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int grid = block_grid<T, V, W>[dev].load(std::memory_order_acquire);
+  if (grid == 0) {
+    if (smem > kDefaultSmem) {
+      e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
       if (e != cudaSuccess) return static_cast<int>(e);
-      smem_raised<T>[dev].store(true, std::memory_order_release);
     }
+    int per_sm = 0, sms = 0;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, 32 * W, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    if (per_sm <= 0) return cudaErrorInvalidConfiguration;
+    grid = per_sm * sms;
+    block_grid<T, V, W>[dev].store(grid, std::memory_order_release);
   }
-  kern<<<static_cast<unsigned>(rows), kThreads, smem, st>>>(x, out, static_cast<int>(n), scale,
-                                                             vec);
+  const long long blocks = rows < grid ? rows : grid;
+  kern<<<static_cast<unsigned>(blocks), 32 * W, smem, st>>>(x, out, rows, scale, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -256,7 +407,15 @@ int launch(const void* xv, void* outv, long long total, long long n, float scale
   const int vec =
       ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(out)) & 15) == 0;
   constexpr long long E = 16 / sizeof(T);
-  if (n > kMaxWarpN) return launch_smem<T>(x, out, total, n, scale, vec, st);
+  // n > 1,024: kBlockValues values a thread up to n = 8,192, 32 above
+  constexpr int V = kBlockValues;
+  switch (n) {
+    case 2048: return launch_block<T, V, 2048 / (32 * V)>(x, out, total, scale, vec, st);
+    case 4096: return launch_block<T, V, 4096 / (32 * V)>(x, out, total, scale, vec, st);
+    case 8192: return launch_block<T, V, 8192 / (32 * V)>(x, out, total, scale, vec, st);
+    case 16384: return launch_block<T, 32, 16>(x, out, total, scale, vec, st);
+    case 32768: return launch_block<T, 32, 32>(x, out, total, scale, vec, st);
+  }
   switch (n <= 32 * E ? 1 : n / (32 * E)) {
     case 1: return launch_warp<T, 1>(x, out, total, n, scale, vec, st);
     case 2: return launch_warp<T, 2>(x, out, total, n, scale, vec, st);

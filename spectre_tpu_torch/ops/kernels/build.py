@@ -50,7 +50,10 @@ _SIGNATURES = {
                                           ctypes.c_float, _P),
     "fused_spectre_linear_wide_cluster_reach": (ctypes.POINTER(ctypes.c_int),),
     "fused_spectre_linear_bwd_wide": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                      _LL, _LL, _LL, ctypes.c_float, _P),
+                                      _LL, _LL, _LL, ctypes.c_float, _P, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_int),
+    "fused_spectre_linear_bwd_wide_occupancy": (ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_int, ctypes.POINTER(ctypes.c_int)),
     "fused_block_bwd_grouped": (ctypes.c_int, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL,
                                 _LL, ctypes.c_int, ctypes.c_int, _P),
     "fused_block_bwd_wgmma": (_P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P),

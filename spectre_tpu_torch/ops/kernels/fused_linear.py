@@ -40,8 +40,12 @@ TPU's default precision, which is not float32 either); in float32
 everything is float32, the products true float32 (no TF32). dgamma, dbeta
 and db are float32 sums (db of the unrounded dh), each gradient cast once
 to its tensor's dtype. The chain kernel holds a row in a warp's registers up
-to N = 1,024; above, ``fused_spectre_linear_bwd_wide`` walks the row in
-chunks (``backward_kernel``).
+to N = 1,024; above, ``fused_spectre_linear_bwd_wide`` (``backward_kernel``)
+spreads a row over a block, each thread holding its columns of every row in
+registers, with the next rows on their way into shared memory and the column
+sums in registers across the block's rows, up to N = ``WIDE_REACH``; above
+that it walks the row from memory. ``wide_chain_plan`` picks its vector
+width, vectors a thread, threads and grid.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises. There is no fallback from a CUDA tensor to the plain path.
@@ -66,6 +70,19 @@ ROW_N = 1024
 # the wgmma kernel's 64 x N float32 sums live in registers: 64 N of an SM's 65,536
 WGMMA_MAX_N = 768
 BWD_BLOCKS_PER_SM = 3  # the chain kernel's blocks an SM (csrc/fused_spectre_linear_bwd.cu)
+# The wide chain (csrc/fused_spectre_linear_bwd.cu, N > ROW_N): the values
+# a thread holds in registers, the threads a block at most, and so the N up
+# to which a row is held in registers (above, the row is walked by
+# WIDE_MAX_THREADS threads); at most WIDE_BLOCKS_PER_SM blocks an SM of what
+# the card's occupancy allows, since each block adds a partial row of
+# column sums, and one where the row is walked, whose column sums go
+# through memory every row (the card's sweeps, PERF.md: 16 values a thread
+# and 4 blocks an SM were the fastest at every C6 shape, one block an SM at
+# N = 16,384)
+WIDE_VALUES = 16
+WIDE_MAX_THREADS = 512
+WIDE_REACH = WIDE_MAX_THREADS * WIDE_VALUES
+WIDE_BLOCKS_PER_SM = 4
 
 
 def fused_spectre_linear_plain(x, w, b, gamma, beta, eps: float = 1e-5,
@@ -398,18 +415,111 @@ def _bwd_grid(device_index: int) -> int:
 
 def backward_kernel(n: int) -> str:
     """The C entry point of the chain a backward with N = ``n`` launches: a
-    row in a warp's registers up to ROW_N, else walked in chunks by a block."""
+    row in a warp's registers up to ROW_N, else spread over a block."""
     return "fused_spectre_linear_bwd_chain" if n <= ROW_N else "fused_spectre_linear_bwd_wide"
 
 
-def fused_spectre_linear_bwd_wide(*args) -> None:
-    """Launch the chain for N > ROW_N (the arguments of the C entry point)."""
-    check(load_library().fused_spectre_linear_bwd_wide(*args),
-          "fused_spectre_linear_bwd_wide launch")
+class WideChainPlan(NamedTuple):
+    """A launch of the wide chain: vectors of ``vec`` values, ``chunks``
+    vectors a thread (0: the row is walked, N > WIDE_REACH), ``threads`` a
+    block, ``blocks`` blocks of ``rows`` contiguous rows each."""
+    vec: int
+    chunks: int
+    threads: int
+    blocks: int
+    rows: int
+
+
+def wide_chain_plan(dtype: torch.dtype, m: int, n: int, align: int = 16, sm_count: int = 132,
+                    occupancy=None) -> WideChainPlan:
+    """The wide chain's launch for h and g [m, n] whose bases (h, g, dh,
+    gamma, beta) are all ``align``-byte aligned. The widest vector of at
+    most 16 bytes that n and the bases allow; WIDE_VALUES values a thread
+    (WIDE_VALUES / vec vectors); the threads that cover the row, in whole
+    warps (at most WIDE_MAX_THREADS: N <= WIDE_REACH; above, the row is
+    walked by WIDE_MAX_THREADS threads). The grid:
+    ``occupancy(vec, chunks, threads)`` blocks an SM (the card's answer;
+    WIDE_BLOCKS_PER_SM when None), at most WIDE_BLOCKS_PER_SM (one for the
+    walk), on ``sm_count`` SMs, at most one a row; the rows split evenly,
+    so no block is empty."""
+    el = dtype.itemsize
+    vec = max(v for v in (8, 4, 2, 1)
+              if v * el <= 16 and n % v == 0 and align % (v * el) == 0)
+    vectors = _ceil(n, vec)
+    if n > WIDE_REACH:
+        chunks, threads = 0, WIDE_MAX_THREADS
+    else:
+        chunks = WIDE_VALUES // vec
+        threads = _ceil(_ceil(vectors, chunks), 32) * 32
+    per_sm = WIDE_BLOCKS_PER_SM if occupancy is None else occupancy(vec, chunks, threads)
+    if per_sm < 1:
+        raise ValueError(f"the wide chain's block ({vec}, {chunks}, {threads}) does not fit an SM")
+    per_sm = min(per_sm, WIDE_BLOCKS_PER_SM if chunks else 1)
+    rows = _ceil(m, min(m, per_sm * sm_count))
+    return WideChainPlan(vec, chunks, threads, _ceil(m, rows), rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _wide_occupancy(device_index: int, dtype: torch.dtype, vec: int, chunks: int,
+                    threads: int) -> int:
+    """Blocks of a wide chain instance an SM of the card holds (its
+    registers and shared memory), asked once."""
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        check(load_library().fused_spectre_linear_bwd_wide_occupancy(
+            _DTYPE_CODES[dtype], vec, chunks, threads, ctypes.byref(per_sm)),
+            "fused_spectre_linear_bwd_wide_occupancy")
+    return per_sm.value
+
+
+def _alignment(*tensors) -> int:
+    """The largest power of two up to 16 that divides every base address."""
+    bases = 16
+    for t in tensors:
+        bases |= t.data_ptr()
+    return bases & -bases
+
+
+def fused_spectre_linear_bwd_wide(h, g, gamma, beta, dh, sums, eps: float) -> None:
+    """Launch the chain for N > ROW_N on checked operands of the current
+    device, h, g and dh [M, N], into dh and ``sums`` (dgamma, dbeta, db
+    [3, N]), with ``wide_chain_plan``'s launch."""
+    m, n = h.shape
+    dev = h.get_device()
+    plan = wide_chain_plan(h.dtype, m, n, _alignment(h, g, dh, gamma, beta), _sm_count(dev),
+                           functools.partial(_wide_occupancy, dev, h.dtype))
+    partial = torch.empty((plan.blocks, 3, n), dtype=torch.float32, device=h.device)
+    at, step = sums.data_ptr(), n * sums.element_size()
+    check(load_library().fused_spectre_linear_bwd_wide(
+        _DTYPE_CODES[h.dtype], h.data_ptr(), g.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        dh.data_ptr(), at, at + step, at + 2 * step, partial.data_ptr(), m, n, plan.blocks, eps,
+        current_stream(dev), plan.vec, plan.chunks, plan.threads),
+        f"fused_spectre_linear_bwd_wide launch ({plan})")
     fused_spectre_linear_bwd_wide.launches += 1
 
 
 fused_spectre_linear_bwd_wide.launches = 0
+
+
+def backward_chain(h, g, gamma, beta, eps: float = 1e-5):
+    """The LayerNorm/GELU chain alone on the card: (dh [M, N] in h's dtype,
+    sums [3, N]: dgamma, dbeta, db) from checked, contiguous h and g [M, N]
+    on the current device, M >= 1; the kernel ``backward_kernel`` names."""
+    m, n = h.shape
+    dh = torch.empty_like(h)
+    sums = torch.empty((3, n), dtype=h.dtype, device=h.device)
+    if backward_kernel(n) == "fused_spectre_linear_bwd_wide":
+        fused_spectre_linear_bwd_wide(h, g, gamma, beta, dh, sums, eps)
+        return dh, sums
+    dev = h.get_device()
+    blocks = min(m, _bwd_grid(dev))
+    partial = torch.empty((blocks, 3, n), dtype=torch.float32, device=h.device)
+    at, step = sums.data_ptr(), n * sums.element_size()
+    check(load_library().fused_spectre_linear_bwd_chain(
+        _DTYPE_CODES[h.dtype], h.data_ptr(), g.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        dh.data_ptr(), at, at + step, at + 2 * step, partial.data_ptr(), m, n, blocks, eps,
+        current_stream(dev)), "fused_spectre_linear_bwd_chain launch")
+    return dh, sums
 
 
 def fused_spectre_linear_bwd(x, w, gamma, beta, h, g, eps: float = 1e-5):
@@ -434,22 +544,11 @@ def fused_spectre_linear_bwd(x, w, gamma, beta, h, g, eps: float = 1e-5):
             return fused_spectre_linear_bwd(x, w, gamma, beta, h, g, eps)
     m = h.numel() // n
     x2, g2 = x.reshape(m, k), g.reshape(m, n)
-    dh = torch.empty((m, n), dtype=x.dtype, device=x.device)
-    sums = torch.empty((3, n), dtype=x.dtype, device=x.device)  # dgamma, dbeta, db
     if m == 0:
-        sums.zero_()
+        dh = torch.empty((m, n), dtype=x.dtype, device=x.device)
+        sums = torch.zeros((3, n), dtype=x.dtype, device=x.device)
     else:
-        blocks = min(m, _bwd_grid(dev))
-        partial = torch.empty((blocks, 3, n), dtype=torch.float32, device=x.device)
-        at, step = sums.data_ptr(), n * sums.element_size()
-        args = (_DTYPE_CODES[x.dtype], h.data_ptr(), g.data_ptr(), gamma.data_ptr(),
-                beta.data_ptr(), dh.data_ptr(), at, at + step, at + 2 * step,
-                partial.data_ptr(), m, n, blocks, eps, current_stream(dev))
-        if backward_kernel(n) == "fused_spectre_linear_bwd_wide":
-            fused_spectre_linear_bwd_wide(*args)
-        else:
-            check(load_library().fused_spectre_linear_bwd_chain(*args),
-                  "fused_spectre_linear_bwd_chain launch")
+        dh, sums = backward_chain(h.reshape(m, n), g2, gamma, beta, eps)
         fused_spectre_linear_bwd.launches += 1
     if x.dtype == torch.bfloat16:  # float32 sums, one rounding
         dw = torch.mm(x2.t(), dh, out_dtype=torch.float32).to(w.dtype)

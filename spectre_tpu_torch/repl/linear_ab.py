@@ -1,6 +1,7 @@
-"""Kernel 2's forward at the shapes its cluster kernels took over, and kernel
-5 at the tables its token-grouped kernel takes, timed in two trees of the
-repository in turns on one card.
+"""Kernel 2's forward at the shapes its cluster kernels took over, kernel 5
+at the tables its token-grouped kernel takes, kernel 2's backward above N =
+1,024 and the Walsh-Hadamard transform, timed in two trees of the repository
+in turns on one card.
 
     python -m spectre_tpu_torch.repl.linear_ab [--parent DIR] [--out FILE]
 
@@ -26,14 +27,28 @@ that tree) beside the chain it fuses (the dg4 product, the signs,
 16, 65 tokens, O = 512) for B = 256 and 1,024: bf16 with blk 16 and 32,
 float32 with blk 16 and 64.
 
+Then kernel 2's backward above N = 1,024 (``fused_spectre_linear_bwd``, the
+wide chain and the two products) at the three C6 shapes in bf16 and float32,
+at N = 4,096 and at N = 16,384 (beyond the registers' reach of the wide
+chain): the whole backward, and the chain with its column-sum pass alone
+(the C entry point called directly), each beside its bound; the chain's
+bound is bytes, h and g read and dh written once, and separately with the
+blocks' float32 partial rows written and read once. Then ``fwht`` at
+[16,640, 512] and [16,640, 1,024] (the warp route), [4,160, 2,048], [4,160,
+4,096], [1,040, 16,384] and [520, 32,768] in bf16, and [4,160, 4,096] in
+float32, beside its bound (x read and written once).
+
 With ``--parent DIR`` (an unpacked tree of another commit, its kernels built
 into its own ``build/kernels/``) the shapes run in four processes in turns,
 parent / this tree / this tree / parent, each importing its own tree's
 package; the card's name and power limit and every turn's numbers go to
 ``--out`` as JSON, with each shape's bound (the larger of the bytes read and
 written once over 3.35 TB/s and the operations over the dtype's peak).
-``--root DIR`` runs one turn of the tree at DIR (what the turns call). Needs
-a CUDA card.
+``--root DIR`` runs one turn of the tree at DIR (what the turns call).
+``--parts`` picks the groups (``fwd``, ``block_bwd``, ``bwd``, ``fwht``; all
+by default). ``--chain-sweep`` times this tree's wide chain alone at the C6
+shapes for each cap of ``WIDE_BLOCKS_PER_SM`` in 1 .. 8 instead. Needs a
+CUDA card.
 """
 
 from __future__ import annotations
@@ -55,22 +70,46 @@ SHAPES = ([("bfloat16", m, 512, 100) for m in (1, 2, 7, 64, 256, 1024)]
 # kernel 5: (dtype, blk) at the flagship mix backward's shape, and its batches
 BLOCK_BWD_ROUTES = (("bfloat16", 16), ("bfloat16", 32), ("float32", 16), ("float32", 64))
 BLOCK_BWD_BATCHES = (256, 1024)
+# kernel 2's backward above N = 1,024: (rows, K, N), each in both dtypes
+BWD_SHAPES = ((4160, 1536, 1536), (4160, 768, 2048), (4160, 768, 1100), (4160, 768, 4096),
+              (1040, 512, 16384))
+FWHT_SHAPES = (("bfloat16", 16640, 512), ("bfloat16", 16640, 1024), ("bfloat16", 4160, 2048),
+               ("bfloat16", 4160, 4096), ("bfloat16", 1040, 16384), ("bfloat16", 520, 32768),
+               ("float32", 4160, 4096))
+PARTS = ("fwd", "block_bwd", "bwd", "fwht")
 
 
-def one_turn(root: str) -> dict:
-    """Time every shape with the package of the tree at ``root`` (first on
-    the path, in place of this file's directory)."""
+def one_turn(root: str, parts=PARTS) -> dict:
+    """Time every shape of ``parts`` with the package of the tree at
+    ``root`` (first on the path, in place of this file's directory)."""
     sys.path[0] = root
     import torch
-    import torch.nn.functional as F
 
     from spectre_tpu_torch.ops import kernels
-    from spectre_tpu_torch.utils.timing import (BF16_FLOPS, FP32_FLOPS, bound_ms, cuda_time_ms,
-                                                device_time_ms)
 
     if not torch.cuda.is_available():
         raise SystemExit("linear_ab: needs a CUDA card")
     torch.backends.cuda.matmul.allow_tf32 = False
+    rows = {}
+    if "fwd" in parts:
+        rows.update(fwd_turn(root, kernels))
+    if "block_bwd" in parts:
+        rows.update(block_bwd_turn(kernels))
+    if "bwd" in parts:
+        rows.update(bwd_turn(kernels))
+    if "fwht" in parts:
+        rows.update(fwht_turn(kernels))
+    return rows
+
+
+def fwd_turn(root: str, kernels) -> dict:
+    """Kernel 2's forward at SHAPES beside the cuBLAS chain."""
+    import torch
+    import torch.nn.functional as F
+
+    from spectre_tpu_torch.utils.timing import (BF16_FLOPS, FP32_FLOPS, bound_ms, cuda_time_ms,
+                                                device_time_ms)
+
     gen = torch.Generator().manual_seed(0)
     rows = {}
     for dt, m, k, n in SHAPES:
@@ -105,7 +144,6 @@ def one_turn(root: str) -> dict:
               f"({row['chain_device_ms']:.4f}); bound {row['bound_ms']:.4f} by {row['bound_by']}",
               flush=True)
         del x, w, args
-    rows.update(block_bwd_turn(kernels))
     return rows
 
 
@@ -158,14 +196,156 @@ def block_bwd_turn(kernels) -> dict:
     return rows
 
 
+def chain_fn(kernels, h, g, gamma, beta):
+    """The wide chain with its column-sum pass alone, as the tree at hand
+    launches it: ``backward_chain`` where the tree has it, else the C entry
+    point with the grid of the first wide chain (3 blocks an SM). Returns
+    the call and the blocks' count (the partial rows)."""
+    import torch
+
+    fl = kernels.fused_linear
+    if hasattr(fl, "backward_chain"):
+        m, n = h.shape
+        plan = fl.wide_chain_plan(h.dtype, m, n, 16, fl._sm_count(0),
+                                  lambda *a: fl._wide_occupancy(0, h.dtype, *a))
+        return (lambda: fl.backward_chain(h, g, gamma, beta)), plan.blocks
+    m, n = h.shape
+    blocks = min(m, fl._bwd_grid(0))
+    dh = torch.empty_like(h)
+    sums = torch.empty((3, n), dtype=h.dtype, device=h.device)
+    partial = torch.empty((blocks, 3, n), dtype=torch.float32, device=h.device)
+    at, step = sums.data_ptr(), n * sums.element_size()
+    lib = fl.load_library()
+
+    def call():
+        fl.check(lib.fused_spectre_linear_bwd_wide(
+            fl._DTYPE_CODES[h.dtype], h.data_ptr(), g.data_ptr(), gamma.data_ptr(),
+            beta.data_ptr(), dh.data_ptr(), at, at + step, at + 2 * step, partial.data_ptr(), m,
+            n, blocks, 1e-5, fl.current_stream(0)), "fused_spectre_linear_bwd_wide")
+    return call, blocks
+
+
+def _bwd_case(m, k, n, dtype, seed):
+    """x, w, gamma, beta, the saved h = x w + b and a cotangent, on the card."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(m, k, generator=gen)
+    w = torch.empty(k, n).uniform_(-k ** -0.5, k ** -0.5, generator=gen)
+    b = 0.1 * torch.randn(n, generator=gen)
+    gamma = 1.0 + 0.1 * torch.randn(n, generator=gen)
+    beta = 0.1 * torch.randn(n, generator=gen)
+    g = torch.randn(m, n, generator=gen)
+    return [t.to("cuda", dtype) for t in (x, w, gamma, beta, x @ w + b, g)]
+
+
+def bwd_turn(kernels) -> dict:
+    """Kernel 2's backward at BWD_SHAPES in both dtypes: the whole of it and
+    the chain alone, on the device and back to back, beside the bounds."""
+    import torch
+
+    from spectre_tpu_torch.utils.timing import (BF16_FLOPS, FP32_FLOPS, bound_ms, cuda_time_ms,
+                                                device_time_ms)
+
+    rows = {}
+    for m, k, n in BWD_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            args = _bwd_case(m, k, n, dtype, m + k + n)
+            el = args[0].element_size()
+            chain, blocks = chain_fn(kernels, *args[4:], args[2], args[3])
+            whole = lambda: kernels.fused_spectre_linear_bwd(*args)  # noqa: E731
+            it = 10 if dtype == torch.bfloat16 else 3
+            row = {"bwd_ms": cuda_time_ms(whole, iters=it),
+                   "bwd_device_ms": device_time_ms(whole, iters=min(it, 5)),
+                   "chain_ms": cuda_time_ms(chain, iters=20),
+                   "chain_device_ms": device_time_ms(chain, iters=10), "blocks": blocks}
+            # x, h, g, W, gamma, beta read and dx, dW, the three [N] written
+            row["bwd_bound_ms"], row["bwd_bound_by"] = bound_ms(
+                (2 * m * k + 2 * m * n + 2 * k * n + 5 * n) * el, 4 * m * k * n,
+                FP32_FLOPS if dtype == torch.float32 else BF16_FLOPS)
+            row["chain_bound_ms"] = bound_ms((3 * m * n + 5 * n) * el)[0]
+            row["chain_bound_partial_ms"] = bound_ms((3 * m * n + 5 * n) * el
+                                                     + 2 * blocks * 3 * n * 4)[0]
+            key = f"bwd_{m}x{k}x{n}_{str(dtype)[6:]}"
+            rows[key] = row
+            print(f"{key}: backward {row['bwd_ms']:.4f} ms (device {row['bwd_device_ms']:.4f}), "
+                  f"bound {row['bwd_bound_ms']:.4f} by {row['bwd_bound_by']}; chain alone "
+                  f"{row['chain_ms']:.4f} (device {row['chain_device_ms']:.4f}), bound "
+                  f"{row['chain_bound_ms']:.4f} by bytes, {row['chain_bound_partial_ms']:.4f} "
+                  f"with {blocks} partial rows", flush=True)
+            del args
+            torch.cuda.empty_cache()
+    return rows
+
+
+def fwht_turn(kernels) -> dict:
+    """``fwht`` at FWHT_SHAPES beside its bound."""
+    import torch
+
+    from spectre_tpu_torch.utils.timing import bound_ms, cuda_time_ms, device_time_ms
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = {}
+    for dt, m, n in FWHT_SHAPES:
+        x = torch.randn(m, n, generator=gen, device="cuda").to(getattr(torch, dt))
+        row = {"ms": cuda_time_ms(lambda: kernels.fwht(x)),
+               "device_ms": device_time_ms(lambda: kernels.fwht(x))}
+        row["bound_ms"], row["bound_by"] = bound_ms(2 * m * n * x.element_size())
+        rows[f"fwht_{m}x{n}_{dt}"] = row
+        print(f"fwht [{m}, {n}] {dt}: {row['ms']:.4f} ms (device {row['device_ms']:.4f}), bound "
+              f"{row['bound_ms']:.4f} by {row['bound_by']}", flush=True)
+        del x
+    return rows
+
+
+def chain_sweep() -> dict:
+    """This tree's wide chain alone at the C6 shapes, the device time for
+    each cap of WIDE_BLOCKS_PER_SM."""
+    sys.path[0] = ROOT
+    import torch
+
+    from spectre_tpu_torch.ops import kernels
+    from spectre_tpu_torch.utils.timing import device_time_ms
+
+    fl = kernels.fused_linear
+    keep, rows = fl.WIDE_BLOCKS_PER_SM, {}
+    try:
+        for m, k, n in BWD_SHAPES:
+            for dtype in (torch.bfloat16, torch.float32):
+                args = _bwd_case(m, k, n, dtype, m + k + n)
+                row = {}
+                for cap in range(1, 9):
+                    fl.WIDE_BLOCKS_PER_SM = cap
+                    chain, blocks = chain_fn(kernels, *args[4:], args[2], args[3])
+                    row[cap] = {"blocks": blocks, "device_ms": device_time_ms(chain, iters=10)}
+                rows[f"{m}x{n}_{str(dtype)[6:]}"] = row
+                print(f"chain sweep {m}x{n} {str(dtype)[6:]}: " + ", ".join(
+                    f"cap {c}: {v['device_ms']:.4f} ({v['blocks']} blocks)"
+                    for c, v in row.items()), flush=True)
+                del args
+    finally:
+        fl.WIDE_BLOCKS_PER_SM = keep
+    return rows
+
+
 def main(argv=None) -> dict:
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--parent", help="an unpacked tree to time in turns with this one")
     p.add_argument("--root", help="time one turn of the tree at this directory")
     p.add_argument("--out", help="write the turns as JSON here")
+    p.add_argument("--parts", default=",".join(PARTS),
+                   help=f"comma-separated groups to time, of {', '.join(PARTS)}")
+    p.add_argument("--chain-sweep", action="store_true",
+                   help="time the wide chain alone at each cap of WIDE_BLOCKS_PER_SM")
     args = p.parse_args(argv)
+    if args.chain_sweep:
+        rows = chain_sweep()
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(rows, f, indent=1)
+        return rows
     if args.root:
-        rows = one_turn(os.path.abspath(args.root))
+        rows = one_turn(os.path.abspath(args.root), args.parts.split(","))
         if args.out:
             with open(args.out, "w") as f:
                 json.dump(rows, f)
@@ -179,7 +359,7 @@ def main(argv=None) -> dict:
     for i, (name, root) in enumerate(trees):
         out = os.path.join(ROOT, "build", f"linear_ab_turn{i}.json")
         subprocess.run([sys.executable, os.path.abspath(__file__), "--root", os.path.abspath(root),
-                        "--out", out], check=True, cwd=root)
+                        "--out", out, "--parts", args.parts], check=True, cwd=root)
         with open(out) as f:
             turns.append({"tree": name, "rows": json.load(f)})
     result = {"card": card, "turns": turns}

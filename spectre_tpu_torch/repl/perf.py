@@ -171,6 +171,7 @@ _GROUPS = (
     ("fused_linear_wide_cluster_kernel", "kernel 2 fused_spectre_linear_fwd"),
     ("chain_kernel", "kernel 2's backward chain (fused_spectre_linear_bwd)"),
     ("chain_wide_kernel", "kernel 2's backward chain (fused_spectre_linear_bwd)"),
+    ("chain_walk_kernel", "kernel 2's backward chain (fused_spectre_linear_bwd)"),
     ("column_sum_kernel", "kernel 2's backward chain (fused_spectre_linear_bwd)"),
     ("flash_attention_fwd_kernel", "kernel 8 flash_attention_fwd"),
     ("flash_attention_bwd_kernel", "kernel 9 flash_attention_bwd"),

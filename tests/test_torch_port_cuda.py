@@ -391,10 +391,13 @@ def test_fused_block_bwd_grouped_at_the_flagship_shape(cuda_device, dtype, blk):
 
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)])
 @pytest.mark.parametrize("m,k,n", [(4160, 1536, 1536), (4160, 768, 2048), (195, 768, 1100),
-                                   (33, 40, 1025)])
+                                   (33, 40, 1025), (520, 64, 4096), (260, 64, 8192),
+                                   (65, 64, 8191), (130, 64, 12288)])
 def test_fused_spectre_linear_bwd_wide_chain_matches_plain(cuda_device, dtype, rel, m, k, n):
-    """The wide chain (a block a row, the row walked in chunks) against the
-    plain version with the limits of the one-warp chain, two runs bitwise."""
+    """The wide chain (a block a row; its columns of the row in a thread's
+    registers up to N = 8,192, odd N one value a vector, beyond the reach
+    the row walked) against the plain version with the limits of the
+    one-warp chain, two runs bitwise."""
     args = _bwd_case(m, k, n, dtype, cuda_device, seed=m + n)
     n0 = fused_spectre_linear_bwd_wide.launches
     got = fused_spectre_linear_bwd(*args)
@@ -407,6 +410,25 @@ def test_fused_spectre_linear_bwd_wide_chain_matches_plain(cuda_device, dtype, r
         scale = b.float().abs().max().item()
         diff = (a.float() - b.float()).abs().max().item()
         assert diff <= rel * scale, (name, diff, scale)
+
+
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)])
+def test_fused_spectre_linear_bwd_wide_chain_takes_a_ragged_last_block(cuda_device, dtype, rel):
+    """A grid whose last block owns fewer rows than the others (4,163 rows
+    split into blocks of ``plan.rows``), against the plain version."""
+    from spectre_tpu_torch.ops.kernels import fused_linear as fl
+
+    m, k, n = 4163, 256, 1536
+    args = _bwd_case(m, k, n, dtype, cuda_device, seed=7)
+    dev = args[0].get_device()
+    plan = fl.wide_chain_plan(dtype, m, n, 16, fl._sm_count(dev),
+                              lambda *a: fl._wide_occupancy(dev, dtype, *a))
+    assert plan.blocks * plan.rows > m > (plan.blocks - 1) * plan.rows
+    got = fused_spectre_linear_bwd(*args)
+    want = fused_spectre_linear_bwd_plain(*args)
+    for name, a, b in zip(("dx", "dw", "db", "dgamma", "dbeta"), got, want):
+        scale = b.float().abs().max().item()
+        assert (a.float() - b.float()).abs().max().item() <= rel * scale, name
 
 
 def _bwd_case(m, k, n, dtype, device, seed=0):

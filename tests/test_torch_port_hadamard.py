@@ -59,7 +59,7 @@ def _close(got, want, tol, what=""):
 
 
 @pytest.mark.parametrize("normalize", [True, False])
-@pytest.mark.parametrize("n", [8, 64, 128, 256, 1024])
+@pytest.mark.parametrize("n", [8, 64, 128, 256, 1024, 2048, 4096, 32768])
 def test_fwht_is_bitwise_the_jnp_butterfly_and_matches_the_pallas_kernel(n, normalize):
     """The plain version and the port's ``fwht`` add the same float32 pairs
     in the same order as ``spectre_tpu.ops.hadamard.fwht``: bitwise equal.
@@ -73,6 +73,77 @@ def test_fwht_is_bitwise_the_jnp_butterfly_and_matches_the_pallas_kernel(n, norm
         got = fn(torch.from_numpy(x), normalize).numpy()
         np.testing.assert_array_equal(got, want)
         _close(got, pallas, 1e-6)
+
+
+def _swizzle(i):
+    """csrc/fwht.cu: swizzle, a shared-memory index of the exchange."""
+    return i ^ (((i >> 5) & 7) << 2)
+
+
+def _fwht_block_route(x, e, normalize=True):
+    """csrc/fwht.cu's route for n > 1,024 (fwht_block_kernel) in plain torch,
+    float32, with the kernel's placement of every value: W = n / 1,024 warps;
+    thread (w, lane) holds C = 32 / e chunks of e consecutive values, chunk c
+    at w * 1,024 + c * 32 e + lane * e; the stages of e in registers, of lane
+    by the shuffle's pairing (the partner lane ^ mask, the upper lane taking
+    the difference), of c in registers; one exchange through the swizzled
+    shared row; thread t then holds, for every w, positions t P + [0, P) (P =
+    32 / W) and runs the stages of w in registers."""
+    m, n = x.shape
+    warps, chunks = n // 1024, 32 // e
+    p = 32 // warps
+    v = x.float().reshape(m, warps, chunks, 32, e).permute(0, 1, 3, 2, 4).clone()  # [m,w,lane,c,e]
+
+    def regs(y, axis, size):  # butterfly_regs over one register axis
+        y = y.movedim(axis, -1).clone()
+        s = 1
+        while s < size:
+            for k in range(size):
+                if k & s == 0:
+                    a, b = y[..., k].clone(), y[..., k | s].clone()
+                    y[..., k], y[..., k | s] = a + b, a - b
+            s <<= 1
+        return y.movedim(-1, axis)
+
+    v = regs(v, 4, e)
+    lane = torch.arange(32)
+    for mask in (1, 2, 4, 8, 16):
+        other = v[:, :, lane ^ mask]
+        upper = ((lane & mask) != 0)[None, None, :, None, None]
+        v = torch.where(upper, other - v, v + other)
+    v = regs(v, 3, chunks)
+    idx = (torch.arange(warps)[:, None, None, None] * 1024
+           + torch.arange(chunks)[None, None, :, None] * 32 * e
+           + torch.arange(32)[None, :, None, None] * e + torch.arange(e))  # [w, lane, c, e]
+    shared = torch.empty(m, n)
+    shared[:, _swizzle(idx).flatten()] = v.reshape(m, -1)
+    pos = (torch.arange(warps)[None, :, None] * 1024 + torch.arange(32 * warps)[:, None, None] * p
+           + torch.arange(p))  # [t, w, j]
+    y = regs(shared[:, _swizzle(pos)], 2, warps)
+    if normalize:
+        y = y * n ** -0.5
+    out = torch.empty(m, n)
+    out[:, pos.flatten()] = y.reshape(m, -1)
+    return out
+
+
+@pytest.mark.parametrize("n", [2048, 4096, 8192, 16384, 32768])
+def test_fwht_block_route_adds_the_same_pairs_in_the_same_order(n):
+    """The mirror of the kernel's n > 1,024 route, in its bf16 (e = 8 values
+    a vector) and float32 (e = 4) placements, is bitwise the plain
+    butterfly and ``spectre_tpu.ops.hadamard.fwht``: every stage adds the
+    same float32 pairs, h = 1, 2, 4, ... in turn. The exchange's swizzle is
+    one-to-one within each 32-float group, so the row's every value lands
+    once."""
+    assert sorted(_swizzle(torch.arange(n)).tolist()) == list(range(n))
+    x = np.random.default_rng(n).standard_normal((3, n)).astype(np.float32)
+    want = np.asarray(_jit(jax_hadamard.fwht, normalize=True)(jnp.asarray(x)))
+    for e in (8, 4):
+        got = _fwht_block_route(torch.from_numpy(x), e)
+        np.testing.assert_array_equal(got.numpy(), want)
+        np.testing.assert_array_equal(got.numpy(), fwht_plain(torch.from_numpy(x)).numpy())
+    np.testing.assert_array_equal(_fwht_block_route(torch.from_numpy(x), 8, False).numpy(),
+                                  fwht_plain(torch.from_numpy(x), False).numpy())
 
 
 def test_fwht_along_any_axis_and_the_small_sizes():
