@@ -244,6 +244,26 @@ Phases, each raising on failure (nothing is caught):
    The torchrun ranks run this script (``--rank-train``, ``--rank-gloo``),
    which calls the CLI's ``main`` and writes the launches.
 
+28. tensor parallelism (slice 16). Kernel B3's four column-shard entries
+   (``fused_spectre_linear_shard_stats``, ``sharded_ln_gelu``,
+   ``chain_shard_sums``, ``chain_shard_dh``; after phase 20) against their
+   plain versions at the flagship's shard widths (384 and 192 columns of
+   768) and linear3's whole rows (512), M = 16,640 and 66,560, bf16 and
+   float32, two runs bit for bit, with times beside the plain versions and
+   the byte bound; the shards merged through the entries against the
+   whole-row kernel (1e-5 of the largest entry in float32, one bf16 ulp of
+   it in bf16). Then (after phase 27), every rank on the one card over gloo
+   on card tensors: (a) ``repl/train.py --multihost --backend gloo --set
+   model_parallel=2`` under torchrun, the flagship 1 x 2 at full width,
+   TP_STEPS steps and the validation pass, exact launches a rank and the
+   per-step losses within GLOO_LOSS_REL of phase 27's unwrapped CLI; (b)
+   one float32 forward and backward against one process (loss within
+   TP_F32_LOSS_REL, the split leaves' gradients gathered within
+   TP_F32_GRAD_REL of their largest entries), the audit's TP signature, a
+   traced bf16 step; (c) the ViT 1 x 2 against one process; (d) FSDP x TP
+   2 x 2 on 4 ranks at TP_FSDP_LAYERS layers through the CLI against FSDP
+   alone on the same 2 data ranks. (b) and (c) run ``--rank-tp``.
+
 Prints the card line, one JSON line of per-kernel results, then
 ``{"ok": true, "device": {...}}`` as the last line. Exits non-zero, with no
 result, when CUDA is missing or the port is not beside this script.
@@ -252,6 +272,7 @@ result, when CUDA is missing or the port is not beside this script.
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import json
 import os
 import signal
@@ -825,7 +846,8 @@ KERNEL_NAMES = ("block_scatter_rows", "block_gather_sum", "inverse_gather_sum",
                 "structured_mix_bwd", "routed_gather_sum", "fused_spectre_linear_wgmma",
                 "fused_spectre_linear_cluster", "fused_block_bwd_wgmma",
                 "fused_block_bwd_grouped", "fused_spectre_linear_wide_cluster",
-                "fused_spectre_linear_bwd_wide")
+                "fused_spectre_linear_bwd_wide", "fused_spectre_linear_shard_stats",
+                "sharded_ln_gelu", "chain_shard_sums", "chain_shard_dh")
 
 
 def expected_launches(cfg, forwards: int = 0, steps: int = 0) -> dict[str, int]:
@@ -3232,6 +3254,222 @@ def phase_tools(kernels, parse_config, build_model, tmp: str) -> dict:
     return out
 
 
+# -- slice 16: tensor parallelism on the card ---------------------------------
+
+# kernel B3's column-shard entries against their plain versions, each result
+# (and each column of the statistics) as a share of its largest entry. f32:
+# float32 sums in another order. bf16: h, dh, the column sums and out are
+# rounded to bf16 once on both paths, so single entries differ by one bf16
+# ulp (2^-8 to 2^-7 of the largest entry) where a sum order moved a value
+# across a rounding boundary.
+TP_ENTRY_REL = {torch.float32: 1e-5, torch.bfloat16: 2.0 ** -6}
+TP_ENTRY_NAMES = ("fused_spectre_linear_shard_stats", "sharded_ln_gelu", "chain_shard_sums",
+                  "chain_shard_dh")
+# float32 operations an element of entries 2, 3 and 4 (LayerNorm, erf GELU,
+# its derivative): for their bound, which is the bytes' at every shape here
+TP_ELEMENT_FLOPS = {"sharded_ln_gelu": 20, "chain_shard_sums": 35, "chain_shard_dh": 40}
+
+
+def _bf16_ulp(x: float) -> float:
+    """One bf16 ulp at magnitude ``x`` (8 bits of significand)."""
+    return 2.0 ** (np.floor(np.log2(x)) - 7)
+
+
+def _tp_entry_bounds(m: int, k: int, n: int, size: int, el: int, whole: bool = False) -> dict:
+    """(bound ms, bound by) of each entry at m rows, this rank's n of size * n
+    columns, el bytes an element: every input read once, every output
+    written once. ``whole``: entry 2 on linear3's whole rows (the float32
+    sum and pool read, h and out written in el)."""
+    fp = FP32_FLOPS
+    if whole:
+        return {"sharded_ln_gelu": bound(m * 2 * n * 4 + 3 * n * el + 2 * m * n * el + m * 8,
+                                         TP_ELEMENT_FLOPS["sharded_ln_gelu"] * m * n, fp)}
+    return {
+        "fused_spectre_linear_shard_stats": bound((m * k + k * n + n + m * n) * el + m * 8,
+                                                  2 * m * k * n,
+                                                  BF16_FLOPS if el == 2 else FP32_FLOPS),
+        "sharded_ln_gelu": bound(3 * m * n * el + 2 * n * el + size * m * 8 + m * 8,
+                                 TP_ELEMENT_FLOPS["sharded_ln_gelu"] * m * n, fp),
+        "chain_shard_sums": bound(2 * m * n * el + 2 * n * el + 2 * m * 8 + 2 * n * el,
+                                  TP_ELEMENT_FLOPS["chain_shard_sums"] * m * n, fp),
+        "chain_shard_dh": bound(3 * m * n * el + 2 * n * el + (size + 1) * m * 8 + n * el,
+                                TP_ELEMENT_FLOPS["chain_shard_dh"] * m * n, fp)}
+
+
+def phase_tp_entries(kernels, gen):
+    """Kernel B3's four column-shard entries (slice 16) on the card: at the
+    flagship's shard widths (linear1's 768 columns over 2 and 4 ranks: 384,
+    192) at M = 16,640 and 66,560 rows (B = 256, 1,024), and entry 2 on
+    linear3's whole rows (N = 512, the all-reduced float32 sum), bf16 and
+    float32, each entry against its plain version on the same inputs; the
+    shards merged through the entries against the whole-row kernel
+    (``fused_spectre_linear``: wgmma in bf16, the cluster kernel in
+    float32) within 1e-5 of the largest entry in float32 and one bf16 ulp
+    of it in bf16; two runs of each entry bit for bit. Times (bf16, 2 ranks,
+    B = 256 is the main row; every shape's beside) back to back, on the
+    device and of the plain version, with each entry's byte bound."""
+    e, f = 512, 768
+    worst = {name: {} for name in TP_ENTRY_NAMES}
+    rows, merge = {}, {}
+
+    def held(name, dtype, got, want, tag):
+        err = max(rel_to_largest(a.float(), b.float()) for a, b in zip(got, want))
+        absd = max(max_abs_diff(a.float(), b.float()) for a, b in zip(got, want))
+        w = worst[name].setdefault(dtype, [0.0, 0.0])
+        w[0], w[1] = max(w[0], err), max(w[1], absd)
+        if not err <= TP_ENTRY_REL[dtype]:
+            raise AssertionError(f"{name} {tag} {dtype}: rel err {err} > {TP_ENTRY_REL[dtype]}")
+
+    def timed(name, fn, plain, tag, bounds):
+        fn()
+        again = fn()
+        first = fn()
+        torch.cuda.synchronize()
+        if not all(torch.equal(a, b) for a, b in zip(first, again) if a is not None):
+            raise AssertionError(f"{name} {tag}: two runs differ")
+        dev, host = queued_time_ms(fn, iters=10, reps=5)
+        t = {"ms": cuda_time_ms(fn, iters=10, reps=5), "device_ms": dev, "host_ms": host,
+             "plain_ms": cuda_time_ms(plain, iters=5, reps=3)}
+        t["bound_ms"], t["bound_by"] = bounds[name]
+        rows.setdefault(name, {})[tag] = t
+        return t
+
+    for dtype in (torch.bfloat16, torch.float32):
+        el = dtype.itemsize
+        for batch in (256, 1024):
+            m = 65 * batch
+            x = torch.randn(m, e, generator=gen).to("cuda", dtype)
+            w = (torch.randn(e, f, generator=gen) * e ** -0.5).to("cuda", dtype)
+            b, beta = ((torch.randn(f, generator=gen) * 0.1).to("cuda", dtype) for _ in range(2))
+            gamma = (1 + torch.randn(f, generator=gen) * 0.1).to("cuda", dtype)
+            pool = torch.randn(m, f, generator=gen).to("cuda", dtype)
+            gy = torch.randn(m, f, generator=gen).to("cuda", dtype)
+            whole = kernels.fused_spectre_linear(x, w, b, gamma, beta)
+            for size in (2, 4):
+                n = f // size
+                tag = f"{'bf16' if dtype == torch.bfloat16 else 'f32'}_B{batch}_n{n}"
+                bounds = _tp_entry_bounds(m, e, n, size, el)
+                cols = [slice(r * n, (r + 1) * n) for r in range(size)]
+                ws = [w[:, c].contiguous() for c in cols]
+                bs, gs, bes = ([t[c].contiguous() for c in cols] for t in (b, gamma, beta))
+                pools = [pool[:, c] for c in cols]
+                gys = [gy[:, c].contiguous() for c in cols]
+                firsts = [kernels.fused_spectre_linear_shard_stats(x, ws[r], bs[r])
+                          for r in range(size)]
+                for r in range(size):
+                    hp, sp = kernels.shard_stats_plain(x, ws[r], bs[r])
+                    held("fused_spectre_linear_shard_stats", dtype,
+                         [firsts[r][0], firsts[r][1][:, 0], firsts[r][1][:, 1]],
+                         [hp, sp[:, 0], sp[:, 1]], tag)
+                stats = torch.stack([st for _, st in firsts])
+                outs = [kernels.sharded_ln_gelu(firsts[r][0], stats, gs[r], bes[r], f,
+                                                residual=pools[r]) for r in range(size)]
+                for r in range(size):
+                    want = kernels.sharded_ln_gelu_plain(firsts[r][0], stats, gs[r], bes[r], f,
+                                                         residual=pools[r])
+                    held("sharded_ln_gelu", dtype, outs[r][:2], want[:2], tag)
+                    if not torch.equal(outs[r][1], outs[0][1]):
+                        raise AssertionError(f"sharded_ln_gelu {tag}: rank {r}'s merged "
+                                             "statistics differ from rank 0's")
+                sums = [kernels.chain_shard_sums(firsts[r][0], gys[r], gs[r], bes[r], outs[r][1])
+                        for r in range(size)]
+                for r in range(size):
+                    want = kernels.chain_shard_sums_plain(firsts[r][0], gys[r], gs[r], bes[r],
+                                                          outs[r][1])
+                    held("chain_shard_sums", dtype, sums[r], want, tag)
+                rowsums = torch.stack([rs for rs, _ in sums])
+                for r in range(size):
+                    got = kernels.chain_shard_dh(firsts[r][0], gys[r], gs[r], bes[r],
+                                                 outs[r][1], rowsums, f)
+                    want = kernels.chain_shard_dh_plain(firsts[r][0], gys[r], gs[r], bes[r],
+                                                        outs[r][1], rowsums, f)
+                    held("chain_shard_dh", dtype, got, want, tag)
+                # the shards merged against the whole row (no residual there)
+                bare = [kernels.sharded_ln_gelu(firsts[r][0], stats, gs[r], bes[r], f)[0]
+                        for r in range(size)]
+                merged = torch.cat(bare, 1)
+                top = float(whole.float().abs().max())
+                diff = max_abs_diff(merged.float(), whole.float())
+                limit = 1e-5 * top if dtype == torch.float32 else _bf16_ulp(top)
+                merge[tag] = {"max_abs_diff": diff, "limit": limit, "largest": top}
+                if not diff <= limit:
+                    raise AssertionError(f"shards {tag} merged vs the whole-row kernel: "
+                                         f"{diff} > {limit}")
+                if dtype == torch.bfloat16 or batch == 256:
+                    timed("fused_spectre_linear_shard_stats",
+                          lambda: kernels.fused_spectre_linear_shard_stats(x, ws[0], bs[0]),
+                          lambda: kernels.shard_stats_plain(x, ws[0], bs[0]), tag, bounds)
+                    h0, ms0 = firsts[0][0], outs[0][1]
+                    timed("sharded_ln_gelu",
+                          lambda: kernels.sharded_ln_gelu(h0, stats, gs[0], bes[0], f,
+                                                          residual=pools[0]),
+                          lambda: kernels.sharded_ln_gelu_plain(h0, stats, gs[0], bes[0], f,
+                                                                residual=pools[0]),
+                          tag, bounds)
+                    timed("chain_shard_sums",
+                          lambda: kernels.chain_shard_sums(h0, gys[0], gs[0], bes[0], ms0),
+                          lambda: kernels.chain_shard_sums_plain(h0, gys[0], gs[0], bes[0], ms0),
+                          tag, bounds)
+                    timed("chain_shard_dh",
+                          lambda: kernels.chain_shard_dh(h0, gys[0], gs[0], bes[0], ms0, rowsums,
+                                                         f),
+                          lambda: kernels.chain_shard_dh_plain(h0, gys[0], gs[0], bes[0], ms0,
+                                                               rowsums, f), tag, bounds)
+                del firsts, outs, sums, rowsums, bare, merged
+            # linear3: entry 2 on whole rows of the all-reduced float32 sum [M, 2N]
+            # (the product's and the pool's partials side by side)
+            n = e
+            w3 = (torch.randn(f, n, generator=gen) * f ** -0.5).to("cuda", dtype)
+            b3, be3 = ((torch.randn(n, generator=gen) * 0.1).to("cuda", dtype) for _ in range(2))
+            g3 = (1 + torch.randn(n, generator=gen) * 0.1).to("cuda", dtype)
+            hin = torch.randn(m, f, generator=gen).to("cuda", dtype)
+            s2 = torch.cat([kernels.matmul_f32(hin, w3), torch.randn(m, n, generator=gen)
+                            .to("cuda")], 1)
+            tag = f"{'bf16' if dtype == torch.bfloat16 else 'f32'}_B{batch}_rows{n}"
+            got = kernels.sharded_ln_gelu(s2[:, :n], None, g3, be3, n, bias=b3,
+                                          residual=s2[:, n:])
+            want = kernels.sharded_ln_gelu_plain(s2[:, :n], None, g3, be3, n, bias=b3,
+                                                 residual=s2[:, n:])
+            held("sharded_ln_gelu", dtype, got, want, tag)
+            timed("sharded_ln_gelu",
+                  lambda: kernels.sharded_ln_gelu(s2[:, :n], None, g3, be3, n, bias=b3,
+                                                  residual=s2[:, n:]),
+                  lambda: kernels.sharded_ln_gelu_plain(s2[:, :n], None, g3, be3, n, bias=b3,
+                                                        residual=s2[:, n:]),
+                  tag, _tp_entry_bounds(m, f, n, 1, el, whole=True))
+            del x, w, pool, gy, whole, hin, s2, got, want
+            torch.cuda.empty_cache()
+    main_tag = "bf16_B256_n384"
+    out = []
+    for name in TP_ENTRY_NAMES:
+        main = rows[name][main_tag]
+        for tag, t in rows[name].items():
+            print(f"tp entry {name} {tag}: {t['ms']:.4f} ms back to back, {t['device_ms']:.4f} "
+                  f"on the device ({t['device_ms'] and t['bound_ms'] / t['device_ms']:.2f} of "
+                  f"the bound {t['bound_ms']:.4f} ms by {t['bound_by']}); plain "
+                  f"{t['plain_ms']:.4f} ms", flush=True)
+        src = "fused_spectre_linear" if name in TP_ENTRY_NAMES[:2] else "fused_spectre_linear_bwd"
+        out.append({"name": name, "route": "cuda", "source": f"spectre_tpu_torch/csrc/{src}.cu",
+                    "replaces": "spectre_tpu/ops/pallas/fused_linear.py:"
+                                + ("94" if name in TP_ENTRY_NAMES[:2] else "147"),
+                    "max_abs_err": worst[name][torch.bfloat16][1],
+                    "max_rel_err": worst[name][torch.bfloat16][0],
+                    "max_rel_err_f32": worst[name][torch.float32][0],
+                    "ms": main["ms"], "device_ms": main["device_ms"],
+                    "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+                    "bound_by": main["bound_by"], "library_ms": None,
+                    "library": "none: the plain version's torch ops",
+                    "times": rows[name],
+                    "shape": "x [16640, 512] bf16, this rank's 384 of 768 columns (2 ranks); "
+                             "max_rel_err: relative to each result's largest entry"})
+    for tag, mg in merge.items():
+        print(f"tp entries: shards {tag} merged against the whole-row kernel: max abs diff "
+              f"{mg['max_abs_diff']:.3g} (limit {mg['limit']:.3g}, largest entry "
+              f"{mg['largest']:.3g})", flush=True)
+    out[1]["shard_merge"] = merge
+    return out
+
+
 # phase 27: parallelism
 PARALLEL_STEPS = 8
 GLOO_STEPS = 3
@@ -3540,6 +3778,256 @@ def phase_parallel(kernels, train_cli, parse_config, tmp: str) -> dict:
     return out
 
 
+# phase 28: tensor parallelism on the card (slice 16), model axis of 2 (4
+# ranks with FSDP), every rank on the one card over gloo on card tensors
+TP_STEPS = 3
+TP_FSDP_LAYERS = 2
+# (b): one float32 forward and backward of the flagship, 1 x 2 against one
+# process, the same dropout masks: sums in another order only (the partial
+# products, the statistics' merge, the gradients' products)
+TP_F32_LOSS_REL = 1e-5
+TP_F32_GRAD_REL = 1e-4
+
+
+def expected_tp_launches(cfg, forwards: int = 0, steps: int = 0, size: int = 2) -> dict:
+    """Launches a rank of ``forwards`` inference forwards plus ``steps`` train
+    steps of the configured model (SpectreViT with the folded block mix, or
+    the ViT) under tensor parallelism over ``size`` ranks: each layer's
+    linear1 on the column-shard entries (entry 1 on the wgmma kernel where
+    it takes the shard), its linear3 on entry 2 and kernel 2's backward, the
+    head whole; the ViT's attention on this rank's heads."""
+    from spectre_tpu_torch.ops.kernels import forward_kernel, shard_stats_kernel
+
+    layers, both = cfg.num_encoders, forwards + steps
+    counts = dict.fromkeys(KERNEL_NAMES, 0)
+    if cfg.model == "vit":
+        counts.update(flash_attention_fwd=layers * both, flash_attention_bwd=layers * steps)
+        return counts
+    dtype = getattr(torch, cfg.compute_dtype)
+    counts.update(block_scatter_rows=layers * both, block_gather_sum=layers * steps,
+                  fused_spectre_linear_shard_stats=layers * both,
+                  sharded_ln_gelu=2 * layers * both, chain_shard_sums=layers * steps,
+                  chain_shard_dh=layers * steps, fused_spectre_linear=both,
+                  fused_spectre_linear_bwd=(layers + 1) * steps)
+    counts[shard_stats_kernel(dtype, cfg.embed_dim, cfg.hidden_dim // size)] += layers * both
+    counts[forward_kernel(dtype, cfg.embed_dim, cfg.num_classes)] += both
+    return counts
+
+
+def rank_tp(out: str) -> None:
+    """One of 2 torchrun ranks on the one card over gloo, tensor parallelism
+    1 x 2: (b) one float32 forward and backward of the flagship against the
+    same in one process (loss, every leaf's gradient, the split ones
+    gathered), the audit of a bf16 step; the bf16 flagship's step traced at
+    B=256 (ms a step, the card's busy share); (c) the ViT at full width,
+    TP_STEPS steps against one process. Rank 0 writes the results."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from spectre_tpu_torch.configs import parse_config
+    from spectre_tpu_torch.data import make_eval_transform
+    from spectre_tpu_torch.ops import kernels
+    from spectre_tpu_torch.parallel import (SPECTRE_TP_RULES, VIT_TP_RULES, collective_counts,
+                                            create_mesh, init_distributed, parallelize)
+    from spectre_tpu_torch.train import make_train_step
+    from spectre_tpu_torch.train.loop import create_trainer, dataset_stats
+
+    faulthandler.enable()  # a crash in a rank prints its Python stack
+    init_distributed(device="cuda", backend="gloo", local_rank=0)
+    mesh = create_mesh(1, 2, device_type="cuda")
+    result = {}
+
+    def stage(what):
+        print(f"rank {dist.get_rank()}: {what}", file=sys.stderr, flush=True)
+
+    def tp_state(cfg, rules):
+        return parallelize(create_trainer(cfg, "cuda", steps_per_epoch=16), mesh,
+                           tp_rules=rules, seed=cfg.random_seed)
+
+    stage("(b) float32, one process")
+    cfg = parse_config(CONFIG)
+    cfg.compute_dtype = "float32"
+    raw, y = _train_batch(cfg, GLOO_BATCH)
+    x = make_eval_transform(*dataset_stats(cfg.dataset))(raw)
+    single = create_trainer(cfg, "cuda", steps_per_epoch=16)
+    loss1, grads1 = _backward_once(single, x, y, seed=5)
+    del single
+    stage("(b) float32, 1 x 2")
+    state = tp_state(cfg, SPECTRE_TP_RULES)
+    kernels.reset_launch_counts()
+    loss2, grads2 = _backward_once(state, x, y, seed=5)
+    counts = kernels.launch_counts()
+    def gathered(g):
+        """A split gradient whole: the ranks' shards by ``dist.all_gather``
+        (``DTensor.full_tensor``'s functional collectives crash under gloo
+        on card tensors)."""
+        loc = g.to_local().contiguous()
+        parts = [torch.empty_like(loc) for _ in range(dist.get_world_size())]
+        dist.all_gather(parts, loc)
+        return torch.cat(parts, next(p.dim for p in g.placements if p.is_shard()))
+
+    errs = {}
+    for name, g in grads2.items():
+        split = isinstance(g, DTensor) and any(p.is_shard() for p in g.placements)
+        g = gathered(g) if split else g
+        errs[name] = (rel_to_largest(g, grads1[name]), split)
+    result["f32"] = {"loss_single": loss1, "loss_tp": loss2,
+                     "loss_rel": abs(loss2 - loss1) / abs(loss1), "launches": counts,
+                     "grad_rel_split": max(e for e, sp in errs.values() if sp),
+                     "grad_rel_whole": max(e for e, sp in errs.values() if not sp),
+                     "split_leaves": sum(sp for _, sp in errs.values()),
+                     "worst": max(errs, key=lambda n: errs[n][0])}
+    del state, grads1, grads2
+    stage("bf16: the audit and the traced step")
+    cfg = parse_config(CONFIG)
+    x = make_eval_transform(*dataset_stats(cfg.dataset))(raw)
+    state = tp_state(cfg, SPECTRE_TP_RULES)
+    step = make_train_step(grad_clip_norm=cfg.grad_clip_norm)
+    result["audit"] = collective_counts(step, state, x, y)
+    stage("bf16: traced")
+    tmp = os.path.dirname(out)
+    result["trace"] = {k: v for k, v in _layout_trace(
+        step, state, x, y, os.path.join(tmp, f"trace_tp{dist.get_rank()}")).items()
+        if k != "rows"}
+    del state
+    stage("(c) the ViT")
+    cfg = parse_config(VIT_CONFIG)
+    x = make_eval_transform(*dataset_stats(cfg.dataset))(raw)
+    step = make_train_step(grad_clip_norm=cfg.grad_clip_norm)
+    single = create_trainer(cfg, "cuda", steps_per_epoch=16)
+    losses1 = [step(single, x, y)["loss"].item() for _ in range(TP_STEPS)]
+    del single
+    state = tp_state(cfg, VIT_TP_RULES)
+    kernels.reset_launch_counts()
+    losses2 = [step(state, x, y)["loss"].item() for _ in range(TP_STEPS)]
+    result["vit"] = {"losses_single": losses1, "losses_tp": losses2,
+                     "launches": kernels.launch_counts(),
+                     "audit": collective_counts(step, state, x, y)}
+    if dist.get_rank() == 0:
+        with open(out, "w") as f:
+            json.dump(result, f)
+    dist.destroy_process_group()
+
+
+def phase_tp(parse_config, tmp: str, parallel: dict) -> dict:
+    """Tensor parallelism on the card, every rank on the one H100 over gloo
+    on card tensors: (a) the flagship 1 x 2 at full width through
+    ``repl/train.py --multihost --backend gloo --set model_parallel=2`` under
+    torchrun, TP_STEPS steps and the validation pass: exact launches a rank
+    (the four shard entries among them), the per-step losses within
+    GLOO_LOSS_REL of the unwrapped CLI's (phase 27) with dropout as the
+    config ships it; (b) one float32 step against one process and the
+    audit's TP signature, (c) the ViT 1 x 2 (``--rank-tp``); (d) FSDP x TP
+    2 x 2 on 4 ranks at TP_FSDP_LAYERS layers through the CLI against FSDP
+    alone on the same 2 data ranks (the same slices and dropout seeds)."""
+    from spectre_tpu_torch.parallel import assert_tp_signature
+
+    cfg = parse_config(CONFIG)
+    val_batches = -(-1024 // cfg.val_batch_size)
+    common = ["--config", CONFIG, "--synthetic", "--steps", str(TP_STEPS), "--no-checkpoint",
+              "--set", "epochs=1", "log_every=1"]
+    out = {}
+
+    def cli(name, nproc, extra, want):
+        path = os.path.join(tmp, f"tp_{name}.json")
+        t0 = time.perf_counter()
+        _torchrun(nproc, ["--rank-train", path, "--multihost", "--backend", "gloo", *common,
+                          *extra, f"checkpoint_dir={os.path.join(tmp, 'tp_' + name)}"],
+                  timeout=600)
+        wall = time.perf_counter() - t0
+        with open(path) as f:
+            rank0 = json.load(f)
+        if rank0["step"] != TP_STEPS or rank0["launches"] != want:
+            raise AssertionError(f"tp {name}: ran to step {rank0['step']}, layout "
+                                 f"{rank0['layout']}, launches {rank0['launches']}, want {want}")
+        return {"layout": rank0["layout"], "launches": rank0["launches"], "wall_s": wall,
+                "losses": _step_losses(rank0["logdir"])}
+
+    def against(name, losses, ref):
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, ref)]
+        if len(losses) != TP_STEPS or not max(rel) <= GLOO_LOSS_REL:
+            raise AssertionError(f"tp {name}: losses {losses} against one process {ref}: "
+                                 f"rel {rel} (limit {GLOO_LOSS_REL})")
+        return max(rel)
+
+    # (a) the flagship 1 x 2
+    want = expected_tp_launches(cfg, forwards=val_batches, steps=TP_STEPS)
+    a = cli("flagship", 2, ["model_parallel=2"], want)
+    ref = parallel["losses"]["none"][:TP_STEPS]
+    a["loss_rel"] = against("flagship", a["losses"], ref)
+    out["flagship"] = a
+    print(f"tp (a): repl/train.py --multihost --backend gloo, model_parallel=2, 2 ranks on "
+          f"one card, the flagship at full width (bf16, B={cfg.batch_size}): {TP_STEPS} steps "
+          f"+ {val_batches} validation batches launched exactly {want} a rank; losses "
+          f"{a['losses']} against the unwrapped CLI's {ref} (worst rel {a['loss_rel']:.3g}, "
+          f"limit {GLOO_LOSS_REL}); wall {a['wall_s']:.1f} s", flush=True)
+
+    # (b), (c) and the trace: the step functions on 2 ranks
+    path = os.path.join(tmp, "tp_ranks.json")
+    t0 = time.perf_counter()
+    _torchrun(2, ["--rank-tp", path], timeout=600)
+    with open(path) as f:
+        ranks = json.load(f)
+    ranks["wall_s"] = time.perf_counter() - t0
+    f32 = ranks["f32"]
+    cfg32 = parse_config(CONFIG)
+    cfg32.compute_dtype = "float32"
+    want32 = expected_tp_launches(cfg32, steps=1)
+    if f32["launches"] != want32 or not f32["loss_rel"] <= TP_F32_LOSS_REL \
+            or not f32["grad_rel_split"] <= TP_F32_GRAD_REL or f32["split_leaves"] == 0:
+        raise AssertionError(f"tp (b) float32: {f32} (launches want {want32}; loss rel limit "
+                             f"{TP_F32_LOSS_REL}, split gradients {TP_F32_GRAD_REL})")
+    assert_tp_signature(ranks["audit"], parallel["gloo"]["ddp"]["audit"],
+                        column_layers=cfg.num_encoders)
+    print(f"tp (b): one float32 forward and backward of the flagship, 1 x 2 against one "
+          f"process: loss {f32['loss_tp']} vs {f32['loss_single']} (rel {f32['loss_rel']:.3g}, "
+          f"limit {TP_F32_LOSS_REL}); the {f32['split_leaves']} split leaves' gradients "
+          f"gathered within {f32['grad_rel_split']:.3g} of their largest entries (limit "
+          f"{TP_F32_GRAD_REL}), the whole leaves' within {f32['grad_rel_whole']:.3g} (worst "
+          f"{f32['worst']}); launches {f32['launches']}; audit of a bf16 step "
+          f"{ranks['audit']} against the 2-rank DDP step's "
+          f"{parallel['gloo']['ddp']['audit']} (TP signature held)", flush=True)
+    tr = ranks["trace"]
+    print(f"tp: traced B={GLOO_BATCH} bf16 step, 1 x 2 on one card, rank 0: {tr['ms']:.3f} ms "
+          f"a step (CUDA events, {LAYOUT_TRACE_STEPS} steps under the profiler; both ranks' "
+          f"work shares the card), rank 0's kernels busy {tr['busy_ms']:.3f} ms in "
+          f"{tr['kernels']:.0f} kernels/copies, idle {tr['idle']:.3f}", flush=True)
+    vit_cfg = parse_config(VIT_CONFIG)
+    v = ranks["vit"]
+    v_want = expected_tp_launches(vit_cfg, steps=TP_STEPS)
+    v["loss_rel"] = against("vit", v["losses_tp"], v["losses_single"])
+    if v["launches"] != v_want:
+        raise AssertionError(f"tp (c) vit: launches {v['launches']}, want {v_want}")
+    assert_tp_signature(v["audit"], parallel["gloo"]["ddp"]["audit"])
+    print(f"tp (c): the ViT at full width, 1 x 2 (B4 on each rank's {vit_cfg.num_heads // 2} "
+          f"heads): losses {v['losses_tp']} against one process {v['losses_single']} (worst rel "
+          f"{v['loss_rel']:.3g}); launches a rank {v['launches']}; audit {v['audit']}; "
+          f"wall {ranks['wall_s']:.1f} s for (b), (c) and the trace", flush=True)
+    out["ranks"] = ranks
+
+    # (d) FSDP x TP, 2 x 2 on 4 ranks, at TP_FSDP_LAYERS layers, against FSDP
+    # alone on the same 2 data ranks: the same data slices and dropout seeds
+    cfg_d = parse_config(CONFIG)
+    cfg_d.num_encoders = TP_FSDP_LAYERS
+    depth = [f"num_encoders={TP_FSDP_LAYERS}"]
+    # each data rank validates its half of the set in batches of half the size
+    ref = cli("fsdp", 2, ["fsdp=True", *depth],
+              expected_launches(cfg_d, forwards=val_batches, steps=TP_STEPS))
+    want = expected_tp_launches(cfg_d, forwards=val_batches, steps=TP_STEPS)
+    d = cli("fsdp_tp", 4, ["fsdp=True", "model_parallel=2", *depth], want)
+    if d["layout"] != "fsdp" or ref["layout"] != "fsdp":
+        raise AssertionError(f"tp (d): layouts {d['layout']}, {ref['layout']}")
+    d["loss_rel"] = against("fsdp_tp", d["losses"], ref["losses"])
+    d["fsdp_losses"], d["fsdp_wall_s"] = ref["losses"], ref["wall_s"]
+    out["fsdp_tp"] = d
+    print(f"tp (d): FSDP x TP 2 x 2 on 4 ranks on one card through the CLI, "
+          f"{TP_FSDP_LAYERS} layers: launches a rank {d['launches']} (exact); losses "
+          f"{d['losses']} against FSDP alone on the same 2 data ranks {ref['losses']} (worst "
+          f"rel {d['loss_rel']:.3g}, limit {GLOO_LOSS_REL}); wall {d['wall_s']:.1f} s "
+          f"({ref['wall_s']:.1f} s the FSDP run)", flush=True)
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a CUDA card",
@@ -3582,6 +4070,7 @@ def main() -> int:
     k2, k2_head = phase_kernel2(kernels, gen)
     k11 = phase_linear_bwd(kernels, gen)
     k12, k14, c6_cluster = phase_c6(kernels, gen)
+    tp_entries = phase_tp_entries(kernels, gen)
     k2_head.update(c6_cluster)
     k5, k5g = phase_kernel5(kernels)
     k3, k4 = phase_gather_kernels(kernels, gen)
@@ -3638,6 +4127,8 @@ def main() -> int:
     # this slice: the parallel layouts (phase 27)
     with tempfile.TemporaryDirectory(prefix="spectre_smoke_") as tmp:
         parallel = phase_parallel(kernels, train_cli, parse_config, tmp)
+        # this slice: tensor parallelism on the card (phase 28)
+        tp = phase_tp(parse_config, tmp, parallel)
 
     # launches: the whole trainer's uninterrupted run (20 steps, 4 validation
     # batches); kernel 4 from the mix_block=0 CLI run, kernel 5 from its own
@@ -3716,7 +4207,21 @@ def main() -> int:
             k[f"launches_parallel_gloo_{kind}_rank0"] = parallel["gloo"][kind]["launches"][counter]
     k2_head["library_device_ms"] = perf_modes["head"]["chain_device_ms"]
     k2_head["head_times_again"] = perf_modes["head"]
-    result = {"kernels": [k1, k2, k2_head, k11, k3, k4, k5, k5g, k8, k9, k6, k7, k10, k12, k14],
+    # phase 28: the four shard entries on the flagship's TP leg (a) (3 steps
+    # and 2 validation batches, a rank), (b)'s float32 step and (d)'s FSDP x TP
+    for k in tp_entries:
+        k["launches"] = tp["flagship"]["launches"][k["name"]]
+        k["launches_tp_f32_step"] = tp["ranks"]["f32"]["launches"][k["name"]]
+        k["launches_fsdp_tp"] = tp["fsdp_tp"]["launches"][k["name"]]
+    for k, counter in ((k1, "block_scatter_rows"), (k3, "block_gather_sum"),
+                       (k2, "fused_spectre_linear_wgmma"),
+                       (k2_head, "fused_spectre_linear_cluster"),
+                       (k11, "fused_spectre_linear_bwd")):
+        k["launches_tp"] = tp["flagship"]["launches"][counter]
+    k8["launches_tp_vit"] = tp["ranks"]["vit"]["launches"]["flash_attention_fwd"]
+    k9["launches_tp_vit"] = tp["ranks"]["vit"]["launches"]["flash_attention_bwd"]
+    result = {"kernels": [k1, k2, k2_head, k11, k3, k4, k5, k5g, k8, k9, k6, k7, k10, k12, k14,
+                          *tp_entries],
               "train_step": {f"mix_block={blk}": {f"B={b}": v for b, v in t.items()}
                              for blk, t in step_times.items()},
               "trainer": trainer, "fused_bwd": fused_bwd, "bench": bench, "vit": vit,
@@ -3724,7 +4229,7 @@ def main() -> int:
               "gather_tm": {"train_step": gather_tm}, "distill": distill, "export": export,
               "pipeline": pipeline, "profile": profile,
               "perf_modes": {k: v for k, v in perf_modes.items() if k != "launches"},
-              "tools": tools, "parallel": parallel}
+              "tools": tools, "parallel": parallel, "tp": tp}
     print(smi, flush=True)
     print(json.dumps(result), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -3737,5 +4242,7 @@ if __name__ == "__main__":
         rank_train(sys.argv[2], sys.argv[3:])
     elif sys.argv[1:2] == ["--rank-gloo"]:
         rank_gloo(sys.argv[2])
+    elif sys.argv[1:2] == ["--rank-tp"]:
+        rank_tp(sys.argv[2])
     else:
         sys.exit(main())

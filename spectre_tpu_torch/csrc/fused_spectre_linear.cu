@@ -109,6 +109,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <algorithm>
 #include <type_traits>
 
 #include "wgmma_gemm.cuh"
@@ -468,8 +469,9 @@ __global__ void __launch_bounds__(Cl<T, BM>::THREADS, Cl<T, BM>::MINB)
 fused_linear_cluster_kernel(const T* __restrict__ x, const T* __restrict__ w,
                             const T* __restrict__ bias, const T* __restrict__ gamma,
                             const T* __restrict__ beta, T* __restrict__ out,
-                            T* __restrict__ h_out, long long M, int K, int N, int bn, int cn,
-                            int ck, int kc, float eps, int vx, int vw) {
+                            T* __restrict__ h_out, float2* __restrict__ stats_out, long long M,
+                            int K, int N, int bn, int cn, int ck, int kc, float eps, int vx,
+                            int vw) {
   constexpr int NT = Cl<T, BM>::THREADS, NWARPS = NT / 32;
   extern __shared__ __align__(16) unsigned char smem[];
   cg::cluster_group cluster = cg::this_cluster();
@@ -564,8 +566,13 @@ fused_linear_cluster_kernel(const T* __restrict__ x, const T* __restrict__ w,
         na = n;
       }
     }
-    const float rstd = rsqrtf(m2 * inv_n + eps);
     const float* row = P + r * ldp;
+    if (stats_out != nullptr) {  // a column shard's forward: h and (mean, M2), no epilogue
+      if (jn == 0 && lane == 0) stats_out[m] = make_float2(mean, m2);
+      for (int c = lane; c < ncols; c += 32) h_out[m * N + n0 + c] = from_f<T>(row[c]);
+      continue;
+    }
+    const float rstd = rsqrtf(m2 * inv_n + eps);
     for (int c = lane; c < ncols; c += 32) {
       const int n = n0 + c;
       const float v = row[c];
@@ -590,8 +597,8 @@ int copy_width(long long ld, const void* p) {
 
 template <typename T, int BM>
 int launch_cluster(const void* x, const void* w, const void* b, const void* g, const void* be,
-                   void* out, void* h_out, long long M, long long K, long long N, int bn, int cn,
-                   int ck, int kc, float eps, cudaStream_t st) {
+                   void* out, void* h_out, float2* stats_out, long long M, long long K,
+                   long long N, int bn, int cn, int ck, int kc, float eps, cudaStream_t st) {
   const int c = cn * ck;
   const long long tiles = (M + BM - 1) / BM;
   const int smem = cluster_smem<T, BM>(bn, cn);
@@ -636,7 +643,8 @@ int launch_cluster(const void* x, const void* w, const void* b, const void* g, c
   e = cudaLaunchKernelEx(&cfg, kern, static_cast<const T*>(x), static_cast<const T*>(w),
                          static_cast<const T*>(b), static_cast<const T*>(g),
                          static_cast<const T*>(be), static_cast<T*>(out), static_cast<T*>(h_out),
-                         M, static_cast<int>(K), static_cast<int>(N), bn, cn, ck, kc, eps, vx, vw);
+                         stats_out, M, static_cast<int>(K), static_cast<int>(N), bn, cn, ck, kc,
+                         eps, vx, vw);
   if (e != cudaSuccess) return static_cast<int>(e);
   return static_cast<int>(cudaGetLastError());
 }
@@ -663,8 +671,8 @@ fused_linear_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
                           const __grid_constant__ CUtensorMap omap,
                           const __grid_constant__ CUtensorMap hmap, const bf16* __restrict__ x,
                           const bf16* __restrict__ bias, const bf16* __restrict__ gamma,
-                          const bf16* __restrict__ beta, int M, int K, int N, float eps,
-                          int save_h) {
+                          const bf16* __restrict__ beta, float2* __restrict__ stats_out, int M,
+                          int K, int N, float eps, int save_h) {
   using C = WgCfg<NWG>;
   constexpr int S = C::STAGES;
   extern __shared__ unsigned char smem_raw[];
@@ -820,6 +828,14 @@ fused_linear_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     var0 += red[1][j][r0];
     var1 += red[1][j][r0 + 8];
   }
+  if (stats_out != nullptr) {  // a column shard's forward: h and (mean, M2), no epilogue
+    if (g == 0 && lane % 4 == 0) {
+      if (m0 + r0 < M) stats_out[m0 + r0] = make_float2(mean0, var0);
+      if (m0 + r0 + 8 < M) stats_out[m0 + r0 + 8] = make_float2(mean1, var1);
+    }
+    if (tid % 128 == 0) wg::tma_store_wait_read();  // the stage memory outlives the reads
+    return;
+  }
   const float rstd0 = rsqrtf(var0 * inv_n + eps), rstd1 = rsqrtf(var1 * inv_n + eps);
 
   const bool identity = K == N;
@@ -852,8 +868,8 @@ fused_linear_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
 
 template <int NWG>
 int launch_wgmma(const void* x, const void* w, const void* b, const void* g, const void* be,
-                 void* out, void* h_out, long long M, long long K, long long N, float eps,
-                 cudaStream_t st) {
+                 void* out, void* h_out, float2* stats_out, long long M, long long K, long long N,
+                 float eps, cudaStream_t st) {
   using C = WgCfg<NWG>;
   CUtensorMap xm, wm, om, hm;
   int e = wg::encode_rows(&xm, x, M, K);
@@ -867,8 +883,142 @@ int launch_wgmma(const void* x, const void* w, const void* b, const void* g, con
   const dim3 grid(static_cast<unsigned>((M + 63) / 64));
   kern<<<grid, C::THREADS, C::SMEM, st>>>(
       xm, wm, om, hm, static_cast<const bf16*>(x), static_cast<const bf16*>(b),
-      static_cast<const bf16*>(g), static_cast<const bf16*>(be), static_cast<int>(M),
+      static_cast<const bf16*>(g), static_cast<const bf16*>(be), stats_out, static_cast<int>(M),
       static_cast<int>(K), static_cast<int>(N), eps, h_out != nullptr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The cluster kernel on a checked plan; with stats_out, the column shard's
+// forward (h_out and each row's (mean, M2) over the N columns given, no
+// LayerNorm, GELU or out).
+int cluster_entry(int dtype_code, const void* x, const void* w, const void* b, const void* gamma,
+                  const void* beta, void* out, void* h_out, float2* stats_out, long long M,
+                  long long K, long long N, int bm, int bn, int cn, int ck, int kc, float eps,
+                  void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || K > 0x7fffffffLL || N > 0x7fffffffLL || cn < 1 || ck < 1 ||
+      cn * ck > kClMaxCluster || bn < 8 || bn % 8 || kc < kClTK || kc % kClTK ||
+      static_cast<long long>(cn) * bn < N || static_cast<long long>(cn - 1) * bn >= N ||
+      static_cast<long long>(ck) * kc < K || static_cast<long long>(ck - 1) * kc >= K ||
+      (stats_out != nullptr && h_out == nullptr))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define SPECTRE_CLUSTER(T, BM)                                                                  \
+  return launch_cluster<T, BM>(x, w, b, gamma, beta, out, h_out, stats_out, M, K, N, bn, cn, ck, \
+                               kc, eps, st);
+  if (dtype_code == 0 && bm == 16) SPECTRE_CLUSTER(float, 16)
+  if (dtype_code == 0 && bm == 32) SPECTRE_CLUSTER(float, 32)
+  if (dtype_code == 1 && bm == 16) SPECTRE_CLUSTER(bf16, 16)
+  if (dtype_code == 1 && bm == 64) SPECTRE_CLUSTER(bf16, 64)
+#undef SPECTRE_CLUSTER
+  return cudaErrorInvalidValue;
+}
+
+// The wgmma kernel on checked operands; stats_out as for cluster_entry.
+int wgmma_entry(const void* x, const void* w, const void* b, const void* gamma, const void* beta,
+                void* out, void* h_out, float2* stats_out, long long M, long long K, long long N,
+                float eps, void* stream) {
+  if (M <= 0 || K <= 0 || N <= 0 || K % 8 || N % 8 || N > kWgMaxN || M > 0x7fffffffLL ||
+      K > 0x7fffffffLL || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16 || reinterpret_cast<uintptr_t>(out) % 16 ||
+      reinterpret_cast<uintptr_t>(h_out) % 16 || (stats_out != nullptr && h_out == nullptr))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (N <= 256) return launch_wgmma<1>(x, w, b, gamma, beta, out, h_out, stats_out, M, K, N, eps, st);
+  if (N <= 512) return launch_wgmma<2>(x, w, b, gamma, beta, out, h_out, stats_out, M, K, N, eps, st);
+  return launch_wgmma<3>(x, w, b, gamma, beta, out, h_out, stats_out, M, K, N, eps, st);
+}
+
+// ----------------------------------------- the epilogue of a split layer
+//
+// fused_spectre_linear_shard_ln: the LayerNorm, GELU and residual of a
+// SpectreLinear whose rows are spread over tensor-parallel ranks, one warp
+// a row, the lanes along it. Two forms:
+//
+// - a column shard (stats given): h [M, n] is this rank's n of the row's
+//   n_full columns, stats [size, M] the (mean, M2) of every rank's columns
+//   (each rank's n), all-gathered. The warp merges them in rank order by
+//   Chan's formula, as the cluster kernels merge their blocks, so every
+//   rank computes the same statistics bit for bit, whatever order the
+//   collective took.
+// - a whole row (stats null): h is the float32 sum of the row-split
+//   product, all-reduced; the bias is added here, the sum rounded into h_out
+//   for the backward, and (mean, M2) taken over the float32 row by two
+//   passes, the second correcting the first mean (as the cluster kernel).
+//
+// Then out = GELU((h - mean) rstd gamma + beta) [+ res], in float32 with
+// erff, cast once; mstats [M] gets (mean, rstd) for the backward. The row
+// is read from memory on each pass (L1 holds it). What bounds it: bytes (h
+// and res read, out written; h_out too for a whole row).
+template <typename TI, typename TO>
+__global__ void __launch_bounds__(256)
+shard_ln_kernel(const TI* __restrict__ h, long long ldh, const float2* __restrict__ stats,
+                int size, const TO* __restrict__ bias, const TO* __restrict__ gamma,
+                const TO* __restrict__ beta, const TI* __restrict__ res, long long ldr,
+                TO* __restrict__ out, TO* __restrict__ h_out, float2* __restrict__ mstats,
+                long long M, int n, int n_full, float eps) {
+  const int lane = threadIdx.x % 32;
+  const long long warps = static_cast<long long>(gridDim.x) * (blockDim.x / 32);
+  const float nb = static_cast<float>(n), inv_full = 1.f / static_cast<float>(n_full);
+  for (long long m = static_cast<long long>(blockIdx.x) * (blockDim.x / 32) + threadIdx.x / 32;
+       m < M; m += warps) {
+    const TI* row = h + m * ldh;
+    float mean = 0.f, m2 = 0.f;
+    if (stats != nullptr) {
+      float na = nb;
+      mean = stats[m].x;
+      m2 = stats[m].y;
+      for (int j = 1; j < size; ++j) {
+        const float2 st = stats[static_cast<long long>(j) * M + m];
+        const float tot = na + nb, d = st.x - mean;
+        mean += d * (nb / tot);
+        m2 += st.y + d * d * (na * nb / tot);
+        na = tot;
+      }
+    } else {
+      float s = 0.f;
+      for (int c = lane; c < n; c += 32) s += to_f(row[c]) + to_f(bias[c]);
+      const float mean1 = warp_sum(s) / nb;
+      float dsum = 0.f, q2 = 0.f;
+      for (int c = lane; c < n; c += 32) {
+        const float d = to_f(row[c]) + to_f(bias[c]) - mean1;
+        dsum += d;
+        q2 += d * d;
+      }
+      dsum = warp_sum(dsum);
+      q2 = warp_sum(q2);
+      mean = mean1 + dsum / nb;
+      m2 = q2 - dsum * dsum / nb;
+    }
+    const float rstd = rsqrtf(m2 * inv_full + eps);
+    if (lane == 0) mstats[m] = make_float2(mean, rstd);
+    for (int c = lane; c < n; c += 32) {
+      float v = to_f(row[c]);
+      if (stats == nullptr) {
+        v += to_f(bias[c]);
+        h_out[m * n + c] = from_f<TO>(v);
+      }
+      float y = gelu_erf((v - mean) * rstd * to_f(gamma[c]) + to_f(beta[c]));
+      if (res != nullptr) y += to_f(res[m * ldr + c]);
+      out[m * n + c] = from_f<TO>(y);
+    }
+  }
+}
+
+template <typename TI, typename TO>
+int launch_shard_ln(const void* h, long long ldh, const void* stats, int size, const void* bias,
+                    const void* gamma, const void* beta, const void* res, long long ldr,
+                    void* out, void* h_out, void* mstats, long long M, int n, int n_full,
+                    float eps, cudaStream_t st) {
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long blocks = std::min<long long>((M + 7) / 8, 8LL * sms);
+  shard_ln_kernel<TI, TO><<<static_cast<unsigned>(blocks), 256, 0, st>>>(
+      static_cast<const TI*>(h), ldh, static_cast<const float2*>(stats), size,
+      static_cast<const TO*>(bias), static_cast<const TO*>(gamma), static_cast<const TO*>(beta),
+      static_cast<const TI*>(res), ldr, static_cast<TO*>(out), static_cast<TO*>(h_out),
+      static_cast<float2*>(mstats), M, n, n_full, eps);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -887,21 +1037,8 @@ extern "C" int fused_spectre_linear_cluster(int dtype_code, const void* x, const
                                             void* out, void* h_out, long long M, long long K,
                                             long long N, int bm, int bn, int cn, int ck, int kc,
                                             float eps, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || K > 0x7fffffffLL || N > 0x7fffffffLL || cn < 1 || ck < 1 ||
-      cn * ck > kClMaxCluster || bn < 8 || bn % 8 || kc < kClTK || kc % kClTK ||
-      static_cast<long long>(cn) * bn < N || static_cast<long long>(cn - 1) * bn >= N ||
-      static_cast<long long>(ck) * kc < K || static_cast<long long>(ck - 1) * kc >= K)
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype_code == 0 && bm == 16)
-    return launch_cluster<float, 16>(x, w, b, gamma, beta, out, h_out, M, K, N, bn, cn, ck, kc, eps, st);
-  if (dtype_code == 0 && bm == 32)
-    return launch_cluster<float, 32>(x, w, b, gamma, beta, out, h_out, M, K, N, bn, cn, ck, kc, eps, st);
-  if (dtype_code == 1 && bm == 16)
-    return launch_cluster<bf16, 16>(x, w, b, gamma, beta, out, h_out, M, K, N, bn, cn, ck, kc, eps, st);
-  if (dtype_code == 1 && bm == 64)
-    return launch_cluster<bf16, 64>(x, w, b, gamma, beta, out, h_out, M, K, N, bn, cn, ck, kc, eps, st);
-  return cudaErrorInvalidValue;
+  return cluster_entry(dtype_code, x, w, b, gamma, beta, out, h_out, nullptr, M, K, N, bm, bn, cn,
+                       ck, kc, eps, stream);
 }
 
 // bfloat16 only, every tensor in it; N and K multiples of 8, N <= 768, x,
@@ -912,17 +1049,63 @@ extern "C" int fused_spectre_linear_wgmma(const void* x, const void* w, const vo
                                           const void* gamma, const void* beta, void* out,
                                           void* h_out, long long M, long long K, long long N,
                                           float eps, void* stream) {
-  if (M <= 0 || K <= 0 || N <= 0 || K % 8 || N % 8 || N > kWgMaxN || M > 0x7fffffffLL ||
-      K > 0x7fffffffLL || reinterpret_cast<uintptr_t>(x) % 16 ||
-      reinterpret_cast<uintptr_t>(w) % 16 || reinterpret_cast<uintptr_t>(out) % 16 ||
-      reinterpret_cast<uintptr_t>(h_out) % 16)
-    return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (N <= 256) return launch_wgmma<1>(x, w, b, gamma, beta, out, h_out, M, K, N, eps, st);
-  if (N <= 512) return launch_wgmma<2>(x, w, b, gamma, beta, out, h_out, M, K, N, eps, st);
-  return launch_wgmma<3>(x, w, b, gamma, beta, out, h_out, M, K, N, eps, st);
+  return wgmma_entry(x, w, b, gamma, beta, out, h_out, nullptr, M, K, N, eps, stream);
 }
 
+// fused_spectre_linear_shard_stats: the forward of a SpectreLinear split by
+// columns up to its LayerNorm statistics. h = x @ W + b [M, N] in x's dtype,
+// N this rank's columns, and stats [M] float32 (mean, M2) of each row's
+// float32 sums over them. route 0: the wgmma kernel (bf16, what
+// fused_spectre_linear_wgmma takes); 1: the cluster kernel on the plan
+// (bm, bn, cn, ck, kc), dtype_code as there. Returns cudaGetLastError()
+// after the launch (0 on success).
+extern "C" int fused_spectre_linear_shard_stats(int route, int dtype_code, const void* x,
+                                                const void* w, const void* b, void* h,
+                                                void* stats, long long M, long long K,
+                                                long long N, int bm, int bn, int cn, int ck,
+                                                int kc, void* stream) {
+  float2* st = static_cast<float2*>(stats);
+  if (st == nullptr) return cudaErrorInvalidValue;
+  if (route == 0)
+    return dtype_code == 1 ? wgmma_entry(x, w, b, b, b, h, h, st, M, K, N, 0.f, stream)
+                           : static_cast<int>(cudaErrorInvalidValue);
+  if (route == 1)
+    return cluster_entry(dtype_code, x, w, b, b, b, h, h, st, M, K, N, bm, bn, cn, ck, kc, 0.f,
+                         stream);
+  return cudaErrorInvalidValue;
+}
+
+// fused_spectre_linear_shard_ln: the epilogue of a split SpectreLinear
+// (shard_ln_kernel above). in_code / out_code: 0 float32, 1 bf16, for h and
+// res (in) and bias, gamma, beta, out, h_out (out); (bf16, bf16),
+// (float32, bf16) and (float32, float32). h [M, n] with row stride ldh; stats:
+// null (a whole row: bias and h_out [M, n] given) or [size, M] float2 (a
+// column shard of size * n columns, n_full = size * n); res: null or [M, n]
+// with row stride ldr; out [M, n]; mstats [M] float2. Returns
+// cudaGetLastError() after the launch (0 on success).
+extern "C" int fused_spectre_linear_shard_ln(int in_code, int out_code, const void* h,
+                                             long long ldh, const void* stats, int size,
+                                             const void* bias, const void* gamma,
+                                             const void* beta, const void* res, long long ldr,
+                                             void* out, void* h_out, void* mstats, long long M,
+                                             long long n, long long n_full, float eps,
+                                             void* stream) {
+  if (M <= 0 || n <= 0 || n_full < n || n_full > 0x7fffffffLL || ldh < n ||
+      (res != nullptr && ldr < n) || size < 1 ||
+      (stats == nullptr ? (bias == nullptr || h_out == nullptr || n_full != n)
+                        : n_full != n * size))
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ni = static_cast<int>(n), nf = static_cast<int>(n_full);
+#define SPECTRE_SHARD_LN(TI, TO)                                                            \
+  return launch_shard_ln<TI, TO>(h, ldh, stats, size, bias, gamma, beta, res, ldr, out, h_out, \
+                                 mstats, M, ni, nf, eps, st);
+  if (in_code == 1 && out_code == 1) SPECTRE_SHARD_LN(bf16, bf16)
+  if (in_code == 0 && out_code == 1) SPECTRE_SHARD_LN(float, bf16)
+  if (in_code == 0 && out_code == 0) SPECTRE_SHARD_LN(float, float)
+#undef SPECTRE_SHARD_LN
+  return cudaErrorInvalidValue;
+}
 
 // ------------------------------------------------------------ N > 768
 //

@@ -1045,3 +1045,240 @@ extern "C" int fused_spectre_linear_bwd_wide(int dtype_code, const void* h, cons
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+
+// ------------------------------------------------- a column-split layer's chain
+//
+// fused_spectre_linear_shard_sums and fused_spectre_linear_shard_dh: the
+// chain above for a SpectreLinear whose N columns are split over
+// tensor-parallel ranks, each rank holding n = N / size of them. A row's
+// LayerNorm backward needs two sums over all N columns, sum du and
+// sum du * u, so the chain runs in two phases around an all-gather of
+// them:
+//
+//   A (shard_sums): from h, g and this rank's gamma, beta and the forward's
+//     merged (mean, rstd) of each row (not recomputed: h holds a part of the
+//     row), u, z, dz and du; each row's (sum du, sum du * u) over the n
+//     columns [M] float2, and the column sums dgamma = sum dz * u and
+//     dbeta = sum dz [2, n].
+//   B (shard_dh): the ranks' row sums [size, M] float2 added in rank order
+//     (every rank the same bits), then dh = rstd (du - S1 / N - u S2 / N),
+//     stored once in the input dtype, and db = sum dh (of the float32 dh).
+//
+// One warp a row, the lanes along it; the block's warps each keep their
+// columns' partial sums in shared memory, added in warp order at the end
+// into one float32 partial row a block, whose column sums
+// shard_column_sum_kernel takes in a fixed order. B recomputes du from h
+// and g rather than reading it back. What bounds both: bytes (A reads h and
+// g; B reads them again and writes dh).
+
+namespace {
+
+template <typename T>
+__global__ void __launch_bounds__(128)
+shard_sums_kernel(const T* __restrict__ h, const T* __restrict__ g, const T* __restrict__ gamma,
+                  const T* __restrict__ beta, const float2* __restrict__ mstats,
+                  float2* __restrict__ rowsums, float* __restrict__ partial, long long M, int n,
+                  long long rows) {
+  extern __shared__ float s_part[];  // [warps][2][n]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
+  float* mine = s_part + static_cast<long long>(warp) * 2 * n;
+  for (int c = lane; c < n; c += 32) mine[c] = mine[n + c] = 0.f;
+  const long long r0 = static_cast<long long>(blockIdx.x) * rows;
+  const long long r1 = r0 + rows < M ? r0 + rows : M;
+  for (long long m = r0 + warp; m < r1; m += warps) {
+    const float2 ms = mstats[m];
+    const T* hr = h + m * n;
+    const T* gr = g + m * n;
+    float s1 = 0.f, s2 = 0.f;
+#pragma unroll 4
+    for (int c = lane; c < n; c += 32) {
+      const float gam = to_f(gamma[c]);
+      const float u = (to_f(hr[c]) - ms.x) * ms.y;
+      const float dz = to_f(gr[c]) * gelu_grad(fmaf(u, gam, to_f(beta[c])));
+      const float du = dz * gam;
+      s1 += du;
+      s2 += du * u;
+      mine[c] += dz * u;
+      mine[n + c] += dz;
+    }
+    s1 = warp_sum(s1);
+    s2 = warp_sum(s2);
+    if (lane == 0) rowsums[m] = make_float2(s1, s2);
+  }
+  __syncthreads();
+  float* out = partial + static_cast<long long>(blockIdx.x) * 2 * n;
+  for (int i = threadIdx.x; i < 2 * n; i += blockDim.x) {
+    float v = s_part[i];
+    for (int w = 1; w < warps; ++w) v += s_part[static_cast<long long>(w) * 2 * n + i];
+    out[i] = v;
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(128)
+shard_dh_kernel(const T* __restrict__ h, const T* __restrict__ g, const T* __restrict__ gamma,
+                const T* __restrict__ beta, const float2* __restrict__ mstats,
+                const float2* __restrict__ rowsums, int size, T* __restrict__ dh,
+                float* __restrict__ partial, long long M, int n, float inv_full, long long rows) {
+  extern __shared__ float s_part[];  // [warps][n]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
+  float* mine = s_part + static_cast<long long>(warp) * n;
+  for (int c = lane; c < n; c += 32) mine[c] = 0.f;
+  const long long r0 = static_cast<long long>(blockIdx.x) * rows;
+  const long long r1 = r0 + rows < M ? r0 + rows : M;
+  for (long long m = r0 + warp; m < r1; m += warps) {
+    const float2 ms = mstats[m];
+    float s1 = 0.f, s2 = 0.f;
+    for (int j = 0; j < size; ++j) {
+      const float2 rs = rowsums[static_cast<long long>(j) * M + m];
+      s1 += rs.x;
+      s2 += rs.y;
+    }
+    const float m1 = s1 * inv_full, m2 = s2 * inv_full;
+    const T* hr = h + m * n;
+    const T* gr = g + m * n;
+    T* dr = dh + m * n;
+#pragma unroll 4
+    for (int c = lane; c < n; c += 32) {
+      const float gam = to_f(gamma[c]);
+      const float u = (to_f(hr[c]) - ms.x) * ms.y;
+      const float dz = to_f(gr[c]) * gelu_grad(fmaf(u, gam, to_f(beta[c])));
+      const float v = ms.y * (dz * gam - m1 - u * m2);
+      dr[c] = from_f<T>(v);
+      mine[c] += v;
+    }
+  }
+  __syncthreads();
+  float* out = partial + static_cast<long long>(blockIdx.x) * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    float v = s_part[i];
+    for (int w = 1; w < warps; ++w) v += s_part[static_cast<long long>(w) * n + i];
+    out[i] = v;
+  }
+}
+
+// out[j] = sum over blocks of partial[block][j], j < width, in
+// column_sum_kernel's fixed order
+template <typename T>
+__global__ void __launch_bounds__(32 * kSegments)
+shard_column_sum_kernel(const float* __restrict__ partial, long long blocks, int width,
+                        T* __restrict__ out) {
+  __shared__ float s_seg[kSegments][32];
+  const int lane = threadIdx.x & 31, seg = threadIdx.x >> 5;
+  const int j = blockIdx.x * 32 + lane;
+  float acc = 0.f;
+  if (j < width) {
+#pragma unroll 8
+    for (long long b = seg; b < blocks; b += kSegments) acc += partial[b * width + j];
+  }
+  s_seg[seg][lane] = acc;
+  __syncthreads();
+  if (seg != 0 || j >= width) return;
+  float total = s_seg[0][lane];
+#pragma unroll
+  for (int s = 1; s < kSegments; ++s) total += s_seg[s][lane];
+  out[j] = from_f<T>(total);
+}
+
+template <typename K>
+cudaError_t shard_smem(K kern, int smem) {
+  // above the default 48 KB a launch must ask for it; the largest an SM gives a block
+  return smem > 48 * 1024 ? cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 smem)
+                          : cudaSuccess;
+}
+
+bool shard_plan_ok(long long M, long long n, long long blocks, int warps, int parts) {
+  return M > 0 && n > 0 && blocks > 0 && blocks <= M && blocks <= 0x7fffffffLL && warps >= 1 &&
+         warps <= 4 && static_cast<long long>(warps) * parts * n * 4 <= 227 * 1024;
+}
+
+template <typename T>
+int run_shard_sums(const void* h, const void* g, const void* gamma, const void* beta,
+                   const void* mstats, void* rowsums, void* sums, void* partial, long long M,
+                   int n, long long blocks, int warps, cudaStream_t st) {
+  const int smem = warps * 2 * n * 4;
+  cudaError_t e = shard_smem(shard_sums_kernel<T>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  float* part = static_cast<float*>(partial);
+  shard_sums_kernel<T><<<static_cast<unsigned>(blocks), 32 * warps, smem, st>>>(
+      static_cast<const T*>(h), static_cast<const T*>(g), static_cast<const T*>(gamma),
+      static_cast<const T*>(beta), static_cast<const float2*>(mstats),
+      static_cast<float2*>(rowsums), part, M, n, (M + blocks - 1) / blocks);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  shard_column_sum_kernel<T><<<static_cast<unsigned>((2LL * n + 31) / 32), 32 * kSegments, 0, st>>>(
+      part, blocks, 2 * n, static_cast<T*>(sums));
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T>
+int run_shard_dh(const void* h, const void* g, const void* gamma, const void* beta,
+                 const void* mstats, const void* rowsums, int size, void* dh, void* db,
+                 void* partial, long long M, int n, int n_full, long long blocks, int warps,
+                 cudaStream_t st) {
+  const int smem = warps * n * 4;
+  cudaError_t e = shard_smem(shard_dh_kernel<T>, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  float* part = static_cast<float*>(partial);
+  shard_dh_kernel<T><<<static_cast<unsigned>(blocks), 32 * warps, smem, st>>>(
+      static_cast<const T*>(h), static_cast<const T*>(g), static_cast<const T*>(gamma),
+      static_cast<const T*>(beta), static_cast<const float2*>(mstats),
+      static_cast<const float2*>(rowsums), size, static_cast<T*>(dh), part, M, n,
+      1.f / static_cast<float>(n_full), (M + blocks - 1) / blocks);
+  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
+  shard_column_sum_kernel<T><<<static_cast<unsigned>((n + 31) / 32), 32 * kSegments, 0, st>>>(
+      part, blocks, n, static_cast<T*>(db));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// Phase A of a column-split layer's chain. h, g [M, n] contiguous; gamma,
+// beta [n]; all of one dtype (0: float32, 1: bf16); mstats [M] float2, the
+// forward's merged (mean, rstd). Writes rowsums [M] float2 (sum du,
+// sum du * u over the n columns) and sums [2, n] in the dtype (dgamma,
+// dbeta). The plan: `blocks` blocks (at most M) of `warps` warps (1 to 4,
+// warps * 8 n bytes of shared memory within 227 KB), each owning
+// ceil(M / blocks) rows; partial: float32 scratch of blocks * 2 * n values.
+// Returns cudaGetLastError() after the launches (0 on success).
+extern "C" int fused_spectre_linear_shard_sums(int dtype_code, const void* h, const void* g,
+                                               const void* gamma, const void* beta,
+                                               const void* mstats, void* rowsums, void* sums,
+                                               void* partial, long long M, long long n,
+                                               long long blocks, int warps, void* stream) {
+  if (!shard_plan_ok(M, n, blocks, warps, 2)) return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ni = static_cast<int>(n);
+  if (dtype_code == 0)
+    return run_shard_sums<float>(h, g, gamma, beta, mstats, rowsums, sums, partial, M, ni, blocks,
+                                 warps, st);
+  if (dtype_code == 1)
+    return run_shard_sums<bf16>(h, g, gamma, beta, mstats, rowsums, sums, partial, M, ni, blocks,
+                                warps, st);
+  return cudaErrorInvalidValue;
+}
+
+// Phase B. The operands of phase A, rowsums [size, M] float2 (every rank's
+// phase-A row sums, all-gathered), n_full = size * n; writes dh [M, n] and
+// db [n] in the dtype. The plan as for phase A (warps * 4 n bytes); partial:
+// float32 scratch of blocks * n values.
+extern "C" int fused_spectre_linear_shard_dh(int dtype_code, const void* h, const void* g,
+                                             const void* gamma, const void* beta,
+                                             const void* mstats, const void* rowsums, int size,
+                                             void* dh, void* db, void* partial, long long M,
+                                             long long n, long long n_full, long long blocks,
+                                             int warps, void* stream) {
+  if (!shard_plan_ok(M, n, blocks, warps, 1) || size < 1 || n_full != n * size ||
+      n_full > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int ni = static_cast<int>(n), nf = static_cast<int>(n_full);
+  if (dtype_code == 0)
+    return run_shard_dh<float>(h, g, gamma, beta, mstats, rowsums, size, dh, db, partial, M, ni,
+                               nf, blocks, warps, st);
+  if (dtype_code == 1)
+    return run_shard_dh<bf16>(h, g, gamma, beta, mstats, rowsums, size, dh, db, partial, M, ni,
+                              nf, blocks, warps, st);
+  return cudaErrorInvalidValue;
+}

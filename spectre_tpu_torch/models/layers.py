@@ -73,7 +73,14 @@ class Dropout(nn.Module):
     1 - p and scaled by 1 / (1 - p); the identity in eval mode or at p = 0.
     The mask is drawn from ``generator`` (on the input's device; the train
     state sets one generator on every Dropout of its model), or from torch's
-    default generator while it is None."""
+    default generator while it is None.
+
+    ``split_by``: the layer that produced x. Where tensor parallelism keeps
+    that layer's output split by columns (``parallel/tp.py``), x holds this
+    rank's columns of it: the mask is drawn for the whole width and the
+    rank's columns kept, so that the masks, and every later draw, are those
+    of the unsplit model whatever the layout (as JAX's random bits do not
+    depend on the sharding)."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -82,11 +89,21 @@ class Dropout(nn.Module):
         self.p = float(p)
         self.generator: torch.Generator | None = None
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def mask(self, x: torch.Tensor, split_by: nn.Module | None = None) -> torch.Tensor:
+        """The keep mask for x (1.0 kept, 0.0 dropped) in x's dtype."""
+        tp = getattr(split_by, "tp", None)
+        window = tp.column_window(split_by.features) if tp is not None else None
+        if window is None:
+            return torch.empty_like(x).bernoulli_(1.0 - self.p, generator=self.generator)
+        full, start = window
+        keep = torch.empty((*x.shape[:-1], full), dtype=x.dtype, device=x.device)
+        keep.bernoulli_(1.0 - self.p, generator=self.generator)
+        return keep[..., start:start + x.shape[-1]]
+
+    def forward(self, x: torch.Tensor, split_by: nn.Module | None = None) -> torch.Tensor:
         if not self.training or self.p == 0.0:
             return x
-        keep = torch.empty_like(x).bernoulli_(1.0 - self.p, generator=self.generator)
-        return x * keep * (1.0 / (1.0 - self.p))
+        return x * self.mask(x, split_by) * (1.0 / (1.0 - self.p))
 
 
 class LayerNorm(nn.LayerNorm):

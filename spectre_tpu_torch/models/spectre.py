@@ -44,7 +44,7 @@ class SpectreEncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.norm1(self.mix_layer(x)) + x
-        ff = self.dropout(self.linear3(self.dropout(self.linear1(x))))
+        ff = self.dropout(self.linear3(self.dropout(self.linear1(x), self.linear1)))
         return self.norm2(x + ff)
 
 

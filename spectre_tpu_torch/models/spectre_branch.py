@@ -140,7 +140,7 @@ class SpectreBranchEncoderLayer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mixed = x if self.mix_layer is None else self.mix_layer(x)
         x = self.norm1(mixed) + x
-        h = self.linear3(self.linear2(self.dropout(self.linear1(x))))
+        h = self.linear3(self.linear2(self.dropout(self.linear1(x), self.linear1)))
         return self.norm2(x + self.dropout(h))
 
 

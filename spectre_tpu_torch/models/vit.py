@@ -39,7 +39,7 @@ class TransformerEncoderLayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = self.norm1(x + self.dropout(self.self_attn(x)))
-        h = self.dropout(gelu_exact(self.linear1(x)))
+        h = self.dropout(gelu_exact(self.linear1(x)), self.linear1)
         return self.norm2(x + self.dropout(self.linear2(h)))
 
 

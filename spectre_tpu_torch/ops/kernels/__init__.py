@@ -31,6 +31,10 @@ from spectre_tpu_torch.ops.kernels.fused_block_bwd import (
 from spectre_tpu_torch.ops.kernels.fused_linear import (
     ClusterPlan,
     backward_kernel,
+    chain_shard_dh,
+    chain_shard_dh_plain,
+    chain_shard_sums,
+    chain_shard_sums_plain,
     cluster_plan,
     forward_kernel,
     fused_spectre_linear,
@@ -40,8 +44,15 @@ from spectre_tpu_torch.ops.kernels.fused_linear import (
     fused_spectre_linear_cluster,
     fused_spectre_linear_grad,
     fused_spectre_linear_plain,
+    fused_spectre_linear_shard_stats,
     fused_spectre_linear_wgmma,
     fused_spectre_linear_wide_cluster,
+    linear_products,
+    matmul_f32,
+    shard_stats_kernel,
+    shard_stats_plain,
+    sharded_ln_gelu,
+    sharded_ln_gelu_plain,
     wide_cluster_size,
 )
 from spectre_tpu_torch.ops.kernels.fwht import fwht, fwht_grad, fwht_plain
@@ -66,13 +77,16 @@ from spectre_tpu_torch.ops.kernels.structured_mix import (
 # kernel 2's forward and kernel 5 count each call in their wrapper and again
 # in the kernel it launched (kernel 2: ``_wgmma``, ``_cluster`` and
 # ``_wide_cluster``; kernel 5: ``_wgmma`` and ``_grouped``); kernel 2's
-# backward counts a wide chain again in ``_bwd_wide``
+# backward counts a wide chain again in ``_bwd_wide``; kernel 2's column
+# shard forward (``_shard_stats``) counts again in ``_wgmma`` or ``_cluster``,
+# whose epilogue mode it runs
 KERNELS = (block_scatter_rows, block_gather_sum, inverse_gather_sum, fused_spectre_linear,
            fused_spectre_linear_bwd, fused_block_bwd, flash_attention_fwd, flash_attention_bwd,
            fwht, structured_mix, structured_mix_bwd, routed_gather_sum,
            fused_spectre_linear_wgmma, fused_spectre_linear_cluster, fused_block_bwd_wgmma,
            fused_block_bwd_grouped, fused_spectre_linear_wide_cluster,
-           fused_spectre_linear_bwd_wide)
+           fused_spectre_linear_bwd_wide, fused_spectre_linear_shard_stats, sharded_ln_gelu,
+           chain_shard_sums, chain_shard_dh)
 
 
 def reset_launch_counts() -> None:
@@ -100,6 +114,10 @@ __all__ = [
     "forward_kernel",
     "block_scatter_rows",
     "block_scatter_rows_plain",
+    "chain_shard_dh",
+    "chain_shard_dh_plain",
+    "chain_shard_sums",
+    "chain_shard_sums_plain",
     "cluster_plan",
     "fused_block_bwd",
     "fused_block_bwd_grouped",
@@ -112,6 +130,7 @@ __all__ = [
     "fused_spectre_linear_cluster",
     "fused_spectre_linear_grad",
     "fused_spectre_linear_plain",
+    "fused_spectre_linear_shard_stats",
     "fused_spectre_linear_wgmma",
     "fused_spectre_linear_wide_cluster",
     "fwht",
@@ -123,9 +142,15 @@ __all__ = [
     "invert_tile_perms",
     "launch_counts",
     "library",
+    "linear_products",
+    "matmul_f32",
     "reset_launch_counts",
     "routed_gather_sum",
     "routed_gather_sum_plain",
+    "shard_stats_kernel",
+    "shard_stats_plain",
+    "sharded_ln_gelu",
+    "sharded_ln_gelu_plain",
     "structured_mix",
     "structured_mix_bwd",
     "structured_mix_bwd_plain",

@@ -49,6 +49,16 @@ _SIGNATURES = {
     "fused_spectre_linear_wide_cluster": (_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL,
                                           ctypes.c_float, _P),
     "fused_spectre_linear_wide_cluster_reach": (ctypes.POINTER(ctypes.c_int),),
+    "fused_spectre_linear_shard_stats": (ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _LL,
+                                         _LL, _LL, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_int, ctypes.c_int, _P),
+    "fused_spectre_linear_shard_ln": (ctypes.c_int, ctypes.c_int, _P, _LL, _P, ctypes.c_int, _P,
+                                      _P, _P, _P, _LL, _P, _P, _P, _LL, _LL, _LL,
+                                      ctypes.c_float, _P),
+    "fused_spectre_linear_shard_sums": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
+                                        _LL, ctypes.c_int, _P),
+    "fused_spectre_linear_shard_dh": (ctypes.c_int, _P, _P, _P, _P, _P, _P, ctypes.c_int, _P, _P,
+                                      _P, _LL, _LL, _LL, _LL, ctypes.c_int, _P),
     "fused_spectre_linear_bwd_wide": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                       _LL, _LL, _LL, ctypes.c_float, _P, ctypes.c_int,
                                       ctypes.c_int, ctypes.c_int),

@@ -386,19 +386,21 @@ def _bwd_validate(x, w, gamma, beta, h, g) -> None:
                             f"{x.device}; got {t.dtype} on {t.device}")
 
 
-def fused_spectre_linear_bwd_plain(x, w, gamma, beta, h, g, eps: float = 1e-5):
+def fused_spectre_linear_bwd_plain(x, w, gamma, beta, h, g, eps: float = 1e-5,
+                                   identity: bool | None = None):
     """Plain PyTorch version of the backward: (dx, dw, db, dgamma, dbeta)
     from the saved pre-LN ``h`` and the cotangent ``g`` of the output (the
-    K != N pool residual's part of dx stays with the caller). The chain in
-    float32; for bf16 inputs dh is rounded to bf16 before the two products,
-    whose sums are float32; one cast of each gradient."""
+    K != N pool residual's part of dx stays with the caller; ``identity``
+    as for ``fused_spectre_linear_bwd``). The chain in float32; for bf16
+    inputs dh is rounded to bf16 before the two products, whose sums are
+    float32; one cast of each gradient."""
     _bwd_validate(x, w, gamma, beta, h, g)
     k, n = w.shape
     dh, dgamma, dbeta, db = _chain_plain(h.reshape(-1, n), g.reshape(-1, n), gamma, beta, eps)
     dh_op = dh.to(x.dtype).float()  # the products' operand: rounded for bf16
     dw = torch.matmul(x.reshape(-1, k).float().t(), dh_op)
     dx = torch.matmul(dh_op, w.float().t())
-    if k == n:
+    if k == n if identity is None else identity:
         dx = dx + g.reshape(-1, n).float()
     return (dx.reshape(x.shape).to(x.dtype), dw.to(w.dtype), db.to(w.dtype),
             dgamma.to(gamma.dtype), dbeta.to(beta.dtype))
@@ -522,26 +524,49 @@ def backward_chain(h, g, gamma, beta, eps: float = 1e-5):
     return dh, sums
 
 
-def fused_spectre_linear_bwd(x, w, gamma, beta, h, g, eps: float = 1e-5):
+def linear_products(x2, w, dh, g2=None):
+    """(dx, dw) of a product x2 @ w from dh [M, N] in x2's dtype: dW = x2^T dh
+    and dx = dh w^T (+ g2, joined before the one rounding), bf16 operands
+    with float32 sums for bf16 (one cuBLAS call each on the card), true
+    float32 for float32; each cast once to its tensor's dtype."""
+    if x2.device.type == "cpu":
+        dh_op = dh.float()
+        dx = torch.matmul(dh_op, w.float().t())
+        if g2 is not None:
+            dx = dx + g2.float()
+        return dx.to(x2.dtype), torch.matmul(x2.float().t(), dh_op).to(w.dtype)
+    if x2.dtype == torch.bfloat16:  # float32 sums, one rounding
+        dw = torch.mm(x2.t(), dh, out_dtype=torch.float32).to(w.dtype)
+    else:
+        dw = torch.mm(x2.t(), dh)
+    dx = torch.mm(dh, w.t()) if g2 is None else torch.addmm(g2, dh, w.t())
+    return dx, dw
+
+
+def fused_spectre_linear_bwd(x, w, gamma, beta, h, g, eps: float = 1e-5,
+                             identity: bool | None = None):
     """(dx, dw, db, dgamma, dbeta) of ``fused_spectre_linear`` from the saved
     pre-LN ``h`` and the cotangent ``g``: the chain kernel
     (``backward_kernel``), then the two products (bf16 operands and float32
-    sums for bf16 inputs). ``launches`` counts both chains,
-    ``fused_spectre_linear_bwd_wide.launches`` the wide one."""
+    sums for bf16 inputs). ``identity``: whether g joins dx through the
+    identity residual (None: K == N; a row shard under tensor parallelism
+    may have K == N by chance and no such residual). ``launches`` counts
+    both chains, ``fused_spectre_linear_bwd_wide.launches`` the wide one."""
     _bwd_validate(x, w, gamma, beta, h, g)
+    k, n = w.shape
+    identity = k == n if identity is None else identity
     if x.device.type == "cpu":
-        return fused_spectre_linear_bwd_plain(x, w, gamma, beta, h, g, eps)
+        return fused_spectre_linear_bwd_plain(x, w, gamma, beta, h, g, eps, identity)
     if x.device.type != "cuda":
         raise RuntimeError(f"fused_spectre_linear_bwd: no kernel for device {x.device}")
     if x.dtype not in _DTYPE_CODES:
         raise TypeError(f"fused_spectre_linear_bwd takes float32 or bfloat16, not {x.dtype}")
-    k, n = w.shape
     if not all(t.is_contiguous() for t in (x, w, gamma, beta, h, g)):
         raise ValueError("fused_spectre_linear_bwd needs contiguous operands")
     dev = x.get_device()
     if dev != torch.cuda.current_device():  # the kernel launches on the current device
         with torch.cuda.device(dev):
-            return fused_spectre_linear_bwd(x, w, gamma, beta, h, g, eps)
+            return fused_spectre_linear_bwd(x, w, gamma, beta, h, g, eps, identity)
     m = h.numel() // n
     x2, g2 = x.reshape(m, k), g.reshape(m, n)
     if m == 0:
@@ -550,12 +575,7 @@ def fused_spectre_linear_bwd(x, w, gamma, beta, h, g, eps: float = 1e-5):
     else:
         dh, sums = backward_chain(h.reshape(m, n), g2, gamma, beta, eps)
         fused_spectre_linear_bwd.launches += 1
-    if x.dtype == torch.bfloat16:  # float32 sums, one rounding
-        dw = torch.mm(x2.t(), dh, out_dtype=torch.float32).to(w.dtype)
-    else:
-        dw = torch.mm(x2.t(), dh)
-    # the identity residual joins the product's float32 sum before its rounding
-    dx = torch.addmm(g2, dh, w.t()) if k == n else torch.mm(dh, w.t())
+    dx, dw = linear_products(x2, w, dh, g2 if identity else None)
     return dx.reshape(x.shape), dw, sums[2], sums[0], sums[1]
 
 
@@ -582,3 +602,343 @@ class _FusedSpectreLinear(torch.autograd.Function):
 def fused_spectre_linear_grad(x, w, b, gamma, beta, eps: float = 1e-5):
     """``fused_spectre_linear`` with gradients for x, w, b, gamma and beta."""
     return _FusedSpectreLinear.apply(x, w, b, gamma, beta, eps)
+
+
+# -- a SpectreLinear split over tensor-parallel ranks --------------------------
+#
+# Four entries compute the shard forms of the kernel above, for a layer whose
+# N columns (column split: kernel, bias, gamma and beta) or K rows (row
+# split) are spread over ``size`` ranks (``parallel/tp.py``). A LayerNorm
+# over N needs the whole row; the ranks all-gather their per-row statistics
+# between two entries, and each entry merges the gathered values in rank
+# order itself, so that every rank computes the same bits whatever order the
+# collective took:
+#
+# 1. ``fused_spectre_linear_shard_stats``: h = x @ W_local + b_local in x's
+#    dtype and each row's (mean, M2) over the local columns of the float32
+#    sums [M, 2]: an epilogue mode of the forward kernels (``_wgmma`` for
+#    bf16 that TMA describes up to N = 768, else ``_cluster``).
+# 2. ``sharded_ln_gelu``: GELU(LN(h) gamma + beta) (+ residual) from the
+#    gathered statistics [size, M, 2] merged by Chan's formula; or, with no
+#    statistics, over its own whole row (the row split's all-reduced float32
+#    sum, to which it adds the bias and whose rounding it saves as h). It
+#    saves the merged (mean, rstd) [M, 2].
+# 3. ``chain_shard_sums``: the backward chain's per-row (sum du, sum du u)
+#    over the local columns [M, 2], and dgamma, dbeta of the local columns.
+# 4. ``chain_shard_dh``: from the gathered row sums [size, M, 2] (added in
+#    rank order), dh and db.
+#
+# csrc/fused_spectre_linear.cu holds 1 and 2, csrc/fused_spectre_linear_bwd.cu
+# 3 and 4. The plain versions state the arithmetic: float32 statistics, the
+# same rank-order merge, the roundings where the kernels round.
+
+# entries 3 and 4: blocks an SM, and the warps of a block (each with its
+# columns' partial sums in shared memory, within SHARD_SMEM bytes)
+SHARD_BLOCKS_PER_SM = 8
+SHARD_MAX_WARPS = 4
+SHARD_SMEM = 227 * 1024
+
+
+def matmul_f32(a, b):
+    """a @ b [M, N] in float32 for 2-d a and b: bf16 operands' exact products
+    summed in float32 (one cuBLAS call on the card), float32 as is."""
+    if a.is_cuda and a.dtype == torch.bfloat16:
+        return torch.mm(a, b, out_dtype=torch.float32)
+    return torch.mm(a.float(), b.float())
+
+
+def _row_stats(v):
+    """(mean, M2) [M, 2] of float32 rows by two passes, the second summing
+    the deviations from the first mean to correct it (the cluster kernel's
+    order of operations)."""
+    n = v.shape[-1]
+    mean1 = v.sum(-1, keepdim=True) / n
+    d = v - mean1
+    dsum = d.sum(-1, keepdim=True)
+    return torch.cat([mean1 + dsum / n, (d * d).sum(-1, keepdim=True) - dsum * dsum / n], -1)
+
+
+def merge_stats(stats, n: int):
+    """Chan's formula over the ranks' (mean, M2) [size, M, 2], each of ``n``
+    columns, in rank order: (mean, M2) [M] of the whole rows."""
+    mean, m2 = stats[0, :, 0], stats[0, :, 1]
+    na = float(n)
+    for j in range(1, stats.shape[0]):
+        tot = na + n
+        d = stats[j, :, 0] - mean
+        mean = mean + d * (n / tot)
+        m2 = m2 + stats[j, :, 1] + d * d * (na * n / tot)
+        na = tot
+    return mean, m2
+
+
+def shard_stats_plain(x, w, b):
+    """Plain version of entry 1: (h [M, n] in x's dtype, (mean, M2) [M, 2]
+    float32 of the float32 sums x @ w + b) for x [M, K], w [K, n]."""
+    hf = torch.matmul(x.float(), w.float()) + b.float()
+    return hf.to(x.dtype), _row_stats(hf)
+
+
+def sharded_ln_gelu_plain(h, stats, gamma, beta, n_full: int, bias=None, residual=None,
+                          eps: float = 1e-5):
+    """Plain version of entry 2: (out [M, n], (mean, rstd) [M, 2] float32, h
+    saved or None). ``stats`` [size, M, 2]: the ranks' (mean, M2) of a column
+    shard h (its own dtype); None: h is a whole float32 row, to which
+    ``bias`` is added, saved rounded to gamma's dtype. out in gamma's dtype,
+    the residual added in float32 before the one rounding."""
+    v = h.float()
+    saved = None
+    if stats is None:
+        v = v + bias.float()
+        saved = v.to(gamma.dtype)
+        mean, m2 = _row_stats(v).unbind(-1)
+    else:
+        mean, m2 = merge_stats(stats, h.shape[-1])
+    rstd = torch.rsqrt(m2 * (1.0 / n_full) + eps)
+    y = F.gelu((v - mean[:, None]) * rstd[:, None] * gamma.float() + beta.float())
+    if residual is not None:
+        y = y + residual.float()
+    return y.to(gamma.dtype), torch.stack([mean, rstd], -1), saved
+
+
+def _shard_chain(h, g, gamma, beta, mstats):
+    """u, dz and du [M, n] in float32 from the saved merged (mean, rstd)."""
+    u = (h.float() - mstats[:, :1]) * mstats[:, 1:]
+    gam = gamma.float()
+    z = u * gam + beta.float()
+    dgelu = 0.5 * (1.0 + torch.erf(z * _INV_SQRT2)) \
+        + z * torch.exp(-0.5 * z * z) * _INV_SQRT_2PI
+    dz = g.float() * dgelu
+    return u, dz, dz * gam
+
+
+def chain_shard_sums_plain(h, g, gamma, beta, mstats):
+    """Plain version of entry 3: ((sum du, sum du u) [M, 2] float32, [dgamma,
+    dbeta] [2, n] in h's dtype) over this rank's columns."""
+    u, dz, du = _shard_chain(h, g, gamma, beta, mstats)
+    rows = torch.stack([du.sum(-1), (du * u).sum(-1)], -1)
+    return rows, torch.stack([(dz * u).sum(0), dz.sum(0)]).to(h.dtype)
+
+
+def chain_shard_dh_plain(h, g, gamma, beta, mstats, rowsums, n_full: int):
+    """Plain version of entry 4: (dh [M, n], db [n]) in h's dtype from the
+    ranks' row sums [size, M, 2], added in rank order; db of the float32 dh."""
+    u, _, du = _shard_chain(h, g, gamma, beta, mstats)
+    s = rowsums[0]
+    for j in range(1, rowsums.shape[0]):
+        s = s + rowsums[j]
+    dh = mstats[:, 1:] * (du - s[:, :1] * (1.0 / n_full) - u * (s[:, 1:] * (1.0 / n_full)))
+    return dh.to(h.dtype), dh.sum(0).to(h.dtype)
+
+
+def shard_stats_kernel(dtype: torch.dtype, k: int, n: int, aligned: bool = True) -> str:
+    """The forward kernel whose epilogue mode entry 1 runs for W [k, n]:
+    ``fused_spectre_linear_wgmma`` where TMA can describe the operands (bf16,
+    k and n multiples of 8, x and W 16-byte aligned) and n <= WGMMA_MAX_N,
+    else ``fused_spectre_linear_cluster``."""
+    if dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 and aligned \
+            and n <= WGMMA_MAX_N:
+        return "fused_spectre_linear_wgmma"
+    return "fused_spectre_linear_cluster"
+
+
+def shard_chain_plan(m: int, n: int, parts: int, sm_count: int = 132) -> tuple[int, int]:
+    """(blocks, warps) of entry 3 (``parts`` = 2 partial sums a column) or 4
+    (1): up to SHARD_MAX_WARPS warps a block whose partial rows fit
+    SHARD_SMEM, up to SHARD_BLOCKS_PER_SM blocks an SM, at most one a warp's
+    row."""
+    warps = min(SHARD_MAX_WARPS, SHARD_SMEM // (4 * parts * n))
+    if warps < 1:
+        raise ValueError(f"a shard of {n} columns does not fit one warp's shared memory")
+    return min(_ceil(m, warps), SHARD_BLOCKS_PER_SM * sm_count), warps
+
+
+def _on_card(name, *tensors) -> bool:
+    """Whether the operands want the kernel (all on one card) rather than
+    the plain version (all on the CPU); raises for anything else."""
+    dev = tensors[0].device
+    for t in tensors:
+        if t is not None and t.device != dev:
+            raise ValueError(f"{name}: all operands must be on {dev}; got {t.device}")
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise RuntimeError(f"{name}: no kernel for device {dev}")
+    return True
+
+
+def _check_dtype(name, dtype, *tensors) -> None:
+    for t in tensors:
+        if t is not None and t.dtype != dtype:
+            raise TypeError(f"{name}: want {dtype}, got {t.dtype}")
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"{name} takes float32 or bfloat16, not {dtype}")
+
+
+def fused_spectre_linear_shard_stats(x, w, b):
+    """Entry 1: (h [M, n] in x's dtype, (mean, M2) [M, 2] float32) for x
+    [M, K], w [K, n], b [n], all contiguous; on the card the epilogue mode of
+    the kernel ``shard_stats_kernel`` names, which counts the launch too."""
+    if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0] or b.shape != (w.shape[1],):
+        raise ValueError(f"want x [M, K], w [K, n], b [n]; got {tuple(x.shape)}, "
+                         f"{tuple(w.shape)}, {tuple(b.shape)}")
+    _check_dtype("fused_spectre_linear_shard_stats", x.dtype, w, b)
+    if not all(t.is_contiguous() for t in (x, w, b)):
+        raise ValueError("fused_spectre_linear_shard_stats needs contiguous operands")
+    if not _on_card("fused_spectre_linear_shard_stats", x, w, b):
+        return shard_stats_plain(x, w, b)
+    dev = x.get_device()
+    if dev != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return fused_spectre_linear_shard_stats(x, w, b)
+    (m, k), n = x.shape, w.shape[1]
+    h = torch.empty((m, n), dtype=x.dtype, device=x.device)
+    stats = torch.empty((m, 2), dtype=torch.float32, device=x.device)
+    if m == 0:
+        return h, stats
+    route = shard_stats_kernel(x.dtype, k, n, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
+    lib, code = load_library(), _DTYPE_CODES[x.dtype]
+    if route == "fused_spectre_linear_wgmma":
+        err = lib.fused_spectre_linear_shard_stats(0, code, x.data_ptr(), w.data_ptr(),
+                                                   b.data_ptr(), h.data_ptr(), stats.data_ptr(),
+                                                   m, k, n, 0, 0, 0, 0, 0, current_stream(dev))
+    else:
+        p = cluster_plan(x.dtype, m, k, n, _sm_count(dev))
+        err = lib.fused_spectre_linear_shard_stats(1, code, x.data_ptr(), w.data_ptr(),
+                                                   b.data_ptr(), h.data_ptr(), stats.data_ptr(),
+                                                   m, k, n, p.bm, p.bn, p.cn, p.ck, p.kc,
+                                                   current_stream(dev))
+    check(err, f"fused_spectre_linear_shard_stats launch ({route})")
+    _FORWARD_KERNELS[route].launches += 1
+    fused_spectre_linear_shard_stats.launches += 1
+    return h, stats
+
+
+def sharded_ln_gelu(h, stats, gamma, beta, n_full: int, bias=None, residual=None,
+                    eps: float = 1e-5):
+    """Entry 2: (out [M, n] in gamma's dtype, (mean, rstd) [M, 2] float32, h
+    saved or None), as ``sharded_ln_gelu_plain`` states. h [M, n] and the
+    residual [M, n] (one dtype; rows may be strided) are a column shard in
+    gamma's dtype when ``stats`` [size, M, 2] float32 are given
+    (n_full = size * n), else a whole row in float32 (with ``bias``,
+    n_full = n); bf16 or float32."""
+    m, n = h.shape
+    if stats is None:
+        if bias is None or n_full != n:
+            raise ValueError("a whole row needs its bias and n_full == n")
+    elif stats.shape != (stats.shape[0], m, 2) or n_full != stats.shape[0] * n \
+            or stats.dtype != torch.float32:
+        raise ValueError(f"want stats [size, {m}, 2] float32 of size * {n} = {n_full} "
+                         f"columns; got {tuple(stats.shape)} {stats.dtype}")
+    _check_dtype("sharded_ln_gelu", gamma.dtype, beta, bias)
+    _check_dtype("sharded_ln_gelu", h.dtype, residual)
+    for name, t in (("gamma", gamma), ("beta", beta), ("bias", bias)):
+        if t is not None and (t.shape != (n,) or not t.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous [{n}], got {tuple(t.shape)}")
+    if residual is not None and residual.shape != (m, n):
+        raise ValueError(f"residual must be [{m}, {n}], got {tuple(residual.shape)}")
+    codes = (_DTYPE_CODES[h.dtype], _DTYPE_CODES[gamma.dtype])
+    if codes not in ((1, 1), (0, 1), (0, 0)):
+        raise TypeError(f"sharded_ln_gelu takes h in {gamma.dtype} or float32; got {h.dtype}")
+    if not _on_card("sharded_ln_gelu", h, stats, gamma, beta, bias, residual):
+        return sharded_ln_gelu_plain(h, stats, gamma, beta, n_full, bias, residual, eps)
+    dev = h.get_device()
+    if dev != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return sharded_ln_gelu(h, stats, gamma, beta, n_full, bias, residual, eps)
+    if h.stride(-1) != 1:
+        h = h.contiguous()
+    if residual is not None and residual.stride(-1) != 1:
+        residual = residual.contiguous()
+    if stats is not None:
+        stats = stats.contiguous()
+    out = torch.empty((m, n), dtype=gamma.dtype, device=h.device)
+    mstats = torch.empty((m, 2), dtype=torch.float32, device=h.device)
+    saved = torch.empty_like(out) if stats is None else None
+    if m == 0:
+        return out, mstats, saved
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    check(load_library().fused_spectre_linear_shard_ln(
+        *codes, h.data_ptr(), h.stride(0), ptr(stats),
+        1 if stats is None else stats.shape[0], ptr(bias), gamma.data_ptr(), beta.data_ptr(),
+        ptr(residual), 0 if residual is None else residual.stride(0), out.data_ptr(),
+        ptr(saved), mstats.data_ptr(), m, n, n_full, eps, current_stream(dev)),
+        "sharded_ln_gelu launch")
+    sharded_ln_gelu.launches += 1
+    return out, mstats, saved
+
+
+def _chain_operands(name, h, g, gamma, beta, mstats) -> tuple[int, int]:
+    m, n = h.shape
+    if g.shape != (m, n) or gamma.shape != (n,) or beta.shape != (n,) \
+            or mstats.shape != (m, 2) or mstats.dtype != torch.float32:
+        raise ValueError(f"{name}: want h, g [M, n], gamma, beta [n], mstats [M, 2] float32; "
+                         f"got {tuple(h.shape)}, {tuple(g.shape)}, {tuple(gamma.shape)}, "
+                         f"{tuple(beta.shape)}, {tuple(mstats.shape)} {mstats.dtype}")
+    _check_dtype(name, h.dtype, g, gamma, beta)
+    if not all(t.is_contiguous() for t in (h, g, gamma, beta, mstats)):
+        raise ValueError(f"{name} needs contiguous operands")
+    return m, n
+
+
+def chain_shard_sums(h, g, gamma, beta, mstats):
+    """Entry 3: ((sum du, sum du u) [M, 2] float32, [dgamma, dbeta] [2, n] in
+    h's dtype) over this rank's columns, as ``chain_shard_sums_plain``
+    states."""
+    m, n = _chain_operands("chain_shard_sums", h, g, gamma, beta, mstats)
+    if not _on_card("chain_shard_sums", h, g, gamma, beta, mstats):
+        return chain_shard_sums_plain(h, g, gamma, beta, mstats)
+    dev = h.get_device()
+    if dev != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return chain_shard_sums(h, g, gamma, beta, mstats)
+    rows = torch.empty((m, 2), dtype=torch.float32, device=h.device)
+    if m == 0:
+        return rows, torch.zeros((2, n), dtype=h.dtype, device=h.device)
+    sums = torch.empty((2, n), dtype=h.dtype, device=h.device)
+    blocks, warps = shard_chain_plan(m, n, 2, _sm_count(dev))
+    partial = torch.empty((blocks, 2, n), dtype=torch.float32, device=h.device)
+    check(load_library().fused_spectre_linear_shard_sums(
+        _DTYPE_CODES[h.dtype], h.data_ptr(), g.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        mstats.data_ptr(), rows.data_ptr(), sums.data_ptr(), partial.data_ptr(), m, n, blocks,
+        warps, current_stream(dev)), "chain_shard_sums launch")
+    chain_shard_sums.launches += 1
+    return rows, sums
+
+
+def chain_shard_dh(h, g, gamma, beta, mstats, rowsums, n_full: int):
+    """Entry 4: (dh [M, n], db [n]) in h's dtype from the ranks' row sums
+    [size, M, 2] float32 (n_full = size * n), as ``chain_shard_dh_plain``
+    states."""
+    m, n = _chain_operands("chain_shard_dh", h, g, gamma, beta, mstats)
+    if rowsums.shape != (rowsums.shape[0], m, 2) or rowsums.dtype != torch.float32 \
+            or n_full != rowsums.shape[0] * n:
+        raise ValueError(f"chain_shard_dh: want rowsums [size, {m}, 2] float32 of size * {n} "
+                         f"= {n_full} columns; got {tuple(rowsums.shape)} {rowsums.dtype}")
+    if not _on_card("chain_shard_dh", h, g, gamma, beta, mstats, rowsums):
+        return chain_shard_dh_plain(h, g, gamma, beta, mstats, rowsums, n_full)
+    dev = h.get_device()
+    if dev != torch.cuda.current_device():
+        with torch.cuda.device(dev):
+            return chain_shard_dh(h, g, gamma, beta, mstats, rowsums, n_full)
+    dh = torch.empty_like(h)
+    if m == 0:
+        return dh, torch.zeros((n,), dtype=h.dtype, device=h.device)
+    db = torch.empty((n,), dtype=h.dtype, device=h.device)
+    rowsums = rowsums.contiguous()
+    blocks, warps = shard_chain_plan(m, n, 1, _sm_count(dev))
+    partial = torch.empty((blocks, n), dtype=torch.float32, device=h.device)
+    check(load_library().fused_spectre_linear_shard_dh(
+        _DTYPE_CODES[h.dtype], h.data_ptr(), g.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
+        mstats.data_ptr(), rowsums.data_ptr(), rowsums.shape[0], dh.data_ptr(), db.data_ptr(),
+        partial.data_ptr(), m, n, n_full, blocks, warps, current_stream(dev)),
+        "chain_shard_dh launch")
+    chain_shard_dh.launches += 1
+    return dh, db
+
+
+for _fn in (fused_spectre_linear_shard_stats, sharded_ln_gelu, chain_shard_sums, chain_shard_dh):
+    _fn.launches = 0

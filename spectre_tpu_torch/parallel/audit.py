@@ -18,7 +18,10 @@ The signatures are JAX's:
   there is no such exemption here;
 - FSDP: at least one all-gather (the weights before use) and one
   reduce-scatter (or its all-to-all form) of the gradients;
-- TP: strictly more all-reduces than the pure-DP step of the same model.
+- TP: strictly more all-reduces than the pure-DP step of the same model;
+  and each SpectreLinear split by columns all-gathers its row statistics in
+  the forward and the chain's row sums in the backward (kernel B3's shard
+  entries merge them in rank order), so at least two all-gathers for each.
 
 At one rank FSDP2 issues no collective at all, so the FSDP signature holds
 only across ranks.
@@ -86,9 +89,14 @@ def assert_fsdp_signature(counts: dict[str, int]) -> None:
         f"fsdp: expected gradient reduce-scatters, got {counts}: gradients are whole"
 
 
-def assert_tp_signature(counts: dict[str, int], dp_counts: dict[str, int]) -> None:
+def assert_tp_signature(counts: dict[str, int], dp_counts: dict[str, int],
+                        column_layers: int = 0) -> None:
     """DP x TP: the activations' all-reduces on the model axis come on top
-    of the gradient's."""
+    of the gradient's, and the ``column_layers`` SpectreLinears split by
+    columns all-gather their statistics twice each (forward and backward)."""
     assert counts.get("all-reduce", 0) > dp_counts.get("all-reduce", 0), \
         f"tp: expected MORE all-reduces than pure DP, got tp={counts} dp={dp_counts}: " \
         "the model axis is not used"
+    assert counts.get("all-gather", 0) >= 2 * column_layers, \
+        f"tp: expected at least {2 * column_layers} all-gathers of row statistics for " \
+        f"{column_layers} column-split SpectreLinears, got {counts}"

@@ -16,7 +16,10 @@ The state keeps the unwrapped model (checkpoints, evaluation and the mix
 routes see the module they always saw); ``Layout.module`` is what the train
 step calls. Each rank's dropout generator is seeded from (seed, data rank):
 ranks with one generator would draw the same masks for sample i of every
-slice. The augmentation stays independent of the layout by default, as in
+slice. The ranks of one ``model`` row hold the same generator and draw
+alike: a Dropout after a column-split output draws the whole row's mask
+and keeps the rank's columns (``models/layers.py::Dropout``), so tensor
+parallelism draws the unsplit model's masks. The augmentation stays independent of the layout by default, as in
 JAX: with more than one data rank it draws from a generator that every rank
 seeds alike, for the global batch, and each rank keeps its rows
 (``augment_rows``); ``shard_local_augment`` draws per rank from the dropout

@@ -39,9 +39,10 @@ def init_distributed(init_method: str | None = None, *, rank: int | None = None,
     ``world_size`` replaces them. ``device`` "cuda" takes NCCL and binds the
     process to the card ``LOCAL_RANK`` names; "cpu" takes gloo; None picks
     NCCL when a card is present. ``backend`` "gloo" with "cuda" runs gloo's
-    collectives on card tensors (ranks may then share a card). With none of
-    these, a group of this one process is made. A second call returns the
-    group's values."""
+    collectives on card tensors, and ranks then share the cards: LOCAL_RANK
+    modulo the cards present (NCCL refuses two ranks on one card). With
+    none of these, a group of this one process is made. A second call
+    returns the group's values."""
     if dist.is_initialized():
         return dist.get_rank(), dist.get_world_size()
     env = os.environ
@@ -53,6 +54,8 @@ def init_distributed(init_method: str | None = None, *, rank: int | None = None,
     on_card = torch.device(device).type == "cuda"
     backend = backend or ("nccl" if on_card else "gloo")
     if on_card:
+        if backend == "gloo":
+            local_rank %= torch.cuda.device_count()
         torch.cuda.set_device(local_rank)
     kw = dict(rank=rank, world_size=world_size, timeout=datetime.timedelta(seconds=timeout_s))
     if init_method is None and world_size == 1 and "MASTER_ADDR" not in env:

@@ -12,31 +12,36 @@ written out:
 - column-parallel (kernel [K, N] split over N; its bias and, for the
   ``_ProjectionLN`` family, ``ln_scale``/``ln_bias`` with it): the local
   product gives this rank's output columns. A LayerNorm over N needs the
-  whole row, so the row sums and sums of squares are all-reduced first;
+  whole row: for a SpectreLinear, kernel B3's column-shard entries
+  (``ops/kernels/fused_linear.py``) give h and this rank's row statistics,
+  the statistics are all-gathered, and the epilogue entry merges them in
+  rank order; the backward all-gathers the chain's row sums the same way.
   GELU and the columns of the pool residual are local. The output stays
   split when the next layer is row-parallel, else it is all-gathered.
 - row-parallel (kernel split over the contracting K): the local product is
-  a partial sum, all-reduced before the bias, LayerNorm and GELU. When the
-  input is split too (it comes from a column-parallel layer), the pool
-  residual is a partial sum as well and rides in the same all-reduce; when
-  the input is whole, this rank takes its rows of it and the pool is local.
+  a partial sum, all-reduced before the bias, LayerNorm and GELU (for a
+  SpectreLinear: float32 partials, then B3's epilogue entry on the whole
+  rows, and B3's backward on the local operands). When the input is split
+  too (it comes from a column-parallel layer), the pool residual is a
+  partial sum as well and rides in the same all-reduce; when the input is
+  whole, this rank takes its rows of it and the pool is local.
 
 Autograd through the collectives follows Megatron: ``copy_to_model`` is the
 identity forward and an all-reduce backward (a whole input feeding a split
 product); ``reduce_from_model`` is an all-reduce forward and the identity
 backward (the partial sums, after which every rank computes the same
-thing); the LayerNorm statistics all-reduce both ways, as each rank's split
-output contributes to their gradient. The fused kernel B3 takes its
-LayerNorm over the whole N and cannot run a shard, so a layer under tensor
-parallelism runs these plain products; data parallelism and FSDP keep it.
-So tensor parallelism is a path of the CPU alone, where it is held against
-JAX's mesh steps: ``apply_tp`` refuses a model on the card, whose B3 work
-would go to the plain version, until B3 has an entry for a shard.
+thing). The SpectreLinear shards are ``torch.autograd.Function``s whose
+collectives sit between the kernel entries; on the CPU the entries run
+their plain versions, so the CPU holds this arithmetic against JAX's mesh
+steps, and on the card they launch the kernels. A Dropout after a
+column-split output draws the whole row's mask and keeps this rank's
+columns (``column_window``), so that the masks are the unsplit model's.
 """
 
 from __future__ import annotations
 
 import re
+import threading
 
 import torch
 import torch.distributed as dist
@@ -51,6 +56,15 @@ from spectre_tpu_torch.ops import (
     gelu_exact,
     layer_norm,
     permut_mix_fused_t,
+)
+from spectre_tpu_torch.ops.kernels import (
+    chain_shard_dh,
+    chain_shard_sums,
+    fused_spectre_linear_bwd,
+    fused_spectre_linear_shard_stats,
+    linear_products,
+    matmul_f32,
+    sharded_ln_gelu,
 )
 from spectre_tpu_torch.parallel.mesh import MODEL_AXIS
 
@@ -143,17 +157,6 @@ class _ReduceFromModel(torch.autograd.Function):
         return g, None
 
 
-class _AllReduceSum(torch.autograd.Function):
-    @staticmethod
-    def forward(ctx, x, group):
-        ctx.group = group
-        return _all_reduce(x, group)
-
-    @staticmethod
-    def backward(ctx, g):
-        return _all_reduce(g, ctx.group), None
-
-
 class _GatherLast(torch.autograd.Function):
     """All-gather the last dim; backward takes this rank's block of a
     gradient that every rank holds whole."""
@@ -179,6 +182,145 @@ def reduce_from_model(x, group):
     return _ReduceFromModel.apply(x, group)
 
 
+# -- SpectreLinear split over ranks: kernel B3's shard entries -----------------
+
+EPS = 1e-5  # SpectreLinear's LayerNorm
+
+
+class _ColumnSpectreLinear(torch.autograd.Function):
+    """SpectreLinear split by columns, on this rank's n of N: entry 1 (h and
+    the row statistics of these columns), their all-gather (``gather``),
+    entry 2 (the merged LayerNorm, GELU and the pool residual's columns).
+    Backward: entry 3 (the row sums and dgamma, dbeta), the all-gather of
+    the row sums, entry 4 (dh, db), then dW = x^T dh and this rank's partial
+    dx = dh W^T, which ``copy_to_model`` sums."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, gamma, beta, residual, gather, eps):
+        n = w.shape[1]
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        gamma, beta = gamma.contiguous(), beta.contiguous()
+        h, stats = fused_spectre_linear_shard_stats(x2, w.contiguous(), b.contiguous())
+        stats = gather(stats)
+        n_full = stats.shape[0] * n
+        out, mstats, _ = sharded_ln_gelu(h, stats, gamma, beta, n_full,
+                                         residual=residual.reshape(-1, n), eps=eps)
+        ctx.save_for_backward(x2, w, gamma, beta, h, mstats)
+        ctx.gather, ctx.n_full, ctx.x_shape = gather, n_full, x.shape
+        return out.view(*x.shape[:-1], n)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w, gamma, beta, h, mstats = ctx.saved_tensors
+        g2 = g.reshape(h.shape).contiguous()
+        rows, sums = chain_shard_sums(h, g2, gamma, beta, mstats)
+        dh, db = chain_shard_dh(h, g2, gamma, beta, mstats, ctx.gather(rows), ctx.n_full)
+        dx, dw = linear_products(x2, w.contiguous(), dh)
+        return dx.view(ctx.x_shape), dw, db, sums[0], sums[1], g, None, None
+
+
+class _RowSpectreLinear(torch.autograd.Function):
+    """SpectreLinear split by the rows of its kernel: the partial product in
+    float32 sums (with the pool residual's partial when ``pool`` is given:
+    the input is this rank's columns), all-reduced (``reduce``), then entry
+    2 on the whole rows, which adds the bias, saves h and adds the pool (or
+    ``residual``, whole). Backward: ``fused_spectre_linear_bwd`` on the
+    local operands (dh of the whole rows, this rank's dW and dx) and the
+    pool's part of dx."""
+
+    @staticmethod
+    def forward(ctx, x, w, b, gamma, beta, pool, residual, reduce, eps):
+        n = w.shape[1]
+        x2 = x.reshape(-1, x.shape[-1]).contiguous()
+        gamma, beta = gamma.contiguous(), beta.contiguous()
+        parts = [matmul_f32(x2, w)]
+        if pool is not None:
+            parts.append(matmul_f32(x2, pool))
+        s = reduce(torch.cat(parts, -1) if len(parts) > 1 else parts[0])
+        res = s[:, n:] if pool is not None else residual.reshape(-1, n).float()
+        out, _, h = sharded_ln_gelu(s[:, :n], None, gamma, beta, n, bias=b.contiguous(),
+                                    residual=res, eps=eps)
+        ctx.save_for_backward(x2, w, gamma, beta, h, pool)
+        ctx.eps, ctx.x_shape = eps, x.shape
+        ctx.residual_dtype = None if residual is None else residual.dtype
+        return out.view(*x.shape[:-1], n)
+
+    @staticmethod
+    def backward(ctx, g):
+        x2, w, gamma, beta, h, pool = ctx.saved_tensors
+        g2 = g.reshape(h.shape).contiguous()
+        dx, dw, db, dgamma, dbeta = fused_spectre_linear_bwd(
+            x2, w.contiguous(), gamma, beta, h, g2, ctx.eps, identity=False)
+        if pool is not None:
+            dx = dx + torch.mm(g2, pool.t())
+        dres = None if ctx.residual_dtype is None else g.to(ctx.residual_dtype)
+        return dx.view(ctx.x_shape), dw, db, dgamma, dbeta, None, dres, None, None
+
+
+def column_spectre_linear(x, w, b, gamma, beta, residual, gather, eps: float = EPS):
+    """GELU(LN(x @ w + b)) + residual on this rank's columns (w [K, n], b,
+    gamma, beta [n], residual [..., n]) of a SpectreLinear split by columns;
+    ``gather(t)`` stacks every rank's t in rank order ([size, ...]): an
+    all-gather on the model group, or any stand-in that gives the ranks'
+    values."""
+    return _ColumnSpectreLinear.apply(x, w, b, gamma, beta, residual, gather, eps)
+
+
+def row_spectre_linear(x, w, b, gamma, beta, reduce, *, pool=None, residual=None,
+                       eps: float = EPS):
+    """GELU(LN(sum over ranks of x @ w, + b)) + the pool residual, whole, of
+    a SpectreLinear split by the rows of its kernel (x [..., K_local], w
+    [K_local, N]); ``reduce(t)`` sums t over the ranks (an all-reduce).
+    ``pool`` [K_local, N]: this rank's rows of the pool matrix, whose partial
+    rides in the same reduction; else ``residual`` [..., N] whole."""
+    return _RowSpectreLinear.apply(x, w, b, gamma, beta, pool, residual, reduce, eps)
+
+
+class LocalRanks:
+    """``size`` ranks of one process, each run in a thread of its own, whose
+    ``gather(rank)`` callables meet at a barrier: the shard Functions run on
+    in-process shards without a process group (the checks of the entries
+    on whole layers). Backward in a thread: ``out.grad_fn.apply(g)``, as the
+    autograd engine runs a card's work in one thread of its own."""
+
+    def __init__(self, size: int):
+        self.size, self._slots = size, [None] * size
+        self._barrier = threading.Barrier(size)
+
+    def gather(self, rank: int):
+        def gather(t: torch.Tensor) -> torch.Tensor:
+            self._slots[rank] = t
+            self._barrier.wait()
+            out = torch.stack(self._slots)
+            self._barrier.wait()
+            return out
+        return gather
+
+    def reduce(self, rank: int):
+        gather = self.gather(rank)
+        return lambda t: gather(t).sum(0)
+
+    def run(self, fn) -> list:
+        """[fn(rank) for each rank], each rank in its own thread."""
+        out, errors = [None] * self.size, []
+
+        def body(rank):
+            try:
+                out[rank] = fn(rank)
+            except Exception as e:  # raised again in the caller's thread, below
+                errors.append(e)
+                self._barrier.abort()
+
+        threads = [threading.Thread(target=body, args=(r,)) for r in range(self.size)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errors:
+            raise errors[0]
+        return out
+
+
 # -- the layers' shard forwards ------------------------------------------------
 
 class TensorParallel:
@@ -195,15 +337,21 @@ class TensorParallel:
     def _block(self, n: int) -> slice:
         return slice(self.rank * n // self.size, (self.rank + 1) * n // self.size)
 
-    def _sharded_ln(self, y, gamma, beta, n_full: int, eps: float = 1e-5):
-        """LayerNorm over the full last dim of a column-split y: the row sums
-        and sums of squares all-reduced (float32), the epilogue local."""
-        yf = y.float()
-        stats = _AllReduceSum.apply(torch.stack([yf.sum(-1), (yf * yf).sum(-1)], -1),
-                                    self.group)
-        mean = stats[..., 0:1] / n_full
-        var = stats[..., 1:2] / n_full - mean * mean
-        return ((yf - mean) * torch.rsqrt(var + eps)).to(y.dtype) * gamma + beta
+    def gather(self, t: torch.Tensor) -> torch.Tensor:
+        """[size, *t.shape]: every rank's ``t`` in rank order (all-gather)."""
+        parts = [torch.empty_like(t) for _ in range(self.size)]
+        dist.all_gather(parts, t.contiguous(), group=self.group)
+        return torch.stack(parts)
+
+    def all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        return _all_reduce(t, self.group)
+
+    def column_window(self, features: int) -> tuple[int, int] | None:
+        """(whole width, first column) of this rank's columns of an output
+        of ``features`` that stays split by columns; else None."""
+        if self.mode != "col" or not self.split:
+            return None
+        return features, self._block(features).start
 
     def _out(self, y):
         if self.mode == "col" and not self.split:
@@ -218,21 +366,14 @@ class TensorParallel:
         x = x.to(dt)
         if self.mode == "col":
             xr = copy_to_model(x, self.group)
-            y = torch.matmul(xr, w) + b
-            h = gelu_exact(self._sharded_ln(y, gamma, beta, m.features))
             pool = xr[..., self._block(m.in_features)] if self.pool is None \
                 else torch.matmul(xr, self.pool)
-            return self._out(h + pool)
+            return self._out(column_spectre_linear(xr, w, b, gamma, beta, pool, self.gather))
         if self.split:  # x holds this rank's rows of the contracting dim
-            part = torch.matmul(x, w)
-            pool = torch.matmul(x, self.pool)
-            s = reduce_from_model(torch.cat([part, pool], dim=-1), self.group)
-            y, pool = s[..., :m.features], s[..., m.features:]
-        else:
-            xr = copy_to_model(x, self.group)[..., self._block(m.in_features)]
-            y = reduce_from_model(torch.matmul(xr, w), self.group)
-            pool = torch.matmul(x, self.pool)
-        return gelu_exact(layer_norm(y + b, gamma, beta)) + pool
+            return row_spectre_linear(x, w, b, gamma, beta, self.all_reduce, pool=self.pool)
+        xr = copy_to_model(x, self.group)[..., self._block(m.in_features)]
+        return row_spectre_linear(xr, w, b, gamma, beta, self.all_reduce,
+                                  residual=torch.matmul(x, self.pool))
 
     def folded_mix_linear(self, m, g4: torch.Tensor, mix) -> torch.Tensor:
         """FoldedMixLinear with its kernel split over the contracting E*H:
@@ -378,12 +519,7 @@ def apply_tp(model: nn.Module, mesh: DeviceMesh, rules) -> nn.Module:
     (``DTensor`` shards, the rest stay whole) and give each layer that holds
     one its shard forward. In place; returns ``model``. Parameters are
     replaced: an optimizer built earlier must take the new ones
-    (``parallel.layout.parallelize`` swaps them). CPU only (module
-    docstring): raises for a model whose parameters are on the card."""
-    if any(p.device.type == "cuda" for p in model.parameters()):
-        raise NotImplementedError(
-            "tensor parallelism runs on the CPU only: its layers run plain products, as "
-            "kernel B3 takes its LayerNorm over the whole width and has no entry for a shard")
+    (``parallel.layout.parallelize`` swaps them)."""
     tp_mesh = mesh[MODEL_AXIS]
     size = tp_mesh.size()
     for name, spec in tp_specs(model, size, rules).items():

@@ -15,7 +15,9 @@ shrinks it, and ``--teacher-size`` sets its input size. Metric files and a
 checkpoint per epoch go under ``<checkpoint_dir>/distill_<experiment>/``
 unless ``--no-checkpoint``; a SIGTERM or SIGINT finishes the step, saves and
 stops. ``--multihost`` trains the student on a mesh over torchrun's ranks,
-as ``repl/train.py --multihost`` does (``--set fsdp=True`` for FSDP).
+as ``repl/train.py --multihost`` does (``--set fsdp=True`` for FSDP,
+``model_parallel=2`` for tensor parallelism, ``--backend gloo`` for ranks
+that share a card).
 """
 
 from __future__ import annotations
@@ -40,6 +42,9 @@ def main(argv=None):
                    help="run the teacher every step instead of caching its logits once")
     p.add_argument("--multihost", action="store_true",
                    help="join torchrun's process group and train on a mesh over its ranks")
+    p.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                   help="with --multihost: the collectives' backend (default NCCL on the "
+                        "card, gloo on the CPU); gloo on the card lets ranks share a card")
     p.add_argument("--set", nargs="*", default=[], help="config overrides key=value")
     args = p.parse_args(argv)
     device = torch.device(args.device)
@@ -49,7 +54,7 @@ def main(argv=None):
     if args.multihost:
         from spectre_tpu_torch.parallel import init_distributed
 
-        init_distributed(device=device.type)
+        init_distributed(device=device.type, backend=args.backend)
 
     from spectre_tpu_torch.configs import apply_overrides, parse_config
     from spectre_tpu_torch.distill import distill_from_config

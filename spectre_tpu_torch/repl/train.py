@@ -18,13 +18,16 @@ SIGINT finishes the current step, saves and stops. A config with
 
 ``--multihost`` joins the process group that torchrun describes
 (``parallel.init_distributed``: NCCL on the card this rank's LOCAL_RANK
-names, gloo with ``--device cpu``) and trains on the ("data", "model") mesh
-over every rank: DDP, or FSDP with ``--set fsdp=True``, or, with
-``--device cpu`` only, tensor parallelism with ``--set model_parallel=2``;
+names, gloo with ``--device cpu``; ``--backend gloo`` on the card lets ranks
+share a card, as NCCL does not) and trains on the ("data", "model") mesh
+over every rank: DDP, or FSDP with ``--set fsdp=True``, or tensor
+parallelism with ``--set model_parallel=2`` (with ``fsdp=True``, both);
 ``batch_size`` is the global batch:
 
     torchrun --standalone --nproc_per_node 8 -m spectre_tpu_torch.repl.train \
-        --multihost --synthetic --steps 20 [--set fsdp=True]
+        --multihost --synthetic --steps 20 [--set fsdp=True] [--set model_parallel=2]
+    torchrun --standalone --nproc_per_node 2 -m spectre_tpu_torch.repl.train \
+        --multihost --backend gloo --synthetic --steps 20 --set model_parallel=2
 """
 
 from __future__ import annotations
@@ -47,6 +50,9 @@ def main(argv=None):
     p.add_argument("--no-checkpoint", action="store_true")
     p.add_argument("--multihost", action="store_true",
                    help="join torchrun's process group and train on a mesh over its ranks")
+    p.add_argument("--backend", choices=("nccl", "gloo"), default=None,
+                   help="with --multihost: the collectives' backend (default NCCL on the "
+                        "card, gloo on the CPU); gloo on the card lets ranks share a card")
     p.add_argument("--set", nargs="*", default=[], help="config overrides key=value")
     args = p.parse_args(argv)
 
@@ -57,7 +63,7 @@ def main(argv=None):
     if args.multihost:
         from spectre_tpu_torch.parallel import init_distributed
 
-        init_distributed(device=device.type)
+        init_distributed(device=device.type, backend=args.backend)
 
     from spectre_tpu_torch.configs import apply_overrides, parse_config
     from spectre_tpu_torch.train import train_from_config

@@ -7,8 +7,8 @@ On a mesh (a process group, from ``repl/train.py --multihost`` under
 torchrun, or made here for ``fsdp=True`` or ``model_parallel > 1`` in a
 plain process) the loop takes the JAX loop's layouts (``parallel/``):
 ``fsdp`` (with ``fsdp_min_size``) shards parameters and moments, else
-``model_parallel > 1`` splits the layers' kernels over ranks (on the CPU
-only, ``parallel/tp.py``), else DDP.
+``model_parallel > 1`` splits the layers' kernels over ranks
+(``parallel/tp.py``), else DDP.
 The global ``batch_size`` must divide over the data ranks (it is cut to a
 multiple, as in JAX); each data rank loads its own strided slice of the
 training and validation sets, all of one length, and runs batches of

@@ -963,17 +963,70 @@ def test_server_on_the_card_answers_around_buckets_that_fail(cuda_device):
     assert srv.forwards == 20
 
 
-def test_tensor_parallelism_refuses_a_model_on_the_card(cuda_device):
-    """Tensor parallelism runs its layers' plain products, since kernel B3
-    takes its LayerNorm over the whole width: ``apply_tp`` refuses a model
-    on the card before it splits anything."""
-    from spectre_tpu_torch.parallel import SPECTRE_TP_RULES, apply_tp
+@pytest.mark.parametrize("size", [2, 4])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_split_spectre_linears_launch_the_shard_entries(cuda_device, size, dtype):
+    """The two split SpectreLinear Functions of parallel/tp.py on in-process
+    shards (``LocalRanks``: a thread a rank, no process group), a column
+    split linear1 feeding a row split linear3 at the flagship's widths and
+    64 rows: each rank's forward and backward launch kernel B3's four shard
+    entries (entry 1 on ``shard_stats_kernel``'s route) and the row split's
+    backward chain, and the outputs and gradients equal the same ranks on
+    the CPU, where the entries run their plain versions. f32: 1e-5 of each
+    result's largest entry; bf16: 2^-6 (one bf16 rounding of dh or h moves
+    the products that follow)."""
+    from spectre_tpu_torch.ops import adaptive_pool_matrix
+    from spectre_tpu_torch.ops.kernels import reset_launch_counts, shard_stats_kernel
+    from spectre_tpu_torch.parallel.tp import LocalRanks, column_spectre_linear, \
+        row_spectre_linear
 
-    cfg = SimpleNamespace(model="spectre_vit", method="permut_mix", mix_impl="folded",
-                          img_size=8, patch_size=4, in_channels=3, num_classes=10,
-                          embed_dim=32, num_encoders=1, num_heads=2, hidden_dim=64,
-                          random_seed=0, compute_dtype="float32", param_dtype="float32")
-    model = build_model(cfg, cuda_device)
-    with pytest.raises(NotImplementedError, match="CPU only"):
-        apply_tp(model, None, SPECTRE_TP_RULES)
-    assert all(getattr(m, "tp", None) is None for m in model.modules())
+    e, f, m = 512, 768, 64
+    gen = torch.Generator().manual_seed(size)
+    x = torch.randn(2, m // 2, e, generator=gen)
+    params = [torch.randn(e, f, generator=gen) * e ** -0.5, torch.randn(f, generator=gen) * 0.1,
+              1 + torch.randn(f, generator=gen) * 0.1, torch.randn(f, generator=gen) * 0.1,
+              torch.randn(f, e, generator=gen) * f ** -0.5, torch.randn(e, generator=gen) * 0.1,
+              1 + torch.randn(e, generator=gen) * 0.1, torch.randn(e, generator=gen) * 0.1]
+    gy = torch.randn(2, m // 2, e, generator=gen)
+    n = f // size
+
+    def ranks(device):
+        local = LocalRanks(size)
+        p1 = adaptive_pool_matrix(e, f, dtype, device)
+        p3 = adaptive_pool_matrix(f, e, dtype, device)
+
+        def rank(r):
+            c = slice(r * n, (r + 1) * n)
+            xr = x.to(device, dtype).requires_grad_()
+            w1, b1, g1, be1 = (t[..., c].contiguous().to(device, dtype).requires_grad_()
+                               for t in params[:4])
+            w3 = params[4][c].contiguous().to(device, dtype).requires_grad_()
+            b3, g3, be3 = (t.to(device, dtype).requires_grad_() for t in params[5:])
+            h1 = column_spectre_linear(xr, w1, b1, g1, be1, xr @ p1[:, c], local.gather(r))
+            out = row_spectre_linear(h1, w3, b3, g3, be3, local.reduce(r),
+                                     pool=p3[c].contiguous())
+            g3s = out.grad_fn.apply(gy.to(device, dtype))
+            dh1 = g3s[0]
+            g1s = h1.grad_fn.apply(dh1.view_as(h1))
+            return [out, dh1, *g1s[:5], *g3s[1:5]]
+
+        return local.run(rank)
+
+    reset_launch_counts()
+    got = ranks(cuda_device)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    route = shard_stats_kernel(dtype, e, n)
+    assert counts["fused_spectre_linear_shard_stats"] == counts[route] == size
+    assert counts["sharded_ln_gelu"] == 2 * size  # linear1's shards and linear3's rows
+    assert counts["chain_shard_sums"] == counts["chain_shard_dh"] == size
+    assert counts["fused_spectre_linear_bwd"] == size  # linear3's chain on local operands
+    want = ranks("cpu")
+    limit = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+    names = ("out", "dh1", "dx", "dw1", "db1", "dgamma1", "dbeta1", "dw3", "db3", "dgamma3",
+             "dbeta3")
+    for r in range(size):
+        for name, a, b in zip(names, got[r], want[r]):
+            a, b = a.detach().float().cpu(), b.detach().float()
+            err = float((a - b).abs().max())
+            assert err <= limit * float(b.abs().max()), (r, name, err)

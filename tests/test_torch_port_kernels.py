@@ -245,6 +245,25 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
     route[1].zero_()  # one row: stage B has one source row
     gr = torch.randn(16, 3)
     assert torch.equal(K.routed_gather_sum(gr, *route), K.routed_gather_sum_plain(gr, *route))
+    # kernel 2's column-shard entries (two ranks of four columns each)
+    h, st = K.fused_spectre_linear_shard_stats(x, w[:, :4].contiguous(), b[:4].contiguous())
+    for got, want in zip((h, st), K.shard_stats_plain(x, w[:, :4].contiguous(),
+                                                      b[:4].contiguous())):
+        assert torch.equal(got, want)
+    stats = torch.stack([st, st])
+    out, ms, _ = K.sharded_ln_gelu(h, stats, g[:4].contiguous(), be[:4].contiguous(), 8)
+    want = K.sharded_ln_gelu_plain(h, stats, g[:4].contiguous(), be[:4].contiguous(), 8)
+    assert torch.equal(out, want[0]) and torch.equal(ms, want[1])
+    gh = torch.randn(6, 4)
+    rows, sums = K.chain_shard_sums(h, gh, g[:4].contiguous(), be[:4].contiguous(), ms)
+    want = K.chain_shard_sums_plain(h, gh, g[:4].contiguous(), be[:4].contiguous(), ms)
+    assert torch.equal(rows, want[0]) and torch.equal(sums, want[1])
+    for got, want in zip(K.chain_shard_dh(h, gh, g[:4].contiguous(), be[:4].contiguous(), ms,
+                                          torch.stack([rows, rows]), 8),
+                         K.chain_shard_dh_plain(h, gh, g[:4].contiguous(),
+                                                be[:4].contiguous(), ms,
+                                                torch.stack([rows, rows]), 8)):
+        assert torch.equal(got, want)
     assert launch_counts() == before
     assert list(before) == ["block_scatter_rows", "block_gather_sum", "inverse_gather_sum",
                             "fused_spectre_linear", "fused_spectre_linear_bwd",
@@ -254,7 +273,8 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
                             "fused_spectre_linear_wgmma", "fused_spectre_linear_cluster",
                             "fused_block_bwd_wgmma", "fused_block_bwd_grouped",
                             "fused_spectre_linear_wide_cluster",
-                            "fused_spectre_linear_bwd_wide"]
+                            "fused_spectre_linear_bwd_wide", "fused_spectre_linear_shard_stats",
+                            "sharded_ln_gelu", "chain_shard_sums", "chain_shard_dh"]
 
 
 def test_wrappers_raise_instead_of_falling_back():
@@ -301,7 +321,15 @@ def test_wrappers_raise_instead_of_falling_back():
                  lambda: K.fused_spectre_linear_bwd(*(torch.zeros(s, device="meta") for s in (
                      (4, 8), (8, 8), 8, 8, (4, 8), (4, 8)))),
                  lambda: K.structured_mix(torch.zeros(3, 24, device="meta"), *tables, 1),
-                 lambda: K.structured_mix_bwd(torch.zeros(3, 48, device="meta"), *tables)):
+                 lambda: K.structured_mix_bwd(torch.zeros(3, 48, device="meta"), *tables),
+                 lambda: K.fused_spectre_linear_shard_stats(*(torch.zeros(s, device="meta")
+                                                              for s in ((4, 8), (8, 4), 4))),
+                 lambda: K.sharded_ln_gelu(*(torch.zeros(s, device="meta")
+                                             for s in ((4, 4), (2, 4, 2), 4, 4)), 8),
+                 lambda: K.chain_shard_sums(*(torch.zeros(s, device="meta")
+                                              for s in ((4, 4), (4, 4), 4, 4, (4, 2)))),
+                 lambda: K.chain_shard_dh(*(torch.zeros(s, device="meta") for s in (
+                     (4, 4), (4, 4), 4, 4, (4, 2), (2, 4, 2))), 8)):
         with pytest.raises(RuntimeError, match="no kernel"):
             call()
     xs, ws, bs, gs, bes = (torch.zeros(s) for s in ((4, 8), (8, 6), 6, 6, 6))

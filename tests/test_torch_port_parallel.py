@@ -283,7 +283,9 @@ def test_audit_signatures(runs):
     assert port["dp"]["audit"].get("all-gather", 0) == 0
     assert_fsdp_signature(port["fsdp"]["audit"])
     assert_fsdp_signature(port["fsdp_tp"]["audit"])
-    assert_tp_signature(port["tp_spectre"]["audit"], port["dp"]["audit"])
+    # each layer's linear1 gathers its statistics and its row sums
+    assert_tp_signature(port["tp_spectre"]["audit"], port["dp"]["audit"],
+                        column_layers=worker.config("spectre").num_encoders)
     assert_tp_signature(port["tp_vit"]["audit"], port["dp"]["audit"])
     assert port["tp_branch"]["audit"].get("all-gather", 0) >= 1  # linear1's output
 
@@ -310,8 +312,12 @@ def test_signature_asserts():
     with pytest.raises(AssertionError):
         assert_fsdp_signature({"all-reduce": 4})
     assert_tp_signature({"all-reduce": 3}, {"all-reduce": 1})
+    assert_tp_signature({"all-reduce": 3, "all-gather": 4}, {"all-reduce": 1}, column_layers=2)
     with pytest.raises(AssertionError):
         assert_tp_signature({"all-reduce": 1}, {"all-reduce": 1})
+    with pytest.raises(AssertionError):
+        assert_tp_signature({"all-reduce": 3, "all-gather": 3}, {"all-reduce": 1},
+                            column_layers=2)
 
 
 def _single_device(cfg, steps, x, y, d_weights):

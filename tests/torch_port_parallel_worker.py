@@ -19,10 +19,16 @@ CPU. Inputs (flax weights saved by the test, checkpoints) are read from
 - ``loop`` (2 ranks): ``train_from_config`` with ``fsdp=True`` to step 6 in
   one run, and to step 3 then ``resume`` to 6 in another; a single-device
   checkpoint restored into FSDP.
+- ``dropout2`` (2 ranks): 2 AdamW steps of SpectreViT and the ViT under
+  tensor parallelism (mesh 1 x 2) with dropout, on the port's own seeded
+  weights: losses, parameters and every rank's dropout masks
+  (``recorded_masks``), for tests/test_torch_tp_dropout.py to hold against
+  the same steps in one process (``dropout_steps``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 from types import SimpleNamespace
@@ -157,6 +163,65 @@ def run_leg(kind: str, d: str, dp: int, mp: int, *, fsdp: bool = False, clip=Non
     return out
 
 
+DROPOUT = 0.1
+
+
+@contextlib.contextmanager
+def recorded_masks():
+    """Every Dropout's keep-mask in call order (uint8: 1 kept, 0 dropped),
+    read back from each call's input and output."""
+    import torch
+
+    from spectre_tpu_torch.models.layers import Dropout
+
+    masks, real = [], Dropout.forward
+
+    def forward(self, x, *args, **kwargs):
+        y = real(self, x, *args, **kwargs)
+        if y is not x:
+            keep = torch.where(x != 0, y / x * (1.0 - self.p), torch.ones_like(x))
+            masks.append(keep.round().to(torch.uint8))
+        return y
+
+    Dropout.forward = forward
+    try:
+        yield masks
+    finally:
+        Dropout.forward = real
+
+
+def dropout_steps(kind: str, d: str, mp: int = 1) -> dict:
+    """2 steps of ``kind`` with dropout, unwrapped (``mp`` = 1, no process
+    group needed) or under tensor parallelism over ``mp`` ranks: losses,
+    parameters whole, this rank's masks."""
+    from spectre_tpu_torch.parallel import SPECTRE_TP_RULES, VIT_TP_RULES, create_mesh, \
+        parallelize
+    from spectre_tpu_torch.train import make_train_step
+
+    state, torch = _state(kind, d, dropout=DROPOUT)
+    if mp > 1:
+        parallelize(state, create_mesh(1, mp), tp_rules=VIT_TP_RULES if kind == "vit"
+                    else SPECTRE_TP_RULES, seed=0)
+    step = make_train_step()
+    x, y = (torch.from_numpy(a) for a in batch())
+    with recorded_masks() as masks:
+        losses = [float(step(state, x, y.long())["loss"]) for _ in range(2)]
+    return {"losses": losses, "masks": masks,
+            "params": {n: _whole(p) for n, p in state.model.named_parameters()}}
+
+
+def leg_dropout2(d: str) -> dict:
+    import torch.distributed as dist
+
+    out = {}
+    for kind in ("spectre", "vit"):
+        r = dropout_steps(kind, d, mp=2)
+        masks = [None] * dist.get_world_size()
+        dist.all_gather_object(masks, r["masks"])
+        out[kind] = {**r, "masks": masks}
+    return out
+
+
 def leg_parity2(d: str) -> dict:
     return {"dp": run_leg("spectre", d, 2, 1),
             "fsdp": run_leg("spectre", d, 2, 1, fsdp=True, evaluate=True),
@@ -224,7 +289,8 @@ def main(argv):
     init_distributed(f"file://{os.path.join(d, f'rendezvous_{leg}')}", rank=rank,
                      world_size=world, device="cpu", timeout_s=120)
     torch.manual_seed(0)
-    result = {"parity2": leg_parity2, "parity4": leg_parity4, "loop": leg_loop}[leg](d)
+    result = {"parity2": leg_parity2, "parity4": leg_parity4, "loop": leg_loop,
+              "dropout2": leg_dropout2}[leg](d)
     if rank == 0:
         torch.save(result, os.path.join(d, f"{leg}.pt"))
     torch.distributed.destroy_process_group()
