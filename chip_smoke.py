@@ -250,11 +250,13 @@ Phases, each raising on failure (nothing is caught):
    plain versions at the flagship's shard widths (384 and 192 columns of
    768) and linear3's whole rows (512), M = 16,640 and 66,560, bf16 and
    float32, two runs bit for bit, with times beside the plain versions and
-   the byte bound; the shards merged through the entries against the
-   whole-row kernel (1e-5 of the largest entry in float32, one bf16 ulp of
-   it in bf16). Then (after phase 27), every rank on the one card over gloo
-   on card tensors: (a) ``repl/train.py --multihost --backend gloo --set
-   model_parallel=2`` under torchrun, the flagship 1 x 2 at full width,
+   the byte bound; at M = 16,640 also ragged shards (25 and 50 columns of
+   100) and shards cut into tiles (1,536 of 3,072), where entries 3 and 4
+   (``shard_chain_plan``) mask lanes or cut the row into tiles; the shards
+   merged through the entries against the whole-row kernel (1e-5 of the
+   largest entry in float32, one bf16 ulp of it in bf16). Then (after
+   phase 27), every rank on the one card over gloo on card tensors: (a)
+   ``repl/train.py --multihost --backend gloo --set model_parallel=2`` under torchrun, the flagship 1 x 2 at full width,
    TP_STEPS steps and the validation pass, exact launches a rank and the
    per-step losses within GLOO_LOSS_REL of phase 27's unwrapped CLI; (b)
    one float32 forward and backward against one process (loss within
@@ -3268,6 +3270,9 @@ TP_ENTRY_NAMES = ("fused_spectre_linear_shard_stats", "sharded_ln_gelu", "chain_
 # float32 operations an element of entries 2, 3 and 4 (LayerNorm, erf GELU,
 # its derivative): for their bound, which is the bytes' at every shape here
 TP_ELEMENT_FLOPS = {"sharded_ln_gelu": 20, "chain_shard_sums": 35, "chain_shard_dh": 40}
+# entries 3 and 4 beyond the flagship's shards: (N, ranks) whose shards are
+# ragged (25 and 50 columns: lanes past n masked) or cut into tiles (1,536)
+TP_CHAIN_SHAPES = ((100, 4), (100, 2), (3072, 2))
 
 
 def _bf16_ulp(x: float) -> float:
@@ -3305,9 +3310,12 @@ def phase_tp_entries(kernels, gen):
     shards merged through the entries against the whole-row kernel
     (``fused_spectre_linear``: wgmma in bf16, the cluster kernel in
     float32) within 1e-5 of the largest entry in float32 and one bf16 ulp
-    of it in bf16; two runs of each entry bit for bit. Times (bf16, 2 ranks,
-    B = 256 is the main row; every shape's beside) back to back, on the
-    device and of the plain version, with each entry's byte bound."""
+    of it in bf16; two runs of each entry bit for bit, and each rank's copy
+    of the gathered row sums merged by entry 4 to the same bits. At B = 256
+    also the shards of TP_CHAIN_SHAPES (ragged: 25 and 50 columns; cut into
+    tiles: 1,536), entries 3 and 4 timed there. Times (bf16, 2 ranks, B =
+    256 is the main row; every shape's beside) back to back, on the device
+    and of the plain version, with each entry's byte bound."""
     e, f = 512, 768
     worst = {name: {} for name in TP_ENTRY_NAMES}
     rows, merge = {}, {}
@@ -3334,88 +3342,113 @@ def phase_tp_entries(kernels, gen):
         rows.setdefault(name, {})[tag] = t
         return t
 
+    def shard_tag(dtype, batch, f, size, time_entries):
+        """The four entries on ``size`` ranks' shards of a [65 batch, e] x
+        [e, f] layer against their plain versions, the shards merged
+        against the whole-row kernel, and the entries named in
+        ``time_entries`` timed on rank 0's shard."""
+        el, m, n = dtype.itemsize, 65 * batch, f // size
+        tag = f"{'bf16' if dtype == torch.bfloat16 else 'f32'}_B{batch}_n{n}"
+        x = torch.randn(m, e, generator=gen).to("cuda", dtype)
+        w = (torch.randn(e, f, generator=gen) * e ** -0.5).to("cuda", dtype)
+        b, beta = ((torch.randn(f, generator=gen) * 0.1).to("cuda", dtype) for _ in range(2))
+        gamma = (1 + torch.randn(f, generator=gen) * 0.1).to("cuda", dtype)
+        pool = torch.randn(m, f, generator=gen).to("cuda", dtype)
+        gy = torch.randn(m, f, generator=gen).to("cuda", dtype)
+        whole = kernels.fused_spectre_linear(x, w, b, gamma, beta)
+        bounds = _tp_entry_bounds(m, e, n, size, el)
+        cols = [slice(r * n, (r + 1) * n) for r in range(size)]
+        ws = [w[:, c].contiguous() for c in cols]
+        bs, gs, bes = ([t[c].contiguous() for c in cols] for t in (b, gamma, beta))
+        pools = [pool[:, c] for c in cols]
+        gys = [gy[:, c].contiguous() for c in cols]
+        firsts = [kernels.fused_spectre_linear_shard_stats(x, ws[r], bs[r]) for r in range(size)]
+        for r in range(size):
+            hp, sp = kernels.shard_stats_plain(x, ws[r], bs[r])
+            held("fused_spectre_linear_shard_stats", dtype,
+                 [firsts[r][0], firsts[r][1][:, 0], firsts[r][1][:, 1]],
+                 [hp, sp[:, 0], sp[:, 1]], tag)
+        stats = torch.stack([st for _, st in firsts])
+        outs = [kernels.sharded_ln_gelu(firsts[r][0], stats, gs[r], bes[r], f,
+                                        residual=pools[r]) for r in range(size)]
+        for r in range(size):
+            want = kernels.sharded_ln_gelu_plain(firsts[r][0], stats, gs[r], bes[r], f,
+                                                 residual=pools[r])
+            held("sharded_ln_gelu", dtype, outs[r][:2], want[:2], tag)
+            if not torch.equal(outs[r][1], outs[0][1]):
+                raise AssertionError(f"sharded_ln_gelu {tag}: rank {r}'s merged "
+                                     "statistics differ from rank 0's")
+        sums = [kernels.chain_shard_sums(firsts[r][0], gys[r], gs[r], bes[r], outs[r][1])
+                for r in range(size)]
+        for r in range(size):
+            want = kernels.chain_shard_sums_plain(firsts[r][0], gys[r], gs[r], bes[r],
+                                                  outs[r][1])
+            held("chain_shard_sums", dtype, sums[r], want, tag)
+        rowsums = torch.stack([rs for rs, _ in sums])
+        for r in range(size):
+            got = kernels.chain_shard_dh(firsts[r][0], gys[r], gs[r], bes[r], outs[r][1],
+                                         rowsums, f)
+            want = kernels.chain_shard_dh_plain(firsts[r][0], gys[r], gs[r], bes[r],
+                                                outs[r][1], rowsums, f)
+            held("chain_shard_dh", dtype, got, want, tag)
+            # each rank merges its own copy of the gathered row sums (as an
+            # all-gather hands them out) to the same bits
+            mine = kernels.chain_shard_dh(firsts[r][0], gys[r], gs[r], bes[r], outs[r][1],
+                                          rowsums.clone(), f)
+            if not all(torch.equal(a, c) for a, c in zip(got, mine)):
+                raise AssertionError(f"chain_shard_dh {tag}: rank {r}'s copy of the row "
+                                     "sums merges to other bits")
+        # the shards merged against the whole row (no residual there)
+        bare = [kernels.sharded_ln_gelu(firsts[r][0], stats, gs[r], bes[r], f)[0]
+                for r in range(size)]
+        merged = torch.cat(bare, 1)
+        top = float(whole.float().abs().max())
+        diff = max_abs_diff(merged.float(), whole.float())
+        limit = 1e-5 * top if dtype == torch.float32 else _bf16_ulp(top)
+        merge[tag] = {"max_abs_diff": diff, "limit": limit, "largest": top}
+        if not diff <= limit:
+            raise AssertionError(f"shards {tag} merged vs the whole-row kernel: "
+                                 f"{diff} > {limit}")
+        h0, ms0 = firsts[0][0], outs[0][1]
+        calls = {
+            "fused_spectre_linear_shard_stats": (
+                lambda: kernels.fused_spectre_linear_shard_stats(x, ws[0], bs[0]),
+                lambda: kernels.shard_stats_plain(x, ws[0], bs[0])),
+            "sharded_ln_gelu": (
+                lambda: kernels.sharded_ln_gelu(h0, stats, gs[0], bes[0], f, residual=pools[0]),
+                lambda: kernels.sharded_ln_gelu_plain(h0, stats, gs[0], bes[0], f,
+                                                      residual=pools[0])),
+            "chain_shard_sums": (
+                lambda: kernels.chain_shard_sums(h0, gys[0], gs[0], bes[0], ms0),
+                lambda: kernels.chain_shard_sums_plain(h0, gys[0], gs[0], bes[0], ms0)),
+            "chain_shard_dh": (
+                lambda: kernels.chain_shard_dh(h0, gys[0], gs[0], bes[0], ms0, rowsums, f),
+                lambda: kernels.chain_shard_dh_plain(h0, gys[0], gs[0], bes[0], ms0, rowsums,
+                                                     f))}
+        for name in TP_ENTRY_NAMES:
+            if name in time_entries:
+                timed(name, *calls[name], tag, bounds)
+            else:  # two runs bit for bit all the same
+                fn = calls[name][0]
+                first, again = fn(), fn()
+                if not all(torch.equal(a, c) for a, c in zip(first, again) if a is not None):
+                    raise AssertionError(f"{name} {tag}: two runs differ")
+
     for dtype in (torch.bfloat16, torch.float32):
         el = dtype.itemsize
         for batch in (256, 1024):
             m = 65 * batch
-            x = torch.randn(m, e, generator=gen).to("cuda", dtype)
-            w = (torch.randn(e, f, generator=gen) * e ** -0.5).to("cuda", dtype)
-            b, beta = ((torch.randn(f, generator=gen) * 0.1).to("cuda", dtype) for _ in range(2))
-            gamma = (1 + torch.randn(f, generator=gen) * 0.1).to("cuda", dtype)
-            pool = torch.randn(m, f, generator=gen).to("cuda", dtype)
-            gy = torch.randn(m, f, generator=gen).to("cuda", dtype)
-            whole = kernels.fused_spectre_linear(x, w, b, gamma, beta)
             for size in (2, 4):
-                n = f // size
-                tag = f"{'bf16' if dtype == torch.bfloat16 else 'f32'}_B{batch}_n{n}"
-                bounds = _tp_entry_bounds(m, e, n, size, el)
-                cols = [slice(r * n, (r + 1) * n) for r in range(size)]
-                ws = [w[:, c].contiguous() for c in cols]
-                bs, gs, bes = ([t[c].contiguous() for c in cols] for t in (b, gamma, beta))
-                pools = [pool[:, c] for c in cols]
-                gys = [gy[:, c].contiguous() for c in cols]
-                firsts = [kernels.fused_spectre_linear_shard_stats(x, ws[r], bs[r])
-                          for r in range(size)]
-                for r in range(size):
-                    hp, sp = kernels.shard_stats_plain(x, ws[r], bs[r])
-                    held("fused_spectre_linear_shard_stats", dtype,
-                         [firsts[r][0], firsts[r][1][:, 0], firsts[r][1][:, 1]],
-                         [hp, sp[:, 0], sp[:, 1]], tag)
-                stats = torch.stack([st for _, st in firsts])
-                outs = [kernels.sharded_ln_gelu(firsts[r][0], stats, gs[r], bes[r], f,
-                                                residual=pools[r]) for r in range(size)]
-                for r in range(size):
-                    want = kernels.sharded_ln_gelu_plain(firsts[r][0], stats, gs[r], bes[r], f,
-                                                         residual=pools[r])
-                    held("sharded_ln_gelu", dtype, outs[r][:2], want[:2], tag)
-                    if not torch.equal(outs[r][1], outs[0][1]):
-                        raise AssertionError(f"sharded_ln_gelu {tag}: rank {r}'s merged "
-                                             "statistics differ from rank 0's")
-                sums = [kernels.chain_shard_sums(firsts[r][0], gys[r], gs[r], bes[r], outs[r][1])
-                        for r in range(size)]
-                for r in range(size):
-                    want = kernels.chain_shard_sums_plain(firsts[r][0], gys[r], gs[r], bes[r],
-                                                          outs[r][1])
-                    held("chain_shard_sums", dtype, sums[r], want, tag)
-                rowsums = torch.stack([rs for rs, _ in sums])
-                for r in range(size):
-                    got = kernels.chain_shard_dh(firsts[r][0], gys[r], gs[r], bes[r],
-                                                 outs[r][1], rowsums, f)
-                    want = kernels.chain_shard_dh_plain(firsts[r][0], gys[r], gs[r], bes[r],
-                                                        outs[r][1], rowsums, f)
-                    held("chain_shard_dh", dtype, got, want, tag)
-                # the shards merged against the whole row (no residual there)
-                bare = [kernels.sharded_ln_gelu(firsts[r][0], stats, gs[r], bes[r], f)[0]
-                        for r in range(size)]
-                merged = torch.cat(bare, 1)
-                top = float(whole.float().abs().max())
-                diff = max_abs_diff(merged.float(), whole.float())
-                limit = 1e-5 * top if dtype == torch.float32 else _bf16_ulp(top)
-                merge[tag] = {"max_abs_diff": diff, "limit": limit, "largest": top}
-                if not diff <= limit:
-                    raise AssertionError(f"shards {tag} merged vs the whole-row kernel: "
-                                         f"{diff} > {limit}")
-                if dtype == torch.bfloat16 or batch == 256:
-                    timed("fused_spectre_linear_shard_stats",
-                          lambda: kernels.fused_spectre_linear_shard_stats(x, ws[0], bs[0]),
-                          lambda: kernels.shard_stats_plain(x, ws[0], bs[0]), tag, bounds)
-                    h0, ms0 = firsts[0][0], outs[0][1]
-                    timed("sharded_ln_gelu",
-                          lambda: kernels.sharded_ln_gelu(h0, stats, gs[0], bes[0], f,
-                                                          residual=pools[0]),
-                          lambda: kernels.sharded_ln_gelu_plain(h0, stats, gs[0], bes[0], f,
-                                                                residual=pools[0]),
-                          tag, bounds)
-                    timed("chain_shard_sums",
-                          lambda: kernels.chain_shard_sums(h0, gys[0], gs[0], bes[0], ms0),
-                          lambda: kernels.chain_shard_sums_plain(h0, gys[0], gs[0], bes[0], ms0),
-                          tag, bounds)
-                    timed("chain_shard_dh",
-                          lambda: kernels.chain_shard_dh(h0, gys[0], gs[0], bes[0], ms0, rowsums,
-                                                         f),
-                          lambda: kernels.chain_shard_dh_plain(h0, gys[0], gs[0], bes[0], ms0,
-                                                               rowsums, f), tag, bounds)
-                del firsts, outs, sums, rowsums, bare, merged
+                shard_tag(dtype, batch, f, size,
+                          TP_ENTRY_NAMES if dtype == torch.bfloat16 or batch == 256 else ())
+                torch.cuda.empty_cache()
+            if batch == 256:
+                # entries 3 and 4 where the plan masks lanes past a ragged
+                # shard (the head's N = 100 over 4 and 2 ranks) and where it
+                # cuts a row into tiles (N = 3,072 over 2 ranks)
+                for n_full, size in TP_CHAIN_SHAPES:
+                    shard_tag(dtype, batch, n_full, size, TP_ENTRY_NAMES[2:])
+                    torch.cuda.empty_cache()
             # linear3: entry 2 on whole rows of the all-reduced float32 sum [M, 2N]
             # (the product's and the pool's partials side by side)
             n = e
@@ -3437,7 +3470,7 @@ def phase_tp_entries(kernels, gen):
                   lambda: kernels.sharded_ln_gelu_plain(s2[:, :n], None, g3, be3, n, bias=b3,
                                                         residual=s2[:, n:]),
                   tag, _tp_entry_bounds(m, f, n, 1, el, whole=True))
-            del x, w, pool, gy, whole, hin, s2, got, want
+            del hin, s2, got, want
             torch.cuda.empty_cache()
     main_tag = "bf16_B256_n384"
     out = []

@@ -1047,6 +1047,7 @@ extern "C" int fused_spectre_linear_bwd_wide(int dtype_code, const void* h, cons
 }
 
 
+
 // ------------------------------------------------- a column-split layer's chain
 //
 // fused_spectre_linear_shard_sums and fused_spectre_linear_shard_dh: the
@@ -1065,220 +1066,565 @@ extern "C" int fused_spectre_linear_bwd_wide(int dtype_code, const void* h, cons
 //     (every rank the same bits), then dh = rstd (du - S1 / N - u S2 / N),
 //     stored once in the input dtype, and db = sum dh (of the float32 dh).
 //
-// One warp a row, the lanes along it; the block's warps each keep their
-// columns' partial sums in shared memory, added in warp order at the end
-// into one float32 partial row a block, whose column sums
-// shard_column_sum_kernel takes in a fixed order. B recomputes du from h
-// and g rather than reading it back. What bounds both: bytes (A reads h and
-// g; B reads them again and writes dh).
+// B recomputes du from h and g rather than reading it back. What bounds both
+// on the H100: bytes (A reads h and g, 4 M n bytes in bf16; B reads them
+// again and writes dh, 6 M n), and close behind them instruction issue:
+// some 30 float32 operations an element, two of them on the special
+// function unit (gelu_grad's ex2 and reciprocal). What held the first
+// design at 19-31% of the byte bound: scalar 2-byte loads (a warp
+// instruction moved 64 bytes), two shared-memory read-modify-writes of the
+// column partials an element, gamma and beta loaded again every row, no
+// row in flight, and 1,056 blocks of 16 rows, each writing a partial row.
+//
+// Design (the plan: ops/kernels/fused_linear.py::shard_chain_plan). A team
+// of `lanes` lanes (a power of two up to a warp) takes a row; lane l of a
+// team owns the columns tile + (c * lanes + l) * V + [0, V), c < C: V values
+// a vector load of up to 16 bytes (V divides n; 8 or 4 bytes where 16 would
+// leave lanes idle, e.g. n = 384 in bf16: 96 8-byte vectors, 3 a lane), at
+// most 4 vectors and 16 values a lane. Its columns are the same in every row,
+// so its gamma, beta and column partials (dgamma and dbeta in A, db in B)
+// stay in registers over all its rows. A row wider than a warp's 32 C V
+// values is cut into tiles of that width, one per blockIdx.y; A then writes
+// each tile's row sums, which a third launch adds in tile order. Widths
+// that no vector divides evenly among the lanes (n = 25 or 50) leave the
+// last lanes' chunks masked. A team's next row of h and g is on its way
+// while it computes the current one: in A into registers, in B through a
+// ring of two rows in shared memory by cp.async (each lane copies and reads
+// back only its own chunks, so the ring needs no barrier), which keeps B's
+// registers low enough for three blocks an SM; each phase was measured both
+// ways on the card, and A is faster through registers at two blocks an SM,
+// B through the ring at three (PERF.md). GELU' takes the ex2 and the
+// reciprocal that flush subnormals (gelu_grad_ftz), five instructions of
+// some 35 an element fewer. A row's two sums in A go across the team by a
+// butterfly of shuffles (the partners add the same two values: every lane
+// the same bits). Each block of kShardThreads owns a contiguous share of the
+// rows, its teams taking every teams-th row of it; at the end the teams'
+// column partials meet in shared memory and are added in team order into one
+// float32 partial row a block. The grid is the blocks an SM holds (two or
+// three), so a few hundred partial rows, whose column sums
+// shard_column_sum_kernel takes in its fixed order in a second launch, a
+// programmatic dependent of the first (it is scheduled while the first runs
+// and waits for it on the device, which hides its launch). Folding that
+// pass into the grid's last block to finish was not taken: one block would
+// read every partial row alone, and a counter kept between calls is unsafe
+// for ranks that share a card in threads. No float atomics: two
+// runs give the same bits.
 
 namespace {
 
-template <typename T>
-__global__ void __launch_bounds__(128)
-shard_sums_kernel(const T* __restrict__ h, const T* __restrict__ g, const T* __restrict__ gamma,
-                  const T* __restrict__ beta, const float2* __restrict__ mstats,
-                  float2* __restrict__ rowsums, float* __restrict__ partial, long long M, int n,
-                  long long rows) {
-  extern __shared__ float s_part[];  // [warps][2][n]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
-  float* mine = s_part + static_cast<long long>(warp) * 2 * n;
-  for (int c = lane; c < n; c += 32) mine[c] = mine[n + c] = 0.f;
-  const long long r0 = static_cast<long long>(blockIdx.x) * rows;
-  const long long r1 = r0 + rows < M ? r0 + rows : M;
-  for (long long m = r0 + warp; m < r1; m += warps) {
-    const float2 ms = mstats[m];
-    const T* hr = h + m * n;
-    const T* gr = g + m * n;
-    float s1 = 0.f, s2 = 0.f;
-#pragma unroll 4
-    for (int c = lane; c < n; c += 32) {
-      const float gam = to_f(gamma[c]);
-      const float u = (to_f(hr[c]) - ms.x) * ms.y;
-      const float dz = to_f(gr[c]) * gelu_grad(fmaf(u, gam, to_f(beta[c])));
-      const float du = dz * gam;
-      s1 += du;
-      s2 += du * u;
-      mine[c] += dz * u;
-      mine[n + c] += dz;
-    }
-    s1 = warp_sum(s1);
-    s2 = warp_sum(s2);
-    if (lane == 0) rowsums[m] = make_float2(s1, s2);
-  }
-  __syncthreads();
-  float* out = partial + static_cast<long long>(blockIdx.x) * 2 * n;
-  for (int i = threadIdx.x; i < 2 * n; i += blockDim.x) {
-    float v = s_part[i];
-    for (int w = 1; w < warps; ++w) v += s_part[static_cast<long long>(w) * 2 * n + i];
-    out[i] = v;
+constexpr int kShardThreads = 256;  // fused_linear.py: SHARD_THREADS
+constexpr int kShardChunks = 4;     // vectors a lane at most: SHARD_CHUNKS
+constexpr int kShardValues = 16;    // values a lane at most: SHARD_VALUES
+constexpr int kMaxTiles = 65535;    // blockIdx.y
+constexpr int kShardSegments = 32;  // column-sum pass: strided segments a column
+constexpr int kShardStages = 2;     // phase B's ring: rows a team
+
+// The sum over a team's `lanes` lanes (aligned groups of a power of two):
+// partners add the same two values, so every lane holds the same bits.
+__device__ __forceinline__ float team_sum(float v, int lanes) {
+  for (int o = 1; o < lanes; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+template <int B>
+struct RawOf;
+template <>
+struct RawOf<16> { using type = uint4; };
+template <>
+struct RawOf<8> { using type = uint2; };
+template <>
+struct RawOf<4> { using type = unsigned; };
+template <>
+struct RawOf<2> { using type = unsigned short; };
+
+// V values of T as they lie in memory: one load of V * sizeof(T) bytes.
+template <typename T, int V>
+using Raw = typename RawOf<V * static_cast<int>(sizeof(T))>::type;
+
+template <typename T, int V>
+__device__ __forceinline__ void raw_to_f(const Raw<T, V>& r, float* v) {
+  constexpr int kBytes = V * static_cast<int>(sizeof(T));
+  if constexpr (kBytes == 16) {
+    const unsigned w[4] = {r.x, r.y, r.z, r.w};
+    unpack<T, V>(w, v);
+  } else if constexpr (kBytes == 8) {
+    const unsigned w[2] = {r.x, r.y};
+    unpack<T, V>(w, v);
+  } else if constexpr (kBytes == 4) {
+    const unsigned w[1] = {r};
+    unpack<T, V>(w, v);
+  } else {
+    v[0] = __uint_as_float(static_cast<unsigned>(r) << 16);  // one bf16
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(128)
-shard_dh_kernel(const T* __restrict__ h, const T* __restrict__ g, const T* __restrict__ gamma,
-                const T* __restrict__ beta, const float2* __restrict__ mstats,
-                const float2* __restrict__ rowsums, int size, T* __restrict__ dh,
-                float* __restrict__ partial, long long M, int n, float inv_full, long long rows) {
-  extern __shared__ float s_part[];  // [warps][n]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, warps = blockDim.x / 32;
-  float* mine = s_part + static_cast<long long>(warp) * n;
-  for (int c = lane; c < n; c += 32) mine[c] = 0.f;
+// Phase B's rows come through a ring in shared memory (kShardStages rows a
+// team, by cp.async); phase A's, and single bf16 values (cp.async copies at
+// least 4 bytes), through registers loaded a row ahead.
+template <typename T, int V, bool kDh>
+__host__ __device__ constexpr bool shard_ring() {
+  return kDh && V * sizeof(T) >= 4;
+}
+
+// gelu_grad with the ex2 and the reciprocal flushing subnormals to zero:
+// the same bits unless e^(-z^2 / 2) < 2^-126 (|z| > 13.2), where the
+// result moves by less than 1e-37; five instructions an element fewer.
+__device__ __forceinline__ float gelu_grad_ftz(float z) {
+  float e, t;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(e) : "f"(z * z * kNegHalfLog2e));
+  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(t) : "f"(fmaf(kErfP * kInvSqrt2, fabsf(z), 1.0f)));
+  const float poly =
+      t * fmaf(t, fmaf(t, fmaf(t, fmaf(t, kErfA5, kErfA4), kErfA3), kErfA2), kErfA1);
+  const float erf_abs = fmaf(-poly, e, 1.0f);
+  return fmaf(z * kInvSqrt2Pi, e, 0.5f + copysignf(0.5f * erf_abs, z));
+}
+
+// Phase A (kDh false): rowsums [tiles][M] (this tile's (sum du, sum du u) of
+// each row) and partial [blocks][2][n] (the block's dgamma, dbeta over its
+// rows). Phase B (kDh true): dh, and partial [blocks][n] (the block's db);
+// `gathered` [size][M] are the ranks' row sums, inv_full = 1 / N.
+template <typename T, int V, int C, bool kDh>
+__global__ void __launch_bounds__(kShardThreads)
+shard_chain_kernel(const T* __restrict__ h, const T* __restrict__ g, const T* __restrict__ gamma,
+                   const T* __restrict__ beta, const float2* __restrict__ mstats,
+                   const float2* __restrict__ gathered, int size, float inv_full,
+                   T* __restrict__ dh, float2* __restrict__ rowsums, float* __restrict__ partial,
+                   long long M, int n, int lanes, long long rows) {
+  constexpr int P = kDh ? 1 : 2;  // column sums a column
+  constexpr int kBytes = V * static_cast<int>(sizeof(T));
+  constexpr bool kRing = shard_ring<T, V, kDh>();
+  using R = Raw<T, V>;
+  // phase B's rings [team][stage][h, g][tile]; after the rows, the teams'
+  // column partials [team][P][tile] in the same bytes
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int team = threadIdx.x / lanes, lane = threadIdx.x % lanes;
+  const int teams = kShardThreads / lanes;
+  const int tile = lanes * C * V;
+  const int base = blockIdx.y * tile;
+
+  int col[C];
+  bool in[C];
+  float gam[C][V], bet[C][V], pa[C][V], pb[C][V];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    col[c] = base + (c * lanes + lane) * V;
+    in[c] = col[c] < n;  // whole vectors: V divides n
+#pragma unroll
+    for (int e = 0; e < V; ++e) gam[c][e] = bet[c][e] = pa[c][e] = pb[c][e] = 0.f;
+    if (in[c]) {
+      load_vec<T, V>(gamma + col[c], gam[c]);
+      load_vec<T, V>(beta + col[c], bet[c]);
+    }
+  }
+
   const long long r0 = static_cast<long long>(blockIdx.x) * rows;
   const long long r1 = r0 + rows < M ? r0 + rows : M;
-  for (long long m = r0 + warp; m < r1; m += warps) {
-    const float2 ms = mstats[m];
-    float s1 = 0.f, s2 = 0.f;
-    for (int j = 0; j < size; ++j) {
-      const float2 rs = rowsums[static_cast<long long>(j) * M + m];
-      s1 += rs.x;
-      s2 += rs.y;
+  T* ring = reinterpret_cast<T*>(smem) + static_cast<long long>(team) * kShardStages * 2 * tile;
+  R hr[C] = {}, gr[C] = {}, hn[C] = {}, gn[C] = {};  // registers: this row, the next
+  // a row of the team's h and g on its way: into the ring (one cp.async
+  // group a row, empty past the share, so that wait_group counts rows; each
+  // lane copies and reads back only its own chunks: no barrier), or into
+  // registers
+  auto fetch = [&](long long r, int stage, R* hh, R* gg) {
+    if (r < r1) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (!in[c]) continue;
+        if constexpr (kRing) {
+          const int at = (c * lanes + lane) * V;
+          cp_async<kBytes>(ring + 2 * stage * tile + at, h + r * n + col[c]);
+          cp_async<kBytes>(ring + (2 * stage + 1) * tile + at, g + r * n + col[c]);
+        } else {
+          hh[c] = *reinterpret_cast<const R*>(h + r * n + col[c]);
+          gg[c] = *reinterpret_cast<const R*>(g + r * n + col[c]);
+        }
+      }
     }
-    const float m1 = s1 * inv_full, m2 = s2 * inv_full;
-    const T* hr = h + m * n;
-    const T* gr = g + m * n;
-    T* dr = dh + m * n;
-#pragma unroll 4
-    for (int c = lane; c < n; c += 32) {
-      const float gam = to_f(gamma[c]);
-      const float u = (to_f(hr[c]) - ms.x) * ms.y;
-      const float dz = to_f(gr[c]) * gelu_grad(fmaf(u, gam, to_f(beta[c])));
-      const float v = ms.y * (dz * gam - m1 - u * m2);
-      dr[c] = from_f<T>(v);
-      mine[c] += v;
+    if constexpr (kRing) cp_async_commit();
+  };
+  long long r = r0 + team;
+  if constexpr (kRing) {
+    for (int s = 0; s < kShardStages - 1; ++s) fetch(r + s * teams, s, hr, gr);
+  } else {
+    fetch(r, 0, hr, gr);
+  }
+  // the column-sum pass behind this kernel may be scheduled now: it waits
+  // for the whole grid before it reads
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+  int stage = 0;
+  // the trip count is the block's (first team's), so that every lane of a
+  // warp reaches the shuffles; a team past the share's end only shuffles
+  for (long long first = r0; first < r1; first += teams, r += teams) {
+    const bool valid = r < r1;
+    if constexpr (kRing) {
+      fetch(r + (kShardStages - 1) * teams, stage == 0 ? kShardStages - 1 : stage - 1, hr, gr);
+      cp_async_wait(kShardStages - 1);  // this row's group has landed
+    } else {
+      fetch(r + teams, 0, hn, gn);
+    }
+    float s1 = 0.f, s2 = 0.f;
+    if (valid) {
+      const float2 ms = mstats[r];
+      float m1 = 0.f, m2 = 0.f;
+      if constexpr (kDh) {
+        for (int j = 0; j < size; ++j) {  // rank order
+          const float2 rs = gathered[static_cast<long long>(j) * M + r];
+          m1 += rs.x;
+          m2 += rs.y;
+        }
+        m1 *= inv_full;
+        m2 *= inv_full;
+      }
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (!in[c]) continue;
+        float hv[V], gv[V];
+        if constexpr (kRing) {
+          const int at = (c * lanes + lane) * V;
+          load_vec<T, V>(ring + 2 * stage * tile + at, hv);
+          load_vec<T, V>(ring + (2 * stage + 1) * tile + at, gv);
+        } else {
+          raw_to_f<T, V>(hr[c], hv);
+          raw_to_f<T, V>(gr[c], gv);
+        }
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const float u = (hv[e] - ms.x) * ms.y;
+          const float dz = gv[e] * gelu_grad_ftz(u * gam[c][e] + bet[c][e]);
+          const float du = dz * gam[c][e];
+          if constexpr (kDh) {
+            const float v = ms.y * (du - m1 - u * m2);
+            pa[c][e] += v;
+            gv[e] = v;
+          } else {
+            s1 += du;
+            s2 += du * u;
+            pa[c][e] += dz * u;
+            pb[c][e] += dz;
+          }
+        }
+        if constexpr (kDh) store_vec<T, V>(dh + r * n + col[c], gv);
+      }
+    }
+    if constexpr (!kDh) {
+      s1 = team_sum(s1, lanes);
+      s2 = team_sum(s2, lanes);
+      if (valid && lane == 0)
+        rowsums[static_cast<long long>(blockIdx.y) * M + r] = make_float2(s1, s2);
+    }
+    if constexpr (kRing) {
+      if (++stage == kShardStages) stage = 0;
+    } else {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        hr[c] = hn[c];
+        gr[c] = gn[c];
+      }
+    }
+  }
+
+  // the teams' column partials, added in team order into the block's row
+  float* s_part = reinterpret_cast<float*>(smem);
+  if constexpr (kRing) cp_async_wait(0);
+  __syncthreads();  // every team is done with its ring
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    if (!in[c]) continue;
+    const int at = (c * lanes + lane) * V;
+#pragma unroll
+    for (int e = 0; e < V; ++e) {
+      s_part[team * P * tile + at + e] = pa[c][e];
+      if constexpr (!kDh) s_part[(team * P + 1) * tile + at + e] = pb[c][e];
     }
   }
   __syncthreads();
-  float* out = partial + static_cast<long long>(blockIdx.x) * n;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    float v = s_part[i];
-    for (int w = 1; w < warps; ++w) v += s_part[static_cast<long long>(w) * n + i];
-    out[i] = v;
+  const int width = n - base < tile ? n - base : tile;
+  float* out = partial + static_cast<long long>(blockIdx.x) * P * n + base;
+  for (int i = threadIdx.x; i < P * width; i += kShardThreads) {
+    const int p = i / width, j = i % width;
+    float v = s_part[p * tile + j];
+    for (int t = 1; t < teams; ++t) v += s_part[(t * P + p) * tile + j];
+    out[static_cast<long long>(p) * n + j] = v;
   }
 }
 
-// out[j] = sum over blocks of partial[block][j], j < width, in
-// column_sum_kernel's fixed order
+// out[j] = sum over blocks of partial[block][j], j < width, in a fixed
+// order: segment s adds blocks s, s + 32, ... in turn, then the 32 segments
+// in turn. Launched behind the chain kernel as a programmatic dependent
+// (shard_launch_dependent): its blocks may start while the chain kernel
+// runs and wait here for all of it.
 template <typename T>
-__global__ void __launch_bounds__(32 * kSegments)
+__global__ void __launch_bounds__(32 * kShardSegments)
 shard_column_sum_kernel(const float* __restrict__ partial, long long blocks, int width,
                         T* __restrict__ out) {
-  __shared__ float s_seg[kSegments][32];
+  __shared__ float s_seg[kShardSegments][33];
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
   const int lane = threadIdx.x & 31, seg = threadIdx.x >> 5;
   const int j = blockIdx.x * 32 + lane;
   float acc = 0.f;
   if (j < width) {
-#pragma unroll 8
-    for (long long b = seg; b < blocks; b += kSegments) acc += partial[b * width + j];
+#pragma unroll 4  // the loads go out together; the sum keeps its order
+    for (long long b = seg; b < blocks; b += kShardSegments) acc += partial[b * width + j];
   }
   s_seg[seg][lane] = acc;
   __syncthreads();
   if (seg != 0 || j >= width) return;
   float total = s_seg[0][lane];
 #pragma unroll
-  for (int s = 1; s < kSegments; ++s) total += s_seg[s][lane];
+  for (int s = 1; s < kShardSegments; ++s) total += s_seg[s][lane];
   out[j] = from_f<T>(total);
 }
 
-template <typename K>
-cudaError_t shard_smem(K kern, int smem) {
-  // above the default 48 KB a launch must ask for it; the largest an SM gives a block
-  return smem > 48 * 1024 ? cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 smem)
-                          : cudaSuccess;
+// out[m] = the tiles' row sums [tiles][M] of row m added in tile order
+__global__ void __launch_bounds__(256)
+shard_row_sum_kernel(const float2* __restrict__ part, int tiles, long long M,
+                     float2* __restrict__ out) {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+  const long long m = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (m >= M) return;
+  float2 s = part[m];
+  for (int t = 1; t < tiles; ++t) {
+    const float2 v = part[static_cast<long long>(t) * M + m];
+    s.x += v.x;
+    s.y += v.y;
+  }
+  out[m] = s;
 }
 
-bool shard_plan_ok(long long M, long long n, long long blocks, int warps, int parts) {
-  return M > 0 && n > 0 && blocks > 0 && blocks <= M && blocks <= 0x7fffffffLL && warps >= 1 &&
-         warps <= 4 && static_cast<long long>(warps) * parts * n * 4 <= 227 * 1024;
+// Dynamic shared memory of an instance: its rings, or the teams' column
+// partials after them, whichever is larger.
+template <typename T, int V, int C, bool kDh>
+constexpr int shard_smem() {
+  constexpr int ring = shard_ring<T, V, kDh>()
+                           ? kShardStages * kShardThreads * 2 * C * V * static_cast<int>(sizeof(T))
+                           : 0;
+  constexpr int part = kShardThreads * (kDh ? 1 : 2) * C * V * static_cast<int>(sizeof(float));
+  return ring > part ? ring : part;
 }
 
-template <typename T>
-int run_shard_sums(const void* h, const void* g, const void* gamma, const void* beta,
-                   const void* mstats, void* rowsums, void* sums, void* partial, long long M,
-                   int n, long long blocks, int warps, cudaStream_t st) {
-  const int smem = warps * 2 * n * 4;
-  cudaError_t e = shard_smem(shard_sums_kernel<T>, smem);
+// Whether an instance may take more than the default 48 KB of dynamic
+// shared memory on a device: set on its first launch or query there.
+template <typename T, int V, int C, bool kDh>
+std::atomic<bool> shard_smem_raised[kMaxDevices];
+
+template <typename T, int V, int C, bool kDh, typename K>
+int raise_shard_smem(K kern) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return static_cast<int>(e);
-  float* part = static_cast<float*>(partial);
-  shard_sums_kernel<T><<<static_cast<unsigned>(blocks), 32 * warps, smem, st>>>(
-      static_cast<const T*>(h), static_cast<const T*>(g), static_cast<const T*>(gamma),
-      static_cast<const T*>(beta), static_cast<const float2*>(mstats),
-      static_cast<float2*>(rowsums), part, M, n, (M + blocks - 1) / blocks);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  shard_column_sum_kernel<T><<<static_cast<unsigned>((2LL * n + 31) / 32), 32 * kSegments, 0, st>>>(
-      part, blocks, 2 * n, static_cast<T*>(sums));
-  return static_cast<int>(cudaGetLastError());
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (!shard_smem_raised<T, V, C, kDh>[dev].load(std::memory_order_acquire)) {
+    e = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             shard_smem<T, V, C, kDh>());
+    if (e != cudaSuccess) return static_cast<int>(e);
+    shard_smem_raised<T, V, C, kDh>[dev].store(true, std::memory_order_release);
+  }
+  return 0;
 }
 
-template <typename T>
-int run_shard_dh(const void* h, const void* g, const void* gamma, const void* beta,
-                 const void* mstats, const void* rowsums, int size, void* dh, void* db,
-                 void* partial, long long M, int n, int n_full, long long blocks, int warps,
-                 cudaStream_t st) {
-  const int smem = warps * n * 4;
-  cudaError_t e = shard_smem(shard_dh_kernel<T>, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  float* part = static_cast<float*>(partial);
-  shard_dh_kernel<T><<<static_cast<unsigned>(blocks), 32 * warps, smem, st>>>(
-      static_cast<const T*>(h), static_cast<const T*>(g), static_cast<const T*>(gamma),
-      static_cast<const T*>(beta), static_cast<const float2*>(mstats),
-      static_cast<const float2*>(rowsums), size, static_cast<T*>(dh), part, M, n,
-      1.f / static_cast<float>(n_full), (M + blocks - 1) / blocks);
-  if ((e = cudaGetLastError()) != cudaSuccess) return static_cast<int>(e);
-  shard_column_sum_kernel<T><<<static_cast<unsigned>((n + 31) / 32), 32 * kSegments, 0, st>>>(
-      part, blocks, n, static_cast<T*>(db));
-  return static_cast<int>(cudaGetLastError());
+// Launches kern<<<grid, threads>>>(args...) on st as a programmatic
+// dependent of the kernel before it (Hopper): it may be scheduled before that
+// kernel ends and waits for it with griddepcontrol.wait.
+template <typename... Params, typename... Args>
+int shard_launch_dependent(void (*kern)(Params...), unsigned grid, unsigned threads,
+                           cudaStream_t st, Args... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid);
+  cfg.blockDim = dim3(threads);
+  cfg.stream = st;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return static_cast<int>(cudaLaunchKernelEx(&cfg, kern, static_cast<Params>(args)...));
+}
+
+int shard_tiles(long long n, int vec, int lanes, int chunks) {
+  const long long tile = static_cast<long long>(lanes) * chunks * vec;
+  return static_cast<int>((n + tile - 1) / tile);
+}
+
+bool shard_plan_ok(long long M, long long n, long long blocks, int vec, int lanes, int chunks,
+                   int el) {
+  return M > 0 && n > 0 && 2 * n <= 0x7fffffffLL && blocks > 0 && blocks <= M &&
+         blocks <= 0x7fffffffLL && (vec == 1 || vec == 2 || vec == 4 || vec == 8) &&
+         vec * el <= 16 && n % vec == 0 && lanes >= 1 && lanes <= 32 &&
+         (lanes & (lanes - 1)) == 0 && chunks >= 1 && chunks <= kShardChunks &&
+         chunks * vec <= kShardValues && shard_tiles(n, vec, lanes, chunks) <= kMaxTiles;
+}
+
+// One instance of a phase, launched or asked how many of its blocks an SM
+// holds.
+template <typename T, bool kDh>
+struct ShardChain {
+  const void *h, *g, *gamma, *beta, *mstats, *gathered;
+  int size;
+  float inv_full;
+  void* dh;
+  float2* rowsums;
+  float* partial;
+  long long M;
+  int n, lanes, tiles;
+  long long blocks;
+  cudaStream_t st;
+  int* blocks_per_sm;  // non-null: the query, nothing launched
+
+  template <int V, int C>
+  int run() {
+    auto kern = shard_chain_kernel<T, V, C, kDh>;
+    constexpr int smem = shard_smem<T, V, C, kDh>();
+    if (int e = raise_shard_smem<T, V, C, kDh>(kern)) return e;
+    if (blocks_per_sm)
+      return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          blocks_per_sm, kern, kShardThreads, smem));
+    const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(tiles));
+    kern<<<grid, kShardThreads, smem, st>>>(
+        static_cast<const T*>(h), static_cast<const T*>(g), static_cast<const T*>(gamma),
+        static_cast<const T*>(beta), static_cast<const float2*>(mstats),
+        static_cast<const float2*>(gathered), size, inv_full, static_cast<T*>(dh), rowsums,
+        partial, M, n, lanes, (M + blocks - 1) / blocks);
+    return static_cast<int>(cudaGetLastError());
+  }
+};
+
+// The instance of V values a vector and C vectors a lane.
+template <typename T, bool kDh>
+int run_shard(ShardChain<T, kDh> op, int vec, int chunks) {
+#define SPECTRE_SHARD(VV, CC) \
+  if (vec == VV && chunks == CC) return op.template run<VV, CC>();
+  if constexpr (sizeof(T) == 2) {  // 16-byte bf16 vectors
+    SPECTRE_SHARD(8, 1) SPECTRE_SHARD(8, 2)
+  }
+  SPECTRE_SHARD(4, 1) SPECTRE_SHARD(4, 2) SPECTRE_SHARD(4, 3) SPECTRE_SHARD(4, 4)
+  SPECTRE_SHARD(2, 1) SPECTRE_SHARD(2, 2) SPECTRE_SHARD(2, 3) SPECTRE_SHARD(2, 4)
+  SPECTRE_SHARD(1, 1) SPECTRE_SHARD(1, 2) SPECTRE_SHARD(1, 3) SPECTRE_SHARD(1, 4)
+#undef SPECTRE_SHARD
+  return cudaErrorInvalidValue;
+}
+
+template <typename T, bool kDh>
+int shard_occupancy(int vec, int chunks, int* blocks_per_sm) {
+  ShardChain<T, kDh> op{};
+  op.blocks_per_sm = blocks_per_sm;
+  return run_shard(op, vec, chunks);
+}
+
+bool shard_aligned(int vec, int el, const void* a, const void* b, const void* c, const void* d,
+                   const void* e) {
+  const uintptr_t bases = reinterpret_cast<uintptr_t>(a) | reinterpret_cast<uintptr_t>(b) |
+                          reinterpret_cast<uintptr_t>(c) | reinterpret_cast<uintptr_t>(d) |
+                          reinterpret_cast<uintptr_t>(e);
+  return bases % (static_cast<uintptr_t>(vec) * el) == 0;
 }
 
 }  // namespace
+
+// How many blocks of phase A (dh_phase 0) or B (1) for dtype_code (0:
+// float32, 1: bf16), vec values a vector and chunks vectors a lane an SM of
+// the current device holds, into *blocks_per_sm. Returns a CUDA error code
+// (0 on success).
+extern "C" int fused_spectre_linear_shard_occupancy(int dtype_code, int dh_phase, int vec,
+                                                    int chunks, int* blocks_per_sm) {
+  const int el = dtype_code == 1 ? 2 : 4;
+  if (blocks_per_sm == nullptr || !shard_plan_ok(1, vec, 1, vec, 1, chunks, el))
+    return cudaErrorInvalidValue;
+  if (dtype_code == 0)
+    return dh_phase ? shard_occupancy<float, true>(vec, chunks, blocks_per_sm)
+                    : shard_occupancy<float, false>(vec, chunks, blocks_per_sm);
+  if (dtype_code == 1)
+    return dh_phase ? shard_occupancy<bf16, true>(vec, chunks, blocks_per_sm)
+                    : shard_occupancy<bf16, false>(vec, chunks, blocks_per_sm);
+  return cudaErrorInvalidValue;
+}
 
 // Phase A of a column-split layer's chain. h, g [M, n] contiguous; gamma,
 // beta [n]; all of one dtype (0: float32, 1: bf16); mstats [M] float2, the
 // forward's merged (mean, rstd). Writes rowsums [M] float2 (sum du,
 // sum du * u over the n columns) and sums [2, n] in the dtype (dgamma,
-// dbeta). The plan: `blocks` blocks (at most M) of `warps` warps (1 to 4,
-// warps * 8 n bytes of shared memory within 227 KB), each owning
-// ceil(M / blocks) rows; partial: float32 scratch of blocks * 2 * n values.
-// Returns cudaGetLastError() after the launches (0 on success).
+// dbeta). The plan (ops/kernels/fused_linear.py::shard_chain_plan): vec
+// values a vector (dividing n; h, g, gamma and beta aligned to vec
+// elements), lanes a row (a power of two up to 32), chunks vectors a lane
+// (at most 4 and 16 values), so tiles = ceil(n / (lanes chunks vec)) tiles a
+// row; `blocks` blocks (at most M) a tile, each owning ceil(M / blocks)
+// rows. partial: float32 scratch of blocks * 2 * n values, and tiles * M * 2
+// after them when tiles > 1. Returns the launches' CUDA error code (0 on
+// success).
 extern "C" int fused_spectre_linear_shard_sums(int dtype_code, const void* h, const void* g,
                                                const void* gamma, const void* beta,
                                                const void* mstats, void* rowsums, void* sums,
                                                void* partial, long long M, long long n,
-                                               long long blocks, int warps, void* stream) {
-  if (!shard_plan_ok(M, n, blocks, warps, 2)) return cudaErrorInvalidValue;
+                                               long long blocks, int vec, int lanes, int chunks,
+                                               void* stream) {
+  const int el = dtype_code == 1 ? 2 : 4;
+  if ((dtype_code != 0 && dtype_code != 1) ||
+      !shard_plan_ok(M, n, blocks, vec, lanes, chunks, el))
+    return cudaErrorInvalidValue;
+  if (!shard_aligned(vec, el, h, g, gamma, beta, h)) return cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int ni = static_cast<int>(n);
+  const int ni = static_cast<int>(n), tiles = shard_tiles(n, vec, lanes, chunks);
+  float* part = static_cast<float*>(partial);
+  float2* rows = tiles == 1 ? static_cast<float2*>(rowsums)
+                            : reinterpret_cast<float2*>(part + blocks * 2 * n);
+  int err;
+  if (dtype_code == 0) {
+    err = run_shard(ShardChain<float, false>{h, g, gamma, beta, mstats, nullptr, 1, 1.f, nullptr,
+                                             rows, part, M, ni, lanes, tiles, blocks, st,
+                                             nullptr}, vec, chunks);
+  } else {
+    err = run_shard(ShardChain<bf16, false>{h, g, gamma, beta, mstats, nullptr, 1, 1.f, nullptr,
+                                            rows, part, M, ni, lanes, tiles, blocks, st, nullptr},
+                    vec, chunks);
+  }
+  if (err != 0) return err;
+  if (tiles > 1) {
+    err = shard_launch_dependent(shard_row_sum_kernel, static_cast<unsigned>((M + 255) / 256),
+                                 256, st, rows, tiles, M, static_cast<float2*>(rowsums));
+    if (err != 0) return err;
+  }
+  const unsigned cgrid = static_cast<unsigned>((2LL * n + 31) / 32);
   if (dtype_code == 0)
-    return run_shard_sums<float>(h, g, gamma, beta, mstats, rowsums, sums, partial, M, ni, blocks,
-                                 warps, st);
-  if (dtype_code == 1)
-    return run_shard_sums<bf16>(h, g, gamma, beta, mstats, rowsums, sums, partial, M, ni, blocks,
-                                warps, st);
-  return cudaErrorInvalidValue;
+    return shard_launch_dependent(shard_column_sum_kernel<float>, cgrid, 32 * kShardSegments, st,
+                                  part, blocks, 2 * ni, static_cast<float*>(sums));
+  return shard_launch_dependent(shard_column_sum_kernel<bf16>, cgrid, 32 * kShardSegments, st,
+                                part, blocks, 2 * ni, static_cast<bf16*>(sums));
 }
 
 // Phase B. The operands of phase A, rowsums [size, M] float2 (every rank's
 // phase-A row sums, all-gathered), n_full = size * n; writes dh [M, n] and
-// db [n] in the dtype. The plan as for phase A (warps * 4 n bytes); partial:
+// db [n] in the dtype (dh aligned as h). The plan as for phase A; partial:
 // float32 scratch of blocks * n values.
 extern "C" int fused_spectre_linear_shard_dh(int dtype_code, const void* h, const void* g,
                                              const void* gamma, const void* beta,
                                              const void* mstats, const void* rowsums, int size,
                                              void* dh, void* db, void* partial, long long M,
                                              long long n, long long n_full, long long blocks,
-                                             int warps, void* stream) {
-  if (!shard_plan_ok(M, n, blocks, warps, 1) || size < 1 || n_full != n * size ||
+                                             int vec, int lanes, int chunks, void* stream) {
+  const int el = dtype_code == 1 ? 2 : 4;
+  if ((dtype_code != 0 && dtype_code != 1) ||
+      !shard_plan_ok(M, n, blocks, vec, lanes, chunks, el) || size < 1 || n_full != n * size ||
       n_full > 0x7fffffffLL)
     return cudaErrorInvalidValue;
+  if (!shard_aligned(vec, el, h, g, gamma, beta, dh)) return cudaErrorMisalignedAddress;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int ni = static_cast<int>(n), nf = static_cast<int>(n_full);
+  const int ni = static_cast<int>(n), tiles = shard_tiles(n, vec, lanes, chunks);
+  const float inv_full = 1.f / static_cast<float>(n_full);
+  float* part = static_cast<float*>(partial);
+  int err;
+  if (dtype_code == 0) {
+    err = run_shard(ShardChain<float, true>{h, g, gamma, beta, mstats, rowsums, size, inv_full,
+                                            dh, nullptr, part, M, ni, lanes, tiles, blocks, st,
+                                            nullptr}, vec, chunks);
+  } else {
+    err = run_shard(ShardChain<bf16, true>{h, g, gamma, beta, mstats, rowsums, size, inv_full, dh,
+                                           nullptr, part, M, ni, lanes, tiles, blocks, st,
+                                           nullptr}, vec, chunks);
+  }
+  if (err != 0) return err;
+  const unsigned cgrid = static_cast<unsigned>((n + 31) / 32);
   if (dtype_code == 0)
-    return run_shard_dh<float>(h, g, gamma, beta, mstats, rowsums, size, dh, db, partial, M, ni,
-                               nf, blocks, warps, st);
-  if (dtype_code == 1)
-    return run_shard_dh<bf16>(h, g, gamma, beta, mstats, rowsums, size, dh, db, partial, M, ni,
-                              nf, blocks, warps, st);
-  return cudaErrorInvalidValue;
+    return shard_launch_dependent(shard_column_sum_kernel<float>, cgrid, 32 * kShardSegments, st,
+                                  part, blocks, ni, static_cast<float*>(db));
+  return shard_launch_dependent(shard_column_sum_kernel<bf16>, cgrid, 32 * kShardSegments, st,
+                                part, blocks, ni, static_cast<bf16*>(db));
 }

@@ -629,14 +629,20 @@ def fused_spectre_linear_grad(x, w, b, gamma, beta, eps: float = 1e-5):
 #    rank order), dh and db.
 #
 # csrc/fused_spectre_linear.cu holds 1 and 2, csrc/fused_spectre_linear_bwd.cu
-# 3 and 4. The plain versions state the arithmetic: float32 statistics, the
+# 3 and 4 (one kernel each, on ``shard_chain_plan``'s launch: a team of lanes
+# a row, each lane's columns the same in every row, so that gamma, beta and
+# the column sums stay in its registers; then a fixed-order column-sum
+# pass). The plain versions state the arithmetic: float32 statistics, the
 # same rank-order merge, the roundings where the kernels round.
 
-# entries 3 and 4: blocks an SM, and the warps of a block (each with its
-# columns' partial sums in shared memory, within SHARD_SMEM bytes)
-SHARD_BLOCKS_PER_SM = 8
-SHARD_MAX_WARPS = 4
-SHARD_SMEM = 227 * 1024
+# entries 3 and 4 (csrc/fused_spectre_linear_bwd.cu): the threads of a block,
+# the vectors and values a lane holds in registers at most, and the blocks
+# an SM at most of what the card's occupancy allows (each block adds one
+# partial row of column sums)
+SHARD_THREADS = 256
+SHARD_CHUNKS = 4
+SHARD_VALUES = 16
+SHARD_BLOCKS_PER_SM = 3
 
 
 def matmul_f32(a, b):
@@ -742,15 +748,77 @@ def shard_stats_kernel(dtype: torch.dtype, k: int, n: int, aligned: bool = True)
     return "fused_spectre_linear_cluster"
 
 
-def shard_chain_plan(m: int, n: int, parts: int, sm_count: int = 132) -> tuple[int, int]:
-    """(blocks, warps) of entry 3 (``parts`` = 2 partial sums a column) or 4
-    (1): up to SHARD_MAX_WARPS warps a block whose partial rows fit
-    SHARD_SMEM, up to SHARD_BLOCKS_PER_SM blocks an SM, at most one a warp's
-    row."""
-    warps = min(SHARD_MAX_WARPS, SHARD_SMEM // (4 * parts * n))
-    if warps < 1:
-        raise ValueError(f"a shard of {n} columns does not fit one warp's shared memory")
-    return min(_ceil(m, warps), SHARD_BLOCKS_PER_SM * sm_count), warps
+class ShardChainPlan(NamedTuple):
+    """A launch of entry 3 or 4: vectors of ``vec`` values, ``lanes`` lanes
+    a row, ``chunks`` vectors a lane, so ``tiles`` tiles of lanes * chunks *
+    vec columns a row (blockIdx.y); ``blocks`` blocks a tile of ``rows``
+    contiguous rows each."""
+    vec: int
+    lanes: int
+    chunks: int
+    tiles: int
+    blocks: int
+    rows: int
+
+
+def shard_chain_plan(dtype: torch.dtype, m: int, n: int, align: int = 16, sm_count: int = 132,
+                     occupancy=None) -> ShardChainPlan:
+    """Entry 3's or 4's launch for h and g [m, n] whose bases (h, g, dh,
+    gamma, beta) are all ``align``-byte aligned. For each vector of
+    at most 16 bytes that n and the bases allow: the lanes a row (a power of
+    two up to 32) and chunks a lane (at most SHARD_CHUNKS vectors and
+    SHARD_VALUES values) with the fewest column slots, the fewest lanes among
+    them; a row beyond 32 lanes' reach in tiles of 32 lanes. Of those, the
+    widest vector whose slots past n (idle lanes) are at most an eighth of
+    its slots, else the fewest slots. The grid: ``occupancy(vec,
+    chunks)`` blocks an SM (the card's answer; SHARD_BLOCKS_PER_SM when
+    None), at most SHARD_BLOCKS_PER_SM, on ``sm_count`` SMs, shared among
+    the tiles, at most one a row; the rows split evenly, so no block is
+    empty."""
+    el = dtype.itemsize
+    shapes = []  # (slots, vec, lanes, chunks, tiles), widest vector first
+    for vec in (8, 4, 2, 1):
+        if vec * el > 16 or n % vec or align % (vec * el):
+            continue
+        vectors = n // vec
+        most = min(SHARD_CHUNKS, SHARD_VALUES // vec)
+        if vectors > 32 * most:
+            tiles = _ceil(vectors, 32 * most)
+            lanes, chunks = 32, _ceil(vectors, 32 * tiles)
+        else:
+            tiles = 1
+            lanes, chunks = min(((lane, _ceil(vectors, lane)) for lane in (1, 2, 4, 8, 16, 32)
+                                 if _ceil(vectors, lane) <= most), key=lambda lc: lc[0] * lc[1])
+        shapes.append((tiles * lanes * chunks * vec, vec, lanes, chunks, tiles))
+    tight = [s for s in shapes if 8 * (s[0] - n) <= s[0]]
+    _, vec, lanes, chunks, tiles = tight[0] if tight else min(shapes, key=lambda s: s[0])
+    per_sm = SHARD_BLOCKS_PER_SM if occupancy is None else occupancy(vec, chunks)
+    if per_sm < 1:
+        raise ValueError(f"entry 3/4's block ({vec}, {chunks}) does not fit an SM")
+    per_sm = min(per_sm, SHARD_BLOCKS_PER_SM)
+    rows = _ceil(m, min(m, max(1, per_sm * sm_count // tiles)))
+    return ShardChainPlan(vec, lanes, chunks, tiles, _ceil(m, rows), rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _shard_occupancy(device_index: int, dtype: torch.dtype, dh_phase: bool, vec: int,
+                     chunks: int) -> int:
+    """Blocks of entry 3's (or, ``dh_phase``, 4's) instance an SM of the card
+    holds, asked once."""
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        check(load_library().fused_spectre_linear_shard_occupancy(
+            _DTYPE_CODES[dtype], int(dh_phase), vec, chunks, ctypes.byref(per_sm)),
+            "fused_spectre_linear_shard_occupancy")
+    return per_sm.value
+
+
+def _shard_plan(h, dh_phase: bool, *tensors) -> ShardChainPlan:
+    """``shard_chain_plan`` for operands on the current card."""
+    m, n = h.shape
+    dev = h.get_device()
+    return shard_chain_plan(h.dtype, m, n, _alignment(h, *tensors), _sm_count(dev),
+                            functools.partial(_shard_occupancy, dev, h.dtype, dh_phase))
 
 
 def _on_card(name, *tensors) -> bool:
@@ -899,12 +967,15 @@ def chain_shard_sums(h, g, gamma, beta, mstats):
     if m == 0:
         return rows, torch.zeros((2, n), dtype=h.dtype, device=h.device)
     sums = torch.empty((2, n), dtype=h.dtype, device=h.device)
-    blocks, warps = shard_chain_plan(m, n, 2, _sm_count(dev))
-    partial = torch.empty((blocks, 2, n), dtype=torch.float32, device=h.device)
+    plan = _shard_plan(h, False, g, gamma, beta)
+    # the blocks' partial rows, then the tiles' row sums where a row has several
+    partial = torch.empty(plan.blocks * 2 * n + (plan.tiles * m * 2 if plan.tiles > 1 else 0),
+                          dtype=torch.float32, device=h.device)
     check(load_library().fused_spectre_linear_shard_sums(
         _DTYPE_CODES[h.dtype], h.data_ptr(), g.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
-        mstats.data_ptr(), rows.data_ptr(), sums.data_ptr(), partial.data_ptr(), m, n, blocks,
-        warps, current_stream(dev)), "chain_shard_sums launch")
+        mstats.data_ptr(), rows.data_ptr(), sums.data_ptr(), partial.data_ptr(), m, n,
+        plan.blocks, plan.vec, plan.lanes, plan.chunks, current_stream(dev)),
+        f"chain_shard_sums launch ({plan})")
     chain_shard_sums.launches += 1
     return rows, sums
 
@@ -929,13 +1000,13 @@ def chain_shard_dh(h, g, gamma, beta, mstats, rowsums, n_full: int):
         return dh, torch.zeros((n,), dtype=h.dtype, device=h.device)
     db = torch.empty((n,), dtype=h.dtype, device=h.device)
     rowsums = rowsums.contiguous()
-    blocks, warps = shard_chain_plan(m, n, 1, _sm_count(dev))
-    partial = torch.empty((blocks, n), dtype=torch.float32, device=h.device)
+    plan = _shard_plan(h, True, g, gamma, beta, dh)
+    partial = torch.empty((plan.blocks, n), dtype=torch.float32, device=h.device)
     check(load_library().fused_spectre_linear_shard_dh(
         _DTYPE_CODES[h.dtype], h.data_ptr(), g.data_ptr(), gamma.data_ptr(), beta.data_ptr(),
         mstats.data_ptr(), rowsums.data_ptr(), rowsums.shape[0], dh.data_ptr(), db.data_ptr(),
-        partial.data_ptr(), m, n, n_full, blocks, warps, current_stream(dev)),
-        "chain_shard_dh launch")
+        partial.data_ptr(), m, n, n_full, plan.blocks, plan.vec, plan.lanes, plan.chunks,
+        current_stream(dev)), f"chain_shard_dh launch ({plan})")
     chain_shard_dh.launches += 1
     return dh, db
 

@@ -1,7 +1,7 @@
 """Kernel 2's forward at the shapes its cluster kernels took over, kernel 5
 at the tables its token-grouped kernel takes, kernel 2's backward above N =
-1,024 and the Walsh-Hadamard transform, timed in two trees of the repository
-in turns on one card.
+1,024, the Walsh-Hadamard transform and kernel 2's column-shard backward
+entries, timed in two trees of the repository in turns on one card.
 
     python -m spectre_tpu_torch.repl.linear_ab [--parent DIR] [--out FILE]
 
@@ -38,6 +38,10 @@ blocks' float32 partial rows written and read once. Then ``fwht`` at
 4,096], [1,040, 16,384] and [520, 32,768] in bf16, and [4,160, 4,096] in
 float32, beside its bound (x read and written once).
 
+Then kernel 2's column-shard backward entries (``chain_shard_sums`` and
+``chain_shard_dh``, each with its column-sum pass) at ``chip_smoke.py``
+phase 28's shards (SHARD_TAGS), beside their bounds.
+
 With ``--parent DIR`` (an unpacked tree of another commit, its kernels built
 into its own ``build/kernels/``) the shapes run in four processes in turns,
 parent / this tree / this tree / parent, each importing its own tree's
@@ -45,10 +49,12 @@ package; the card's name and power limit and every turn's numbers go to
 ``--out`` as JSON, with each shape's bound (the larger of the bytes read and
 written once over 3.35 TB/s and the operations over the dtype's peak).
 ``--root DIR`` runs one turn of the tree at DIR (what the turns call).
-``--parts`` picks the groups (``fwd``, ``block_bwd``, ``bwd``, ``fwht``; all
-by default). ``--chain-sweep`` times this tree's wide chain alone at the C6
-shapes for each cap of ``WIDE_BLOCKS_PER_SM`` in 1 .. 8 instead. Needs a
-CUDA card.
+``--parts`` picks the groups (``fwd``, ``block_bwd``, ``bwd``, ``fwht``,
+``shard_chain``; all by default). ``--chain-sweep`` times this tree's wide
+chain alone at the C6 shapes for each cap of ``WIDE_BLOCKS_PER_SM`` in 1 ..
+8 instead; ``--shard-sweep`` entries 3 and 4 at the flagship's shards for
+each cap of ``SHARD_BLOCKS_PER_SM``, with each kernel's share. Needs a CUDA
+card.
 """
 
 from __future__ import annotations
@@ -76,7 +82,15 @@ BWD_SHAPES = ((4160, 1536, 1536), (4160, 768, 2048), (4160, 768, 1100), (4160, 7
 FWHT_SHAPES = (("bfloat16", 16640, 512), ("bfloat16", 16640, 1024), ("bfloat16", 4160, 2048),
                ("bfloat16", 4160, 4096), ("bfloat16", 1040, 16384), ("bfloat16", 520, 32768),
                ("float32", 4160, 4096))
-PARTS = ("fwd", "block_bwd", "bwd", "fwht")
+# kernel 2's column-shard backward entries 3 and 4 at chip_smoke.py phase 28's
+# shards: (dtype, batch, N, ranks), this rank's n = N / ranks columns of
+# 65 x batch rows; the flagship's linear1 at both batches, the ragged and
+# the tiled shards at B = 256
+SHARD_TAGS = ([(dt, b, 768, size) for dt in ("bfloat16", "float32") for b in (256, 1024)
+               for size in (2, 4)]
+              + [(dt, 256, n_full, size) for dt in ("bfloat16", "float32")
+                 for n_full, size in ((100, 4), (100, 2), (3072, 2))])
+PARTS = ("fwd", "block_bwd", "bwd", "fwht", "shard_chain")
 
 
 def one_turn(root: str, parts=PARTS) -> dict:
@@ -99,6 +113,8 @@ def one_turn(root: str, parts=PARTS) -> dict:
         rows.update(bwd_turn(kernels))
     if "fwht" in parts:
         rows.update(fwht_turn(kernels))
+    if "shard_chain" in parts:
+        rows.update(shard_turn(kernels))
     return rows
 
 
@@ -298,6 +314,103 @@ def fwht_turn(kernels) -> dict:
     return rows
 
 
+def _shard_case(dt, batch, n_full, size):
+    """Entries 3 and 4's operands on the card: (tag, h, g, gamma, beta, the
+    merged (mean, rstd) [M, 2], the gathered row sums [size, M, 2], N)."""
+    import torch
+
+    dtype, m, n = getattr(torch, dt), 65 * batch, n_full // size
+    gen = torch.Generator(device="cuda").manual_seed(m + n)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    h, g = randn(m, n).to(dtype), randn(m, n).to(dtype)
+    gamma, beta = (1 + 0.1 * randn(n)).to(dtype), (0.1 * randn(n)).to(dtype)
+    mstats = torch.stack([0.1 * randn(m), 1 + 0.1 * randn(m).abs()], -1)
+    tag = f"shard_{'bf16' if dtype == torch.bfloat16 else 'f32'}_B{batch}_n{n}"
+    return tag, h, g, gamma, beta, mstats, 0.5 * randn(size, m, 2), n_full
+
+
+def _shard_bounds(m, n, size, el):
+    """(bound ms, bound by) of entries 3 and 4 (chip_smoke.py phase 28's):
+    h, g, gamma, beta and the row statistics read, the outputs written
+    once; some 35 and 40 float32 operations an element."""
+    from spectre_tpu_torch.utils.timing import FP32_FLOPS, bound_ms
+
+    return (bound_ms((2 * m * n + 4 * n) * el + 2 * m * 8, 35 * m * n, FP32_FLOPS),
+            bound_ms((3 * m * n + 3 * n) * el + (size + 1) * m * 8, 40 * m * n, FP32_FLOPS))
+
+
+def shard_turn(kernels) -> dict:
+    """Entries 3 and 4 (``chain_shard_sums``, ``chain_shard_dh``) at
+    SHARD_TAGS, back to back and on the device, beside their bounds."""
+    import torch
+
+    from spectre_tpu_torch.utils.timing import cuda_time_ms, device_time_ms
+
+    rows = {}
+    for dt, batch, n_full, size in SHARD_TAGS:
+        tag, h, g, gamma, beta, mstats, rowsums, f = _shard_case(dt, batch, n_full, size)
+        m, n = h.shape
+        fns = {"sums": lambda: kernels.chain_shard_sums(h, g, gamma, beta, mstats),
+               "dh": lambda: kernels.chain_shard_dh(h, g, gamma, beta, mstats, rowsums, f)}
+        row = {}
+        for (name, fn), (bound, by) in zip(fns.items(), _shard_bounds(m, n, size,
+                                                                      h.element_size())):
+            row[name + "_ms"] = cuda_time_ms(fn, iters=20)
+            row[name + "_device_ms"] = device_time_ms(fn, iters=10)
+            row[name + "_bound_ms"], row[name + "_bound_by"] = bound, by
+        rows[tag] = row
+        print(f"{tag}: chain_shard_sums {row['sums_ms']:.4f} ms (device "
+              f"{row['sums_device_ms']:.4f}), bound {row['sums_bound_ms']:.4f} by "
+              f"{row['sums_bound_by']}; chain_shard_dh {row['dh_ms']:.4f} (device "
+              f"{row['dh_device_ms']:.4f}), bound {row['dh_bound_ms']:.4f} by "
+              f"{row['dh_bound_by']}", flush=True)
+        del h, g, rowsums
+        torch.cuda.empty_cache()
+    return rows
+
+
+def shard_sweep() -> dict:
+    """This tree's entries 3 and 4 at the flagship's shards of SHARD_TAGS,
+    the device time for each cap of SHARD_BLOCKS_PER_SM, and at the shipped
+    cap each kernel's share by ``torch.profiler`` (the entry's kernel and
+    its column-sum pass)."""
+    sys.path[0] = ROOT
+    import torch
+
+    from spectre_tpu_torch.ops import kernels
+    from spectre_tpu_torch.repl.perf import kernel_rows
+    from spectre_tpu_torch.utils.timing import device_time_ms
+
+    fl = kernels.fused_linear
+    keep, rows = fl.SHARD_BLOCKS_PER_SM, {}
+    try:
+        for dt, batch, n_full, size in SHARD_TAGS[:8]:
+            tag, h, g, gamma, beta, mstats, rowsums, f = _shard_case(dt, batch, n_full, size)
+            fns = {"sums": lambda: kernels.chain_shard_sums(h, g, gamma, beta, mstats),
+                   "dh": lambda: kernels.chain_shard_dh(h, g, gamma, beta, mstats, rowsums, f)}
+            row = {}
+            for cap in range(1, 9):
+                fl.SHARD_BLOCKS_PER_SM = cap
+                plan = fl._shard_plan(h, False, g, gamma, beta)
+                row[cap] = {"blocks": plan.blocks, **{
+                    name: device_time_ms(fn, iters=10) for name, fn in fns.items()}}
+            fl.SHARD_BLOCKS_PER_SM = keep
+            row["kernels"] = {name: [(k, c / 20, ms / 20) for k, c, ms in kernel_rows(fn, 20)[0]]
+                              for name, fn in fns.items()}
+            rows[tag] = row
+            print(f"shard sweep {tag}: " + ", ".join(
+                f"cap {c}: {v['sums']:.4f} / {v['dh']:.4f} ({v['blocks']} blocks)"
+                for c, v in row.items() if c != "kernels")
+                + "; by kernel, ms a call: " + json.dumps(row["kernels"]), flush=True)
+            del h, g, rowsums
+    finally:
+        fl.SHARD_BLOCKS_PER_SM = keep
+    return rows
+
+
 def chain_sweep() -> dict:
     """This tree's wide chain alone at the C6 shapes, the device time for
     each cap of WIDE_BLOCKS_PER_SM."""
@@ -337,9 +450,11 @@ def main(argv=None) -> dict:
                    help=f"comma-separated groups to time, of {', '.join(PARTS)}")
     p.add_argument("--chain-sweep", action="store_true",
                    help="time the wide chain alone at each cap of WIDE_BLOCKS_PER_SM")
+    p.add_argument("--shard-sweep", action="store_true",
+                   help="time entries 3 and 4 at each cap of SHARD_BLOCKS_PER_SM")
     args = p.parse_args(argv)
-    if args.chain_sweep:
-        rows = chain_sweep()
+    if args.chain_sweep or args.shard_sweep:
+        rows = chain_sweep() if args.chain_sweep else shard_sweep()
         if args.out:
             with open(args.out, "w") as f:
                 json.dump(rows, f, indent=1)

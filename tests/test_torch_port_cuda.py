@@ -963,6 +963,53 @@ def test_server_on_the_card_answers_around_buckets_that_fail(cuda_device):
     assert srv.forwards == 20
 
 
+@pytest.mark.parametrize("m,n,size", [(130, 25, 4), (130, 50, 2), (1, 7, 2), (16640, 384, 2),
+                                      (16640, 192, 4), (333, 1536, 2), (65, 29056, 2),
+                                      (65, 58111, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_chain_shard_entries_equal_plain(cuda_device, m, n, size, dtype):
+    """Kernel B3's entries 3 and 4 at every route of ``shard_chain_plan``:
+    the flagship's shards, ragged widths (single values, lanes past n
+    masked), one value a row, and rows cut into tiles (1,536, 29,056 and
+    an odd 58,111 columns): the row sums, dgamma, dbeta, dh and db against
+    the plain versions on the same inputs, with the other ranks' row sums
+    drawn (f32: 1e-5 of each result's largest entry; bf16: 2^-6, one
+    rounding of the sums or dh apart), two runs bit for bit."""
+    from spectre_tpu_torch.ops.kernels import (chain_shard_dh, chain_shard_dh_plain,
+                                               chain_shard_sums, chain_shard_sums_plain)
+
+    gen = torch.Generator().manual_seed(m + n)
+    h = torch.randn(m, n, generator=gen).to(cuda_device, dtype)
+    g = torch.randn(m, n, generator=gen).to(cuda_device, dtype)
+    gamma = (1 + 0.1 * torch.randn(n, generator=gen)).to(cuda_device, dtype)
+    beta = (0.1 * torch.randn(n, generator=gen)).to(cuda_device, dtype)
+    mstats = torch.stack([0.1 * torch.randn(m, generator=gen),
+                          1 + 0.1 * torch.rand(m, generator=gen)], -1).to(cuda_device)
+    others = 0.5 * torch.randn(size - 1, m, 2, generator=gen).to(cuda_device)
+    limit = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+
+    def close(a, b):
+        a, b = a.float(), b.float()
+        assert float((a - b).abs().max()) <= limit * max(float(b.abs().max()), 1e-30)
+
+    before = dict(launch_counts())
+    rows, sums = chain_shard_sums(h, g, gamma, beta, mstats)
+    rows_p, sums_p = chain_shard_sums_plain(h, g, gamma, beta, mstats)
+    close(rows, rows_p)
+    close(sums, sums_p)
+    gathered = torch.cat([rows[None], others])
+    dh, db = chain_shard_dh(h, g, gamma, beta, mstats, gathered, size * n)
+    dh_p, db_p = chain_shard_dh_plain(h, g, gamma, beta, mstats, gathered, size * n)
+    close(dh, dh_p)
+    close(db, db_p)
+    again = (*chain_shard_sums(h, g, gamma, beta, mstats),
+             *chain_shard_dh(h, g, gamma, beta, mstats, gathered, size * n))
+    assert all(torch.equal(a, b) for a, b in zip((rows, sums, dh, db), again))
+    counts = launch_counts()
+    assert counts["chain_shard_sums"] - before["chain_shard_sums"] == 2
+    assert counts["chain_shard_dh"] - before["chain_shard_dh"] == 2
+
+
 @pytest.mark.parametrize("size", [2, 4])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_split_spectre_linears_launch_the_shard_entries(cuda_device, size, dtype):
