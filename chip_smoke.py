@@ -251,8 +251,10 @@ Phases, each raising on failure (nothing is caught):
    768) and linear3's whole rows (512), M = 16,640 and 66,560, bf16 and
    float32, two runs bit for bit, with times beside the plain versions and
    the byte bound; at M = 16,640 also ragged shards (25 and 50 columns of
-   100) and shards cut into tiles (1,536 of 3,072), where entries 3 and 4
-   (``shard_chain_plan``) mask lanes or cut the row into tiles; the shards
+   100) and shards cut into tiles (1,536 of 3,072), where entries 2, 3 and
+   4 (``shard_ln_plan``, ``shard_chain_plan``) mask lanes or cut the row
+   into tiles, and entry 2 on a whole row of 1,536 (three warps a row),
+   each rank's merged statistics bit for bit the others'; the shards
    merged through the entries against the whole-row kernel (1e-5 of the
    largest entry in float32, one bf16 ulp of it in bf16). Then (after
    phase 27), every rank on the one card over gloo on card tensors: (a)
@@ -3313,9 +3315,10 @@ def phase_tp_entries(kernels, gen):
     of it in bf16; two runs of each entry bit for bit, and each rank's copy
     of the gathered row sums merged by entry 4 to the same bits. At B = 256
     also the shards of TP_CHAIN_SHAPES (ragged: 25 and 50 columns; cut into
-    tiles: 1,536), entries 3 and 4 timed there. Times (bf16, 2 ranks, B =
-    256 is the main row; every shape's beside) back to back, on the device
-    and of the plain version, with each entry's byte bound."""
+    tiles: 1,536), entries 2, 3 and 4 timed there, and entry 2 on a whole
+    row of 1,536 (three warps of a block share it). Times (bf16, 2 ranks,
+    B = 256 is the main row; every shape's beside) back to back, on the
+    device and of the plain version, with each entry's byte bound."""
     e, f = 512, 768
     worst = {name: {} for name in TP_ENTRY_NAMES}
     rows, merge = {}, {}
@@ -3434,44 +3437,48 @@ def phase_tp_entries(kernels, gen):
                 if not all(torch.equal(a, c) for a, c in zip(first, again) if a is not None):
                     raise AssertionError(f"{name} {tag}: two runs differ")
 
+    def whole_rows(dtype, batch, n):
+        """Entry 2 on linear3's whole rows: [65 batch, f] x [f, n] summed in
+        float32 beside the pool's partials, against its plain version."""
+        m = 65 * batch
+        w3 = (torch.randn(f, n, generator=gen) * f ** -0.5).to("cuda", dtype)
+        b3, be3 = ((torch.randn(n, generator=gen) * 0.1).to("cuda", dtype) for _ in range(2))
+        g3 = (1 + torch.randn(n, generator=gen) * 0.1).to("cuda", dtype)
+        hin = torch.randn(m, f, generator=gen).to("cuda", dtype)
+        s2 = torch.cat([kernels.matmul_f32(hin, w3), torch.randn(m, n, generator=gen)
+                        .to("cuda")], 1)
+        tag = f"{'bf16' if dtype == torch.bfloat16 else 'f32'}_B{batch}_rows{n}"
+        got = kernels.sharded_ln_gelu(s2[:, :n], None, g3, be3, n, bias=b3, residual=s2[:, n:])
+        want = kernels.sharded_ln_gelu_plain(s2[:, :n], None, g3, be3, n, bias=b3,
+                                             residual=s2[:, n:])
+        held("sharded_ln_gelu", dtype, got, want, tag)
+        timed("sharded_ln_gelu",
+              lambda: kernels.sharded_ln_gelu(s2[:, :n], None, g3, be3, n, bias=b3,
+                                              residual=s2[:, n:]),
+              lambda: kernels.sharded_ln_gelu_plain(s2[:, :n], None, g3, be3, n, bias=b3,
+                                                    residual=s2[:, n:]),
+              tag, _tp_entry_bounds(m, f, n, 1, dtype.itemsize, whole=True))
+        del hin, s2, got, want
+        torch.cuda.empty_cache()
+
     for dtype in (torch.bfloat16, torch.float32):
-        el = dtype.itemsize
         for batch in (256, 1024):
-            m = 65 * batch
             for size in (2, 4):
                 shard_tag(dtype, batch, f, size,
                           TP_ENTRY_NAMES if dtype == torch.bfloat16 or batch == 256 else ())
                 torch.cuda.empty_cache()
             if batch == 256:
-                # entries 3 and 4 where the plan masks lanes past a ragged
-                # shard (the head's N = 100 over 4 and 2 ranks) and where it
-                # cuts a row into tiles (N = 3,072 over 2 ranks)
+                # entries 2, 3 and 4 where the plan masks lanes past a
+                # ragged shard (the head's N = 100 over 4 and 2 ranks) and
+                # where it cuts a row into tiles (N = 3,072 over 2 ranks)
                 for n_full, size in TP_CHAIN_SHAPES:
-                    shard_tag(dtype, batch, n_full, size, TP_ENTRY_NAMES[2:])
+                    shard_tag(dtype, batch, n_full, size, TP_ENTRY_NAMES[1:])
                     torch.cuda.empty_cache()
             # linear3: entry 2 on whole rows of the all-reduced float32 sum [M, 2N]
-            # (the product's and the pool's partials side by side)
-            n = e
-            w3 = (torch.randn(f, n, generator=gen) * f ** -0.5).to("cuda", dtype)
-            b3, be3 = ((torch.randn(n, generator=gen) * 0.1).to("cuda", dtype) for _ in range(2))
-            g3 = (1 + torch.randn(n, generator=gen) * 0.1).to("cuda", dtype)
-            hin = torch.randn(m, f, generator=gen).to("cuda", dtype)
-            s2 = torch.cat([kernels.matmul_f32(hin, w3), torch.randn(m, n, generator=gen)
-                            .to("cuda")], 1)
-            tag = f"{'bf16' if dtype == torch.bfloat16 else 'f32'}_B{batch}_rows{n}"
-            got = kernels.sharded_ln_gelu(s2[:, :n], None, g3, be3, n, bias=b3,
-                                          residual=s2[:, n:])
-            want = kernels.sharded_ln_gelu_plain(s2[:, :n], None, g3, be3, n, bias=b3,
-                                                 residual=s2[:, n:])
-            held("sharded_ln_gelu", dtype, got, want, tag)
-            timed("sharded_ln_gelu",
-                  lambda: kernels.sharded_ln_gelu(s2[:, :n], None, g3, be3, n, bias=b3,
-                                                  residual=s2[:, n:]),
-                  lambda: kernels.sharded_ln_gelu_plain(s2[:, :n], None, g3, be3, n, bias=b3,
-                                                        residual=s2[:, n:]),
-                  tag, _tp_entry_bounds(m, f, n, 1, el, whole=True))
-            del hin, s2, got, want
-            torch.cuda.empty_cache()
+            # (the product's and the pool's partials side by side); at B = 256
+            # also a whole row wider than a warp's registers
+            for n in (e, 1536) if batch == 256 else (e,):
+                whole_rows(dtype, batch, n)
     main_tag = "bf16_B256_n384"
     out = []
     for name in TP_ENTRY_NAMES:

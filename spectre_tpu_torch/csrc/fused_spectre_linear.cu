@@ -112,22 +112,12 @@
 #include <algorithm>
 #include <type_traits>
 
+#include "vec.cuh"
 #include "wgmma_gemm.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
-using bf16 = __nv_bfloat16;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
 
 __device__ __forceinline__ float gelu_erf(float z) {
   return 0.5f * z * (1.f + erff(z * 0.70710678118654752f));
@@ -930,96 +920,462 @@ int wgmma_entry(const void* x, const void* w, const void* b, const void* gamma, 
 
 // ----------------------------------------- the epilogue of a split layer
 //
-// fused_spectre_linear_shard_ln: the LayerNorm, GELU and residual of a
-// SpectreLinear whose rows are spread over tensor-parallel ranks, one warp
-// a row, the lanes along it. Two forms:
+// fused_spectre_linear_shard_ln (kernel B3's entry 2 under tensor
+// parallelism): the LayerNorm, GELU and residual of a SpectreLinear whose
+// rows are spread over tensor-parallel ranks, i.e. the epilogue of the TPU
+// kernel spectre_tpu/ops/pallas/fused_linear.py::_kernel (:67-76) after its
+// product. Two forms:
 //
 // - a column shard (stats given): h [M, n] is this rank's n of the row's
 //   n_full columns, stats [size, M] the (mean, M2) of every rank's columns
-//   (each rank's n), all-gathered. The warp merges them in rank order by
-//   Chan's formula, as the cluster kernels merge their blocks, so every
-//   rank computes the same statistics bit for bit, whatever order the
-//   collective took.
+//   (each rank's n), all-gathered. They are merged in rank order by Chan's
+//   formula, as the cluster kernels merge their blocks, so every rank
+//   computes the same statistics bit for bit, whatever order the collective
+//   took.
 // - a whole row (stats null): h is the float32 sum of the row-split
 //   product, all-reduced; the bias is added here, the sum rounded into h_out
 //   for the backward, and (mean, M2) taken over the float32 row by two
-//   passes, the second correcting the first mean (as the cluster kernel).
+//   passes over registers, the second summing the deviations from the first
+//   mean to correct it (as the cluster kernel).
 //
 // Then out = GELU((h - mean) rstd gamma + beta) [+ res], in float32 with
-// erff, cast once; mstats [M] gets (mean, rstd) for the backward. The row
-// is read from memory on each pass (L1 holds it). What bounds it: bytes (h
-// and res read, out written; h_out too for a whole row).
-template <typename TI, typename TO>
-__global__ void __launch_bounds__(256)
-shard_ln_kernel(const TI* __restrict__ h, long long ldh, const float2* __restrict__ stats,
-                int size, const TO* __restrict__ bias, const TO* __restrict__ gamma,
-                const TO* __restrict__ beta, const TI* __restrict__ res, long long ldr,
-                TO* __restrict__ out, TO* __restrict__ h_out, float2* __restrict__ mstats,
-                long long M, int n, int n_full, float eps) {
-  const int lane = threadIdx.x % 32;
-  const long long warps = static_cast<long long>(gridDim.x) * (blockDim.x / 32);
-  const float nb = static_cast<float>(n), inv_full = 1.f / static_cast<float>(n_full);
-  for (long long m = static_cast<long long>(blockIdx.x) * (blockDim.x / 32) + threadIdx.x / 32;
-       m < M; m += warps) {
-    const TI* row = h + m * ldh;
-    float mean = 0.f, m2 = 0.f;
-    if (stats != nullptr) {
+// erff, cast once; mstats [M] gets (mean, rstd) for the backward.
+//
+// What bounds it on the H100: bytes (h and res read, out written; h_out too
+// for a whole row), and close behind them, for bf16 shards ahead of them,
+// instruction issue: erff takes one of two polynomials by |x|, and a
+// warp's lanes straddle the two, so both are issued for every element;
+// the bf16 shards stop further from the byte bound than the float32 shards
+// and the whole rows, which move twice the bytes an element (PERF.md).
+// What held the first design (one warp a row) below half of that bound:
+// 2-byte loads (a warp load instruction moved 64 bytes), gamma and beta
+// (and the bias) loaded again every row, a whole row read three times, and
+// no row in flight while one was computed.
+//
+// Design (the plan: ops/kernels/fused_linear.py::shard_ln_plan, on
+// shard_chain_plan's vectors, lanes and chunks). A team of `lanes` lanes
+// takes a row; lane l owns the columns tile + (c * lanes + l) * V + [0, V),
+// c < C: V values a vector load of up to 16 bytes (V divides n; the bases
+// and the row strides are aligned to it), at most 16 values a lane. Its
+// columns are the same in every row, so its gamma, beta and bias stay in
+// registers over all its rows. The team's next two rows of h and res are on
+// their way while it computes one: each lane copies its own vectors by
+// cp.async into a ring of three rows in shared memory and reads back only
+// those (no barrier), which keeps the registers low enough for two or more
+// blocks an SM (measured on the card against the next row in registers, at
+// one or two blocks an SM, and rings of two and four rows; single bf16
+// values, too narrow for cp.async, come a row ahead through registers); a
+// shard's ranks' statistics come a row ahead, one rank's pair a lane,
+// shuffled across the team. A shard wider than a
+// warp's reach is cut into tiles of it, one per blockIdx.y: a shard needs
+// no row sums. A whole row wider than that is shared by `warps` warps of
+// one block, tile w to warp w; its sums go by a butterfly across the lanes
+// (partners add the same two values: every lane the same bits), then
+// across the warps in warp order through shared memory, two barriers a
+// row. Wider than the block's 8 warps reach, the block walks the row
+// (shard_ln_walk_kernel: the same reductions, the row read three times).
+// Each block (up to 256 threads) owns a contiguous share of the rows, its
+// teams taking every teams-th row of it; the grid is the blocks the card
+// holds at once. Fixed orders throughout: two runs give the same bits.
+
+constexpr int kLnThreads = 256;  // ops/kernels/fused_linear.py: SHARD_THREADS
+constexpr int kLnWarps = kLnThreads / 32;
+constexpr int kLnStages = 3;  // the ring: rows a team, two in flight
+
+// A launch's operands: h and res in TI, bias, gamma, beta, out and h_out in
+// TO; stats null for a whole row.
+struct ShardLn {
+  const void *h, *res, *bias, *gamma, *beta;
+  const float2* stats;
+  void *out, *h_out;
+  float2* mstats;
+  long long ldh, ldr, M, rows;  // rows: a block's share
+  int size, n, lanes, warps;
+  float inv_full, eps;
+};
+
+// A whole row's two sums: this lane's, across the team's lanes, then across
+// its `warps` warps in warp order (red: the team's slots; a block barrier).
+__device__ __forceinline__ float2 row_sum2(float2 s, int lanes, int warps, float2* red, int w) {
+  s.x = team_sum(s.x, lanes);
+  s.y = team_sum(s.y, lanes);
+  if (warps > 1) {
+    if ((threadIdx.x & 31) == 0) red[w] = s;
+    __syncthreads();
+    s = red[0];
+    for (int j = 1; j < warps; ++j) {
+      s.x += red[j].x;
+      s.y += red[j].y;
+    }
+  }
+  return s;
+}
+
+// (mean, M2) of a whole row from the first pass's sum and the second's sum
+// of the deviations d and of d^2.
+__device__ __forceinline__ float2 corrected(float mean1, float2 t, float nb) {
+  return make_float2(mean1 + t.x / nb, t.y - t.x * t.x / nb);
+}
+
+// Rows come through a ring in shared memory (kLnStages rows of h and res a
+// team, by cp.async), except single bf16 values (cp.async copies at least 4
+// bytes), which come through registers loaded a row ahead.
+template <typename TI, int V>
+__host__ __device__ constexpr bool ln_ring() {
+  return V * sizeof(TI) >= 4;
+}
+
+// Dynamic shared memory of an instance at `threads` threads: its ring.
+template <typename TI, int V, int C>
+__host__ __device__ constexpr int ln_smem(int threads) {
+  return ln_ring<TI, V>() ? kLnStages * 2 * threads * C * V * static_cast<int>(sizeof(TI)) : 0;
+}
+
+template <typename TI, typename TO, int V, int C, bool kWhole>
+__global__ void __launch_bounds__(kLnThreads) shard_ln_kernel(const ShardLn a) {
+  constexpr bool kRing = ln_ring<TI, V>();
+  constexpr int kBytes = V * static_cast<int>(sizeof(TI));
+  using R = Raw<TI, V>;
+  // the ring [stage][h, res][the block's tiles]; a thread copies and reads
+  // back only its own chunks, so the ring needs no barrier
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float2 s_red[2][kLnWarps];  // a whole row's warps: the two passes' sums
+  const int lanes = a.lanes, warps = a.warps, width = lanes * warps, n = a.n;
+  const int team = threadIdx.x / width, teams = blockDim.x / width;
+  const int lane = threadIdx.x % lanes, w = threadIdx.x % width / lanes;
+  const int tile = lanes * C * V;
+  const int base = (warps > 1 ? w : static_cast<int>(blockIdx.y)) * tile;
+  const TI* h = static_cast<const TI*>(a.h);
+  const TI* res = static_cast<const TI*>(a.res);
+  TO* out = static_cast<TO*>(a.out);
+  TO* h_out = static_cast<TO*>(a.h_out);
+  TI* ring = reinterpret_cast<TI*>(smem);
+  const int slots = blockDim.x * C * V;                   // an array of a stage
+  const int mine = (team * warps + w) * tile + lane * V;  // chunk c at + c lanes V
+
+  int col[C];
+  bool in[C];
+  float gam[C][V], bet[C][V], bia[kWhole ? C : 1][V];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    col[c] = base + (c * lanes + lane) * V;
+    in[c] = col[c] < n;  // whole vectors: V divides n
+#pragma unroll
+    for (int e = 0; e < V; ++e) gam[c][e] = bet[c][e] = bia[kWhole ? c : 0][e] = 0.f;
+    if (in[c]) {
+      load_vec<TO, V>(static_cast<const TO*>(a.gamma) + col[c], gam[c]);
+      load_vec<TO, V>(static_cast<const TO*>(a.beta) + col[c], bet[c]);
+      if constexpr (kWhole) load_vec<TO, V>(static_cast<const TO*>(a.bias) + col[c], bia[c]);
+    }
+  }
+
+  const long long M = a.M, r0 = static_cast<long long>(blockIdx.x) * a.rows;
+  const long long r1 = r0 + a.rows < M ? r0 + a.rows : M;
+  R hr[kRing ? 1 : C] = {}, rr[kRing ? 1 : C] = {};  // registers: this row, the next
+  R hn[kRing ? 1 : C] = {}, rn[kRing ? 1 : C] = {};
+  // a row of the team's h and res on its way: into the ring (one cp.async
+  // group a row, empty past the share, so that wait_group counts rows) or
+  // into registers
+  auto fetch = [&](long long r, int stage, R* hh, R* rs) {
+    if (r < r1) {
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (!in[c]) continue;
+        const TI* hp = h + r * a.ldh + col[c];
+        const TI* rp = res + r * a.ldr + col[c];
+        if constexpr (kRing) {
+          TI* at = ring + 2 * stage * slots + mine + c * lanes * V;
+          cp_async<kBytes>(at, hp, true);
+          if (res != nullptr) cp_async<kBytes>(at + slots, rp, true);
+        } else {
+          hh[c] = *reinterpret_cast<const R*>(hp);
+          if (res != nullptr) rs[c] = *reinterpret_cast<const R*>(rp);
+        }
+      }
+    }
+    if constexpr (kRing) cp_async_commit();
+  };
+  // a shard's statistics a row ahead: lane j holds rank j's (mean, M2), or
+  // each rank's is loaded when the team has fewer lanes than ranks
+  const bool lane_stats = a.size <= lanes;
+  float2 sr = make_float2(0.f, 0.f), sn = sr;
+  auto fetch_stats = [&](long long r, float2& st) {
+    if (!kWhole && lane_stats && lane < a.size && r < r1) st = a.stats[lane * M + r];
+  };
+  auto rank_stats = [&](int j, long long r, bool valid) -> float2 {
+    if (lane_stats)
+      return make_float2(__shfl_sync(0xffffffffu, sr.x, j, lanes),
+                         __shfl_sync(0xffffffffu, sr.y, j, lanes));
+    return valid ? a.stats[j * M + r] : make_float2(0.f, 0.f);
+  };
+  const float nb = static_cast<float>(n);
+  long long r = r0 + team;
+  if constexpr (kRing) {
+    for (int s = 0; s < kLnStages - 1; ++s) fetch(r + s * teams, s, hr, rr);
+  } else {
+    fetch(r, 0, hr, rr);
+  }
+  fetch_stats(r, sr);
+  int stage = 0;
+  // the trip count is the block's (its first team's), so that every thread
+  // reaches the shuffles and barriers; a team past the share's end only
+  // takes part in them
+  for (long long first = r0; first < r1; first += teams, r += teams) {
+    if constexpr (kRing) {
+      fetch(r + (kLnStages - 1) * teams, stage == 0 ? kLnStages - 1 : stage - 1, hr, rr);
+      cp_async_wait<kLnStages - 1>();  // this row's group has landed
+    } else {
+      fetch(r + teams, 0, hn, rn);
+    }
+    fetch_stats(r + teams, sn);
+    const bool valid = r < r1;
+    const TI* at = ring + 2 * stage * slots + mine;
+    float v[C][V];  // h (+ bias) in float32
+#pragma unroll
+    for (int c = 0; c < C; ++c) {
+      if constexpr (kRing) {
+        load_vec<TI, V>(at + c * lanes * V, v[c]);
+      } else {
+        raw_to_f<TI, V>(hr[c], v[c]);
+      }
+      if constexpr (kWhole) {
+#pragma unroll
+        for (int e = 0; e < V; ++e) v[c][e] += bia[c][e];
+      }
+    }
+    float mean, m2;
+    if constexpr (kWhole) {
+      float s = 0.f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (!in[c]) continue;
+#pragma unroll
+        for (int e = 0; e < V; ++e) s += v[c][e];
+      }
+      const float mean1 =
+          row_sum2(make_float2(s, 0.f), lanes, warps, s_red[0] + team * warps, w).x / nb;
+      float dsum = 0.f, q2 = 0.f;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (!in[c]) continue;
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          const float d = v[c][e] - mean1;
+          dsum += d;
+          q2 += d * d;
+        }
+      }
+      const float2 st = corrected(
+          mean1, row_sum2(make_float2(dsum, q2), lanes, warps, s_red[1] + team * warps, w), nb);
+      mean = st.x;
+      m2 = st.y;
+    } else {  // the ranks' statistics in rank order (Chan)
       float na = nb;
-      mean = stats[m].x;
-      m2 = stats[m].y;
-      for (int j = 1; j < size; ++j) {
-        const float2 st = stats[static_cast<long long>(j) * M + m];
+      float2 st = rank_stats(0, r, valid);
+      mean = st.x;
+      m2 = st.y;
+      for (int j = 1; j < a.size; ++j) {
+        st = rank_stats(j, r, valid);
         const float tot = na + nb, d = st.x - mean;
         mean += d * (nb / tot);
         m2 += st.y + d * d * (na * nb / tot);
         na = tot;
       }
+    }
+    const float rstd = rsqrtf(m2 * a.inv_full + a.eps);
+    if (valid) {
+      if (lane == 0 && w == 0 && blockIdx.y == 0) a.mstats[r] = make_float2(mean, rstd);
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (!in[c]) continue;
+        if constexpr (kWhole) store_vec<TO, V>(h_out + r * n + col[c], v[c]);
+        float y[V], rv[V];
+        if (res != nullptr) {
+          if constexpr (kRing) {
+            load_vec<TI, V>(at + slots + c * lanes * V, rv);
+          } else {
+            raw_to_f<TI, V>(rr[c], rv);
+          }
+        }
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          y[e] = gelu_erf((v[c][e] - mean) * rstd * gam[c][e] + bet[c][e]);
+          if (res != nullptr) y[e] += rv[e];
+        }
+        store_vec<TO, V>(out + r * n + col[c], y);
+      }
+    }
+    if constexpr (kRing) {
+      if (++stage == kLnStages) stage = 0;
     } else {
-      float s = 0.f;
-      for (int c = lane; c < n; c += 32) s += to_f(row[c]) + to_f(bias[c]);
-      const float mean1 = warp_sum(s) / nb;
-      float dsum = 0.f, q2 = 0.f;
-      for (int c = lane; c < n; c += 32) {
-        const float d = to_f(row[c]) + to_f(bias[c]) - mean1;
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        hr[c] = hn[c];
+        rr[c] = rn[c];
+      }
+    }
+    sr = sn;
+  }
+  if constexpr (kRing) cp_async_wait<0>();
+}
+
+// A whole row beyond the block's register reach: the block takes a row at a
+// time, thread t the vectors t, t + 256, ... of it in turn, and reads it
+// three times (the two passes, then the output), with the reductions of
+// shard_ln_kernel over its 8 warps.
+template <typename TI, typename TO, int V>
+__global__ void __launch_bounds__(kLnThreads) shard_ln_walk_kernel(const ShardLn a) {
+  __shared__ float2 s_red[2][kLnWarps];
+  const TO* bias = static_cast<const TO*>(a.bias);
+  const TO* gamma = static_cast<const TO*>(a.gamma);
+  const TO* beta = static_cast<const TO*>(a.beta);
+  const int n = a.n, w = threadIdx.x / 32, step = kLnThreads * V;
+  const float nb = static_cast<float>(n);
+  const long long r0 = static_cast<long long>(blockIdx.x) * a.rows;
+  const long long r1 = r0 + a.rows < a.M ? r0 + a.rows : a.M;
+  for (long long r = r0; r < r1; ++r) {
+    const TI* row = static_cast<const TI*>(a.h) + r * a.ldh;
+    auto value = [&](int j, float* v) {  // h + bias at columns j + [0, V)
+      float b[V];
+      load_vec<TI, V>(row + j, v);
+      load_vec<TO, V>(bias + j, b);
+#pragma unroll
+      for (int e = 0; e < V; ++e) v[e] += b[e];
+    };
+    float s = 0.f;
+    for (int j = threadIdx.x * V; j < n; j += step) {
+      float v[V];
+      value(j, v);
+#pragma unroll
+      for (int e = 0; e < V; ++e) s += v[e];
+    }
+    const float mean1 = row_sum2(make_float2(s, 0.f), 32, kLnWarps, s_red[0], w).x / nb;
+    float dsum = 0.f, q2 = 0.f;
+    for (int j = threadIdx.x * V; j < n; j += step) {
+      float v[V];
+      value(j, v);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        const float d = v[e] - mean1;
         dsum += d;
         q2 += d * d;
       }
-      dsum = warp_sum(dsum);
-      q2 = warp_sum(q2);
-      mean = mean1 + dsum / nb;
-      m2 = q2 - dsum * dsum / nb;
     }
-    const float rstd = rsqrtf(m2 * inv_full + eps);
-    if (lane == 0) mstats[m] = make_float2(mean, rstd);
-    for (int c = lane; c < n; c += 32) {
-      float v = to_f(row[c]);
-      if (stats == nullptr) {
-        v += to_f(bias[c]);
-        h_out[m * n + c] = from_f<TO>(v);
+    const float2 st =
+        corrected(mean1, row_sum2(make_float2(dsum, q2), 32, kLnWarps, s_red[1], w), nb);
+    const float rstd = rsqrtf(st.y * a.inv_full + a.eps);
+    if (threadIdx.x == 0) a.mstats[r] = make_float2(st.x, rstd);
+    for (int j = threadIdx.x * V; j < n; j += step) {
+      float v[V], g[V], be[V], y[V], rv[V];
+      value(j, v);
+      load_vec<TO, V>(gamma + j, g);
+      load_vec<TO, V>(beta + j, be);
+      if (a.res != nullptr) load_vec<TI, V>(static_cast<const TI*>(a.res) + r * a.ldr + j, rv);
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        y[e] = gelu_erf((v[e] - st.x) * rstd * g[e] + be[e]);
+        if (a.res != nullptr) y[e] += rv[e];
       }
-      float y = gelu_erf((v - mean) * rstd * to_f(gamma[c]) + to_f(beta[c]));
-      if (res != nullptr) y += to_f(res[m * ldr + c]);
-      out[m * n + c] = from_f<TO>(y);
+      store_vec<TO, V>(static_cast<TO*>(a.h_out) + r * n + j, v);
+      store_vec<TO, V>(static_cast<TO*>(a.out) + r * n + j, y);
     }
   }
 }
 
+// One instance of entry 2 (V values a vector, C vectors a lane; C = 0: the
+// walk), launched or asked how many of its blocks an SM holds.
 template <typename TI, typename TO>
-int launch_shard_ln(const void* h, long long ldh, const void* stats, int size, const void* bias,
-                    const void* gamma, const void* beta, const void* res, long long ldr,
-                    void* out, void* h_out, void* mstats, long long M, int n, int n_full,
-                    float eps, cudaStream_t st) {
-  int dev = 0, sms = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const long long blocks = std::min<long long>((M + 7) / 8, 8LL * sms);
-  shard_ln_kernel<TI, TO><<<static_cast<unsigned>(blocks), 256, 0, st>>>(
-      static_cast<const TI*>(h), ldh, static_cast<const float2*>(stats), size,
-      static_cast<const TO*>(bias), static_cast<const TO*>(gamma), static_cast<const TO*>(beta),
-      static_cast<const TI*>(res), ldr, static_cast<TO*>(out), static_cast<TO*>(h_out),
-      static_cast<float2*>(mstats), M, n, n_full, eps);
-  return static_cast<int>(cudaGetLastError());
+struct ShardLnLaunch {
+  ShardLn a;
+  bool whole;
+  unsigned blocks, tiles, threads;
+  cudaStream_t st;
+  int* blocks_per_sm;  // non-null: the query, nothing launched
+
+  template <typename K>
+  int go(K kern, int smem) {
+    if (blocks_per_sm)
+      return static_cast<int>(
+          cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks_per_sm, kern, threads, smem));
+    kern<<<dim3(blocks, tiles), threads, smem, st>>>(a);
+    return static_cast<int>(cudaGetLastError());
+  }
+
+  template <int V, int C, bool kWhole>
+  int ring_instance() {
+    auto kern = shard_ln_kernel<TI, TO, V, C, kWhole>;
+    static std::atomic<bool> raised[wg::kMaxDevices];
+    if (int e = wg::raise_smem_once(kern, ln_smem<TI, V, C>(kLnThreads), raised)) return e;
+    return go(kern, ln_smem<TI, V, C>(static_cast<int>(threads)));
+  }
+
+  template <int V, int C>
+  int run() {
+    if constexpr (C == 0) {
+      return go(shard_ln_walk_kernel<TI, TO, V>, 0);
+    } else {
+      return whole ? ring_instance<V, C, true>() : ring_instance<V, C, false>();
+    }
+  }
+};
+
+template <typename TI, typename TO>
+int run_shard_ln(ShardLnLaunch<TI, TO> op, int vec, int chunks) {
+#define SPECTRE_LN(VV, CC) \
+  if (vec == VV && chunks == CC) return op.template run<VV, CC>();
+  if constexpr (sizeof(TI) == 2) {  // 16-byte bf16 vectors
+    SPECTRE_LN(8, 0) SPECTRE_LN(8, 1) SPECTRE_LN(8, 2)
+  }
+  SPECTRE_LN(4, 0) SPECTRE_LN(4, 1) SPECTRE_LN(4, 2) SPECTRE_LN(4, 3) SPECTRE_LN(4, 4)
+  SPECTRE_LN(2, 0) SPECTRE_LN(2, 1) SPECTRE_LN(2, 2) SPECTRE_LN(2, 3) SPECTRE_LN(2, 4)
+  SPECTRE_LN(1, 0) SPECTRE_LN(1, 1) SPECTRE_LN(1, 2) SPECTRE_LN(1, 3) SPECTRE_LN(1, 4)
+#undef SPECTRE_LN
+  return cudaErrorInvalidValue;
+}
+
+// The (in, out) dtypes entry 2 takes: (bf16, bf16), (float32, bf16) and
+// (float32, float32).
+template <typename TI, typename TO>
+int shard_ln_typed(const ShardLn& a, bool whole, unsigned blocks, unsigned tiles,
+                   unsigned threads, cudaStream_t st, int* blocks_per_sm, int vec, int chunks) {
+  return run_shard_ln(ShardLnLaunch<TI, TO>{a, whole, blocks, tiles, threads, st, blocks_per_sm},
+                      vec, chunks);
+}
+
+int shard_ln_codes(int in_code, int out_code, const ShardLn& a, bool whole, unsigned blocks,
+                   unsigned tiles, unsigned threads, cudaStream_t st, int* blocks_per_sm, int vec,
+                   int chunks) {
+  if (in_code == 1 && out_code == 1)
+    return shard_ln_typed<bf16, bf16>(a, whole, blocks, tiles, threads, st, blocks_per_sm, vec,
+                                      chunks);
+  if (in_code == 0 && out_code == 1)
+    return shard_ln_typed<float, bf16>(a, whole, blocks, tiles, threads, st, blocks_per_sm, vec,
+                                       chunks);
+  if (in_code == 0 && out_code == 0)
+    return shard_ln_typed<float, float>(a, whole, blocks, tiles, threads, st, blocks_per_sm, vec,
+                                        chunks);
+  return cudaErrorInvalidValue;
+}
+
+// Whether (vec, lanes, chunks, warps) is an instance entry 2 has, for
+// elements of el bytes in: vec values a vector of at most 16 bytes, a
+// power of two of lanes up to a warp, 1 to 4 chunks of at most 16 values
+// (0: the walk, a block of 8 warps), a team of 1 to 8 warps (more than one
+// only as a whole row's warps of 32 lanes).
+bool shard_ln_instance(int vec, int lanes, int chunks, int warps, int el) {
+  return (vec == 1 || vec == 2 || vec == 4 || vec == 8) && vec * el <= 16 && lanes >= 1 &&
+         lanes <= 32 && (lanes & (lanes - 1)) == 0 && chunks >= 0 && chunks <= 4 &&
+         chunks * vec <= 16 && warps >= 1 && warps <= kLnWarps &&
+         (warps == 1 || lanes == 32) && (chunks > 0 || (lanes == 32 && warps == kLnWarps));
+}
+
+unsigned shard_ln_threads(int lanes, int warps) {
+  const int width = lanes * warps;
+  return static_cast<unsigned>(kLnThreads / width * width);
+}
+
+bool aligned_to(long long bytes, const void* p) {
+  return p == nullptr || reinterpret_cast<uintptr_t>(p) % static_cast<uintptr_t>(bytes) == 0;
 }
 
 }  // namespace
@@ -1081,30 +1437,67 @@ extern "C" int fused_spectre_linear_shard_stats(int route, int dtype_code, const
 // (float32, bf16) and (float32, float32). h [M, n] with row stride ldh; stats:
 // null (a whole row: bias and h_out [M, n] given) or [size, M] float2 (a
 // column shard of size * n columns, n_full = size * n); res: null or [M, n]
-// with row stride ldr; out [M, n]; mstats [M] float2. Returns
-// cudaGetLastError() after the launch (0 on success).
+// with row stride ldr; out [M, n]; mstats [M] float2. The plan
+// (ops/kernels/fused_linear.py::shard_ln_plan): vec values a vector
+// (dividing n; every base and row stride aligned to vec elements of its
+// tensor), lanes a row (a power of two up to 32), chunks vectors a lane (1
+// to 4, at most 16 values), so tiles = ceil(n / (lanes chunks vec)) tiles a
+// row: a shard's on blockIdx.y (warps 1), a whole row's as its `warps`
+// warps (warps = tiles, at most 8); chunks 0: a whole row walked by a block
+// of 8 warps; `blocks` blocks (at most M), each owning ceil(M / blocks) rows.
+// Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int fused_spectre_linear_shard_ln(int in_code, int out_code, const void* h,
                                              long long ldh, const void* stats, int size,
                                              const void* bias, const void* gamma,
                                              const void* beta, const void* res, long long ldr,
                                              void* out, void* h_out, void* mstats, long long M,
                                              long long n, long long n_full, float eps,
-                                             void* stream) {
+                                             long long blocks, int vec, int lanes, int chunks,
+                                             int warps, void* stream) {
+  const bool whole = stats == nullptr;
+  const int el = in_code == 1 ? 2 : 4;
   if (M <= 0 || n <= 0 || n_full < n || n_full > 0x7fffffffLL || ldh < n ||
-      (res != nullptr && ldr < n) || size < 1 ||
-      (stats == nullptr ? (bias == nullptr || h_out == nullptr || n_full != n)
-                        : n_full != n * size))
+      (res != nullptr && ldr < n) || size < 1 || blocks < 1 || blocks > M ||
+      blocks > 0x7fffffffLL ||
+      (whole ? (bias == nullptr || h_out == nullptr || n_full != n) : n_full != n * size) ||
+      !shard_ln_instance(vec, lanes, chunks, warps, el) || n % vec)
     return cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int ni = static_cast<int>(n), nf = static_cast<int>(n_full);
-#define SPECTRE_SHARD_LN(TI, TO)                                                            \
-  return launch_shard_ln<TI, TO>(h, ldh, stats, size, bias, gamma, beta, res, ldr, out, h_out, \
-                                 mstats, M, ni, nf, eps, st);
-  if (in_code == 1 && out_code == 1) SPECTRE_SHARD_LN(bf16, bf16)
-  if (in_code == 0 && out_code == 1) SPECTRE_SHARD_LN(float, bf16)
-  if (in_code == 0 && out_code == 0) SPECTRE_SHARD_LN(float, float)
-#undef SPECTRE_SHARD_LN
-  return cudaErrorInvalidValue;
+  long long tiles = 1;
+  if (chunks > 0) {
+    const long long tile = static_cast<long long>(lanes) * chunks * vec;
+    tiles = (n + tile - 1) / tile;
+    if (whole ? tiles != warps : (warps != 1 || tiles > 65535)) return cudaErrorInvalidValue;
+  } else if (!whole) {
+    return cudaErrorInvalidValue;
+  }
+  // a vector's bytes in h and res, and in out, h_out, gamma, beta and bias
+  const long long vb = static_cast<long long>(vec) * el, vo = vec * (out_code == 1 ? 2LL : 4LL);
+  if (!aligned_to(vb, h) || !aligned_to(vb, res) || (ldh * el) % vb ||
+      (res != nullptr && (ldr * el) % vb) || !aligned_to(vo, out) || !aligned_to(vo, h_out) ||
+      !aligned_to(vo, gamma) || !aligned_to(vo, beta) || !aligned_to(vo, bias) ||
+      !aligned_to(8, stats) || !aligned_to(8, mstats))
+    return cudaErrorMisalignedAddress;
+  ShardLn a{h, res, bias, gamma, beta, static_cast<const float2*>(stats), out, h_out,
+            static_cast<float2*>(mstats), ldh, ldr, M, (M + blocks - 1) / blocks, size,
+            static_cast<int>(n), lanes, warps, 1.f / static_cast<float>(n_full), eps};
+  return shard_ln_codes(in_code, out_code, a, whole, static_cast<unsigned>(blocks),
+                        whole ? 1u : static_cast<unsigned>(tiles), shard_ln_threads(lanes, warps),
+                        static_cast<cudaStream_t>(stream), nullptr, vec, chunks);
+}
+
+// How many blocks of entry 2's instance (in_code, out_code as above; a
+// whole row or a shard; vec, chunks; chunks 0: the walk) of `threads`
+// threads an SM of the current device holds, into *blocks_per_sm. Returns a
+// CUDA error code (0 on success).
+extern "C" int fused_spectre_linear_shard_ln_occupancy(int in_code, int out_code, int whole,
+                                                       int vec, int chunks, int threads,
+                                                       int* blocks_per_sm) {
+  if (blocks_per_sm == nullptr || threads < 1 || threads > kLnThreads ||
+      !shard_ln_instance(vec, 32, chunks, chunks > 0 ? 1 : kLnWarps, in_code == 1 ? 2 : 4))
+    return cudaErrorInvalidValue;
+  ShardLn a{};
+  return shard_ln_codes(in_code, out_code, a, whole != 0, 1, 1, static_cast<unsigned>(threads),
+                        nullptr, blocks_per_sm, vec, chunks);
 }
 
 // ------------------------------------------------------------ N > 768

@@ -49,9 +49,9 @@
 
 #include <atomic>
 
-namespace {
+#include "vec.cuh"
 
-using bf16 = __nv_bfloat16;
+namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
@@ -67,16 +67,6 @@ constexpr float kNegHalfLog2e = -0.72134752044448170368f;  // -log2(e) / 2
 constexpr float kErfP = 0.3275911f;
 constexpr float kErfA1 = 0.254829592f, kErfA2 = -0.284496736f, kErfA3 = 1.421413741f,
                 kErfA4 = -1.453152027f, kErfA5 = 1.061405429f;
-
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(bf16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16_rn(v); }
 
 // gelu'(z) = Phi(z) + z phi(z). Phi from erf(|z| / sqrt 2) by A&S 7.1.26,
 // whose e^(-x^2) is e^(-z^2 / 2), the exponential of phi(z) too: one ex2 and
@@ -531,69 +521,6 @@ __device__ __forceinline__ void chain_element(float h, float g, float mu, float 
   u = (h - mu) * rsig;
   dz = g * gelu_grad(u * gam + bet);
   du = dz * gam;
-}
-
-// V values of T from 4-byte words (bf16 -> f32 is a 16-bit shift).
-template <typename T, int V>
-__device__ __forceinline__ void unpack(const unsigned* w, float* v) {
-  if constexpr (sizeof(T) == 2) {
-#pragma unroll
-    for (int k = 0; k < V / 2; ++k) {
-      v[2 * k] = __uint_as_float(w[k] << 16);
-      v[2 * k + 1] = __uint_as_float(w[k] & 0xffff0000u);
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < V; ++k) v[k] = __uint_as_float(w[k]);
-  }
-}
-
-// V consecutive values at p (global or shared) in one load of V * sizeof(T)
-// bytes, p aligned to it.
-template <typename T, int V>
-__device__ __forceinline__ void load_vec(const T* p, float* v) {
-  constexpr int kBytes = V * static_cast<int>(sizeof(T));
-  if constexpr (kBytes == 16) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const unsigned w[4] = {u.x, u.y, u.z, u.w};
-    unpack<T, V>(w, v);
-  } else if constexpr (kBytes == 8) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    const unsigned w[2] = {u.x, u.y};
-    unpack<T, V>(w, v);
-  } else if constexpr (kBytes == 4) {
-    const unsigned w[1] = {*reinterpret_cast<const unsigned*>(p)};
-    unpack<T, V>(w, v);
-  } else {
-    v[0] = to_f(*p);
-  }
-}
-
-template <typename T, int V>
-__device__ __forceinline__ void store_vec(T* p, const float* v) {
-  constexpr int kBytes = V * static_cast<int>(sizeof(T));
-  if constexpr (kBytes < 4) {
-    *p = from_f<T>(v[0]);
-  } else {
-    unsigned w[kBytes / 4];
-    if constexpr (sizeof(T) == 2) {
-#pragma unroll
-      for (int k = 0; k < kBytes / 4; ++k)
-        w[k] = static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * k]))) |
-               (static_cast<unsigned>(__bfloat16_as_ushort(__float2bfloat16_rn(v[2 * k + 1])))
-                << 16);
-    } else {
-#pragma unroll
-      for (int k = 0; k < kBytes / 4; ++k) w[k] = __float_as_uint(v[k]);
-    }
-    if constexpr (kBytes == 16) {
-      *reinterpret_cast<uint4*>(p) = make_uint4(w[0], w[1], w[2], w[3]);
-    } else if constexpr (kBytes == 8) {
-      *reinterpret_cast<uint2*>(p) = make_uint2(w[0], w[1]);
-    } else {
-      *reinterpret_cast<unsigned*>(p) = w[0];
-    }
-  }
 }
 
 // V float32 values at p, aligned to 4 V bytes (at most 16).
@@ -1118,45 +1045,6 @@ constexpr int kShardValues = 16;    // values a lane at most: SHARD_VALUES
 constexpr int kMaxTiles = 65535;    // blockIdx.y
 constexpr int kShardSegments = 32;  // column-sum pass: strided segments a column
 constexpr int kShardStages = 2;     // phase B's ring: rows a team
-
-// The sum over a team's `lanes` lanes (aligned groups of a power of two):
-// partners add the same two values, so every lane holds the same bits.
-__device__ __forceinline__ float team_sum(float v, int lanes) {
-  for (int o = 1; o < lanes; o <<= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-template <int B>
-struct RawOf;
-template <>
-struct RawOf<16> { using type = uint4; };
-template <>
-struct RawOf<8> { using type = uint2; };
-template <>
-struct RawOf<4> { using type = unsigned; };
-template <>
-struct RawOf<2> { using type = unsigned short; };
-
-// V values of T as they lie in memory: one load of V * sizeof(T) bytes.
-template <typename T, int V>
-using Raw = typename RawOf<V * static_cast<int>(sizeof(T))>::type;
-
-template <typename T, int V>
-__device__ __forceinline__ void raw_to_f(const Raw<T, V>& r, float* v) {
-  constexpr int kBytes = V * static_cast<int>(sizeof(T));
-  if constexpr (kBytes == 16) {
-    const unsigned w[4] = {r.x, r.y, r.z, r.w};
-    unpack<T, V>(w, v);
-  } else if constexpr (kBytes == 8) {
-    const unsigned w[2] = {r.x, r.y};
-    unpack<T, V>(w, v);
-  } else if constexpr (kBytes == 4) {
-    const unsigned w[1] = {r};
-    unpack<T, V>(w, v);
-  } else {
-    v[0] = __uint_as_float(static_cast<unsigned>(r) << 16);  // one bf16
-  }
-}
 
 // Phase B's rows come through a ring in shared memory (kShardStages rows a
 // team, by cp.async); phase A's, and single bf16 values (cp.async copies at

@@ -54,7 +54,11 @@ _SIGNATURES = {
                                          ctypes.c_int, ctypes.c_int, _P),
     "fused_spectre_linear_shard_ln": (ctypes.c_int, ctypes.c_int, _P, _LL, _P, ctypes.c_int, _P,
                                       _P, _P, _P, _LL, _P, _P, _P, _LL, _LL, _LL,
-                                      ctypes.c_float, _P),
+                                      ctypes.c_float, _LL, ctypes.c_int, ctypes.c_int,
+                                      ctypes.c_int, ctypes.c_int, _P),
+    "fused_spectre_linear_shard_ln_occupancy": (ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                                ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                                ctypes.POINTER(ctypes.c_int)),
     "fused_spectre_linear_shard_sums": (ctypes.c_int, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _LL,
                                         _LL, ctypes.c_int, ctypes.c_int, ctypes.c_int, _P),
     "fused_spectre_linear_shard_dh": (ctypes.c_int, _P, _P, _P, _P, _P, _P, ctypes.c_int, _P, _P,

@@ -475,11 +475,15 @@ def _wide_occupancy(device_index: int, dtype: torch.dtype, vec: int, chunks: int
 
 
 def _alignment(*tensors) -> int:
-    """The largest power of two up to 16 that divides every base address."""
-    bases = 16
+    """The largest power of two up to 16 that divides every base address and
+    the row stride in bytes of every 2-d tensor (None: skipped)."""
+    bits = 16
     for t in tensors:
-        bases |= t.data_ptr()
-    return bases & -bases
+        if t is not None:
+            bits |= t.data_ptr()
+            if t.dim() == 2:
+                bits |= t.stride(0) * t.element_size()
+    return bits & -bits
 
 
 def fused_spectre_linear_bwd_wide(h, g, gamma, beta, dh, sums, eps: float) -> None:
@@ -629,20 +633,24 @@ def fused_spectre_linear_grad(x, w, b, gamma, beta, eps: float = 1e-5):
 #    rank order), dh and db.
 #
 # csrc/fused_spectre_linear.cu holds 1 and 2, csrc/fused_spectre_linear_bwd.cu
-# 3 and 4 (one kernel each, on ``shard_chain_plan``'s launch: a team of lanes
-# a row, each lane's columns the same in every row, so that gamma, beta and
-# the column sums stay in its registers; then a fixed-order column-sum
-# pass). The plain versions state the arithmetic: float32 statistics, the
-# same rank-order merge, the roundings where the kernels round.
+# 3 and 4. Entries 2, 3 and 4 are one kernel each on the row shape of
+# ``_shard_shape`` (``shard_ln_plan``, ``shard_chain_plan``): a team of lanes
+# a row, each lane's columns the same in every row, so that gamma, beta (and
+# the bias, or the column sums) stay in its registers, the next row loaded
+# while one is computed; 3 and 4 then a fixed-order column-sum pass. The
+# plain versions state the arithmetic: float32 statistics, the same
+# rank-order merge, the roundings where the kernels round.
 
-# entries 3 and 4 (csrc/fused_spectre_linear_bwd.cu): the threads of a block,
-# the vectors and values a lane holds in registers at most, and the blocks
-# an SM at most of what the card's occupancy allows (each block adds one
-# partial row of column sums)
+# entries 2, 3 and 4: the threads of a block and the vectors and values a
+# lane holds in registers at most; 3 and 4 (csrc/fused_spectre_linear_bwd.cu):
+# the blocks an SM at most of what the card's occupancy allows (each block
+# adds one partial row of column sums)
 SHARD_THREADS = 256
 SHARD_CHUNKS = 4
 SHARD_VALUES = 16
 SHARD_BLOCKS_PER_SM = 3
+# the threads an SM of the H100 holds
+SM_THREADS = 2048
 
 
 def matmul_f32(a, b):
@@ -761,20 +769,15 @@ class ShardChainPlan(NamedTuple):
     rows: int
 
 
-def shard_chain_plan(dtype: torch.dtype, m: int, n: int, align: int = 16, sm_count: int = 132,
-                     occupancy=None) -> ShardChainPlan:
-    """Entry 3's or 4's launch for h and g [m, n] whose bases (h, g, dh,
-    gamma, beta) are all ``align``-byte aligned. For each vector of
-    at most 16 bytes that n and the bases allow: the lanes a row (a power of
-    two up to 32) and chunks a lane (at most SHARD_CHUNKS vectors and
-    SHARD_VALUES values) with the fewest column slots, the fewest lanes among
-    them; a row beyond 32 lanes' reach in tiles of 32 lanes. Of those, the
-    widest vector whose slots past n (idle lanes) are at most an eighth of
-    its slots, else the fewest slots. The grid: ``occupancy(vec,
-    chunks)`` blocks an SM (the card's answer; SHARD_BLOCKS_PER_SM when
-    None), at most SHARD_BLOCKS_PER_SM, on ``sm_count`` SMs, shared among
-    the tiles, at most one a row; the rows split evenly, so no block is
-    empty."""
+def _shard_shape(dtype: torch.dtype, n: int, align: int) -> tuple[int, int, int, int]:
+    """(vec, lanes, chunks, tiles) of a row of n values whose bases and row
+    strides are ``align``-byte aligned. For each vector of at most 16 bytes
+    that n and ``align`` allow: the lanes a row (a power of two up to 32) and
+    chunks a lane (at most SHARD_CHUNKS vectors and SHARD_VALUES values)
+    with the fewest column slots, the fewest lanes among them; a row beyond
+    32 lanes' reach in tiles of 32 lanes. Of those, the widest vector whose
+    slots past n (idle lanes) are at most an eighth of its slots, else the
+    fewest slots."""
     el = dtype.itemsize
     shapes = []  # (slots, vec, lanes, chunks, tiles), widest vector first
     for vec in (8, 4, 2, 1):
@@ -791,7 +794,18 @@ def shard_chain_plan(dtype: torch.dtype, m: int, n: int, align: int = 16, sm_cou
                                  if _ceil(vectors, lane) <= most), key=lambda lc: lc[0] * lc[1])
         shapes.append((tiles * lanes * chunks * vec, vec, lanes, chunks, tiles))
     tight = [s for s in shapes if 8 * (s[0] - n) <= s[0]]
-    _, vec, lanes, chunks, tiles = tight[0] if tight else min(shapes, key=lambda s: s[0])
+    return (tight[0] if tight else min(shapes, key=lambda s: s[0]))[1:]
+
+
+def shard_chain_plan(dtype: torch.dtype, m: int, n: int, align: int = 16, sm_count: int = 132,
+                     occupancy=None) -> ShardChainPlan:
+    """Entry 3's or 4's launch for h and g [m, n] whose bases (h, g, dh,
+    gamma, beta) are all ``align``-byte aligned: ``_shard_shape``'s vector,
+    lanes, chunks and tiles. The grid: ``occupancy(vec, chunks)`` blocks an
+    SM (the card's answer; SHARD_BLOCKS_PER_SM when None), at most
+    SHARD_BLOCKS_PER_SM, on ``sm_count`` SMs, shared among the tiles, at
+    most one a row; the rows split evenly, so no block is empty."""
+    vec, lanes, chunks, tiles = _shard_shape(dtype, n, align)
     per_sm = SHARD_BLOCKS_PER_SM if occupancy is None else occupancy(vec, chunks)
     if per_sm < 1:
         raise ValueError(f"entry 3/4's block ({vec}, {chunks}) does not fit an SM")
@@ -819,6 +833,84 @@ def _shard_plan(h, dh_phase: bool, *tensors) -> ShardChainPlan:
     dev = h.get_device()
     return shard_chain_plan(h.dtype, m, n, _alignment(h, *tensors), _sm_count(dev),
                             functools.partial(_shard_occupancy, dev, h.dtype, dh_phase))
+
+
+class ShardLnPlan(NamedTuple):
+    """A launch of entry 2: vectors of ``vec`` values, ``lanes`` lanes a
+    row, ``chunks`` vectors a lane (0: a block of SHARD_THREADS walks each
+    whole row), so ``tiles`` tiles of lanes * chunks * vec columns a row: a
+    shard's on blockIdx.y, or a whole row's as the ``warps`` warps of a team
+    in one block; ``threads`` a block; ``blocks`` blocks (a tile) of
+    ``rows`` contiguous rows each."""
+    vec: int
+    lanes: int
+    chunks: int
+    tiles: int
+    warps: int
+    threads: int
+    blocks: int
+    rows: int
+
+
+def shard_ln_plan(dtype: torch.dtype, m: int, n: int, align: int = 16, whole: bool = False,
+                  sm_count: int = 132, occupancy=None) -> ShardLnPlan:
+    """Entry 2's launch for h [m, n] of ``dtype`` (the input's) whose bases
+    and row strides (h, the residual; out, h_out, gamma, beta, bias in their
+    own dtype) are aligned to ``align`` bytes of it (``align / itemsize``
+    elements of each): ``_shard_shape``'s vector, lanes, chunks and
+    tiles. A shard's tiles go on blockIdx.y; a ``whole`` row's tiles are
+    the warps of one team (up to SHARD_THREADS / 32 of them, which meet in
+    shared memory), and a wider whole row is walked. Teams of lanes * warps
+    threads fill a block of at most SHARD_THREADS. The grid:
+    ``occupancy(vec, chunks, threads)`` blocks an SM (the card's answer; as
+    many as SM_THREADS allow when None), on ``sm_count`` SMs, shared among
+    the tiles, at most one a row; the rows split evenly, so no block is
+    empty."""
+    vec, lanes, chunks, tiles = _shard_shape(dtype, n, align)
+    warps = 1
+    if whole and tiles > 1:
+        if tiles <= SHARD_THREADS // 32:
+            warps, tiles = tiles, 1
+        else:
+            lanes, chunks, tiles, warps = 32, 0, 1, SHARD_THREADS // 32
+    width = lanes * warps
+    threads = SHARD_THREADS // width * width
+    per_sm = SM_THREADS // threads if occupancy is None else occupancy(vec, chunks, threads)
+    if per_sm < 1:
+        raise ValueError(f"entry 2's block ({vec}, {chunks}, {threads}) does not fit an SM")
+    rows = _ceil(m, min(m, max(1, per_sm * sm_count // tiles)))
+    return ShardLnPlan(vec, lanes, chunks, tiles, warps, threads, _ceil(m, rows), rows)
+
+
+def _shard_ln_align(h, residual, *outputs) -> int:
+    """The alignment, in bytes of h's dtype, that a vector of entry 2 has in
+    every operand: in h's elements for h and the residual, in gamma's for
+    ``outputs`` (gamma, beta, bias, out, the saved h; None skipped)."""
+    el, el_out = h.element_size(), outputs[0].element_size()
+    return el * min(_alignment(h, residual) // el, _alignment(*outputs) // el_out)
+
+
+@functools.lru_cache(maxsize=256)
+def _shard_ln_launch(device_index: int, in_dtype: torch.dtype, out_dtype: torch.dtype, m: int,
+                     n: int, align: int, whole: bool) -> ShardLnPlan:
+    """``shard_ln_plan`` on the card, kept for each shape: the wrapper's
+    host time a call stays below the kernel's at the flagship's shards."""
+    return shard_ln_plan(in_dtype, m, n, align, whole, _sm_count(device_index),
+                         functools.partial(_shard_ln_occupancy, device_index, in_dtype,
+                                           out_dtype, whole))
+
+
+@functools.lru_cache(maxsize=None)
+def _shard_ln_occupancy(device_index: int, in_dtype: torch.dtype, out_dtype: torch.dtype,
+                        whole: bool, vec: int, chunks: int, threads: int) -> int:
+    """Blocks of entry 2's instance (a ``whole`` row's or a shard's) of
+    ``threads`` threads an SM of the card holds, asked once."""
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(device_index):
+        check(load_library().fused_spectre_linear_shard_ln_occupancy(
+            _DTYPE_CODES[in_dtype], _DTYPE_CODES[out_dtype], int(whole), vec, chunks, threads,
+            ctypes.byref(per_sm)), "fused_spectre_linear_shard_ln_occupancy")
+    return per_sm.value
 
 
 def _on_card(name, *tensors) -> bool:
@@ -929,12 +1021,17 @@ def sharded_ln_gelu(h, stats, gamma, beta, n_full: int, bias=None, residual=None
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    check(load_library().fused_spectre_linear_shard_ln(
+    plan = _shard_ln_launch(dev, h.dtype, gamma.dtype, m, n,
+                            _shard_ln_align(h, residual, gamma, beta, bias, out, saved),
+                            stats is None)
+    err = load_library().fused_spectre_linear_shard_ln(
         *codes, h.data_ptr(), h.stride(0), ptr(stats),
         1 if stats is None else stats.shape[0], ptr(bias), gamma.data_ptr(), beta.data_ptr(),
         ptr(residual), 0 if residual is None else residual.stride(0), out.data_ptr(),
-        ptr(saved), mstats.data_ptr(), m, n, n_full, eps, current_stream(dev)),
-        "sharded_ln_gelu launch")
+        ptr(saved), mstats.data_ptr(), m, n, n_full, eps, plan.blocks, plan.vec, plan.lanes,
+        plan.chunks, plan.warps, current_stream(dev))
+    if err:
+        check(err, f"sharded_ln_gelu launch ({plan})")
     sharded_ln_gelu.launches += 1
     return out, mstats, saved
 

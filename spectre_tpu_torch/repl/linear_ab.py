@@ -40,7 +40,11 @@ float32, beside its bound (x read and written once).
 
 Then kernel 2's column-shard backward entries (``chain_shard_sums`` and
 ``chain_shard_dh``, each with its column-sum pass) at ``chip_smoke.py``
-phase 28's shards (SHARD_TAGS), beside their bounds.
+phase 28's shards (SHARD_TAGS), beside their bounds. Then entry 2
+(``sharded_ln_gelu``) at SHARD_LN_TAGS: the flagship's column shards, the
+ragged ones, linear3's whole float32 rows and a whole row of 1,536, beside
+its bound, its plain version and, on whole rows, the torch chain
+``gelu(layer_norm(s + b)) + res`` (a yardstick the port never calls).
 
 With ``--parent DIR`` (an unpacked tree of another commit, its kernels built
 into its own ``build/kernels/``) the shapes run in four processes in turns,
@@ -50,11 +54,11 @@ package; the card's name and power limit and every turn's numbers go to
 written once over 3.35 TB/s and the operations over the dtype's peak).
 ``--root DIR`` runs one turn of the tree at DIR (what the turns call).
 ``--parts`` picks the groups (``fwd``, ``block_bwd``, ``bwd``, ``fwht``,
-``shard_chain``; all by default). ``--chain-sweep`` times this tree's wide
-chain alone at the C6 shapes for each cap of ``WIDE_BLOCKS_PER_SM`` in 1 ..
-8 instead; ``--shard-sweep`` entries 3 and 4 at the flagship's shards for
-each cap of ``SHARD_BLOCKS_PER_SM``, with each kernel's share. Needs a CUDA
-card.
+``shard_chain``, ``shard_ln``; all by default). ``--chain-sweep`` times this
+tree's wide chain alone at the C6 shapes for each cap of
+``WIDE_BLOCKS_PER_SM`` in 1 .. 8 instead; ``--shard-sweep`` entries 3 and 4
+at the flagship's shards for each cap of ``SHARD_BLOCKS_PER_SM``, with each
+kernel's share. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -90,7 +94,16 @@ SHARD_TAGS = ([(dt, b, 768, size) for dt in ("bfloat16", "float32") for b in (25
                for size in (2, 4)]
               + [(dt, 256, n_full, size) for dt in ("bfloat16", "float32")
                  for n_full, size in ((100, 4), (100, 2), (3072, 2))])
-PARTS = ("fwd", "block_bwd", "bwd", "fwht", "shard_chain")
+# entry 2 (sharded_ln_gelu): (dtype, batch, N, ranks) as SHARD_TAGS, the
+# column shards of linear1 (768) and of the head (100, ragged); ranks 1:
+# linear3's whole rows of N (the all-reduced float32 sum), and one wider
+# than a warp's registers
+SHARD_LN_TAGS = ([(dt, b, 768, size) for dt in ("bfloat16", "float32") for b in (256, 1024)
+                  for size in (2, 4)]
+                 + [(dt, 256, 100, size) for dt in ("bfloat16", "float32") for size in (4, 2)]
+                 + [(dt, b, 512, 1) for dt in ("bfloat16", "float32") for b in (256, 1024)]
+                 + [(dt, 256, 1536, 1) for dt in ("bfloat16", "float32")])
+PARTS = ("fwd", "block_bwd", "bwd", "fwht", "shard_chain", "shard_ln")
 
 
 def one_turn(root: str, parts=PARTS) -> dict:
@@ -115,6 +128,8 @@ def one_turn(root: str, parts=PARTS) -> dict:
         rows.update(fwht_turn(kernels))
     if "shard_chain" in parts:
         rows.update(shard_turn(kernels))
+    if "shard_ln" in parts:
+        rows.update(shard_ln_turn(kernels))
     return rows
 
 
@@ -368,6 +383,77 @@ def shard_turn(kernels) -> dict:
               f"{row['dh_device_ms']:.4f}), bound {row['dh_bound_ms']:.4f} by "
               f"{row['dh_bound_by']}", flush=True)
         del h, g, rowsums
+        torch.cuda.empty_cache()
+    return rows
+
+
+def _shard_ln_case(dt, batch, n_full, size):
+    """Entry 2's operands on the card, as ``parallel/tp.py`` hands them over:
+    (tag, the call's arguments, bound ms, bound by). A column shard: rank
+    0's n = N / size columns of h, the ranks' statistics [size, M, 2] and
+    its columns of the pool [M, N] (a strided view). ``size`` 1: linear3's
+    whole rows, h and the residual the halves of the all-reduced float32 sum
+    [M, 2N], with the bias. The bound: h, the residual, gamma, beta (and the
+    bias), the statistics read, out (and h) and (mean, rstd) written once;
+    some 20 float32 operations an element."""
+    import torch
+
+    from spectre_tpu_torch.utils.timing import FP32_FLOPS, bound_ms
+
+    dtype, m, n = getattr(torch, dt), 65 * batch, n_full // size
+    el = dtype.itemsize
+    gen = torch.Generator(device="cuda").manual_seed(m + n_full + size)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    gamma, beta = (1 + 0.1 * randn(n)).to(dtype), (0.1 * randn(n)).to(dtype)
+    name = "bf16" if dtype == torch.bfloat16 else "f32"
+    if size == 1:
+        s = 2.0 + randn(m, 2 * n)
+        args = (s[:, :n], None, gamma, beta, n, (0.1 * randn(n)).to(dtype), s[:, n:])
+        nbytes = m * 2 * n * 4 + 3 * n * el + 2 * m * n * el + m * 8
+        tag = f"shard_ln_{name}_B{batch}_rows{n}"
+    else:
+        stats = torch.stack([0.5 * randn(size, m), n * (0.5 + randn(size, m).abs())], -1)
+        pool = randn(m, n_full).to(dtype)
+        args = ((2.0 + randn(m, n)).to(dtype), stats, gamma, beta, n_full, None, pool[:, :n])
+        nbytes = 3 * m * n * el + 2 * n * el + size * m * 8 + m * 8
+        tag = f"shard_ln_{name}_B{batch}_n{n}"
+    return (tag, args, *bound_ms(nbytes, 20 * m * n, FP32_FLOPS))
+
+
+def shard_ln_turn(kernels) -> dict:
+    """Entry 2 (``sharded_ln_gelu``) at SHARD_LN_TAGS, back to back and on
+    the device, beside its bound and its plain version; on whole rows also
+    the torch chain gelu(layer_norm(s + b)) + res in float32, cast once."""
+    import torch
+    import torch.nn.functional as F
+
+    from spectre_tpu_torch.utils.timing import cuda_time_ms, device_time_ms
+
+    rows = {}
+    for case in SHARD_LN_TAGS:
+        tag, args, bound, by = _shard_ln_case(*case)
+        h, _, gamma, beta, _, bias, res = args
+        fns = {"kernel": lambda: kernels.sharded_ln_gelu(*args),
+               "plain": lambda: kernels.sharded_ln_gelu_plain(*args)}
+        if bias is not None:
+            n = h.shape[1]
+            b32, g32, be32 = bias.float(), gamma.float(), beta.float()
+            fns["chain"] = lambda: (F.gelu(F.layer_norm(h + b32, (n,), g32, be32))
+                                    + res).to(gamma.dtype)
+        row = {"bound_ms": bound, "bound_by": by}
+        for name, fn in fns.items():
+            row[name + "_ms"] = cuda_time_ms(fn, iters=20 if name == "kernel" else 5)
+            row[name + "_device_ms"] = device_time_ms(fn, iters=10 if name == "kernel" else 3)
+        rows[tag] = row
+        print(f"{tag}: sharded_ln_gelu {row['kernel_ms']:.4f} ms (device "
+              f"{row['kernel_device_ms']:.4f}), bound {bound:.4f} by {by} "
+              f"({bound / row['kernel_device_ms']:.2f}); plain {row['plain_device_ms']:.4f}"
+              + (f"; torch chain {row['chain_device_ms']:.4f}" if "chain" in fns else ""),
+              flush=True)
+        del args, h, res
         torch.cuda.empty_cache()
     return rows
 

@@ -1010,6 +1010,91 @@ def test_chain_shard_entries_equal_plain(cuda_device, m, n, size, dtype):
     assert counts["chain_shard_dh"] - before["chain_shard_dh"] == 2
 
 
+@pytest.mark.parametrize("m,n,size,whole", [(16640, 384, 2, False), (16640, 192, 4, False),
+                                            (130, 25, 4, False), (130, 50, 2, False),
+                                            (333, 1536, 2, False), (16640, 512, 1, True),
+                                            (4160, 1536, 1, True), (130, 100, 1, True),
+                                            (65, 4100, 1, True)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sharded_ln_gelu_equals_plain(cuda_device, m, n, size, whole, dtype):
+    """Kernel B3's entry 2 at the routes of ``shard_ln_plan``: column shards
+    (the flagship's 384 and 192 columns, ragged 25 and 50, a shard of 1,536
+    in tiles) with the other ranks' statistics drawn and the residual a
+    strided view of the pool, and linear3's whole float32 rows (512; 1,536
+    on three warps of a block; 100 on a team of 8 lanes; 4,100 walked),
+    h and the residual the halves of one [M, 2n] sum. out and the merged
+    (mean, rstd) against the plain version on the same inputs (f32: 1e-5 of
+    each result's largest entry; bf16: 2^-6, one rounding of out apart);
+    the saved h bit for bit (one rounding of h + bias on both); two runs bit
+    for bit; one launch a call."""
+    from spectre_tpu_torch.ops.kernels import sharded_ln_gelu, sharded_ln_gelu_plain
+    from spectre_tpu_torch.ops.kernels.fused_linear import _row_stats
+
+    gen = torch.Generator().manual_seed(m + n + size)
+    gamma = (1 + 0.1 * torch.randn(n, generator=gen)).to(cuda_device, dtype)
+    beta = (0.1 * torch.randn(n, generator=gen)).to(cuda_device, dtype)
+    if whole:
+        s = (2.0 + torch.randn(m, 2 * n, generator=gen)).to(cuda_device)
+        h, res, stats = s[:, :n], s[:, n:], None
+        bias = (0.1 * torch.randn(n, generator=gen)).to(cuda_device, dtype)
+    else:
+        pool = torch.randn(m, size * n, generator=gen).to(cuda_device, dtype)
+        h = (2.0 + torch.randn(m, n, generator=gen)).to(cuda_device, dtype)
+        res, bias = pool[:, (size - 1) * n:], None
+        others = torch.stack([0.5 * torch.randn(size - 1, m, generator=gen),
+                              n * (0.5 + torch.rand(size - 1, m, generator=gen))], -1)
+        stats = torch.cat([_row_stats(h.float())[None], others.to(cuda_device)])
+    args = (h, stats, gamma, beta, size * n, bias, res)
+    limit = 1e-5 if dtype == torch.float32 else 2.0 ** -6
+
+    def close(a, b):
+        a, b = a.float(), b.float()
+        assert float((a - b).abs().max()) <= limit * max(float(b.abs().max()), 1e-30)
+
+    before = launch_counts()["sharded_ln_gelu"]
+    out, mstats, saved = sharded_ln_gelu(*args)
+    out_p, mstats_p, saved_p = sharded_ln_gelu_plain(*args)
+    close(out, out_p)
+    close(mstats[:, 0], mstats_p[:, 0])
+    close(mstats[:, 1], mstats_p[:, 1])
+    assert (saved is None) == (saved_p is None) == (not whole)
+    if whole:
+        assert torch.equal(saved, saved_p)
+    again = sharded_ln_gelu(*args)
+    assert all(torch.equal(a, b) for a, b in zip((out, mstats, saved), again) if a is not None)
+    assert launch_counts()["sharded_ln_gelu"] - before == 2
+
+
+@pytest.mark.parametrize("m,n,size,h_dtype,dtype", [
+    (130, 101, 1, torch.bfloat16, torch.bfloat16), (4160, 512, 1, torch.bfloat16, torch.bfloat16),
+    (65, 4100, 1, torch.bfloat16, torch.bfloat16), (4160, 384, 2, torch.float32, torch.bfloat16),
+    (130, 25, 4, torch.float32, torch.bfloat16)])
+def test_sharded_ln_gelu_takes_every_dtype_pair(cuda_device, m, n, size, h_dtype, dtype):
+    """Entry 2's other (h, gamma) dtype pairs: whole rows of h in bf16 (an
+    odd width on single values, 512, 4,100 walked) and float32 shards under
+    bf16 parameters, against the plain version (2^-6 of the largest entry),
+    the saved h bit for bit."""
+    from spectre_tpu_torch.ops.kernels import sharded_ln_gelu, sharded_ln_gelu_plain
+
+    gen = torch.Generator().manual_seed(m + n)
+    gamma = (1 + 0.1 * torch.randn(n, generator=gen)).to(cuda_device, dtype)
+    beta = (0.1 * torch.randn(n, generator=gen)).to(cuda_device, dtype)
+    h = (2.0 + torch.randn(m, n, generator=gen)).to(cuda_device, h_dtype)
+    res = torch.randn(m, n, generator=gen).to(cuda_device, h_dtype)
+    if size == 1:
+        stats, bias = None, (0.1 * torch.randn(n, generator=gen)).to(cuda_device, dtype)
+    else:
+        stats = torch.stack([0.5 * torch.randn(size, m, generator=gen),
+                             n * (0.5 + torch.rand(size, m, generator=gen))], -1).to(cuda_device)
+        bias = None
+    args = (h, stats, gamma, beta, size * n, bias, res)
+    got, want = sharded_ln_gelu(*args), sharded_ln_gelu_plain(*args)
+    for a, b in zip(got[:2], want[:2]):
+        a, b = a.float(), b.float()
+        assert float((a - b).abs().max()) <= 2.0 ** -6 * float(b.abs().max())
+    assert (got[2] is None and want[2] is None) or torch.equal(got[2], want[2])
+
+
 @pytest.mark.parametrize("size", [2, 4])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_split_spectre_linears_launch_the_shard_entries(cuda_device, size, dtype):
