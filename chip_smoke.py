@@ -254,7 +254,10 @@ Phases, each raising on failure (nothing is caught):
    100) and shards cut into tiles (1,536 of 3,072), where entries 2, 3 and
    4 (``shard_ln_plan``, ``shard_chain_plan``) mask lanes or cut the row
    into tiles, and entry 2 on a whole row of 1,536 (three warps a row),
-   each rank's merged statistics bit for bit the others'; the shards
+   each rank's merged statistics bit for bit the others'; in bf16 entry 1's
+   kernel (``shard_stats_wgmma_kernel``, ``shard_stats_plan``) also at its
+   widest shard (768 columns of 1,536, timed) and at M = 16,575 (a row
+   tile of 128 cut short), entry 1's times beside ``torch.addmm``; the shards
    merged through the entries against the whole-row kernel (1e-5 of the
    largest entry in float32, one bf16 ulp of it in bf16). Then (after
    phase 27), every rank on the one card over gloo on card tensors: (a)
@@ -851,7 +854,8 @@ KERNEL_NAMES = ("block_scatter_rows", "block_gather_sum", "inverse_gather_sum",
                 "fused_spectre_linear_cluster", "fused_block_bwd_wgmma",
                 "fused_block_bwd_grouped", "fused_spectre_linear_wide_cluster",
                 "fused_spectre_linear_bwd_wide", "fused_spectre_linear_shard_stats",
-                "sharded_ln_gelu", "chain_shard_sums", "chain_shard_dh")
+                "sharded_ln_gelu", "chain_shard_sums", "chain_shard_dh",
+                "fused_spectre_linear_shard_stats_wgmma")
 
 
 def expected_launches(cfg, forwards: int = 0, steps: int = 0) -> dict[str, int]:
@@ -3275,6 +3279,8 @@ TP_ELEMENT_FLOPS = {"sharded_ln_gelu": 20, "chain_shard_sums": 35, "chain_shard_
 # entries 3 and 4 beyond the flagship's shards: (N, ranks) whose shards are
 # ragged (25 and 50 columns: lanes past n masked) or cut into tiles (1,536)
 TP_CHAIN_SHAPES = ((100, 4), (100, 2), (3072, 2))
+# entry 1's kernel at its widest shard: N over 2 ranks, 768 columns a rank
+TP_STATS_WIDE = 1536
 
 
 def _bf16_ulp(x: float) -> float:
@@ -3316,9 +3322,12 @@ def phase_tp_entries(kernels, gen):
     of the gathered row sums merged by entry 4 to the same bits. At B = 256
     also the shards of TP_CHAIN_SHAPES (ragged: 25 and 50 columns; cut into
     tiles: 1,536), entries 2, 3 and 4 timed there, and entry 2 on a whole
-    row of 1,536 (three warps of a block share it). Times (bf16, 2 ranks,
-    B = 256 is the main row; every shape's beside) back to back, on the
-    device and of the plain version, with each entry's byte bound."""
+    row of 1,536 (three warps of a block share it); in bf16 entry 1's
+    widest shard (N = 1,536 over 2 ranks, the whole row on the wide
+    cluster kernel; timed) and rows that end inside a row tile of its
+    kernel (B = 255). Times (bf16, 2 ranks, B = 256 is the main row; every
+    shape's beside) back to back, on the device and of the plain version,
+    with each entry's byte bound; entry 1's beside ``torch.addmm``."""
     e, f = 512, 768
     worst = {name: {} for name in TP_ENTRY_NAMES}
     rows, merge = {}, {}
@@ -3331,7 +3340,7 @@ def phase_tp_entries(kernels, gen):
         if not err <= TP_ENTRY_REL[dtype]:
             raise AssertionError(f"{name} {tag} {dtype}: rel err {err} > {TP_ENTRY_REL[dtype]}")
 
-    def timed(name, fn, plain, tag, bounds):
+    def timed(name, fn, plain, tag, bounds, library=None):
         fn()
         again = fn()
         first = fn()
@@ -3341,6 +3350,9 @@ def phase_tp_entries(kernels, gen):
         dev, host = queued_time_ms(fn, iters=10, reps=5)
         t = {"ms": cuda_time_ms(fn, iters=10, reps=5), "device_ms": dev, "host_ms": host,
              "plain_ms": cuda_time_ms(plain, iters=5, reps=3)}
+        if library is not None:
+            t["library_ms"] = cuda_time_ms(library, iters=10, reps=5)
+            t["library_device_ms"] = device_time_ms(library, iters=10, reps=5)
         t["bound_ms"], t["bound_by"] = bounds[name]
         rows.setdefault(name, {})[tag] = t
         return t
@@ -3430,7 +3442,10 @@ def phase_tp_entries(kernels, gen):
                                                      f))}
         for name in TP_ENTRY_NAMES:
             if name in time_entries:
-                timed(name, *calls[name], tag, bounds)
+                # entry 1 beside torch.addmm(b, x, w), h alone without the statistics
+                library = ((lambda: torch.addmm(bs[0], x, ws[0])) if name == TP_ENTRY_NAMES[0]
+                           else None)
+                timed(name, *calls[name], tag, bounds, library)
             else:  # two runs bit for bit all the same
                 fn = calls[name][0]
                 first, again = fn(), fn()
@@ -3474,6 +3489,13 @@ def phase_tp_entries(kernels, gen):
                 for n_full, size in TP_CHAIN_SHAPES:
                     shard_tag(dtype, batch, n_full, size, TP_ENTRY_NAMES[1:])
                     torch.cuda.empty_cache()
+            if batch == 256 and dtype == torch.bfloat16:
+                # entry 1's kernel at four column tiles a row tile (N = 1,536
+                # over 2 ranks, timed) and at rows that end inside a row
+                # tile of 128 (B = 255: 16,575 rows)
+                shard_tag(dtype, batch, TP_STATS_WIDE, 2, TP_ENTRY_NAMES[:1])
+                shard_tag(dtype, 255, f, 2, ())
+                torch.cuda.empty_cache()
             # linear3: entry 2 on whole rows of the all-reduced float32 sum [M, 2N]
             # (the product's and the pool's partials side by side); at B = 256
             # also a whole row wider than a warp's registers
@@ -3497,11 +3519,16 @@ def phase_tp_entries(kernels, gen):
                     "max_rel_err_f32": worst[name][torch.float32][0],
                     "ms": main["ms"], "device_ms": main["device_ms"],
                     "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
-                    "bound_by": main["bound_by"], "library_ms": None,
+                    "bound_by": main["bound_by"], "library_ms": main.get("library_ms"),
                     "library": "none: the plain version's torch ops",
                     "times": rows[name],
                     "shape": "x [16640, 512] bf16, this rank's 384 of 768 columns (2 ranks); "
                              "max_rel_err: relative to each result's largest entry"})
+    # entry 1 in bf16 runs its own kernel; addmm computes h alone, without the
+    # statistics
+    out[0].update(kernel="shard_stats_wgmma_kernel",
+                  library="torch.addmm(b, x, w): h alone, no statistics",
+                  library_device_ms=rows[TP_ENTRY_NAMES[0]][main_tag]["library_device_ms"])
     for tag, mg in merge.items():
         print(f"tp entries: shards {tag} merged against the whole-row kernel: max abs diff "
               f"{mg['max_abs_diff']:.3g} (limit {mg['limit']:.3g}, largest entry "
@@ -3833,8 +3860,8 @@ def expected_tp_launches(cfg, forwards: int = 0, steps: int = 0, size: int = 2) 
     """Launches a rank of ``forwards`` inference forwards plus ``steps`` train
     steps of the configured model (SpectreViT with the folded block mix, or
     the ViT) under tensor parallelism over ``size`` ranks: each layer's
-    linear1 on the column-shard entries (entry 1 on the wgmma kernel where
-    it takes the shard), its linear3 on entry 2 and kernel 2's backward, the
+    linear1 on the column-shard entries (entry 1 on its own bf16 kernel
+    where it takes the shard), its linear3 on entry 2 and kernel 2's backward, the
     head whole; the ViT's attention on this rank's heads."""
     from spectre_tpu_torch.ops.kernels import forward_kernel, shard_stats_kernel
 
@@ -4249,6 +4276,8 @@ def main() -> int:
     k2_head["head_times_again"] = perf_modes["head"]
     # phase 28: the four shard entries on the flagship's TP leg (a) (3 steps
     # and 2 validation batches, a rank), (b)'s float32 step and (d)'s FSDP x TP
+    tp_entries[0]["launches_kernel"] = tp["flagship"]["launches"][
+        "fused_spectre_linear_shard_stats_wgmma"]
     for k in tp_entries:
         k["launches"] = tp["flagship"]["launches"][k["name"]]
         k["launches_tp_f32_step"] = tp["ranks"]["f32"]["launches"][k["name"]]

@@ -818,7 +818,12 @@ fused_linear_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
     var0 += red[1][j][r0];
     var1 += red[1][j][r0 + 8];
   }
-  if (stats_out != nullptr) {  // a column shard's forward: h and (mean, M2), no epilogue
+  // A column shard's forward (h and (mean, M2), no epilogue) took this mode
+  // until it got its own kernel (shard_stats_wgmma_kernel below); nothing
+  // passes stats_out now. The branch stays: without it ptxas spills more of
+  // the 3-warpgroup instance's registers, and the flagship's linear1
+  // forward with h ran 2% slower on the H100 (PERF.md).
+  if (stats_out != nullptr) {
     if (g == 0 && lane % 4 == 0) {
       if (m0 + r0 < M) stats_out[m0 + r0] = make_float2(mean0, var0);
       if (m0 + r0 + 8 < M) stats_out[m0 + r0 + 8] = make_float2(mean1, var1);
@@ -916,6 +921,338 @@ int wgmma_entry(const void* x, const void* w, const void* b, const void* gamma, 
   if (N <= 256) return launch_wgmma<1>(x, w, b, gamma, beta, out, h_out, stats_out, M, K, N, eps, st);
   if (N <= 512) return launch_wgmma<2>(x, w, b, gamma, beta, out, h_out, stats_out, M, K, N, eps, st);
   return launch_wgmma<3>(x, w, b, gamma, beta, out, h_out, stats_out, M, K, N, eps, st);
+}
+
+// ------------------------------------------ the product of a split layer
+//
+// shard_stats_wgmma_kernel (kernel B3's entry 1 under tensor parallelism,
+// bf16): h = x @ W + b [M, n] for this rank's n columns of a SpectreLinear
+// split by columns, rounded once to bf16, and each row's (mean, M2) over
+// those n columns of the float32 sums: the product and the row statistics
+// of the TPU kernel spectre_tpu/ops/pallas/fused_linear.py::_kernel (:56-77,
+// call :94). float32, and shards that TMA cannot describe, take the cluster
+// kernel's statistics mode (cluster_entry).
+//
+// What bounds it on the H100: bytes, x read and h written once (0.0091 ms
+// at (16,640 x 512)(512 x 384)), with the products at 73% of that. What held
+// the first version (an epilogue mode of fused_linear_wgmma_kernel) at 37%
+// of it: (1) every 64-row tile read all of W from L2 into shared memory, 6
+// KB a row of output at n = 384 (116 MB in all); (2) its m64n256k16
+// products ran 512 columns for n = 384, a quarter of them past n; (3) one
+// block an SM and no overlap of a tile's epilogue with the next tile's
+// loads; (4) the consumers refilled the ring themselves after their own
+// wgmma wait, two steps ahead at most.
+//
+// Design (the plan: ops/kernels/fused_linear.py::shard_stats_plan).
+// (1) A row tile is 128 rows: two consumer warpgroups of 64 rows read the
+// same W boxes of a stage, which halves W's L2 reads a row (3 KB at n =
+// 384). (2) A row tile's n columns are cut into column tiles of 64, 128 or
+// 192 up to n's last multiple of 64, and the rest (8 to 56 columns) into a
+// tile of its own; a warpgroup's products on one are an
+// m64n{64,128,192}k16 or an m64n{8..56}k16, so no product runs past n; 96
+// float32 sums a thread. The column tiles of a row tile run one after
+// another in the block (x read again from L2 for each: 2 KB a row at n =
+// 384), and each row's (mean, M2) over a column tile is merged into the
+// row's running pair in registers by Chan's formula, in column order.
+// (3) A persistent grid (one block an SM at most) walks the row tiles; h
+// leaves each warpgroup's staging area by TMA store, drained under the
+// next tile's products and waited for only before the next epilogue writes
+// there. (4) One producer warp keeps a ring of 4 stages (a 128 x 64 box of
+// x and up to three 64 x 64 boxes of W, 40 KB) full by TMA across tiles, so
+// the next tile's loads run under an epilogue; the consumers only wait on
+// full barriers and release empty ones (one arrival a warp, once its
+// warpgroup's wgmma on the stage is done). 96 sums a consumer thread and
+// 288 threads keep within the launch bound's registers.
+//
+// Measured on the H100 (clock64 stamps of each phase; PERF.md):
+// what decides its time is not the bytes from L2 but the code around the
+// wgmma. A width chosen at run time between the products, or roles chosen
+// on threadIdx, made ptxas fence or serialise the wgmma (C7519, C7520), so
+// the roles go by a shuffled warp index and each width is its own template
+// (shard_stats_column: 10 widths for the products; the epilogue's
+// arithmetic fixed at compile time for the multiples of 64). The epilogue
+// runs with the tensor cores idle, so it is one pass over the sums (h and
+// both statistics), with stmatrix into the staging area. Not kept: an L2 prefetch of the
+// next row tile's x (slower at B = 1,024: the row tiles' second halves
+// then wait on HBM too), and a cluster of two blocks on two row tiles,
+// each loading half of a step's W boxes by multicast into both (W's L2
+// bytes a row halved again, but every stage then waits for both blocks:
+// slower at every shape).
+//
+// Statistics of a column tile of w columns, for each of a thread's two
+// rows, in one pass: k = the row's value at the tile's first column (lane
+// cq = 0 of the quad holds it, shuffled to the others); over the thread's
+// 8-column chunks in column order, with v = acc + bias and d = v - k, s1 +=
+// d0 + d1 and s2 += d0^2 + d1^2; across the quad by shuffles (xor 1, then
+// xor 2); the tile's mean = k + s1 / w and M2 = s2 - s1^2 / w; then Chan's
+// merge with the column tiles before it. The fixed orders make two runs
+// equal bit for bit.
+
+constexpr int kSsRows = 128;                                    // a row tile
+constexpr int kSsMaxTile = 192;                                 // a column tile's columns at most
+constexpr int kSsBoxes = kSsMaxTile / 64;                       // W boxes a stage at most
+constexpr int kSsStages = 4;
+constexpr int kSsXBytes = kSsRows * 128;                        // a stage's x box, 128 x 64
+constexpr int kSsStage = kSsXBytes + kSsBoxes * wg::kBoxBytes;  // 40 KB
+constexpr int kSsStaging = 2 * kSsBoxes * wg::kBoxBytes;        // h of a column tile
+constexpr int kSsThreads = 2 * 128 + 32;  // two consumer warpgroups and the producer warp
+// the bias in float32, zero past N up to a column tile past kWgMaxN
+constexpr int kSsBias = kWgMaxN + kSsMaxTile;
+constexpr int kSsSmem = kSsStages * kSsStage + kSsStaging + kSsBias * 4 + 1024;
+
+// L of the sums from float `off` on, as the array one wgmma writes
+#define SS_ACC(L, off) (*reinterpret_cast<float(*)[L]>(acc + (off)))
+
+// A warpgroup's products on one column tile of W columns (64, 128 or 192,
+// or a remainder of 8 to 56 in a box of its own), steps i to i + nk - 1 of
+// the ring: one m64nWk16 a 16-deep slice into acc[0, W / 2). Each stage is
+// released once the warpgroup's products on it are done. A width known at
+// compile time keeps every wgmma off a branch, which ptxas would otherwise
+// fence.
+template <int W>
+__device__ __forceinline__ void shard_stats_tile(float (&acc)[96], wg::Ring<kSsStages>& ring,
+                                                 uint32_t base, int g, int lane, int nk,
+                                                 int i) {
+  for (int kt = 0; kt < nk; ++kt) {
+    ring.wait_full(i + kt);
+    const uint32_t st = base + ((i + kt) % kSsStages) * kSsStage;
+    wg::fence_operands(acc);
+    wg::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wg::wgmma_mn<W>(SS_ACC(W / 2, 0), wg::desc_k_major(st + g * (kSsXBytes / 2) + kk * 32),
+                      wg::desc_mn_major(st + kSsXBytes + kk * 2048, wg::kBoxBytes),
+                      kt > 0 || kk > 0);
+    wg::wgmma_commit();
+    if (kt > 0) {
+      wg::wgmma_wait<1>();  // the previous step's products are done: free its stage
+      if (lane == 0) ring.release(i + kt - 1);
+      __syncwarp();
+    }
+  }
+  wg::wgmma_wait<0>();
+  wg::fence_operands(acc);
+  if (lane == 0) ring.release(i + nk - 1);
+  __syncwarp();
+}
+
+// The width of the column tile from n0 of a row tile's N columns: tiles of
+// tile_n (a multiple of 64) up to N's last multiple of 64, then the rest
+__device__ __forceinline__ int ss_width(int n0, int N, int tile_n) {
+  const int n64 = N & ~63;
+  return n0 < n64 ? min(tile_n, n64 - n0) : N - n0;
+}
+
+// A consumer thread's place in the kernel and its rows' running statistics
+struct SsThread {
+  wg::Ring<kSsStages>* ring;
+  const float* pb;     // the bias in float32
+  unsigned char* hst;  // the warpgroup's staging area for h
+  const CUtensorMap* hmap;
+  uint32_t base;  // the ring's stages
+  int g, lane, tid, r0, cq, nk, M;
+  float na, mean[2], m2[2];  // the column tiles so far: count, rows r0 and r0 + 8
+};
+
+// The epilogue of a warpgroup's column tile of w columns from n0, rows from
+// m0; W: w where it is known at compile time (a multiple of 64), else 0 (a
+// remainder of 8 to 56 columns, in the first 8 chunks). h = acc + bias,
+// rounded once, into the staging area in the 128-byte swizzled box layout
+// (once the last column tile's store has read it; by stmatrix for a width
+// known at compile time, two chunks of both rows an instruction), then
+// stored by TMA. The tile's (mean, M2) of each row in the same pass, on
+// values shifted by the row's first value of the tile (k, from chunk 0,
+// which every tile's product writes): the sums of d = v - k and of d^2,
+// mean = k + sum(d) / w and M2 = sum(d^2) - sum(d)^2 / w, then merged into
+// the row's running pair. A remainder's chunks past w (no product wrote
+// their sums) run the same arithmetic, kept out of the sums and not
+// stored, so that no branch holds the bias loads back.
+template <int W>
+__device__ __forceinline__ void shard_stats_epilogue(const float (&acc)[96], SsThread& th, int n0,
+                                                     int m0, int w_rt) {
+  constexpr int kChunks = W > 0 ? W / 8 : 8;
+  const int w = W > 0 ? W : w_rt;
+  if (th.tid % 128 == 0) wg::tma_store_wait_read();
+  wg::named_barrier(1 + th.g, 128);
+  const float b0 = th.pb[n0];
+  float k[2], s1[2] = {0.f, 0.f}, s2[2] = {0.f, 0.f};
+#pragma unroll
+  for (int half = 0; half < 2; ++half)  // column n0 is chunk 0 of lane cq = 0
+    k[half] = __shfl_sync(0xffffffffu, acc[2 * half] + b0, th.lane & ~3);
+  // stmatrix: lane t gives the address of row t % 8 of matrix t / 8, which
+  // is chunk 2p + t / 16 of row half (t / 8) % 2
+  const int t = th.lane;
+  const uint32_t row_addr =
+      wg::smem_u32(th.hst) + (th.r0 - t / 4 + 8 * ((t / 8) % 2) + t % 8) * 128;
+  uint32_t pk[4];
+#pragma unroll
+  for (int c = 0; c < kChunks; ++c) {
+    const int col = 8 * c + th.cq;
+    const bool valid = W > 0 || 8 * c < w;
+    const float2 bb = *reinterpret_cast<const float2*>(th.pb + n0 + col);
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = th.r0 + 8 * half;
+      const float v0 = acc[4 * c + 2 * half] + bb.x, v1 = acc[4 * c + 2 * half + 1] + bb.y;
+      const float d0 = v0 - k[half], d1 = v1 - k[half];
+      s1[half] += valid ? d0 + d1 : 0.f;
+      s2[half] += valid ? d0 * d0 + d1 * d1 : 0.f;
+      const __nv_bfloat162 hv = __floats2bfloat162_rn(v0, v1);
+      if constexpr (W > 0) {
+        pk[2 * (c % 2) + half] = *reinterpret_cast<const uint32_t*>(&hv);
+      } else if (valid) {
+        *reinterpret_cast<__nv_bfloat162*>(th.hst + r * 128 + (((col / 8) ^ (r % 8)) * 16) +
+                                           th.cq * 2) = hv;
+      }
+    }
+    if constexpr (W > 0) {
+      if (c % 2 == 1) {
+        const int chunk = (c - 1) % 8 + t / 16;
+        wg::stmatrix_x4(row_addr + (c / 8) * wg::kBoxBytes + ((chunk ^ (t % 8)) * 16), pk);
+      }
+    }
+  }
+  wg::fence_proxy_async();
+  wg::named_barrier(1 + th.g, 128);
+  if (th.tid % 128 == 0 && m0 < th.M) {  // TMA clips the rows past M and the columns past n
+    for (int b = 0; b * 64 < w; ++b)
+      wg::tma_store_2d(th.hmap, th.hst + b * wg::kBoxBytes, n0 + 64 * b, m0);
+    wg::tma_store_commit();
+  }
+
+  const float nb = static_cast<float>(w);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    s1[half] += __shfl_xor_sync(0xffffffffu, s1[half], 1);
+    s1[half] += __shfl_xor_sync(0xffffffffu, s1[half], 2);
+    s2[half] += __shfl_xor_sync(0xffffffffu, s2[half], 1);
+    s2[half] += __shfl_xor_sync(0xffffffffu, s2[half], 2);
+    const float tm = k[half] + s1[half] / nb, tq = s2[half] - s1[half] * s1[half] / nb;
+    if (n0 == 0) {
+      th.mean[half] = tm;
+      th.m2[half] = tq;
+    } else {
+      const float tot = th.na + nb, d = tm - th.mean[half];
+      th.mean[half] += d * (nb / tot);
+      th.m2[half] += tq + d * d * (th.na * nb / tot);
+    }
+  }
+  th.na += nb;
+}
+
+// A warpgroup's column tile of w columns from n0 (ss_width), steps i to i +
+// nk - 1 of the ring: its products and its epilogue on the width known at
+// compile time (a remainder's epilogue on the width at run time).
+__device__ __forceinline__ void shard_stats_column(float (&acc)[96], SsThread& th, int i, int n0,
+                                                   int m0, int w) {
+  switch (w) {
+#define SS_REM(q)                                                                           \
+  case 8 * (q):                                                                             \
+    shard_stats_tile<8 * (q)>(acc, *th.ring, th.base, th.g, th.lane, th.nk, i);             \
+    shard_stats_epilogue<0>(acc, th, n0, m0, w);                                            \
+    break;
+    SS_REM(1) SS_REM(2) SS_REM(3) SS_REM(4) SS_REM(5) SS_REM(6) SS_REM(7)
+#undef SS_REM
+#define SS_BIG(W)                                                                           \
+  case W:                                                                                   \
+    shard_stats_tile<W>(acc, *th.ring, th.base, th.g, th.lane, th.nk, i);                   \
+    shard_stats_epilogue<W>(acc, th, n0, m0, w);                                            \
+    break;
+    SS_BIG(64) SS_BIG(128) SS_BIG(192)
+#undef SS_BIG
+  }
+}
+
+__global__ void __launch_bounds__(kSsThreads, 1)
+shard_stats_wgmma_kernel(const __grid_constant__ CUtensorMap xmap,
+                         const __grid_constant__ CUtensorMap wmap,
+                         const __grid_constant__ CUtensorMap hmap, const bf16* __restrict__ bias,
+                         float2* __restrict__ stats, int M, int K, int N, int tile_n) {
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ wg::Ring<kSsStages> ring;
+  unsigned char* smem = wg::align1024(smem_raw);
+  unsigned char* staging = smem + kSsStages * kSsStage;
+  float* pb = reinterpret_cast<float*>(staging + kSsStaging);  // the bias in float32
+  const int tid = threadIdx.x;
+  const int nk = (K + 63) / 64, row_tiles = (M + kSsRows - 1) / kSsRows;
+  if (tid == 0) ring.init(8);  // each consumer warp releases a stage
+  for (int c = tid; c < kSsBias; c += kSsThreads) pb[c] = c < N ? __bfloat162float(bias[c]) : 0.f;
+  __syncthreads();
+
+  // The roles go by the warp's index through a shuffle, so that ptxas sees
+  // it is the same in every lane: a role chosen on threadIdx itself puts
+  // the consumers' wgmma on a divergent path, and ptxas then serialises them.
+  const int warp_id = __shfl_sync(0xffffffffu, tid / 32, 0);
+  if (warp_id == 8) {  // the producer warp: one lane fills the ring in the consumers' order
+    if (tid == 256) {
+      int i = 0;
+      for (int t = blockIdx.x; t < row_tiles; t += gridDim.x)
+        for (int n0 = 0, w; n0 < N; n0 += w) {
+          w = ss_width(n0, N, tile_n);
+          const int boxes = (w + 63) / 64;
+          for (int kt = 0; kt < nk; ++kt, ++i) {
+            uint64_t* bar = ring.acquire(i, kSsXBytes + boxes * wg::kBoxBytes);
+            unsigned char* st = smem + (i % kSsStages) * kSsStage;
+            wg::tma_load_2d(st, &xmap, bar, kt * 64, t * kSsRows);
+            for (int b = 0; b < boxes; ++b)
+              wg::tma_load_2d(st + kSsXBytes + b * wg::kBoxBytes, &wmap, bar, n0 + 64 * b,
+                              kt * 64);
+          }
+        }
+    }
+    return;
+  }
+
+  // Warpgroup g owns rows [64 g, 64 g + 64) of each row tile. Thread (warp,
+  // lane) holds rows r0 and r0 + 8 of them and, of each 8-column chunk c of
+  // a column tile, the columns 8c + cq, 8c + cq + 1: acc[4c + 2 half + e]
+  // (the rem piece's chunks from c = 16 on). Only wgmma writes acc.
+  const int g = warp_id / 4, warp = warp_id % 4, lane = tid % 32;
+  SsThread th{&ring, pb, staging + g * kSsBoxes * wg::kBoxBytes, &hmap, wg::smem_u32(smem), g,
+              lane, tid, warp * 16 + lane / 4, (lane % 4) * 2, nk, M};
+  float acc[96];
+  int i = 0;
+  for (int t = blockIdx.x; t < row_tiles; t += gridDim.x) {
+    const int m0 = t * kSsRows + 64 * g;
+    th.na = 0.f;
+    for (int n0 = 0, w; n0 < N; n0 += w, i += nk) {
+      w = ss_width(n0, N, tile_n);
+      shard_stats_column(acc, th, i, n0, m0, w);
+    }
+    if (lane % 4 == 0) {
+      if (m0 + th.r0 < M) stats[m0 + th.r0] = make_float2(th.mean[0], th.m2[0]);
+      if (m0 + th.r0 + 8 < M) stats[m0 + th.r0 + 8] = make_float2(th.mean[1], th.m2[1]);
+    }
+  }
+  if (tid % 128 == 0) wg::tma_store_wait_read();  // the staging area outlives the reads
+}
+#undef SS_ACC
+
+// entry 1's bf16 kernel on checked operands and plan
+int shard_stats_wgmma(const void* x, const void* w, const void* b, void* h, void* stats,
+                      long long M, long long K, long long N, int tile_n, int grid,
+                      cudaStream_t st) {
+  if (M <= 0 || K <= 0 || N <= 0 || K % 8 || N % 8 || N > kWgMaxN || M > 0x7fffffffLL ||
+      K > 0x7fffffffLL || tile_n < 64 || tile_n % 64 || tile_n > kSsMaxTile || grid < 1 ||
+      grid > (M + kSsRows - 1) / kSsRows ||
+      b == nullptr || stats == nullptr || reinterpret_cast<uintptr_t>(x) % 16 ||
+      reinterpret_cast<uintptr_t>(w) % 16 || reinterpret_cast<uintptr_t>(h) % 16 ||
+      reinterpret_cast<uintptr_t>(stats) % 8)
+    return cudaErrorInvalidValue;
+  CUtensorMap xm, wm, hm;
+  const cuuint64_t xdims[2] = {static_cast<cuuint64_t>(K), static_cast<cuuint64_t>(M)};
+  const cuuint64_t xstrides[1] = {static_cast<cuuint64_t>(K) * 2};
+  const cuuint32_t xbox[2] = {64, kSsRows};
+  int e = wg::encode_bf16(&xm, x, 2, xdims, xstrides, xbox);
+  if (e == 0) e = wg::encode_rows(&wm, w, K, N);
+  if (e == 0) e = wg::encode_rows(&hm, h, M, N);
+  if (e != 0) return e;
+  static std::atomic<bool> raised[wg::kMaxDevices];
+  if ((e = wg::raise_smem_once(shard_stats_wgmma_kernel, kSsSmem, raised)) != 0) return e;
+  shard_stats_wgmma_kernel<<<grid, kSsThreads, kSsSmem, st>>>(
+      xm, wm, hm, static_cast<const bf16*>(b), static_cast<float2*>(stats), static_cast<int>(M),
+      static_cast<int>(K), static_cast<int>(N), tile_n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // ----------------------------------------- the epilogue of a split layer
@@ -1409,26 +1746,35 @@ extern "C" int fused_spectre_linear_wgmma(const void* x, const void* w, const vo
 }
 
 // fused_spectre_linear_shard_stats: the forward of a SpectreLinear split by
-// columns up to its LayerNorm statistics. h = x @ W + b [M, N] in x's dtype,
-// N this rank's columns, and stats [M] float32 (mean, M2) of each row's
-// float32 sums over them. route 0: the wgmma kernel (bf16, what
-// fused_spectre_linear_wgmma takes); 1: the cluster kernel on the plan
-// (bm, bn, cn, ck, kc), dtype_code as there. Returns cudaGetLastError()
-// after the launch (0 on success).
-extern "C" int fused_spectre_linear_shard_stats(int route, int dtype_code, const void* x,
-                                                const void* w, const void* b, void* h,
-                                                void* stats, long long M, long long K,
-                                                long long N, int bm, int bn, int cn, int ck,
-                                                int kc, void* stream) {
+// columns up to its LayerNorm statistics on the cluster kernel (float32,
+// and bf16 that fused_spectre_linear_shard_stats_wgmma does not take). h = x
+// @ W + b [M, N] in x's dtype, N this rank's columns, and stats [M] float32
+// (mean, M2) of each row's float32 sums over them; the plan (bm, bn, cn,
+// ck, kc) and dtype_code as for fused_spectre_linear_cluster. Returns
+// cudaGetLastError() after the launch (0 on success).
+extern "C" int fused_spectre_linear_shard_stats(int dtype_code, const void* x, const void* w,
+                                                const void* b, void* h, void* stats,
+                                                long long M, long long K, long long N, int bm,
+                                                int bn, int cn, int ck, int kc, void* stream) {
   float2* st = static_cast<float2*>(stats);
   if (st == nullptr) return cudaErrorInvalidValue;
-  if (route == 0)
-    return dtype_code == 1 ? wgmma_entry(x, w, b, b, b, h, h, st, M, K, N, 0.f, stream)
-                           : static_cast<int>(cudaErrorInvalidValue);
-  if (route == 1)
-    return cluster_entry(dtype_code, x, w, b, b, b, h, h, st, M, K, N, bm, bn, cn, ck, kc, 0.f,
-                         stream);
-  return cudaErrorInvalidValue;
+  return cluster_entry(dtype_code, x, w, b, b, b, h, h, st, M, K, N, bm, bn, cn, ck, kc, 0.f,
+                       stream);
+}
+
+// fused_spectre_linear_shard_stats_wgmma: the same in bf16 on
+// shard_stats_wgmma_kernel, every tensor bf16 but stats; K and N multiples
+// of 8, N <= 768, x, W and h 16-byte aligned (what TMA can describe). The
+// plan (ops/kernels/fused_linear.py::shard_stats_plan): column tiles of
+// tile_n columns (64, 128 or 192) up to N's last multiple of 64, the rest
+// in a tile of its own, and `grid` persistent blocks (1 to the row tiles of 128). Returns
+// cudaGetLastError() after the launch (0 on success).
+extern "C" int fused_spectre_linear_shard_stats_wgmma(const void* x, const void* w,
+                                                      const void* b, void* h, void* stats,
+                                                      long long M, long long K, long long N,
+                                                      int tile_n, int grid, void* stream) {
+  return shard_stats_wgmma(x, w, b, h, stats, M, K, N, tile_n, grid,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // fused_spectre_linear_shard_ln: the epilogue of a split SpectreLinear

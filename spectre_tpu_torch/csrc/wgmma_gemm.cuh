@@ -235,6 +235,16 @@ __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// four 8 x 8 b16 matrices from registers into shared memory: lane t gives
+// the address of row t % 8 of matrix t / 8 and holds, in r[j], its two
+// values of matrix j (row t / 4, columns 2 (t % 4) and 2 (t % 4) + 1: an mma
+// or wgmma accumulator fragment, packed)
+__device__ __forceinline__ void stmatrix_x4(uint32_t addr, const uint32_t (&r)[4]) {
+  asm volatile("stmatrix.sync.aligned.m8n8.x4.shared.b16 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(r[0]), "r"(r[1]), "r"(r[2]), "r"(r[3])
+               : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
@@ -320,5 +330,83 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
 }
 
+// D[64 x N] (+)= A[64 x 16] * B[16 x N] for any N in 8 .. 192 that is a
+// multiple of 8, A K-major, B MN-major (W's [K, N] rows); scale_d = 0
+// overwrites D. One specialisation per width, generated below: the
+// descriptors and scale_d are read-write operands so that they take the
+// numbers %0-%2 whatever the width, and the N / 2 sums follow as %3 ...
+template <int N>
+__device__ __forceinline__ void wgmma_mn(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d);
+
+#define WG_ACC4(i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define WG_R4 "%3, %4, %5, %6"
+#define WG_R8 WG_R4 ", %7, %8, %9, %10"
+#define WG_R12 WG_R8 ", %11, %12, %13, %14"
+#define WG_R16 WG_R12 ", %15, %16, %17, %18"
+#define WG_R20 WG_R16 ", %19, %20, %21, %22"
+#define WG_R24 WG_R20 ", %23, %24, %25, %26"
+#define WG_R28 WG_R24 ", %27, %28, %29, %30"
+#define WG_R32 WG_R28 ", %31, %32, %33, %34"
+#define WG_R36 WG_R32 ", %35, %36, %37, %38"
+#define WG_R40 WG_R36 ", %39, %40, %41, %42"
+#define WG_R44 WG_R40 ", %43, %44, %45, %46"
+#define WG_R48 WG_R44 ", %47, %48, %49, %50"
+#define WG_R52 WG_R48 ", %51, %52, %53, %54"
+#define WG_R56 WG_R52 ", %55, %56, %57, %58"
+#define WG_R60 WG_R56 ", %59, %60, %61, %62"
+#define WG_R64 WG_R60 ", %63, %64, %65, %66"
+#define WG_R68 WG_R64 ", %67, %68, %69, %70"
+#define WG_R72 WG_R68 ", %71, %72, %73, %74"
+#define WG_R76 WG_R72 ", %75, %76, %77, %78"
+#define WG_R80 WG_R76 ", %79, %80, %81, %82"
+#define WG_R84 WG_R80 ", %83, %84, %85, %86"
+#define WG_R88 WG_R84 ", %87, %88, %89, %90"
+#define WG_R92 WG_R88 ", %91, %92, %93, %94"
+#define WG_R96 WG_R92 ", %95, %96, %97, %98"
+#define WG_D4 WG_ACC4(0)
+#define WG_D8 WG_D4, WG_ACC4(4)
+#define WG_D12 WG_D8, WG_ACC4(8)
+#define WG_D16 WG_D12, WG_ACC4(12)
+#define WG_D20 WG_D16, WG_ACC4(16)
+#define WG_D24 WG_D20, WG_ACC4(20)
+#define WG_D28 WG_D24, WG_ACC4(24)
+#define WG_D32 WG_D28, WG_ACC4(28)
+#define WG_D36 WG_D32, WG_ACC4(32)
+#define WG_D40 WG_D36, WG_ACC4(36)
+#define WG_D44 WG_D40, WG_ACC4(40)
+#define WG_D48 WG_D44, WG_ACC4(44)
+#define WG_D52 WG_D48, WG_ACC4(48)
+#define WG_D56 WG_D52, WG_ACC4(52)
+#define WG_D60 WG_D56, WG_ACC4(56)
+#define WG_D64 WG_D60, WG_ACC4(60)
+#define WG_D68 WG_D64, WG_ACC4(64)
+#define WG_D72 WG_D68, WG_ACC4(68)
+#define WG_D76 WG_D72, WG_ACC4(72)
+#define WG_D80 WG_D76, WG_ACC4(76)
+#define WG_D84 WG_D80, WG_ACC4(80)
+#define WG_D88 WG_D84, WG_ACC4(84)
+#define WG_D92 WG_D88, WG_ACC4(88)
+#define WG_D96 WG_D92, WG_ACC4(92)
+#define WG_MMA_MN(N, R)                                                                          \
+  template <>                                                                                    \
+  __device__ __forceinline__ void wgmma_mn<N>(float (&d)[R], uint64_t desc_a, uint64_t desc_b,   \
+                                              int scale_d) {                                     \
+    asm volatile("{\n.reg .pred p;\nsetp.ne.b32 p, %2, 0;\n"                                     \
+                 "wgmma.mma_async.sync.aligned.m64n" #N "k16.f32.bf16.bf16 {" WG_R##R           \
+                 "}, %0, %1, p, 1, 1, 0, 1;\n}\n"                                                \
+                 : "+l"(desc_a), "+l"(desc_b), "+r"(scale_d), WG_D##R);                          \
+  }
+WG_MMA_MN(8, 4)
+WG_MMA_MN(16, 8)
+WG_MMA_MN(24, 12)
+WG_MMA_MN(32, 16)
+WG_MMA_MN(40, 20)
+WG_MMA_MN(48, 24)
+WG_MMA_MN(56, 28)
+WG_MMA_MN(64, 32)
+WG_MMA_MN(128, 64)
+WG_MMA_MN(192, 96)
+#undef WG_MMA_MN
 
 }  // namespace wg

@@ -45,12 +45,14 @@ from spectre_tpu_torch.ops.kernels.fused_linear import (
     fused_spectre_linear_grad,
     fused_spectre_linear_plain,
     fused_spectre_linear_shard_stats,
+    fused_spectre_linear_shard_stats_wgmma,
     fused_spectre_linear_wgmma,
     fused_spectre_linear_wide_cluster,
     linear_products,
     matmul_f32,
     shard_stats_kernel,
     shard_stats_plain,
+    shard_stats_plan,
     sharded_ln_gelu,
     sharded_ln_gelu_plain,
     wide_cluster_size,
@@ -78,15 +80,15 @@ from spectre_tpu_torch.ops.kernels.structured_mix import (
 # in the kernel it launched (kernel 2: ``_wgmma``, ``_cluster`` and
 # ``_wide_cluster``; kernel 5: ``_wgmma`` and ``_grouped``); kernel 2's
 # backward counts a wide chain again in ``_bwd_wide``; kernel 2's column
-# shard forward (``_shard_stats``) counts again in ``_wgmma`` or ``_cluster``,
-# whose epilogue mode it runs
+# shard forward (``_shard_stats``) counts again in its bf16 kernel
+# (``_shard_stats_wgmma``) or in ``_cluster``, whose statistics mode it runs
 KERNELS = (block_scatter_rows, block_gather_sum, inverse_gather_sum, fused_spectre_linear,
            fused_spectre_linear_bwd, fused_block_bwd, flash_attention_fwd, flash_attention_bwd,
            fwht, structured_mix, structured_mix_bwd, routed_gather_sum,
            fused_spectre_linear_wgmma, fused_spectre_linear_cluster, fused_block_bwd_wgmma,
            fused_block_bwd_grouped, fused_spectre_linear_wide_cluster,
            fused_spectre_linear_bwd_wide, fused_spectre_linear_shard_stats, sharded_ln_gelu,
-           chain_shard_sums, chain_shard_dh)
+           chain_shard_sums, chain_shard_dh, fused_spectre_linear_shard_stats_wgmma)
 
 
 def reset_launch_counts() -> None:
@@ -131,6 +133,7 @@ __all__ = [
     "fused_spectre_linear_grad",
     "fused_spectre_linear_plain",
     "fused_spectre_linear_shard_stats",
+    "fused_spectre_linear_shard_stats_wgmma",
     "fused_spectre_linear_wgmma",
     "fused_spectre_linear_wide_cluster",
     "fwht",
@@ -149,6 +152,7 @@ __all__ = [
     "routed_gather_sum_plain",
     "shard_stats_kernel",
     "shard_stats_plain",
+    "shard_stats_plan",
     "sharded_ln_gelu",
     "sharded_ln_gelu_plain",
     "structured_mix",

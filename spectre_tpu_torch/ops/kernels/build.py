@@ -49,9 +49,11 @@ _SIGNATURES = {
     "fused_spectre_linear_wide_cluster": (_P, _P, _P, _P, _P, _P, _P, _LL, _LL, _LL,
                                           ctypes.c_float, _P),
     "fused_spectre_linear_wide_cluster_reach": (ctypes.POINTER(ctypes.c_int),),
-    "fused_spectre_linear_shard_stats": (ctypes.c_int, ctypes.c_int, _P, _P, _P, _P, _P, _LL,
-                                         _LL, _LL, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                                         ctypes.c_int, ctypes.c_int, _P),
+    "fused_spectre_linear_shard_stats": (ctypes.c_int, _P, _P, _P, _P, _P, _LL, _LL, _LL,
+                                         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                         ctypes.c_int, _P),
+    "fused_spectre_linear_shard_stats_wgmma": (_P, _P, _P, _P, _P, _LL, _LL, _LL, ctypes.c_int,
+                                               ctypes.c_int, _P),
     "fused_spectre_linear_shard_ln": (ctypes.c_int, ctypes.c_int, _P, _LL, _P, ctypes.c_int, _P,
                                       _P, _P, _P, _LL, _P, _P, _P, _LL, _LL, _LL,
                                       ctypes.c_float, _LL, ctypes.c_int, ctypes.c_int,

@@ -620,8 +620,9 @@ def fused_spectre_linear_grad(x, w, b, gamma, beta, eps: float = 1e-5):
 #
 # 1. ``fused_spectre_linear_shard_stats``: h = x @ W_local + b_local in x's
 #    dtype and each row's (mean, M2) over the local columns of the float32
-#    sums [M, 2]: an epilogue mode of the forward kernels (``_wgmma`` for
-#    bf16 that TMA describes up to N = 768, else ``_cluster``).
+#    sums [M, 2]: its own kernel for bf16 that TMA describes up to n = 768
+#    (``fused_spectre_linear_shard_stats_wgmma`` on ``shard_stats_plan``),
+#    else the cluster kernel's statistics mode.
 # 2. ``sharded_ln_gelu``: GELU(LN(h) gamma + beta) (+ residual) from the
 #    gathered statistics [size, M, 2] merged by Chan's formula; or, with no
 #    statistics, over its own whole row (the row split's all-reduced float32
@@ -633,7 +634,9 @@ def fused_spectre_linear_grad(x, w, b, gamma, beta, eps: float = 1e-5):
 #    rank order), dh and db.
 #
 # csrc/fused_spectre_linear.cu holds 1 and 2, csrc/fused_spectre_linear_bwd.cu
-# 3 and 4. Entries 2, 3 and 4 are one kernel each on the row shape of
+# 3 and 4. Entry 1's bf16 kernel walks 128-row tiles with a persistent grid,
+# cut into column tiles that end at n (``shard_stats_plan``). Entries 2, 3
+# and 4 are one kernel each on the row shape of
 # ``_shard_shape`` (``shard_ln_plan``, ``shard_chain_plan``): a team of lanes
 # a row, each lane's columns the same in every row, so that gamma, beta (and
 # the bias, or the column sums) stay in its registers, the next row loaded
@@ -746,14 +749,84 @@ def chain_shard_dh_plain(h, g, gamma, beta, mstats, rowsums, n_full: int):
 
 
 def shard_stats_kernel(dtype: torch.dtype, k: int, n: int, aligned: bool = True) -> str:
-    """The forward kernel whose epilogue mode entry 1 runs for W [k, n]:
-    ``fused_spectre_linear_wgmma`` where TMA can describe the operands (bf16,
-    k and n multiples of 8, x and W 16-byte aligned) and n <= WGMMA_MAX_N,
-    else ``fused_spectre_linear_cluster``."""
+    """The kernel entry 1 runs for W [k, n]:
+    ``fused_spectre_linear_shard_stats_wgmma`` where TMA can describe the
+    operands (bf16, k and n multiples of 8, x and W 16-byte aligned) and n
+    <= WGMMA_MAX_N, else the statistics mode of
+    ``fused_spectre_linear_cluster``."""
     if dtype == torch.bfloat16 and k % 8 == 0 and n % 8 == 0 and aligned \
             and n <= WGMMA_MAX_N:
-        return "fused_spectre_linear_wgmma"
+        return "fused_spectre_linear_shard_stats_wgmma"
     return "fused_spectre_linear_cluster"
+
+
+# entry 1's bf16 kernel (csrc/fused_spectre_linear.cu: shard_stats_wgmma_kernel):
+# rows a row tile (two consumer warpgroups of 64), columns a column tile at
+# most (96 float32 sums a consumer thread), stages of its TMA ring; a stage
+# holds a 128 x 64 box of x and up to three 64 x 64 boxes of W
+SHARD_STATS_ROWS = 128
+SHARD_STATS_TILE = 192
+SHARD_STATS_STAGES = 4
+_BOX_BYTES = 64 * 64 * 2
+
+
+class ShardStatsPlan(NamedTuple):
+    """A launch of entry 1's bf16 kernel: a row tile's n columns in
+    ``tiles_n`` column tiles (``shard_stats_tiles`` of ``tile_n``, the last
+    ``last_n`` wide); ``grid`` persistent blocks walk the ``row_tiles`` row
+    tiles of SHARD_STATS_ROWS; ``smem`` bytes of shared memory a block;
+    ``l2_bytes`` the bytes TMA brings from L2 into shared memory for a row
+    tile, W's ``w_bytes`` of them (the plan's count, not a measurement)."""
+    tile_n: int
+    tiles_n: int
+    last_n: int
+    row_tiles: int
+    grid: int
+    smem: int
+    l2_bytes: int
+    w_bytes: int
+
+    @property
+    def w_bytes_row(self) -> float:
+        """W's L2-to-shared bytes a row of output."""
+        return self.w_bytes / SHARD_STATS_ROWS
+
+    @property
+    def x_bytes_row(self) -> float:
+        """x's L2-to-shared bytes a row of output."""
+        return (self.l2_bytes - self.w_bytes) / SHARD_STATS_ROWS
+
+
+def shard_stats_tiles(n: int, tile_n: int) -> list[tuple[int, int]]:
+    """(first column, width) of the column tiles of a row tile's n columns
+    (csrc: ss_width): tiles of ``tile_n`` (a multiple of 64) up to n's last
+    multiple of 64, then the rest (8 to 56 columns) in a tile of its own."""
+    n64 = n // 64 * 64
+    tiles = [(n0, min(tile_n, n64 - n0)) for n0 in range(0, n64, tile_n)]
+    return tiles + [(n64, n - n64)] if n > n64 else tiles
+
+
+@functools.lru_cache(maxsize=256)
+def shard_stats_plan(m: int, k: int, n: int, sm_count: int = 132) -> ShardStatsPlan:
+    """Entry 1's bf16 launch for x [m, k] and W [k, n] (k and n multiples of
+    8, n <= WGMMA_MAX_N) on ``sm_count`` SMs: n's multiples of 64 in the
+    fewest column tiles of at most SHARD_STATS_TILE columns, each a multiple
+    of 64, as even as that allows; one persistent block an SM, at most one a
+    row tile."""
+    if m < 1 or k < 8 or k % 8 or n < 8 or n % 8 or n > WGMMA_MAX_N:
+        raise ValueError(f"entry 1's wgmma kernel takes m >= 1, k and n multiples of 8, "
+                         f"n <= {WGMMA_MAX_N}; got {m}, {k}, {n}")
+    n64 = n // 64 * 64
+    tile = 64 * max(1, _ceil(n64, 64 * max(1, _ceil(n64, SHARD_STATS_TILE))))
+    cols = shard_stats_tiles(n, tile)
+    row_tiles, steps = _ceil(m, SHARD_STATS_ROWS), _ceil(k, 64)
+    w_bytes = steps * sum(_ceil(w, 64) for _, w in cols) * _BOX_BYTES
+    x_box = SHARD_STATS_ROWS * 128
+    smem = (SHARD_STATS_STAGES * (x_box + SHARD_STATS_TILE // 64 * _BOX_BYTES)
+            + 2 * SHARD_STATS_TILE // 64 * _BOX_BYTES + (WGMMA_MAX_N + SHARD_STATS_TILE) * 4
+            + 1024)
+    return ShardStatsPlan(tile, len(cols), cols[-1][1], row_tiles, min(row_tiles, sm_count),
+                          smem, w_bytes + len(cols) * steps * x_box, w_bytes)
 
 
 class ShardChainPlan(NamedTuple):
@@ -935,10 +1008,31 @@ def _check_dtype(name, dtype, *tensors) -> None:
         raise TypeError(f"{name} takes float32 or bfloat16, not {dtype}")
 
 
+@functools.lru_cache(maxsize=256)
+def _shard_stats_launch(device_index: int, m: int, k: int, n: int) -> tuple[int, int]:
+    """``shard_stats_plan``'s (tile_n, grid) on the card, kept for each
+    shape: the wrapper's host time a call stays below the kernel's."""
+    p = shard_stats_plan(m, k, n, _sm_count(device_index))
+    return p.tile_n, p.grid
+
+
+def fused_spectre_linear_shard_stats_wgmma(x, w, b, h, stats) -> None:
+    """Launch entry 1's bf16 kernel on checked operands of the current
+    device into ``h`` and ``stats``, on ``shard_stats_plan``'s launch."""
+    (m, k), n = x.shape, w.shape[1]
+    dev = x.get_device()
+    tile_n, grid = _shard_stats_launch(dev, m, k, n)
+    err = load_library().fused_spectre_linear_shard_stats_wgmma(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), h.data_ptr(), stats.data_ptr(), m, k, n,
+        tile_n, grid, current_stream(dev))
+    check(err, "fused_spectre_linear_shard_stats_wgmma launch")
+    fused_spectre_linear_shard_stats_wgmma.launches += 1
+
+
 def fused_spectre_linear_shard_stats(x, w, b):
     """Entry 1: (h [M, n] in x's dtype, (mean, M2) [M, 2] float32) for x
-    [M, K], w [K, n], b [n], all contiguous; on the card the epilogue mode of
-    the kernel ``shard_stats_kernel`` names, which counts the launch too."""
+    [M, K], w [K, n], b [n], all contiguous; on the card the kernel
+    ``shard_stats_kernel`` names, which counts the launch too."""
     if x.dim() != 2 or w.dim() != 2 or x.shape[1] != w.shape[0] or b.shape != (w.shape[1],):
         raise ValueError(f"want x [M, K], w [K, n], b [n]; got {tuple(x.shape)}, "
                          f"{tuple(w.shape)}, {tuple(b.shape)}")
@@ -957,19 +1051,15 @@ def fused_spectre_linear_shard_stats(x, w, b):
     if m == 0:
         return h, stats
     route = shard_stats_kernel(x.dtype, k, n, x.data_ptr() % 16 == 0 and w.data_ptr() % 16 == 0)
-    lib, code = load_library(), _DTYPE_CODES[x.dtype]
-    if route == "fused_spectre_linear_wgmma":
-        err = lib.fused_spectre_linear_shard_stats(0, code, x.data_ptr(), w.data_ptr(),
-                                                   b.data_ptr(), h.data_ptr(), stats.data_ptr(),
-                                                   m, k, n, 0, 0, 0, 0, 0, current_stream(dev))
+    if route == "fused_spectre_linear_shard_stats_wgmma":
+        fused_spectre_linear_shard_stats_wgmma(x, w, b, h, stats)
     else:
         p = cluster_plan(x.dtype, m, k, n, _sm_count(dev))
-        err = lib.fused_spectre_linear_shard_stats(1, code, x.data_ptr(), w.data_ptr(),
-                                                   b.data_ptr(), h.data_ptr(), stats.data_ptr(),
-                                                   m, k, n, p.bm, p.bn, p.cn, p.ck, p.kc,
-                                                   current_stream(dev))
-    check(err, f"fused_spectre_linear_shard_stats launch ({route})")
-    _FORWARD_KERNELS[route].launches += 1
+        check(load_library().fused_spectre_linear_shard_stats(
+            _DTYPE_CODES[x.dtype], x.data_ptr(), w.data_ptr(), b.data_ptr(), h.data_ptr(),
+            stats.data_ptr(), m, k, n, p.bm, p.bn, p.cn, p.ck, p.kc, current_stream(dev)),
+            "fused_spectre_linear_shard_stats launch (fused_spectre_linear_cluster)")
+        fused_spectre_linear_cluster.launches += 1
     fused_spectre_linear_shard_stats.launches += 1
     return h, stats
 
@@ -1108,5 +1198,6 @@ def chain_shard_dh(h, g, gamma, beta, mstats, rowsums, n_full: int):
     return dh, db
 
 
-for _fn in (fused_spectre_linear_shard_stats, sharded_ln_gelu, chain_shard_sums, chain_shard_dh):
+for _fn in (fused_spectre_linear_shard_stats, fused_spectre_linear_shard_stats_wgmma,
+            sharded_ln_gelu, chain_shard_sums, chain_shard_dh):
     _fn.launches = 0

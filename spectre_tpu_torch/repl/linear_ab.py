@@ -1,7 +1,8 @@
-"""Kernel 2's forward at the shapes its cluster kernels took over, kernel 5
-at the tables its token-grouped kernel takes, kernel 2's backward above N =
-1,024, the Walsh-Hadamard transform and kernel 2's column-shard backward
-entries, timed in two trees of the repository in turns on one card.
+"""Kernel 2's forward at the shapes its cluster kernels took over and at the
+flagship's on its wgmma kernel, kernel 5 at the tables its token-grouped
+kernel takes, kernel 2's backward above N = 1,024, the Walsh-Hadamard
+transform and kernel 2's column-shard entries, timed in two trees of the
+repository in turns on one card.
 
     python -m spectre_tpu_torch.repl.linear_ab [--parent DIR] [--out FILE]
 
@@ -19,7 +20,9 @@ never calls), each back to back and on the device alone
   bf16 (C6);
 - the wide bf16 shapes (4,160 x 1,536)(1,536 x 1,536), (4,160 x 768)(768 x
   2,048) and (4,160 x 768)(768 x 1,024), and (1,040 x 512)(512 x 4,096) and
-  (512 x 4,608), at and beyond the wide cluster kernel's reach.
+  (512 x 4,608), at and beyond the wide cluster kernel's reach;
+- the flagship's linear1 and linear3 at B = 256, (16,640 x 512)(512 x 768)
+  and (16,640 x 768)(768 x 512) bf16, on the wgmma kernel.
 
 Then ``fused_block_bwd`` (whichever kernel ``block_bwd_kernel`` picks in
 that tree) beside the chain it fuses (the dg4 product, the signs,
@@ -44,7 +47,9 @@ phase 28's shards (SHARD_TAGS), beside their bounds. Then entry 2
 (``sharded_ln_gelu``) at SHARD_LN_TAGS: the flagship's column shards, the
 ragged ones, linear3's whole float32 rows and a whole row of 1,536, beside
 its bound, its plain version and, on whole rows, the torch chain
-``gelu(layer_norm(s + b)) + res`` (a yardstick the port never calls).
+``gelu(layer_norm(s + b)) + res`` (a yardstick the port never calls). Then
+entry 1 (``fused_spectre_linear_shard_stats``) at SHARD_STATS_TAGS beside
+its bound, its plain version and ``torch.addmm(b, x, w)`` (h alone).
 
 With ``--parent DIR`` (an unpacked tree of another commit, its kernels built
 into its own ``build/kernels/``) the shapes run in four processes in turns,
@@ -54,8 +59,8 @@ package; the card's name and power limit and every turn's numbers go to
 written once over 3.35 TB/s and the operations over the dtype's peak).
 ``--root DIR`` runs one turn of the tree at DIR (what the turns call).
 ``--parts`` picks the groups (``fwd``, ``block_bwd``, ``bwd``, ``fwht``,
-``shard_chain``, ``shard_ln``; all by default). ``--chain-sweep`` times this
-tree's wide chain alone at the C6 shapes for each cap of
+``shard_chain``, ``shard_ln``, ``shard_stats``; all by default).
+``--chain-sweep`` times this tree's wide chain alone at the C6 shapes for each cap of
 ``WIDE_BLOCKS_PER_SM`` in 1 .. 8 instead; ``--shard-sweep`` entries 3 and 4
 at the flagship's shards for each cap of ``SHARD_BLOCKS_PER_SM``, with each
 kernel's share. Needs a CUDA card.
@@ -76,7 +81,8 @@ SHAPES = ([("bfloat16", m, 512, 100) for m in (1, 2, 7, 64, 256, 1024)]
           + [("float32", 4160, 1536, 1536), ("bfloat16", 4160, 768, 1100)]
           + [("bfloat16", 4160, 1536, 1536), ("bfloat16", 4160, 768, 2048),
              ("bfloat16", 4160, 768, 1024), ("bfloat16", 1040, 512, 4096),
-             ("bfloat16", 1040, 512, 4608)])
+             ("bfloat16", 1040, 512, 4608)]
+          + [("bfloat16", 16640, 512, 768), ("bfloat16", 16640, 768, 512)])
 # kernel 5: (dtype, blk) at the flagship mix backward's shape, and its batches
 BLOCK_BWD_ROUTES = (("bfloat16", 16), ("bfloat16", 32), ("float32", 16), ("float32", 64))
 BLOCK_BWD_BATCHES = (256, 1024)
@@ -103,7 +109,15 @@ SHARD_LN_TAGS = ([(dt, b, 768, size) for dt in ("bfloat16", "float32") for b in 
                  + [(dt, 256, 100, size) for dt in ("bfloat16", "float32") for size in (4, 2)]
                  + [(dt, b, 512, 1) for dt in ("bfloat16", "float32") for b in (256, 1024)]
                  + [(dt, 256, 1536, 1) for dt in ("bfloat16", "float32")])
-PARTS = ("fwd", "block_bwd", "bwd", "fwht", "shard_chain", "shard_ln")
+# entry 1 (fused_spectre_linear_shard_stats): (dtype, batch, N, ranks) as
+# SHARD_TAGS, linear1's shards, the widest shard its bf16 kernel takes (768
+# columns of 1,536) and the head's ragged 25 of 100 (the cluster kernel's
+# statistics mode in both dtypes)
+SHARD_STATS_TAGS = ([(dt, b, 768, size) for dt in ("bfloat16", "float32") for b in (256, 1024)
+                     for size in (2, 4)]
+                    + [("bfloat16", 256, 1536, 2)]
+                    + [(dt, 256, 100, 4) for dt in ("bfloat16", "float32")])
+PARTS = ("fwd", "block_bwd", "bwd", "fwht", "shard_chain", "shard_ln", "shard_stats")
 
 
 def one_turn(root: str, parts=PARTS) -> dict:
@@ -130,6 +144,8 @@ def one_turn(root: str, parts=PARTS) -> dict:
         rows.update(shard_turn(kernels))
     if "shard_ln" in parts:
         rows.update(shard_ln_turn(kernels))
+    if "shard_stats" in parts:
+        rows.update(shard_stats_turn(kernels))
     return rows
 
 
@@ -454,6 +470,55 @@ def shard_ln_turn(kernels) -> dict:
               + (f"; torch chain {row['chain_device_ms']:.4f}" if "chain" in fns else ""),
               flush=True)
         del args, h, res
+        torch.cuda.empty_cache()
+    return rows
+
+
+def shard_stats_turn(kernels) -> dict:
+    """Entry 1 (``fused_spectre_linear_shard_stats``) at SHARD_STATS_TAGS on
+    rank 0's shard, back to back and on the device, beside its bound (x, W,
+    b read, h and the statistics written once; 2 M K n operations on the
+    dtype's peak), its plain version and ``torch.addmm(b, x, w)`` (h alone,
+    without the statistics; a yardstick the port never calls); the kernel
+    the tree routes it to and, where the tree has it, the bf16 kernel's
+    L2-to-shared bytes a row of output as its plan counts them
+    (``shard_stats_plan``; not measured)."""
+    import torch
+
+    from spectre_tpu_torch.utils.timing import (BF16_FLOPS, FP32_FLOPS, bound_ms, cuda_time_ms,
+                                                device_time_ms)
+
+    rows = {}
+    for dt, batch, n_full, size in SHARD_STATS_TAGS:
+        dtype, m, k, n = getattr(torch, dt), 65 * batch, 512, n_full // size
+        gen = torch.Generator(device="cuda").manual_seed(m + n_full + size)
+        x = torch.randn(m, k, generator=gen, device="cuda").to(dtype)
+        w = (torch.randn(k, n, generator=gen, device="cuda") * k ** -0.5).to(dtype)
+        b = (0.1 * torch.randn(n, generator=gen, device="cuda")).to(dtype)
+        el = dtype.itemsize
+        route = kernels.shard_stats_kernel(dtype, k, n)
+        row = {"route": route}
+        row["bound_ms"], row["bound_by"] = bound_ms(
+            (m * k + k * n + n + m * n) * el + m * 8, 2 * m * k * n,
+            BF16_FLOPS if dtype == torch.bfloat16 else FP32_FLOPS)
+        if route == "fused_spectre_linear_shard_stats_wgmma":
+            plan = kernels.shard_stats_plan(m, k, n)
+            row["l2_bytes_row"] = {"w": plan.w_bytes_row, "x": plan.x_bytes_row}
+        fns = {"kernel": lambda: kernels.fused_spectre_linear_shard_stats(x, w, b),
+               "plain": lambda: kernels.shard_stats_plain(x, w, b),
+               "addmm": lambda: torch.addmm(b, x, w)}
+        for name, fn in fns.items():
+            row[name + "_ms"] = cuda_time_ms(fn, iters=20 if name != "plain" else 5)
+            row[name + "_device_ms"] = device_time_ms(fn, iters=10 if name != "plain" else 3)
+        tag = f"shard_stats_{'bf16' if dtype == torch.bfloat16 else 'f32'}_B{batch}_n{n}"
+        rows[tag] = row
+        print(f"{tag} ({route}): {row['kernel_ms']:.4f} ms (device {row['kernel_device_ms']:.4f}),"
+              f" bound {row['bound_ms']:.4f} by {row['bound_by']} "
+              f"({row['bound_ms'] / row['kernel_device_ms']:.2f}); plain "
+              f"{row['plain_device_ms']:.4f}; addmm {row['addmm_device_ms']:.4f}"
+              + (f"; plan's L2 bytes a row W {row['l2_bytes_row']['w']:.0f}, x "
+                 f"{row['l2_bytes_row']['x']:.0f}" if "l2_bytes_row" in row else ""), flush=True)
+        del x, w, b
         torch.cuda.empty_cache()
     return rows
 

@@ -963,6 +963,46 @@ def test_server_on_the_card_answers_around_buckets_that_fail(cuda_device):
     assert srv.forwards == 20
 
 
+@pytest.mark.parametrize("m,k,n,offset", [(m, k, n, 0.0) for m, k in ((129, 72), (16575, 512))
+                                          for n in (8, 64, 136, 192, 256, 384, 512, 768)]
+                         + [(129, 72, n, 0.0) for n in (16, 24, 32, 40, 48, 56, 200, 392, 632)]
+                         + [(1, 8, 8, 0.0), (63, 768, 136, 0.0), (66560, 512, 384, 0.0)]
+                         + [(129, 72, n, 1e3) for n in (8, 40, 136, 392)])
+def test_shard_stats_kernel_equals_plain(cuda_device, m, k, n, offset):
+    """Kernel B3's entry 1 in bf16 on its own kernel at the plan test's
+    shapes (tests/test_torch_tp_stats_plan.py: column tiles of 192, a width
+    ending off a 64-column box, every remainder of 8 to 56, ragged and
+    single rows, K of 8 to 768), the flagship's B = 1,024 shard, and h
+    about 1,000 (bias ``offset``), where the statistics hold the limit only
+    if each column tile's shift is one of its rows' own values (a shift of 0
+    would lose the spread of about 1 in float32's cancellation): h and
+    (mean, M2) against the plain version within 2^-6 of each result's
+    largest entry (h is rounded to bf16 once on both paths, the float32
+    sums run in another order), two runs bit for bit, one launch a call
+    counted in the wrapper and the kernel and none in kernel 2's forwards."""
+    from spectre_tpu_torch.ops.kernels import (fused_spectre_linear_shard_stats,
+                                               shard_stats_kernel, shard_stats_plain)
+
+    gen = torch.Generator().manual_seed(m + k + n)
+    x = torch.randn(m, k, generator=gen).to(cuda_device, torch.bfloat16)
+    w = (torch.randn(k, n, generator=gen) * k ** -0.5).to(cuda_device, torch.bfloat16)
+    b = (offset + 0.1 * torch.randn(n, generator=gen)).to(cuda_device, torch.bfloat16)
+    assert shard_stats_kernel(torch.bfloat16, k, n) == "fused_spectre_linear_shard_stats_wgmma"
+    before = dict(launch_counts())
+    h, st = fused_spectre_linear_shard_stats(x, w, b)
+    hp, sp = shard_stats_plain(x, w, b)
+    for got, want in ((h, hp), (st[:, 0], sp[:, 0]), (st[:, 1], sp[:, 1])):
+        got, want = got.float(), want.float()
+        assert float((got - want).abs().max()) <= 2.0 ** -6 * float(want.abs().max())
+    again = fused_spectre_linear_shard_stats(x, w, b)
+    assert torch.equal(h, again[0]) and torch.equal(st, again[1])
+    counts = launch_counts()
+    for name, calls in (("fused_spectre_linear_shard_stats", 2),
+                        ("fused_spectre_linear_shard_stats_wgmma", 2),
+                        ("fused_spectre_linear_wgmma", 0), ("fused_spectre_linear_cluster", 0)):
+        assert counts[name] - before[name] == calls, name
+
+
 @pytest.mark.parametrize("m,n,size", [(130, 25, 4), (130, 50, 2), (1, 7, 2), (16640, 384, 2),
                                       (16640, 192, 4), (333, 1536, 2), (65, 29056, 2),
                                       (65, 58111, 1)])
@@ -1149,6 +1189,8 @@ def test_split_spectre_linears_launch_the_shard_entries(cuda_device, size, dtype
     torch.cuda.synchronize()
     counts = launch_counts()
     route = shard_stats_kernel(dtype, e, n)
+    assert route == ("fused_spectre_linear_shard_stats_wgmma" if dtype == torch.bfloat16
+                     else "fused_spectre_linear_cluster")
     assert counts["fused_spectre_linear_shard_stats"] == counts[route] == size
     assert counts["sharded_ln_gelu"] == 2 * size  # linear1's shards and linear3's rows
     assert counts["chain_shard_sums"] == counts["chain_shard_dh"] == size

@@ -274,7 +274,8 @@ def test_cpu_tensors_take_the_plain_versions_without_launching():
                             "fused_block_bwd_wgmma", "fused_block_bwd_grouped",
                             "fused_spectre_linear_wide_cluster",
                             "fused_spectre_linear_bwd_wide", "fused_spectre_linear_shard_stats",
-                            "sharded_ln_gelu", "chain_shard_sums", "chain_shard_dh"]
+                            "sharded_ln_gelu", "chain_shard_sums", "chain_shard_dh",
+                            "fused_spectre_linear_shard_stats_wgmma"]
 
 
 def test_wrappers_raise_instead_of_falling_back():
