@@ -22,6 +22,8 @@ from collections.abc import Iterable, Iterator
 import numpy as np
 import torch
 
+from spectre_tpu_torch.profile.spans import span
+
 
 class BatchIterator:
     """Epoch iterator over in-memory numpy arrays.
@@ -57,18 +59,20 @@ class BatchIterator:
             self._rng.shuffle(idx)
         b = self.batch_size
         for start in range(0, self.num_examples, b):
-            sel = idx[start:start + b]
-            valid = len(sel)
-            if valid < b:
-                if self.drop_last:
-                    return
-                sel = np.concatenate([sel, np.zeros(b - valid, dtype=sel.dtype)])
-            mask = np.zeros(b, np.bool_)
-            mask[:valid] = True
-            # index: the dataset rows of the batch, to join per-sample side
-            # tables against a shuffled batch; valid: the count of real examples
-            yield {"image": self.images[sel], "label": self.labels[sel], "mask": mask,
-                   "index": sel, "valid": np.int32(valid)}
+            with span("data/gather"):
+                sel = idx[start:start + b]
+                valid = len(sel)
+                if valid < b:
+                    if self.drop_last:
+                        return
+                    sel = np.concatenate([sel, np.zeros(b - valid, dtype=sel.dtype)])
+                mask = np.zeros(b, np.bool_)
+                mask[:valid] = True
+                # index: the dataset rows of the batch, to join per-sample side
+                # tables against a shuffled batch; valid: the count of real examples
+                batch = {"image": self.images[sel], "label": self.labels[sel], "mask": mask,
+                         "index": sel, "valid": np.int32(valid)}
+            yield batch
 
 
 def rank_slice(images: np.ndarray, labels: np.ndarray, rank: int,
@@ -114,8 +118,10 @@ def prefetch_to_device(iterator: Iterable[dict], device: torch.device | str,
     device = torch.device(device)
     if device.type != "cuda":
         for batch in iterator:
-            yield {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
-                   for k, v in batch.items()}
+            with span("data/stage"):
+                out = {k: torch.from_numpy(v) if isinstance(v, np.ndarray) else v
+                       for k, v in batch.items()}
+            yield out
         return
 
     prefetch = max(1, int(prefetch))
@@ -128,18 +134,20 @@ def prefetch_to_device(iterator: Iterable[dict], device: torch.device | str,
         nonlocal staged
         slot = slots[staged % prefetch]
         staged += 1
-        if slot.event is not None:
-            slot.event.synchronize()  # the copy that last read these buffers
-        out = {}
-        with torch.cuda.stream(copy_stream):
-            for k, v in batch.items():
-                if isinstance(v, np.ndarray):
-                    src = torch.from_numpy(v)
-                    out[k] = slot.buffer(k, src).copy_(src).to(device, non_blocking=True)
-                else:
-                    out[k] = v
-            slot.event = torch.cuda.Event()
-            slot.event.record(copy_stream)
+        with span("data/stage"):
+            if slot.event is not None:
+                with span("data/slot_wait"):
+                    slot.event.synchronize()  # the copy that last read these buffers
+            out = {}
+            with torch.cuda.stream(copy_stream):
+                for k, v in batch.items():
+                    if isinstance(v, np.ndarray):
+                        src = torch.from_numpy(v)
+                        out[k] = slot.buffer(k, src).copy_(src).to(device, non_blocking=True)
+                    else:
+                        out[k] = v
+                slot.event = torch.cuda.Event()
+                slot.event.record(copy_stream)
         return out, slot.event
 
     it = iter(iterator)

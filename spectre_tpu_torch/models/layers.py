@@ -64,6 +64,7 @@ from spectre_tpu_torch.ops import (
 )
 from spectre_tpu_torch.ops.kernels import invert_tile_perms, structured_mix_grad
 from spectre_tpu_torch.ops.routing import pick_factor
+from spectre_tpu_torch.profile.spans import span
 
 MIX_IMPLS = ("folded", "gather", "gather_unfused", "gather_tm", "structured")
 
@@ -464,6 +465,10 @@ class MHPermutMix(nn.Module):
         return self._mix
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        with span("op/mix"):
+            return self._forward(x)
+
+    def _forward(self, x: torch.Tensor) -> torch.Tensor:
         mix = self._mix if torch.compiler.is_exporting() else self.refresh()
         b = x.shape[0]
         x = x.to(self.dtype)

@@ -21,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from spectre_tpu_torch.ops.kernels import fused_spectre_linear, fused_spectre_linear_grad, library
+from spectre_tpu_torch.profile.spans import span
 
 
 def gelu_exact(x: torch.Tensor) -> torch.Tensor:
@@ -82,14 +83,15 @@ def spectre_linear_apply(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     op ``kernels.library.fused_spectre_linear`` (the forward without h).
     """
     operands = (x, w, b, gamma, beta)
-    if torch.compiler.is_exporting():
-        out = library.fused_spectre_linear(*operands, eps)
-    elif torch.is_grad_enabled() and any(t.requires_grad for t in operands):
-        out = fused_spectre_linear_grad(*operands, eps)
-    else:  # nothing to differentiate: the kernel does not write its saved h
-        out = fused_spectre_linear(*operands, eps)
-    if pool_matrix is not None:
-        return out + torch.matmul(x, pool_matrix)
-    if w.shape[0] != w.shape[1]:
-        out = out + adaptive_avg_pool1d(x, w.shape[1])
-    return out
+    with span("op/spectre_linear"):
+        if torch.compiler.is_exporting():
+            out = library.fused_spectre_linear(*operands, eps)
+        elif torch.is_grad_enabled() and any(t.requires_grad for t in operands):
+            out = fused_spectre_linear_grad(*operands, eps)
+        else:  # nothing to differentiate: the kernel does not write its saved h
+            out = fused_spectre_linear(*operands, eps)
+        if pool_matrix is not None:
+            return out + torch.matmul(x, pool_matrix)
+        if w.shape[0] != w.shape[1]:
+            out = out + adaptive_avg_pool1d(x, w.shape[1])
+        return out

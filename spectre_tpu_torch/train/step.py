@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from spectre_tpu_torch.parallel.layout import augment_rows
+from spectre_tpu_torch.profile.spans import span
 from spectre_tpu_torch.train.optim import clip_by_global_norm_
 from spectre_tpu_torch.train.state import TrainState
 
@@ -80,13 +81,14 @@ def _clip(state: TrainState, max_norm) -> None:
 def _finish(state: TrainState, grad_clip_norm, metrics: dict) -> dict:
     """Reduce what no wrapper reduced, clip, step the optimizer and the
     schedule; the metrics averaged over the data ranks."""
-    if state.layout is not None:
-        state.layout.reduce_gradients()
-    if grad_clip_norm:
-        _clip(state, grad_clip_norm)
-    state.optimizer.step()
-    state.scheduler.step()
-    state.step += 1
+    with span("step/optimizer"):
+        if state.layout is not None:
+            state.layout.reduce_gradients()
+        if grad_clip_norm:
+            _clip(state, grad_clip_norm)
+        state.optimizer.step()
+        state.scheduler.step()
+        state.step += 1
     return metrics if state.layout is None else state.layout.mean_over_data(metrics)
 
 
@@ -107,6 +109,10 @@ def make_train_step(augment_fn: Callable | None = None, grad_accum_steps: int = 
     a = max(1, int(grad_accum_steps))
 
     def train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor) -> dict:
+        with span("step"):
+            return _train_step(state, images, labels)
+
+    def _train_step(state: TrainState, images: torch.Tensor, labels: torch.Tensor) -> dict:
         model, layout = state.model, state.layout
         net = model if layout is None else layout.module
         if images.shape[0] % a:
@@ -116,13 +122,16 @@ def make_train_step(augment_fn: Callable | None = None, grad_accum_steps: int = 
         metrics = None
         for i, (x, y) in enumerate(zip(images.chunk(a), labels.chunk(a))):
             if augment_fn is not None:
-                x = augment_fn(augment_rows(state.augment_source, layout, x.shape[0]), x)
+                with span("step/augment"):
+                    x = augment_fn(augment_rows(state.augment_source, layout, x.shape[0]), x)
             with (contextlib.nullcontext() if layout is None
                   else layout.accumulating(last=i == a - 1)):
-                logits = net(x)
-                aux = _aux_loss(model, logits)
-                loss = cross_entropy_loss(logits, y) + aux
-                (loss / a).backward()
+                with span("step/forward"):
+                    logits = net(x)
+                    aux = _aux_loss(model, logits)
+                    loss = cross_entropy_loss(logits, y) + aux
+                with span("step/backward"):
+                    (loss / a).backward()
             part = {"loss": loss.detach(), "accuracy": _accuracy(logits.detach(), y),
                     "loss_aux": aux.detach()}
             metrics = part if metrics is None else {k: metrics[k] + v for k, v in part.items()}
