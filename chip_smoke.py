@@ -322,6 +322,7 @@ PLAIN_PATCHES = (
     ("spectre_tpu_torch.ops.fused_mix.block_gather_sum", "block_gather_sum_plain"),
     ("spectre_tpu_torch.ops.fused_mix.inverse_gather_sum", "inverse_gather_sum_plain"),
     ("spectre_tpu_torch.ops.fused_mix.routed_gather_sum", "routed_gather_sum_plain"),
+    ("spectre_tpu_torch.ops.fused_mix.fused_block_bwd", "fused_block_bwd_plain"),
     ("spectre_tpu_torch.ops.linear.fused_spectre_linear", "fused_spectre_linear_plain"),
     ("spectre_tpu_torch.ops.kernels.fused_linear.fused_spectre_linear",
      "fused_spectre_linear_plain"),
@@ -674,14 +675,18 @@ FUSED_BWD_REL = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
 def phase_kernel5(kernels):
     """Kernel 5 at the flagship mix backward's shape: dy [65, B, 512],
     w [8,192, 512], s4 [65, 8,192], binv [16, 33,280 / blk] -> dxt [33,280, B].
-    bf16 with blk 64 takes the wgmma kernel; bf16 with blk 32 and 16 and f32
-    with blk 64 and 16 the token-grouped kernel; each route launches the
-    kernel ``block_bwd_kernel`` names, exactly, two runs bitwise equal, and
-    is held to the plain version and to the chain it fuses, with times of
+    bf16 with blk 64 takes the wgmma kernel, as the train step calls it: with
+    the pool residual's cotangent dpool (a transposed [B, N, O] view) and
+    grp = 16; bf16 with blk 32 and 16 and f32 with blk 64 and 16 the
+    token-grouped kernel, without it. Each route launches the kernel
+    ``block_bwd_kernel`` names, exactly, two runs bitwise equal, and is held
+    to the plain version on the same inputs and to the chain it fuses; the
+    pool term alone (dy = 0) equals the plain version's bit for bit. Times of
     the kernel (back to back and on the device), the plain version and the
     chain beside the bound. Returns the entries of both kernels."""
     d, heads, n_tok, o = 33_280, 16, 65, 512
     eh = heads * d // n_tok
+    grp = eh // o
     gen = torch.Generator(device="cuda").manual_seed(5)
     routes = {(torch.bfloat16, 64): "fused_block_bwd_wgmma",
               (torch.float32, 64): "fused_block_bwd_grouped",
@@ -698,24 +703,34 @@ def phase_kernel5(kernels):
         route = kernels.block_bwd_kernel(dtype, blk)
         if route != want_route:
             raise AssertionError(f"kernel 5 {dtype} blk={blk} routed to {route}")
+        pool = route == "fused_block_bwd_wgmma"
         for b in (256, 1024, 250):
             dy = torch.randn(n_tok, b, o, generator=gen, device="cuda").to(dtype)
+            # the pool's cotangent as the train step hands it over
+            dpool = torch.randn(b, n_tok, o, generator=gen, device="cuda").to(dtype).transpose(
+                0, 1) if pool else None
+            extra = (dpool, grp) if pool else ()
 
             def chain():
                 dg4 = torch.bmm(w.expand(n_tok, -1, -1), dy.transpose(1, 2))
+                if pool:  # e = u * grp + v takes dpool[n, b, u] / grp
+                    dg4.view(n_tok, o, grp, b).add_(dpool.transpose(1, 2)[:, :, None, :],
+                                                    alpha=1 / grp)
                 dg4.mul_(s4[:, :, None])
                 return kernels.block_gather_sum(dg4.view(heads * d, b), binv, blk)
 
+            def kernel(g=dy):
+                return kernels.fused_block_bwd(g, w, s4, binv, blk, *extra)
+
             n0 = kernels.launch_counts()
-            got = kernels.fused_block_bwd(dy, w, s4, binv, blk)
-            again = kernels.fused_block_bwd(dy, w, s4, binv, blk)
+            got, again = kernel(), kernel()
             torch.cuda.synchronize()
             n1 = kernels.launch_counts()
             if {k: n1[k] - n0[k] for k in n1 if n1[k] != n0[k]} != {route: 2, "fused_block_bwd": 2}:
                 raise AssertionError(f"kernel 5: two calls did not launch {route} twice")
             if not torch.equal(got, again):
                 raise AssertionError(f"{route} blk={blk} B={b}: two runs differ")
-            want = kernels.fused_block_bwd_plain(dy, w, s4, binv, blk)
+            want = kernels.fused_block_bwd_plain(dy, w, s4, binv, blk, *extra)
             scale = want.float().abs().max().item()
             err, err_chain = max_abs_diff(got, want), max_abs_diff(got, chain())
             limit = FUSED_BWD_REL[dtype] * scale
@@ -724,27 +739,37 @@ def phase_kernel5(kernels):
                 raise AssertionError(f"{route} blk={blk} B={b} {dtype}: max abs err {err} > "
                                      f"{limit} ({FUSED_BWD_REL[dtype]} of {scale}) or "
                                      f"{err_chain} from the chain")
-            ms_k = cuda_time_ms(lambda: kernels.fused_block_bwd(dy, w, s4, binv, blk),
-                                iters=20 if bf else 3)
-            ms_p = cuda_time_ms(lambda: kernels.fused_block_bwd_plain(dy, w, s4, binv, blk),
+            if pool:  # the pool term alone: exact float32 terms in head order, one rounding
+                zero = torch.zeros_like(dy)
+                pool_only, want_pool = kernel(zero), kernels.fused_block_bwd_plain(
+                    zero, w, s4, binv, blk, *extra)
+                if not torch.equal(pool_only, want_pool) or not pool_only.abs().max() > 0:
+                    raise AssertionError(f"{route} blk={blk} B={b}: the pool term alone differs "
+                                         f"from the plain version's by "
+                                         f"{max_abs_diff(pool_only, want_pool)}")
+                del zero, pool_only, want_pool
+            ms_k = cuda_time_ms(kernel, iters=20 if bf else 3)
+            ms_p = cuda_time_ms(lambda: kernels.fused_block_bwd_plain(dy, w, s4, binv, blk,
+                                                                      *extra),
                                 iters=2, reps=3)
             ms_c = cuda_time_ms(chain, iters=20 if bf else 3)
-            dev = device_time_ms(lambda: kernels.fused_block_bwd(dy, w, s4, binv, blk),
-                                 iters=5 if bf else 2)
+            dev = device_time_ms(kernel, iters=5 if bf else 2)
             flops = 2 * d * heads * o * b
-            moved = (n_tok * b * o + eh * o + n_tok * eh + d * b) * dy.element_size() \
-                + binv.numel() * 4
+            moved = (n_tok * b * o * (1 + pool) + eh * o + n_tok * eh + d * b) \
+                * dy.element_size() + binv.numel() * 4
             bound_ms, by = bound(moved, flops, BF16_FLOPS if bf else FP32_FLOPS)
             r = dict(err=err, scale=scale, err_chain=err_chain, ms=ms_k, plain=ms_p, chain=ms_c,
                      device=dev, bound=bound_ms, by=by)
-            print(f"kernel 5 {route} blk={blk} B={b} {str(dtype)[6:]}: max abs err {err:.4g} "
+            print(f"kernel 5 {route} blk={blk} B={b} {str(dtype)[6:]}"
+                  f"{f' with the pool term (grp {grp})' if pool else ''}: max abs err {err:.4g} "
                   f"({err / scale:.3g} of the largest entry {scale:.1f}, limit "
                   f"{FUSED_BWD_REL[dtype]}), to the chain {err_chain:.4g}, two runs bitwise "
-                  f"equal; kernel {ms_k:.4f} ms (device {dev:.4f}, {flops / dev / 1e9:.1f} "
-                  f"TFLOP/s), chain {ms_c:.4f} ms, plain {ms_p:.4f} ms; bound {bound_ms:.4f} ms "
-                  f"by {by}", flush=True)
+                  f"equal{', the pool term alone bitwise equal' if pool else ''}; kernel "
+                  f"{ms_k:.4f} ms (device {dev:.4f}, {flops / dev / 1e9:.1f} TFLOP/s), chain "
+                  f"{ms_c:.4f} ms, plain {ms_p:.4f} ms; bound {bound_ms:.4f} ms by {by}",
+                  flush=True)
             res[dtype, blk, b] = r
-            del dy, got, again, want
+            del dy, dpool, got, again, want
             torch.cuda.empty_cache()
 
     def entry(name, key, others):
@@ -766,7 +791,8 @@ def phase_kernel5(kernels):
     wgmma = [k for k in res if routes[k[:2]] == "fused_block_bwd_wgmma"]
     grouped = [k for k in res if routes[k[:2]] == "fused_block_bwd_grouped"]
     k5 = entry("fused_block_bwd_wgmma", (bf, 64, 256), wgmma)
-    k5["shape"] = f"dy[{n_tok},256,{o}] w[{eh},{o}] bf16, blk 64 -> [{d},256]"
+    k5["shape"] = (f"dy[{n_tok},256,{o}] w[{eh},{o}] dpool[{n_tok},256,{o}] (a transposed view) "
+                   f"bf16, blk 64, grp {grp} -> [{d},256]")
     k5g = entry("fused_block_bwd_grouped", (bf, 32, 256), grouped)
     k5g["shape"] = f"dy[{n_tok},256,{o}] w[{eh},{o}] bf16, blk 32 -> [{d},256]"
     return k5, k5g
@@ -877,7 +903,19 @@ def expected_launches(cfg, forwards: int = 0, steps: int = 0) -> dict[str, int]:
         # the routed backward takes precedence over the block tables
         routed = bool(getattr(cfg, "mix_routed", False))
         block = bool(getattr(cfg, "mix_block", 0)) and not routed
-        counts.update(block_scatter_rows=layers * both, block_gather_sum=layers * steps * block,
+        # the mix projection takes in = E*H to O = E; where
+        # fuses_mix_backward holds, the backward is one launch of kernel 5
+        # with the pool term
+        from spectre_tpu_torch.ops import fuses_mix_backward
+
+        e_in, o = cfg.embed_dim * cfg.num_heads, cfg.embed_dim
+        fused = block and fuses_mix_backward(getattr(torch, cfg.compute_dtype), cfg.mix_block,
+                                             cfg.num_heads, e_in // o if e_in % o == 0 else 0,
+                                             o, routed)
+        counts.update(block_scatter_rows=layers * both,
+                      block_gather_sum=layers * steps * (block and not fused),
+                      fused_block_bwd=layers * steps * fused,
+                      fused_block_bwd_wgmma=layers * steps * fused,
                       inverse_gather_sum=layers * steps * (not block and not routed),
                       routed_gather_sum=layers * steps * routed)
     elif cfg.method == "permut_mix" and cfg.mix_impl != "gather_tm":
@@ -1272,9 +1310,15 @@ def phase_fused_bwd_cli(kernels, perf_cli):
                 or counts[route] != counts["fused_block_bwd"]):
             raise AssertionError(f"perf fused-bwd --blk {blk} launched {counts}")
         for b, r in res["fused_bwd"].items():
-            if not r["max_abs_diff"] <= 4 * FUSED_BWD_REL[torch.bfloat16] * r["largest_entry"]:
-                raise AssertionError(f"perf fused-bwd blk={blk} B={b}: chain and kernel differ "
-                                     f"by {r['max_abs_diff']} of {r['largest_entry']}")
+            for name, q in (("kernel", r), ("pool", r.get("pool"))):
+                if q is not None and not (q["max_abs_diff"]
+                                          <= 4 * FUSED_BWD_REL[torch.bfloat16] * q["largest_entry"]):
+                    raise AssertionError(f"perf fused-bwd blk={blk} B={b} ({name}): chain and "
+                                         f"kernel differ by {q['max_abs_diff']} of "
+                                         f"{q['largest_entry']}")
+            if (blk == 64) != ("pool" in r):
+                raise AssertionError(f"perf fused-bwd blk={blk} B={b}: the pool comparison "
+                                     f"{'missing' if blk == 64 else 'where it does not apply'}")
         print(f"perf fused-bwd --blk {blk} launched {counts}", flush=True)
         launches[route] = launches.get(route, 0) + counts[route]
         out[f"blk{blk}"] = res["fused_bwd"]
@@ -2930,7 +2974,7 @@ PROFILE_BATCH, PROFILE_STEPS = 256, 3
 PROFILE_TOTAL_REL = 0.05
 # the CUDA names of the kernels a flagship step launches, by wrapper count
 PROFILE_KERNELS = (("block_scatter_rows_kernel", "block_scatter_rows"),
-                   ("gather_sum_kernel", "block_gather_sum"),
+                   ("fused_block_bwd_wgmma_kernel", "fused_block_bwd_wgmma"),
                    ("fused_linear_wgmma_kernel", "fused_spectre_linear_wgmma"),
                    ("fused_linear_cluster_kernel", "fused_spectre_linear_cluster"),
                    ("chain_kernel", "fused_spectre_linear_bwd"))
@@ -2939,7 +2983,7 @@ PROFILE_KERNELS = (("block_scatter_rows_kernel", "block_scatter_rows"),
 def phase_profile(kernels, parse_config, tmp: str) -> dict:
     """``trace_step`` around 3 flagship train steps at B=256 and the table of
     ``ProfilerParser``: its device total against ``key_averages()``'s, the
-    kernels of B1, B2 and B3 under their CUDA names with the wrappers'
+    kernels of B1, B8 and B3 under their CUDA names with the wrappers'
     launches, and the 15 largest rows."""
     from torch.autograd import DeviceType
 
@@ -4206,7 +4250,8 @@ def main() -> int:
     k11["launches"] = trainer_run["fused_spectre_linear_bwd"]
     k3["launches"] = trainer_run["block_gather_sum"]
     k4["launches"] = uniform_run["inverse_gather_sum"]
-    k5["launches"] = fused_run["fused_block_bwd_wgmma"]
+    k5["launches"] = trainer_run["fused_block_bwd_wgmma"]
+    k5["launches_fused_bwd_cli"] = fused_run["fused_block_bwd_wgmma"]
     k5g["launches"] = fused_run["fused_block_bwd_grouped"]
     k1["launches_serving"] = serving["block_scatter_rows"]
     k2["launches_serving"] = serving["fused_spectre_linear_wgmma"]
@@ -4231,7 +4276,8 @@ def main() -> int:
     # the distill CLI's uninterrupted run (20 steps, 2 validation passes)
     for k, counter in ((k1, "block_scatter_rows"), (k2, "fused_spectre_linear_wgmma"),
                        (k2_head, "fused_spectre_linear_cluster"),
-                       (k11, "fused_spectre_linear_bwd"), (k3, "block_gather_sum")):
+                       (k11, "fused_spectre_linear_bwd"), (k3, "block_gather_sum"),
+                       (k5, "fused_block_bwd_wgmma")):
         k["launches_distill"] = distill_run[counter]
     # the deployment path: one call of the loaded flagship program (batch 64),
     # of the ViT's and of the structured mix's (2 layers each)
@@ -4254,7 +4300,7 @@ def main() -> int:
             if c[counter]:
                 k[f"launches_perf_{mode}"] = c[counter]
     for k, counter in ((k1, "block_scatter_rows"), (k3, "block_gather_sum"),
-                       (k2, "fused_spectre_linear_wgmma"),
+                       (k5, "fused_block_bwd_wgmma"), (k2, "fused_spectre_linear_wgmma"),
                        (k2_head, "fused_spectre_linear_cluster"),
                        (k11, "fused_spectre_linear_bwd")):
         k["launches_profile"] = profile["launches"][counter]
@@ -4266,7 +4312,7 @@ def main() -> int:
     # phase 27: the CLI's runs under torchrun with DDP and FSDP (8 steps, 2
     # validation batches each)
     for k, counter in ((k1, "block_scatter_rows"), (k3, "block_gather_sum"),
-                       (k2, "fused_spectre_linear_wgmma"),
+                       (k5, "fused_block_bwd_wgmma"), (k2, "fused_spectre_linear_wgmma"),
                        (k2_head, "fused_spectre_linear_cluster"),
                        (k11, "fused_spectre_linear_bwd")):
         for kind in ("ddp", "fsdp"):

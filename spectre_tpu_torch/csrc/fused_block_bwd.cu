@@ -90,6 +90,32 @@
 // again, 2.2 GB from L2 at B = 256 where the bound counts dy once; the
 // kernel reads them at about 5.9 TB/s (measured on the H100), and one
 // warpgroup a block (two blocks an SM) is no faster.
+//
+// The pool residual's cotangent (fused_block_bwd_wgmma with a dpool). The
+// folded mix's forward also returns pool[n, b, u] = sum_v g4[n, u*grp + v, b]
+// * s4[n, u*grp + v] / grp (EH = O * grp), so the cotangent of g4 has a
+// second term, and the train step's input cotangent is
+//   dxt = block_gather_sum(s4 * (w @ dy^T + P @ dpool^T)),
+// P[e, u] = 1/grp where e / grp == u. The kernel adds P @ dpool^T to each
+// head's `part` before the signed add: part[r, b] += dpool[n_h, b, (e0_h + r)
+// / grp] * (1/grp), one float32 multiply and one float32 add, then acc += s
+// (.) part as before; no [H*d, B] tensor, no second pass. The rule: grp a
+// multiple of 16. A warp's 16 rows (r0 and r0 + 8, r0 = 16 warp + lane / 4)
+// then start at a multiple of 16 of e and lie in one pool column u_w, so a
+// warpgroup needs 4 values a batch column a head (u_0 .. u_3 of its 4
+// warps). dpool is read in the layout it arrives in (strides for n and b, u
+// contiguous; the train step's is a transposed [B, N, O] view). At a head's
+// start each thread loads its own column's 4 values (one 8-byte load where
+// grp = 16 and the view is aligned: u_0 .. u_3 are adjacent), before the
+// head's products; once they are done it puts them in shared memory, the
+// warpgroup meets at a named barrier, and each thread reads its 32 (16
+// bf16 pairs). So dpool comes from L2 once a (head, tile, column), 256
+// sectors a block a head against 8 boxes of 32 KB of dy. Measured on the
+// H100 at the flagship layer (B=1,024; B=256): the kernel 1.421 ms (0.369)
+// against 1.326 (0.334) without the pool term; each thread loading its 32
+// values itself, 1.571 (0.409); the design that adds P @ dpool^T as one more
+// wgmma a head (A a 1/16 staircase in shared memory, B a [256 b, 16 u] box
+// of dpool by TMA with the 32-byte swizzle), 2.036 (0.528).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -120,6 +146,18 @@ __device__ __forceinline__ void cp_async_wait() {
 struct Dims {
   long long d, B;
   int H, nb, blk, EH, O;
+};
+
+// The pool residual's cotangent dpool[n, b, u] at p + n*sn + b*sb + u, grp
+// rows of g4 a pool column, inv = 1/grp as float32, vec: grp = 16 and the
+// 4 values a column a tile 8-byte aligned; p == nullptr: no pool term
+// (fused_block_bwd_wgmma).
+struct PoolCot {
+  const bf16* p;
+  long long sn, sb;
+  int grp;
+  float inv;
+  bool vec;
 };
 
 // Per head: the first row of this 64-row tile's source block in the flat
@@ -496,12 +534,13 @@ __global__ void __launch_bounds__(B8Cfg::THREADS, 1)
 fused_block_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
                              const __grid_constant__ CUtensorMap dymap,
                              const bf16* __restrict__ s4, const int* __restrict__ binv,
-                             bf16* __restrict__ out, Dims p) {
+                             bf16* __restrict__ out, Dims p, PoolCot pool) {
   using C = B8Cfg;
   constexpr int S = C::STAGES;
   extern __shared__ unsigned char smem_raw[];
   __shared__ HeadCoords hc;
   __shared__ wg::Ring<S> ring;
+  __shared__ __align__(16) bf16 dps[2][2][4][128];  // [head parity][warpgroup][warp][column]
   unsigned char* smem = wg::align1024(smem_raw);
   const int tid = threadIdx.x;
   const int b0 = static_cast<int>(blockIdx.y) * C::BT;
@@ -532,8 +571,24 @@ fused_block_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
 #pragma unroll
   for (int j = 0; j < 64; ++j) acc[j] = 0.f;
   const uint32_t base = wg::smem_u32(smem);
+  // pre[w]: the pool cotangent of this thread's batch column 128 g + tid %
+  // 128 in warp w's pool column
+  __align__(8) bf16 pre[4];
   int i = 0;
   for (int h = 0; h < p.H; ++h) {
+    if (pool.p != nullptr) {
+      const long long col = b0 + g * 128 + tid % 128;
+      const bf16* src = pool.p + hc.n[h] * pool.sn + col * pool.sb;
+      if (pool.vec) {
+        uint2 v = make_uint2(0u, 0u);
+        if (col < p.B) v = *reinterpret_cast<const uint2*>(src + hc.e0[h] / 16);
+        *reinterpret_cast<uint2*>(pre) = v;
+      } else {
+#pragma unroll
+        for (int w = 0; w < 4; ++w)
+          pre[w] = col < p.B ? src[(hc.e0[h] + w * 16) / pool.grp] : __float2bfloat16_rn(0.f);
+      }
+    }
     for (int oc = 0; oc < nko; ++oc, ++i) {
       ring.wait_full(i);
       const uint32_t as = base + (i % S) * C::STAGE;
@@ -552,6 +607,22 @@ fused_block_bwd_wgmma_kernel(const __grid_constant__ CUtensorMap wmap,
     wg::wgmma_wait<0>();
     wg::fence_operands(part);
     retire(i - 1);  // the head's last step
+    if (pool.p != nullptr) {
+      // heads alternate buffers: a thread writes this one again two heads
+      // on, after every thread of its warpgroup has passed the next barrier
+      bf16* buf = &dps[h & 1][g][0][0];
+#pragma unroll
+      for (int w = 0; w < 4; ++w) buf[w * 128 + tid % 128] = pre[w];
+      wg::named_barrier(1 + g, 128);
+      const bf16* mine = buf + warp * 128 + cq;
+#pragma unroll
+      for (int c = 0; c < 16; ++c) {
+        const float2 v = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(mine + 8 * c));
+#pragma unroll
+        for (int j = 0; j < 4; ++j)  // rows r0 and r0 + 8 share the column's value
+          part[4 * c + j] = __fadd_rn(part[4 * c + j], __fmul_rn(j % 2 ? v.y : v.x, pool.inv));
+      }
+    }
     const bf16* sg = s4 + hc.start[h];
     const float sg0 = __bfloat162float(sg[r0]), sg1 = __bfloat162float(sg[r0 + 8]);
 #pragma unroll
@@ -652,13 +723,16 @@ extern "C" int fused_block_bwd_grouped(int dtype_code, const void* dy, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
-// bfloat16 only (dy, w, s4 and out); the contract of fused_block_bwd with
-// blk % 64 == 0; dy, w and out 16-byte aligned. Returns cudaGetLastError()
+// bfloat16 only (dy, w, s4, dpool and out); the contract of fused_block_bwd
+// with blk % 64 == 0; dy, w and out 16-byte aligned. dpool [N, B, O] at
+// dpool + n*dp_sn + b*dp_sb + u (elements), or null for no pool term; with
+// one, grp a multiple of 16 and EH == O * grp. Returns cudaGetLastError()
 // after the launch (0 on success).
 extern "C" int fused_block_bwd_wgmma(const void* dy, const void* w, const void* s4,
                                      const void* binv, void* out, long long H, long long nb,
                                      long long blk, long long N, long long EH, long long O,
-                                     long long B, void* stream) {
+                                     long long B, const void* dpool, long long dp_sn,
+                                     long long dp_sb, long long grp, void* stream) {
   if (H < 1 || H > kMaxH || nb < 1 || blk < 64 || blk % 64 || N < 1 || EH < 1 || EH % blk ||
       O < 8 || O % 8 || B < 1 || N * EH != H * nb * blk || EH > 0x7fffffffLL ||
       O > 0x7fffffffLL || B > 0x7fffffffLL || N > 0x7fffffffLL ||
@@ -666,6 +740,18 @@ extern "C" int fused_block_bwd_wgmma(const void* dy, const void* w, const void* 
       reinterpret_cast<uintptr_t>(dy) % 16 || reinterpret_cast<uintptr_t>(w) % 16 ||
       reinterpret_cast<uintptr_t>(out) % 16)
     return cudaErrorInvalidValue;
+  if (dpool != nullptr &&
+      (grp < 16 || grp % 16 || EH != O * grp || dp_sn < 0 || dp_sb < 0 ||
+       reinterpret_cast<uintptr_t>(dpool) % 2))
+    return cudaErrorInvalidValue;
+  PoolCot pool;
+  pool.p = static_cast<const bf16*>(dpool);
+  pool.sn = dp_sn;
+  pool.sb = dp_sb;
+  pool.grp = dpool != nullptr ? static_cast<int>(grp) : 1;
+  pool.inv = static_cast<float>(1.0 / static_cast<double>(pool.grp));
+  pool.vec = grp == 16 && dp_sn % 4 == 0 && dp_sb % 4 == 0 &&
+             reinterpret_cast<uintptr_t>(dpool) % 8 == 0;
   Dims p;
   p.d = nb * blk;
   p.B = B;
@@ -691,6 +777,6 @@ extern "C" int fused_block_bwd_wgmma(const void* dy, const void* w, const void* 
   const dim3 grid(static_cast<unsigned>(p.d / 64), static_cast<unsigned>((B + C::BT - 1) / C::BT));
   fused_block_bwd_wgmma_kernel<<<grid, C::THREADS, C::SMEM, static_cast<cudaStream_t>(stream)>>>(
       wm, dym, static_cast<const bf16*>(s4), static_cast<const int*>(binv),
-      static_cast<bf16*>(out), p);
+      static_cast<bf16*>(out), p, pool);
   return static_cast<int>(cudaGetLastError());
 }

@@ -45,8 +45,12 @@ from spectre_tpu_torch.ops import (
     derive_mix_tables,
     fold_weights,
     folded_bmm,
+    folded_mix_pool,
     folded_proj,
+    fuses_mix_backward,
     gelu_exact,
+    grouped_pool,
+    grouped_pool_weights,
     layer_norm,
     learnable_hadamard,
     make_block_mix_tables,
@@ -212,7 +216,17 @@ class FoldedMixLinear(_ProjectionLN):
         out  = GELU(LN(y)) + pool                  -> [B, N, O]
 
     When a gradient is wanted, y goes through ``ops.folded_proj`` (its
-    backward never builds the [N, in, O] cotangent). Otherwise the folded
+    backward never builds the [N, in, O] cotangent), or, where
+    ``ops.fuses_mix_backward`` holds for the mix (bf16, blk % 64 == 0, grp a
+    multiple of 16, no route) and no tensor-parallel shard is set, the
+    permutation, y and the pool go through ``ops.folded_mix_pool``
+    (``forward_stream``, called by ``MHPermutMix``): its backward is one
+    launch of kernel B8 that adds the pool's cotangent in, with no
+    [N, in, B] cotangent. ``forward_paths`` counts the training forwards,
+    each of which sets up one backward, by that backward's path ("fused" or
+    "chain"; the tensor-parallel shard counts as "chain"): the kernels'
+    launch counters see only the card, and this count is what the CPU's
+    dispatch tests read. Otherwise the folded
     weights ``diag(s_n) W`` are built once per value of ``kernel`` and kept:
     serving must not fold 8,192 x 512 weights for 65 tokens on every call.
     While ``torch.export`` traces, y is ``ops.signed_stream_proj``: the
@@ -225,6 +239,7 @@ class FoldedMixLinear(_ProjectionLN):
     # every forward (its address and version say nothing of its values), so
     # parallel/fsdp.py sets a function of the stored shard's version instead
     fold_key = None
+    forward_paths = {"fused": 0, "chain": 0}
 
     def __init__(self, *args, **kw):
         super().__init__(*args, **kw)
@@ -235,10 +250,10 @@ class FoldedMixLinear(_ProjectionLN):
     def pool_weights(self, s4: torch.Tensor) -> tuple[torch.Tensor, int]:
         """The pool residual's sign-folded weights for signs s4 [N, in]."""
         o = self.features
-        n, e = s4.shape
+        e = s4.shape[1]
         if e % o == 0:
             grp = e // o
-            return (s4.reshape(n, o, grp) / grp).contiguous(), grp
+            return grouped_pool_weights(s4, grp), grp
         return fold_weights(adaptive_pool_matrix(e, o, s4.dtype, s4.device), s4), 0
 
     @torch.no_grad()
@@ -254,26 +269,52 @@ class FoldedMixLinear(_ProjectionLN):
             self._wp = (key, fold_weights(k.to(self.dtype), mix.s4))
         return self._wp[1]
 
+    def _trains(self, x: torch.Tensor) -> bool:
+        return torch.is_grad_enabled() and (self.kernel.requires_grad or x.requires_grad)
+
+    def fuses_backward(self, xt: torch.Tensor, mix: FoldedMix) -> bool:
+        """Whether ``forward_stream`` takes this training forward of the
+        token-major stream xt: a gradient is wanted, the model is not being
+        exported, no tensor-parallel shard is set, and
+        ``ops.fuses_mix_backward`` holds for the mix."""
+        return (self.tp is None and not torch.compiler.is_exporting() and self._trains(xt)
+                and fuses_mix_backward(self.dtype, mix.tables.blk, mix.tables.binv.shape[0],
+                                       mix.grp, self.features, mix.route is not None))
+
+    def forward_stream(self, xt: torch.Tensor, mix: FoldedMix) -> torch.Tensor:
+        """The permutation and this layer in one: the token-major stream xt
+        [d, B] (contiguous) through ``ops.folded_mix_pool``, where
+        ``fuses_backward`` holds. The forward's values are those of
+        ``forward`` on ``perm_rows_t(xt)``."""
+        dt = self.dtype
+        self._wp = None  # training: do not hold a stale [N, in, O] copy
+        FoldedMixLinear.forward_paths["fused"] += 1
+        y, pool = folded_mix_pool(xt, self.kernel.to(dt), mix.s4, mix.tables, mix.grp)
+        return self._finish(y + self.bias.to(dt), pool)
+
+    def _finish(self, y: torch.Tensor, pool: torch.Tensor) -> torch.Tensor:
+        """GELU(LN(y)) + pool for y (bias added) and pool [N, B, O] -> [B, N, O]."""
+        dt = self.dtype
+        h = gelu_exact(layer_norm(y, self.ln_scale.to(dt), self.ln_bias.to(dt))) + pool
+        return h.transpose(0, 1)  # [B, N, O]
+
     def forward(self, g4: torch.Tensor, mix: FoldedMix) -> torch.Tensor:
         if self.tp is not None:
+            if not torch.compiler.is_exporting() and self._trains(g4):
+                FoldedMixLinear.forward_paths["chain"] += 1
             return self.tp.folded_mix_linear(self, g4, mix)
         dt = self.dtype
-        n, _, b = g4.shape
         if torch.compiler.is_exporting():
             y = signed_stream_proj(g4, self.kernel.to(dt), mix.s4)
-        elif torch.is_grad_enabled() and (self.kernel.requires_grad or g4.requires_grad):
+        elif self._trains(g4):
             self._wp = None  # training: do not hold a stale [N, in, O] copy
+            FoldedMixLinear.forward_paths["chain"] += 1
             y = folded_proj(g4, self.kernel.to(dt), mix.s4)
         else:
             y = folded_bmm(g4, self.folded_weights(mix))
         y = y + self.bias.to(dt)  # [N, B, O]
-        if mix.grp:
-            pool = torch.einsum("nuvb,nuv->nbu",
-                                g4.reshape(n, self.features, mix.grp, b), mix.pool_w)
-        else:
-            pool = folded_bmm(g4, mix.pool_w)
-        h = gelu_exact(layer_norm(y, self.ln_scale.to(dt), self.ln_bias.to(dt))) + pool
-        return h.transpose(0, 1)  # [B, N, O]
+        pool = grouped_pool(g4, mix.pool_w, mix.grp) if mix.grp else folded_bmm(g4, mix.pool_w)
+        return self._finish(y, pool)
 
 
 class TokenMajorMixLinear(_ProjectionLN):
@@ -474,6 +515,8 @@ class MHPermutMix(nn.Module):
         x = x.to(self.dtype)
         if self.impl == "folded":
             xt = x.reshape(b, -1).t().contiguous()  # token-major [d, B]
+            if self.linear.fuses_backward(xt, mix):
+                return self.linear.forward_stream(xt, mix)
             g = perm_rows_t(xt, mix.tables, mix.route)  # [H*d, B] == [N*in, B]
             return self.linear(g.view(self.token_dim, -1, b), mix)
         if self.impl == "gather_tm":

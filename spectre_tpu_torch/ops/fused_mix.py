@@ -24,6 +24,17 @@ All are ``torch.autograd.Function``s:
   ``dg4 = s4 * (w @ dy^T)`` with w shared over tokens, and
   ``dW = sum_{n,b} (s4 * g4)[n, :, b] dy[n, b, :]`` as one product with
   K = N*B. ``s4`` holds fixed signs and gets no gradient.
+- ``folded_mix_pool(xt, w, s4, tables, grp)``: ``perm_rows_t``, then
+  ``folded_proj`` and the grouped sign-mean pool residual (its weights
+  s4 / grp made from s4), as one op (JAX's ``perm_rows_t`` followed by
+  ``folded_proj_pool``). The forward runs the
+  same kernels as the three ops apart and gives the same bits. The backward
+  computes the input cotangent ``block_gather_sum(s4 * (w @ dy^T + P @
+  dpool^T))`` in one launch of kernel B8 (kernels.fused_block_bwd with the
+  pool term): no [N, in, B] cotangent is made and nothing g4-sized passes
+  through autograd; dW as ``folded_proj``'s backward makes it. Where it
+  applies (``fuses_mix_backward``) is the kernel's contract: bf16, a block
+  table with blk % 64 == 0, grp a multiple of 16, no route.
 - ``permut_mix_fused(x2d, perms, signs2)``: [B, d] -> [B, H, d], the exact
   gather mix. Nothing activation-sized is saved; the backward applies the
   signs first, then one flat gather by the inverse permutations and the sum
@@ -46,12 +57,15 @@ import numpy as np
 import torch
 
 from spectre_tpu_torch.ops.kernels import (
+    block_bwd_kernel,
     block_gather_sum,
     block_scatter_rows,
+    fused_block_bwd,
     inverse_gather_sum,
     library,
     routed_gather_sum,
 )
+from spectre_tpu_torch.ops.kernels.fused_block_bwd import MAX_HEADS
 from spectre_tpu_torch.ops.permute import MixTables
 from spectre_tpu_torch.ops.routing import (
     build_route_tables_cached,
@@ -172,6 +186,16 @@ def folded_bmm(g4: torch.Tensor, wp: torch.Tensor) -> torch.Tensor:
     return torch.bmm(g4.transpose(1, 2), wp)
 
 
+def _folded_dw(g4: torch.Tensor, s4: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """dW [in, O] of the folded projection from its saved g4 [N, in, B] and
+    a contiguous dy [N, B, O]: s4 * g4 written straight into [in, N, B], so
+    that {n, b} is one contiguous K axis and dW is a single product."""
+    n, e, b = g4.shape
+    sg = torch.empty((e, n, b), dtype=g4.dtype, device=g4.device)
+    torch.mul(g4.transpose(0, 1), s4.t()[:, :, None], out=sg)
+    return torch.matmul(sg.view(e, n * b), dy.view(n * b, -1))
+
+
 class _FoldedProj(torch.autograd.Function):
     @staticmethod
     def forward(ctx, g4, w, s4):
@@ -181,7 +205,7 @@ class _FoldedProj(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dy):
         g4, w, s4 = ctx.saved_tensors
-        n, e, b = g4.shape
+        n = g4.shape[0]
         dy = dy.contiguous()
         dg4 = dw = None
         if ctx.needs_input_grad[0]:
@@ -190,12 +214,73 @@ class _FoldedProj(torch.autograd.Function):
             dg4 = torch.bmm(w.expand(n, -1, -1), dy.transpose(1, 2))
             dg4.mul_(s4[:, :, None])
         if ctx.needs_input_grad[1]:
-            # s4 * g4 written straight into [in, N, B], so that {n, b} is one
-            # contiguous K axis and dW is a single product
-            sg = torch.empty((e, n, b), dtype=g4.dtype, device=g4.device)
-            torch.mul(g4.transpose(0, 1), s4.t()[:, :, None], out=sg)
-            dw = torch.matmul(sg.view(e, n * b), dy.view(n * b, -1))
+            dw = _folded_dw(g4, s4, dy)
         return dg4, dw, None
+
+
+def grouped_pool_weights(s4: torch.Tensor, grp: int) -> torch.Tensor:
+    """The grouped sign-mean pool's weights for signs s4 [N, in] and grp =
+    in // O: s4 / grp as [N, O, grp]."""
+    return (s4.reshape(s4.shape[0], -1, grp) / grp).contiguous()
+
+
+def grouped_pool(g4: torch.Tensor, pool_w: torch.Tensor, grp: int) -> torch.Tensor:
+    """The folded mix's pool residual for grp = in // O: pool[n, b, u] =
+    sum_v g4[n, u*grp + v, b] * pool_w[n, u, v], with pool_w [N, O, grp]
+    (``grouped_pool_weights``). g4 [N, in, B] -> [N, B, O]."""
+    n, _, b = g4.shape
+    return torch.einsum("nuvb,nuv->nbu", g4.reshape(n, pool_w.shape[1], grp, b), pool_w)
+
+
+def fuses_mix_backward(dtype: torch.dtype, blk: int, heads: int, grp: int, o: int,
+                       routed: bool) -> bool:
+    """Whether ``folded_mix_pool``'s one-launch backward takes a folded mix
+    of ``heads`` heads whose block tables move blk-row blocks, with grp =
+    in // O (0 where O does not divide in), routed or not: kernel B8's wgmma
+    kernel with the pool term, i.e. bf16, no route, blk % 64 == 0 (a 64-row
+    tile lies in one token), grp a multiple of 16 (a warp's 16 rows in one
+    pool column), O a multiple of 8 and at most ``MAX_HEADS`` heads."""
+    return (not routed and grp > 0 and grp % 16 == 0 and o % 8 == 0
+            and (o * grp) % blk == 0 and 1 <= heads <= MAX_HEADS
+            and block_bwd_kernel(dtype, blk) == "fused_block_bwd_wgmma")
+
+
+class _FoldedMixPool(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xt, w, s4, blk, bsrc, binv, grp):
+        n, b = s4.shape[0], xt.shape[1]
+        g4 = block_scatter_rows(xt, bsrc, blk).view(n, -1, b)
+        y = folded_bmm(g4, fold_weights(w, s4))
+        pool = grouped_pool(g4, grouped_pool_weights(s4, grp), grp)
+        ctx.blk, ctx.grp = blk, grp
+        ctx.save_for_backward(g4, w, s4, binv)
+        return y, pool
+
+    @staticmethod
+    def backward(ctx, dy, dpool):
+        # autograd hands zeros for an output the loss does not reach
+        g4, w, s4, binv = ctx.saved_tensors
+        dy = dy.contiguous()
+        dxt = dw = None
+        if ctx.needs_input_grad[0]:
+            dxt = fused_block_bwd(dy, w, s4, binv, ctx.blk, dpool, ctx.grp)
+        if ctx.needs_input_grad[1]:
+            dw = _folded_dw(g4, s4, dy)
+        return dxt, dw, None, None, None, None, None
+
+
+def folded_mix_pool(xt: torch.Tensor, w: torch.Tensor, s4: torch.Tensor, tables: MixTables,
+                    grp: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The folded mix up to its LayerNorm, as one op (JAX's ``perm_rows_t``
+    then ``folded_proj_pool(g4, w, s4, grp)``): g4 = ``perm_rows_t``(xt,
+    tables) viewed [N, in, B], then y = ``folded_proj``(g4, w, s4) and the
+    grouped sign-mean pool = ``grouped_pool``(g4, ``grouped_pool_weights``
+    (s4, grp), grp), both [N, B, O]. xt contiguous [d, B], w [in, O], s4
+    [N, in] signs, in = O * grp. Gradients for xt (one launch of kernel B8
+    with the pool term) and w; the backward needs ``fuses_mix_backward`` to
+    hold on a card (on the CPU the kernel's plain version takes any dtype,
+    blk and grp)."""
+    return _FoldedMixPool.apply(xt, w, s4, tables.blk, tables.bsrc, tables.binv, grp)
 
 
 def signed_stream_proj(g4: torch.Tensor, w: torch.Tensor, s4: torch.Tensor) -> torch.Tensor:

@@ -75,7 +75,8 @@ _SIGNATURES = {
                                                 ctypes.c_int, ctypes.POINTER(ctypes.c_int)),
     "fused_block_bwd_grouped": (ctypes.c_int, _P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL,
                                 _LL, ctypes.c_int, ctypes.c_int, _P),
-    "fused_block_bwd_wgmma": (_P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P),
+    "fused_block_bwd_wgmma": (_P, _P, _P, _P, _P, _LL, _LL, _LL, _LL, _LL, _LL, _LL, _P, _LL, _LL,
+                              _LL, _P),
     "fwht": (_P, _P, _LL, _LL, ctypes.c_float, ctypes.c_int, _P),
     "structured_mix_fwd": (ctypes.c_int, _P, _P, _P, _P, _LL, _LL, _LL, _LL, ctypes.c_float, _P),
     "structured_mix_bwd": (ctypes.c_int, _P, _P, _P, _P, _LL, _LL, _LL, _LL, ctypes.c_float, _P),

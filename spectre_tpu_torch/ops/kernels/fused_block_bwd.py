@@ -14,9 +14,18 @@ block owns a run of output rows and takes its (head, slab) pairs in steps
 grouped by source token, so that a token's dy tile is read once for all its
 slabs (the launch's shape is ``grouped_plan``'s). ``block_bwd_kernel``
 decides which one a call launches.
-As in the JAX package, the train step does not call it: it is reached from
-``python -m spectre_tpu_torch.repl.perf fused-bwd``, which times it against
-the chain.
+
+With ``dpool`` [N, B, O] and ``grp`` (EH = O * grp), the cotangent of the
+folded mix's pool residual ``pool[n, b, u] = sum_v g4[n, u*grp + v, b] *
+s4[n, u*grp + v] / grp`` joins the sum: each head's product gets
+``dpool[n_r, b, e_r // grp] / grp`` before its sign, so the result is the
+whole input cotangent of ``ops.fused_mix.folded_mix_pool``. Only the wgmma
+kernel takes it, and only with grp a multiple of 16 (a warp's 16 rows then
+read one pool column); dpool may be strided in N and B, with u contiguous.
+The train step calls it so from ``folded_mix_pool``'s backward where
+``fuses_mix_backward`` holds (bf16, blk % 64 == 0, no route); every other
+case keeps the chain. ``python -m spectre_tpu_torch.repl.perf fused-bwd``
+times it against the chain.
 
 The kernel takes ``blk`` a multiple of 16 that divides EH (a source block
 never straddles a token), O a multiple of 8, at most 128 heads, any B >= 1,
@@ -38,12 +47,14 @@ MAX_HEADS = 128  # the per-block table of head coordinates (csrc/fused_block_bwd
 
 
 def fused_block_bwd_plain(dy: torch.Tensor, w: torch.Tensor, s4: torch.Tensor,
-                          binv: torch.Tensor, blk: int) -> torch.Tensor:
+                          binv: torch.Tensor, blk: int, dpool: torch.Tensor | None = None,
+                          grp: int = 0) -> torch.Tensor:
     """Plain PyTorch version, in the kernel's arithmetic: per head a float32
-    product of the block's rows of ``w`` with its token's ``dy``, signed and
-    added in head order in float32; one cast at the end. (The chain rounds
-    ``dg4`` to the data type per head before it adds.) Any blk >= 1 that
-    divides EH."""
+    product of the block's rows of ``w`` with its token's ``dy``, with the
+    pool term ``dpool[n, b, e // grp] * (1/grp)`` added to it in float32
+    when ``dpool`` is given, signed and added in head order in float32; one
+    cast at the end. (The chain rounds ``dg4`` to the data type per head
+    before it adds.) Any blk >= 1 that divides EH, any grp with EH = O * grp."""
     h, nb = binv.shape
     n_tok, b, o = dy.shape
     eh = w.shape[0]
@@ -52,10 +63,14 @@ def fused_block_bwd_plain(dy: torch.Tensor, w: torch.Tensor, s4: torch.Tensor,
     start = torch.arange(h, device=dev)[:, None] * d + binv.long() * blk  # [H, nb]
     rows = torch.arange(blk, device=dev)
     wf, dyf, sf = w.float(), dy.float(), s4.reshape(-1).float()
+    dpf = None if dpool is None else dpool.float()
     acc = torch.zeros(nb, blk, b, dtype=torch.float32, device=dev)
     for i in range(h):
         n, e0 = start[i] // eh, start[i] % eh
         part = torch.bmm(wf[e0[:, None] + rows], dyf[n].transpose(1, 2))  # [nb, blk, B]
+        if dpf is not None:  # [nb, blk, B]: each row's pool column, all of B;
+            # 1/grp meets the float32 values as a float32 scalar, as in the kernel
+            part = part + dpf[n[:, None], :, (e0[:, None] + rows) // grp] * (1.0 / grp)
         acc += sf[start[i][:, None] + rows][:, :, None] * part
     return acc.to(dy.dtype).reshape(d, b)
 
@@ -101,6 +116,17 @@ def _validate(dy, w, s4, binv, blk: int) -> None:
         raise ValueError("fused_block_bwd needs dy and w aligned to 16 bytes")
 
 
+def _validate_pool(dy, w, dpool, grp: int) -> None:
+    n_tok, b, o = dy.shape
+    if dpool.dtype != dy.dtype or dpool.device != dy.device:
+        raise TypeError(f"dpool must share dy's dtype and device; got {dpool.dtype} on "
+                        f"{dpool.device}")
+    if tuple(dpool.shape) != (n_tok, b, o):
+        raise ValueError(f"dpool must be [N, B, O] = {(n_tok, b, o)}, got {tuple(dpool.shape)}")
+    if grp < 1 or w.shape[0] != o * grp:
+        raise ValueError(f"the pool needs EH = O * grp; got EH={w.shape[0]}, O={o}, grp={grp}")
+
+
 def block_bwd_kernel(dtype: torch.dtype, blk: int) -> str:
     """The name of the CUDA kernel that runs a call on the card:
     ``fused_block_bwd_wgmma`` for bfloat16 with blk a multiple of 64 (a
@@ -134,12 +160,15 @@ def _dims(dy, w, binv, blk: int) -> tuple:
     return h, nb, blk, n_tok, w.shape[0], o, b
 
 
-def fused_block_bwd_wgmma(dy, w, s4, binv, blk: int, out) -> None:
+def fused_block_bwd_wgmma(dy, w, s4, binv, blk: int, out, dpool=None, grp: int = 0) -> None:
     """Launch the bf16 wgmma kernel on checked operands of the current
-    device into ``out``."""
+    device into ``out``, with the pool term when ``dpool`` (u contiguous)
+    is given."""
+    pool = (None, 0, 0, 0) if dpool is None else \
+        (dpool.data_ptr(), dpool.stride(0), dpool.stride(1), grp)
     err = load_library().fused_block_bwd_wgmma(
         dy.data_ptr(), w.data_ptr(), s4.data_ptr(), binv.data_ptr(), out.data_ptr(),
-        *_dims(dy, w, binv, blk), current_stream(dy.get_device()))
+        *_dims(dy, w, binv, blk), *pool, current_stream(dy.get_device()))
     check(err, "fused_block_bwd_wgmma launch")
     fused_block_bwd_wgmma.launches += 1
 
@@ -162,21 +191,36 @@ _KERNELS = {fn.__name__: fn for fn in (fused_block_bwd_wgmma, fused_block_bwd_gr
 
 
 def fused_block_bwd(dy: torch.Tensor, w: torch.Tensor, s4: torch.Tensor,
-                    binv: torch.Tensor, blk: int) -> torch.Tensor:
-    """dy [N, B, O], w [EH, O], s4 [N, EH], binv [H, d/blk] -> dxt [d, B].
-    On the card it launches the kernel ``block_bwd_kernel`` names;
-    ``launches`` counts both."""
+                    binv: torch.Tensor, blk: int, dpool: torch.Tensor | None = None,
+                    grp: int = 0) -> torch.Tensor:
+    """dy [N, B, O], w [EH, O], s4 [N, EH], binv [H, d/blk] -> dxt [d, B],
+    with the pool residual's cotangent dpool [N, B, O] (any strides) when
+    given, EH = O * grp. On the card it launches the kernel
+    ``block_bwd_kernel`` names; ``launches`` counts both. The pool term runs
+    on the wgmma kernel with grp a multiple of 16 only; elsewhere on the
+    card it raises."""
     _validate(dy, w, s4, binv, blk)
+    if dpool is not None:
+        _validate_pool(dy, w, dpool, grp)
     if dy.device.type == "cpu":
-        return fused_block_bwd_plain(dy, w, s4, binv, blk)
+        return fused_block_bwd_plain(dy, w, s4, binv, blk, dpool, grp)
     if dy.device.type != "cuda":
         raise RuntimeError(f"fused_block_bwd: no kernel for device {dy.device}")
     dev = dy.get_device()
     if dev != torch.cuda.current_device():  # the kernel launches on the current device
         with torch.cuda.device(dev):
-            return fused_block_bwd(dy, w, s4, binv, blk)
+            return fused_block_bwd(dy, w, s4, binv, blk, dpool, grp)
+    route = block_bwd_kernel(dy.dtype, blk)
     out = torch.empty((binv.shape[1] * blk, dy.shape[1]), dtype=dy.dtype, device=dy.device)
-    _KERNELS[block_bwd_kernel(dy.dtype, blk)](dy, w, s4, binv, blk, out)
+    if dpool is None:
+        _KERNELS[route](dy, w, s4, binv, blk, out)
+    else:
+        if route != "fused_block_bwd_wgmma" or grp % 16:
+            raise ValueError(f"the pool term runs on the wgmma kernel (bf16, blk % 64 == 0) "
+                             f"with grp a multiple of 16; got {dy.dtype}, blk={blk}, grp={grp}")
+        if dpool.stride(2) != 1:
+            dpool = dpool.contiguous()
+        fused_block_bwd_wgmma(dy, w, s4, binv, blk, out, dpool, grp)
     fused_block_bwd.launches += 1
     return out
 

@@ -47,10 +47,17 @@ bf16, with the bytes bound, and prints B9's largest difference from its
 plain version (none: they are bitwise equal) and from kernel 4 (the bf16
 chain against one rounding). ``fused-bwd`` (the counterpart of the JAX package's
 ``benchmarks/fused_bwd_bench.py``) runs the mix backward at one layer's
-shapes in bf16 both ways, the chain of the train step (``_FoldedProj``'s
-``dg4`` product and signs, then ``block_gather_sum``) and the one-launch
-kernel ``fused_block_bwd``, and prints their largest difference, both times,
-GFLOP/s and the ratio. ``fwht`` times the Walsh-Hadamard kernel in bf16 at
+shapes in bf16 both ways, the chain (``_FoldedProj``'s ``dg4`` product and
+signs, then ``block_gather_sum``) and the one-launch kernel
+``fused_block_bwd``, and prints their largest difference, both times,
+GFLOP/s and the ratio. Where ``fuses_mix_backward`` holds for the shape
+(``--blk`` a multiple of 64, grp = in / O a multiple of 16) it then times the folded
+mix's whole input cotangent with its pool residual both ways: the chain
+(autograd through ``perm_rows_t``, ``folded_proj`` and the pool ``einsum``:
+the dg4 product and signs, the pool's product, the add, the copy and
+``block_gather_sum``) against ``folded_mix_pool``'s backward (one launch of
+``fused_block_bwd`` with the pool term), the pool's cotangent a transposed
+[B, N, O] view as in the train step. ``fwht`` times the Walsh-Hadamard kernel in bf16 at
 [16,640, 512], [16,640, 1024] and [4,160, 4,096] beside ``x @ H_n`` (the
 TPU kernel's form, as a yardstick), each back to back from the host and on
 the device alone (``utils/timing.py``), with the bytes bound. ``linear-bwd``
@@ -107,7 +114,16 @@ import torch
 
 from spectre_tpu_torch.configs import FLAGSHIP, parse_config
 from spectre_tpu_torch.data import synthetic_batch
-from spectre_tpu_torch.ops import fused_mix
+from spectre_tpu_torch.ops import (
+    MixTables,
+    folded_mix_pool,
+    folded_proj,
+    fused_mix,
+    fuses_mix_backward,
+    grouped_pool,
+    grouped_pool_weights,
+    perm_rows_t,
+)
 from spectre_tpu_torch.ops import structured_mix as structured_mix_matrix
 from spectre_tpu_torch.ops import hadamard_matrix
 from spectre_tpu_torch.ops.kernels import (
@@ -332,8 +348,47 @@ def fold_variants(cfg, batch: int) -> dict:
     return out
 
 
+def _pool_cotangent_chain_and_fused(dy, w, s4, binv, blk: int, grp: int, iters: int) -> dict:
+    """The folded mix's input cotangent with the pool residual, bf16: the
+    chain (autograd of ``perm_rows_t``, ``folded_proj`` and the pool
+    ``einsum``) against ``folded_mix_pool``'s backward; w takes no gradient
+    in either, so both time dxt alone. Returns their times, largest
+    difference and entry."""
+    n, b, o = dy.shape
+    d = binv.shape[1] * blk
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    bsrc = torch.argsort(binv.long(), dim=1).to(torch.int32)
+    tables = MixTables(blk, bsrc, binv)
+    pool_w = grouped_pool_weights(s4, grp)
+    xt = torch.randn(d, b, generator=gen, device="cuda", dtype=dy.dtype).requires_grad_()
+    dpool = torch.randn(b, n, o, generator=gen, device="cuda", dtype=dy.dtype).transpose(0, 1)
+
+    def chain_graph():
+        g4 = perm_rows_t(xt, tables).view(n, -1, b)
+        return folded_proj(g4, w, s4), grouped_pool(g4, pool_w, grp)
+
+    graphs = {"chain": chain_graph(),
+              "fused": folded_mix_pool(xt, w, s4, tables, grp)}
+    grads = {k: torch.autograd.grad(v, xt, (dy, dpool), retain_graph=True)[0]
+             for k, v in graphs.items()}
+    t = {}
+    for name in ("chain", "fused", "fused_again", "chain_again"):
+        outs = graphs[name.removesuffix("_again")]
+
+        def run():
+            for _ in range(iters):
+                torch.autograd.grad(outs, xt, (dy, dpool), retain_graph=True)
+        run()
+        t[name] = statistics.median(_events_ms(run, 5)) / iters
+    diff = (grads["chain"].float() - grads["fused"].float()).abs().max().item()
+    peak = grads["chain"].float().abs().max().item()
+    del graphs, grads
+    return dict(t, max_abs_diff=diff, largest_entry=peak, grp=grp)
+
+
 def fused_bwd(args) -> dict:
-    """The mix backward at one layer's shapes, bf16: chain against kernel."""
+    """The mix backward at one layer's shapes, bf16: chain against kernel,
+    and with blk % 64 == 0 the input cotangent with the pool residual."""
     h, n, e, o, blk = args.heads, args.tokens, args.embed, args.out_dim, args.blk
     d, eh = n * e, e * h
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -372,6 +427,19 @@ def fused_bwd(args) -> dict:
               f"  fused kernel:                           {t2:8.3f} ms  ({gflop / t2:6.1f} "
               f"TFLOP/s)\n"
               f"  chain / fused: {t1 / t2:.2f}x", flush=True)
+        grp = eh // o if eh % o == 0 else 0
+        if fuses_mix_backward(torch.bfloat16, blk, h, grp, o, routed=False):
+            pool = _pool_cotangent_chain_and_fused(dy, w, s4, binv, blk, grp, args.iters)
+            out[str(b)]["pool"] = pool
+            t1, t2 = min(pool["chain"], pool["chain_again"]), min(pool["fused"],
+                                                                  pool["fused_again"])
+            print(f"  with the pool residual's cotangent (grp={grp}): max|chain-fused|="
+                  f"{pool['max_abs_diff']:.4f} of a largest entry {pool['largest_entry']:.1f}\n"
+                  f"  chain (autograd: bmm, signs, pool product, add, copy, "
+                  f"block_gather_sum): {t1:8.3f} ms\n"
+                  f"  folded_mix_pool backward (one fused_block_bwd launch):        "
+                  f"{t2:8.3f} ms\n"
+                  f"  chain / fused: {t1 / t2:.2f}x", flush=True)
         del dy
         torch.cuda.empty_cache()
     return out

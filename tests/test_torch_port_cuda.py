@@ -18,10 +18,13 @@ import numpy as np
 import pytest
 import torch
 
-from spectre_tpu_torch.data import BatchIterator, prefetch_to_device, synthetic_dataset
+from spectre_tpu_torch.configs import FLAGSHIP, parse_config
+from spectre_tpu_torch.data import BatchIterator, prefetch_to_device, synthetic_batch, \
+    synthetic_dataset
 from spectre_tpu_torch.models import build_model
+from spectre_tpu_torch.models.layers import FoldedMixLinear, MHPermutMix
 from spectre_tpu_torch.ops import fwht as fwht_any_axis
-from spectre_tpu_torch.ops import register_mix_routes
+from spectre_tpu_torch.ops import perm_rows_t, register_mix_routes
 from spectre_tpu_torch.ops.kernels.fused_linear import wide_cluster_reach
 from spectre_tpu_torch.ops.routing import build_route_tables_cached
 from spectre_tpu_torch.ops.kernels import (
@@ -35,6 +38,7 @@ from spectre_tpu_torch.ops.kernels import (
     fused_block_bwd,
     fused_block_bwd_grouped,
     fused_block_bwd_plain,
+    fused_block_bwd_wgmma,
     fused_spectre_linear,
     fused_spectre_linear_bwd,
     fused_spectre_linear_bwd_plain,
@@ -387,6 +391,156 @@ def test_fused_block_bwd_grouped_at_the_flagship_shape(cuda_device, dtype, blk):
         want = fused_block_bwd_plain(dy, w, s4, binv, blk)
         scale = want.float().abs().max().item()
         assert (got.float() - want.float()).abs().max().item() <= rel * scale
+
+
+# kernel 5's wgmma kernel with the pool residual's cotangent at the flagship
+# layer's shape (N = 65, EH = 8,192, O = 512, H = 16, blk = 64, grp = 16),
+# against its plain version at kernel 5's limit; dpool as the train step
+# hands it over (a transposed [B, N, O] view) and contiguous
+@pytest.mark.parametrize("b", [1024, 250])
+@pytest.mark.parametrize("layout", ["step", "contiguous"])
+def test_fused_block_bwd_pool_term_at_the_flagship_shape(cuda_device, b, layout):
+    h, e, n, o, blk = 16, 512, 65, 512, 64
+    d, eh, grp = n * e, e * h, e * h // o
+    rng = np.random.default_rng(b)
+    binv = torch.from_numpy(np.stack([rng.permutation(d // blk) for _ in range(h)])
+                            .astype(np.int32)).to(cuda_device)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+            cuda_device, torch.bfloat16)
+
+    dy, w = normal(n, b, o), normal(eh, o)
+    dpool = normal(b, n, o).transpose(0, 1) if layout == "step" else normal(n, b, o)
+    s4 = torch.from_numpy(rng.choice([-1.0, 1.0], (n, eh)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    k0, n0 = fused_block_bwd_wgmma.launches, fused_block_bwd.launches
+    got = fused_block_bwd(dy, w, s4, binv, blk, dpool, grp)
+    assert torch.equal(got, fused_block_bwd(dy, w, s4, binv, blk, dpool, grp))  # bitwise
+    assert fused_block_bwd_wgmma.launches == k0 + 2 and fused_block_bwd.launches == n0 + 2
+    want = fused_block_bwd_plain(dy, w, s4, binv, blk, dpool, grp)
+    assert got.shape == want.shape == (d, b) and got.dtype == torch.bfloat16
+    scale = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= 1e-2 * scale
+    # the pool term alone (dy = 0): exact float32 terms added in head order
+    # on both sides and rounded once, so bit for bit
+    zero = torch.zeros_like(dy)
+    pool_only = fused_block_bwd(zero, w, s4, binv, blk, dpool, grp)
+    assert torch.equal(pool_only, fused_block_bwd_plain(zero, w, s4, binv, blk, dpool, grp))
+    assert pool_only.abs().max().item() > 0
+
+
+# the pool term at every grp a multiple of 16 (grp = H: O = 64), blk 64 and
+# 128, batch tails, and a dpool view 2-byte aligned (no 8-byte loads)
+@pytest.mark.parametrize("h,blk,b,offset", [(16, 64, 5, 0), (16, 128, 300, 1), (32, 64, 250, 0),
+                                            (48, 64, 40, 0), (48, 128, 257, 3)])
+def test_fused_block_bwd_pool_term_takes_every_grp_the_rule_allows(cuda_device, h, blk, b,
+                                                                   offset):
+    e, n, o = 64, 6, 64
+    d, eh, grp = n * e, e * h, h
+    rng = np.random.default_rng(h + blk + b)
+    binv = torch.from_numpy(np.stack([rng.permutation(d // blk) for _ in range(h)])
+                            .astype(np.int32)).to(cuda_device)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(
+            cuda_device, torch.bfloat16)
+
+    dy, w = normal(n, b, o), normal(eh, o)
+    dpool = normal(offset + b * n * o)[offset:].view(b, n, o).transpose(0, 1)
+    s4 = torch.from_numpy(rng.choice([-1.0, 1.0], (n, eh)).astype(np.float32)).to(
+        cuda_device, torch.bfloat16)
+    got = fused_block_bwd(dy, w, s4, binv, blk, dpool, grp)
+    assert torch.equal(got, fused_block_bwd(dy, w, s4, binv, blk, dpool, grp))
+    want = fused_block_bwd_plain(dy, w, s4, binv, blk, dpool, grp)
+    scale = want.float().abs().max().item()
+    assert (got.float() - want.float()).abs().max().item() <= 1e-2 * scale
+    zero = torch.zeros_like(dy)
+    assert torch.equal(fused_block_bwd(zero, w, s4, binv, blk, dpool, grp),
+                       fused_block_bwd_plain(zero, w, s4, binv, blk, dpool, grp))
+
+
+def test_fused_block_bwd_pool_term_refuses_what_the_kernel_does_not_take(cuda_device):
+    """The pool term runs on the wgmma kernel with grp a multiple of 16 only."""
+    n, b, o = 6, 8, 64
+    for dtype, blk, grp in ((torch.bfloat16, 32, 16), (torch.float32, 64, 16),
+                            (torch.bfloat16, 64, 8)):
+        h = 16
+        e = o * grp // h
+        if (n * e) % blk:
+            continue
+        binv = torch.stack([torch.randperm(n * e // blk) for _ in range(h)]).to(
+            cuda_device, torch.int32)
+        dy = torch.zeros(n, b, o, device=cuda_device, dtype=dtype)
+        w = torch.zeros(e * h, o, device=cuda_device, dtype=dtype)
+        s4 = torch.ones(n, e * h, device=cuda_device, dtype=dtype)
+        with pytest.raises(ValueError):
+            fused_block_bwd(dy, w, s4, binv, blk, torch.zeros_like(dy), grp)
+
+
+def test_flagship_mix_layer_on_the_card_takes_the_one_launch_backward(cuda_device):
+    """One flagship mix layer (E=512, 65 tokens, H=16, blk=64, bf16) at
+    B=256: the fused path's forward equals the chain's bit for bit, so do
+    the parameters' gradients (the same ops), and dx lies within 4 times
+    kernel 5's limit of the chain's, which rounds dg4 per op."""
+    torch.manual_seed(0)
+    m = MHPermutMix(512, 65, 16, 512, mix_block=64, dtype=torch.bfloat16, device=cuda_device)
+    gen = torch.Generator().manual_seed(1)
+    m.init_parameters(gen)
+    m.linear.init_parameters(gen)
+    mix = m.refresh()
+    x = torch.randn(256, 65, 512, device=cuda_device)
+    cot = torch.randn(256, 65, 512, device=cuda_device, dtype=torch.bfloat16)
+
+    def run(fn):
+        xa = x.clone().requires_grad_()
+        for p in m.parameters():
+            p.grad = None
+        out = fn(xa)
+        out.backward(cot)
+        return out.detach(), xa.grad, [p.grad.clone() for p in m.parameters()]
+
+    def chain(xa):
+        xt = xa.to(torch.bfloat16).reshape(256, -1).t().contiguous()
+        g = perm_rows_t(xt, mix.tables, mix.route)
+        return m.linear(g.view(65, -1, 256), mix)
+
+    paths0 = dict(FoldedMixLinear.forward_paths)
+    k0 = launch_counts()
+    got = run(m)
+    k1 = launch_counts()
+    assert FoldedMixLinear.forward_paths["fused"] == paths0["fused"] + 1
+    assert k1["fused_block_bwd_wgmma"] - k0["fused_block_bwd_wgmma"] == 1
+    assert k1["block_gather_sum"] == k0["block_gather_sum"]
+    want = run(chain)
+    assert k1["block_gather_sum"] < launch_counts()["block_gather_sum"]
+    assert torch.equal(got[0], want[0])
+    assert all(torch.equal(a, b) for a, b in zip(got[2], want[2]))
+    scale = want[1].float().abs().max().item()
+    assert (got[1].float() - want[1].float()).abs().max().item() <= 4e-2 * scale
+
+
+def test_flagship_train_step_launches_kernel_5_and_not_kernel_3(cuda_device):
+    """A flagship bf16 train step (B=64) launches kernel 5's wgmma kernel once
+    a layer (4 a step) and kernel 3 (block_gather_sum) not at all; the
+    counter puts every mix backward on the fused path."""
+    from spectre_tpu_torch.train.loop import build_step
+
+    cfg = parse_config(FLAGSHIP)
+    assert (cfg.compute_dtype, cfg.mix_block, cfg.num_heads) == ("bfloat16", 64, 16)
+    state, step = build_step(cfg, cuda_device)
+    xb, yb = synthetic_batch(cfg.dataset, 64)
+    x, y = torch.from_numpy(xb).to(cuda_device), torch.from_numpy(yb).to(cuda_device)
+    step(state, x, y)
+    torch.cuda.synchronize()
+    before, paths0 = launch_counts(), dict(FoldedMixLinear.forward_paths)
+    step(state, x, y)
+    torch.cuda.synchronize()
+    delta = {k: v - before[k] for k, v in launch_counts().items() if v != before[k]}
+    layers = cfg.num_encoders
+    assert delta["fused_block_bwd_wgmma"] == delta["fused_block_bwd"] == layers == 4
+    assert "block_gather_sum" not in delta and "fused_block_bwd_grouped" not in delta
+    assert FoldedMixLinear.forward_paths == dict(paths0, fused=paths0["fused"] + layers)
 
 
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-5), (torch.bfloat16, 2.0 ** -7)])
