@@ -4,12 +4,17 @@
   file and its overrides, the numbers the reference computes from, the
   limits of the correctness check);
 - ``traffic/<mix>.json``: the parameters of a traffic mix, read by the
-  runner of its ``kind`` (``drive_train.py``, ``drive_serve.py``);
+  runner of its ``kind``, the module ``portbench.drive_<kind>``
+  (``run.py::find_runner``: ``drive_train.py``, ``drive_serve.py``,
+  ``drive_distill.py``);
 - ``layer_metrics/<reader>.py``: the reader of a per-layer metric, found as
   the longest dotted prefix of the metric's name that names a file; the
   rest of the name, split at its dots, is passed to the reader's ``read``.
 
-Adding a configuration, a mix or a metric is adding a file and an entry.
+A configuration names the reference family of each model it runs
+(``reference/<family>.py``; a distillation's teacher under ``teacher``).
+Adding a configuration, a mix, a traffic kind, a reference family or a
+metric is adding a file and an entry.
 """
 
 from __future__ import annotations

@@ -4,13 +4,13 @@
 
 The cell's configuration, traffic mix and metrics are found by the names in
 ``BENCHMARK.json`` (``portbench/manifest.py``); the runner of the mix's
-``kind`` runs it on one card. The last line of standard output is one JSON
-object: ``correct``, ``attempted``, ``failed``, ``metrics`` (the cell's
-end-to-end metrics, or with ``--trace 1`` its per-layer metrics),
-``device``, with ``--trace 1`` ``breakdown``, and last ``checks``, each number
-of the correctness check beside its limit (also the last lines of standard
-error). The kernels build into ``build/kernels/`` of the checkout on its
-first run and load from there afterwards.
+``kind``, the file ``portbench/drive_<kind>.py``, runs it on one card. The
+last line of standard output is one JSON object: ``correct``, ``attempted``,
+``failed``, ``metrics`` (the cell's end-to-end metrics, or with ``--trace 1``
+its per-layer metrics), ``device``, with ``--trace 1`` ``breakdown``, and
+last ``checks``, each number of the correctness check beside its limit (also
+the last lines of standard error). The kernels build into ``build/kernels/``
+of the checkout on its first run and load from there afterwards.
 """
 
 from __future__ import annotations
@@ -20,6 +20,7 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
+import importlib  # noqa: E402
 import os  # noqa: E402
 import sys  # noqa: E402
 
@@ -30,6 +31,22 @@ if not __package__:
     # not shadow the standard library's, so the package is imported from the root
     sys.path[:] = [ROOT] + [p for p in sys.path if os.path.abspath(p or ".") != HERE]
 os.environ.setdefault("USE_FLAX", "0")
+
+
+def find_runner(kind: str):
+    """The runner of traffic of ``kind``: the module ``portbench.drive_<kind>``,
+    whose ``run(cell, seed, seconds, trace, device, t_start)`` returns
+    (result, checks). A kind with no such module stops the run with a
+    message that names the file looked for."""
+    name = f"portbench.drive_{kind}"
+    if str(kind).isidentifier():
+        try:
+            return importlib.import_module(name)
+        except ModuleNotFoundError as e:
+            if e.name != name:
+                raise
+    raise LookupError(f"no runner for traffic kind {kind!r}: looked for "
+                      f"{os.path.join(HERE, f'drive_{kind}.py')}")
 
 
 def main(argv=None) -> int:
@@ -49,18 +66,21 @@ def main(argv=None) -> int:
               f"checkout ({ROOT})", file=sys.stderr)
         return 2
 
-    from portbench import drive_serve, drive_train
     from portbench.common import emit, forbidden_modules
     from portbench.manifest import find_cell, load_manifest
 
     cell = find_cell(load_manifest(os.path.join(ROOT, "BENCHMARK.json")), a.workload, ROOT)
+    try:
+        runner = find_runner(cell.traffic["kind"])
+    except LookupError as e:
+        print(e, file=sys.stderr)
+        return 2
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell.chips:
         print(f"needs {cell.chips} CUDA device(s); torch.cuda.is_available() is "
               f"{torch.cuda.is_available()}", file=sys.stderr)
         return 2
-    runners = {"train": drive_train, "serve": drive_serve}
-    result, checks = runners[cell.traffic["kind"]].run(
-        cell, a.seed, a.seconds, bool(a.trace), torch.device("cuda", 0), T_START)
+    result, checks = runner.run(cell, a.seed, a.seconds, bool(a.trace), torch.device("cuda", 0),
+                                T_START)
     found = forbidden_modules()
     if found:
         print(f"the process loaded {found}: the benchmark must not load JAX or the JAX "
