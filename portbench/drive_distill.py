@@ -9,11 +9,14 @@ with the CIFAR augmentation inside it.
 Set-up, feed, window, trace and result line are the train runner's
 (``drive_train.py``): the student's state, weights and feed come from its
 ``Trainer``; the teacher's weights from ``make_params`` over the teacher
-family's ``spec``, loaded into the program's teacher by its own names. The
-first ``check_steps`` steps are the ones the reference follows (the
-student's loss, first gradient and change, and the teacher's logits of
-those batches); a step of the window is the teacher's forward and the
-student's update, and ``host_issue_ms`` counts both.
+family's ``spec`` (``reference/<family>.py``), loaded into the program's
+teacher by its own names and strictly, so that a leaf missing, extra or of
+another shape stops the run; the configuration's ``teacher`` group names
+the family and the program's ``variant`` it follows. The first
+``check_steps`` steps are the ones the reference follows (the student's
+loss, first gradient and change, and the teacher's logits of those
+batches); a step of the window is the teacher's forward and the student's
+update, and ``host_issue_ms`` counts both.
 
 Traffic parameters are the train runner's.
 """
@@ -34,28 +37,26 @@ from portbench.reference.common import make_params, shuffled_batches
 from portbench.reference.distill import distill_steps
 from portbench.reference.steps import family
 
-# the teacher group's sizes that the program's backbone holds under the same names
+# the teacher group's keys that the program's backbone holds under the same names:
+# its sizes, and the program's variant that the family's reference follows
 TEACHER_SIZES = ("img_size", "patch_size", "in_channels", "embed_dim", "depth", "num_heads",
-                 "num_registers")
-VARIANTS = {"dinov3": "v3", "dinov2": "v2"}
+                 "num_registers", "variant")
 TEACHER_STREAM = 0x7EAC4E5  # the teacher's weights: the student's seed with these bits flipped
 
 
 def _differ(cfg, config: dict, teacher) -> list[str]:
     """What the program's distiller states otherwise than the benchmark's
-    file: the distillation keys, and the sizes of the teacher it built."""
+    file: the distillation keys, and the sizes and variant of the teacher it
+    built. The widths of its layers are held by the strict load of the
+    teacher family's ``spec``, which refuses a missing or extra leaf and any
+    shape that differs."""
     t, bb = config["teacher"], teacher.backbone
     out = [f"{k}: program {getattr(cfg, k, None)!r}, benchmark {v!r}"
            for k, v in config["distill"].items() if getattr(cfg, k, None) != v]
-    out += [f"teacher {k}: program {getattr(bb, k)!r}, benchmark {t[k]!r}"
-            for k in TEACHER_SIZES if getattr(bb, k) != t[k]]
-    ff = bb.blocks()[0].mlp.fc1.kernel.shape[1]
-    if ff != t["mlp_hidden_dim"]:
-        out.append(f"teacher mlp_hidden_dim: program {ff}, benchmark {t['mlp_hidden_dim']}")
+    out += [f"teacher {k}: program {getattr(bb, k)!r}, benchmark {t.get(k)!r}"
+            for k in TEACHER_SIZES if getattr(bb, k) != t.get(k)]
     if teacher.num_classes != t["num_classes"]:
         out.append(f"teacher num_classes: program {teacher.num_classes}")
-    if bb.variant != VARIANTS.get(t["reference"]):
-        out.append(f"teacher variant: program {bb.variant!r}, benchmark {t['reference']!r}")
     return out
 
 

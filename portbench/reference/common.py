@@ -37,7 +37,9 @@ def make_params(spec: list[tuple], seed: int, device: torch.device | str) -> dic
     leaf (std ``arg``), one for the +-1 ``signs``, one for the block
     permutations (``block_perm``, block ``arg``: whole blocks move); ``ones``
     and ``zeros`` are constants. Trainable leaves are float32, permutations
-    int32."""
+    int32. A ``uniform`` or ``normal`` leaf is scaled in place in its slice
+    of the draw and is a view of it, so the weights take their own bytes
+    once, not twice."""
     gen = torch.Generator(device=device).manual_seed(int(seed))
     out: dict[str, torch.Tensor] = {}
 
@@ -63,12 +65,12 @@ def make_params(spec: list[tuple], seed: int, device: torch.device | str) -> dic
             flat = draws[kind][taken[kind]:taken[kind] + n]
             taken[kind] += n
             if kind == "uniform":
-                leaf = (flat * 2.0 - 1.0) * arg
+                leaf = flat.mul_(2.0).sub_(1.0).mul_(arg)
             elif kind == "normal":
-                leaf = flat * arg
+                leaf = flat.mul_(arg)
             else:
                 leaf = torch.where(flat < 0.5, -1.0, 1.0)
-            out[name] = leaf.reshape(shape).contiguous()
+            out[name] = leaf.view(shape)
         elif kind == "block_perm":
             h, d = shape[-2], shape[-1]
             bperm = draws["block_perm"][taken[kind]:taken[kind] + h]

@@ -6,16 +6,17 @@ spans on and stubbed out in one process.
 
 Set-up is the runner's (``drive_train.Trainer``, the cell's checked and
 warm-up steps through the same call and feed). Each turn then traces
-``--steps`` steps as ``tracing.traced`` does (a ``portbench.window``
-annotation between two device synchronises, padded) and reads the trace
-twice: ``tracing.summarize`` and ``spans.summarize_spans``. A ``stubbed``
-turn runs with the program's spans off although the profiler records, so
-that the two kinds of turn price the spans. Each turn's line on standard
-output gives the window's milliseconds a step, the device's idle share and
-the span readers' values (``layer_metrics/idle_under_ms.py``,
-``device_ms.py``, ``spectre_linear_op_roofline.py``); ``--out`` takes every
-turn's whole summary as JSON, and the last turn with spans is printed as a
-table a span a row.
+``--steps`` steps through ``tracing.traced``, as a traced run does (a
+``portbench.window`` annotation between two device synchronises, padded),
+which reads the trace twice: ``tracing.summarize`` and
+``spans.summarize_spans``. A ``stubbed`` turn runs with the program's spans
+off although the profiler records, so that the two kinds of turn price the
+spans. Each turn's line on standard output gives the window's milliseconds a
+step, the device's idle share and the span readers' values
+(``layer_metrics/idle_under_ms.py``, ``device_ms.py``,
+``spectre_linear_op_roofline.py``); ``--out`` takes every turn's whole
+summary as JSON, and the last turn with spans is printed as a table a span a
+row.
 """
 
 from __future__ import annotations
@@ -25,8 +26,6 @@ import contextlib
 import json
 import os
 import sys
-import tempfile
-import time
 import types
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -50,35 +49,6 @@ def stubbed():
         yield
     finally:
         spans._profiler = real
-
-
-def traced_steps(trainer, k: int, sync) -> dict:
-    """``k`` steps in a traced window, as ``tracing.traced`` traces them:
-    its summary with the spans' summary under ``spans``."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    import torch
-
-    from portbench.spans import read_spans
-    from portbench.tracing import PAD_S, WINDOW, summarize
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with tempfile.TemporaryDirectory(prefix="portbench_spans_") as tmp:
-        with profile(activities=activities) as prof:
-            sync()
-            time.sleep(PAD_S)
-            with record_function(WINDOW):
-                for _ in range(k):
-                    trainer.one()
-                sync()
-            time.sleep(PAD_S)
-        path = os.path.join(tmp, "trace.json")
-        prof.export_chrome_trace(path)
-        out = summarize(path)
-        out["spans"] = read_spans(path)
-    return out
 
 
 def span_metrics(record: dict) -> dict:
@@ -141,6 +111,7 @@ def main(argv=None) -> int:
 
     from portbench.drive_train import Trainer
     from portbench.manifest import find_cell, load_manifest
+    from portbench.tracing import traced
 
     device = torch.device(a.device)
     if device.type == "cuda" and not torch.cuda.is_available():
@@ -157,8 +128,10 @@ def main(argv=None) -> int:
     sync()
     turns, last = [], None
     for turn in a.turns.split(","):
-        with stubbed() if turn == "stubbed" else contextlib.nullcontext():
-            trace = traced_steps(trainer, a.steps, sync)
+        with stubbed() if turn == "stubbed" else contextlib.nullcontext(), traced(sync) as held:
+            for _ in range(a.steps):
+                trainer.one()
+        trace = held["trace"]
         record = {"kind": "train", "model": trainer.m, "batch": trainer.batch,
                   "trace_steps": a.steps, "trace": trace}
         result = {"turn": turn, "ms_per_step": 1e3 * trace["window_s"] / a.steps,

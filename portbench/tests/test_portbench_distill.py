@@ -251,8 +251,8 @@ def test_spectre_linear_roofline_distill_counts_the_students_kernel_2_alone():
 
 # -- whole runs of the distillation runner -------------------------------------
 
-def _cell(tmp_path, config="distill_dinov2_cifar100", **model):
-    root = tiny_distill_root(str(tmp_path), config, **model)
+def _cell(tmp_path, config="distill_dinov2_cifar100", teacher=None, **model):
+    root = tiny_distill_root(str(tmp_path), config, teacher, **model)
     return find_cell(load_manifest(os.path.join(root, "BENCHMARK.json")), "tiny.distill", root)
 
 
@@ -364,3 +364,73 @@ def test_the_dinov3_configuration_runs_and_reads_the_programs_fault(tmp_path):
     assert cell.config["teacher"]["reference"] == "dinov3"
     result, checks = _run(cell)
     assert not result["correct"] and checks["teacher_err"]["value"] > 0.1
+
+
+# -- a teacher family is one file and one entry -------------------------------
+
+FAMILY = "dinoreg_tiny"  # a family no file of the benchmark holds
+FAMILY_FILES = {
+    # DINOv2's reference re-exported under a new name
+    "same": "from portbench.reference.dinov2 import *  # noqa: F403\n",
+    # the same family with its first MLP projection under another name
+    "renamed": ("from portbench.reference.dinov2 import *  # noqa: F403\n"
+                "from portbench.reference.dinov2 import spec as _spec\n\n\n"
+                "def spec(t):\n"
+                "    return [(n.replace('mlp.fc1', 'mlp.w1'), *rest) for n, *rest in _spec(t)]\n"),
+}
+
+
+@pytest.fixture
+def new_family(tmp_path, monkeypatch):
+    """``add(kind)`` writes ``FAMILY_FILES[kind]`` as the family ``FAMILY``'s
+    one file and puts it on the reference package's path, as if it were one
+    of its files."""
+    import portbench.reference as reference
+
+    folder = tmp_path / "family"
+    folder.mkdir()
+    monkeypatch.setattr(reference, "__path__", [*reference.__path__, str(folder)])
+
+    def add(kind: str = "same") -> str:
+        (folder / f"{FAMILY}.py").write_text(FAMILY_FILES[kind])
+        return FAMILY
+
+    yield add
+    sys.modules.pop(f"portbench.reference.{FAMILY}", None)
+    vars(reference).pop(FAMILY, None)
+
+
+def test_the_runner_holds_no_table_of_teacher_families():
+    from portbench import drive_distill
+
+    source = open(drive_distill.__file__).read()
+    assert "dinov2" not in source and "dinov3" not in source and "fc1" not in source
+
+
+def test_a_new_teacher_family_is_one_file_and_one_config(tmp_path, new_family):
+    """A family the runner has never heard of, with the program's variant its
+    configuration states, distils through the runner and reads correct at
+    float32 rounding."""
+    family = new_family()
+    cell = _cell(tmp_path / "root", teacher={"reference": family, "variant": "v2"},
+                 compute_dtype="float32")
+    assert cell.config["teacher"]["reference"] == family
+    result, checks = _run(cell)
+    assert result["correct"], checks
+    assert max(c["value"] for c in checks.values()) < 1e-5, checks
+
+
+@pytest.mark.parametrize("kind,teacher,match", [
+    ("same", {"variant": "v3"}, "teacher variant: program 'v2', benchmark 'v3'"),
+    ("same", {"variant": None}, "teacher variant: program 'v2', benchmark None"),
+    ("same", {"mlp_hidden_dim": 128}, "size mismatch for backbone.block_0.mlp.fc1.kernel"),
+    ("renamed", {}, "Missing key.*block_0.mlp.fc1.kernel"),
+])
+def test_a_teacher_the_program_builds_otherwise_is_refused(tmp_path, new_family, kind, teacher,
+                                                           match):
+    """Another variant than the configuration states, another MLP width, or a
+    leaf the program names otherwise: the run stops before its first step."""
+    family = new_family(kind)
+    cell = _cell(tmp_path / "root", teacher={"reference": family, "variant": "v2", **teacher})
+    with pytest.raises(RuntimeError, match=match):
+        _run(cell)

@@ -3,18 +3,20 @@ hand-written trace with a GPU lane, a main thread and an autograd thread:
 device work tied to spans by its launch, backward work tied to an ``op/*``
 span through the autograd sequence number, idle time under the input
 pipeline's and the step's spans, and what falls under none. Also
-``tracing.summarize`` unmoved by the spans, and the six span readers on a
-hand-made record, with the op roofline's least time pinned."""
+``tracing.summarize`` unmoved by the spans, the six span readers on a
+hand-made record, with the op roofline's least time pinned, and a traced run
+of a tiny train cell carrying the program's spans to its readers."""
 
 from __future__ import annotations
 
 import importlib.util
 import json
+import time
 
 import pytest
 
 from portbench import spans, tracing
-from portbench.manifest import PACKAGE, ROOT, load_reader
+from portbench.manifest import PACKAGE, ROOT, find_cell, load_manifest, load_reader
 from portbench.roofline import BF16_FLOPS, HBM_BYTES_PER_S, spectre_linear_step_s
 
 HOST, GPU, MAIN, AUTOGRAD = 100, 0, 1, 2
@@ -291,3 +293,27 @@ def test_the_span_report_on_a_tiny_cell(tmp_path, capsys):
     assert with_spans["step"]["calls"] == 2 and with_spans["op/spectre_linear"]["calls"] == 6
     assert stubbed == {}  # the program's spans off while the profiler records
     assert any(ln.startswith("op/mix") for ln in lines)
+
+
+def test_a_traced_run_carries_the_programs_spans(tmp_path, monkeypatch):
+    """``drive_train.run`` with ``--trace 1`` on the CPU: the record its
+    readers get holds the spans' summary of the traced steps."""
+    import torch
+
+    from portbench import drive_train
+    from portbench.tests.tiny import tiny_root
+
+    root = tiny_root(str(tmp_path / "root"))
+    cell = find_cell(load_manifest(f"{root}/BENCHMARK.json"), "tiny.train", root)
+    seen = []
+    read = drive_train.read_per_layer
+    monkeypatch.setattr(drive_train, "read_per_layer",
+                        lambda c, record: seen.append(record) or read(c, record))
+    result, _ = drive_train.run(cell, 2**31 + 99, 0.3, True, torch.device("cpu"),
+                                time.perf_counter())
+    assert result["correct"] and len(seen) == 1
+    record = seen[0]
+    found = record["trace"]["spans"]["spans"]
+    assert found["step"]["calls"] == record["trace_steps"]
+    assert found["data/gather"]["calls"] == record["trace_steps"]
+    assert {"step/augment", "step/optimizer", "op/mix", "op/spectre_linear"} <= set(found)

@@ -76,11 +76,13 @@ def tiny_root(path: str, config: str = "spectre_vit_cifar100", **model) -> str:
     return path
 
 
-def tiny_distill_root(path: str, config: str = "distill_dinov2_cifar100", **model) -> str:
+def tiny_distill_root(path: str, config: str = "distill_dinov2_cifar100",
+                      teacher: dict | None = None, **model) -> str:
     """Write a tiny checkout under ``path`` whose one cell, ``tiny.distill``
     of config ``tiny_distill``, distils the shrunk ``TEACHER`` (in the
     program's ``teacher_*`` keys and the benchmark's ``teacher`` group) into
-    the shrunk student, with the cell's per-layer metrics."""
+    the shrunk student, with the cell's per-layer metrics; ``teacher``
+    overrides more of the benchmark's ``teacher`` group alone."""
     pkg = os.path.join(path, PACKAGE)
     os.makedirs(os.path.join(pkg, "configs"))
     os.makedirs(os.path.join(pkg, "traffic"))
@@ -90,7 +92,7 @@ def tiny_distill_root(path: str, config: str = "distill_dinov2_cifar100", **mode
         conf = json.load(f)
     over = dict(SHRINK, **model)
     conf["model"].update(over)
-    conf["teacher"].update(TEACHER)
+    conf["teacher"].update(TEACHER, **(teacher or {}))
     conf["distill"]["teacher_img_size"] = TEACHER["img_size"]
     conf["overrides"] = dict(conf["overrides"], **over, teacher_img_size=TEACHER["img_size"],
                              **{"teacher_" + k: TEACHER[k] for k in

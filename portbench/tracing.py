@@ -29,7 +29,8 @@ HOST_CATEGORIES = ("cpu_op", "user_annotation", "python_function", "cuda_runtime
 @contextlib.contextmanager
 def traced(sync):
     """Profile the block; afterwards ``holder["trace"]`` is its summary
-    (``summarize``). ``sync()`` waits for the card."""
+    (``summarize``) with the program's spans' summary under ``spans``
+    (``spans.read_spans``). ``sync()`` waits for the card."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     import torch
@@ -49,7 +50,10 @@ def traced(sync):
             time.sleep(PAD_S)
         path = os.path.join(tmp, "trace.json")
         prof.export_chrome_trace(path)
+        from portbench import spans  # it imports this module
+
         holder["trace"] = summarize(path)
+        holder["trace"]["spans"] = spans.read_spans(path)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
